@@ -1,0 +1,74 @@
+"""numpy ⇄ torch bridge for parameter and GaLore optimizer-state trees.
+
+The trees are nested dicts keyed like the JAX package's (``np.asarray`` of
+each leaf of a ``repro`` tree is a valid input), so a test can run the port on
+exactly the reference's initial weights and optimizer state. bfloat16 leaves
+travel as float32 numpy arrays out of torch (exact: every bf16 value is an
+f32 value); a JAX bfloat16 array comes in as a bfloat16 tensor.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.utils import tree_map
+
+
+def _to_tensor(a, device, dtype=None) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes bf16 from a JAX array
+        t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))  # a writable copy: the port updates in place
+    if dtype is not None:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy().copy()
+
+
+def params_from_numpy(tree, device):
+    """numpy (or JAX) parameter tree -> tensors on `device` that require grad,
+    in the leaves' own dtype."""
+    return tree_map(lambda a: _to_tensor(a, device).requires_grad_(True), tree)
+
+
+def params_to_numpy(params):
+    return tree_map(_to_numpy, params)
+
+
+def galore_state_from_numpy(state, device):
+    """The galore transform's state from its numpy form.
+
+    Reads ``step``, ``proj`` and ``inner`` {``m``, ``v``, ``count``} — the
+    layout of the JAX ``galore`` state (its PRNG ``key`` is not used by the
+    port's SVD projector and is ignored). ``step`` becomes a host int;
+    ``count`` stays an int32 tensor on `device`."""
+    inner = state["inner"]
+    return {
+        "step": int(np.asarray(state["step"])),
+        "proj": tree_map(lambda a: _to_tensor(a, device, torch.float32), state["proj"]),
+        "inner": {
+            "m": tree_map(lambda a: _to_tensor(a, device, torch.float32), inner["m"]),
+            "v": tree_map(lambda a: _to_tensor(a, device, torch.float32), inner["v"]),
+            "count": _to_tensor(inner["count"], device, torch.int32),
+        },
+    }
+
+
+def galore_state_to_numpy(state):
+    inner = state["inner"]
+    return {
+        "step": np.asarray(state["step"], np.int32),
+        "proj": tree_map(_to_numpy, state["proj"]),
+        "inner": {
+            "m": tree_map(_to_numpy, inner["m"]),
+            "v": tree_map(_to_numpy, inner["v"]),
+            "count": _to_numpy(inner["count"]).astype(np.int32),
+        },
+    }

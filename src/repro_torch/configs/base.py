@@ -1,0 +1,158 @@
+"""Model / training configuration dataclasses + the architecture registry.
+
+The port's own copy of ``repro/configs/base.py``: ``ModelConfig`` whole, and
+the ``GaLoreConfig`` / ``TrainConfig`` fields the ported training path reads.
+Field names and defaults are the reference's, so a config built here means
+the same run as one built there.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Callable, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+    # --- MoE ---
+    n_experts: int = 0
+    experts_per_token: int = 0
+    moe_every: int = 1
+    moe_offset: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    # --- attention ---
+    qkv_bias: bool = False
+    rope_theta: float = 1e4
+    rope_style: str = "rope"  # rope | mrope | none
+    mrope_sections: tuple[int, ...] = (16, 24, 24)
+    attention_chunk: int = 0
+    full_attn_every: int = 0
+    # --- SSM (mamba2 / hybrid) ---
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_chunk: int = 256
+    # --- hybrid (jamba) ---
+    attn_every: int = 0
+    attn_offset: int = 4
+    # --- encoder-decoder (whisper) ---
+    is_encoder_decoder: bool = False
+    n_enc_layers: int = 0
+    enc_seq: int = 1500
+    # --- frontend stubs (vlm / audio) ---
+    media_embeds: int = 0
+    # --- misc ---
+    norm_type: str = "rmsnorm"  # rmsnorm | layernorm
+    act: str = "swiglu"  # swiglu | gelu
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    sub_quadratic: bool = False
+    remat: str = "none"
+    scan_unroll: bool = False
+    logit_softcap: float = 0.0
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        """Embedding rows padded to a multiple of 256; logits for pad slots
+        are masked out."""
+        return ((self.vocab_size + 255) // 256) * 256
+
+    def is_moe_layer(self, layer: int) -> bool:
+        if self.n_experts == 0:
+            return False
+        return layer % self.moe_every == self.moe_offset
+
+    def is_attn_layer(self, layer: int) -> bool:
+        if self.family != "hybrid":
+            return True
+        return layer % self.attn_every == self.attn_offset
+
+    def uses_full_attn(self, layer: int) -> bool:
+        if self.full_attn_every <= 0:
+            return self.attention_chunk == 0
+        return (layer + 1) % self.full_attn_every == 0
+
+    def supports_shape(self, shape_name: str) -> tuple[bool, str]:
+        cell = SHAPES[shape_name]
+        if cell.name == "long_500k" and not self.sub_quadratic:
+            return False, "long_500k skipped: pure full-attention arch"
+        return True, ""
+
+
+@dataclasses.dataclass(frozen=True)
+class GaLoreConfig:
+    rank: int = 128
+    update_freq: int = 200  # T — subspace change frequency
+    scale: float = 0.25  # alpha
+    projector: str = "svd"  # the port computes "svd" only
+    min_dim: int = 0  # only project matrices with min(m, n) > max(rank, min_dim)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    optimizer: str = "adamw"  # the port builds adam / adamw only
+    galore: Optional[GaLoreConfig] = None
+    lr: float = 1e-3
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.0
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    seed: int = 0
+    microbatch: int = 0  # >0 -> gradient accumulation
+    galore_fused_adam: bool = False  # one fused kernel per GaLore leaf
+    z_loss: float = 0.0
+
+
+_REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
+_SMOKE_REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
+
+
+def register(name: str, full: Callable[[], ModelConfig], smoke: Callable[[], ModelConfig]):
+    _REGISTRY[name] = full
+    _SMOKE_REGISTRY[name] = smoke
+
+
+def get_config(name: str, smoke: bool = False) -> ModelConfig:
+    """Full-size or smoke config by architecture id. The port registers the
+    dense LLaMA family of the paper (``llama_60m`` … ``llama_7b``)."""
+    key = name.replace("-", "_").replace(".", "_")
+    if key not in _REGISTRY:
+        importlib.import_module("repro_torch.configs.llama_paper")
+    if key not in _REGISTRY:
+        raise KeyError(f"architecture {name!r} is not ported; known: {sorted(_REGISTRY)}")
+    table = _SMOKE_REGISTRY if smoke else _REGISTRY
+    return table[key]()

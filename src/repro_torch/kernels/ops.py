@@ -1,0 +1,12 @@
+"""Public kernel API of the port (counterpart of repro/kernels/ops.py).
+
+The JAX dispatch picks Pallas on a TPU and the jnp reference elsewhere, and
+falls back to tiled kernels when a leaf's projector does not fit VMEM. Here
+each wrapper dispatches on the device of its tensors — the plain version for
+CPU tensors, the Hopper kernel for CUDA tensors — and the kernel streams P,
+so no shape needs a fallback.
+"""
+from repro_torch.kernels.galore_fused import galore_fused_adam_step, galore_fused_adam_step_right
+from repro_torch.kernels.ref import lowrank_adam_update
+
+__all__ = ["galore_fused_adam_step", "galore_fused_adam_step_right", "lowrank_adam_update"]

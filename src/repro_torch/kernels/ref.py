@@ -1,0 +1,61 @@
+"""Plain PyTorch versions of the GaLore-Adam leaf step (port of the fp32 part
+of repro/kernels/ref.py).
+
+They are the numerical ground truth for the Hopper kernels in
+``csrc/galore_fused.cu`` and what the kernel wrappers run on CPU tensors.
+Pure functions: they return new M/V and leave their inputs untouched.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def galore_project(P, G):
+    """R = Pᵀ G.  P (..., m, r), G (..., m, n) -> (..., r, n) f32."""
+    return P.float().transpose(-1, -2) @ G.float()
+
+
+def galore_project_back(P, N, alpha: float):
+    """G̃ = α · P N.  P (..., m, r), N (..., r, n) -> (..., m, n) f32."""
+    return alpha * (P.float() @ N.float())
+
+
+def galore_project_right(P, G):
+    """R = G P.  P (..., n, r), G (..., m, n) -> (..., m, r) f32."""
+    return G.float() @ P.float()
+
+
+def galore_project_back_right(P, N, alpha: float):
+    """G̃ = α · N Pᵀ.  P (..., n, r), N (..., m, r) -> (..., m, n) f32."""
+    return alpha * (N.float() @ P.float().transpose(-1, -2))
+
+
+def lowrank_adam_update(R, M, V, count, b1=0.9, b2=0.999, eps=1e-8):
+    """Adam moment update + bias-corrected normalized step, in f32.
+
+    R, M, V same shape; count an int tensor (the step number, ≥ 1).
+    Returns (N_t, M_t, V_t)."""
+    R = R.float()
+    M_t = b1 * M + (1 - b1) * R
+    V_t = b2 * V + (1 - b2) * R.square()
+    t = torch.as_tensor(count).float()
+    c1 = 1 - b1 ** t
+    c2 = 1 - b2 ** t
+    N_t = (M_t / c1) / (torch.sqrt(V_t / c2) + eps)
+    return N_t, M_t, V_t
+
+
+def galore_fused_adam_step(P, G, M, V, count, b1=0.9, b2=0.999, eps=1e-8, alpha=1.0):
+    """Left-side leaf update: R = PᵀG → Adam → G̃ = α P N̂.
+
+    P (..., m, r), G (..., m, n), M/V (..., r, n) f32. Returns (G̃ f32, M_t, V_t)."""
+    N_t, M_t, V_t = lowrank_adam_update(galore_project(P, G), M, V, count, b1, b2, eps)
+    return galore_project_back(P, N_t, alpha), M_t, V_t
+
+
+def galore_fused_adam_step_right(P, G, M, V, count, b1=0.9, b2=0.999, eps=1e-8, alpha=1.0):
+    """Right-side leaf update: R = G P → Adam → G̃ = α N̂ Pᵀ.
+
+    P (..., n, r), G (..., m, n), M/V (..., m, r) f32. Returns (G̃ f32, M_t, V_t)."""
+    N_t, M_t, V_t = lowrank_adam_update(galore_project_right(P, G), M, V, count, b1, b2, eps)
+    return galore_project_back_right(P, N_t, alpha), M_t, V_t

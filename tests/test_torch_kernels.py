@@ -1,0 +1,66 @@
+"""Port kernels: the plain versions of the fused GaLore-Adam step against the
+JAX package's Pallas kernels (interpret mode), and the port's independence
+from JAX. The kernels themselves are held against the plain versions on the
+card by tests/test_torch_cuda.py."""
+import ast
+import pathlib
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.kernels import galore_fused as tk  # noqa: E402
+from test_torch_cuda import SHAPES, assert_close, fused_inputs  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_pallas_interpret(shape, side, dtype):
+    """The port's plain versions == the Pallas kernels run in interpret mode,
+    to 1e-5·max on G̃, M' and V' (both compute in f32 from the same inputs)."""
+    P, G, M, V = fused_inputs(shape, side)
+    jfn = jops.galore_fused_adam_step if side == "left" else jops.galore_fused_adam_step_right
+    tfn = tk.galore_fused_adam_step if side == "left" else tk.galore_fused_adam_step_right
+    want = jfn(jnp.asarray(P), jnp.asarray(G).astype(dtype), jnp.asarray(M), jnp.asarray(V),
+               jnp.int32(7), alpha=0.25, use_pallas=True, interpret=True)
+    Gt = torch.from_numpy(G).to(getattr(torch, dtype))
+    Mt, Vt = torch.from_numpy(M.copy()), torch.from_numpy(V.copy())
+    got = tfn(torch.from_numpy(P), Gt, Mt, Vt, torch.tensor(7, dtype=torch.int32), alpha=0.25)
+    assert got[1] is Mt and got[2] is Vt  # moments are updated in place
+    for name, a, b in zip(["update", "m", "v"], got, want):
+        assert_close(a, b, f"{side} {shape} {dtype} {name}")
+
+
+def test_cpu_wrapper_does_not_count_launches():
+    tk.reset_launch_counts()
+    P, G, M, V = (torch.from_numpy(a) for a in fused_inputs((64, 16, 48), "left"))
+    tk.galore_fused_adam_step(P, G, M, V, torch.tensor(1, dtype=torch.int32))
+    assert tk.galore_fused_adam_step.launches == 0
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_jax():
+    """Nothing under src/repro_torch/, nor chip_smoke.py, imports jax or the
+    JAX package."""
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = [
+        f"{f.relative_to(ROOT)}: {mod}"
+        for f in files for mod in _imported_modules(f)
+        if mod.split(".")[0] in ("jax", "jaxlib", "repro")
+    ]
+    assert not bad, bad
