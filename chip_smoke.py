@@ -5,18 +5,29 @@
 
 Phases, each timed, none of them optional; any failed check raises:
   1. device: require CUDA, print the card's name and power limit, TF32 off;
-  2. build the Hopper kernels from src/repro_torch/csrc with nvcc (sm_90a);
+  2. build the Hopper kernels from src/repro_torch/csrc with nvcc (sm_90a),
+     one nvcc per source, all started together;
   3. hold every kernel against its plain PyTorch version on the card at the
      main path's shapes (and r = 1024, and a ragged shape), G in bf16 and
-     f32, to 1e-5·max|want| on G̃, M' and V'; time both with CUDA events;
+     f32, to 1e-5·max|want| (+ 1e-5·|want|) on G̃, M' and V' — or, for the
+     int8-moment kernel, on G̃ and the scales, with codes at most 1 apart,
+     P both f32 and packed int4, stochastic rounding on one main shape per
+     side, and the int4 launch giving the codes of the host-dequantized-P
+     launch exactly; time kernel and plain version with CUDA events;
   4. the main path, fused: 8 GaLore-Adam steps (rank 128, T 4) of llama_7b at
      full width, 2 layers, bf16, batch 8 × 256 tokens, through train_loop;
-     every loss finite, the last below the first, and each kernel launched
-     once per stacked leaf per step (6 left leaves, 1 right leaf);
+     every loss finite, the last below the first, and each fp32 kernel
+     launched once per stacked leaf per step (6 left leaves, 1 right leaf);
   5. the same run on the composable plain-torch path: no kernel launches,
      per-step losses within 5e-2 of phase 4;
-  6. record: a JSON line of the kernels, step times, SVD refresh time, peak
-     memory, the card's name and power limit, and last the result line.
+  6. 8-bit GaLore, fused: phase 4's run with int8 moments and packed int4
+     projectors; every loss finite and falling, only the int8-moment kernel
+     launched (48 left, 8 right), losses within 5e-2 of phase 4, and the
+     m/v/proj state bytes measured from the tensors within 0.01 % of the
+     analytic galore_state_bytes;
+  7. record: a JSON line of the kernels, step times, SVD refresh time, peak
+     memory, state bytes, the card's name and power limit, and last the
+     result line.
 """
 import dataclasses
 import json
@@ -33,24 +44,37 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import torch  # noqa: E402
 
 from repro_torch.configs.base import GaLoreConfig, TrainConfig, get_config  # noqa: E402
+from repro_torch.core.galore import galore_state_bytes  # noqa: E402
 from repro_torch.core.projector import compute_projector  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import galore_fused as gf  # noqa: E402
 from repro_torch.kernels.ref import lowrank_adam_update  # noqa: E402
 from repro_torch.launch.train import RunConfig, train_loop  # noqa: E402
+from repro_torch.quant import QuantPolicy, codec  # noqa: E402
+from repro_torch.utils import tree_leaves  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, f32 FMA FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 SOURCE = "src/repro_torch/csrc/galore_fused.cu"
+SOURCE8 = "src/repro_torch/csrc/galore_epilogue.cu"
 KERNELS = {
     "left": dict(name="galore_fused_adam_left", wrapper=gf.galore_fused_adam_step,
-                 plain=gf.galore_fused_adam_step_plain,
+                 plain=gf.galore_fused_adam_step_plain, source=SOURCE,
                  replaces="src/repro/kernels/galore_fused.py:169"),
     "right": dict(name="galore_fused_adam_right", wrapper=gf.galore_fused_adam_step_right,
-                  plain=gf.galore_fused_adam_step_right_plain,
+                  plain=gf.galore_fused_adam_step_right_plain, source=SOURCE,
                   replaces="src/repro/kernels/galore_fused.py:268"),
+    "adam8_left": dict(name="galore_fused_adam8_left", wrapper=gf.galore_fused_adam8_step,
+                       plain=gf.galore_fused_adam8_step_plain, source=SOURCE8,
+                       replaces="src/repro/kernels/galore_fused.py:685"),
+    "adam8_right": dict(name="galore_fused_adam8_right", wrapper=gf.galore_fused_adam8_step_right,
+                        plain=gf.galore_fused_adam8_step_right_plain, source=SOURCE8,
+                        replaces="src/repro/kernels/galore_fused.py:702"),
 }
+COUNTERS = {"left": gf.galore_fused_adam_step, "right": gf.galore_fused_adam_step_right,
+            "adam8_left": gf.galore_fused_adam8_step,
+            "adam8_right": gf.galore_fused_adam8_step_right}
 # (side, L, m, r, n, on the main path): the slice's leaves at llama_7b width
 # with 2 layers, the paper's 7B rank, and a ragged shape
 SHAPES = [
@@ -63,6 +87,9 @@ SHAPES = [
     ("right", 1, 1000, 96, 520, False),
 ]
 ALPHA, COUNT = 0.25, 7
+# the int8-moment kernel runs at the same shapes; stochastic rounding at one
+# main shape per side
+STOCHASTIC8 = {("left", 2, 4096, 128, 11008), ("right", 2, 11008, 128, 4096)}
 
 
 def log(msg):
@@ -143,9 +170,10 @@ def check_kernels():
             ms = cuda_ms(lambda: k["wrapper"](P, G, Mw, Vw, count, alpha=ALPHA), 3, 10)
             plain_ms = cuda_ms(lambda: k["plain"](P, G, M, V, count, alpha=ALPHA), 2, 5)
             b_s, b_by = bound(side, L, m, r, n, G.element_size())
-            row = dict(side=side, L=L, m=m, r=r, n=n, g_dtype=str(dt).removeprefix("torch."),
-                       main_path=main, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_s * 1e3, bound_by=b_by)
+            row = dict(kernel=side, side=side, L=L, m=m, r=r, n=n,
+                       g_dtype=str(dt).removeprefix("torch."), main_path=main,
+                       max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_s * 1e3,
+                       bound_by=b_by)
             rows.append(row)
             log(f"[kernels] {k['name']:24s} L={L} (m,r,n)=({m},{r},{n}) G {row['g_dtype']:8s} "
                 f"max|err| G̃/M'/V' {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} ok  "
@@ -155,10 +183,120 @@ def check_kernels():
     return rows
 
 
-def train_phase(fused):
+def adam8_inputs(side, L, m, r, n, seed):
+    """P with orthonormal columns, the int8 moments (codes and scales) of step
+    COUNT — what COUNT - 1 earlier steps of the plain 8-bit version leave on
+    gradients of unit scale (the recipe of ROADMAP C.3) — and an f32 G."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kept, mv = ((m, r), (r, n)) if side == "left" else ((n, r), (m, r))
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+    P = torch.linalg.qr(rnd(L, *kept))[0].contiguous()
+    ax = -1 if side == "left" else -2
+    zeros = torch.zeros(L, *mv, device="cuda")
+    mom = (*codec.quantize_axis(zeros, axis=ax, signed=True),
+           *codec.quantize_axis(zeros, axis=ax, signed=False))
+    plain = KERNELS["adam8_" + side]["plain"]
+    for t in range(1, COUNT):
+        mom = plain(P, rnd(L, m, n), *mom, torch.tensor(t, dtype=torch.int32, device="cuda"))[1:]
+    return P, [x.contiguous() for x in mom], rnd(L, m, n)
+
+
+def bound8(side, L, m, r, n, g_itemsize, p_int4):
+    """Least time (s) for one int8-moment launch, and what bounds it: G read
+    and G̃ written once, the codes and scales of M and V read and written
+    once, P read once (packed nibbles + scales, or f32); the f32 operations
+    of the two contractions plus ~20 a moment element (dequant, Adam,
+    absmax, requant)."""
+    kept, swept = (m, n) if side == "left" else (n, m)
+    nb, nbp = -(-swept // codec.QBLOCK), -(-kept // codec.QBLOCK)
+    p_bytes = L * nbp * r * (codec.QBLOCK // 2 + 4) if p_int4 else 4 * L * kept * r
+    nbytes = (g_itemsize + 4) * L * m * n + 2 * 2 * L * r * swept + 2 * 2 * 4 * L * r * nb + p_bytes
+    flops = 4 * L * m * r * n + 20 * L * r * swept
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def compare8(got, want, tag):
+    """G̃ and scales within 1e-5·max|want| + 1e-5·|want|, codes at most 1
+    apart; returns (max |err| of G̃ and scales, share of codes that differ)."""
+    errs, differ, total = [], 0, 0
+    for name, a, b in zip(("update", "mq", "ms", "vq", "vs"), got, want):
+        if b.dtype == torch.uint8:
+            d = (a.int() - b.int()).abs()
+            if int(d.max()) > 1:
+                raise AssertionError(f"{tag} {name}: codes {int(d.max())} apart (limit 1)")
+            differ += int((d > 0).sum())
+            total += d.numel()
+            continue
+        diff = (a - b).abs()
+        tol = 1e-5 * b.abs().max() + 1e-5 * b.abs()
+        if bool((diff > tol).any()) or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{tag} {name}: max|err| {float(diff.max()):.3e} over tolerance "
+                                 f"(1e-5·max|want| = {float(1e-5 * b.abs().max()):.3e})")
+        errs.append(float(diff.max()))
+    return max(errs), differ / total
+
+
+def check_adam8():
+    rows = []
+    count = torch.tensor(COUNT, dtype=torch.int32, device="cuda")
+    for i, (side, L, m, r, n, main) in enumerate(SHAPES):
+        k = KERNELS["adam8_" + side]
+        P, mom, G32 = adam8_inputs(side, L, m, r, n, seed=100 + i)
+        P4 = codec.quant4_axis_state(P)
+        P4_host = codec.dequantize4_axis(P4["q"], P4["scale"], P.shape[-2])
+        variants = [(dt, p4, False) for dt in (torch.bfloat16, torch.float32)
+                    for p4 in (False, True)]
+        if (side, L, m, r, n) in STOCHASTIC8:
+            variants.append((torch.bfloat16, True, True))
+        for dt, p4, sr in variants:
+            G, Pa = G32.to(dt), (P4 if p4 else P)
+            tag = (f"{k['name']} L={L} (m,r,n)=({m},{r},{n}) G {str(dt).removeprefix('torch.')} "
+                   f"P {'int4' if p4 else 'f32'}{' stochastic' if sr else ''}")
+            run = lambda P_, mom_: k["wrapper"](P_, G, *mom_, count, alpha=ALPHA,  # noqa: E731
+                                                stochastic=sr)
+            want = k["plain"](Pa, G, *mom, count, alpha=ALPHA, stochastic=sr)
+            got = run(Pa, [x.clone() for x in mom])
+            torch.cuda.synchronize()
+            err, share = compare8(got, want, tag)
+            host = ""
+            if p4:  # in-kernel int4 dequant == launching with the host-dequantized P
+                ref_ = run(P4_host, [x.clone() for x in mom])
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got[1::2], ref_[1::2])):
+                    raise AssertionError(f"{tag}: codes differ from the host-dequantized-P launch")
+                d_host = float((got[0] - ref_[0]).abs().max())
+                if d_host > 2e-5 * float(ref_[0].abs().max()):
+                    raise AssertionError(f"{tag}: G̃ {d_host:.3e} from the host-dequantized-P "
+                                         f"launch (limit 2e-5·max)")
+                host = f"; vs host-dequantized P: codes equal, G̃ Δ {d_host:.1e}"
+            mine = [x.clone() for x in mom]
+            ms = cuda_ms(lambda: run(Pa, mine), 3, 10)
+            plain_ms = cuda_ms(lambda: k["plain"](Pa, G, *mom, count, alpha=ALPHA,
+                                                  stochastic=sr), 2, 5)
+            b_s, b_by = bound8(side, L, m, r, n, G.element_size(), p4)
+            rows.append(dict(kernel="adam8_" + side, side=side, L=L, m=m, r=r, n=n,
+                             g_dtype=str(dt).removeprefix("torch."),
+                             p="int4" if p4 else "f32", stochastic=sr, main_path=main,
+                             max_abs_err=err, codes_differ=share, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_s * 1e3, bound_by=b_by))
+            log(f"[kernels] {tag}: max|err| G̃/scales {err:.2e} (max|G̃| "
+                f"{float(want[0].abs().max()):.2e}), codes differing {share:.2e}{host} ok  "
+                f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {b_s * 1e3:.3f} ms ({b_by})")
+            del G, want, got, mine
+        del P, P4, P4_host, mom, G32
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_phase(fused, quant=None):
+    """8 steps of the main path; returns losses, step times, the launches of
+    every kernel wrapper, peak memory, and the m/v/proj state bytes measured
+    from the tensors beside the analytic galore_state_bytes."""
     cfg = dataclasses.replace(get_config("llama_7b"), n_layers=2)
-    tc = TrainConfig(optimizer="adamw", galore=GaLoreConfig(rank=128, update_freq=4, scale=0.25),
-                     galore_fused_adam=fused, lr=1e-3, total_steps=8, warmup_steps=1)
+    gcfg = GaLoreConfig(rank=128, update_freq=4, scale=0.25, quant=quant or QuantPolicy())
+    tc = TrainConfig(optimizer="adamw", galore=gcfg, galore_fused_adam=fused, lr=1e-3,
+                     total_steps=8, warmup_steps=1)
     run = RunConfig(arch="llama_7b", smoke=False, steps=8, batch_per_host=8, seq_len=256,
                     log_every=1, device="cuda")
     losses, times = [], []
@@ -169,14 +307,19 @@ def train_phase(fused):
 
     torch.cuda.reset_peak_memory_stats()
     gf.reset_launch_counts()
-    train_loop(run, tc, cfg=cfg, on_step=on_step)
-    launches = {"left": gf.galore_fused_adam_step.launches,
-                "right": gf.galore_fused_adam_step_right.launches}
+    params, opt_state, _, _ = train_loop(run, tc, cfg=cfg, on_step=on_step)
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
     peak = torch.cuda.max_memory_allocated()
+    state = next(s for s in opt_state if isinstance(s, dict) and "proj" in s)
+    leaves = tree_leaves([state["proj"], state["inner"]["m"], state["inner"]["v"]])
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    analytic = galore_state_bytes(params, gcfg)["optimizer_state_bytes"]
+    del params, opt_state, state, leaves
     torch.cuda.empty_cache()
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"non-finite loss: {losses}")
-    return losses, times, launches, peak
+    return dict(losses=losses, times=times, launches=launches, peak=peak,
+                state_bytes=state_bytes, analytic_bytes=analytic)
 
 
 def svd_ms():
@@ -200,7 +343,7 @@ def main():
         f"{torch.cuda.device_count()} device(s) ({time.perf_counter() - t:.1f} s)")
 
     t = time.perf_counter()
-    libs = build.build(["galore_fused"])
+    libs = build.build(["galore_fused", "galore_epilogue"])
     log(f"[build] nvcc sm_90a: {', '.join(p.name for p in libs.values())} "
         f"({time.perf_counter() - t:.1f} s)")
     for path in libs.values():
@@ -208,56 +351,88 @@ def main():
         if report.exists():
             for line in report.read_text().splitlines():
                 if "registers" in line or "spill" in line:
-                    log(f"[build] {line.strip()}")
+                    log(f"[build] {path.name.split('-')[0]}: {line.strip()}")
 
     t = time.perf_counter()
     rows = check_kernels()
+    rows += check_adam8()
     log(f"[kernels] {len(rows)} checks passed ({time.perf_counter() - t:.1f} s)")
 
+    none = {name: 0 for name in COUNTERS}
     t = time.perf_counter()
-    f_loss, f_times, f_launch, f_peak = train_phase(fused=True)
-    log(f"[fused] losses {[round(x, 4) for x in f_loss]} launches {f_launch} "
+    fused = train_phase(fused=True)
+    log(f"[fused] losses {[round(x, 4) for x in fused['losses']]} launches {fused['launches']} "
         f"({time.perf_counter() - t:.1f} s)")
-    if not f_loss[-1] < f_loss[0]:
-        raise AssertionError(f"loss did not decrease: {f_loss}")
-    if f_launch != {"left": 48, "right": 8}:
-        raise AssertionError(f"main path launches {f_launch}, want left 48 (6 leaves × 8 steps), "
-                             f"right 8 (1 leaf × 8 steps)")
+    if not fused["losses"][-1] < fused["losses"][0]:
+        raise AssertionError(f"loss did not decrease: {fused['losses']}")
+    if fused["launches"] != dict(none, left=48, right=8):
+        raise AssertionError(f"main path launches {fused['launches']}, want left 48 (6 leaves × "
+                             f"8 steps), right 8 (1 leaf × 8 steps), no adam8")
 
     t = time.perf_counter()
-    c_loss, c_times, c_launch, c_peak = train_phase(fused=False)
-    log(f"[composable] losses {[round(x, 4) for x in c_loss]} launches {c_launch} "
-        f"({time.perf_counter() - t:.1f} s)")
-    if c_launch != {"left": 0, "right": 0}:
-        raise AssertionError(f"the composable path launched kernels: {c_launch}")
-    gap = max(abs(a - b) for a, b in zip(f_loss, c_loss))
+    comp = train_phase(fused=False)
+    log(f"[composable] losses {[round(x, 4) for x in comp['losses']]} launches "
+        f"{comp['launches']} ({time.perf_counter() - t:.1f} s)")
+    if comp["launches"] != none:
+        raise AssertionError(f"the composable path launched kernels: {comp['launches']}")
+    gap = max(abs(a - b) for a, b in zip(fused["losses"], comp["losses"]))
     if gap > 5e-2:
         raise AssertionError(f"fused vs composable losses differ by {gap:.3e} > 5e-2")
     log(f"[parity] fused vs composable max |Δloss| {gap:.3e} (limit 5e-2)")
+
+    t = time.perf_counter()
+    q8 = train_phase(fused=True, quant=QuantPolicy(moments="int8", projectors="int4"))
+    log(f"[8bit] losses {[round(x, 4) for x in q8['losses']]} launches {q8['launches']} "
+        f"({time.perf_counter() - t:.1f} s)")
+    if not q8["losses"][-1] < q8["losses"][0]:
+        raise AssertionError(f"8-bit loss did not decrease: {q8['losses']}")
+    if q8["launches"] != dict(none, adam8_left=48, adam8_right=8):
+        raise AssertionError(f"8-bit path launches {q8['launches']}, want adam8 left 48, "
+                             f"right 8, no fp32 kernel")
+    gap8 = max(abs(a - b) for a, b in zip(fused["losses"], q8["losses"]))
+    if gap8 > 5e-2:
+        raise AssertionError(f"8-bit vs fp32 fused losses differ by {gap8:.3e} > 5e-2")
+    log(f"[parity] 8-bit vs fp32 fused max |Δloss| {gap8:.3e} (limit 5e-2)")
+    for tag, ph in (("fp32", fused), ("8bit", q8)):
+        rel = abs(ph["state_bytes"] - ph["analytic_bytes"]) / ph["analytic_bytes"]
+        log(f"[state] {tag}: m/v/proj bytes measured {ph['state_bytes']}, analytic "
+            f"{ph['analytic_bytes']:.0f} (Δ {rel:.2e})")
+        if rel > 1e-4:
+            raise AssertionError(f"{tag} state bytes {ph['state_bytes']} are not within 0.01 % of "
+                                 f"galore_state_bytes {ph['analytic_bytes']:.0f}")
+    log(f"[state] 8-bit / fp32 state bytes {q8['state_bytes'] / fused['state_bytes']:.4f} "
+        f"({1 - q8['state_bytes'] / fused['state_bytes']:.1%} smaller)")
 
     t = time.perf_counter()
     svd = svd_ms()
     shapes = ", ".join(f"{k} {v:.1f} ms" for k, v in svd.items())
     log(f"[svd] torch.linalg.svd f32, rank-128 projector: {shapes} "
         f"({time.perf_counter() - t:.1f} s)")
-    for tag, times, peak in (("fused", f_times, f_peak), ("composable", c_times, c_peak)):
+    for tag, ph in (("fused", fused), ("composable", comp), ("8bit", q8)):
+        times = ph["times"]
         steady = statistics.median(times[i] for i in range(len(times)) if i % 4)
         log(f"[steps] {tag}: step ms {[round(x * 1e3, 1) for x in times]}; median non-refresh "
             f"{steady * 1e3:.1f} ms; refresh steps 0/4 {times[0] * 1e3:.1f}/"
-            f"{times[4] * 1e3:.1f} ms; peak memory {peak / 2**30:.2f} GiB")
+            f"{times[4] * 1e3:.1f} ms; peak memory {ph['peak'] / 2**30:.2f} GiB")
 
+    launches = dict(fused["launches"], adam8_left=q8["launches"]["adam8_left"],
+                    adam8_right=q8["launches"]["adam8_right"])
     kernels = []
-    for side, k in KERNELS.items():
-        mine = [r for r in rows if r["side"] == side]
-        main_bf16 = [r for r in mine if r["main_path"] and r["g_dtype"] == "bfloat16"]
-        top = max(main_bf16, key=lambda r: r["m"] * r["n"])
+    for key, k in KERNELS.items():
+        mine = [r for r in rows if r["kernel"] == key]
+        # the row of record: the largest main-path shape with bf16 G, as the
+        # main path runs it (int4 P, nearest rounding, for the int8 kernel)
+        top = max((r for r in mine if r["main_path"] and r["g_dtype"] == "bfloat16"
+                   and r.get("p", "int4") == "int4" and not r.get("stochastic")),
+                  key=lambda r: r["m"] * r["n"])
         kernels.append(dict(
-            name=k["name"], route="cuda", source=SOURCE, replaces=k["replaces"],
-            launches=f_launch[side],
+            name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],
+            launches=launches[key],
             max_abs_err=max(r["max_abs_err"] for r in mine if r["main_path"]),
             ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"], library_ms=None,
-            shape=dict(L=top["L"], m=top["m"], r=top["r"], n=top["n"], g_dtype="bfloat16"),
+            shape=dict(L=top["L"], m=top["m"], r=top["r"], n=top["n"], g_dtype="bfloat16",
+                       p=top.get("p", "f32")),
             shapes=mine))
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

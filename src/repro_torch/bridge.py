@@ -4,7 +4,9 @@ The trees are nested dicts keyed like the JAX package's (``np.asarray`` of
 each leaf of a ``repro`` tree is a valid input), so a test can run the port on
 exactly the reference's initial weights and optimizer state. bfloat16 leaves
 travel as float32 numpy arrays out of torch (exact: every bf16 value is an
-f32 value); a JAX bfloat16 array comes in as a bfloat16 tensor.
+f32 value); a JAX bfloat16 array comes in as a bfloat16 tensor. Optimizer
+state leaves keep their dtype both ways, so a quantized leaf
+``{"q": codes, "scale": absmax}`` crosses as uint8 codes and float32 scales.
 """
 from __future__ import annotations
 
@@ -48,16 +50,19 @@ def galore_state_from_numpy(state, device):
     Reads ``step``, ``proj`` and ``inner`` {``m``, ``v``, ``count``} — the
     layout of the JAX ``galore`` state (its PRNG ``key`` is not used by the
     port's SVD projector and is ignored). ``step`` becomes a host int;
-    ``count`` stays an int32 tensor on `device`."""
+    ``count`` stays an int32 tensor on `device`. Every other leaf keeps its
+    dtype: f32 moments and projectors, bf16 projectors, and the uint8 codes
+    and f32 scales of quantized leaves."""
     inner = state["inner"]
+
+    def leaves(tree):
+        return tree_map(lambda a: _to_tensor(a, device), tree)
+
     return {
         "step": int(np.asarray(state["step"])),
-        "proj": tree_map(lambda a: _to_tensor(a, device, torch.float32), state["proj"]),
-        "inner": {
-            "m": tree_map(lambda a: _to_tensor(a, device, torch.float32), inner["m"]),
-            "v": tree_map(lambda a: _to_tensor(a, device, torch.float32), inner["v"]),
-            "count": _to_tensor(inner["count"], device, torch.int32),
-        },
+        "proj": leaves(state["proj"]),
+        "inner": {"m": leaves(inner["m"]), "v": leaves(inner["v"]),
+                  "count": _to_tensor(inner["count"], device, torch.int32)},
     }
 
 
@@ -66,9 +71,6 @@ def galore_state_to_numpy(state):
     return {
         "step": np.asarray(state["step"], np.int32),
         "proj": tree_map(_to_numpy, state["proj"]),
-        "inner": {
-            "m": tree_map(_to_numpy, inner["m"]),
-            "v": tree_map(_to_numpy, inner["v"]),
-            "count": _to_numpy(inner["count"]).astype(np.int32),
-        },
+        "inner": {"m": tree_map(_to_numpy, inner["m"]), "v": tree_map(_to_numpy, inner["v"]),
+                  "count": _to_numpy(inner["count"]).astype(np.int32)},
     }

@@ -11,6 +11,8 @@ import dataclasses
 import importlib
 from typing import Callable, Optional
 
+from repro_torch.quant.policy import QuantPolicy
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeCell:
@@ -117,11 +119,14 @@ class GaLoreConfig:
     scale: float = 0.25  # alpha
     projector: str = "svd"  # the port computes "svd" only
     min_dim: int = 0  # only project matrices with min(m, n) > max(rank, min_dim)
+    # low-precision optimizer state (int8 moments, bf16/int4 projectors);
+    # resolved per leaf into SubspacePlan.moments / .proj_store
+    quant: QuantPolicy = QuantPolicy()
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    optimizer: str = "adamw"  # the port builds adam / adamw only
+    optimizer: str = "adamw"  # adam | adamw | adam8bit (with GaLore only)
     galore: Optional[GaLoreConfig] = None
     lr: float = 1e-3
     warmup_steps: int = 100

@@ -1,6 +1,7 @@
 """GaLore around Adam: gradient low-rank projection as a gradient transform
 (port of repro/core/galore.py: ``galore`` with the in-step every-T refresh,
-and the fp32 branches of ``_managed_adam_update``).
+``_managed_adam_update`` with its fp32 and int8-moment branches, and the
+analytic ``galore_state_bytes``).
 
     R_t  = P_tᵀ G_t  (left, m ≤ n)  or  G_t P_t  (right)
     N_t  = Adam(R_t)                 compact moments live in r × n (or m × r)
@@ -13,80 +14,212 @@ kernel launch (kernels/ops.py); with ``fused=False`` it runs the composable
 project → Adam → back-project sequence in plain torch (kernels/ref.py), the
 numerics oracle.
 
+Quantized state (``GaLoreConfig.quant``, resolved per leaf into
+``SubspacePlan.moments`` / ``.proj_store``): an int8 leaf stores each moment
+as a ``{"q": codes, "scale": absmax}`` dict in the axis-blocked layout the
+fused kernel consumes (blocks along its swept axis), and every path runs
+dequant → Adam → requant on it — in the kernel when fused, in plain torch
+otherwise and for passthrough leaves. Projectors are stored fp32, bf16 or
+packed int4 and dequantized on read, except that the fused int8 kernel takes
+the packed int4 P as it is.
+
 State layout (the reference's, minus its unused PRNG key):
     {"step": int, "proj": tree of P (scalar placeholders on non-galore
      leaves), "inner": {"m": tree, "v": tree, "count": int32 tensor}}
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.configs.base import GaLoreConfig
-from repro_torch.core.subspace import DEFAULT_EXCLUDE, SubspaceManager, proj_shape, r_shape
+from repro_torch.core.projector import init_projector_state, read_projector
+from repro_torch.core.subspace import (
+    DEFAULT_EXCLUDE,
+    SubspaceManager,
+    moment_quant_axis,
+    proj_shape,
+    r_shape,
+)
 from repro_torch.kernels import ops, ref
 from repro_torch.optim.transform import GradientTransformation, _device_of
-from repro_torch.utils import tree_leaves, tree_map, tree_unflatten_like
+from repro_torch.quant import codec
+from repro_torch.utils import flatten_up_to, tree_leaves, tree_map, tree_unflatten_like
 
 
-def galore(cfg: GaLoreConfig, *, b1: float, b2: float, eps: float, fused: bool = False,
+def galore(cfg: GaLoreConfig, *, b1: float | None = None, b2: float | None = None,
+           eps: float | None = None, fused: bool = False,
            exclude=DEFAULT_EXCLUDE) -> GradientTransformation:
-    """GaLore-Adam as a GradientTransformation. b1/b2/eps are Adam's; the
-    transform owns the Adam math on every leaf (as the reference's managed
-    path does), so its state has scale_by_adam's {m, v, count} layout."""
+    """GaLore-Adam as a GradientTransformation. b1/b2/eps are Adam's and are
+    required: the transform owns the Adam math on every leaf (as the
+    reference's managed path does), so its state has scale_by_adam's
+    {m, v, count} layout."""
+    if None in (b1, b2, eps):
+        if cfg.quant.quantizes_moments:
+            raise ValueError(
+                "quantized moments (QuantPolicy.moments='int8') bypass the inner "
+                "transform — explicit b1/b2/eps matching an Adam inner are required")
+        if fused:
+            raise ValueError("fused_adam=True requires explicit b1/b2/eps matching the inner Adam")
+        raise ValueError("galore owns the Adam math: explicit b1/b2/eps are required")
     mgr = SubspaceManager(cfg, exclude)
 
     def init(params):
         plans = mgr.plans(params)
 
-        def zeros(shape, p):
-            return torch.zeros(shape, dtype=torch.float32, device=p.device)
+        def proj_init(p, plan):
+            if not plan.galore:  # a scalar placeholder keeps the tree aligned with params
+                return torch.zeros((), dtype=torch.float32, device=p.device)
+            return init_projector_state(proj_shape(p, plan), plan.proj_store, p.device)
 
-        def moment(p, plan):
-            return zeros(r_shape(p, plan) if plan.galore else p.shape, p)
-
-        return {
-            "step": 0,
-            "proj": tree_map(lambda p, pl: zeros(proj_shape(p, pl) if pl.galore else (), p),
-                             params, plans),
-            "inner": {"m": tree_map(moment, params, plans), "v": tree_map(moment, params, plans),
-                      "count": torch.zeros((), dtype=torch.int32, device=_device_of(params))},
-        }
+        return {"step": 0, "proj": tree_map(proj_init, params, plans),
+                "inner": _managed_adam_init(params, plans)}
 
     def update(grads, state, params=None):
         plans = mgr.plans(grads)
         step = state["step"]
         proj = mgr.refresh_tree(grads, state["proj"], plans, step)
-        updates, inner = _managed_adam_update(grads, proj, state["inner"], plans, cfg,
+        # the fused dispatch keeps packed int4 projectors packed: the kernel
+        # unpacks them, so no f32 projector tree is made
+        proj_eff = _read_proj_tree(grads, proj, plans, keep_packed=fused)
+        updates, inner = _managed_adam_update(grads, proj_eff, state["inner"], plans, cfg,
                                               b1, b2, eps, fused=fused)
         return updates, {"step": step + 1, "proj": proj, "inner": inner}
 
     return GradientTransformation(init, update)
 
 
-def _managed_adam_update(grads, proj, inner_state, plans, cfg: GaLoreConfig,
+def _read_proj_tree(ref_tree, proj, plans, keep_packed: bool = False):
+    """Dequant-on-read over the projector tree (no-op for fp32 storage);
+    `ref_tree` (params or grads) gives each leaf's full shape. With
+    `keep_packed` an axis-blocked int4 qstate passes through as it is."""
+
+    def read(p, P, plan):
+        if not plan.galore or (keep_packed and codec.is_axis4_qstate(P)):
+            return P
+        return read_projector(P, proj_shape(p, plan))
+
+    return tree_unflatten_like(ref_tree, [
+        read(p, P, plan) for p, P, plan in zip(
+            tree_leaves(ref_tree), flatten_up_to(ref_tree, proj), tree_leaves(plans))])
+
+
+def _managed_adam_init(params, plans):
+    """scale_by_adam-layout state; int8 leaves hold {"q", "scale"} in the
+    axis-blocked codec layout."""
+
+    def per_leaf(p, plan, signed):
+        shape = r_shape(p, plan) if plan.galore else p.shape
+        zeros = torch.zeros(shape, dtype=torch.float32, device=p.device)
+        if plan.moments == "int8":
+            return codec.quant_axis_state(zeros, axis=moment_quant_axis(plan), signed=signed)
+        return zeros
+
+    return {
+        "m": tree_map(lambda p, pl: per_leaf(p, pl, True), params, plans),
+        "v": tree_map(lambda p, pl: per_leaf(p, pl, False), params, plans),
+        "count": torch.zeros((), dtype=torch.int32, device=_device_of(params)),
+    }
+
+
+def _managed_adam_update(grads, proj_eff, inner_state, plans, cfg: GaLoreConfig,
                          b1: float, b2: float, eps: float, *, fused: bool):
     """One Adam step over every leaf; returns (updates, {m, v, count}).
 
-    GaLore leaves run the side-matched fused kernel when `fused` (moments
-    updated in place), else the composable composition; other leaves get the
-    same bias-corrected Adam at full shape."""
+    GaLore leaves run the side-matched fused kernel when `fused` (moments —
+    or their codes and scales — updated in place), else the composable
+    composition; int8 leaves run dequant → Adam → requant in either mode.
+    Other leaves get the same bias-corrected Adam at full shape."""
     count = inner_state["count"] + 1
+    stochastic = cfg.quant.stochastic_round
 
-    def leaf(g, P, m, v, plan):
+    def dequant_mv(m_st, v_st, plan):
+        ax = moment_quant_axis(plan)
+        return (codec.dequant_axis_state(m_st, axis=ax, signed=True),
+                codec.dequant_axis_state(v_st, axis=ax, signed=False))
+
+    def requant_mv(m_t, v_t, plan):
+        ax = moment_quant_axis(plan)
+        return (codec.quant_axis_state(m_t, axis=ax, signed=True, stochastic=stochastic,
+                                       count=count, salt=codec.SR_SALT_M),
+                codec.quant_axis_state(v_t, axis=ax, signed=False, stochastic=stochastic,
+                                       count=count, salt=codec.SR_SALT_V))
+
+    def leaf(g, P, m_st, v_st, plan):
+        qm = plan.moments == "int8"
         if not plan.galore:
+            m, v = dequant_mv(m_st, v_st, plan) if qm else (m_st, v_st)
             out, m_t, v_t = ref.lowrank_adam_update(g, m, v, count, b1, b2, eps)
+            if qm:
+                m_t, v_t = requant_mv(m_t, v_t, plan)
             return out.to(g.dtype), m_t, v_t
         left = plan.side == "left"
+        hp = dict(b1=b1, b2=b2, eps=eps, alpha=cfg.scale)
+        if qm:
+            if fused:
+                fn = ops.galore_fused_adam8_step if left else ops.galore_fused_adam8_step_right
+                g = g.contiguous()
+            else:
+                fn = ref.galore_fused_adam8_step if left else ref.galore_fused_adam8_step_right
+            upd, mq, ms, vq, vs = fn(P, g, m_st["q"], m_st["scale"], v_st["q"], v_st["scale"],
+                                     count, stochastic=stochastic, **hp)
+            return upd, {"q": mq, "scale": ms}, {"q": vq, "scale": vs}
+        if codec.is_qstate(P):  # an fp32-moment leaf's step takes an f32 P
+            P = read_projector(P, proj_shape(g, plan))
         if fused:
             fn = ops.galore_fused_adam_step if left else ops.galore_fused_adam_step_right
-            return fn(P, g.contiguous(), m, v, count, b1=b1, b2=b2, eps=eps, alpha=cfg.scale)
+            return fn(P, g.contiguous(), m_st, v_st, count, **hp)
         fn = ref.galore_fused_adam_step if left else ref.galore_fused_adam_step_right
-        return fn(P, g, m, v, count, b1, b2, eps, cfg.scale)
+        return fn(P, g, m_st, v_st, count, **hp)
 
-    flat = [leaf(*xs) for xs in zip(tree_leaves(grads), tree_leaves(proj),
-                                    tree_leaves(inner_state["m"]), tree_leaves(inner_state["v"]),
-                                    tree_leaves(plans))]
+    flat = [leaf(*xs) for xs in zip(tree_leaves(grads), flatten_up_to(grads, proj_eff),
+                                    flatten_up_to(grads, inner_state["m"]),
+                                    flatten_up_to(grads, inner_state["v"]), tree_leaves(plans))]
     updates = tree_unflatten_like(grads, [t[0] for t in flat])
     new_m = tree_unflatten_like(grads, [t[1] for t in flat])
     new_v = tree_unflatten_like(grads, [t[2] for t in flat])
     return updates, {"m": new_m, "v": new_v, "count": count}
+
+
+# bytes per element of persistent storage, scale overhead included
+_PROJ_BYTES = {"fp32": 4.0, "bf16": 2.0,
+               "int4": 0.5 + 4.0 / codec.QBLOCK}  # packed nibbles + absmax/128
+_MOMENT_BYTES = {"fp32": 4.0,
+                 "int8": 1.0 + 4.0 / codec.QBLOCK}  # codes + absmax/128
+
+
+def galore_state_bytes(params, cfg: GaLoreConfig, exclude=DEFAULT_EXCLUDE) -> dict:
+    """Analytic optimizer-state bytes (paper Table 1): projectors and
+    moments, each leaf in its resolved storage mode (int8 codes + per-block
+    absmax, packed int4 projectors), beside fp32 Adam's 8 bytes a weight."""
+    plans = SubspaceManager(cfg, exclude).plans(params)
+    proj_elems = moment_elems = full_moment_elems = total_params = 0
+    proj_bytes = moment_bytes = 0.0
+    for p, plan in zip(tree_leaves(params), tree_leaves(plans)):
+        size = math.prod(p.shape)
+        total_params += size
+        mom_b = _MOMENT_BYTES[plan.moments]
+        if plan.galore:
+            pe = math.prod(proj_shape(p, plan))
+            me = math.prod(r_shape(p, plan))
+            proj_elems += pe
+            moment_elems += me
+            proj_bytes += pe * _PROJ_BYTES[plan.proj_store]
+            moment_bytes += 2 * me * mom_b
+        else:
+            full_moment_elems += size
+            moment_bytes += 2 * size * mom_b
+    fp32_adam = 8 * total_params  # m + v, fp32, no projector
+    opt_bytes = proj_bytes + moment_bytes
+    return {
+        "projector_elems": proj_elems,
+        "lowrank_moment_elems_each": moment_elems,
+        "fullrank_moment_elems_each": full_moment_elems,
+        "adam_state_elems": proj_elems + 2 * (moment_elems + full_moment_elems),
+        "projector_bytes": proj_bytes,
+        "moment_bytes": moment_bytes,
+        "optimizer_state_bytes": opt_bytes,
+        "fp32_adam_state_bytes": fp32_adam,
+        "reduction_vs_fp32_adam": 1.0 - opt_bytes / max(fp32_adam, 1),
+    }

@@ -5,15 +5,26 @@ A leaf projects iff it is at least 2-D, its path names no excluded module,
 and min(m, n) > max(rank, min_dim); it projects on the left (R = PᵀG) iff
 m ≤ n, else on the right (R = GP). Every plan shares the config's rank and
 period T, and every leaf refreshes at galore steps 0, T, 2T, … (the
-reference's schedule with its stagger off).
+reference's schedule with its stagger off). Each plan also carries the
+leaf's storage modes, resolved once from ``GaLoreConfig.quant`` against the
+leaf's full element count: ``moments`` (fp32 | int8) and ``proj_store``
+(fp32 | bf16 | int4).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+
+import torch
 
 from repro_torch.configs.base import GaLoreConfig
-from repro_torch.core.projector import compute_projector
-from repro_torch.utils import tree_leaves_with_path, tree_unflatten_like
+from repro_torch.core.projector import compute_projector, store_projector
+from repro_torch.utils import (
+    flatten_up_to,
+    tree_leaves,
+    tree_leaves_with_path,
+    tree_unflatten_like,
+)
 
 DEFAULT_EXCLUDE = ("embed", "dec_pos")
 
@@ -26,6 +37,17 @@ class SubspacePlan:
     side: str = "left"  # "left": R = P^T G ; "right": R = G P
     rank: int = 0  # projection rank (0 for non-galore leaves)
     refresh_period: int = 0  # T
+    moments: str = "fp32"  # "fp32" | "int8": Adam M/V storage (compact or full-shape)
+    proj_store: str = "fp32"  # "fp32" | "bf16" | "int4": persistent P storage
+
+
+def moment_quant_axis(plan: SubspacePlan) -> int:
+    """Blocked axis of an int8 moment leaf: the fused kernel's swept axis for
+    galore leaves (last on the left, second-to-last on the right), the last
+    axis for full-shape passthrough leaves."""
+    if not plan.galore:
+        return -1
+    return -1 if plan.side == "left" else -2
 
 
 def proj_shape(p, plan: SubspacePlan) -> tuple:
@@ -60,15 +82,19 @@ class SubspaceManager:
         cfg = self.cfg
         out = []
         for path, p in tree_leaves_with_path(params):
+            # the min_quant_size floor is held against the weight's size,
+            # not the compact moment's (quant/policy.py)
+            moments, proj_store = cfg.quant.resolve(path, math.prod(p.shape))
             if p.ndim < 2 or any(e in path for e in self.exclude):
-                out.append(SubspacePlan(False))
+                out.append(SubspacePlan(False, moments=moments))
                 continue
             m, n = p.shape[-2], p.shape[-1]
             if min(m, n) <= max(cfg.rank, cfg.min_dim):
-                out.append(SubspacePlan(False))
+                out.append(SubspacePlan(False, moments=moments))
                 continue
             out.append(SubspacePlan(True, "left" if m <= n else "right",
-                                    rank=cfg.rank, refresh_period=cfg.update_freq))
+                                    rank=cfg.rank, refresh_period=cfg.update_freq,
+                                    moments=moments, proj_store=proj_store))
         return tree_unflatten_like(params, out)
 
     @staticmethod
@@ -77,13 +103,22 @@ class SubspaceManager:
         return step % plan.refresh_period == 0
 
     def refresh_tree(self, grads, proj, plans, step: int):
-        """New projector tree: the due leaves recomputed from `grads`."""
-        flat_g = [g for _, g in tree_leaves_with_path(grads)]
-        flat_p = [P for _, P in tree_leaves_with_path(proj)]
-        flat_plan = [pl for _, pl in tree_leaves_with_path(plans)]
-        out = [
-            compute_leaf_projector(g, plan, self.cfg)
-            if plan.galore and self.leaf_due(plan, step) else P
-            for g, P, plan in zip(flat_g, flat_p, flat_plan)
-        ]
-        return tree_unflatten_like(proj, out)
+        """New projector tree: the due leaves recomputed from `grads` and
+        stored in their plan's form (fp32, bf16 or a packed int4 qstate).
+
+        With ``quant.lazy_refresh`` an int4 leaf whose new codes equal the
+        stored ones keeps its stored state, scales included (Q-GaLore: the
+        refresh did not move the projector at 4-bit resolution)."""
+        lazy = self.cfg.quant.lazy_refresh
+
+        def refresh(g, P, plan):
+            if not (plan.galore and self.leaf_due(plan, step)):
+                return P
+            new = store_projector(compute_leaf_projector(g, plan, self.cfg), plan.proj_store)
+            if lazy and plan.proj_store == "int4" and torch.equal(new["q"], P["q"]):
+                return P
+            return new
+
+        out = [refresh(g, P, plan) for g, P, plan in zip(
+            tree_leaves(grads), flatten_up_to(grads, proj), tree_leaves(plans))]
+        return tree_unflatten_like(grads, out)

@@ -1,0 +1,583 @@
+// Fused GaLore-Adam leaf step with int8 moments for Hopper (sm_90a): one
+// kernel, a left and a right form, P either f32 or packed int4.
+//
+// Replaces the Pallas TPU kernel of src/repro/kernels/galore_fused.py
+// `_fused_epilogue_call` (body `_epilogue_kernel`) in its int8-moment variants,
+// reached through `galore_fused_adam8_step` / `galore_fused_adam8_step_right`,
+// with `quant_p` (a packed int4 P) or an f32 P:
+//   galore_fused_adam8_left   R = Pᵀ G   (P (m, r), moments (r, n), blocks along n)
+//   galore_fused_adam8_right  R = G P    (P (n, r), moments (m, r), blocks along m)
+// then, per element of R:
+//   M = book_s[Mq] * Ms,  V = book_u[Vq] * Vs          (dequant, f32)
+//   M' = b1 M + (1-b1) R,  V' = b2 V + (1-b2) R²        (0 past the long dim)
+//   N̂ = (M'/c1) / (sqrt(V'/c2) + eps),  c_i = 1 - b_i^count
+//   absmax over each 128-block of the swept axis, + 1e-12
+//   Mq', Vq' = nearest code of M'/absmax (or stochastic rounding), in place
+//   G̃ = alpha P N̂ (left) or alpha N̂ Pᵀ (right), f32
+// Codes and scales are updated in place, as the Pallas aliasing does; the
+// wrapper allocates only G̃.
+//
+// What bounds it on an H100. At the main path's largest left leaf,
+// (L, m, r, n) = (2, 4096, 128, 11008) with bf16 G and int4 P, one launch
+// moves G 180 MB + G̃ 361 MB + codes and scales read and written 11 MB + P
+// 0.6 MB ≈ 553 MB (0.165 ms at 3.35 TB/s) and does 4·L·m·r·n = 46.2 GFLOP in
+// its two contractions (0.69 ms of f32 FMA at 67 TFLOP/s). It is bound by
+// operations, 0.69 ms, like the fp32 kernel of galore_fused.cu.
+//
+// Design. A quantization block is 128 elements of the swept axis, and its
+// absmax needs all of them, so one thread block owns exactly 128 swept
+// positions of one stacked leaf: grid = (⌈swept/128⌉, L), 256 threads as a
+// 16 x 16 grid with an 8 x 8 register tile each (a 128 x 128 tile); a grid
+// larger than the SM count is compiled for two blocks per SM. Rows of R
+// on the left (columns on the right) quantize independently, so the block
+// walks the rank in chunks of 128 and, per chunk:
+//   1. R_c (128 x 128) = the chunk's contraction, P and G staged through
+//      shared memory 32 deep (P is streamed, never resident, as in
+//      galore_fused.cu); R_c lands in a 66 KB shared tile.
+//   2. dequant → Adam → absmax → requant on the tile; N̂ replaces R_c.
+//   3. G̃ for the block's 128 swept positions: alpha P_c N̂_c, accumulated in
+//      the block's own output tile (written on the first chunk, added on
+//      later ones; only this block touches those elements, so no atomics).
+// Shared memory is therefore 105 KB whatever r is: r = 1024 is eight chunks
+// through the same kernel, at the cost of re-reading the output tile from L2
+// seven times; no shape is refused for size. (The other design, N̂ in a
+// scratch tensor and a second pass, would move r·n more f32 through memory
+// at every r.)
+// The requant follows the codec (quant/codec.py), not the Pallas body: the
+// nearest code is searchsorted(mids, x), the number of midpoints strictly
+// below x, found by binary search over the 255 midpoints in shared memory;
+// the stochastic coin is sr_uniform(ravel index, count, salt) in uint32. The
+// elementwise math uses explicitly rounded f32 operations in the codec's
+// order (no FMA contraction), so for equal R the codes are the plain
+// version's bit for bit; only the contractions' summation order differs.
+// An int4 P is decoded while staging, book4[nibble] * scale in f32, the
+// order of dequantize4_axis, so it is bitwise the host-dequantized P; rows
+// past the logical kept dim are never read.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;  // 16 x 16 thread grid, 8 warps
+constexpr int kT = 128;        // tile edge: one quantization block, one rank chunk
+constexpr int kTR = 8;         // register tile per thread: kTR x kTR
+constexpr int kBK = 32;        // contraction depth staged per step
+constexpr int kS = kT + 1;     // padded row stride of every shared tile
+constexpr int kBooks = 256 + 256 + 16;  // book_s | book_u | book4, from the wrapper
+constexpr uint32_t kSaltM = 0x5BD1E995u;
+constexpr uint32_t kSaltV = 0xC2B2AE35u;
+
+// shared layout, in floats
+constexpr int kOffT = 0;
+constexpr int kOffA = kOffT + kT * kS;
+constexpr int kOffB = kOffA + kBK * kS;
+constexpr int kOffBookS = kOffB + kBK * kS;
+constexpr int kOffBookU = kOffBookS + 256;
+constexpr int kOffMidS = kOffBookU + 256;
+constexpr int kOffMidU = kOffMidS + 256;
+constexpr int kOffBook4 = kOffMidU + 256;
+constexpr int kOffRed = kOffBook4 + 16;  // 4 x 128 partial absmax (right side)
+constexpr int kSmemFloats = kOffRed + 4 * kT;
+constexpr size_t kSmemBytes = sizeof(float) * kSmemFloats;
+
+struct Args {
+  const float* P;      // f32 P (L, kept, r), or null with an int4 P
+  const uint8_t* Pq;   // int4 P: packed codes (L, kept_pad/2, r)
+  const float* Ps;     // int4 P: scales (L, ⌈kept/128⌉, r)
+  const void* G;       // (L, m, n) f32 or bf16
+  uint8_t* Mq;         // codes, left (L, r, n), right (L, m, r); in place
+  float* Ms;           // scales, left (L, r, ⌈n/128⌉), right (L, ⌈m/128⌉, r); in place
+  uint8_t* Vq;
+  float* Vs;
+  const int* count;    // the step number, on the device
+  const float* books;  // kBooks floats: signed, unsigned and int4 codebooks
+  float* out;          // G̃ (L, m, n) f32
+  int m, r, n;
+  int stochastic;
+  float b1, omb1, b2, omb2, eps, alpha;
+};
+
+__device__ __forceinline__ float load_g(const float* p, size_t i) { return p[i]; }
+__device__ __forceinline__ float load_g(const __nv_bfloat16* p, size_t i) {
+  return __bfloat162float(p[i]);
+}
+
+// A row-major (rows, cols) matrix of one leaf; zero outside.
+template <typename GT>
+struct Mat {
+  const GT* p;
+  int rows, cols;
+  __device__ __forceinline__ float at(int row, int col) const {
+    return (row < rows && col < cols) ? load_g(p, (size_t)row * cols + col) : 0.f;
+  }
+};
+
+// A packed int4 P of one leaf: row i < half sits in the low nibble of byte
+// row i, row i >= half in the high nibble of byte row i - half. Staged by
+// the overloads below, not element by element.
+struct P4 {
+  const uint8_t* q;
+  const float* s;
+  const float* book;  // the 16 int4 codes, in shared memory
+  int rows, cols, half;
+};
+
+// buf[kk][c] = src(k0 + kk, c0 + c): contraction along the source's rows.
+// Each thread stages one column c, rows kk = tid / 128 + 2i; the loop has a
+// fixed trip count, so it unrolls and its 16 loads are in flight together.
+template <class Src>
+__device__ __forceinline__ void stage_rows(float* buf, const Src& src, int k0, int c0, int tid) {
+  const int c = tid % kT;
+#pragma unroll
+  for (int i = 0; i < kBK * kT / kThreads; ++i) {
+    const int kk = tid / kT + (kThreads / kT) * i;
+    buf[kk * kS + c] = src.at(k0 + kk, c0 + c);
+  }
+}
+
+// buf[kk][c] = src(c0 + c, k0 + kk): contraction along the source's columns.
+// Each thread stages one kk, c = tid / 32 + 8i.
+template <class Src>
+__device__ __forceinline__ void stage_cols(float* buf, const Src& src, int c0, int k0, int tid) {
+  const int kk = tid % kBK;
+#pragma unroll
+  for (int i = 0; i < kBK * kT / kThreads; ++i) {
+    const int c = tid / kBK + (kThreads / kBK) * i;
+    buf[kk * kS + c] = src.at(c0 + c, k0 + kk);
+  }
+}
+
+// The same two stagings for an int4 P, decoded as book4[nibble] * scale in
+// one f32 multiply (the order of dequantize4_axis). The call sites make each
+// thread's share of a stage lie in one 128-row scale block, so its scale is
+// loaded once: a row-wise stage covers 32 rows from k0 % 32 == 0 (also never
+// straddling `half`, a multiple of 64); a column-wise stage covers rows
+// c0..c0+127 with c0 % 128 == 0 and one column per thread.
+__device__ __forceinline__ void stage_rows(float* buf, const P4& p, int k0, int c0, int tid) {
+  const int c = tid % kT, col = c0 + c;
+  const bool hi = k0 >= p.half;
+  const bool col_ok = col < p.cols;
+  const float sc = (col_ok && k0 < p.rows) ? p.s[(size_t)(k0 / kT) * p.cols + col] : 0.f;
+  const size_t byte0 = (size_t)(hi ? k0 - p.half : k0) * p.cols + col;
+#pragma unroll
+  for (int i = 0; i < kBK * kT / kThreads; ++i) {
+    const int kk = tid / kT + (kThreads / kT) * i;
+    float v = 0.f;
+    if (col_ok && k0 + kk < p.rows) {
+      const unsigned b = p.q[byte0 + (size_t)kk * p.cols];
+      v = __fmul_rn(p.book[hi ? (b >> 4) : (b & 0xFu)], sc);
+    }
+    buf[kk * kS + c] = v;
+  }
+}
+
+__device__ __forceinline__ void stage_cols(float* buf, const P4& p, int c0, int k0, int tid) {
+  const int kk = tid % kBK, col = k0 + kk;
+  const bool col_ok = col < p.cols;
+  const float sc = (col_ok && c0 < p.rows) ? p.s[(size_t)(c0 / kT) * p.cols + col] : 0.f;
+#pragma unroll
+  for (int i = 0; i < kBK * kT / kThreads; ++i) {
+    const int c = tid / kBK + (kThreads / kBK) * i, row = c0 + c;
+    float v = 0.f;
+    if (col_ok && row < p.rows) {
+      const bool hi = row >= p.half;
+      const unsigned b = p.q[(size_t)(hi ? row - p.half : row) * p.cols + col];
+      v = __fmul_rn(p.book[hi ? (b >> 4) : (b & 0xFu)], sc);
+    }
+    buf[kk * kS + c] = v;
+  }
+}
+
+// acc[a][b] += sum_kk A(kk, ty + 16a) * B(kk, tx + 16b), A(k, i) = A[k*ak + i*ai],
+// B(k, j) = B[k*bk + j*bj]. Within a warp the A reads touch two addresses and
+// the B reads 16 distinct banks, so neither has bank conflicts.
+__device__ __forceinline__ void tile_fma(const float* __restrict__ A, int ak, int ai,
+                                         const float* __restrict__ B, int bk, int bj,
+                                         float (&acc)[kTR][kTR], int tx, int ty) {
+#pragma unroll 2
+  for (int kk = 0; kk < kBK; ++kk) {
+    float a[kTR], b[kTR];
+#pragma unroll
+    for (int i = 0; i < kTR; ++i) a[i] = A[kk * ak + (ty + 16 * i) * ai];
+#pragma unroll
+    for (int j = 0; j < kTR; ++j) b[j] = B[kk * bk + (tx + 16 * j) * bj];
+#pragma unroll
+    for (int i = 0; i < kTR; ++i)
+#pragma unroll
+      for (int j = 0; j < kTR; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+__device__ __forceinline__ void zero_acc(float (&acc)[kTR][kTR]) {
+#pragma unroll
+  for (int i = 0; i < kTR; ++i)
+#pragma unroll
+    for (int j = 0; j < kTR; ++j) acc[i][j] = 0.f;
+}
+
+// Counter-based uniform in [0, 1): codec.sr_uniform, bit for bit.
+__device__ __forceinline__ float sr_uniform(uint32_t idx, uint32_t cnt, uint32_t salt) {
+  uint32_t x = idx * 2654435761u;
+  x = x ^ (cnt * 0x9E3779B9u) ^ salt;
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return (float)(x >> 8) * (1.0f / 16777216.0f);
+}
+
+// Number of entries of the sorted table t[0..len) that are < x (strict) or
+// <= x (inclusive): searchsorted left / right.
+template <bool kInclusive>
+__device__ __forceinline__ int search(const float* t, int len, float x) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const bool below = kInclusive ? (t[mid] <= x) : (t[mid] < x);
+    if (below) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// The code of one moment value, given its block's absmax (codec order).
+__device__ __forceinline__ uint8_t requant(float x, float absmax, const float* book,
+                                           const float* mids, bool stochastic, uint32_t idx,
+                                           uint32_t cnt, uint32_t salt) {
+  const float normed = __fdiv_rn(x, absmax);
+  if (!stochastic) return (uint8_t)search<false>(mids, 255, normed);
+  const int ge = search<true>(book, 256, normed);
+  const int lo = min(max(ge - 1, 0), 254);
+  const float lo_val = book[lo];
+  const float step = __fsub_rn(book[lo + 1], lo_val);
+  const float frac = fminf(fmaxf(__fdiv_rn(__fsub_rn(normed, lo_val), step), 0.f), 1.f);
+  return (uint8_t)(lo + (sr_uniform(idx, cnt, salt) < frac ? 1 : 0));
+}
+
+struct Coef {
+  float b1, omb1, b2, omb2, eps, c1, c2;
+};
+
+// M', V' of one element from its old codes and R (f32, rounded per operation
+// in the order of the plain version).
+__device__ __forceinline__ void adam_moments(const Coef& k, float m_old, float v_old, float r,
+                                             float* mn, float* vn) {
+  *mn = __fadd_rn(__fmul_rn(k.b1, m_old), __fmul_rn(k.omb1, r));
+  *vn = __fadd_rn(__fmul_rn(k.b2, v_old), __fmul_rn(k.omb2, __fmul_rn(r, r)));
+}
+
+__device__ __forceinline__ float adam_step(const Coef& k, float mn, float vn) {
+  return __fdiv_rn(__fdiv_rn(mn, k.c1), __fadd_rn(__fsqrt_rn(__fdiv_rn(vn, k.c2)), k.eps));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// kMinBlocks = 2 caps registers at 128 a thread so that two blocks share an
+// SM; the host picks it only for grids larger than one block per SM.
+template <bool kRight, bool kP4, typename GT, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) adam8_kernel(const Args a) {
+  extern __shared__ float smem[];
+  float* T = smem + kOffT;  // R_c, then N̂_c: left [rank][swept], right [swept][rank]
+  float* As = smem + kOffA;
+  float* Bs = smem + kOffB;
+  float* book_s = smem + kOffBookS;
+  float* book_u = smem + kOffBookU;
+  float* mids_s = smem + kOffMidS;
+  float* mids_u = smem + kOffMidU;
+  float* book4 = smem + kOffBook4;
+  float* red = smem + kOffRed;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int warp = tid / 32, lane = tid % 32;
+  const int m = a.m, r = a.r, n = a.n;
+  const size_t l = blockIdx.y;
+  const int blk = blockIdx.x;    // the block's quantization block of the swept axis
+  const int s0 = blk * kT;       // its first swept position
+  const int kept = kRight ? n : m;
+  const int kept_pad = (kept + kT - 1) / kT * kT;
+  const int swept = kRight ? m : n;
+  const int nb = (swept + kT - 1) / kT;
+
+  for (int i = tid; i < kBooks; i += kThreads) {
+    const float v = a.books[i];
+    if (i < 256) book_s[i] = v;
+    else if (i < 512) book_u[i - 256] = v;
+    else book4[i - 512] = v;
+  }
+  __syncthreads();
+  for (int i = tid; i < 255; i += kThreads) {
+    mids_s[i] = __fdiv_rn(__fadd_rn(book_s[i], book_s[i + 1]), 2.f);
+    mids_u[i] = __fdiv_rn(__fadd_rn(book_u[i], book_u[i + 1]), 2.f);
+  }
+
+  // this leaf's operands
+  const Mat<float> Pf{kP4 ? nullptr : a.P + l * kept * r, kept, r};
+  const P4 Pi{kP4 ? a.Pq + l * (kept_pad / 2) * r : nullptr,
+              kP4 ? a.Ps + l * (kept_pad / kT) * r : nullptr, book4, kept, r, kept_pad / 2};
+  const Mat<GT> Gm{static_cast<const GT*>(a.G) + l * m * n, m, n};
+  const size_t mom0 = l * (kRight ? (size_t)m * r : (size_t)r * n);
+  const size_t sc0 = l * (kRight ? (size_t)nb * r : (size_t)r * nb);
+  float* out = a.out + l * m * n;
+  const int cnt = *a.count;
+  const float t = (float)cnt;
+  const Coef k{a.b1, a.omb1, a.b2, a.omb2, a.eps, 1.f - powf(a.b1, t), 1.f - powf(a.b2, t)};
+  const bool sr = a.stochastic != 0;
+  __syncthreads();
+
+  for (int rc0 = 0; rc0 < r; rc0 += kT) {
+    // 1. R_c into T
+    float acc[kTR][kTR];
+    zero_acc(acc);
+    if (!kRight) {  // R_c[i][j] = sum_k P[k][rc0+i] G[k][s0+j], k over m
+      for (int k0 = 0; k0 < m; k0 += kBK) {
+        if (kP4) stage_rows(As, Pi, k0, rc0, tid);
+        else stage_rows(As, Pf, k0, rc0, tid);
+        stage_rows(Bs, Gm, k0, s0, tid);
+        __syncthreads();
+        tile_fma(As, kS, 1, Bs, kS, 1, acc, tx, ty);
+        __syncthreads();
+      }
+    } else {  // R_c[i][j] = sum_k G[s0+i][k] P[k][rc0+j], k over n
+      for (int k0 = 0; k0 < n; k0 += kBK) {
+        stage_cols(As, Gm, s0, k0, tid);
+        if (kP4) stage_rows(Bs, Pi, k0, rc0, tid);
+        else stage_rows(Bs, Pf, k0, rc0, tid);
+        __syncthreads();
+        tile_fma(As, kS, 1, Bs, kS, 1, acc, tx, ty);
+        __syncthreads();
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kTR; ++i)
+#pragma unroll
+      for (int j = 0; j < kTR; ++j) T[(ty + 16 * i) * kS + tx + 16 * j] = acc[i][j];
+    __syncthreads();
+
+    // 2. dequant -> Adam -> requant; N̂_c replaces R_c (0 outside the leaf)
+    if (!kRight) {
+      // a warp per rank row (its quantization block is the row's 128
+      // columns), a lane per 4 columns
+      for (int i = warp; i < kT; i += kThreads / 32) {
+        const int rr = rc0 + i;
+        const bool row_ok = rr < r;
+        const size_t srow = sc0 + (size_t)rr * nb + blk;
+        const float sm = row_ok ? a.Ms[srow] : 0.f, sv = row_ok ? a.Vs[srow] : 0.f;
+        float mn[4], vn[4], am = 0.f, av = 0.f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int j = lane + 32 * q, col = s0 + j;
+          mn[q] = vn[q] = 0.f;
+          if (row_ok && col < n) {
+            const size_t off = mom0 + (size_t)rr * n + col;
+            adam_moments(k, __fmul_rn(book_s[a.Mq[off]], sm), __fmul_rn(book_u[a.Vq[off]], sv),
+                         T[i * kS + j], &mn[q], &vn[q]);
+          }
+          am = fmaxf(am, fabsf(mn[q]));
+          av = fmaxf(av, fabsf(vn[q]));
+        }
+        am = __fadd_rn(warp_max(am), 1e-12f);
+        av = __fadd_rn(warp_max(av), 1e-12f);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int j = lane + 32 * q, col = s0 + j;
+          float nh = 0.f;
+          if (row_ok && col < n) {
+            const size_t off = mom0 + (size_t)rr * n + col;
+            const uint32_t idx = (uint32_t)off;  // ravel index in (L, r, n), mod 2^32
+            a.Mq[off] = requant(mn[q], am, book_s, mids_s, sr, idx, (uint32_t)cnt, kSaltM);
+            a.Vq[off] = requant(vn[q], av, book_u, mids_u, sr, idx, (uint32_t)cnt, kSaltV);
+            nh = adam_step(k, mn[q], vn[q]);
+          }
+          T[i * kS + j] = nh;
+        }
+        if (row_ok && lane == 0) {
+          a.Ms[srow] = am;
+          a.Vs[srow] = av;
+        }
+      }
+    } else {
+      // a thread per (rank column, half of the 128 rows): the column's
+      // quantization block is its 128 rows; the halves' absmax meet in `red`.
+      // Pass 1 finds the absmax, pass 2 recomputes M', V' and requantizes.
+      const int j = tid % kT, h = tid / kT;
+      const int rk = rc0 + j;
+      const bool col_ok = rk < r;
+      const size_t scol = sc0 + (size_t)blk * r + rk;
+      const float sm = col_ok ? a.Ms[scol] : 0.f, sv = col_ok ? a.Vs[scol] : 0.f;
+      float am = 0.f, av = 0.f;
+      for (int i = h * (kT / 2); i < (h + 1) * (kT / 2); ++i) {
+        const int row = s0 + i;
+        if (col_ok && row < m) {
+          const size_t off = mom0 + (size_t)row * r + rk;
+          float mn, vn;
+          adam_moments(k, __fmul_rn(book_s[a.Mq[off]], sm), __fmul_rn(book_u[a.Vq[off]], sv),
+                       T[i * kS + j], &mn, &vn);
+          am = fmaxf(am, fabsf(mn));
+          av = fmaxf(av, fabsf(vn));
+        }
+      }
+      red[h * kT + j] = am;
+      red[(2 + h) * kT + j] = av;
+      __syncthreads();
+      am = __fadd_rn(fmaxf(red[j], red[kT + j]), 1e-12f);
+      av = __fadd_rn(fmaxf(red[2 * kT + j], red[3 * kT + j]), 1e-12f);
+      for (int i = h * (kT / 2); i < (h + 1) * (kT / 2); ++i) {
+        const int row = s0 + i;
+        float nh = 0.f;
+        if (col_ok && row < m) {
+          const size_t off = mom0 + (size_t)row * r + rk;
+          float mn, vn;
+          adam_moments(k, __fmul_rn(book_s[a.Mq[off]], sm), __fmul_rn(book_u[a.Vq[off]], sv),
+                       T[i * kS + j], &mn, &vn);
+          const uint32_t idx = (uint32_t)off;  // ravel index in (L, m, r), mod 2^32
+          a.Mq[off] = requant(mn, am, book_s, mids_s, sr, idx, (uint32_t)cnt, kSaltM);
+          a.Vq[off] = requant(vn, av, book_u, mids_u, sr, idx, (uint32_t)cnt, kSaltV);
+          nh = adam_step(k, mn, vn);
+        }
+        T[i * kS + j] = nh;
+      }
+      if (col_ok && h == 0) {
+        a.Ms[scol] = am;
+        a.Vs[scol] = av;
+      }
+    }
+    __syncthreads();
+
+    // 3. G̃ for the block's swept positions, accumulated over rank chunks
+    const int kn = min(kT, r - rc0);
+    if (!kRight) {  // out[m0+i][s0+j] (+)= alpha sum_k P[m0+i][rc0+k] N̂[k][j]
+      for (int m0 = 0; m0 < m; m0 += kT) {
+        zero_acc(acc);
+        for (int k0 = 0; k0 < kn; k0 += kBK) {
+          if (kP4) stage_cols(As, Pi, m0, rc0 + k0, tid);
+          else stage_cols(As, Pf, m0, rc0 + k0, tid);
+          __syncthreads();
+          tile_fma(As, kS, 1, T + k0 * kS, kS, 1, acc, tx, ty);
+          __syncthreads();
+        }
+#pragma unroll
+        for (int i = 0; i < kTR; ++i)
+#pragma unroll
+          for (int j = 0; j < kTR; ++j) {
+            const int row = m0 + ty + 16 * i, col = s0 + tx + 16 * j;
+            if (row < m && col < n) {
+              float* o = out + (size_t)row * n + col;
+              const float v = a.alpha * acc[i][j];
+              *o = rc0 == 0 ? v : *o + v;
+            }
+          }
+      }
+    } else {  // out[s0+i][n0+j] (+)= alpha sum_k N̂[i][k] P[n0+j][rc0+k]
+      for (int n0 = 0; n0 < n; n0 += kT) {
+        zero_acc(acc);
+        for (int k0 = 0; k0 < kn; k0 += kBK) {
+          if (kP4) stage_cols(Bs, Pi, n0, rc0 + k0, tid);
+          else stage_cols(Bs, Pf, n0, rc0 + k0, tid);
+          __syncthreads();
+          tile_fma(T + k0, 1, kS, Bs, kS, 1, acc, tx, ty);
+          __syncthreads();
+        }
+#pragma unroll
+        for (int i = 0; i < kTR; ++i)
+#pragma unroll
+          for (int j = 0; j < kTR; ++j) {
+            const int row = s0 + ty + 16 * i, col = n0 + tx + 16 * j;
+            if (row < m && col < n) {
+              float* o = out + (size_t)row * n + col;
+              const float v = a.alpha * acc[i][j];
+              *o = rc0 == 0 ? v : *o + v;
+            }
+          }
+      }
+    }
+    __syncthreads();  // T is rewritten by the next chunk
+  }
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 132;
+  return sms;
+}
+
+template <bool kRight, bool kP4, typename GT, int kMinBlocks>
+cudaError_t launch_with(const Args& a, const dim3& grid, cudaStream_t stream) {
+  auto kern = &adam8_kernel<kRight, kP4, GT, kMinBlocks>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, kThreads, kSmemBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// One block per SM (up to 255 registers a thread) while the grid fits in one
+// wave; two per SM (128 registers) when it does not, so that e.g. the 172
+// blocks of a (2, 4096, 128, 11008) leaf run in one wave instead of two.
+template <bool kRight, bool kP4, typename GT>
+cudaError_t launch(const Args& a, int L, cudaStream_t stream) {
+  const int swept = kRight ? a.m : a.n;
+  const dim3 grid((swept + kT - 1) / kT, L);
+  if ((long)grid.x * grid.y > sm_count()) return launch_with<kRight, kP4, GT, 2>(a, grid, stream);
+  return launch_with<kRight, kP4, GT, 1>(a, grid, stream);
+}
+
+template <bool kRight>
+cudaError_t dispatch(const Args& a, int p_int4, int g_bf16, int L, cudaStream_t s) {
+  if (L <= 0 || a.m <= 0 || a.r <= 0 || a.n <= 0 || L > 65535) return cudaErrorInvalidValue;
+  if (p_int4) {
+    return g_bf16 ? launch<kRight, true, __nv_bfloat16>(a, L, s) : launch<kRight, true, float>(a, L, s);
+  }
+  return g_bf16 ? launch<kRight, false, __nv_bfloat16>(a, L, s) : launch<kRight, false, float>(a, L, s);
+}
+
+int run(bool right, const float* P, const uint8_t* Pq, const float* Ps, int p_int4, const void* G,
+        int g_bf16, uint8_t* Mq, float* Ms, uint8_t* Vq, float* Vs, const int* count,
+        const float* books, float* out, int L, int m, int r, int n, double b1, double b2,
+        double eps, double alpha, int stochastic, void* stream) {
+  const Args a{P, Pq, Ps, G, Mq, Ms, Vq, Vs, count, books, out, m, r, n, stochastic,
+               (float)b1, (float)(1.0 - b1), (float)b2, (float)(1.0 - b2), (float)eps,
+               (float)alpha};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(right ? dispatch<true>(a, p_int4, g_bf16, L, s)
+                     : dispatch<false>(a, p_int4, g_bf16, L, s));
+}
+
+}  // namespace
+
+// P: f32 (L, m, r) when p_int4 = 0, else Pq (L, m_pad/2, r) u8 codes and Ps
+// (L, ⌈m/128⌉, r) f32 scales (m_pad = 128·⌈m/128⌉); G (L, m, n) f32 or bf16
+// (g_bf16 = 1); Mq/Vq (L, r, n) u8 and Ms/Vs (L, r, ⌈n/128⌉) f32, updated in
+// place; count -> int32 on the device; books -> 528 f32 (signed, unsigned and
+// int4 codebooks); out (L, m, n) f32. All contiguous. Returns a cudaError_t.
+extern "C" int galore_fused_adam8_left(const float* P, const uint8_t* Pq, const float* Ps,
+                                       int p_int4, const void* G, int g_bf16, uint8_t* Mq,
+                                       float* Ms, uint8_t* Vq, float* Vs, const int* count,
+                                       const float* books, float* out, int L, int m, int r, int n,
+                                       double b1, double b2, double eps, double alpha,
+                                       int stochastic, void* stream) {
+  return run(false, P, Pq, Ps, p_int4, G, g_bf16, Mq, Ms, Vq, Vs, count, books, out, L, m, r, n,
+             b1, b2, eps, alpha, stochastic, stream);
+}
+
+// P: f32 (L, n, r), or Pq (L, n_pad/2, r) and Ps (L, ⌈n/128⌉, r); G (L, m, n);
+// Mq/Vq (L, m, r) u8 and Ms/Vs (L, ⌈m/128⌉, r) f32, in place; the rest as on
+// the left.
+extern "C" int galore_fused_adam8_right(const float* P, const uint8_t* Pq, const float* Ps,
+                                        int p_int4, const void* G, int g_bf16, uint8_t* Mq,
+                                        float* Ms, uint8_t* Vq, float* Vs, const int* count,
+                                        const float* books, float* out, int L, int m, int r, int n,
+                                        double b1, double b2, double eps, double alpha,
+                                        int stochastic, void* stream) {
+  return run(true, P, Pq, Ps, p_int4, G, g_bf16, Mq, Ms, Vq, Vs, count, books, out, L, m, r, n,
+             b1, b2, eps, alpha, stochastic, stream);
+}

@@ -112,8 +112,10 @@ __device__ __forceinline__ void zero_acc(float (&acc)[kTR][TN]) {
 // over P's rows, output rows along P's columns (the rank axis).
 __device__ __forceinline__ void stage_p_rows(float* As, const float* __restrict__ P, int rows,
                                              int cols, int k0, int c0, int tid) {
-  for (int e = tid; e < kBK * kRC; e += kThreads) {
-    const int kk = e / kRC, c = e % kRC;
+  const int c = tid % kRC;
+#pragma unroll
+  for (int i = 0; i < kBK * kRC / kThreads; ++i) {  // a fixed trip count unrolls: loads overlap
+    const int kk = tid / kRC + (kThreads / kRC) * i;
     const int k = k0 + kk, col = c0 + c;
     As[kk * kAS + c] = (k < rows && col < cols) ? P[(size_t)k * cols + col] : 0.f;
   }
@@ -123,8 +125,10 @@ __device__ __forceinline__ void stage_p_rows(float* As, const float* __restrict_
 // axis), output rows along P's rows.
 __device__ __forceinline__ void stage_p_cols(float* As, const float* __restrict__ P, int rows,
                                              int cols, int c0, int k0, int tid) {
-  for (int e = tid; e < kBK * kRC; e += kThreads) {
-    const int kk = e % kBK, c = e / kBK;
+  const int kk = tid % kBK;
+#pragma unroll
+  for (int i = 0; i < kBK * kRC / kThreads; ++i) {
+    const int c = tid / kBK + (kThreads / kBK) * i;
     const int row = c0 + c, k = k0 + kk;
     As[kk * kAS + c] = (row < rows && k < cols) ? P[(size_t)row * cols + k] : 0.f;
   }
@@ -169,8 +173,9 @@ __global__ void __launch_bounds__(kThreads)
     zero_acc(acc);
     for (int k0 = 0; k0 < m; k0 += kBK) {
       stage_p_rows(As, P, m, r, k0, rc0, tid);
-      for (int e = tid; e < kBK * BN; e += kThreads) {
-        const int kk = e / BN, c = e % BN;
+#pragma unroll
+      for (int i = 0; i < kBK * BN / kThreads; ++i) {
+        const int kk = tid / BN + (kThreads / BN) * i, c = tid % BN;
         const int k = k0 + kk, col = c0 + c;
         Bs[kk * RS + c] = (k < m && col < n) ? load_f32(G, (size_t)k * n + col) : 0.f;
       }
@@ -249,8 +254,9 @@ __global__ void __launch_bounds__(kThreads)
     zero_acc(acc);
     for (int k0 = 0; k0 < n; k0 += kBK) {
       stage_p_rows(As, P, n, r, k0, rc0, tid);
-      for (int e = tid; e < kBK * BM; e += kThreads) {
-        const int kk = e % kBK, c = e / kBK;
+#pragma unroll
+      for (int i = 0; i < kBK * BM / kThreads; ++i) {
+        const int kk = tid % kBK, c = tid / kBK + (kThreads / kBK) * i;
         const int k = k0 + kk, row = row0 + c;
         Bs[kk * RS + c] = (row < m && k < n) ? load_f32(G, (size_t)row * n + k) : 0.f;
       }

@@ -1,15 +1,19 @@
-"""Fused GaLore-Adam leaf step: wrappers around the Hopper kernels of
-``csrc/galore_fused.cu`` (the port of the Pallas kernels in
-repro/kernels/galore_fused.py, ``galore_fused_adam_step`` and
-``galore_fused_adam_step_right``).
+"""Fused GaLore-Adam leaf steps: wrappers around the Hopper kernels of
+``csrc/galore_fused.cu`` and ``csrc/galore_epilogue.cu`` (the port of the
+Pallas kernels in repro/kernels/galore_fused.py: ``galore_fused_adam_step``,
+``galore_fused_adam_step_right``, and the int8-moment variants of
+``_fused_epilogue_call``, ``galore_fused_adam8_step[_right]``).
 
 One launch per (possibly stacked) leaf computes R = PᵀG → Adam → G̃ = α P N̂
-(left) or R = G P → Adam → G̃ = α N̂ Pᵀ (right). On CPU tensors a wrapper runs
-the plain PyTorch version (kernels/ref.py); on CUDA tensors it checks device,
-dtype, shape and contiguity and launches the kernel, or raises. There is no
-fallback from a CUDA tensor to the plain version, and no shape is refused for
-being too large for on-chip memory: the kernel streams P through shared
-memory, so r = 1024 runs like r = 128.
+(left) or R = G P → Adam → G̃ = α N̂ Pᵀ (right); the adam8 forms keep M and V
+as int8 codes with per-128-block scales, dequantized and requantized in the
+kernel, and take P either as f32 or as a packed int4 qstate. On CPU tensors
+a wrapper runs the plain PyTorch version (kernels/ref.py) and writes the
+moments back in place; on CUDA tensors it checks device, dtype, shape and
+contiguity and launches the kernel, or raises. There is no fallback from a
+CUDA tensor to the plain version, and no shape is refused for being too
+large for on-chip memory: the kernels stream P through shared memory, so
+r = 1024 runs like r = 128.
 
 Each wrapper counts its launches in ``<wrapper>.launches`` (a plain integer,
 incremented only where the kernel is launched).
@@ -17,15 +21,19 @@ incremented only where the kernel is launched).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.quant import codec
 
 # the plain versions, beside the kernels they hold to account
 galore_fused_adam_step_plain = ref.galore_fused_adam_step
 galore_fused_adam_step_right_plain = ref.galore_fused_adam_step_right
+galore_fused_adam8_step_plain = ref.galore_fused_adam8_step
+galore_fused_adam8_step_right_plain = ref.galore_fused_adam8_step_right
 
 _SOURCE = "galore_fused"
 _ARGTYPES = [
@@ -38,9 +46,21 @@ _ARGTYPES = [
 ]
 
 
-def _entry(symbol: str):
-    fn = getattr(build.load(_SOURCE), symbol)
-    fn.argtypes = _ARGTYPES
+_SOURCE8 = "galore_epilogue"
+_ARGTYPES8 = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # P, Pq, Ps, p_int4
+    ctypes.c_void_p, ctypes.c_int,                    # G, g_bf16
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # Mq, Ms, Vq, Vs
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # count, books, out
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # L, m, r, n
+    ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,  # b1, b2, eps, alpha
+    ctypes.c_int, ctypes.c_void_p,                    # stochastic, stream
+]
+
+
+def _entry(symbol: str, source: str = _SOURCE, argtypes=_ARGTYPES):
+    fn = getattr(build.load(source), symbol)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
@@ -123,10 +143,123 @@ def galore_fused_adam_step_right(P, G, M, V, count, *, b1=0.9, b2=0.999, eps=1e-
     return out, M, V
 
 
-galore_fused_adam_step.launches = 0
-galore_fused_adam_step_right.launches = 0
+@functools.lru_cache(maxsize=None)
+def _books(device: torch.device) -> torch.Tensor:
+    """The signed, unsigned and int4 codebooks (256 + 256 + 16 f32) on
+    `device`, made once per device: the kernel decodes through the
+    reference's own tables."""
+    books = torch.cat([torch.from_numpy(codec.dynamic_codebook(True)),
+                       torch.from_numpy(codec.dynamic_codebook(False)),
+                       torch.from_numpy(codec.int4_codebook())])
+    return books.to(device)
+
+
+def _check8(P, G, Mq, Ms, Vq, Vs, count, right: bool):
+    """Raise unless the adam8 kernel takes these tensors as they are."""
+    m, n = G.shape[-2:]
+    lead = tuple(G.shape[:-2])
+    kept, swept = (n, m) if right else (m, n)
+    p_int4 = codec.is_qstate(P)
+    r = (P["q"] if p_int4 else P).shape[-1]
+    nb = -(-swept // codec.QBLOCK)
+    mom, scale = ((m, r), (nb, r)) if right else ((r, n), (r, nb))
+    if p_int4:
+        kept_pad = -(-kept // codec.QBLOCK) * codec.QBLOCK
+        p_parts = (("P codes", P["q"], torch.uint8, (kept_pad // 2, r)),
+                   ("P scales", P["scale"], torch.float32, (kept_pad // codec.QBLOCK, r)))
+    else:
+        p_parts = (("P", P, torch.float32, (kept, r)),)
+    want = p_parts + (("Mq", Mq, torch.uint8, mom), ("Ms", Ms, torch.float32, scale),
+                      ("Vq", Vq, torch.uint8, mom), ("Vs", Vs, torch.float32, scale))
+    dev = G.device
+    for name, t in (("G", G), ("count", count)) + tuple((w[0], w[1]) for w in want):
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name} is on {t.device}; every input must be on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if G.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"G must be float32 or bfloat16, got {G.dtype}")
+    if count.dtype != torch.int32 or count.numel() != 1:
+        raise TypeError(f"count must be one int32, got {count.dtype} of {count.numel()}")
+    for name, t, dtype, shape in want:
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != lead + shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}; with G {tuple(G.shape)} "
+                             f"and r={r} it must be {lead + shape}")
+    return p_int4, r
+
+
+def _launch8(symbol, right, P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha, stochastic):
+    p_int4, r = _check8(P, G, Mq, Ms, Vq, Vs, count, right)
+    m, n = G.shape[-2:]
+    L = math.prod(G.shape[:-2])
+    out = torch.empty(G.shape, dtype=torch.float32, device=G.device)
+    if p_int4:
+        p_ptrs = (None, P["q"].data_ptr(), P["scale"].data_ptr())
+    else:
+        p_ptrs = (P.data_ptr(), None, None)
+    with torch.cuda.device(G.device):
+        err = _entry(symbol, _SOURCE8, _ARGTYPES8)(
+            *p_ptrs, int(p_int4), G.data_ptr(), int(G.dtype == torch.bfloat16),
+            Mq.data_ptr(), Ms.data_ptr(), Vq.data_ptr(), Vs.data_ptr(), count.data_ptr(),
+            _books(G.device).data_ptr(), out.data_ptr(), L, m, r, n, b1, b2, eps, alpha,
+            int(stochastic), torch.cuda.current_stream(G.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} failed to launch: cudaError_t {err} "
+                           f"(G {tuple(G.shape)}, r={r}, int4 P {p_int4})")
+    return out
+
+
+def _plain8_in_place(plain, P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha, stochastic):
+    out, *new = plain(P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha, stochastic=stochastic)
+    for old, t in zip((Mq, Ms, Vq, Vs), new):
+        old.copy_(t)
+    return out, Mq, Ms, Vq, Vs
+
+
+def galore_fused_adam8_step(P, G, Mq, Ms, Vq, Vs, count, *, b1=0.9, b2=0.999, eps=1e-8,
+                            alpha=1.0, stochastic=False):
+    """Fused left-side GaLore-Adam step with int8 moments (leaves with m ≤ n).
+
+    P (..., m, r) f32 or a packed int4 qstate {"q": (..., m_pad/2, r) u8,
+    "scale": (..., ⌈m/128⌉, r) f32}; G (..., m, n) f32 or bf16; codes Mq/Vq
+    (..., r, n) u8 and scales Ms/Vs (..., r, ⌈n/128⌉) f32; count an int32
+    tensor. With `stochastic` the requant rounds stochastically (Q-GaLore).
+    Returns (G̃ (..., m, n) f32, Mq', Ms', Vq', Vs'), the last four the passed
+    tensors, updated in place."""
+    if G.device.type == "cpu":
+        return _plain8_in_place(galore_fused_adam8_step_plain, P, G, Mq, Ms, Vq, Vs, count,
+                                b1, b2, eps, alpha, stochastic)
+    out = _launch8("galore_fused_adam8_left", False, P, G, Mq, Ms, Vq, Vs, count,
+                   b1, b2, eps, alpha, stochastic)
+    galore_fused_adam8_step.launches += 1
+    return out, Mq, Ms, Vq, Vs
+
+
+def galore_fused_adam8_step_right(P, G, Mq, Ms, Vq, Vs, count, *, b1=0.9, b2=0.999, eps=1e-8,
+                                  alpha=1.0, stochastic=False):
+    """Fused right-side GaLore-Adam step with int8 moments (leaves with m > n).
+
+    P (..., n, r) f32 or a packed int4 qstate blocked along n; codes Mq/Vq
+    (..., m, r) u8 and scales Ms/Vs (..., ⌈m/128⌉, r) f32 (blocks along m).
+    Returns (G̃ (..., m, n) f32, Mq', Ms', Vq', Vs'), updated in place."""
+    if G.device.type == "cpu":
+        return _plain8_in_place(galore_fused_adam8_step_right_plain, P, G, Mq, Ms, Vq, Vs,
+                                count, b1, b2, eps, alpha, stochastic)
+    out = _launch8("galore_fused_adam8_right", True, P, G, Mq, Ms, Vq, Vs, count,
+                   b1, b2, eps, alpha, stochastic)
+    galore_fused_adam8_step_right.launches += 1
+    return out, Mq, Ms, Vq, Vs
+
+
+WRAPPERS = (galore_fused_adam_step, galore_fused_adam_step_right,
+            galore_fused_adam8_step, galore_fused_adam8_step_right)
 
 
 def reset_launch_counts() -> None:
-    galore_fused_adam_step.launches = 0
-    galore_fused_adam_step_right.launches = 0
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+reset_launch_counts()

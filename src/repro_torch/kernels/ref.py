@@ -1,13 +1,16 @@
-"""Plain PyTorch versions of the GaLore-Adam leaf step (port of the fp32 part
-of repro/kernels/ref.py).
+"""Plain PyTorch versions of the GaLore-Adam leaf steps (port of the GaLore
+part of repro/kernels/ref.py): the fp32-moment step and the int8-moment step.
 
 They are the numerical ground truth for the Hopper kernels in
-``csrc/galore_fused.cu`` and what the kernel wrappers run on CPU tensors.
-Pure functions: they return new M/V and leave their inputs untouched.
+``csrc/galore_fused.cu`` and ``csrc/galore_epilogue.cu``, and what the kernel
+wrappers run on CPU tensors. Pure functions: they return new moments (or
+codes and scales) and leave their inputs untouched.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.quant import codec
 
 
 def galore_project(P, G):
@@ -59,3 +62,47 @@ def galore_fused_adam_step_right(P, G, M, V, count, b1=0.9, b2=0.999, eps=1e-8, 
     P (..., n, r), G (..., m, n), M/V (..., m, r) f32. Returns (G̃ f32, M_t, V_t)."""
     N_t, M_t, V_t = lowrank_adam_update(galore_project_right(P, G), M, V, count, b1, b2, eps)
     return galore_project_back_right(P, N_t, alpha), M_t, V_t
+
+
+def _p_plain(P, short: int):
+    """f32 P from either an f32 tensor or a packed int4 qstate."""
+    if codec.is_qstate(P):
+        return codec.dequantize4_axis(P["q"], P["scale"], short)
+    return P
+
+
+def _adam8(R, Mq, Ms, Vq, Vs, count, b1, b2, eps, stochastic, axis):
+    """dequant M/V → Adam on R → requant, blocks along `axis`."""
+    m = codec.dequantize_axis(Mq, Ms, axis=axis, signed=True)
+    v = codec.dequantize_axis(Vq, Vs, axis=axis, signed=False)
+    N_t, M_t, V_t = lowrank_adam_update(R, m, v, count, b1, b2, eps)
+    mq, ms = codec.quantize_axis(M_t, axis=axis, signed=True, stochastic=stochastic,
+                                 count=count, salt=codec.SR_SALT_M)
+    vq, vs = codec.quantize_axis(V_t, axis=axis, signed=False, stochastic=stochastic,
+                                 count=count, salt=codec.SR_SALT_V)
+    return N_t, (mq, ms, vq, vs)
+
+
+def galore_fused_adam8_step(P, G, Mq, Ms, Vq, Vs, count, b1=0.9, b2=0.999, eps=1e-8,
+                            alpha=1.0, stochastic=False):
+    """Left-side leaf update with int8 moments: R = PᵀG → dequant M/V → Adam →
+    requant → G̃ = α P N̂.
+
+    P (..., m, r) f32 or a packed int4 qstate; G (..., m, n); codes Mq/Vq
+    (..., r, n) u8 and scales Ms/Vs (..., r, ⌈n/128⌉) f32, blocks along n.
+    Returns (G̃ f32, Mq', Ms', Vq', Vs')."""
+    P = _p_plain(P, G.shape[-2])
+    N_t, q = _adam8(galore_project(P, G), Mq, Ms, Vq, Vs, count, b1, b2, eps, stochastic, -1)
+    return (galore_project_back(P, N_t, alpha),) + q
+
+
+def galore_fused_adam8_step_right(P, G, Mq, Ms, Vq, Vs, count, b1=0.9, b2=0.999, eps=1e-8,
+                                  alpha=1.0, stochastic=False):
+    """Right-side leaf update with int8 moments: R = G P → … → G̃ = α N̂ Pᵀ.
+
+    P (..., n, r) f32 or a packed int4 qstate; codes (..., m, r), scales
+    (..., ⌈m/128⌉, r), blocks along m. Returns (G̃ f32, Mq', Ms', Vq', Vs')."""
+    P = _p_plain(P, G.shape[-1])
+    N_t, q = _adam8(galore_project_right(P, G), Mq, Ms, Vq, Vs, count, b1, b2, eps,
+                    stochastic, -2)
+    return (galore_project_back_right(P, N_t, alpha),) + q

@@ -1,0 +1,32 @@
+"""Shared argparse helpers of the port's launchers (port of the quantized-
+state part of repro/launch/cli.py)."""
+from __future__ import annotations
+
+import argparse
+
+from repro_torch.quant import QuantPolicy
+
+
+def add_quant_flags(ap: argparse.ArgumentParser):
+    """Quantized state storage (single definition for every CLI)."""
+    ap.add_argument("--quant-moments", choices=["fp32", "int8"], default="fp32",
+                    help="Adam moment storage (int8 = blockwise dynamic codes "
+                         "+ per-block absmax; the paper's 8-bit GaLore)")
+    ap.add_argument("--quant-proj", choices=["fp32", "bf16", "int4"], default="fp32",
+                    help="persistent projector storage (int4 = packed "
+                         "Q-GaLore format, dequantized on read)")
+    ap.add_argument("--quant-lazy-refresh", action="store_true",
+                    help="int4 projectors: skip committing refreshes that "
+                         "leave the quantized codes unchanged")
+    ap.add_argument("--quant-stochastic", action="store_true",
+                    help="int8 moments: stochastic rounding on the requant "
+                         "(Q-GaLore; counter-hash RNG seeded by the step "
+                         "count, bitwise-shared between kernel and oracle)")
+    return ap
+
+
+def quant_policy_from(args) -> QuantPolicy:
+    """QuantPolicy from the add_quant_flags() dests."""
+    return QuantPolicy(moments=args.quant_moments, projectors=args.quant_proj,
+                       lazy_refresh=args.quant_lazy_refresh,
+                       stochastic_round=args.quant_stochastic)

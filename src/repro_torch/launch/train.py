@@ -7,6 +7,7 @@ external / sharded / async refresh modes are not ported yet.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch llama_60m --steps 20 \
           --galore-rank 16 --galore-t 10 --galore-fused
+      (add --quant-moments int8 --quant-proj int4 for 8-bit GaLore)
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 from repro_torch.configs.base import GaLoreConfig, TrainConfig, get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticC4
 from repro_torch.distributed.step import make_train_step
+from repro_torch.launch import cli
 from repro_torch.models import model as M
 from repro_torch.utils import resolve_device
 
@@ -79,6 +81,7 @@ def build_parser():
     ap.add_argument("--galore-t", type=int, default=200)
     ap.add_argument("--galore-fused", action="store_true",
                     help="fused project→Adam→back kernel per GaLore leaf")
+    cli.add_quant_flags(ap)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
@@ -95,7 +98,8 @@ def main(argv=None):
         device = resolve_device(args.device)
     except RuntimeError as e:
         ap.error(str(e))
-    galore = (GaLoreConfig(rank=args.galore_rank, update_freq=args.galore_t)
+    galore = (GaLoreConfig(rank=args.galore_rank, update_freq=args.galore_t,
+                           quant=cli.quant_policy_from(args))
               if args.galore_rank > 0 else None)
     if args.galore_fused and galore is None:
         ap.error("--galore-fused requires --galore-rank > 0")

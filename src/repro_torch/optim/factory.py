@@ -2,10 +2,16 @@
 
 Pipeline (the reference's ordering):
     clip_by_global_norm -> [galore(Adam)] or Adam -> add_decayed_weights -> -lr schedule
+
+8-bit GaLore: ``optimizer="adam8bit"`` with GaLore routes through the
+quantized-moment state of ``core/galore.py`` (``effective_galore_config``
+turns the policy's moments to int8), as the reference does.
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import TrainConfig
+import dataclasses
+
+from repro_torch.configs.base import GaLoreConfig, TrainConfig
 from repro_torch.core.galore import galore
 from repro_torch.optim import schedules
 from repro_torch.optim.adam import scale_by_adam
@@ -17,12 +23,34 @@ from repro_torch.optim.transform import (
     scale_by_schedule,
 )
 
+_ADAM_SHAPED = ("adam", "adamw", "adam8bit")
+
+
+def effective_galore_config(tc: TrainConfig) -> GaLoreConfig | None:
+    """tc.galore with the adam8bit composition routed through QuantPolicy
+    (moments forced to int8 when the policy left them fp32)."""
+    if tc.galore is None:
+        return None
+    g = tc.galore
+    if tc.optimizer == "adam8bit" and g.quant.moments == "fp32":
+        g = dataclasses.replace(g, quant=dataclasses.replace(g.quant, moments="int8"))
+    return g
+
 
 def build_optimizer(tc: TrainConfig) -> GradientTransformation:
-    if tc.optimizer not in ("adam", "adamw"):
-        raise NotImplementedError(f"optimizer {tc.optimizer!r} is not ported yet (adam, adamw)")
-    if tc.galore is not None:
-        stats = galore(tc.galore, b1=tc.b1, b2=tc.b2, eps=tc.eps, fused=tc.galore_fused_adam)
+    gcfg = effective_galore_config(tc)
+    if gcfg is not None:
+        if tc.galore_fused_adam and tc.optimizer not in _ADAM_SHAPED:
+            raise ValueError(f"galore_fused_adam requires an Adam-shaped inner optimizer, "
+                             f"got {tc.optimizer!r}")
+        if gcfg.quant.quantizes_moments and tc.optimizer not in _ADAM_SHAPED:
+            raise ValueError(f"quantized moments require an Adam-shaped inner optimizer "
+                             f"(galore manages the Adam math itself), got {tc.optimizer!r}")
+    if tc.optimizer not in _ADAM_SHAPED or (tc.optimizer == "adam8bit" and gcfg is None):
+        raise NotImplementedError(f"optimizer {tc.optimizer!r} is not ported yet "
+                                  f"(adam, adamw, and adam8bit with GaLore)")
+    if gcfg is not None:
+        stats = galore(gcfg, b1=tc.b1, b2=tc.b2, eps=tc.eps, fused=tc.galore_fused_adam)
     elif tc.galore_fused_adam:
         raise ValueError("galore_fused_adam requires a GaLore config")
     else:

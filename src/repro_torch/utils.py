@@ -48,7 +48,7 @@ def path_str(path) -> str:
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
-    """fn over the leaves of `tree` and the matching leaves of `rest`."""
+    """fn over the leaves of `tree` and the matching subtrees of `rest`."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
@@ -67,6 +67,15 @@ def tree_leaves_with_path(tree: Tree, prefix: tuple = ()) -> list[tuple[str, Any
 
 def tree_leaves(tree: Tree) -> list:
     return [leaf for _, leaf in tree_leaves_with_path(tree)]
+
+
+def flatten_up_to(structure: Tree, tree: Tree) -> list:
+    """The subtrees of `tree` at the leaves of `structure`, in flatten order
+    (JAX's ``treedef.flatten_up_to``): a state tree whose leaves may be
+    ``{"q", "scale"}`` dicts lines up leaf for leaf with the gradient tree."""
+    out = []
+    tree_map(lambda _, sub: out.append(sub), structure, tree)
+    return out
 
 
 def tree_unflatten_like(tree: Tree, leaves) -> Tree:

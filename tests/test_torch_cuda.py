@@ -4,12 +4,16 @@ Imports no JAX, so it runs on the machine with the card:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 Every test carries the ``cuda`` marker and skips, with its reason, where
 there is no CUDA device (the kernels have no CPU mode)."""
+import functools
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import galore_fused as tk  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.quant import codec  # noqa: E402
 
 SHAPES = [
     (64, 16, 48),       # tiny, non-tile-aligned
@@ -41,6 +45,48 @@ def fused_inputs(shape, side, seed=13):
         M = np.float32(0.9) * M + np.float32(0.1) * R
         V = np.float32(0.999) * V + np.float32(0.001) * R * R
     return P, G, M, V
+
+
+# (shape, side) of the int8-moment kernel checks: ragged n (130, 520), a
+# stacked leaf, a ragged rank (96), and a right leaf with ragged m
+ADAM8_CASES = [
+    ((72, 16, 130), "left"),
+    ((3, 72, 16, 130), "left"),
+    ((1000, 96, 520), "left"),
+    ((130, 16, 72), "right"),
+]
+
+
+@functools.lru_cache(maxsize=None)
+def adam8_inputs(shape, side, seed=17):
+    """numpy P (orthonormal columns), G and the int8 moments (Mq, Ms, Vq, Vs)
+    of step 7: the codes and scales that six earlier steps of the plain 8-bit
+    version leave, on gradients of the same scale (ROADMAP C.3). Cached:
+    callers copy before they update anything in place."""
+    rng = np.random.default_rng(seed)
+    lead, (m, r, n) = tuple(shape[:-3]), shape[-3:]
+    left = side == "left"
+    kept, mv = ((m, r), (r, n)) if left else ((n, r), (m, r))
+    P = np.linalg.qr(rng.standard_normal(lead + kept))[0].astype(np.float32)
+    ax = -1 if left else -2
+    zeros = torch.zeros(lead + mv)
+    moments = (*codec.quantize_axis(zeros, axis=ax, signed=True),
+               *codec.quantize_axis(zeros, axis=ax, signed=False))
+    plain = ref.galore_fused_adam8_step if left else ref.galore_fused_adam8_step_right
+    for t in range(1, 7):
+        G = torch.from_numpy(rng.standard_normal(lead + (m, n), np.float32))
+        moments = plain(torch.from_numpy(P), G, *moments, torch.tensor(t, dtype=torch.int32))[1:]
+    G = rng.standard_normal(lead + (m, n), np.float32)
+    return P, G, tuple(t.numpy() for t in moments)
+
+
+def assert_codes_close(got, want, name):
+    """Codes at most one apart (the reference suite's bar: the contractions'
+    summation order may move a value across a midpoint)."""
+    got = np.asarray(got.cpu() if isinstance(got, torch.Tensor) else got).astype(np.int32)
+    want = np.asarray(want.cpu() if isinstance(want, torch.Tensor) else want).astype(np.int32)
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    assert int(np.abs(got - want).max()) <= 1, name
 
 
 def assert_close(got, want, name):
@@ -89,3 +135,73 @@ def test_cuda_wrapper_rejects_wrong_dtype():
         tk.galore_fused_adam_step(P, G.half(), M, V, count)
     with pytest.raises(ValueError):  # a CPU tensor among CUDA ones
         tk.galore_fused_adam_step(P, G, M.cpu(), V, count)
+
+
+def _adam8_on(dev, shape, side, p_int4):
+    P, G, moments = adam8_inputs(shape, side)
+    P = torch.from_numpy(P)
+    if p_int4:
+        P = codec.quant4_axis_state(P)
+    to = lambda t: t.to(dev)  # noqa: E731
+    P = {k: to(v) for k, v in P.items()} if p_int4 else to(P)
+    return P, to(torch.from_numpy(G)), [to(torch.from_numpy(t)) for t in moments]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,side", ADAM8_CASES)
+@pytest.mark.parametrize("p_int4", [False, True])
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_cuda_adam8_kernel_matches_plain(shape, side, p_int4, stochastic):
+    dev = _cuda_device()
+    P, G, moments = _adam8_on(dev, shape, side, p_int4)
+    count = torch.tensor(7, dtype=torch.int32, device=dev)
+    right = side == "right"
+    tfn = tk.galore_fused_adam8_step_right if right else tk.galore_fused_adam8_step
+    plain = tk.galore_fused_adam8_step_right_plain if right else tk.galore_fused_adam8_step_plain
+    want = plain(P, G, *moments, count, alpha=0.25, stochastic=stochastic)
+    before = tfn.launches
+    mine = [t.clone() for t in moments]
+    got = tfn(P, G, *mine, count, alpha=0.25, stochastic=stochastic)
+    torch.cuda.synchronize()
+    assert tfn.launches == before + 1
+    assert all(a is b for a, b in zip(got[1:], mine))  # codes and scales updated in place
+    tag = f"{side} {shape} int4 P {p_int4} stochastic {stochastic}"
+    for name, a, b in zip(["update", "mq", "ms", "vq", "vs"], got, want):
+        if b.dtype == torch.uint8:
+            assert_codes_close(a, b, f"{tag} {name}")
+        else:
+            assert_close(a, b.cpu().numpy(), f"{tag} {name}")
+
+
+@pytest.mark.cuda
+def test_cuda_adam8_never_runs_the_plain_version(monkeypatch):
+    dev = _cuda_device()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(tk, "galore_fused_adam8_step_plain", refuse)
+    monkeypatch.setattr(tk, "galore_fused_adam8_step_right_plain", refuse)
+    for shape, side in ADAM8_CASES[::3]:
+        P, G, moments = _adam8_on(dev, shape, side, True)
+        fn = tk.galore_fused_adam8_step_right if side == "right" else tk.galore_fused_adam8_step
+        fn(P, G, *moments, torch.tensor(1, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_adam8_wrapper_rejects_wrong_inputs():
+    dev = _cuda_device()
+    P, G, (mq, ms, vq, vs) = _adam8_on(dev, (72, 16, 130), "left", False)
+    count = torch.tensor(1, dtype=torch.int32, device=dev)
+    fn = tk.galore_fused_adam8_step
+    with pytest.raises(TypeError):  # f32 codes
+        fn(P, G, mq.float(), ms, vq, vs, count)
+    with pytest.raises(TypeError):  # an int64 count
+        fn(P, G, mq, ms, vq, vs, count.long())
+    with pytest.raises(ValueError):  # scales blocked along the wrong axis
+        fn(P, G, mq, ms.t().contiguous(), vq, vs, count)
+    with pytest.raises(ValueError):  # a CPU tensor among CUDA ones
+        fn(P, G, mq, ms, vq.cpu(), vs, count)
+    with pytest.raises(ValueError):  # an int4 P of another rank than the moments
+        fn(codec.quant4_axis_state(P[:, :8]), G, mq, ms, vq, vs, count)

@@ -58,6 +58,9 @@ def test_port_imports_no_jax():
     JAX package."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    port = ROOT / "src" / "repro_torch"
+    for module in ("quant/codec.py", "quant/policy.py", "launch/cli.py", "kernels/galore_fused.py"):
+        assert port / module in files, module
     bad = [
         f"{f.relative_to(ROOT)}: {mod}"
         for f in files for mod in _imported_modules(f)
