@@ -13,11 +13,16 @@ Phases, each timed, none of them optional; any failed check raises:
      int8-moment kernel, on G̃ and the scales, with codes at most 1 apart,
      P both f32 and packed int4, stochastic rounding on one main shape per
      side, and the int4 launch giving the codes of the host-dequantized-P
-     launch exactly; time kernel and plain version with CUDA events;
-  4. the main path, fused: 8 GaLore-Adam steps (rank 128, T 4) of llama_7b at
-     full width, 2 layers, bf16, batch 8 × 256 tokens, through train_loop;
-     every loss finite, the last below the first, and each fp32 kernel
-     launched once per stacked leaf per step (6 left leaves, 1 right leaf);
+     launch exactly; the weight-apply forms of both kernels likewise, W bf16
+     and f32 (f32 W' - W within 1e-5·max + 2 ulp of W', bf16 W' within one
+     bf16 ulp + the same 1e-5·max), W' bitwise the plain version's
+     wherever the emit form's G̃ is, and W updated in place; time kernel and
+     plain version with CUDA events;
+  4. the main path, fused: 8 GaLore-AdamW steps (rank 128, T 4, wd 0.01) of
+     llama_7b at full width, 2 layers, bf16, batch 8 × 256 tokens, through
+     train_loop; every loss finite, the last below the first, and each fp32
+     kernel launched once per stacked leaf per step (6 left leaves, 1 right
+     leaf);
   5. the same run on the composable plain-torch path: no kernel launches,
      per-step losses within 5e-2 of phase 4;
   6. 8-bit GaLore, fused: phase 4's run with int8 moments and packed int4
@@ -25,7 +30,10 @@ Phases, each timed, none of them optional; any failed check raises:
      launched (48 left, 8 right), losses within 5e-2 of phase 4, and the
      m/v/proj state bytes measured from the tensors within 0.01 % of the
      analytic galore_state_bytes;
-  7. record: a JSON line of the kernels, step times, SVD refresh time, peak
+  7. phases 4 and 6 again with the weight update folded into the kernels
+     (galore_fused_apply): only the apply kernels launched (48 left, 8
+     right), losses within 5e-2 of the emit phase, state bytes as in 6;
+  8. record: a JSON line of the kernels, step times, SVD refresh time, peak
      memory, state bytes, the card's name and power limit, and last the
      result line.
 """
@@ -71,10 +79,24 @@ KERNELS = {
     "adam8_right": dict(name="galore_fused_adam8_right", wrapper=gf.galore_fused_adam8_step_right,
                         plain=gf.galore_fused_adam8_step_right_plain, source=SOURCE8,
                         replaces="src/repro/kernels/galore_fused.py:702"),
+    "apply_left": dict(name="galore_fused_adam_apply_left",
+                       wrapper=gf.galore_fused_adam_apply_step,
+                       plain=gf.galore_fused_adam_apply_step_plain, source=SOURCE,
+                       replaces="src/repro/kernels/galore_fused.py:714"),
+    "apply_right": dict(name="galore_fused_adam_apply_right",
+                        wrapper=gf.galore_fused_adam_apply_step_right,
+                        plain=gf.galore_fused_adam_apply_step_right_plain, source=SOURCE,
+                        replaces="src/repro/kernels/galore_fused.py:727"),
+    "adam8_apply_left": dict(name="galore_fused_adam8_apply_left",
+                             wrapper=gf.galore_fused_adam8_apply_step,
+                             plain=gf.galore_fused_adam8_apply_step_plain, source=SOURCE8,
+                             replaces="src/repro/kernels/galore_fused.py:737"),
+    "adam8_apply_right": dict(name="galore_fused_adam8_apply_right",
+                              wrapper=gf.galore_fused_adam8_apply_step_right,
+                              plain=gf.galore_fused_adam8_apply_step_right_plain, source=SOURCE8,
+                              replaces="src/repro/kernels/galore_fused.py:751"),
 }
-COUNTERS = {"left": gf.galore_fused_adam_step, "right": gf.galore_fused_adam_step_right,
-            "adam8_left": gf.galore_fused_adam8_step,
-            "adam8_right": gf.galore_fused_adam8_step_right}
+COUNTERS = {key: k["wrapper"] for key, k in KERNELS.items()}
 # (side, L, m, r, n, on the main path): the slice's leaves at llama_7b width
 # with 2 layers, the paper's 7B rank, and a ragged shape
 SHAPES = [
@@ -87,6 +109,7 @@ SHAPES = [
     ("right", 1, 1000, 96, 520, False),
 ]
 ALPHA, COUNT = 0.25, 7
+ETA, WD = -1e-3, 0.01  # the apply checks' -lr and weight decay
 # the int8-moment kernel runs at the same shapes; stochastic rounding at one
 # main shape per side
 STOCHASTIC8 = {("left", 2, 4096, 128, 11008), ("right", 2, 11008, 128, 4096)}
@@ -136,14 +159,23 @@ def kernel_inputs(side, L, m, r, n, g_dtype, seed):
     return P, G, M, V, torch.tensor(COUNT, dtype=torch.int32, device="cuda")
 
 
-def bound(side, L, m, r, n, g_itemsize):
+def out_cost(L, m, n, w_itemsize):
+    """Bytes and operations of a launch's output: G̃ written in f32 (emit),
+    or W read and written in its dtype and 4 operations an element (apply)."""
+    if w_itemsize is None:
+        return 4 * L * m * n, 0
+    return 2 * w_itemsize * L * m * n, 4 * L * m * n
+
+
+def bound(side, L, m, r, n, g_itemsize, w_itemsize=None):
     """Least time (s) for one launch, and what bounds it: each input read once
     and each output written once, and the f32 operations of the two
-    contractions plus the elementwise Adam."""
+    contractions plus the elementwise Adam (and the weight apply)."""
     kept = m if side == "left" else n
     mv = L * r * (n if side == "left" else m)
-    nbytes = 4 * L * kept * r + g_itemsize * L * m * n + 4 * 4 * mv + 4 * L * m * n
-    flops = 4 * L * m * r * n + 12 * mv
+    out_bytes, out_flops = out_cost(L, m, n, w_itemsize)
+    nbytes = 4 * L * kept * r + g_itemsize * L * m * n + 4 * 4 * mv + out_bytes
+    flops = 4 * L * m * r * n + 12 * mv + out_flops
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -201,26 +233,28 @@ def adam8_inputs(side, L, m, r, n, seed):
     return P, [x.contiguous() for x in mom], rnd(L, m, n)
 
 
-def bound8(side, L, m, r, n, g_itemsize, p_int4):
+def bound8(side, L, m, r, n, g_itemsize, p_int4, w_itemsize=None):
     """Least time (s) for one int8-moment launch, and what bounds it: G read
-    and G̃ written once, the codes and scales of M and V read and written
-    once, P read once (packed nibbles + scales, or f32); the f32 operations
-    of the two contractions plus ~20 a moment element (dequant, Adam,
-    absmax, requant)."""
+    and G̃ written once (or W read and written), the codes and scales of M
+    and V read and written once, P read once (packed nibbles + scales, or
+    f32); the f32 operations of the two contractions plus ~20 a moment
+    element (dequant, Adam, absmax, requant), and the weight apply."""
     kept, swept = (m, n) if side == "left" else (n, m)
     nb, nbp = -(-swept // codec.QBLOCK), -(-kept // codec.QBLOCK)
     p_bytes = L * nbp * r * (codec.QBLOCK // 2 + 4) if p_int4 else 4 * L * kept * r
-    nbytes = (g_itemsize + 4) * L * m * n + 2 * 2 * L * r * swept + 2 * 2 * 4 * L * r * nb + p_bytes
-    flops = 4 * L * m * r * n + 20 * L * r * swept
+    out_bytes, out_flops = out_cost(L, m, n, w_itemsize)
+    nbytes = (g_itemsize * L * m * n + out_bytes + 2 * 2 * L * r * swept
+              + 2 * 2 * 4 * L * r * nb + p_bytes)
+    flops = 4 * L * m * r * n + 20 * L * r * swept + out_flops
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def compare8(got, want, tag):
+def compare8(got, want, tag, names=("update", "mq", "ms", "vq", "vs")):
     """G̃ and scales within 1e-5·max|want| + 1e-5·|want|, codes at most 1
     apart; returns (max |err| of G̃ and scales, share of codes that differ)."""
     errs, differ, total = [], 0, 0
-    for name, a, b in zip(("update", "mq", "ms", "vq", "vs"), got, want):
+    for name, a, b in zip(names, got, want):
         if b.dtype == torch.uint8:
             d = (a.int() - b.int()).abs()
             if int(d.max()) > 1:
@@ -289,14 +323,167 @@ def check_adam8():
     return rows
 
 
-def train_phase(fused, quant=None):
-    """8 steps of the main path; returns losses, step times, the launches of
-    every kernel wrapper, peak memory, and the m/v/proj state bytes measured
-    from the tensors beside the analytic galore_state_bytes."""
+def weight_check(got, want, w0, tag):
+    """W' against the plain version's; returns (max |got - want|, a note).
+    f32 W: W' - W (in f64) within 1e-5·max|want - W| + 2 f32 ulps of W'.
+    bf16 W: one bf16 ulp of W' (one rounding each), plus the same 1e-5·
+    max|want - W| of the applied change: where W' is near 0 (W ≈ -η G̃) the
+    f32 sum cancels, and a G̃ that differs within its own tolerance moves the
+    tiny W' by several of its tiny ulps. Elements beyond one ulp are counted
+    and printed, with the largest |W'| among them."""
+    g, w = got.double(), want.double()
+    change = w - w0.double()
+    slack = 1e-5 * change.abs().max()
+    if w0.dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=2.0 ** -126))) - 7)
+        over = (g - w).abs() > ulp
+        bad = (g - w).abs() > ulp + slack
+        note = f"; {int(over.sum())} of {over.numel()} more than one bf16 ulp apart"
+        if bool(over.any()):
+            note += f", all at |W'| ≤ {float(w[over].abs().max()):.2e}"
+        limit = "one bf16 ulp + 1e-5·max|W' - W|"
+    else:
+        wa = want.abs()
+        spacing = (torch.nextafter(wa, torch.full_like(wa, math.inf)) - wa).double()
+        bad = ((g - w0.double()) - change).abs() > slack + 2 * spacing
+        note, limit = "", "1e-5·max|W' - W| + 2 ulp"
+    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+        i = int(((g - w).abs() * bad).flatten().argmax())
+        w_i, want_i, got_i = (float(x.flatten()[i]) for x in (w0, w, g))
+        raise AssertionError(f"{tag} W: {int(bad.sum())} elements over {limit} (max|err| "
+                             f"{float((g - w).abs().max()):.3e}; worst at W {w_i:.6e}, want "
+                             f"{want_i:.6e}, got {got_i:.6e})")
+    return float((g - w).abs().max()), note
+
+
+def check_apply():
+    """The weight-apply forms of both kernels against their plain versions at
+    every SHAPES entry, G bf16, W bf16 and f32 (and P f32 and int4 for the
+    int8 kernel). Beside the tolerances, W' must equal the plain version's
+    bit for bit wherever the emit form's G̃ equals the plain G̃ (the two forms
+    share every operation up to the store; the int8 kernel with more than one
+    rank chunk contracts G̃ in another order, so not there), and the wrapper
+    must return W itself, updated in place."""
+    rows = []
+    count = torch.tensor(COUNT, dtype=torch.int32, device="cuda")
+    eta = torch.tensor(ETA, device="cuda")
+    hp = dict(alpha=ALPHA, eta=eta, wd=WD)
+    for i, (side, L, m, r, n, main) in enumerate(SHAPES):
+        W32 = 0.02 * torch.randn(L, m, n, generator=torch.Generator(device="cuda").manual_seed(
+            200 + i), device="cuda")
+        # fp32 moments: B1/B2 with the apply epilogue
+        k, emit = KERNELS["apply_" + side], KERNELS[side]
+        P, G, M, V, _ = kernel_inputs(side, L, m, r, n, torch.bfloat16, seed=i)
+        gt_k = emit["wrapper"](P, G, M.clone(), V.clone(), count, alpha=ALPHA)[0]
+        gt_p = emit["plain"](P, G, M, V, count, alpha=ALPHA)[0]
+        for wdt in (torch.bfloat16, torch.float32):
+            W = W32.to(wdt)
+            tag = (f"{k['name']} L={L} (m,r,n)=({m},{r},{n}) G bfloat16 "
+                   f"W {str(wdt).removeprefix('torch.')}")
+            want = k["plain"](P, G, W, M, V, count, **hp)
+            w0, mine = W.clone(), (M.clone(), V.clone())
+            got = k["wrapper"](P, G, W, *mine, count, **hp)
+            torch.cuda.synchronize()
+            rows.append(apply_row(k, side, L, m, r, n, main, wdt, "f32", False, P, G, W, w0,
+                                  mine, got, want, gt_k, gt_p, tag,
+                                  lambda: k["wrapper"](P, G, W, *mine, count, **hp),
+                                  lambda: k["plain"](P, G, w0, M, V, count, **hp),
+                                  bound(side, L, m, r, n, 2, W.element_size())))
+            del W, want, got, w0, mine
+        del P, G, M, V, gt_k, gt_p
+        # int8 moments: the adam8 kernel with the apply epilogue
+        k, emit = KERNELS["adam8_apply_" + side], KERNELS["adam8_" + side]
+        P, mom, G32 = adam8_inputs(side, L, m, r, n, seed=100 + i)
+        G = G32.to(torch.bfloat16)
+        P4 = codec.quant4_axis_state(P)
+        P4_host = codec.dequantize4_axis(P4["q"], P4["scale"], P.shape[-2])
+        variants = [(wdt, p4, False) for wdt in (torch.bfloat16, torch.float32)
+                    for p4 in (False, True)]
+        if (side, L, m, r, n) in STOCHASTIC8:
+            variants.append((torch.bfloat16, True, True))
+        for wdt, p4, sr in variants:
+            W, Pa = W32.to(wdt), (P4 if p4 else P)
+            tag = (f"{k['name']} L={L} (m,r,n)=({m},{r},{n}) G bfloat16 "
+                   f"W {str(wdt).removeprefix('torch.')} P {'int4' if p4 else 'f32'}"
+                   f"{' stochastic' if sr else ''}")
+            gt_k = (emit["wrapper"](Pa, G, *[x.clone() for x in mom], count, alpha=ALPHA,
+                                    stochastic=sr)[0] if r <= codec.QBLOCK else None)
+            gt_p = emit["plain"](Pa, G, *mom, count, alpha=ALPHA, stochastic=sr)[0]
+            want = k["plain"](Pa, G, W, *mom, count, stochastic=sr, **hp)
+            w0, mine = W.clone(), [x.clone() for x in mom]
+            got = k["wrapper"](Pa, G, W, *mine, count, stochastic=sr, **hp)
+            torch.cuda.synchronize()
+            if p4:  # in-kernel int4 dequant == launching with the host-dequantized P
+                W_h = w0.clone()
+                ref_ = k["wrapper"](P4_host, G, W_h, *[x.clone() for x in mom], count,
+                                    stochastic=sr, **hp)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got[1::2], ref_[1::2])):
+                    raise AssertionError(f"{tag}: codes differ from the host-dequantized-P launch")
+                if not torch.equal(W, W_h):
+                    raise AssertionError(f"{tag}: W' differs from the host-dequantized-P launch")
+                del W_h, ref_
+            rows.append(apply_row(k, side, L, m, r, n, main, wdt, "int4" if p4 else "f32", sr,
+                                  Pa, G, W, w0, mine, got, want, gt_k, gt_p, tag,
+                                  lambda: k["wrapper"](Pa, G, W, *mine, count, stochastic=sr,
+                                                       **hp),
+                                  lambda: k["plain"](Pa, G, w0, *mom, count, stochastic=sr,
+                                                     **hp),
+                                  bound8(side, L, m, r, n, 2, p4, W.element_size())))
+            del W, want, got, w0, mine, gt_k, gt_p
+        del P, P4, P4_host, mom, G32, G, W32
+    torch.cuda.empty_cache()
+    return rows
+
+
+def apply_row(k, side, L, m, r, n, main, wdt, p, sr, P, G, W, w0, mine, got, want, gt_k, gt_p,
+              tag, run, run_plain, bound_):
+    """Check one apply launch (its outputs are `got`, W updated in place from
+    `w0`), time it and its plain version, and return its row."""
+    if got[0] is not W or got[0].data_ptr() != W.data_ptr():
+        raise AssertionError(f"{tag}: the wrapper did not return W itself")
+    w_err, w_note = weight_check(W, want[0], w0, tag)
+    if len(want) == 3:
+        errs = []
+        for name, a, b in zip(("m", "v"), got[1:], want[1:]):
+            tol = 1e-5 * b.abs().max() + 1e-5 * b.abs()
+            if bool(((a - b).abs() > tol).any()):
+                raise AssertionError(f"{tag} {name}: max|err| {float((a - b).abs().max()):.3e} "
+                                     f"over tolerance")
+            errs.append(float((a - b).abs().max()))
+        mom_err, share = max(errs), 0.0
+    else:
+        mom_err, share = compare8(got[1:], want[1:], tag, names=("mq", "ms", "vq", "vs"))
+    same = ""
+    if gt_k is not None:  # W' bitwise wherever the emit form's G̃ is
+        eq = gt_k == gt_p
+        if not torch.equal(W[eq], want[0][eq]):
+            raise AssertionError(f"{tag}: W' differs from the plain version's where the emit "
+                                 f"kernel's G̃ equals the plain G̃")
+        same = f"; G̃ bitwise at {float(eq.float().mean()):.1%}, W' bitwise there"
+    ms = cuda_ms(run, 3, 10)
+    plain_ms = cuda_ms(run_plain, 2, 5)
+    b_s, b_by = bound_
+    log(f"[kernels] {tag}: max|err| W' {w_err:.2e}{w_note}; moments {mom_err:.2e}"
+        f"{f', codes differing {share:.2e}' if len(want) == 5 else ''}{same}; in place ok  "
+        f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {b_s * 1e3:.3f} ms ({b_by})")
+    key = ("adam8_apply_" if len(want) == 5 else "apply_") + side
+    return dict(kernel=key, side=side, L=L, m=m, r=r, n=n, g_dtype="bfloat16",
+                w_dtype=str(wdt).removeprefix("torch."), p=p, stochastic=sr, main_path=main,
+                max_abs_err=w_err, moment_err=mom_err, codes_differ=share, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_s * 1e3, bound_by=b_by)
+
+
+def train_phase(fused, quant=None, apply=False):
+    """8 steps of the main path (AdamW, wd 0.01; with `apply` the weight
+    update folded into the kernels); returns losses, step times, the
+    launches of every kernel wrapper, peak memory, and the m/v/proj state
+    bytes measured from the tensors beside the analytic galore_state_bytes."""
     cfg = dataclasses.replace(get_config("llama_7b"), n_layers=2)
     gcfg = GaLoreConfig(rank=128, update_freq=4, scale=0.25, quant=quant or QuantPolicy())
-    tc = TrainConfig(optimizer="adamw", galore=gcfg, galore_fused_adam=fused, lr=1e-3,
-                     total_steps=8, warmup_steps=1)
+    tc = TrainConfig(optimizer="adamw", galore=gcfg, galore_fused_adam=fused,
+                     galore_fused_apply=apply, lr=1e-3, weight_decay=WD, total_steps=8,
+                     warmup_steps=1)
     run = RunConfig(arch="llama_7b", smoke=False, steps=8, batch_per_host=8, seq_len=256,
                     log_every=1, device="cuda")
     losses, times = [], []
@@ -356,6 +543,7 @@ def main():
     t = time.perf_counter()
     rows = check_kernels()
     rows += check_adam8()
+    rows += check_apply()
     log(f"[kernels] {len(rows)} checks passed ({time.perf_counter() - t:.1f} s)")
 
     none = {name: 0 for name in COUNTERS}
@@ -403,27 +591,57 @@ def main():
     log(f"[state] 8-bit / fp32 state bytes {q8['state_bytes'] / fused['state_bytes']:.4f} "
         f"({1 - q8['state_bytes'] / fused['state_bytes']:.1%} smaller)")
 
+    phases = {"fused": fused, "composable": comp, "8bit": q8}
+    for tag, quant, emit_tag, want in (
+            ("fused-apply", None, "fused", dict(none, apply_left=48, apply_right=8)),
+            ("8bit-apply", QuantPolicy(moments="int8", projectors="int4"), "8bit",
+             dict(none, adam8_apply_left=48, adam8_apply_right=8))):
+        t = time.perf_counter()
+        ph = phases[tag] = train_phase(fused=True, quant=quant, apply=True)
+        log(f"[{tag}] losses {[round(x, 4) for x in ph['losses']]} launches {ph['launches']} "
+            f"({time.perf_counter() - t:.1f} s)")
+        if not ph["losses"][-1] < ph["losses"][0]:
+            raise AssertionError(f"{tag} loss did not decrease: {ph['losses']}")
+        if ph["launches"] != want:
+            raise AssertionError(f"{tag} launches {ph['launches']}, want only the apply kernels, "
+                                 f"left 48 (6 leaves × 8 steps) and right 8")
+        gap = max(abs(a - b) for a, b in zip(ph["losses"], phases[emit_tag]["losses"]))
+        if gap > 5e-2:
+            raise AssertionError(f"{tag} vs {emit_tag} losses differ by {gap:.3e} > 5e-2")
+        log(f"[parity] {tag} vs {emit_tag} max |Δloss| {gap:.3e} (limit 5e-2)")
+        rel = abs(ph["state_bytes"] - ph["analytic_bytes"]) / ph["analytic_bytes"]
+        log(f"[state] {tag}: m/v/proj bytes measured {ph['state_bytes']}, analytic "
+            f"{ph['analytic_bytes']:.0f} (Δ {rel:.2e})")
+        if rel > 1e-4:
+            raise AssertionError(f"{tag} state bytes {ph['state_bytes']} are not within 0.01 % "
+                                 f"of galore_state_bytes {ph['analytic_bytes']:.0f}")
+
     t = time.perf_counter()
     svd = svd_ms()
     shapes = ", ".join(f"{k} {v:.1f} ms" for k, v in svd.items())
     log(f"[svd] torch.linalg.svd f32, rank-128 projector: {shapes} "
         f"({time.perf_counter() - t:.1f} s)")
-    for tag, ph in (("fused", fused), ("composable", comp), ("8bit", q8)):
+    for tag, ph in phases.items():
         times = ph["times"]
         steady = statistics.median(times[i] for i in range(len(times)) if i % 4)
         log(f"[steps] {tag}: step ms {[round(x * 1e3, 1) for x in times]}; median non-refresh "
             f"{steady * 1e3:.1f} ms; refresh steps 0/4 {times[0] * 1e3:.1f}/"
             f"{times[4] * 1e3:.1f} ms; peak memory {ph['peak'] / 2**30:.2f} GiB")
 
-    launches = dict(fused["launches"], adam8_left=q8["launches"]["adam8_left"],
-                    adam8_right=q8["launches"]["adam8_right"])
+    # each kernel's launches in the phase of the main path that runs it
+    runs_in = {"left": "fused", "right": "fused", "adam8_left": "8bit", "adam8_right": "8bit",
+               "apply_left": "fused-apply", "apply_right": "fused-apply",
+               "adam8_apply_left": "8bit-apply", "adam8_apply_right": "8bit-apply"}
+    launches = {key: phases[tag]["launches"][key] for key, tag in runs_in.items()}
     kernels = []
     for key, k in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == key]
-        # the row of record: the largest main-path shape with bf16 G, as the
-        # main path runs it (int4 P, nearest rounding, for the int8 kernel)
+        # the row of record: the largest main-path shape with bf16 G (and bf16
+        # W), as the main path runs it (int4 P, nearest rounding, for the int8
+        # kernel)
         top = max((r for r in mine if r["main_path"] and r["g_dtype"] == "bfloat16"
-                   and r.get("p", "int4") == "int4" and not r.get("stochastic")),
+                   and r.get("w_dtype", "bfloat16") == "bfloat16" and not r.get("stochastic")
+                   and (not key.startswith("adam8") or r["p"] == "int4")),
                   key=lambda r: r["m"] * r["n"])
         kernels.append(dict(
             name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],
@@ -432,8 +650,7 @@ def main():
             ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"], library_ms=None,
             shape=dict(L=top["L"], m=top["m"], r=top["r"], n=top["n"], g_dtype="bfloat16",
-                       p=top.get("p", "f32")),
-            shapes=mine))
+                       w_dtype=top.get("w_dtype"), p=top.get("p", "f32"))))
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -139,6 +139,9 @@ class TrainConfig:
     seed: int = 0
     microbatch: int = 0  # >0 -> gradient accumulation
     galore_fused_adam: bool = False  # one fused kernel per GaLore leaf
+    galore_fused_apply: bool = False  # fold W ← W + η(G̃ + wd·W) into that kernel
+    # (requires galore_fused_adam; no full-size f32 update is written — the
+    # emit path + chain remains the numerics oracle)
     z_loss: float = 0.0
 
 

@@ -1,7 +1,7 @@
 """GaLore around Adam: gradient low-rank projection as a gradient transform
 (port of repro/core/galore.py: ``galore`` with the in-step every-T refresh,
-``_managed_adam_update`` with its fp32 and int8-moment branches, and the
-analytic ``galore_state_bytes``).
+``_managed_adam_update`` with its fp32 and int8-moment branches and its
+weight apply, ``make_fused_apply``, and the analytic ``galore_state_bytes``).
 
     R_t  = P_tᵀ G_t  (left, m ≤ n)  or  G_t P_t  (right)
     N_t  = Adam(R_t)                 compact moments live in r × n (or m × r)
@@ -12,7 +12,9 @@ P_t is refreshed from an SVD of the current gradient at galore steps
 Adam math at full shape. With ``fused=True`` each GaLore leaf runs one fused
 kernel launch (kernels/ops.py); with ``fused=False`` it runs the composable
 project → Adam → back-project sequence in plain torch (kernels/ref.py), the
-numerics oracle.
+numerics oracle. ``make_fused_apply`` is the W-in-place form of the fused
+path: each GaLore leaf's kernel also applies W ← W + η(G̃ + wd·W), so no
+full-size update tree is made.
 
 Quantized state (``GaLoreConfig.quant``, resolved per leaf into
 ``SubspacePlan.moments`` / ``.proj_store``): an int8 leaf stores each moment
@@ -124,13 +126,20 @@ def _managed_adam_init(params, plans):
 
 
 def _managed_adam_update(grads, proj_eff, inner_state, plans, cfg: GaLoreConfig,
-                         b1: float, b2: float, eps: float, *, fused: bool):
+                         b1: float, b2: float, eps: float, *, fused: bool, params=None,
+                         eta=0.0, wd: float = 0.0):
     """One Adam step over every leaf; returns (updates, {m, v, count}).
 
     GaLore leaves run the side-matched fused kernel when `fused` (moments —
     or their codes and scales — updated in place), else the composable
     composition; int8 leaves run dequant → Adam → requant in either mode.
-    Other leaves get the same bias-corrected Adam at full shape."""
+    Other leaves get the same bias-corrected Adam at full shape.
+
+    With `params` given, the weight update is folded in: every leaf of
+    `params` becomes W + η·(update + wd·W), in place (in the apply kernel for
+    fused GaLore leaves), and the params tree is returned in place of the
+    updates."""
+    apply_w = params is not None
     count = inner_state["count"] + 1
     stochastic = cfg.quant.stochastic_round
 
@@ -146,40 +155,89 @@ def _managed_adam_update(grads, proj_eff, inner_state, plans, cfg: GaLoreConfig,
                 codec.quant_axis_state(v_t, axis=ax, signed=False, stochastic=stochastic,
                                        count=count, salt=codec.SR_SALT_V))
 
-    def leaf(g, P, m_st, v_st, plan):
+    def finish(out, p):
+        """Fold η and wd into the weight, in place, when applying; else emit
+        the update."""
+        if not apply_w:
+            return out
+        return p.copy_(ref.apply_weight(p, out.float(), eta, wd))
+
+    def leaf(g, P, m_st, v_st, plan, p):
         qm = plan.moments == "int8"
         if not plan.galore:
             m, v = dequant_mv(m_st, v_st, plan) if qm else (m_st, v_st)
             out, m_t, v_t = ref.lowrank_adam_update(g, m, v, count, b1, b2, eps)
             if qm:
                 m_t, v_t = requant_mv(m_t, v_t, plan)
-            return out.to(g.dtype), m_t, v_t
+            return finish(out.to(g.dtype), p), m_t, v_t
         left = plan.side == "left"
         hp = dict(b1=b1, b2=b2, eps=eps, alpha=cfg.scale)
+        if fused and apply_w:
+            hp.update(eta=eta, wd=wd)
         if qm:
-            if fused:
+            codes = (m_st["q"], m_st["scale"], v_st["q"], v_st["scale"])
+            if fused and apply_w:
+                fn = (ops.galore_fused_adam8_apply_step if left
+                      else ops.galore_fused_adam8_apply_step_right)
+                upd, *codes = fn(P, g.contiguous(), p, *codes, count, stochastic=stochastic, **hp)
+            elif fused:
                 fn = ops.galore_fused_adam8_step if left else ops.galore_fused_adam8_step_right
-                g = g.contiguous()
+                upd, *codes = fn(P, g.contiguous(), *codes, count, stochastic=stochastic, **hp)
             else:
                 fn = ref.galore_fused_adam8_step if left else ref.galore_fused_adam8_step_right
-            upd, mq, ms, vq, vs = fn(P, g, m_st["q"], m_st["scale"], v_st["q"], v_st["scale"],
-                                     count, stochastic=stochastic, **hp)
+                upd, *codes = fn(P, g, *codes, count, stochastic=stochastic, **hp)
+                upd = finish(upd, p)
+            mq, ms, vq, vs = codes
             return upd, {"q": mq, "scale": ms}, {"q": vq, "scale": vs}
         if codec.is_qstate(P):  # an fp32-moment leaf's step takes an f32 P
             P = read_projector(P, proj_shape(g, plan))
+        if fused and apply_w:
+            fn = (ops.galore_fused_adam_apply_step if left
+                  else ops.galore_fused_adam_apply_step_right)
+            return fn(P, g.contiguous(), p, m_st, v_st, count, **hp)
         if fused:
             fn = ops.galore_fused_adam_step if left else ops.galore_fused_adam_step_right
             return fn(P, g.contiguous(), m_st, v_st, count, **hp)
         fn = ref.galore_fused_adam_step if left else ref.galore_fused_adam_step_right
-        return fn(P, g, m_st, v_st, count, **hp)
+        upd, m_t, v_t = fn(P, g, m_st, v_st, count, **hp)
+        return finish(upd, p), m_t, v_t
 
+    flat_p = flatten_up_to(grads, params) if apply_w else [None] * len(tree_leaves(grads))
     flat = [leaf(*xs) for xs in zip(tree_leaves(grads), flatten_up_to(grads, proj_eff),
                                     flatten_up_to(grads, inner_state["m"]),
-                                    flatten_up_to(grads, inner_state["v"]), tree_leaves(plans))]
+                                    flatten_up_to(grads, inner_state["v"]), tree_leaves(plans),
+                                    flat_p)]
     updates = tree_unflatten_like(grads, [t[0] for t in flat])
     new_m = tree_unflatten_like(grads, [t[1] for t in flat])
     new_v = tree_unflatten_like(grads, [t[2] for t in flat])
     return updates, {"m": new_m, "v": new_v, "count": count}
+
+
+def make_fused_apply(cfg: GaLoreConfig, *, b1: float, b2: float, eps: float,
+                     weight_decay: float = 0.0, exclude=DEFAULT_EXCLUDE):
+    """The W-in-place fast path: returns
+        apply_step(params, grads, galore_state, eta) -> (params, galore_state')
+    where every GaLore leaf runs one kernel that folds the weight update into
+    the fused step, W ← W + η·(α P N̂ + wd·W), W updated in place, so the
+    full-size f32 update of the emit path is never made (η is -lr of this
+    step, a tensor on the device; the weight decay follows the AdamW chain's
+    order clip → galore → +wd·W → ·(-lr)). Other leaves get the same math at
+    full shape. The state layout and refresh are exactly `galore(...)`'s, so
+    states swap freely between the two paths, and the emit path + chain
+    stays the numerics oracle."""
+    mgr = SubspaceManager(cfg, exclude)
+
+    def apply_step(params, grads, galore_state, eta):
+        plans = mgr.plans(grads)
+        step = galore_state["step"]
+        proj = mgr.refresh_tree(grads, galore_state["proj"], plans, step)
+        proj_eff = _read_proj_tree(grads, proj, plans, keep_packed=True)
+        params, inner = _managed_adam_update(grads, proj_eff, galore_state["inner"], plans, cfg,
+                                             b1, b2, eps, fused=True, params=params, eta=eta,
+                                             wd=weight_decay)
+        return params, {"step": step + 1, "proj": proj, "inner": inner}
+
+    return apply_step
 
 
 # bytes per element of persistent storage, scale overhead included

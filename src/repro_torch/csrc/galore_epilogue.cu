@@ -1,12 +1,16 @@
 // Fused GaLore-Adam leaf step with int8 moments for Hopper (sm_90a): one
-// kernel, a left and a right form, P either f32 or packed int4.
+// kernel, a left and a right form, P either f32 or packed int4, emitting G̃
+// or folding it into the weight.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/galore_fused.py
 // `_fused_epilogue_call` (body `_epilogue_kernel`) in its int8-moment variants,
-// reached through `galore_fused_adam8_step` / `galore_fused_adam8_step_right`,
-// with `quant_p` (a packed int4 P) or an f32 P:
+// reached through `galore_fused_adam8_step` / `galore_fused_adam8_step_right`
+// and, with `apply_w`, `galore_fused_adam8_apply_step[_right]`, with
+// `quant_p` (a packed int4 P) or an f32 P:
 //   galore_fused_adam8_left   R = Pᵀ G   (P (m, r), moments (r, n), blocks along n)
 //   galore_fused_adam8_right  R = G P    (P (n, r), moments (m, r), blocks along m)
+//   galore_fused_adam8_apply_left / _right: the same, then W' = W + eta (G̃ + wd W)
+//     in place of writing G̃ (W f32 or bf16, eta on the device)
 // then, per element of R:
 //   M = book_s[Mq] * Ms,  V = book_u[Vq] * Vs          (dequant, f32)
 //   M' = b1 M + (1-b1) R,  V' = b2 V + (1-b2) R²        (0 past the long dim)
@@ -43,6 +47,16 @@
 // seven times; no shape is refused for size. (The other design, N̂ in a
 // scratch tensor and a second pass, would move r·n more f32 through memory
 // at every r.)
+// The apply form cannot accumulate into W: W' must be formed once, from the
+// whole of G̃, with the wd W term and the rounding to W's dtype applied once.
+// With one rank chunk (r <= 128, the main path) step 3 applies W directly,
+// with explicitly rounded operations in the plain version's order, so W' is
+// bitwise the plain version's wherever G̃ is. With more chunks each chunk's
+// N̂_c goes to a compact f32 scratch (L, r, n) / (L, m, r) that the wrapper
+// allocates, and a last pass over the block's swept positions contracts the
+// full rank from it and applies W. W's dtype is a template parameter; each W
+// tile is asked of L2 when its contraction starts, and a row's W loads are
+// all issued before its stores.
 // The requant follows the codec (quant/codec.py), not the Pallas body: the
 // nearest code is searchsorted(mids, x), the number of midpoints strictly
 // below x, found by binary search over the 255 midpoints in shared memory;
@@ -95,7 +109,12 @@ struct Args {
   float* Vs;
   const int* count;    // the step number, on the device
   const float* books;  // kBooks floats: signed, unsigned and int4 codebooks
-  float* out;          // G̃ (L, m, n) f32
+  float* out;          // emit: G̃ (L, m, n) f32
+  void* W;             // apply: W (L, m, n) f32 or bf16, in place
+  int w_bf16;
+  const float* eta;    // apply: -lr of this step, on the device
+  float wd;            // apply: decoupled weight decay
+  float* nhat;         // apply with r > 128: N̂ scratch, the moments' shape
   int m, r, n;
   int stochastic;
   float b1, omb1, b2, omb2, eps, alpha;
@@ -115,6 +134,61 @@ struct Mat {
     return (row < rows && col < cols) ? load_g(p, (size_t)row * cols + col) : 0.f;
   }
 };
+
+// The N̂ scratch of one leaf, read back by the block that wrote it (through
+// L2, after a barrier); zero outside.
+struct Scratch {
+  const float* p;
+  int rows, cols;
+  __device__ __forceinline__ float at(int row, int col) const {
+    return (row < rows && col < cols) ? __ldcg(p + (size_t)row * cols + col) : 0.f;
+  }
+};
+
+__device__ __forceinline__ void store_w(float* W, size_t i, float v) { W[i] = v; }
+__device__ __forceinline__ void store_w(__nv_bfloat16* W, size_t i, float v) {
+  W[i] = __float2bfloat16_rn(v);
+}
+
+// Ask L2 for rows [r0, r0 + nr) x columns [c0, c0 + nc) of the row-major
+// (rows x cols) W at `base`, clipped to its edges, one 128-byte line per thread
+// and step. Issued when a tile's contraction starts, so that the tile's W is
+// in L2 by the time its stores read it.
+template <typename WT>
+__device__ __forceinline__ void prefetch_w(const WT* W, size_t base, int rows, int cols, int r0,
+                                           int nr, int c0, int nc, int tid, int nthreads) {
+  constexpr int esz = sizeof(WT), per_line = 128 / esz;
+  const int lines = (nc + per_line - 1) / per_line;
+  for (int e = tid; e < nr * lines; e += nthreads) {
+    const int row = r0 + e / lines, col = c0 + (e % lines) * per_line;
+    if (row < rows && col < cols)
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(W + base + (size_t)row * cols + col));
+  }
+}
+
+// W'[row][c0 + 16 j] = W + eta (alpha acc[j] + wd W) for one row of a thread's
+// 8 x 8 tile, each operation rounded, in the plain version's order; W is f32
+// or bf16 (WT), rounded to nearest once. The row's 8 loads are issued before
+// any store: a store to W would order every later load behind it.
+template <typename WT>
+__device__ __forceinline__ void apply_row(const Args& a, size_t o0, int row, int c0,
+                                          const float (&acc)[kTR], float eta) {
+  WT* const W = static_cast<WT*>(a.W);
+  float w[kTR];
+#pragma unroll
+  for (int j = 0; j < kTR; ++j) {
+    const int col = c0 + 16 * j;
+    w[j] = (row < a.m && col < a.n) ? load_g(W, o0 + (size_t)row * a.n + col) : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < kTR; ++j) {
+    const int col = c0 + 16 * j;
+    const float g = __fmul_rn(a.alpha, acc[j]);
+    if (row < a.m && col < a.n)
+      store_w(W, o0 + (size_t)row * a.n + col,
+              __fadd_rn(w[j], __fmul_rn(eta, __fadd_rn(g, __fmul_rn(a.wd, w[j])))));
+  }
+}
 
 // A packed int4 P of one leaf: row i < half sits in the low nibble of byte
 // row i, row i >= half in the high nibble of byte row i - half. Staged by
@@ -283,7 +357,7 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // kMinBlocks = 2 caps registers at 128 a thread so that two blocks share an
 // SM; the host picks it only for grids larger than one block per SM.
-template <bool kRight, bool kP4, typename GT, int kMinBlocks>
+template <bool kRight, bool kP4, typename GT, int kMinBlocks, bool kApply, typename WT>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) adam8_kernel(const Args a) {
   extern __shared__ float smem[];
   float* T = smem + kOffT;  // R_c, then N̂_c: left [rank][swept], right [swept][rank]
@@ -325,11 +399,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) adam8_kernel(const Args 
   const Mat<GT> Gm{static_cast<const GT*>(a.G) + l * m * n, m, n};
   const size_t mom0 = l * (kRight ? (size_t)m * r : (size_t)r * n);
   const size_t sc0 = l * (kRight ? (size_t)nb * r : (size_t)r * nb);
-  float* out = a.out + l * m * n;
+  const size_t o0 = l * m * n;  // this leaf's first element of G̃ or W
+  const WT* const Wp = static_cast<const WT*>(a.W);  // apply: W (prefetched)
   const int cnt = *a.count;
   const float t = (float)cnt;
   const Coef k{a.b1, a.omb1, a.b2, a.omb2, a.eps, 1.f - powf(a.b1, t), 1.f - powf(a.b2, t)};
   const bool sr = a.stochastic != 0;
+  const float eta = kApply ? *a.eta : 0.f;
+  const bool keep_nhat = kApply && r > kT;  // W waits for the whole rank
   __syncthreads();
 
   for (int rc0 = 0; rc0 < r; rc0 += kT) {
@@ -451,11 +528,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) adam8_kernel(const Args 
     }
     __syncthreads();
 
-    // 3. G̃ for the block's swept positions, accumulated over rank chunks
+    // 3. G̃ for the block's swept positions, accumulated over rank chunks;
+    // or W' from the one chunk; or N̂_c kept for the last pass
     const int kn = min(kT, r - rc0);
-    if (!kRight) {  // out[m0+i][s0+j] (+)= alpha sum_k P[m0+i][rc0+k] N̂[k][j]
+    if (keep_nhat) {
+      for (int e = tid; e < kT * kT; e += kThreads) {
+        const int i = e / kT, j = e % kT;
+        if (!kRight && rc0 + i < r && s0 + j < n)
+          a.nhat[mom0 + (size_t)(rc0 + i) * n + s0 + j] = T[i * kS + j];
+        if (kRight && s0 + i < m && rc0 + j < r)
+          a.nhat[mom0 + (size_t)(s0 + i) * r + rc0 + j] = T[i * kS + j];
+      }
+    } else if (!kRight) {  // out[m0+i][s0+j] (+)= alpha sum_k P[m0+i][rc0+k] N̂[k][j]
       for (int m0 = 0; m0 < m; m0 += kT) {
         zero_acc(acc);
+        if (kApply) prefetch_w(Wp, o0, m, n, m0, kT, s0, kT, tid, kThreads);
         for (int k0 = 0; k0 < kn; k0 += kBK) {
           if (kP4) stage_cols(As, Pi, m0, rc0 + k0, tid);
           else stage_cols(As, Pf, m0, rc0 + k0, tid);
@@ -463,13 +550,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) adam8_kernel(const Args 
           tile_fma(As, kS, 1, T + k0 * kS, kS, 1, acc, tx, ty);
           __syncthreads();
         }
+        if (kApply) {
+#pragma unroll
+          for (int i = 0; i < kTR; ++i) apply_row<WT>(a, o0, m0 + ty + 16 * i, s0 + tx, acc[i], eta);
+          continue;
+        }
 #pragma unroll
         for (int i = 0; i < kTR; ++i)
 #pragma unroll
           for (int j = 0; j < kTR; ++j) {
             const int row = m0 + ty + 16 * i, col = s0 + tx + 16 * j;
             if (row < m && col < n) {
-              float* o = out + (size_t)row * n + col;
+              float* o = a.out + o0 + (size_t)row * n + col;
               const float v = a.alpha * acc[i][j];
               *o = rc0 == 0 ? v : *o + v;
             }
@@ -478,6 +570,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) adam8_kernel(const Args 
     } else {  // out[s0+i][n0+j] (+)= alpha sum_k N̂[i][k] P[n0+j][rc0+k]
       for (int n0 = 0; n0 < n; n0 += kT) {
         zero_acc(acc);
+        if (kApply) prefetch_w(Wp, o0, m, n, s0, kT, n0, kT, tid, kThreads);
         for (int k0 = 0; k0 < kn; k0 += kBK) {
           if (kP4) stage_cols(Bs, Pi, n0, rc0 + k0, tid);
           else stage_cols(Bs, Pf, n0, rc0 + k0, tid);
@@ -485,13 +578,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) adam8_kernel(const Args 
           tile_fma(T + k0, 1, kS, Bs, kS, 1, acc, tx, ty);
           __syncthreads();
         }
+        if (kApply) {
+#pragma unroll
+          for (int i = 0; i < kTR; ++i) apply_row<WT>(a, o0, s0 + ty + 16 * i, n0 + tx, acc[i], eta);
+          continue;
+        }
 #pragma unroll
         for (int i = 0; i < kTR; ++i)
 #pragma unroll
           for (int j = 0; j < kTR; ++j) {
             const int row = s0 + ty + 16 * i, col = n0 + tx + 16 * j;
             if (row < m && col < n) {
-              float* o = out + (size_t)row * n + col;
+              float* o = a.out + o0 + (size_t)row * n + col;
               const float v = a.alpha * acc[i][j];
               *o = rc0 == 0 ? v : *o + v;
             }
@@ -499,6 +597,42 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) adam8_kernel(const Args 
       }
     }
     __syncthreads();  // T is rewritten by the next chunk
+  }
+  if (!keep_nhat) return;
+
+  // 4. (apply, r > 128) G̃ over the whole rank from the N̂ scratch, into W
+  const Scratch Nm{a.nhat + mom0, kRight ? m : r, kRight ? r : n};
+  float acc[kTR][kTR];
+  if (!kRight) {  // W[m0+i][s0+j] <- alpha sum_k P[m0+i][k] N̂[k][s0+j]
+    for (int m0 = 0; m0 < m; m0 += kT) {
+      zero_acc(acc);
+      prefetch_w(Wp, o0, m, n, m0, kT, s0, kT, tid, kThreads);
+      for (int k0 = 0; k0 < r; k0 += kBK) {
+        if (kP4) stage_cols(As, Pi, m0, k0, tid);
+        else stage_cols(As, Pf, m0, k0, tid);
+        stage_rows(Bs, Nm, k0, s0, tid);
+        __syncthreads();
+        tile_fma(As, kS, 1, Bs, kS, 1, acc, tx, ty);
+        __syncthreads();
+      }
+#pragma unroll
+      for (int i = 0; i < kTR; ++i) apply_row<WT>(a, o0, m0 + ty + 16 * i, s0 + tx, acc[i], eta);
+    }
+  } else {  // W[s0+i][n0+j] <- alpha sum_k N̂[s0+i][k] P[n0+j][k]
+    for (int n0 = 0; n0 < n; n0 += kT) {
+      zero_acc(acc);
+      prefetch_w(Wp, o0, m, n, s0, kT, n0, kT, tid, kThreads);
+      for (int k0 = 0; k0 < r; k0 += kBK) {
+        stage_cols(As, Nm, s0, k0, tid);
+        if (kP4) stage_cols(Bs, Pi, n0, k0, tid);
+        else stage_cols(Bs, Pf, n0, k0, tid);
+        __syncthreads();
+        tile_fma(As, kS, 1, Bs, kS, 1, acc, tx, ty);
+        __syncthreads();
+      }
+#pragma unroll
+      for (int i = 0; i < kTR; ++i) apply_row<WT>(a, o0, s0 + ty + 16 * i, n0 + tx, acc[i], eta);
+    }
   }
 }
 
@@ -510,9 +644,9 @@ int sm_count() {
   return sms;
 }
 
-template <bool kRight, bool kP4, typename GT, int kMinBlocks>
+template <bool kRight, bool kP4, typename GT, int kMinBlocks, bool kApply, typename WT>
 cudaError_t launch_with(const Args& a, const dim3& grid, cudaStream_t stream) {
-  auto kern = &adam8_kernel<kRight, kP4, GT, kMinBlocks>;
+  auto kern = &adam8_kernel<kRight, kP4, GT, kMinBlocks, kApply, WT>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
   if (err != cudaSuccess) return err;
@@ -523,33 +657,47 @@ cudaError_t launch_with(const Args& a, const dim3& grid, cudaStream_t stream) {
 // One block per SM (up to 255 registers a thread) while the grid fits in one
 // wave; two per SM (128 registers) when it does not, so that e.g. the 172
 // blocks of a (2, 4096, 128, 11008) leaf run in one wave instead of two.
-template <bool kRight, bool kP4, typename GT>
+template <bool kRight, bool kP4, typename GT, bool kApply, typename WT>
 cudaError_t launch(const Args& a, int L, cudaStream_t stream) {
   const int swept = kRight ? a.m : a.n;
   const dim3 grid((swept + kT - 1) / kT, L);
-  if ((long)grid.x * grid.y > sm_count()) return launch_with<kRight, kP4, GT, 2>(a, grid, stream);
-  return launch_with<kRight, kP4, GT, 1>(a, grid, stream);
+  if ((long)grid.x * grid.y > sm_count())
+    return launch_with<kRight, kP4, GT, 2, kApply, WT>(a, grid, stream);
+  return launch_with<kRight, kP4, GT, 1, kApply, WT>(a, grid, stream);
+}
+
+template <bool kRight, bool kApply, typename WT>
+cudaError_t dispatch(const Args& a, int p_int4, int g_bf16, int L, cudaStream_t s) {
+  if (L <= 0 || a.m <= 0 || a.r <= 0 || a.n <= 0 || L > 65535) return cudaErrorInvalidValue;
+  if (kApply && a.r > kT && a.nhat == nullptr) return cudaErrorInvalidValue;
+  if (p_int4) {
+    return g_bf16 ? launch<kRight, true, __nv_bfloat16, kApply, WT>(a, L, s)
+                  : launch<kRight, true, float, kApply, WT>(a, L, s);
+  }
+  return g_bf16 ? launch<kRight, false, __nv_bfloat16, kApply, WT>(a, L, s)
+                : launch<kRight, false, float, kApply, WT>(a, L, s);
 }
 
 template <bool kRight>
-cudaError_t dispatch(const Args& a, int p_int4, int g_bf16, int L, cudaStream_t s) {
-  if (L <= 0 || a.m <= 0 || a.r <= 0 || a.n <= 0 || L > 65535) return cudaErrorInvalidValue;
-  if (p_int4) {
-    return g_bf16 ? launch<kRight, true, __nv_bfloat16>(a, L, s) : launch<kRight, true, float>(a, L, s);
-  }
-  return g_bf16 ? launch<kRight, false, __nv_bfloat16>(a, L, s) : launch<kRight, false, float>(a, L, s);
+cudaError_t dispatch_w(bool apply, const Args& a, int p_int4, int g_bf16, int L, cudaStream_t s) {
+  if (!apply) return dispatch<kRight, false, float>(a, p_int4, g_bf16, L, s);
+  if (a.w_bf16) return dispatch<kRight, true, __nv_bfloat16>(a, p_int4, g_bf16, L, s);
+  return dispatch<kRight, true, float>(a, p_int4, g_bf16, L, s);
 }
 
-int run(bool right, const float* P, const uint8_t* Pq, const float* Ps, int p_int4, const void* G,
-        int g_bf16, uint8_t* Mq, float* Ms, uint8_t* Vq, float* Vs, const int* count,
-        const float* books, float* out, int L, int m, int r, int n, double b1, double b2,
-        double eps, double alpha, int stochastic, void* stream) {
-  const Args a{P, Pq, Ps, G, Mq, Ms, Vq, Vs, count, books, out, m, r, n, stochastic,
-               (float)b1, (float)(1.0 - b1), (float)b2, (float)(1.0 - b2), (float)eps,
-               (float)alpha};
+int run(bool right, bool apply, const Args& a, int p_int4, int g_bf16, int L, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(right ? dispatch<true>(a, p_int4, g_bf16, L, s)
-                     : dispatch<false>(a, p_int4, g_bf16, L, s));
+  return (int)(right ? dispatch_w<true>(apply, a, p_int4, g_bf16, L, s)
+                     : dispatch_w<false>(apply, a, p_int4, g_bf16, L, s));
+}
+
+Args make_args(const float* P, const uint8_t* Pq, const float* Ps, const void* G, uint8_t* Mq,
+               float* Ms, uint8_t* Vq, float* Vs, const int* count, const float* books,
+               float* out, void* W, int w_bf16, const float* eta, double wd, float* nhat, int m,
+               int r, int n, double b1, double b2, double eps, double alpha, int stochastic) {
+  return Args{P, Pq, Ps, G, Mq, Ms, Vq, Vs, count, books, out, W, w_bf16, eta, (float)wd, nhat,
+              m, r, n, stochastic, (float)b1, (float)(1.0 - b1), (float)b2, (float)(1.0 - b2),
+              (float)eps, (float)alpha};
 }
 
 }  // namespace
@@ -565,8 +713,9 @@ extern "C" int galore_fused_adam8_left(const float* P, const uint8_t* Pq, const 
                                        const float* books, float* out, int L, int m, int r, int n,
                                        double b1, double b2, double eps, double alpha,
                                        int stochastic, void* stream) {
-  return run(false, P, Pq, Ps, p_int4, G, g_bf16, Mq, Ms, Vq, Vs, count, books, out, L, m, r, n,
-             b1, b2, eps, alpha, stochastic, stream);
+  const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, count, books, out, nullptr, 0, nullptr,
+                           0.0, nullptr, m, r, n, b1, b2, eps, alpha, stochastic);
+  return run(false, false, a, p_int4, g_bf16, L, stream);
 }
 
 // P: f32 (L, n, r), or Pq (L, n_pad/2, r) and Ps (L, ⌈n/128⌉, r); G (L, m, n);
@@ -578,6 +727,37 @@ extern "C" int galore_fused_adam8_right(const float* P, const uint8_t* Pq, const
                                         const float* books, float* out, int L, int m, int r, int n,
                                         double b1, double b2, double eps, double alpha,
                                         int stochastic, void* stream) {
-  return run(true, P, Pq, Ps, p_int4, G, g_bf16, Mq, Ms, Vq, Vs, count, books, out, L, m, r, n,
-             b1, b2, eps, alpha, stochastic, stream);
+  const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, count, books, out, nullptr, 0, nullptr,
+                           0.0, nullptr, m, r, n, b1, b2, eps, alpha, stochastic);
+  return run(true, false, a, p_int4, g_bf16, L, stream);
+}
+
+// The apply forms: as above, with W (L, m, n) f32 or bf16 (w_bf16 = 1) updated
+// in place to W + eta (G̃ + wd W) instead of writing G̃; eta -> one f32 on the
+// device; nhat -> f32 scratch of the moments' shape ((L, r, n) left, (L, m, r)
+// right), needed only when r > 128 (null otherwise).
+extern "C" int galore_fused_adam8_apply_left(const float* P, const uint8_t* Pq, const float* Ps,
+                                             int p_int4, const void* G, int g_bf16, void* W,
+                                             int w_bf16, uint8_t* Mq, float* Ms, uint8_t* Vq,
+                                             float* Vs, const int* count, const float* books,
+                                             const float* eta, double wd, float* nhat, int L,
+                                             int m, int r, int n, double b1, double b2,
+                                             double eps, double alpha, int stochastic,
+                                             void* stream) {
+  const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, count, books, nullptr, W, w_bf16, eta,
+                           wd, nhat, m, r, n, b1, b2, eps, alpha, stochastic);
+  return run(false, true, a, p_int4, g_bf16, L, stream);
+}
+
+extern "C" int galore_fused_adam8_apply_right(const float* P, const uint8_t* Pq, const float* Ps,
+                                              int p_int4, const void* G, int g_bf16, void* W,
+                                              int w_bf16, uint8_t* Mq, float* Ms, uint8_t* Vq,
+                                              float* Vs, const int* count, const float* books,
+                                              const float* eta, double wd, float* nhat, int L,
+                                              int m, int r, int n, double b1, double b2,
+                                              double eps, double alpha, int stochastic,
+                                              void* stream) {
+  const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, count, books, nullptr, W, w_bf16, eta,
+                           wd, nhat, m, r, n, b1, b2, eps, alpha, stochastic);
+  return run(true, true, a, p_int4, g_bf16, L, stream);
 }

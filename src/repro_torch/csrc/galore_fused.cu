@@ -1,8 +1,11 @@
-// Fused GaLore-Adam leaf step for Hopper (sm_90a), one kernel per side.
+// Fused GaLore-Adam leaf step for Hopper (sm_90a), one kernel per side, in
+// an emit form (writes G̃) and a weight-apply form (updates W in place).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/galore_fused.py:
 //   galore_fused_adam_step        (_fused_kernel)       -> galore_fused_adam_left
 //   galore_fused_adam_step_right  (_fused_right_kernel) -> galore_fused_adam_right
+//   galore_fused_adam_apply_step[_right] (_fused_epilogue_call with apply_w,
+//     fp32 moments)            -> galore_fused_adam_apply_left / _right
 //
 // Left side (m <= n), per stacked leaf l:
 //   R  = Pᵀ G                         P (m, r) f32, G (m, n) f32 or bf16
@@ -12,6 +15,15 @@
 // Right side (m > n) is the transpose: P (n, r), M/V (m, r), R = G P,
 // G̃ = alpha N̂ Pᵀ. `count` is read from device memory, so no leaf forces a
 // host sync; c1/c2 are computed here in f32 as the reference does.
+// The apply form replaces the store of G̃ by W' = W + eta (G̃ + wd W), W f32 or
+// bf16 (a template parameter) and updated in place, eta (= -lr of the step)
+// read from device memory like `count`. The operations are explicitly rounded
+// in the plain version's order, so no FMA contraction moves W' where G̃ equals
+// the emit form's: the two forms share every arithmetic operation up to that
+// store. The apply form moves W's bytes twice (read, write) in place of G̃'s
+// f32 write; it asks L2 for each W tile when the tile's contraction starts and
+// issues all of a tile's W loads before its stores, so that the loads do not
+// wait one by one.
 //
 // What bounds it on an H100. At the main path's largest left leaf
 // (m, r, n) = (4096, 128, 11008) with bf16 G, one leaf moves at least
@@ -60,6 +72,42 @@ __device__ __forceinline__ float load_f32(const float* p, size_t i) { return p[i
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p, size_t i) {
   return __bfloat162float(p[i]);
 }
+
+// W is f32 or bf16 (WT); the apply forms read all of a thread's W values of a
+// tile before they store any, since a store to W would order every later load
+// of W behind it and leave one load in flight at a time.
+__device__ __forceinline__ void store_w(float* W, size_t i, float v) { W[i] = v; }
+__device__ __forceinline__ void store_w(__nv_bfloat16* W, size_t i, float v) {
+  W[i] = __float2bfloat16_rn(v);
+}
+
+// Ask L2 for rows [r0, r0 + nr) x columns [c0, c0 + nc) of the row-major
+// (rows x cols) W at `base`, clipped to its edges, one 128-byte line per thread
+// and step. Issued when a tile's contraction starts, so that the tile's W is
+// in L2 by the time its stores read it.
+template <typename WT>
+__device__ __forceinline__ void prefetch_w(const WT* W, size_t base, int rows, int cols, int r0,
+                                           int nr, int c0, int nc, int tid, int nthreads) {
+  constexpr int esz = sizeof(WT), per_line = 128 / esz;
+  const int lines = (nc + per_line - 1) / per_line;
+  for (int e = tid; e < nr * lines; e += nthreads) {
+    const int row = r0 + e / lines, col = c0 + (e % lines) * per_line;
+    if (row < rows && col < cols)
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(W + base + (size_t)row * cols + col));
+  }
+}
+
+// W' = W + eta (g + wd W), each operation rounded, in the plain version's order.
+__device__ __forceinline__ float apply_w(float w, float g, float eta, float wd) {
+  return __fadd_rn(w, __fmul_rn(eta, __fadd_rn(g, __fmul_rn(wd, w))));
+}
+
+// What a block writes at the end: G̃ (emit) or W' in place (apply).
+struct Out {
+  void* p;             // G̃ (L, m, n) f32, or W (L, m, n) f32 or bf16
+  const float* eta;    // apply: -lr of this step, on the device
+  float wd;            // apply: decoupled weight decay
+};
 
 struct AdamCoef {
   float b1, omb1, b2, omb2, eps, c1, c2;
@@ -144,13 +192,12 @@ __device__ __forceinline__ void store_tile(float* Rs, int rs, int r0, const floa
 }
 
 // Left side: one block per (column tile of n, stacked leaf l).
-template <int TN, typename GT>
+template <int TN, typename GT, typename WT, bool kApply>
 __global__ void __launch_bounds__(kThreads)
     galore_fused_left_kernel(const float* __restrict__ P, const GT* __restrict__ G,
                              float* __restrict__ M, float* __restrict__ V,
-                             const int* __restrict__ count, float* __restrict__ out, int m, int r,
-                             int n, float b1, float omb1, float b2, float omb2, float eps,
-                             float alpha) {
+                             const int* __restrict__ count, const Out o, int m, int r, int n,
+                             float b1, float omb1, float b2, float omb2, float eps, float alpha) {
   constexpr int BN = 16 * TN;
   constexpr int RS = BN + 1;  // padded stride of the R / N̂ tile and of the B stage
   extern __shared__ float smem[];
@@ -165,7 +212,9 @@ __global__ void __launch_bounds__(kThreads)
   G += l * m * n;
   M += l * r * n;
   V += l * r * n;
-  out += l * m * n;
+  float* out = kApply ? nullptr : static_cast<float*>(o.p) + l * m * n;
+  WT* const Wp = static_cast<WT*>(o.p);  // apply: W, in place
+  const size_t w0 = l * m * n;            // this leaf's first element of W
 
   // Phase 1: R tile (r x BN) = Pᵀ G[:, c0:c0+BN], contraction over m.
   for (int rc0 = 0; rc0 < r_pad; rc0 += kRC) {
@@ -203,15 +252,38 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  // Phase 3: G̃[m0:m0+128, c0:c0+BN] = alpha P[m0:m0+128, :] N̂, contraction over r.
+  // Phase 3: G̃[m0:m0+128, c0:c0+BN] = alpha P[m0:m0+128, :] N̂, contraction over r;
+  // stored, or folded into W.
+  const float eta = kApply ? *o.eta : 0.f;
   for (int m0 = 0; m0 < m; m0 += kRC) {
     float acc[kTR][TN];
     zero_acc(acc);
+    if (kApply) prefetch_w(Wp, w0, m, n, m0, kRC, c0, BN, tid, kThreads);
     for (int k0 = 0; k0 < r; k0 += kBK) {
       stage_p_cols(As, P, m, r, m0, k0, tid);
       __syncthreads();
       stage_fma<TN>(As, Rs + (size_t)k0 * RS, RS, acc, tx, ty);
       __syncthreads();
+    }
+    if (kApply) {
+      float w[kTR][TN];
+#pragma unroll
+      for (int i = 0; i < kTR; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int row = m0 + ty + 16 * i, col = c0 + tx + 16 * j;
+          w[i][j] = (row < m && col < n) ? load_f32(Wp, w0 + (size_t)row * n + col) : 0.f;
+        }
+#pragma unroll
+      for (int i = 0; i < kTR; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int row = m0 + ty + 16 * i, col = c0 + tx + 16 * j;
+          if (row < m && col < n)
+            store_w(Wp, w0 + (size_t)row * n + col,
+                    apply_w(w[i][j], __fmul_rn(alpha, acc[i][j]), eta, o.wd));
+        }
+      continue;
     }
 #pragma unroll
     for (int i = 0; i < kTR; ++i)
@@ -224,13 +296,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Right side: one block per (row tile of m, stacked leaf l).
-template <int TN, typename GT>
+template <int TN, typename GT, typename WT, bool kApply>
 __global__ void __launch_bounds__(kThreads)
     galore_fused_right_kernel(const float* __restrict__ P, const GT* __restrict__ G,
                               float* __restrict__ M, float* __restrict__ V,
-                              const int* __restrict__ count, float* __restrict__ out, int m, int r,
-                              int n, float b1, float omb1, float b2, float omb2, float eps,
-                              float alpha) {
+                              const int* __restrict__ count, const Out o, int m, int r, int n,
+                              float b1, float omb1, float b2, float omb2, float eps, float alpha) {
   constexpr int BM = 16 * TN;
   constexpr int RS = BM + 1;
   extern __shared__ float smem[];
@@ -246,7 +317,9 @@ __global__ void __launch_bounds__(kThreads)
   G += l * m * n;
   M += l * m * r;
   V += l * m * r;
-  out += l * m * n;
+  float* out = kApply ? nullptr : static_cast<float*>(o.p) + l * m * n;
+  WT* const Wp = static_cast<WT*>(o.p);
+  const size_t w0 = l * m * n;
 
   // Phase 1: Rᵀ tile (r x BM) = Pᵀ G[row0:row0+BM, :]ᵀ, contraction over n.
   for (int rc0 = 0; rc0 < r_pad; rc0 += kRC) {
@@ -284,10 +357,13 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  // Phase 3: G̃ᵀ[n0:n0+128, row0:row0+BM] = alpha P[n0:n0+128, :] N̂ᵀ, contraction over r.
+  // Phase 3: G̃ᵀ[n0:n0+128, row0:row0+BM] = alpha P[n0:n0+128, :] N̂ᵀ, contraction over r;
+  // stored, or folded into W.
+  const float eta = kApply ? *o.eta : 0.f;
   for (int n0 = 0; n0 < n; n0 += kRC) {
     float acc[kTR][TN];
     zero_acc(acc);
+    if (kApply) prefetch_w(Wp, w0, m, n, row0, BM, n0, kRC, tid, kThreads);
     for (int k0 = 0; k0 < r; k0 += kBK) {
       stage_p_cols(As, P, n, r, n0, k0, tid);
       __syncthreads();
@@ -299,10 +375,28 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < TN; ++j) Os[(tx + 16 * j) * kAS + ty + 16 * i] = alpha * acc[i][j];
     __syncthreads();
-    for (int e = tid; e < BM * kRC; e += kThreads) {
-      const int j = e / kRC, i = e % kRC;
-      const int row = row0 + j, col = n0 + i;
-      if (row < m && col < n) out[(size_t)row * n + col] = Os[j * kAS + i];
+    if (kApply) {
+      constexpr int kIt = BM * kRC / kThreads;  // elements a thread stores
+      float w[kIt];
+#pragma unroll
+      for (int it = 0; it < kIt; ++it) {
+        const int e = tid + it * kThreads, j = e / kRC, i = e % kRC;
+        const int row = row0 + j, col = n0 + i;
+        w[it] = (row < m && col < n) ? load_f32(Wp, w0 + (size_t)row * n + col) : 0.f;
+      }
+#pragma unroll
+      for (int it = 0; it < kIt; ++it) {
+        const int e = tid + it * kThreads, j = e / kRC, i = e % kRC;
+        const int row = row0 + j, col = n0 + i;
+        if (row < m && col < n)
+          store_w(Wp, w0 + (size_t)row * n + col, apply_w(w[it], Os[j * kAS + i], eta, o.wd));
+      }
+    } else {
+      for (int e = tid; e < BM * kRC; e += kThreads) {
+        const int j = e / kRC, i = e % kRC;
+        const int row = row0 + j, col = n0 + i;
+        if (row < m && col < n) out[(size_t)row * n + col] = Os[j * kAS + i];
+      }
     }
     __syncthreads();
   }
@@ -339,11 +433,12 @@ int pick_tn(int r, int swept, int L, bool right) {
   return fit;
 }
 
-template <int TN, typename GT>
+template <int TN, typename GT, typename WT, bool kApply>
 cudaError_t launch(bool right, const float* P, const void* G, float* M, float* V, const int* count,
-                   float* out, int L, int m, int r, int n, double b1, double b2, double eps,
+                   const Out& out, int L, int m, int r, int n, double b1, double b2, double eps,
                    double alpha, cudaStream_t stream) {
-  auto kern = right ? &galore_fused_right_kernel<TN, GT> : &galore_fused_left_kernel<TN, GT>;
+  auto kern = right ? &galore_fused_right_kernel<TN, GT, WT, kApply>
+                    : &galore_fused_left_kernel<TN, GT, WT, kApply>;
   const size_t smem = smem_bytes(TN, r, right);
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -356,31 +451,49 @@ cudaError_t launch(bool right, const float* P, const void* G, float* M, float* V
   return cudaGetLastError();
 }
 
-template <typename GT>
+template <typename GT, typename WT, bool kApply>
 cudaError_t dispatch(bool right, const float* P, const void* G, float* M, float* V,
-                     const int* count, float* out, int L, int m, int r, int n, double b1,
+                     const int* count, const Out& out, int L, int m, int r, int n, double b1,
                      double b2, double eps, double alpha, cudaStream_t stream) {
   if (L <= 0 || m <= 0 || r <= 0 || n <= 0 || L > 65535) return cudaErrorInvalidValue;
   switch (pick_tn(r, right ? m : n, L, right)) {
     case 4:
-      return launch<4, GT>(right, P, G, M, V, count, out, L, m, r, n, b1, b2, eps, alpha, stream);
+      return launch<4, GT, WT, kApply>(right, P, G, M, V, count, out, L, m, r, n, b1, b2, eps, alpha,
+                                   stream);
     case 2:
-      return launch<2, GT>(right, P, G, M, V, count, out, L, m, r, n, b1, b2, eps, alpha, stream);
+      return launch<2, GT, WT, kApply>(right, P, G, M, V, count, out, L, m, r, n, b1, b2, eps, alpha,
+                                   stream);
     case 1:
-      return launch<1, GT>(right, P, G, M, V, count, out, L, m, r, n, b1, b2, eps, alpha, stream);
+      return launch<1, GT, WT, kApply>(right, P, G, M, V, count, out, L, m, r, n, b1, b2, eps, alpha,
+                                   stream);
     default:
       return cudaErrorInvalidValue;  // the r x 16 tile does not fit shared memory
   }
 }
 
+// apply: 0 emits G̃, 1 applies to an f32 W, 2 to a bf16 W
+template <typename GT>
+int run_g(bool right, const float* P, const void* G, float* M, float* V, const int* count,
+          const Out& out, int apply, int L, int m, int r, int n, double b1, double b2,
+          double eps, double alpha, cudaStream_t s) {
+  if (apply == 2)
+    return (int)dispatch<GT, __nv_bfloat16, true>(right, P, G, M, V, count, out, L, m, r, n, b1,
+                                                  b2, eps, alpha, s);
+  if (apply == 1)
+    return (int)dispatch<GT, float, true>(right, P, G, M, V, count, out, L, m, r, n, b1, b2, eps,
+                                          alpha, s);
+  return (int)dispatch<GT, float, false>(right, P, G, M, V, count, out, L, m, r, n, b1, b2, eps,
+                                         alpha, s);
+}
+
 int run(bool right, const float* P, const void* G, int g_bf16, float* M, float* V,
-        const int* count, float* out, int L, int m, int r, int n, double b1, double b2,
-        double eps, double alpha, void* stream) {
+        const int* count, const Out& out, int apply, int L, int m, int r, int n, double b1,
+        double b2, double eps, double alpha, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (g_bf16)
-    return (int)dispatch<__nv_bfloat16>(right, P, G, M, V, count, out, L, m, r, n, b1, b2, eps,
-                                        alpha, s);
-  return (int)dispatch<float>(right, P, G, M, V, count, out, L, m, r, n, b1, b2, eps, alpha, s);
+    return run_g<__nv_bfloat16>(right, P, G, M, V, count, out, apply, L, m, r, n, b1, b2, eps,
+                                alpha, s);
+  return run_g<float>(right, P, G, M, V, count, out, apply, L, m, r, n, b1, b2, eps, alpha, s);
 }
 
 }  // namespace
@@ -392,7 +505,8 @@ extern "C" int galore_fused_adam_left(const float* P, const void* G, int g_bf16,
                                       float* V, const int* count, float* out, int L, int m, int r,
                                       int n, double b1, double b2, double eps, double alpha,
                                       void* stream) {
-  return run(false, P, G, g_bf16, M, V, count, out, L, m, r, n, b1, b2, eps, alpha, stream);
+  return run(false, P, G, g_bf16, M, V, count, Out{out, nullptr, 0.f}, 0, L, m, r, n, b1,
+             b2, eps, alpha, stream);
 }
 
 // P (L, n, r) f32, G (L, m, n) f32 or bf16, M/V (L, m, r) f32 updated in
@@ -401,5 +515,27 @@ extern "C" int galore_fused_adam_right(const float* P, const void* G, int g_bf16
                                        float* V, const int* count, float* out, int L, int m, int r,
                                        int n, double b1, double b2, double eps, double alpha,
                                        void* stream) {
-  return run(true, P, G, g_bf16, M, V, count, out, L, m, r, n, b1, b2, eps, alpha, stream);
+  return run(true, P, G, g_bf16, M, V, count, Out{out, nullptr, 0.f}, 0, L, m, r, n, b1,
+             b2, eps, alpha, stream);
+}
+
+// The apply forms: as above, with W (L, m, n) f32 or bf16 (w_bf16 = 1) updated
+// in place to W + eta (G̃ + wd W) instead of writing G̃; eta -> one f32 on the
+// device.
+extern "C" int galore_fused_adam_apply_left(const float* P, const void* G, int g_bf16, void* W,
+                                            int w_bf16, float* M, float* V, const int* count,
+                                            const float* eta, double wd, int L, int m, int r,
+                                            int n, double b1, double b2, double eps, double alpha,
+                                            void* stream) {
+  return run(false, P, G, g_bf16, M, V, count, Out{W, eta, (float)wd}, 1 + (w_bf16 != 0), L,
+             m, r, n, b1, b2, eps, alpha, stream);
+}
+
+extern "C" int galore_fused_adam_apply_right(const float* P, const void* G, int g_bf16, void* W,
+                                             int w_bf16, float* M, float* V, const int* count,
+                                             const float* eta, double wd, int L, int m, int r,
+                                             int n, double b1, double b2, double eps,
+                                             double alpha, void* stream) {
+  return run(true, P, G, g_bf16, M, V, count, Out{W, eta, (float)wd}, 1 + (w_bf16 != 0), L,
+             m, r, n, b1, b2, eps, alpha, stream);
 }

@@ -1,13 +1,16 @@
-"""The train step (port of the default branch of repro/distributed/step.py::
-make_train_step and its ``_grads_and_loss``), on a single device."""
+"""The train step (port of the default and fused-apply branches of
+repro/distributed/step.py::make_train_step and its ``_grads_and_loss``), on a
+single device."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.core.galore import make_fused_apply
 from repro_torch.models import model as M
-from repro_torch.optim.factory import build_optimizer
-from repro_torch.optim.transform import apply_updates
+from repro_torch.optim import schedules
+from repro_torch.optim.factory import build_optimizer, effective_galore_config, galore_state_index
+from repro_torch.optim.transform import apply_updates, clip_by_global_norm
 from repro_torch.utils import tree_leaves, tree_unflatten_like
 
 
@@ -20,6 +23,12 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
     def loss_of(params, batch):
         return M.loss_fn(cfg, params, batch, z_loss=tc.z_loss)
 
+    if tc.galore_fused_apply:
+        if tc.microbatch and tc.microbatch > 1:
+            raise ValueError("galore_fused_apply does not compose with gradient accumulation "
+                             "yet (microbatch > 1)")
+        return _make_fused_apply_train_step(tc, opt, loss_of), opt
+
     def train_step(params, opt_state, batch):
         _, metrics, grads = _grads_and_loss(tc, loss_of, params, batch)
         with torch.no_grad():
@@ -28,6 +37,37 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
         return params, opt_state, metrics
 
     return train_step, opt
+
+
+def _make_fused_apply_train_step(tc, opt, loss_of):
+    """The W-in-place step (tc.galore_fused_apply): clip → one fused kernel per
+    GaLore leaf that folds projection, Adam, back-projection and the weight
+    update W ← W + η·(G̃ + wd·W) into one launch, so no full-size f32 update
+    tree is made. The optimizer state keeps the chain's layout (clip, galore,
+    [wd], schedule), so states swap freely with the emit path, which stays
+    the numerics oracle."""
+    gcfg = effective_galore_config(tc)
+    if gcfg is None:
+        raise ValueError("galore_fused_apply requires a GaLore config")
+    idx = galore_state_index(tc)
+    clip = clip_by_global_norm(tc.grad_clip)
+    sched = schedules.warmup_cosine(tc.lr, tc.warmup_steps, tc.total_steps)
+    wd = tc.weight_decay if tc.optimizer == "adamw" else 0.0
+    apply_fn = make_fused_apply(gcfg, b1=tc.b1, b2=tc.b2, eps=tc.eps, weight_decay=wd)
+
+    def train_step(params, opt_state, batch):
+        _, metrics, grads = _grads_and_loss(tc, loss_of, params, batch)
+        with torch.no_grad():
+            if tc.grad_clip > 0:  # the chain's own clip, so the two paths clip alike
+                grads, _ = clip.update(grads, ())
+            count = opt_state[-1]["count"] + 1
+            eta = -sched(count)  # stays on the device: no step syncs the host
+            params, galore_state = apply_fn(params, grads, opt_state[idx], eta)
+        opt_state = (opt_state[:idx] + (galore_state,) + opt_state[idx + 1:-1]
+                     + ({"count": count},))
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def _grads_and_loss(tc, loss_of, params, batch):

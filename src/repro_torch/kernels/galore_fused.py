@@ -1,16 +1,20 @@
 """Fused GaLore-Adam leaf steps: wrappers around the Hopper kernels of
 ``csrc/galore_fused.cu`` and ``csrc/galore_epilogue.cu`` (the port of the
 Pallas kernels in repro/kernels/galore_fused.py: ``galore_fused_adam_step``,
-``galore_fused_adam_step_right``, and the int8-moment variants of
-``_fused_epilogue_call``, ``galore_fused_adam8_step[_right]``).
+``galore_fused_adam_step_right``, and the int8-moment and weight-apply
+variants of ``_fused_epilogue_call``, ``galore_fused_adam8_step[_right]``,
+``galore_fused_adam_apply_step[_right]`` and
+``galore_fused_adam8_apply_step[_right]``).
 
 One launch per (possibly stacked) leaf computes R = PᵀG → Adam → G̃ = α P N̂
 (left) or R = G P → Adam → G̃ = α N̂ Pᵀ (right); the adam8 forms keep M and V
 as int8 codes with per-128-block scales, dequantized and requantized in the
-kernel, and take P either as f32 or as a packed int4 qstate. On CPU tensors
+kernel, and take P either as f32 or as a packed int4 qstate. The apply forms
+write no G̃: they update the weight in place, W ← W + η(G̃ + wd·W), with η
+(= -lr of the step) a one-element f32 tensor on the device. On CPU tensors
 a wrapper runs the plain PyTorch version (kernels/ref.py) and writes the
-moments back in place; on CUDA tensors it checks device, dtype, shape and
-contiguity and launches the kernel, or raises. There is no fallback from a
+weight and moments back in place; on CUDA tensors it checks device, dtype,
+shape and contiguity and launches the kernel, or raises. There is no fallback from a
 CUDA tensor to the plain version, and no shape is refused for being too
 large for on-chip memory: the kernels stream P through shared memory, so
 r = 1024 runs like r = 128.
@@ -34,12 +38,25 @@ galore_fused_adam_step_plain = ref.galore_fused_adam_step
 galore_fused_adam_step_right_plain = ref.galore_fused_adam_step_right
 galore_fused_adam8_step_plain = ref.galore_fused_adam8_step
 galore_fused_adam8_step_right_plain = ref.galore_fused_adam8_step_right
+galore_fused_adam_apply_step_plain = ref.galore_fused_adam_apply_step
+galore_fused_adam_apply_step_right_plain = ref.galore_fused_adam_apply_step_right
+galore_fused_adam8_apply_step_plain = ref.galore_fused_adam8_apply_step
+galore_fused_adam8_apply_step_right_plain = ref.galore_fused_adam8_apply_step_right
 
 _SOURCE = "galore_fused"
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # P, G, g_bf16
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # M, V, count
     ctypes.c_void_p,                                  # out
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # L, m, r, n
+    ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,  # b1, b2, eps, alpha
+    ctypes.c_void_p,                                  # stream
+]
+_ARGTYPES_APPLY = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # P, G, g_bf16
+    ctypes.c_void_p, ctypes.c_int,                    # W, w_bf16
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # M, V, count
+    ctypes.c_void_p, ctypes.c_double,                 # eta, wd
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # L, m, r, n
     ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,  # b1, b2, eps, alpha
     ctypes.c_void_p,                                  # stream
@@ -52,6 +69,17 @@ _ARGTYPES8 = [
     ctypes.c_void_p, ctypes.c_int,                    # G, g_bf16
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # Mq, Ms, Vq, Vs
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # count, books, out
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # L, m, r, n
+    ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,  # b1, b2, eps, alpha
+    ctypes.c_int, ctypes.c_void_p,                    # stochastic, stream
+]
+_ARGTYPES8_APPLY = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # P, Pq, Ps, p_int4
+    ctypes.c_void_p, ctypes.c_int,                    # G, g_bf16
+    ctypes.c_void_p, ctypes.c_int,                    # W, w_bf16
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # Mq, Ms, Vq, Vs
+    ctypes.c_void_p, ctypes.c_void_p,                 # count, books
+    ctypes.c_void_p, ctypes.c_double, ctypes.c_void_p,  # eta, wd, nhat
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # L, m, r, n
     ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,  # b1, b2, eps, alpha
     ctypes.c_int, ctypes.c_void_p,                    # stochastic, stream
@@ -103,6 +131,83 @@ def _plain_in_place(plain, P, G, M, V, count, b1, b2, eps, alpha):
     M.copy_(M_t)
     V.copy_(V_t)
     return out, M, V
+
+
+def _check_w(G, W, eta):
+    """Raise unless W and η are what an apply kernel takes."""
+    if not W.is_cuda or W.device != G.device:
+        raise ValueError(f"W is on {W.device}; every input must be on {G.device}")
+    if not W.is_contiguous():
+        raise ValueError("W must be contiguous")
+    if W.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"W must be float32 or bfloat16, got {W.dtype}")
+    if W.shape != G.shape:
+        raise ValueError(f"W has shape {tuple(W.shape)}; it must be G's, {tuple(G.shape)}")
+    if not isinstance(eta, torch.Tensor) or not eta.is_cuda or eta.device != G.device:
+        raise ValueError(f"eta must be a tensor on {G.device}, so that no step syncs the host")
+    if eta.dtype != torch.float32 or eta.numel() != 1:
+        raise TypeError(f"eta must be one float32, got {eta.dtype} of {eta.numel()}")
+
+
+def _launch_apply(symbol, P, G, W, M, V, count, b1, b2, eps, alpha, eta, wd, r):
+    m, n = G.shape[-2:]
+    L = math.prod(G.shape[:-2])
+    with torch.cuda.device(G.device):
+        err = _entry(symbol, _SOURCE, _ARGTYPES_APPLY)(
+            P.data_ptr(), G.data_ptr(), int(G.dtype == torch.bfloat16), W.data_ptr(),
+            int(W.dtype == torch.bfloat16), M.data_ptr(), V.data_ptr(), count.data_ptr(),
+            eta.data_ptr(), wd, L, m, r, n, b1, b2, eps, alpha,
+            torch.cuda.current_stream(G.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} failed to launch: cudaError_t {err} "
+                           f"(G {tuple(G.shape)}, r={r})")
+
+
+def _plain_apply_in_place(plain, P, G, W, moments, count, **kw):
+    W_t, *new = plain(P, G, W, *moments, count, **kw)
+    for old, t in zip((W, *moments), (W_t, *new)):
+        old.copy_(t)
+    return (W, *moments)
+
+
+def galore_fused_adam_apply_step(P, G, W, M, V, count, *, eta, b1=0.9, b2=0.999, eps=1e-8,
+                                 alpha=1.0, wd=0.0):
+    """The left-side fused step with the weight update folded in:
+    W ← W + η·(α P N̂ + wd·W), in W's dtype, in place; no G̃ is written.
+
+    P, G, M, V and count as for galore_fused_adam_step; W (..., m, n) f32 or
+    bf16; η a one-element f32 tensor on the device (-lr of this step); wd a
+    float. Returns (W', M', V'), each the passed tensor, updated in place."""
+    if G.device.type == "cpu":
+        return _plain_apply_in_place(galore_fused_adam_apply_step_plain, P, G, W, (M, V), count,
+                                     b1=b1, b2=b2, eps=eps, alpha=alpha, eta=eta, wd=wd)
+    m, n = G.shape[-2:]
+    r = P.shape[-1]
+    lead = tuple(G.shape[:-2])
+    _check(P, G, M, V, count, lead + (m, r), lead + (r, n))
+    _check_w(G, W, eta)
+    _launch_apply("galore_fused_adam_apply_left", P, G, W, M, V, count, b1, b2, eps, alpha,
+                  eta, wd, r)
+    galore_fused_adam_apply_step.launches += 1
+    return W, M, V
+
+
+def galore_fused_adam_apply_step_right(P, G, W, M, V, count, *, eta, b1=0.9, b2=0.999,
+                                       eps=1e-8, alpha=1.0, wd=0.0):
+    """The right-side fused step with the weight update folded in (P
+    (..., n, r), M/V (..., m, r)). Returns (W', M', V'), in place."""
+    if G.device.type == "cpu":
+        return _plain_apply_in_place(galore_fused_adam_apply_step_right_plain, P, G, W, (M, V),
+                                     count, b1=b1, b2=b2, eps=eps, alpha=alpha, eta=eta, wd=wd)
+    m, n = G.shape[-2:]
+    r = P.shape[-1]
+    lead = tuple(G.shape[:-2])
+    _check(P, G, M, V, count, lead + (n, r), lead + (m, r))
+    _check_w(G, W, eta)
+    _launch_apply("galore_fused_adam_apply_right", P, G, W, M, V, count, b1, b2, eps, alpha,
+                  eta, wd, r)
+    galore_fused_adam_apply_step_right.launches += 1
+    return W, M, V
 
 
 def galore_fused_adam_step(P, G, M, V, count, *, b1=0.9, b2=0.999, eps=1e-8, alpha=1.0):
@@ -211,6 +316,32 @@ def _launch8(symbol, right, P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha, sto
     return out
 
 
+def _launch8_apply(symbol, right, P, G, W, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha, eta, wd,
+                   stochastic):
+    p_int4, r = _check8(P, G, Mq, Ms, Vq, Vs, count, right)
+    _check_w(G, W, eta)
+    m, n = G.shape[-2:]
+    L = math.prod(G.shape[:-2])
+    # more than one 128-row rank chunk: the kernel keeps N̂ until the whole
+    # rank is contracted, in a scratch of the moments' shape
+    nhat = (torch.empty(Mq.shape, dtype=torch.float32, device=G.device)
+            if r > codec.QBLOCK else None)
+    if p_int4:
+        p_ptrs = (None, P["q"].data_ptr(), P["scale"].data_ptr())
+    else:
+        p_ptrs = (P.data_ptr(), None, None)
+    with torch.cuda.device(G.device):
+        err = _entry(symbol, _SOURCE8, _ARGTYPES8_APPLY)(
+            *p_ptrs, int(p_int4), G.data_ptr(), int(G.dtype == torch.bfloat16), W.data_ptr(),
+            int(W.dtype == torch.bfloat16), Mq.data_ptr(), Ms.data_ptr(), Vq.data_ptr(),
+            Vs.data_ptr(), count.data_ptr(), _books(G.device).data_ptr(), eta.data_ptr(), wd,
+            None if nhat is None else nhat.data_ptr(), L, m, r, n, b1, b2, eps, alpha,
+            int(stochastic), torch.cuda.current_stream(G.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} failed to launch: cudaError_t {err} "
+                           f"(G {tuple(G.shape)}, r={r}, int4 P {p_int4})")
+
+
 def _plain8_in_place(plain, P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha, stochastic):
     out, *new = plain(P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha, stochastic=stochastic)
     for old, t in zip((Mq, Ms, Vq, Vs), new):
@@ -253,8 +384,40 @@ def galore_fused_adam8_step_right(P, G, Mq, Ms, Vq, Vs, count, *, b1=0.9, b2=0.9
     return out, Mq, Ms, Vq, Vs
 
 
+def galore_fused_adam8_apply_step(P, G, W, Mq, Ms, Vq, Vs, count, *, eta, b1=0.9, b2=0.999,
+                                  eps=1e-8, alpha=1.0, wd=0.0, stochastic=False):
+    """The left-side int8-moment step with the weight update folded in — the
+    whole 8-bit GaLore leaf update in one launch: W ← W + η·(α P N̂ + wd·W)
+    in place, codes and scales in place, P f32 or a packed int4 qstate.
+    Returns (W', Mq', Ms', Vq', Vs'), each the passed tensor."""
+    if G.device.type == "cpu":
+        return _plain_apply_in_place(galore_fused_adam8_apply_step_plain, P, G, W,
+                                     (Mq, Ms, Vq, Vs), count, b1=b1, b2=b2, eps=eps,
+                                     alpha=alpha, eta=eta, wd=wd, stochastic=stochastic)
+    _launch8_apply("galore_fused_adam8_apply_left", False, P, G, W, Mq, Ms, Vq, Vs, count,
+                   b1, b2, eps, alpha, eta, wd, stochastic)
+    galore_fused_adam8_apply_step.launches += 1
+    return W, Mq, Ms, Vq, Vs
+
+
+def galore_fused_adam8_apply_step_right(P, G, W, Mq, Ms, Vq, Vs, count, *, eta, b1=0.9,
+                                        b2=0.999, eps=1e-8, alpha=1.0, wd=0.0, stochastic=False):
+    """The right-side int8-moment step with the weight update folded in.
+    Returns (W', Mq', Ms', Vq', Vs'), in place."""
+    if G.device.type == "cpu":
+        return _plain_apply_in_place(galore_fused_adam8_apply_step_right_plain, P, G, W,
+                                     (Mq, Ms, Vq, Vs), count, b1=b1, b2=b2, eps=eps,
+                                     alpha=alpha, eta=eta, wd=wd, stochastic=stochastic)
+    _launch8_apply("galore_fused_adam8_apply_right", True, P, G, W, Mq, Ms, Vq, Vs, count,
+                   b1, b2, eps, alpha, eta, wd, stochastic)
+    galore_fused_adam8_apply_step_right.launches += 1
+    return W, Mq, Ms, Vq, Vs
+
+
 WRAPPERS = (galore_fused_adam_step, galore_fused_adam_step_right,
-            galore_fused_adam8_step, galore_fused_adam8_step_right)
+            galore_fused_adam8_step, galore_fused_adam8_step_right,
+            galore_fused_adam_apply_step, galore_fused_adam_apply_step_right,
+            galore_fused_adam8_apply_step, galore_fused_adam8_apply_step_right)
 
 
 def reset_launch_counts() -> None:

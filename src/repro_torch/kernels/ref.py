@@ -1,10 +1,12 @@
 """Plain PyTorch versions of the GaLore-Adam leaf steps (port of the GaLore
-part of repro/kernels/ref.py): the fp32-moment step and the int8-moment step.
+part of repro/kernels/ref.py): the fp32-moment step and the int8-moment step,
+each in its emit form (returns G̃) and its weight-apply form (returns
+W' = W + η(G̃ + wd·W) in W's dtype).
 
 They are the numerical ground truth for the Hopper kernels in
 ``csrc/galore_fused.cu`` and ``csrc/galore_epilogue.cu``, and what the kernel
-wrappers run on CPU tensors. Pure functions: they return new moments (or
-codes and scales) and leave their inputs untouched.
+wrappers run on CPU tensors. Pure functions: they return new weights and
+moments (or codes and scales) and leave their inputs untouched.
 """
 from __future__ import annotations
 
@@ -106,3 +108,40 @@ def galore_fused_adam8_step_right(P, G, Mq, Ms, Vq, Vs, count, b1=0.9, b2=0.999,
     N_t, q = _adam8(galore_project_right(P, G), Mq, Ms, Vq, Vs, count, b1, b2, eps,
                     stochastic, -2)
     return (galore_project_back_right(P, N_t, alpha),) + q
+
+
+def apply_weight(W, gt, eta, wd: float):
+    """W' = W + η·(G̃ + wd·W), in f32 in this order, then cast to W's dtype."""
+    w32 = W.float()
+    return (w32 + eta * (gt + wd * w32)).to(W.dtype)
+
+
+def galore_fused_adam_apply_step(P, G, W, M, V, count, b1=0.9, b2=0.999, eps=1e-8, alpha=1.0,
+                                 eta=-1e-3, wd=0.0):
+    """Weight-apply leaf update: the emit step followed by the chain's decay
+    and learning-rate application, W' = W + η·(α P N̂ + wd·W) (η = -lr).
+    Returns (W', M_t, V_t)."""
+    gt, M_t, V_t = galore_fused_adam_step(P, G, M, V, count, b1, b2, eps, alpha)
+    return apply_weight(W, gt, eta, wd), M_t, V_t
+
+
+def galore_fused_adam_apply_step_right(P, G, W, M, V, count, b1=0.9, b2=0.999, eps=1e-8,
+                                       alpha=1.0, eta=-1e-3, wd=0.0):
+    gt, M_t, V_t = galore_fused_adam_step_right(P, G, M, V, count, b1, b2, eps, alpha)
+    return apply_weight(W, gt, eta, wd), M_t, V_t
+
+
+def galore_fused_adam8_apply_step(P, G, W, Mq, Ms, Vq, Vs, count, b1=0.9, b2=0.999, eps=1e-8,
+                                  alpha=1.0, eta=-1e-3, wd=0.0, stochastic=False):
+    """int8 moments and the weight apply. Returns (W', Mq', Ms', Vq', Vs')."""
+    out = galore_fused_adam8_step(P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha,
+                                  stochastic=stochastic)
+    return (apply_weight(W, out[0], eta, wd),) + out[1:]
+
+
+def galore_fused_adam8_apply_step_right(P, G, W, Mq, Ms, Vq, Vs, count, b1=0.9, b2=0.999,
+                                        eps=1e-8, alpha=1.0, eta=-1e-3, wd=0.0,
+                                        stochastic=False):
+    out = galore_fused_adam8_step_right(P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha,
+                                        stochastic=stochastic)
+    return (apply_weight(W, out[0], eta, wd),) + out[1:]

@@ -7,7 +7,8 @@ external / sharded / async refresh modes are not ported yet.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch llama_60m --steps 20 \
           --galore-rank 16 --galore-t 10 --galore-fused
-      (add --quant-moments int8 --quant-proj int4 for 8-bit GaLore)
+      (add --quant-moments int8 --quant-proj int4 for 8-bit GaLore, and
+      --galore-fused-apply to fold the weight update into the kernel)
 """
 from __future__ import annotations
 
@@ -81,6 +82,9 @@ def build_parser():
     ap.add_argument("--galore-t", type=int, default=200)
     ap.add_argument("--galore-fused", action="store_true",
                     help="fused project→Adam→back kernel per GaLore leaf")
+    ap.add_argument("--galore-fused-apply", action="store_true",
+                    help="fold the weight update W ← W + η(G̃ + wd·W) into the fused "
+                         "kernel (requires --galore-fused; no full-size update is written)")
     cli.add_quant_flags(ap)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--batch", type=int, default=8)
@@ -103,9 +107,12 @@ def main(argv=None):
               if args.galore_rank > 0 else None)
     if args.galore_fused and galore is None:
         ap.error("--galore-fused requires --galore-rank > 0")
+    if args.galore_fused_apply and not args.galore_fused:
+        ap.error("--galore-fused-apply requires --galore-fused")
     tc = TrainConfig(optimizer=args.optimizer, galore=galore, lr=args.lr,
                      total_steps=args.steps, warmup_steps=max(1, args.steps // 10),
-                     galore_fused_adam=args.galore_fused)
+                     galore_fused_adam=args.galore_fused,
+                     galore_fused_apply=args.galore_fused_apply)
     run = RunConfig(arch=args.arch, smoke=not args.full, steps=args.steps,
                     batch_per_host=args.batch, seq_len=args.seq, log_every=args.log_every,
                     device=str(device))

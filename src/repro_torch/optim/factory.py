@@ -37,6 +37,11 @@ def effective_galore_config(tc: TrainConfig) -> GaLoreConfig | None:
     return g
 
 
+def galore_state_index(tc: TrainConfig) -> int:
+    """Position of the galore/stats state inside the chain state tuple."""
+    return 1 if tc.grad_clip > 0 else 0
+
+
 def build_optimizer(tc: TrainConfig) -> GradientTransformation:
     gcfg = effective_galore_config(tc)
     if gcfg is not None:
@@ -46,6 +51,8 @@ def build_optimizer(tc: TrainConfig) -> GradientTransformation:
         if gcfg.quant.quantizes_moments and tc.optimizer not in _ADAM_SHAPED:
             raise ValueError(f"quantized moments require an Adam-shaped inner optimizer "
                              f"(galore manages the Adam math itself), got {tc.optimizer!r}")
+        if tc.galore_fused_apply and not tc.galore_fused_adam:
+            raise ValueError("galore_fused_apply requires galore_fused_adam")
     if tc.optimizer not in _ADAM_SHAPED or (tc.optimizer == "adam8bit" and gcfg is None):
         raise NotImplementedError(f"optimizer {tc.optimizer!r} is not ported yet "
                                   f"(adam, adamw, and adam8bit with GaLore)")

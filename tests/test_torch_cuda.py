@@ -96,6 +96,34 @@ def assert_close(got, want, name):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max(), err_msg=name)
 
 
+def _bf16_ulp(x):
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    e = np.floor(np.log2(np.maximum(np.abs(x), np.float32(2.0 ** -126))))
+    return np.exp2(e - 7)
+
+
+def assert_weight_close(got, want, w0, name, tol, ulps=0):
+    """An updated weight against its reference. f32 W: the applied change
+    W' - W (in f64) within tol·max|want - W| plus `ulps` f32 ulps of W'.
+    bf16 W: at most one bf16 ulp apart (the two round one f32 value each);
+    with `ulps` (a kernel against its plain version, whose G̃ sums in another
+    order) also tol·max|want - W|, which a W' near 0 needs: there the f32 sum
+    cancels, and a G̃ within its tolerance moves the tiny W' by several of its
+    tiny ulps."""
+    def f64(t):
+        return np.asarray(t.detach().cpu().double().numpy() if isinstance(t, torch.Tensor) else t,
+                          np.float64)
+    got, want, w0_ = f64(got), f64(want), f64(w0)
+    change = want - w0_
+    if w0.dtype == torch.bfloat16:
+        slack = tol * np.abs(change).max() if ulps else 0.0
+        assert np.all(np.abs(got - want) <= _bf16_ulp(want) + slack), name
+        return
+    atol = tol * np.abs(change).max() + ulps * np.spacing(np.abs(want).astype(np.float32))
+    assert np.all(np.abs((got - w0_) - change) <= atol), (
+        name, float(np.abs((got - w0_) - change).max()), float(tol * np.abs(change).max()))
+
+
 def _cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the Hopper kernels have no CPU mode")
@@ -205,3 +233,131 @@ def test_cuda_adam8_wrapper_rejects_wrong_inputs():
         fn(P, G, mq, ms, vq.cpu(), vs, count)
     with pytest.raises(ValueError):  # an int4 P of another rank than the moments
         fn(codec.quant4_axis_state(P[:, :8]), G, mq, ms, vq, vs, count)
+
+
+# ---------------------------------------------------------------------------
+# the weight-apply forms
+# ---------------------------------------------------------------------------
+
+APPLY_KW = dict(alpha=0.25, wd=0.01)
+# the int8 cases, and r = 200: two rank chunks, so the kernel keeps N̂ in a
+# scratch and applies W in a last pass
+ADAM8_APPLY_CASES = ADAM8_CASES + [((300, 200, 520), "left"), ((520, 200, 300), "right")]
+
+
+def _w_on(dev, shape, dtype, seed=5):
+    lead, (m, _, n) = tuple(shape[:-3]), shape[-3:]
+    w = np.random.default_rng(seed).standard_normal(lead + (m, n)).astype(np.float32) * 0.02
+    return torch.from_numpy(w).to(dev).to(getattr(torch, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+def test_cuda_apply_kernel_matches_plain(shape, side, w_dtype):
+    dev = _cuda_device()
+    P, G, M, V = (torch.from_numpy(a).to(dev) for a in fused_inputs(shape, side))
+    G = G.to(getattr(torch, w_dtype))
+    W = _w_on(dev, shape, w_dtype)
+    count = torch.tensor(7, dtype=torch.int32, device=dev)
+    eta = torch.tensor(-1e-3, device=dev)
+    right = side == "right"
+    tfn = tk.galore_fused_adam_apply_step_right if right else tk.galore_fused_adam_apply_step
+    plain = (tk.galore_fused_adam_apply_step_right_plain if right
+             else tk.galore_fused_adam_apply_step_plain)
+    want = plain(P, G, W, M, V, count, eta=eta, **APPLY_KW)
+    before, w0, ptr = tfn.launches, W.clone(), W.data_ptr()
+    M2, V2 = M.clone(), V.clone()
+    got = tfn(P, G, W, M2, V2, count, eta=eta, **APPLY_KW)
+    torch.cuda.synchronize()
+    assert tfn.launches == before + 1
+    assert got[0] is W and W.data_ptr() == ptr and got[1] is M2 and got[2] is V2
+    tag = f"{side} {shape} W {w_dtype}"
+    assert_weight_close(W, want[0], w0, f"{tag} W", tol=1e-5, ulps=2)
+    assert_close(M2, want[1].cpu().numpy(), f"{tag} m")
+    assert_close(V2, want[2].cpu().numpy(), f"{tag} v")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,side", ADAM8_APPLY_CASES)
+@pytest.mark.parametrize("p_int4", [False, True])
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+def test_cuda_adam8_apply_kernel_matches_plain(shape, side, p_int4, w_dtype):
+    dev = _cuda_device()
+    P, G, moments = _adam8_on(dev, shape, side, p_int4)
+    G = G.to(getattr(torch, w_dtype))
+    W = _w_on(dev, shape, w_dtype)
+    count = torch.tensor(7, dtype=torch.int32, device=dev)
+    eta = torch.tensor(-1e-3, device=dev)
+    right = side == "right"
+    tfn = tk.galore_fused_adam8_apply_step_right if right else tk.galore_fused_adam8_apply_step
+    plain = (tk.galore_fused_adam8_apply_step_right_plain if right
+             else tk.galore_fused_adam8_apply_step_plain)
+    want = plain(P, G, W, *moments, count, eta=eta, **APPLY_KW)
+    before, w0, ptr = tfn.launches, W.clone(), W.data_ptr()
+    mine = [t.clone() for t in moments]
+    got = tfn(P, G, W, *mine, count, eta=eta, **APPLY_KW)
+    torch.cuda.synchronize()
+    assert tfn.launches == before + 1
+    assert got[0] is W and W.data_ptr() == ptr and all(a is b for a, b in zip(got[1:], mine))
+    tag = f"{side} {shape} int4 P {p_int4} W {w_dtype}"
+    assert_weight_close(W, want[0], w0, f"{tag} W", tol=1e-5, ulps=2)
+    for name, a, b in zip(["mq", "ms", "vq", "vs"], got[1:], want[1:]):
+        if b.dtype == torch.uint8:
+            assert_codes_close(a, b, f"{tag} {name}")
+        else:
+            assert_close(a, b.cpu().numpy(), f"{tag} {name}")
+
+
+@pytest.mark.cuda
+def test_cuda_apply_never_runs_the_plain_version(monkeypatch):
+    dev = _cuda_device()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    for name in ("galore_fused_adam_apply_step_plain", "galore_fused_adam_apply_step_right_plain",
+                 "galore_fused_adam8_apply_step_plain",
+                 "galore_fused_adam8_apply_step_right_plain"):
+        monkeypatch.setattr(tk, name, refuse)
+    count = torch.tensor(1, dtype=torch.int32, device=dev)
+    eta = torch.tensor(-1e-3, device=dev)
+    for shape, side in (((72, 16, 130), "left"), ((130, 16, 72), "right")):
+        right = side == "right"
+        P, G, M, V = (torch.from_numpy(a).to(dev) for a in fused_inputs(shape, side))
+        fn = tk.galore_fused_adam_apply_step_right if right else tk.galore_fused_adam_apply_step
+        fn(P, G, _w_on(dev, shape, "float32"), M, V, count, eta=eta)
+        P, G, moments = _adam8_on(dev, shape, side, True)
+        fn = tk.galore_fused_adam8_apply_step_right if right else tk.galore_fused_adam8_apply_step
+        fn(P, G, _w_on(dev, shape, "bfloat16"), *moments, count, eta=eta)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+def test_cuda_apply_wrappers_reject_wrong_weights(quant):
+    dev = _cuda_device()
+    shape = (72, 16, 130)
+    count = torch.tensor(1, dtype=torch.int32, device=dev)
+    eta = torch.tensor(-1e-3, device=dev)
+    if quant:
+        P, G, moments = _adam8_on(dev, shape, "left", False)
+        fn = tk.galore_fused_adam8_apply_step
+    else:
+        P, G, M, V = (torch.from_numpy(a).to(dev) for a in fused_inputs(shape, "left"))
+        moments = [M, V]
+        fn = tk.galore_fused_adam_apply_step
+    W = _w_on(dev, shape, "float32")
+    before = fn.launches
+    with pytest.raises(ValueError):  # a CPU weight among CUDA tensors
+        fn(P, G, W.cpu(), *moments, count, eta=eta)
+    with pytest.raises(ValueError):  # a non-contiguous weight
+        fn(P, G, W.t().contiguous().t(), *moments, count, eta=eta)
+    with pytest.raises(TypeError):  # an f16 weight
+        fn(P, G, W.half(), *moments, count, eta=eta)
+    with pytest.raises(ValueError):  # η on the host would sync every step
+        fn(P, G, W, *moments, count, eta=eta.cpu())
+    with pytest.raises(ValueError):  # a weight of another shape than G
+        fn(P, G, W[:, :64].contiguous(), *moments, count, eta=eta)
+    assert fn.launches == before
