@@ -33,9 +33,23 @@ Phases, each timed, none of them optional; any failed check raises:
   7. phases 4 and 6 again with the weight update folded into the kernels
      (galore_fused_apply): only the apply kernels launched (48 left, 8
      right), losses within 5e-2 of the emit phase, state bytes as in 6;
-  8. record: a JSON line of the kernels, step times, SVD refresh time, peak
+  8. fp32 moments with packed int4 projectors, emit and apply: only the
+     fp32 kernels' int4-P forms launched (48 left, 8 right each), losses
+     within 5e-2 of phase 4 (and of the int4-P emit phase for apply), state
+     bytes within 0.01 % of galore_state_bytes;
+  9. the paper's baselines without GaLore: 8-bit Adam (the flat 8-bit Adam
+     kernel launched once per quantized leaf a step, the leaves counted
+     from the state; state bytes within 0.01 % of adam8bit_state_bytes;
+     finite losses) and full-rank AdamW (no kernel; its step-0 loss equal to
+     8-bit Adam's within 1e-6), each with its peak memory and state bytes;
+  10. record: a JSON line of the kernels, step times, SVD refresh time, peak
      memory, state bytes, the card's name and power limit, and last the
      result line.
+The kernel checks of phase 3 also hold the fp32 kernels' int4-P forms (B1,
+B2 and their apply forms) to the same kernel launched on the host-dequantized
+P, bit for bit, and the flat 8-bit Adam kernel to its plain version, codes,
+scales and update bit for bit, at the embedding's and an FFN leaf's size and
+a ragged 1000 x 520 leaf.
 """
 import dataclasses
 import json
@@ -54,12 +68,15 @@ import torch  # noqa: E402
 from repro_torch.configs.base import GaLoreConfig, TrainConfig, get_config  # noqa: E402
 from repro_torch.core.galore import galore_state_bytes  # noqa: E402
 from repro_torch.core.projector import compute_projector  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import adam8bit_update as a8  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import galore_fused as gf  # noqa: E402
 from repro_torch.kernels.ref import lowrank_adam_update  # noqa: E402
 from repro_torch.launch.train import RunConfig, train_loop  # noqa: E402
+from repro_torch.optim.adam8bit import adam8bit_state_bytes  # noqa: E402
+from repro_torch.optim.factory import galore_state_index  # noqa: E402
 from repro_torch.quant import QuantPolicy, codec  # noqa: E402
-from repro_torch.utils import tree_leaves  # noqa: E402
+from repro_torch.utils import flatten_up_to, tree_leaves  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, f32 FMA FLOP/s
 PEAK_BYTES = 3.35e12
@@ -95,8 +112,30 @@ KERNELS = {
                               wrapper=gf.galore_fused_adam8_apply_step_right,
                               plain=gf.galore_fused_adam8_apply_step_right_plain, source=SOURCE8,
                               replaces="src/repro/kernels/galore_fused.py:751"),
+    # the fp32-moment kernels' int4-P forms: the same wrappers, counted apart
+    "p4_left": dict(name="galore_fused_adam_left (int4 P)", wrapper=gf.galore_fused_adam_step,
+                    plain=gf.galore_fused_adam_step_plain, source=SOURCE,
+                    replaces="src/repro/kernels/galore_fused.py:184"),
+    "p4_right": dict(name="galore_fused_adam_right (int4 P)",
+                     wrapper=gf.galore_fused_adam_step_right,
+                     plain=gf.galore_fused_adam_step_right_plain, source=SOURCE,
+                     replaces="src/repro/kernels/galore_fused.py:284"),
+    "p4_apply_left": dict(name="galore_fused_adam_apply_left (int4 P)",
+                          wrapper=gf.galore_fused_adam_apply_step,
+                          plain=gf.galore_fused_adam_apply_step_plain, source=SOURCE,
+                          replaces="src/repro/kernels/galore_fused.py:714"),
+    "p4_apply_right": dict(name="galore_fused_adam_apply_right (int4 P)",
+                           wrapper=gf.galore_fused_adam_apply_step_right,
+                           plain=gf.galore_fused_adam_apply_step_right_plain, source=SOURCE,
+                           replaces="src/repro/kernels/galore_fused.py:727"),
+    "adam8bit": dict(name="adam8bit_blocks_update", wrapper=a8.adam8bit_update,
+                     plain=a8.adam8bit_update_plain, source=SOURCE8,
+                     replaces="src/repro/kernels/galore_fused.py:762"),
 }
-COUNTERS = {key: k["wrapper"] for key, k in KERNELS.items()}
+# each kernel's launch count: the wrapper's `launches`, or `launches_int4` for
+# the int4-P forms of the fp32-moment kernels
+COUNTERS = {key: (k["wrapper"], "launches_int4" if key.startswith("p4_") else "launches")
+            for key, k in KERNELS.items()}
 # (side, L, m, r, n, on the main path): the slice's leaves at llama_7b width
 # with 2 layers, the paper's 7B rank, and a ragged shape
 SHAPES = [
@@ -159,6 +198,14 @@ def kernel_inputs(side, L, m, r, n, g_dtype, seed):
     return P, G, M, V, torch.tensor(COUNT, dtype=torch.int32, device="cuda")
 
 
+def p_bytes(L, kept, r, p_int4):
+    """Bytes of one read of P: f32, or packed nibbles + one f32 scale a
+    128-row block and column."""
+    if p_int4:
+        return L * -(-kept // codec.QBLOCK) * r * (codec.QBLOCK // 2 + 4)
+    return 4 * L * kept * r
+
+
 def out_cost(L, m, n, w_itemsize):
     """Bytes and operations of a launch's output: G̃ written in f32 (emit),
     or W read and written in its dtype and 4 operations an element (apply)."""
@@ -167,14 +214,14 @@ def out_cost(L, m, n, w_itemsize):
     return 2 * w_itemsize * L * m * n, 4 * L * m * n
 
 
-def bound(side, L, m, r, n, g_itemsize, w_itemsize=None):
+def bound(side, L, m, r, n, g_itemsize, w_itemsize=None, p_int4=False):
     """Least time (s) for one launch, and what bounds it: each input read once
     and each output written once, and the f32 operations of the two
     contractions plus the elementwise Adam (and the weight apply)."""
     kept = m if side == "left" else n
     mv = L * r * (n if side == "left" else m)
     out_bytes, out_flops = out_cost(L, m, n, w_itemsize)
-    nbytes = 4 * L * kept * r + g_itemsize * L * m * n + 4 * 4 * mv + out_bytes
+    nbytes = p_bytes(L, kept, r, p_int4) + g_itemsize * L * m * n + 4 * 4 * mv + out_bytes
     flops = 4 * L * m * r * n + 12 * mv + out_flops
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -240,11 +287,10 @@ def bound8(side, L, m, r, n, g_itemsize, p_int4, w_itemsize=None):
     f32); the f32 operations of the two contractions plus ~20 a moment
     element (dequant, Adam, absmax, requant), and the weight apply."""
     kept, swept = (m, n) if side == "left" else (n, m)
-    nb, nbp = -(-swept // codec.QBLOCK), -(-kept // codec.QBLOCK)
-    p_bytes = L * nbp * r * (codec.QBLOCK // 2 + 4) if p_int4 else 4 * L * kept * r
+    nb = -(-swept // codec.QBLOCK)
     out_bytes, out_flops = out_cost(L, m, n, w_itemsize)
     nbytes = (g_itemsize * L * m * n + out_bytes + 2 * 2 * L * r * swept
-              + 2 * 2 * 4 * L * r * nb + p_bytes)
+              + 2 * 2 * 4 * L * r * nb + p_bytes(L, kept, r, p_int4))
     flops = 4 * L * m * r * n + 20 * L * r * swept + out_flops
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -474,14 +520,145 @@ def apply_row(k, side, L, m, r, n, main, wdt, p, sr, P, G, W, w0, mine, got, wan
                 plain_ms=plain_ms, bound_ms=b_s * 1e3, bound_by=b_by)
 
 
-def train_phase(fused, quant=None, apply=False):
+def check_int4p():
+    """The fp32-moment kernels (B1, B2) and their apply forms launched on a
+    packed int4 P, at the main shapes and the ragged one, G bf16 (W bf16 and
+    f32 for the apply forms): G̃ (or W'), M' and V' bit for bit those of the
+    same kernel launched on the host-dequantized f32 P — only the staging
+    differs — and within the f32-P kernel's tolerances of the plain version
+    (1e-5·max on G̃, M', V'; W' as in check_apply). Times the int4-P launch,
+    the f32-P launch on the same data, and the plain version."""
+    rows = []
+    count = torch.tensor(COUNT, dtype=torch.int32, device="cuda")
+    eta = torch.tensor(ETA, device="cuda")
+    for i, (side, L, m, r, n, main) in enumerate(SHAPES):
+        if r > codec.QBLOCK:
+            continue
+        P, G, M, V, _ = kernel_inputs(side, L, m, r, n, torch.bfloat16, seed=i)
+        P4 = codec.quant4_axis_state(P)
+        P_host = codec.dequantize4_axis(P4["q"], P4["scale"], P.shape[-2]).contiguous()
+        W32 = 0.02 * torch.randn(L, m, n, generator=torch.Generator(device="cuda").manual_seed(
+            300 + i), device="cuda")
+        for wdt in (None, torch.bfloat16, torch.float32):
+            key = ("p4_" if wdt is None else "p4_apply_") + side
+            k = KERNELS[key]
+            kw = dict(alpha=ALPHA) if wdt is None else dict(alpha=ALPHA, eta=eta, wd=WD)
+            W = None if wdt is None else W32.to(wdt)
+            lead = () if W is None else (W,)
+            tag = (f"{k['name']} L={L} (m,r,n)=({m},{r},{n}) G bfloat16"
+                   + ("" if W is None else f" W {str(wdt).removeprefix('torch.')}"))
+
+            def launch(P_, k=k, lead=lead, kw=kw):
+                ins = tuple(x.clone() for x in lead) + (M.clone(), V.clone())
+                return k["wrapper"](P_, G, *ins, count, **kw)
+
+            got, host = launch(P4), launch(P_host)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, host)):
+                raise AssertionError(f"{tag}: differs from the launch on the host-dequantized P")
+            want = k["plain"](P4, G, *lead, M, V, count, **kw)
+            errs = []
+            for name, a, b in zip(("out", "m", "v"), got, want):
+                if name == "out" and W is not None:
+                    errs.append(weight_check(a, b, W, tag)[0])
+                    continue
+                tol = 1e-5 * b.abs().max() + 1e-5 * b.abs()
+                if bool(((a - b).abs() > tol).any()) or not bool(torch.isfinite(a).all()):
+                    raise AssertionError(f"{tag} {name}: max|err| "
+                                         f"{float((a - b).abs().max()):.3e} over tolerance")
+                errs.append(float((a - b).abs().max()))
+            ins = tuple(x.clone() for x in lead) + (M.clone(), V.clone())
+            ms = cuda_ms(lambda: k["wrapper"](P4, G, *ins, count, **kw), 3, 10)
+            ms_f32p = cuda_ms(lambda: k["wrapper"](P_host, G, *ins, count, **kw), 3, 10)
+            plain_ms = cuda_ms(lambda: k["plain"](P4, G, *lead, M, V, count, **kw), 2, 5)
+            b_s, b_by = bound(side, L, m, r, n, 2, None if W is None else W.element_size(),
+                              p_int4=True)
+            rows.append(dict(kernel=key, side=side, L=L, m=m, r=r, n=n, g_dtype="bfloat16",
+                             w_dtype=None if W is None else str(wdt).removeprefix("torch."),
+                             p="int4", main_path=main, max_abs_err=errs[0],
+                             moment_err=max(errs[1:]), ms=ms, ms_f32_p=ms_f32p, plain_ms=plain_ms,
+                             bound_ms=b_s * 1e3, bound_by=b_by))
+            what = "G̃" if W is None else "W'"
+            log(f"[kernels] {tag}: equal to the host-dequantized-P launch; vs plain max|err| "
+                f"{what}/M'/V' {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} ok  kernel {ms:.3f} ms (f32 P {ms_f32p:.3f})  plain {plain_ms:.3f} ms  "
+                f"bound {b_s * 1e3:.3f} ms ({b_by})")
+            del got, host, want, W, ins
+        del P, G, M, V, P4, P_host, W32
+    torch.cuda.empty_cache()
+    return rows
+
+
+# (numel, shape) of the flat 8-bit Adam checks: the (tied) embedding, one FFN
+# leaf of the main path, and a ragged leaf whose last block is partial
+FLAT_SHAPES = [(32000, 4096), (2, 4096, 11008), (1000, 520)]
+FLAT_OPS = 35  # f32 operations an element: dequant 2, moments 7, absmax 4, requant 18, update 4
+
+
+def flat_inputs(shape, seed):
+    """g (bf16) and the flat int8 moments of step COUNT: what COUNT - 1
+    earlier steps of the plain version leave on gradients of unit scale."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    numel = math.prod(shape)
+    zeros = torch.zeros(numel, device="cuda")
+    mom = (*codec.quantize(zeros, signed=True), *codec.quantize(zeros, signed=False))
+    for t in range(1, COUNT):
+        g = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+        mom = a8.adam8bit_update_plain(g, *mom, torch.tensor(t, dtype=torch.int32,
+                                                              device="cuda"))[1:]
+    return torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16), mom
+
+
+def check_adam8bit():
+    """The flat 8-bit Adam kernel against its plain version at FLAT_SHAPES, g
+    bf16 as the main path gives it: codes, scales and the bf16 update bit for
+    bit (both run the same explicitly rounded f32 operations in one order and
+    the codec's midpoint rule, then round the update once). Times kernel and
+    plain version; the bound is bytes: g and the update once, each code read
+    and written once, each scale read and written once."""
+    rows = []
+    k = KERNELS["adam8bit"]
+    count = torch.tensor(COUNT, dtype=torch.int32, device="cuda")
+    for i, shape in enumerate(FLAT_SHAPES):
+        g, mom = flat_inputs(shape, seed=400 + i)
+        numel, nb = g.numel(), mom[0].shape[0]
+        want = k["plain"](g, *mom, count)
+        mine = [x.clone() for x in mom]
+        got = k["wrapper"](g, *mine, count)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("update", "mq", "ms", "vq", "vs"), got, want):
+            if not torch.equal(a, b):
+                d = (a.float() - b.float()).abs()
+                raise AssertionError(f"{k['name']} {shape} {name}: {int((d > 0).sum())} elements "
+                                     f"differ from the plain version (max {float(d.max()):.3e})")
+        ms = cuda_ms(lambda: k["wrapper"](g, *mine, count), 3, 10)
+        plain_ms = cuda_ms(lambda: k["plain"](g, *mom, count), 2, 5)
+        nbytes = 2 * numel * g.element_size() + 4 * nb * codec.BLOCK + 4 * 4 * nb
+        t_bytes, t_ops = nbytes / PEAK_BYTES, FLAT_OPS * numel / PEAK_F32
+        b_s, b_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+        rows.append(dict(kernel="adam8bit", shape=list(shape), numel=numel, g_dtype="bfloat16",
+                         main_path=i < 2, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_s * 1e3, bound_by=b_by, m=numel, n=1))
+        log(f"[kernels] {k['name']} g {tuple(shape)} bfloat16 ({nb} blocks): update, codes and "
+            f"scales equal to the plain version's ok  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+            f"bound {b_s * 1e3:.3f} ms ({b_by}, {nbytes / 1e9:.3f} GB; "
+            f"{nbytes / ms / 1e6:.0f} GB/s achieved)")
+        del g, mom, want, mine, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=True):
     """8 steps of the main path (AdamW, wd 0.01; with `apply` the weight
-    update folded into the kernels); returns losses, step times, the
-    launches of every kernel wrapper, peak memory, and the m/v/proj state
-    bytes measured from the tensors beside the analytic galore_state_bytes."""
+    update folded into the kernels; without `galore` full-rank `optimizer`,
+    AdamW or the 8-bit Adam baseline); returns losses, step times, the
+    launches of every kernel, peak memory, and the optimizer state's bytes
+    measured from the tensors (GaLore's m/v/proj, or the baselines' moments)
+    beside their analytic count (galore_state_bytes, adam8bit_state_bytes, or
+    8 bytes a parameter for AdamW)."""
     cfg = dataclasses.replace(get_config("llama_7b"), n_layers=2)
-    gcfg = GaLoreConfig(rank=128, update_freq=4, scale=0.25, quant=quant or QuantPolicy())
-    tc = TrainConfig(optimizer="adamw", galore=gcfg, galore_fused_adam=fused,
+    gcfg = (GaLoreConfig(rank=128, update_freq=4, scale=0.25, quant=quant or QuantPolicy())
+            if galore else None)
+    tc = TrainConfig(optimizer=optimizer, galore=gcfg, galore_fused_adam=fused,
                      galore_fused_apply=apply, lr=1e-3, weight_decay=WD, total_steps=8,
                      warmup_steps=1)
     run = RunConfig(arch="llama_7b", smoke=False, steps=8, batch_per_host=8, seq_len=256,
@@ -493,20 +670,38 @@ def train_phase(fused, quant=None, apply=False):
         times.append(metrics["step_s"])
 
     torch.cuda.reset_peak_memory_stats()
-    gf.reset_launch_counts()
+    ops.reset_launch_counts()
     params, opt_state, _, _ = train_loop(run, tc, cfg=cfg, on_step=on_step)
-    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    launches = {key: getattr(fn, attr) for key, (fn, attr) in COUNTERS.items()}
     peak = torch.cuda.max_memory_allocated()
-    state = next(s for s in opt_state if isinstance(s, dict) and "proj" in s)
-    leaves = tree_leaves([state["proj"], state["inner"]["m"], state["inner"]["v"]])
+    state = opt_state[galore_state_index(tc)]
+    quantized = None
+    if galore:
+        leaves = tree_leaves([state["proj"], state["inner"]["m"], state["inner"]["v"]])
+        analytic = galore_state_bytes(params, gcfg)["optimizer_state_bytes"]
+    elif optimizer == "adam8bit":
+        leaves = tree_leaves(state["mv"])
+        analytic = adam8bit_state_bytes(params)
+        quantized = sum(codec.is_qstate(mv["m"]) for mv in flatten_up_to(params, state["mv"]))
+    else:
+        leaves = tree_leaves([state["m"], state["v"]])
+        analytic = 8 * sum(p.numel() for p in tree_leaves(params))
     state_bytes = sum(t.numel() * t.element_size() for t in leaves)
-    analytic = galore_state_bytes(params, gcfg)["optimizer_state_bytes"]
     del params, opt_state, state, leaves
     torch.cuda.empty_cache()
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"non-finite loss: {losses}")
-    return dict(losses=losses, times=times, launches=launches, peak=peak,
-                state_bytes=state_bytes, analytic_bytes=analytic)
+    return dict(losses=losses, times=times, launches=launches, peak=peak, galore=galore,
+                state_bytes=state_bytes, analytic_bytes=analytic, quantized_leaves=quantized)
+
+
+def check_state_bytes(tag, ph):
+    rel = abs(ph["state_bytes"] - ph["analytic_bytes"]) / ph["analytic_bytes"]
+    log(f"[state] {tag}: optimizer state bytes measured {ph['state_bytes']}, analytic "
+        f"{ph['analytic_bytes']:.0f} (Δ {rel:.2e})")
+    if rel > 1e-4:
+        raise AssertionError(f"{tag} state bytes {ph['state_bytes']} are not within 0.01 % of "
+                             f"the analytic {ph['analytic_bytes']:.0f}")
 
 
 def svd_ms():
@@ -544,6 +739,8 @@ def main():
     rows = check_kernels()
     rows += check_adam8()
     rows += check_apply()
+    rows += check_int4p()
+    rows += check_adam8bit()
     log(f"[kernels] {len(rows)} checks passed ({time.perf_counter() - t:.1f} s)")
 
     none = {name: 0 for name in COUNTERS}
@@ -582,39 +779,62 @@ def main():
         raise AssertionError(f"8-bit vs fp32 fused losses differ by {gap8:.3e} > 5e-2")
     log(f"[parity] 8-bit vs fp32 fused max |Δloss| {gap8:.3e} (limit 5e-2)")
     for tag, ph in (("fp32", fused), ("8bit", q8)):
-        rel = abs(ph["state_bytes"] - ph["analytic_bytes"]) / ph["analytic_bytes"]
-        log(f"[state] {tag}: m/v/proj bytes measured {ph['state_bytes']}, analytic "
-            f"{ph['analytic_bytes']:.0f} (Δ {rel:.2e})")
-        if rel > 1e-4:
-            raise AssertionError(f"{tag} state bytes {ph['state_bytes']} are not within 0.01 % of "
-                                 f"galore_state_bytes {ph['analytic_bytes']:.0f}")
+        check_state_bytes(tag, ph)
     log(f"[state] 8-bit / fp32 state bytes {q8['state_bytes'] / fused['state_bytes']:.4f} "
         f"({1 - q8['state_bytes'] / fused['state_bytes']:.1%} smaller)")
 
     phases = {"fused": fused, "composable": comp, "8bit": q8}
+    int4p = QuantPolicy(projectors="int4")
     for tag, quant, emit_tag, want in (
             ("fused-apply", None, "fused", dict(none, apply_left=48, apply_right=8)),
             ("8bit-apply", QuantPolicy(moments="int8", projectors="int4"), "8bit",
-             dict(none, adam8_apply_left=48, adam8_apply_right=8))):
+             dict(none, adam8_apply_left=48, adam8_apply_right=8)),
+            ("int4p", int4p, "fused", dict(none, p4_left=48, p4_right=8)),
+            ("int4p-apply", int4p, "int4p", dict(none, p4_apply_left=48, p4_apply_right=8))):
         t = time.perf_counter()
-        ph = phases[tag] = train_phase(fused=True, quant=quant, apply=True)
+        ph = phases[tag] = train_phase(fused=True, quant=quant, apply=tag.endswith("apply"))
         log(f"[{tag}] losses {[round(x, 4) for x in ph['losses']]} launches {ph['launches']} "
             f"({time.perf_counter() - t:.1f} s)")
         if not ph["losses"][-1] < ph["losses"][0]:
             raise AssertionError(f"{tag} loss did not decrease: {ph['losses']}")
         if ph["launches"] != want:
-            raise AssertionError(f"{tag} launches {ph['launches']}, want only the apply kernels, "
-                                 f"left 48 (6 leaves × 8 steps) and right 8")
+            raise AssertionError(f"{tag} launches {ph['launches']}, want only "
+                                 f"{[k for k, v in want.items() if v]}, left 48 (6 leaves × 8 "
+                                 f"steps) and right 8")
         gap = max(abs(a - b) for a, b in zip(ph["losses"], phases[emit_tag]["losses"]))
         if gap > 5e-2:
             raise AssertionError(f"{tag} vs {emit_tag} losses differ by {gap:.3e} > 5e-2")
         log(f"[parity] {tag} vs {emit_tag} max |Δloss| {gap:.3e} (limit 5e-2)")
-        rel = abs(ph["state_bytes"] - ph["analytic_bytes"]) / ph["analytic_bytes"]
-        log(f"[state] {tag}: m/v/proj bytes measured {ph['state_bytes']}, analytic "
-            f"{ph['analytic_bytes']:.0f} (Δ {rel:.2e})")
-        if rel > 1e-4:
-            raise AssertionError(f"{tag} state bytes {ph['state_bytes']} are not within 0.01 % "
-                                 f"of galore_state_bytes {ph['analytic_bytes']:.0f}")
+        check_state_bytes(tag, ph)
+
+    # the paper's baselines without GaLore: 8-bit Adam (the flat kernel) and
+    # full-rank AdamW (no kernel), same lr, schedule, batch and data
+    t = time.perf_counter()
+    ph = phases["adam8bit"] = train_phase(optimizer="adam8bit", galore=False)
+    log(f"[adam8bit] losses {[round(x, 4) for x in ph['losses']]} launches {ph['launches']} "
+        f"({time.perf_counter() - t:.1f} s)")
+    want = dict(none, adam8bit=8 * ph["quantized_leaves"])
+    if ph["quantized_leaves"] == 0 or ph["launches"] != want:
+        raise AssertionError(f"adam8bit launches {ph['launches']}, want only adam8bit, once per "
+                             f"quantized leaf ({ph['quantized_leaves']}) and step")
+    check_state_bytes("adam8bit", ph)
+    t = time.perf_counter()
+    ph = phases["adamw"] = train_phase(optimizer="adamw", galore=False)
+    log(f"[adamw] losses {[round(x, 4) for x in ph['losses']]} launches {ph['launches']} "
+        f"({time.perf_counter() - t:.1f} s)")
+    if ph["launches"] != none:
+        raise AssertionError(f"full-rank AdamW launched kernels: {ph['launches']}")
+    check_state_bytes("adamw", ph)
+    d0 = abs(phases["adam8bit"]["losses"][0] - ph["losses"][0])
+    if d0 > 1e-6:
+        raise AssertionError(f"step-0 losses of adam8bit and adamw differ by {d0:.3e} (the same "
+                             f"params and batch, before any update)")
+    gaps = [a - b for a, b in zip(phases["adam8bit"]["losses"], ph["losses"])]
+    log(f"[baselines] step-0 loss adam8bit - adamw {d0:.1e} (limit 1e-6); per-step loss "
+        f"adam8bit - adamw {[f'{x:.4f}' for x in gaps]}; peak memory adam8bit "
+        f"{phases['adam8bit']['peak'] / 2**30:.2f} GiB, adamw {ph['peak'] / 2**30:.2f} GiB; "
+        f"state bytes adam8bit {phases['adam8bit']['state_bytes']}, adamw {ph['state_bytes']} "
+        f"({phases['adam8bit']['state_bytes'] / ph['state_bytes']:.4f})")
 
     t = time.perf_counter()
     svd = svd_ms()
@@ -623,15 +843,22 @@ def main():
         f"({time.perf_counter() - t:.1f} s)")
     for tag, ph in phases.items():
         times = ph["times"]
-        steady = statistics.median(times[i] for i in range(len(times)) if i % 4)
-        log(f"[steps] {tag}: step ms {[round(x * 1e3, 1) for x in times]}; median non-refresh "
-            f"{steady * 1e3:.1f} ms; refresh steps 0/4 {times[0] * 1e3:.1f}/"
-            f"{times[4] * 1e3:.1f} ms; peak memory {ph['peak'] / 2**30:.2f} GiB")
+        if ph["galore"]:
+            steady = statistics.median(times[i] for i in range(len(times)) if i % 4)
+            first = (f"median non-refresh {steady * 1e3:.1f} ms; refresh steps 0/4 "
+                     f"{times[0] * 1e3:.1f}/{times[4] * 1e3:.1f} ms")
+        else:
+            first = (f"median of steps 1-7 {statistics.median(times[1:]) * 1e3:.1f} ms; step 0 "
+                     f"{times[0] * 1e3:.1f} ms")
+        log(f"[steps] {tag}: step ms {[round(x * 1e3, 1) for x in times]}; {first}; peak memory "
+            f"{ph['peak'] / 2**30:.2f} GiB")
 
     # each kernel's launches in the phase of the main path that runs it
     runs_in = {"left": "fused", "right": "fused", "adam8_left": "8bit", "adam8_right": "8bit",
                "apply_left": "fused-apply", "apply_right": "fused-apply",
-               "adam8_apply_left": "8bit-apply", "adam8_apply_right": "8bit-apply"}
+               "adam8_apply_left": "8bit-apply", "adam8_apply_right": "8bit-apply",
+               "p4_left": "int4p", "p4_right": "int4p", "p4_apply_left": "int4p-apply",
+               "p4_apply_right": "int4p-apply", "adam8bit": "adam8bit"}
     launches = {key: phases[tag]["launches"][key] for key, tag in runs_in.items()}
     kernels = []
     for key, k in KERNELS.items():
@@ -640,17 +867,20 @@ def main():
         # W), as the main path runs it (int4 P, nearest rounding, for the int8
         # kernel)
         top = max((r for r in mine if r["main_path"] and r["g_dtype"] == "bfloat16"
-                   and r.get("w_dtype", "bfloat16") == "bfloat16" and not r.get("stochastic")
-                   and (not key.startswith("adam8") or r["p"] == "int4")),
+                   and (r.get("w_dtype") or "bfloat16") == "bfloat16" and not r.get("stochastic")
+                   and (not key.startswith("adam8_") or r["p"] == "int4")),
                   key=lambda r: r["m"] * r["n"])
+        shape = (dict(numel=top["numel"], g_dtype="bfloat16") if key == "adam8bit" else
+                 dict(L=top["L"], m=top["m"], r=top["r"], n=top["n"], g_dtype="bfloat16",
+                      w_dtype=top.get("w_dtype"), p=top.get("p", "f32")))
+        if launches[key] == 0:
+            raise AssertionError(f"{k['name']} was not launched in the {runs_in[key]} phase")
         kernels.append(dict(
             name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],
-            launches=launches[key],
+            p=None if key == "adam8bit" else top.get("p", "f32"), launches=launches[key],
             max_abs_err=max(r["max_abs_err"] for r in mine if r["main_path"]),
             ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
-            bound_by=top["bound_by"], library_ms=None,
-            shape=dict(L=top["L"], m=top["m"], r=top["r"], n=top["n"], g_dtype="bfloat16",
-                       w_dtype=top.get("w_dtype"), p=top.get("p", "f32"))))
+            bound_by=top["bound_by"], library_ms=None, shape=shape))
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

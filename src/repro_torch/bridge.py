@@ -1,4 +1,5 @@
-"""numpy ⇄ torch bridge for parameter and GaLore optimizer-state trees.
+"""numpy ⇄ torch bridge for parameter and optimizer-state trees (GaLore's
+state, and the standalone 8-bit Adam's).
 
 The trees are nested dicts keyed like the JAX package's (``np.asarray`` of
 each leaf of a ``repro`` tree is a valid input), so a test can run the port on
@@ -74,3 +75,16 @@ def galore_state_to_numpy(state):
         "inner": {"m": tree_map(_to_numpy, inner["m"]), "v": tree_map(_to_numpy, inner["v"]),
                   "count": _to_numpy(inner["count"]).astype(np.int32)},
     }
+
+
+def adam8bit_state_from_numpy(state, device):
+    """scale_by_adam8bit's state {"mv": {leaf: {"m", "v"}}, "count"} from its
+    numpy form: quantized moments keep their uint8 codes and f32 scales,
+    fp32 moments stay f32, and ``count`` is an int32 tensor on `device`."""
+    return {"mv": tree_map(lambda a: _to_tensor(a, device), state["mv"]),
+            "count": _to_tensor(state["count"], device, torch.int32)}
+
+
+def adam8bit_state_to_numpy(state):
+    return {"mv": tree_map(_to_numpy, state["mv"]),
+            "count": _to_numpy(state["count"]).astype(np.int32)}

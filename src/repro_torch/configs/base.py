@@ -126,7 +126,7 @@ class GaLoreConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    optimizer: str = "adamw"  # adam | adamw | adam8bit (with GaLore only)
+    optimizer: str = "adamw"  # adam | adamw | adam8bit (8-bit GaLore with GaLore, else 8-bit Adam)
     galore: Optional[GaLoreConfig] = None
     lr: float = 1e-3
     warmup_steps: int = 100

@@ -22,8 +22,8 @@ as a ``{"q": codes, "scale": absmax}`` dict in the axis-blocked layout the
 fused kernel consumes (blocks along its swept axis), and every path runs
 dequant → Adam → requant on it — in the kernel when fused, in plain torch
 otherwise and for passthrough leaves. Projectors are stored fp32, bf16 or
-packed int4 and dequantized on read, except that the fused int8 kernel takes
-the packed int4 P as it is.
+packed int4 and dequantized on read, except that the fused kernels (fp32 and
+int8 moments alike) take the packed int4 P as it is.
 
 State layout (the reference's, minus its unused PRNG key):
     {"step": int, "proj": tree of P (scalar placeholders on non-galore
@@ -189,8 +189,6 @@ def _managed_adam_update(grads, proj_eff, inner_state, plans, cfg: GaLoreConfig,
                 upd = finish(upd, p)
             mq, ms, vq, vs = codes
             return upd, {"q": mq, "scale": ms}, {"q": vq, "scale": vs}
-        if codec.is_qstate(P):  # an fp32-moment leaf's step takes an f32 P
-            P = read_projector(P, proj_shape(g, plan))
         if fused and apply_w:
             fn = (ops.galore_fused_adam_apply_step if left
                   else ops.galore_fused_adam_apply_step_right)

@@ -1,6 +1,8 @@
 // Fused GaLore-Adam leaf step with int8 moments for Hopper (sm_90a): one
 // kernel, a left and a right form, P either f32 or packed int4, emitting G̃
-// or folding it into the weight.
+// or folding it into the weight. After adam8_kernel, the same dequant →
+// Adam → requant without the projection: the flat 8-bit Adam update
+// (adam8bit_blocks_update), described there.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/galore_fused.py
 // `_fused_epilogue_call` (body `_epilogue_kernel`) in its int8-moment variants,
@@ -64,9 +66,9 @@
 // elementwise math uses explicitly rounded f32 operations in the codec's
 // order (no FMA contraction), so for equal R the codes are the plain
 // version's bit for bit; only the contractions' summation order differs.
-// An int4 P is decoded while staging, book4[nibble] * scale in f32, the
-// order of dequantize4_axis, so it is bitwise the host-dequantized P; rows
-// past the logical kept dim are never read.
+// An int4 P is decoded while staging (int4_p.cuh), book4[nibble] * scale in
+// f32, the order of dequantize4_axis, so it is bitwise the host-dequantized P;
+// rows past the logical kept dim are never read.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,7 +76,11 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "int4_p.cuh"
+
 namespace {
+
+using int4p::P4;
 
 constexpr int kThreads = 256;  // 16 x 16 thread grid, 8 warps
 constexpr int kT = 128;        // tile edge: one quantization block, one rank chunk
@@ -84,6 +90,14 @@ constexpr int kS = kT + 1;     // padded row stride of every shared tile
 constexpr int kBooks = 256 + 256 + 16;  // book_s | book_u | book4, from the wrapper
 constexpr uint32_t kSaltM = 0x5BD1E995u;
 constexpr uint32_t kSaltV = 0xC2B2AE35u;
+// An int4 P's codes are decoded as they arrive (int4_p.cuh's kBatch = 1): this
+// kernel runs two blocks an SM at 128 registers, and holding a stage's codes
+// in registers before decoding them measured slower here at the main shapes
+// (it is faster in galore_fused.cu, which is not capped).
+constexpr int kP4Batch = 1;
+static_assert(kBK == int4p::kStageK && kT == int4p::kStageW && kS == int4p::kStageS &&
+                  kThreads == int4p::kStageThreads,
+              "the int4 P stages of int4_p.cuh assume this kernel's stage geometry");
 
 // shared layout, in floats
 constexpr int kOffT = 0;
@@ -190,16 +204,6 @@ __device__ __forceinline__ void apply_row(const Args& a, size_t o0, int row, int
   }
 }
 
-// A packed int4 P of one leaf: row i < half sits in the low nibble of byte
-// row i, row i >= half in the high nibble of byte row i - half. Staged by
-// the overloads below, not element by element.
-struct P4 {
-  const uint8_t* q;
-  const float* s;
-  const float* book;  // the 16 int4 codes, in shared memory
-  int rows, cols, half;
-};
-
 // buf[kk][c] = src(k0 + kk, c0 + c): contraction along the source's rows.
 // Each thread stages one column c, rows kk = tid / 128 + 2i; the loop has a
 // fixed trip count, so it unrolls and its 16 loads are in flight together.
@@ -222,47 +226,6 @@ __device__ __forceinline__ void stage_cols(float* buf, const Src& src, int c0, i
   for (int i = 0; i < kBK * kT / kThreads; ++i) {
     const int c = tid / kBK + (kThreads / kBK) * i;
     buf[kk * kS + c] = src.at(c0 + c, k0 + kk);
-  }
-}
-
-// The same two stagings for an int4 P, decoded as book4[nibble] * scale in
-// one f32 multiply (the order of dequantize4_axis). The call sites make each
-// thread's share of a stage lie in one 128-row scale block, so its scale is
-// loaded once: a row-wise stage covers 32 rows from k0 % 32 == 0 (also never
-// straddling `half`, a multiple of 64); a column-wise stage covers rows
-// c0..c0+127 with c0 % 128 == 0 and one column per thread.
-__device__ __forceinline__ void stage_rows(float* buf, const P4& p, int k0, int c0, int tid) {
-  const int c = tid % kT, col = c0 + c;
-  const bool hi = k0 >= p.half;
-  const bool col_ok = col < p.cols;
-  const float sc = (col_ok && k0 < p.rows) ? p.s[(size_t)(k0 / kT) * p.cols + col] : 0.f;
-  const size_t byte0 = (size_t)(hi ? k0 - p.half : k0) * p.cols + col;
-#pragma unroll
-  for (int i = 0; i < kBK * kT / kThreads; ++i) {
-    const int kk = tid / kT + (kThreads / kT) * i;
-    float v = 0.f;
-    if (col_ok && k0 + kk < p.rows) {
-      const unsigned b = p.q[byte0 + (size_t)kk * p.cols];
-      v = __fmul_rn(p.book[hi ? (b >> 4) : (b & 0xFu)], sc);
-    }
-    buf[kk * kS + c] = v;
-  }
-}
-
-__device__ __forceinline__ void stage_cols(float* buf, const P4& p, int c0, int k0, int tid) {
-  const int kk = tid % kBK, col = k0 + kk;
-  const bool col_ok = col < p.cols;
-  const float sc = (col_ok && c0 < p.rows) ? p.s[(size_t)(c0 / kT) * p.cols + col] : 0.f;
-#pragma unroll
-  for (int i = 0; i < kBK * kT / kThreads; ++i) {
-    const int c = tid / kBK + (kThreads / kBK) * i, row = c0 + c;
-    float v = 0.f;
-    if (col_ok && row < p.rows) {
-      const bool hi = row >= p.half;
-      const unsigned b = p.q[(size_t)(hi ? row - p.half : row) * p.cols + col];
-      v = __fmul_rn(p.book[hi ? (b >> 4) : (b & 0xFu)], sc);
-    }
-    buf[kk * kS + c] = v;
   }
 }
 
@@ -376,7 +339,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) adam8_kernel(const Args 
   const int blk = blockIdx.x;    // the block's quantization block of the swept axis
   const int s0 = blk * kT;       // its first swept position
   const int kept = kRight ? n : m;
-  const int kept_pad = (kept + kT - 1) / kT * kT;
   const int swept = kRight ? m : n;
   const int nb = (swept + kT - 1) / kT;
 
@@ -394,8 +356,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) adam8_kernel(const Args 
 
   // this leaf's operands
   const Mat<float> Pf{kP4 ? nullptr : a.P + l * kept * r, kept, r};
-  const P4 Pi{kP4 ? a.Pq + l * (kept_pad / 2) * r : nullptr,
-              kP4 ? a.Ps + l * (kept_pad / kT) * r : nullptr, book4, kept, r, kept_pad / 2};
+  const P4 Pi = kP4 ? int4p::p4_leaf(a.Pq, a.Ps, book4, l, kept, r) : P4{};
   const Mat<GT> Gm{static_cast<const GT*>(a.G) + l * m * n, m, n};
   const size_t mom0 = l * (kRight ? (size_t)m * r : (size_t)r * n);
   const size_t sc0 = l * (kRight ? (size_t)nb * r : (size_t)r * nb);
@@ -415,7 +376,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) adam8_kernel(const Args 
     zero_acc(acc);
     if (!kRight) {  // R_c[i][j] = sum_k P[k][rc0+i] G[k][s0+j], k over m
       for (int k0 = 0; k0 < m; k0 += kBK) {
-        if (kP4) stage_rows(As, Pi, k0, rc0, tid);
+        if (kP4) int4p::stage_rows<kP4Batch>(As, Pi, k0, rc0, tid);
         else stage_rows(As, Pf, k0, rc0, tid);
         stage_rows(Bs, Gm, k0, s0, tid);
         __syncthreads();
@@ -425,7 +386,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) adam8_kernel(const Args 
     } else {  // R_c[i][j] = sum_k G[s0+i][k] P[k][rc0+j], k over n
       for (int k0 = 0; k0 < n; k0 += kBK) {
         stage_cols(As, Gm, s0, k0, tid);
-        if (kP4) stage_rows(Bs, Pi, k0, rc0, tid);
+        if (kP4) int4p::stage_rows<kP4Batch>(Bs, Pi, k0, rc0, tid);
         else stage_rows(Bs, Pf, k0, rc0, tid);
         __syncthreads();
         tile_fma(As, kS, 1, Bs, kS, 1, acc, tx, ty);
@@ -544,7 +505,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) adam8_kernel(const Args 
         zero_acc(acc);
         if (kApply) prefetch_w(Wp, o0, m, n, m0, kT, s0, kT, tid, kThreads);
         for (int k0 = 0; k0 < kn; k0 += kBK) {
-          if (kP4) stage_cols(As, Pi, m0, rc0 + k0, tid);
+          if (kP4) int4p::stage_cols<kP4Batch>(As, Pi, m0, rc0 + k0, tid);
           else stage_cols(As, Pf, m0, rc0 + k0, tid);
           __syncthreads();
           tile_fma(As, kS, 1, T + k0 * kS, kS, 1, acc, tx, ty);
@@ -572,7 +533,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) adam8_kernel(const Args 
         zero_acc(acc);
         if (kApply) prefetch_w(Wp, o0, m, n, s0, kT, n0, kT, tid, kThreads);
         for (int k0 = 0; k0 < kn; k0 += kBK) {
-          if (kP4) stage_cols(Bs, Pi, n0, rc0 + k0, tid);
+          if (kP4) int4p::stage_cols<kP4Batch>(Bs, Pi, n0, rc0 + k0, tid);
           else stage_cols(Bs, Pf, n0, rc0 + k0, tid);
           __syncthreads();
           tile_fma(T + k0, 1, kS, Bs, kS, 1, acc, tx, ty);
@@ -608,7 +569,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) adam8_kernel(const Args 
       zero_acc(acc);
       prefetch_w(Wp, o0, m, n, m0, kT, s0, kT, tid, kThreads);
       for (int k0 = 0; k0 < r; k0 += kBK) {
-        if (kP4) stage_cols(As, Pi, m0, k0, tid);
+        if (kP4) int4p::stage_cols<kP4Batch>(As, Pi, m0, k0, tid);
         else stage_cols(As, Pf, m0, k0, tid);
         stage_rows(Bs, Nm, k0, s0, tid);
         __syncthreads();
@@ -624,7 +585,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) adam8_kernel(const Args 
       prefetch_w(Wp, o0, m, n, s0, kT, n0, kT, tid, kThreads);
       for (int k0 = 0; k0 < r; k0 += kBK) {
         stage_cols(As, Nm, s0, k0, tid);
-        if (kP4) stage_cols(Bs, Pi, n0, k0, tid);
+        if (kP4) int4p::stage_cols<kP4Batch>(Bs, Pi, n0, k0, tid);
         else stage_cols(Bs, Pf, n0, k0, tid);
         __syncthreads();
         tile_fma(As, kS, 1, Bs, kS, 1, acc, tx, ty);
@@ -642,6 +603,104 @@ int sm_count() {
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return 132;
   return sms;
+}
+
+// ---------------------------------------------------------------------------
+// The flat 8-bit Adam update (the paper's 8-bit Adam baseline)
+// ---------------------------------------------------------------------------
+// Replaces `adam8bit_blocks_update` of src/repro/kernels/galore_fused.py (the
+// same `_fused_epilogue_call` with project=False: R = G, one quantization
+// block per 256 elements of the flattened leaf), reached through
+// kernels/adam8bit_update.py and ops.adam8bit_step. Per element of block b:
+//   M = book_s[Mq] * Ms[b],  V = book_u[Vq] * Vs[b]      (dequant, f32)
+//   M' = b1 M + (1-b1) g,  V' = b2 V + (1-b2) g²          (0 past numel)
+//   update = (M'/c1) / (sqrt(V'/c2) + eps), in g's dtype  (none past numel)
+//   Ms'[b] = max |M'| over the block + 1e-12, Mq' = searchsorted(mids, M'/Ms')
+// with the codec's nearest-code rule and explicitly rounded f32 operations in
+// the plain version's order, as in adam8_kernel: for equal inputs codes,
+// scales and the update are the plain version's bit for bit. The state is
+// padded to whole blocks as the codec pads it; g and the update are not: the
+// last block's tail is masked.
+//
+// What bounds it on an H100: bytes. An element moves g (2 B in bf16), its two
+// codes read and written (4 B) and the update (2 B), 8 B, against ~35 f32
+// operations: a (2, 4096, 11008) leaf moves 0.73 GB (0.217 ms at 3.35 TB/s).
+// What holds it below that rate is its instruction count, not its loads: two
+// IEEE divisions and an 8-step binary search a moment, and a square root, an
+// element (16-byte vector loads and stores measured no faster).
+// Design: one warp per 256-element block, a lane per 8 elements at a stride
+// of 32 (each load instruction covers 32 consecutive elements), the absmax by
+// a shuffle reduction; 8 warps a block walk the leaf's blocks grid-stride, so
+// each thread block loads the codebooks into shared memory once.
+constexpr int kFlat = 256;  // optim/quant8.BLOCK
+constexpr int kFlatPerLane = kFlat / 32;
+
+template <typename GT>
+__global__ void __launch_bounds__(kThreads)
+    adam8bit_flat_kernel(const GT* __restrict__ g, long long numel, long long nb,
+                         uint8_t* __restrict__ mq, float* __restrict__ ms, uint8_t* __restrict__ vq,
+                         float* __restrict__ vs, const int* __restrict__ count,
+                         const float* __restrict__ books, GT* __restrict__ upd, float b1,
+                         float omb1, float b2, float omb2, float eps) {
+  __shared__ float book_s[256], book_u[256], mids_s[256], mids_u[256];
+  const int tid = threadIdx.x, lane = tid % 32;
+  for (int i = tid; i < 512; i += kThreads) {
+    if (i < 256) book_s[i] = books[i];
+    else book_u[i - 256] = books[i];
+  }
+  __syncthreads();
+  for (int i = tid; i < 255; i += kThreads) {
+    mids_s[i] = __fdiv_rn(__fadd_rn(book_s[i], book_s[i + 1]), 2.f);
+    mids_u[i] = __fdiv_rn(__fadd_rn(book_u[i], book_u[i + 1]), 2.f);
+  }
+  const float t = (float)*count;
+  const Coef k{b1, omb1, b2, omb2, eps, 1.f - powf(b1, t), 1.f - powf(b2, t)};
+  __syncthreads();
+
+  const long long warps = (long long)gridDim.x * (kThreads / 32);
+  for (long long b = (long long)blockIdx.x * (kThreads / 32) + tid / 32; b < nb; b += warps) {
+    const size_t base = (size_t)b * kFlat;
+    const float sm = ms[b], sv = vs[b];
+    float mn[kFlatPerLane], vn[kFlatPerLane], am = 0.f, av = 0.f;
+#pragma unroll
+    for (int q = 0; q < kFlatPerLane; ++q) {
+      const size_t i = base + lane + 32 * q;
+      mn[q] = vn[q] = 0.f;
+      if ((long long)i < numel)
+        adam_moments(k, __fmul_rn(book_s[mq[i]], sm), __fmul_rn(book_u[vq[i]], sv),
+                     load_g(g, i), &mn[q], &vn[q]);
+      am = fmaxf(am, fabsf(mn[q]));
+      av = fmaxf(av, fabsf(vn[q]));
+    }
+    am = __fadd_rn(warp_max(am), 1e-12f);
+    av = __fadd_rn(warp_max(av), 1e-12f);
+#pragma unroll
+    for (int q = 0; q < kFlatPerLane; ++q) {
+      const size_t i = base + lane + 32 * q;
+      mq[i] = requant(mn[q], am, book_s, mids_s, false, 0, 0, 0);
+      vq[i] = requant(vn[q], av, book_u, mids_u, false, 0, 0, 0);
+      if ((long long)i < numel) store_w(upd, i, adam_step(k, mn[q], vn[q]));
+    }
+    if (lane == 0) {
+      ms[b] = am;
+      vs[b] = av;
+    }
+  }
+}
+
+template <typename GT>
+cudaError_t launch_flat(const void* g, long long numel, uint8_t* mq, float* ms, uint8_t* vq,
+                        float* vs, const int* count, const float* books, void* upd, double b1,
+                        double b2, double eps, cudaStream_t stream) {
+  const long long nb = (numel + kFlat - 1) / kFlat;
+  const long long per_block = kThreads / 32;
+  // eight 256-thread blocks fill an SM; more than that wave only re-loads the books
+  const long long want = (nb + per_block - 1) / per_block, fill = 8LL * sm_count();
+  const long long blocks = want < fill ? want : fill;
+  adam8bit_flat_kernel<GT><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const GT*>(g), numel, nb, mq, ms, vq, vs, count, books, static_cast<GT*>(upd),
+      (float)b1, (float)(1.0 - b1), (float)b2, (float)(1.0 - b2), (float)eps);
+  return cudaGetLastError();
 }
 
 template <bool kRight, bool kP4, typename GT, int kMinBlocks, bool kApply, typename WT>
@@ -760,4 +819,21 @@ extern "C" int galore_fused_adam8_apply_right(const float* P, const uint8_t* Pq,
   const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, count, books, nullptr, W, w_bf16, eta,
                            wd, nhat, m, r, n, b1, b2, eps, alpha, stochastic);
   return run(true, true, a, p_int4, g_bf16, L, stream);
+}
+
+// The flat 8-bit Adam update of one leaf: g (numel elements) f32 or bf16
+// (g_bf16 = 1); Mq/Vq (nb, 256) u8 and Ms/Vs (nb,) f32, nb = ⌈numel/256⌉,
+// updated in place; count -> int32 on the device; books -> the 528-float
+// codebook table (only the signed and unsigned tables are read); upd (numel
+// elements) in g's dtype. All contiguous. Returns a cudaError_t.
+extern "C" int adam8bit_blocks_update(const void* g, int g_bf16, long long numel, uint8_t* Mq,
+                                      float* Ms, uint8_t* Vq, float* Vs, const int* count,
+                                      const float* books, void* upd, double b1, double b2,
+                                      double eps, void* stream) {
+  if (numel <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(g_bf16 ? launch_flat<__nv_bfloat16>(g, numel, Mq, Ms, Vq, Vs, count, books, upd,
+                                                  b1, b2, eps, s)
+                      : launch_flat<float>(g, numel, Mq, Ms, Vq, Vs, count, books, upd, b1, b2,
+                                           eps, s));
 }

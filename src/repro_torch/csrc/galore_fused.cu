@@ -6,6 +6,9 @@
 //   galore_fused_adam_step_right  (_fused_right_kernel) -> galore_fused_adam_right
 //   galore_fused_adam_apply_step[_right] (_fused_epilogue_call with apply_w,
 //     fp32 moments)            -> galore_fused_adam_apply_left / _right
+// each with P either f32 or the packed int4 qstate (the fp32-moment variants of
+// `_fused_epilogue_call` with quant_p, reached through the same four
+// functions when P is a qstate).
 //
 // Left side (m <= n), per stacked leaf l:
 //   R  = Pᵀ G                         P (m, r) f32, G (m, n) f32 or bf16
@@ -48,6 +51,11 @@
 //            G̃ = alpha P N̂ for the tile (the right side transposes the tile
 //            through shared memory so its stores stay coalesced).
 // P is read twice per block; it is at most 16 MB and stays in the 50 MB L2.
+// An int4 P (a template parameter, p_int4 = 1) is decoded while it is staged
+// (int4_p.cuh, a stage's 16 code loads a thread issued before any is decoded),
+// book4[nibble] * scale in f32: bitwise the host-dequantized P,
+// so a launch on the packed P gives exactly what a launch on its dequantized
+// f32 form gives, and no f32 P is made on the device.
 // Ragged m, n and r are masked: staged values past an edge are zero, and
 // stores past an edge are skipped. BN (64, 32 or 16) is chosen on the host so
 // that the r x BN tile fits shared memory (r = 1024 -> BN = 32) and the grid
@@ -58,8 +66,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "int4_p.cuh"
 
 namespace {
+
+using int4p::P4;
 
 constexpr int kThreads = 256;   // a 16 x 16 thread grid
 constexpr int kTR = 8;          // register-tile rows per thread
@@ -67,6 +80,10 @@ constexpr int kRC = 16 * kTR;   // 128: rows of one register tile
 constexpr int kBK = 32;         // contraction depth staged per step
 constexpr int kAS = kRC + 1;    // padded row stride of the A stage
 constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a Hopper block may use
+constexpr int kBook4 = 512;     // offset of the 16 int4 codes in the wrapper's codebook table
+static_assert(kBK == int4p::kStageK && kRC == int4p::kStageW && kAS == int4p::kStageS &&
+                  kThreads == int4p::kStageThreads,
+              "the int4 P stages of int4_p.cuh assume this kernel's stage geometry");
 
 __device__ __forceinline__ float load_f32(const float* p, size_t i) { return p[i]; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p, size_t i) {
@@ -156,29 +173,42 @@ __device__ __forceinline__ void zero_acc(float (&acc)[kTR][TN]) {
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 }
 
-// A[kk][c] <- P[k0 + kk][c0 + c] for a row-major (rows x cols) P: contraction
-// over P's rows, output rows along P's columns (the rank axis).
-__device__ __forceinline__ void stage_p_rows(float* As, const float* __restrict__ P, int rows,
-                                             int cols, int k0, int c0, int tid) {
+// The projector as the wrapper passes it: f32, or packed int4 codes, scales
+// and the codebook table (whose 16 int4 codes a block copies to shared memory).
+struct PArg {
+  const float* f;       // f32 P (L, kept, r), or null
+  const uint8_t* q;     // int4 P: codes (L, kept_pad/2, r)
+  const float* s;       // int4 P: scales (L, ⌈kept/128⌉, r)
+  const float* books;   // int4 P: the codebook table, int4 codes at kBook4
+};
+
+// An f32 P of one leaf, row-major (rows x cols).
+struct PF {
+  const float* p;
+  int rows, cols;
+};
+
+// A[kk][c] <- P[k0 + kk][c0 + c]: contraction over P's rows, output rows
+// along P's columns (the rank axis). (The int4 overload is in int4_p.cuh.)
+__device__ __forceinline__ void stage_rows(float* As, const PF& P, int k0, int c0, int tid) {
   const int c = tid % kRC;
 #pragma unroll
   for (int i = 0; i < kBK * kRC / kThreads; ++i) {  // a fixed trip count unrolls: loads overlap
     const int kk = tid / kRC + (kThreads / kRC) * i;
     const int k = k0 + kk, col = c0 + c;
-    As[kk * kAS + c] = (k < rows && col < cols) ? P[(size_t)k * cols + col] : 0.f;
+    As[kk * kAS + c] = (k < P.rows && col < P.cols) ? P.p[(size_t)k * P.cols + col] : 0.f;
   }
 }
 
 // A[kk][c] <- P[c0 + c][k0 + kk]: contraction over P's columns (the rank
 // axis), output rows along P's rows.
-__device__ __forceinline__ void stage_p_cols(float* As, const float* __restrict__ P, int rows,
-                                             int cols, int c0, int k0, int tid) {
+__device__ __forceinline__ void stage_cols(float* As, const PF& P, int c0, int k0, int tid) {
   const int kk = tid % kBK;
 #pragma unroll
   for (int i = 0; i < kBK * kRC / kThreads; ++i) {
     const int c = tid / kBK + (kThreads / kBK) * i;
     const int row = c0 + c, k = k0 + kk;
-    As[kk * kAS + c] = (row < rows && k < cols) ? P[(size_t)row * cols + k] : 0.f;
+    As[kk * kAS + c] = (row < P.rows && k < P.cols) ? P.p[(size_t)row * P.cols + k] : 0.f;
   }
 }
 
@@ -192,9 +222,9 @@ __device__ __forceinline__ void store_tile(float* Rs, int rs, int r0, const floa
 }
 
 // Left side: one block per (column tile of n, stacked leaf l).
-template <int TN, typename GT, typename WT, bool kApply>
+template <int TN, typename GT, typename WT, bool kApply, bool kP4>
 __global__ void __launch_bounds__(kThreads)
-    galore_fused_left_kernel(const float* __restrict__ P, const GT* __restrict__ G,
+    galore_fused_left_kernel(const PArg p, const GT* __restrict__ G,
                              float* __restrict__ M, float* __restrict__ V,
                              const int* __restrict__ count, const Out o, int m, int r, int n,
                              float b1, float omb1, float b2, float omb2, float eps, float alpha) {
@@ -205,10 +235,16 @@ __global__ void __launch_bounds__(kThreads)
   float* Rs = smem;                       // r_pad x RS
   float* As = Rs + (size_t)r_pad * RS;    // kBK x kAS
   float* Bs = As + kBK * kAS;             // kBK x RS
+  float* book4 = Bs + kBK * RS;           // 16: the int4 codes
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int c0 = blockIdx.x * BN;
   const size_t l = blockIdx.y;
-  P += l * m * r;
+  if (kP4) {
+    if (tid < 16) book4[tid] = p.books[kBook4 + tid];
+    __syncthreads();
+  }
+  const PF Pf{kP4 ? nullptr : p.f + l * m * r, m, r};
+  const P4 Pi = kP4 ? int4p::p4_leaf(p.q, p.s, book4, l, m, r) : P4{};
   G += l * m * n;
   M += l * r * n;
   V += l * r * n;
@@ -221,7 +257,8 @@ __global__ void __launch_bounds__(kThreads)
     float acc[kTR][TN];
     zero_acc(acc);
     for (int k0 = 0; k0 < m; k0 += kBK) {
-      stage_p_rows(As, P, m, r, k0, rc0, tid);
+      if (kP4) stage_rows(As, Pi, k0, rc0, tid);
+      else stage_rows(As, Pf, k0, rc0, tid);
 #pragma unroll
       for (int i = 0; i < kBK * BN / kThreads; ++i) {
         const int kk = tid / BN + (kThreads / BN) * i, c = tid % BN;
@@ -260,7 +297,8 @@ __global__ void __launch_bounds__(kThreads)
     zero_acc(acc);
     if (kApply) prefetch_w(Wp, w0, m, n, m0, kRC, c0, BN, tid, kThreads);
     for (int k0 = 0; k0 < r; k0 += kBK) {
-      stage_p_cols(As, P, m, r, m0, k0, tid);
+      if (kP4) stage_cols(As, Pi, m0, k0, tid);
+      else stage_cols(As, Pf, m0, k0, tid);
       __syncthreads();
       stage_fma<TN>(As, Rs + (size_t)k0 * RS, RS, acc, tx, ty);
       __syncthreads();
@@ -296,9 +334,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Right side: one block per (row tile of m, stacked leaf l).
-template <int TN, typename GT, typename WT, bool kApply>
+template <int TN, typename GT, typename WT, bool kApply, bool kP4>
 __global__ void __launch_bounds__(kThreads)
-    galore_fused_right_kernel(const float* __restrict__ P, const GT* __restrict__ G,
+    galore_fused_right_kernel(const PArg p, const GT* __restrict__ G,
                               float* __restrict__ M, float* __restrict__ V,
                               const int* __restrict__ count, const Out o, int m, int r, int n,
                               float b1, float omb1, float b2, float omb2, float eps, float alpha) {
@@ -310,10 +348,16 @@ __global__ void __launch_bounds__(kThreads)
   float* As = Rs + (size_t)r_pad * RS;    // kBK x kAS
   float* Bs = As + kBK * kAS;             // kBK x RS
   float* Os = Bs + kBK * RS;              // BM x kAS: output transpose
+  float* book4 = Os + BM * kAS;           // 16: the int4 codes
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int row0 = blockIdx.x * BM;
   const size_t l = blockIdx.y;
-  P += l * n * r;
+  if (kP4) {
+    if (tid < 16) book4[tid] = p.books[kBook4 + tid];
+    __syncthreads();
+  }
+  const PF Pf{kP4 ? nullptr : p.f + l * n * r, n, r};
+  const P4 Pi = kP4 ? int4p::p4_leaf(p.q, p.s, book4, l, n, r) : P4{};
   G += l * m * n;
   M += l * m * r;
   V += l * m * r;
@@ -326,7 +370,8 @@ __global__ void __launch_bounds__(kThreads)
     float acc[kTR][TN];
     zero_acc(acc);
     for (int k0 = 0; k0 < n; k0 += kBK) {
-      stage_p_rows(As, P, n, r, k0, rc0, tid);
+      if (kP4) stage_rows(As, Pi, k0, rc0, tid);
+      else stage_rows(As, Pf, k0, rc0, tid);
 #pragma unroll
       for (int i = 0; i < kBK * BM / kThreads; ++i) {
         const int kk = tid % kBK, c = tid / kBK + (kThreads / kBK) * i;
@@ -365,7 +410,8 @@ __global__ void __launch_bounds__(kThreads)
     zero_acc(acc);
     if (kApply) prefetch_w(Wp, w0, m, n, row0, BM, n0, kRC, tid, kThreads);
     for (int k0 = 0; k0 < r; k0 += kBK) {
-      stage_p_cols(As, P, n, r, n0, k0, tid);
+      if (kP4) stage_cols(As, Pi, n0, k0, tid);
+      else stage_cols(As, Pf, n0, k0, tid);
       __syncthreads();
       stage_fma<TN>(As, Rs + (size_t)k0 * RS, RS, acc, tx, ty);
       __syncthreads();
@@ -407,7 +453,7 @@ size_t smem_bytes(int tn, int r, bool right) {
   const size_t r_pad = (size_t)(r + kRC - 1) / kRC * kRC;
   size_t words = r_pad * rs + (size_t)kBK * kAS + (size_t)kBK * rs;
   if (right) words += bn * kAS;
-  return words * sizeof(float);
+  return (words + 16) * sizeof(float);  // + the 16 int4 codes
 }
 
 int sm_count() {
@@ -433,109 +479,112 @@ int pick_tn(int r, int swept, int L, bool right) {
   return fit;
 }
 
-template <int TN, typename GT, typename WT, bool kApply>
-cudaError_t launch(bool right, const float* P, const void* G, float* M, float* V, const int* count,
-                   const Out& out, int L, int m, int r, int n, double b1, double b2, double eps,
-                   double alpha, cudaStream_t stream) {
-  auto kern = right ? &galore_fused_right_kernel<TN, GT, WT, kApply>
-                    : &galore_fused_left_kernel<TN, GT, WT, kApply>;
-  const size_t smem = smem_bytes(TN, r, right);
+// The arguments every launch shares.
+struct Step {
+  PArg p;
+  const void* G;
+  float *M, *V;
+  const int* count;
+  Out out;
+  int L, m, r, n;
+  double b1, b2, eps, alpha;
+  cudaStream_t stream;
+};
+
+template <int TN, typename GT, typename WT, bool kApply, bool kP4>
+cudaError_t launch(bool right, const Step& s) {
+  auto kern = right ? &galore_fused_right_kernel<TN, GT, WT, kApply, kP4>
+                    : &galore_fused_left_kernel<TN, GT, WT, kApply, kP4>;
+  const size_t smem = smem_bytes(TN, s.r, right);
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int swept = right ? m : n;
-  const dim3 grid((swept + 16 * TN - 1) / (16 * TN), L);
-  kern<<<grid, kThreads, smem, stream>>>(
-      P, static_cast<const GT*>(G), M, V, count, out, m, r, n, (float)b1, (float)(1.0 - b1),
-      (float)b2, (float)(1.0 - b2), (float)eps, (float)alpha);
+  const int swept = right ? s.m : s.n;
+  const dim3 grid((swept + 16 * TN - 1) / (16 * TN), s.L);
+  kern<<<grid, kThreads, smem, s.stream>>>(
+      s.p, static_cast<const GT*>(s.G), s.M, s.V, s.count, s.out, s.m, s.r, s.n, (float)s.b1,
+      (float)(1.0 - s.b1), (float)s.b2, (float)(1.0 - s.b2), (float)s.eps, (float)s.alpha);
   return cudaGetLastError();
 }
 
-template <typename GT, typename WT, bool kApply>
-cudaError_t dispatch(bool right, const float* P, const void* G, float* M, float* V,
-                     const int* count, const Out& out, int L, int m, int r, int n, double b1,
-                     double b2, double eps, double alpha, cudaStream_t stream) {
-  if (L <= 0 || m <= 0 || r <= 0 || n <= 0 || L > 65535) return cudaErrorInvalidValue;
-  switch (pick_tn(r, right ? m : n, L, right)) {
-    case 4:
-      return launch<4, GT, WT, kApply>(right, P, G, M, V, count, out, L, m, r, n, b1, b2, eps, alpha,
-                                   stream);
-    case 2:
-      return launch<2, GT, WT, kApply>(right, P, G, M, V, count, out, L, m, r, n, b1, b2, eps, alpha,
-                                   stream);
-    case 1:
-      return launch<1, GT, WT, kApply>(right, P, G, M, V, count, out, L, m, r, n, b1, b2, eps, alpha,
-                                   stream);
-    default:
-      return cudaErrorInvalidValue;  // the r x 16 tile does not fit shared memory
+template <typename GT, typename WT, bool kApply, bool kP4>
+cudaError_t dispatch(bool right, const Step& s) {
+  if (s.L <= 0 || s.m <= 0 || s.r <= 0 || s.n <= 0 || s.L > 65535) return cudaErrorInvalidValue;
+  switch (pick_tn(s.r, right ? s.m : s.n, s.L, right)) {
+    case 4: return launch<4, GT, WT, kApply, kP4>(right, s);
+    case 2: return launch<2, GT, WT, kApply, kP4>(right, s);
+    case 1: return launch<1, GT, WT, kApply, kP4>(right, s);
+    default: return cudaErrorInvalidValue;  // the r x 16 tile does not fit shared memory
   }
 }
 
 // apply: 0 emits G̃, 1 applies to an f32 W, 2 to a bf16 W
-template <typename GT>
-int run_g(bool right, const float* P, const void* G, float* M, float* V, const int* count,
-          const Out& out, int apply, int L, int m, int r, int n, double b1, double b2,
-          double eps, double alpha, cudaStream_t s) {
-  if (apply == 2)
-    return (int)dispatch<GT, __nv_bfloat16, true>(right, P, G, M, V, count, out, L, m, r, n, b1,
-                                                  b2, eps, alpha, s);
-  if (apply == 1)
-    return (int)dispatch<GT, float, true>(right, P, G, M, V, count, out, L, m, r, n, b1, b2, eps,
-                                          alpha, s);
-  return (int)dispatch<GT, float, false>(right, P, G, M, V, count, out, L, m, r, n, b1, b2, eps,
-                                         alpha, s);
+template <typename GT, bool kP4>
+cudaError_t run_p(bool right, int apply, const Step& s) {
+  if (apply == 2) return dispatch<GT, __nv_bfloat16, true, kP4>(right, s);
+  if (apply == 1) return dispatch<GT, float, true, kP4>(right, s);
+  return dispatch<GT, float, false, kP4>(right, s);
 }
 
-int run(bool right, const float* P, const void* G, int g_bf16, float* M, float* V,
-        const int* count, const Out& out, int apply, int L, int m, int r, int n, double b1,
-        double b2, double eps, double alpha, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (g_bf16)
-    return run_g<__nv_bfloat16>(right, P, G, M, V, count, out, apply, L, m, r, n, b1, b2, eps,
-                                alpha, s);
-  return run_g<float>(right, P, G, M, V, count, out, apply, L, m, r, n, b1, b2, eps, alpha, s);
+int run(bool right, int p_int4, int g_bf16, int apply, const Step& s) {
+  if (p_int4)
+    return (int)(g_bf16 ? run_p<__nv_bfloat16, true>(right, apply, s)
+                        : run_p<float, true>(right, apply, s));
+  return (int)(g_bf16 ? run_p<__nv_bfloat16, false>(right, apply, s)
+                      : run_p<float, false>(right, apply, s));
 }
 
 }  // namespace
 
-// P (L, m, r) f32, G (L, m, n) f32 or bf16 (g_bf16 = 1), M/V (L, r, n) f32
-// updated in place, count -> int32 on the device, out (L, m, n) f32; all
-// contiguous. Returns a cudaError_t (0 on success).
-extern "C" int galore_fused_adam_left(const float* P, const void* G, int g_bf16, float* M,
-                                      float* V, const int* count, float* out, int L, int m, int r,
-                                      int n, double b1, double b2, double eps, double alpha,
-                                      void* stream) {
-  return run(false, P, G, g_bf16, M, V, count, Out{out, nullptr, 0.f}, 0, L, m, r, n, b1,
-             b2, eps, alpha, stream);
+// P: f32 (L, m, r) when p_int4 = 0, else Pq (L, m_pad/2, r) u8 codes and Ps
+// (L, ⌈m/128⌉, r) f32 scales (m_pad = 128·⌈m/128⌉, codec.quantize4_axis's
+// layout), with books -> the wrapper's 528-float codebook table (the int4 codes
+// at 512; unused for an f32 P). G (L, m, n) f32 or bf16 (g_bf16 = 1), M/V
+// (L, r, n) f32 updated in place, count -> int32 on the device, out (L, m, n)
+// f32; all contiguous. Returns a cudaError_t (0 on success).
+extern "C" int galore_fused_adam_left(const float* P, const uint8_t* Pq, const float* Ps,
+                                      int p_int4, const float* books, const void* G, int g_bf16,
+                                      float* M, float* V, const int* count, float* out, int L,
+                                      int m, int r, int n, double b1, double b2, double eps,
+                                      double alpha, void* stream) {
+  const Step s{PArg{P, Pq, Ps, books}, G, M, V, count, Out{out, nullptr, 0.f}, L, m, r, n, b1,
+               b2, eps, alpha, static_cast<cudaStream_t>(stream)};
+  return run(false, p_int4, g_bf16, 0, s);
 }
 
-// P (L, n, r) f32, G (L, m, n) f32 or bf16, M/V (L, m, r) f32 updated in
-// place, count -> int32 on the device, out (L, m, n) f32; all contiguous.
-extern "C" int galore_fused_adam_right(const float* P, const void* G, int g_bf16, float* M,
-                                       float* V, const int* count, float* out, int L, int m, int r,
-                                       int n, double b1, double b2, double eps, double alpha,
-                                       void* stream) {
-  return run(true, P, G, g_bf16, M, V, count, Out{out, nullptr, 0.f}, 0, L, m, r, n, b1,
-             b2, eps, alpha, stream);
+// P: f32 (L, n, r), or Pq (L, n_pad/2, r) and Ps (L, ⌈n/128⌉, r); G (L, m, n)
+// f32 or bf16; M/V (L, m, r) f32 updated in place; the rest as on the left.
+extern "C" int galore_fused_adam_right(const float* P, const uint8_t* Pq, const float* Ps,
+                                       int p_int4, const float* books, const void* G, int g_bf16,
+                                       float* M, float* V, const int* count, float* out, int L,
+                                       int m, int r, int n, double b1, double b2, double eps,
+                                       double alpha, void* stream) {
+  const Step s{PArg{P, Pq, Ps, books}, G, M, V, count, Out{out, nullptr, 0.f}, L, m, r, n, b1,
+               b2, eps, alpha, static_cast<cudaStream_t>(stream)};
+  return run(true, p_int4, g_bf16, 0, s);
 }
 
 // The apply forms: as above, with W (L, m, n) f32 or bf16 (w_bf16 = 1) updated
 // in place to W + eta (G̃ + wd W) instead of writing G̃; eta -> one f32 on the
 // device.
-extern "C" int galore_fused_adam_apply_left(const float* P, const void* G, int g_bf16, void* W,
-                                            int w_bf16, float* M, float* V, const int* count,
-                                            const float* eta, double wd, int L, int m, int r,
-                                            int n, double b1, double b2, double eps, double alpha,
-                                            void* stream) {
-  return run(false, P, G, g_bf16, M, V, count, Out{W, eta, (float)wd}, 1 + (w_bf16 != 0), L,
-             m, r, n, b1, b2, eps, alpha, stream);
+extern "C" int galore_fused_adam_apply_left(const float* P, const uint8_t* Pq, const float* Ps,
+                                            int p_int4, const float* books, const void* G,
+                                            int g_bf16, void* W, int w_bf16, float* M, float* V,
+                                            const int* count, const float* eta, double wd, int L,
+                                            int m, int r, int n, double b1, double b2, double eps,
+                                            double alpha, void* stream) {
+  const Step s{PArg{P, Pq, Ps, books}, G, M, V, count, Out{W, eta, (float)wd}, L, m, r, n, b1,
+               b2, eps, alpha, static_cast<cudaStream_t>(stream)};
+  return run(false, p_int4, g_bf16, 1 + (w_bf16 != 0), s);
 }
 
-extern "C" int galore_fused_adam_apply_right(const float* P, const void* G, int g_bf16, void* W,
-                                             int w_bf16, float* M, float* V, const int* count,
-                                             const float* eta, double wd, int L, int m, int r,
-                                             int n, double b1, double b2, double eps,
-                                             double alpha, void* stream) {
-  return run(true, P, G, g_bf16, M, V, count, Out{W, eta, (float)wd}, 1 + (w_bf16 != 0), L,
-             m, r, n, b1, b2, eps, alpha, stream);
+extern "C" int galore_fused_adam_apply_right(const float* P, const uint8_t* Pq, const float* Ps,
+                                             int p_int4, const float* books, const void* G,
+                                             int g_bf16, void* W, int w_bf16, float* M, float* V,
+                                             const int* count, const float* eta, double wd,
+                                             int L, int m, int r, int n, double b1, double b2,
+                                             double eps, double alpha, void* stream) {
+  const Step s{PArg{P, Pq, Ps, books}, G, M, V, count, Out{W, eta, (float)wd}, L, m, r, n, b1,
+               b2, eps, alpha, static_cast<cudaStream_t>(stream)};
+  return run(true, p_int4, g_bf16, 1 + (w_bf16 != 0), s);
 }

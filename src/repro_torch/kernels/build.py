@@ -3,8 +3,10 @@
 Each source compiles with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -shared -Xcompiler -fPIC`` into a shared library with a plain C interface,
 which ``ctypes`` loads. Libraries land in ``build/kernels/`` at the root of
-the checkout (listed in ``.gitignore``), named by a hash of the source and
-flags, so an edited source is rebuilt and an unchanged one is loaded as is.
+the checkout (listed in ``.gitignore``), named by a hash of the source, of
+every local header it includes (``#include "…"``, followed through the
+headers' own includes) and of the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as is.
 Nothing is built when this module is imported.
 """
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -22,6 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}  # per-process cache of loaded libraries
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
 
 def find_nvcc() -> str:
@@ -40,10 +44,24 @@ def find_nvcc() -> str:
     return found
 
 
+def _sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the local headers it includes, transitively."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path not in found:
+            found.append(path)
+            includes = _LOCAL_INCLUDE.findall(path.read_bytes())
+            todo += [path.parent / inc.decode() for inc in includes]
+    return found
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in _sources(name):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names) -> dict[str, Path]:
@@ -80,3 +98,13 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _loaded:
         _loaded[name] = ctypes.CDLL(str(build([name])[name]))
     return _loaded[name]
+
+
+def entry(name: str, symbol: str, argtypes):
+    """The C function `symbol` of ``csrc/<name>.cu``, with its argument types
+    set (every pointer a ``c_void_p``, so none is cut to 32 bits) and a
+    ``cudaError_t`` result."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn

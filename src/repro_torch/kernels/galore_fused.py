@@ -9,7 +9,8 @@ variants of ``_fused_epilogue_call``, ``galore_fused_adam8_step[_right]``,
 One launch per (possibly stacked) leaf computes R = PᵀG → Adam → G̃ = α P N̂
 (left) or R = G P → Adam → G̃ = α N̂ Pᵀ (right); the adam8 forms keep M and V
 as int8 codes with per-128-block scales, dequantized and requantized in the
-kernel, and take P either as f32 or as a packed int4 qstate. The apply forms
+kernel. Every form takes P either as f32 or as a packed int4 qstate, which the
+kernel decodes while staging it (no f32 P is made). The apply forms
 write no G̃: they update the weight in place, W ← W + η(G̃ + wd·W), with η
 (= -lr of the step) a one-element f32 tensor on the device. On CPU tensors
 a wrapper runs the plain PyTorch version (kernels/ref.py) and writes the
@@ -20,12 +21,13 @@ large for on-chip memory: the kernels stream P through shared memory, so
 r = 1024 runs like r = 128.
 
 Each wrapper counts its launches in ``<wrapper>.launches`` (a plain integer,
-incremented only where the kernel is launched).
+incremented only where the kernel is launched). The fp32-moment wrappers
+launch one kernel for an f32 P and another for an int4 P, and count the
+latter in ``<wrapper>.launches_int4``.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
@@ -45,7 +47,8 @@ galore_fused_adam8_apply_step_right_plain = ref.galore_fused_adam8_apply_step_ri
 
 _SOURCE = "galore_fused"
 _ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # P, G, g_bf16
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # P, Pq, Ps, p_int4
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # books, G, g_bf16
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # M, V, count
     ctypes.c_void_p,                                  # out
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # L, m, r, n
@@ -53,7 +56,8 @@ _ARGTYPES = [
     ctypes.c_void_p,                                  # stream
 ]
 _ARGTYPES_APPLY = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # P, G, g_bf16
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # P, Pq, Ps, p_int4
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # books, G, g_bf16
     ctypes.c_void_p, ctypes.c_int,                    # W, w_bf16
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # M, V, count
     ctypes.c_void_p, ctypes.c_double,                 # eta, wd
@@ -86,44 +90,81 @@ _ARGTYPES8_APPLY = [
 ]
 
 
-def _entry(symbol: str, source: str = _SOURCE, argtypes=_ARGTYPES):
-    fn = getattr(build.load(source), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+def _p_parts(P, kept: int, lead: tuple):
+    """(p_int4, r, the projector's tensors as (name, tensor, dtype, shape))
+    for an f32 P (..., kept, r) or a packed int4 qstate blocked along kept."""
+    p_int4 = codec.is_qstate(P)
+    r = (P["q"] if p_int4 else P).shape[-1]
+    if not p_int4:
+        return False, r, (("P", P, torch.float32, lead + (kept, r)),)
+    nbp = -(-kept // codec.QBLOCK)
+    return True, r, (("P codes", P["q"], torch.uint8, lead + (nbp * codec.QBLOCK // 2, r)),
+                     ("P scales", P["scale"], torch.float32, lead + (nbp, r)))
 
 
-def _check(P, G, M, V, count, p_shape, mv_shape):
+def _p_ptrs(P):
+    """(P, Pq, Ps) pointers as the kernels take them: an f32 P or an int4 P's
+    codes and scales, the others null."""
+    if codec.is_qstate(P):
+        return None, P["q"].data_ptr(), P["scale"].data_ptr()
+    return P.data_ptr(), None, None
+
+
+def _check_inputs(G, count, want):
+    """Raise unless G, count and `want` ((name, tensor, dtype, shape), …) are
+    what a kernel takes: on G's CUDA device, contiguous, of those dtypes and
+    shapes."""
     dev = G.device
-    for name, t in (("P", P), ("G", G), ("M", M), ("V", V), ("count", count)):
+    for name, t in (("G", G), ("count", count)) + tuple((w[0], w[1]) for w in want):
         if not t.is_cuda or t.device != dev:
             raise ValueError(f"{name} is on {t.device}; every input must be on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if P.dtype != torch.float32 or M.dtype != torch.float32 or V.dtype != torch.float32:
-        raise TypeError(f"P, M and V must be float32, got {P.dtype}, {M.dtype}, {V.dtype}")
     if G.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"G must be float32 or bfloat16, got {G.dtype}")
     if count.dtype != torch.int32 or count.numel() != 1:
         raise TypeError(f"count must be one int32, got {count.dtype} of {count.numel()}")
-    if tuple(P.shape) != p_shape or tuple(M.shape) != mv_shape or tuple(V.shape) != mv_shape:
-        raise ValueError(f"shapes P {tuple(P.shape)}, M {tuple(M.shape)}, V {tuple(V.shape)} "
-                         f"do not match G {tuple(G.shape)}: want P {p_shape}, M/V {mv_shape}")
+    for name, t, dtype, shape in want:
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}; with G {tuple(G.shape)} "
+                             f"it must be {shape}")
 
 
-def _launch(symbol, P, G, M, V, count, b1, b2, eps, alpha, r):
+def _check(P, G, M, V, count, right: bool):
+    """Raise unless the fp32-moment kernel takes these tensors as they are;
+    returns (p_int4, r)."""
+    m, n = G.shape[-2:]
+    lead = tuple(G.shape[:-2])
+    p_int4, r, parts = _p_parts(P, n if right else m, lead)
+    mv = lead + ((m, r) if right else (r, n))
+    _check_inputs(G, count, parts + (("M", M, torch.float32, mv), ("V", V, torch.float32, mv)))
+    return p_int4, r
+
+
+def _count(fn, p_int4: bool):
+    if p_int4:
+        fn.launches_int4 += 1
+    else:
+        fn.launches += 1
+
+
+def _launch(symbol, right, P, G, M, V, count, b1, b2, eps, alpha):
+    p_int4, r = _check(P, G, M, V, count, right)
     m, n = G.shape[-2:]
     L = math.prod(G.shape[:-2])
     out = torch.empty(G.shape, dtype=torch.float32, device=G.device)
     with torch.cuda.device(G.device):
-        err = _entry(symbol)(
-            P.data_ptr(), G.data_ptr(), int(G.dtype == torch.bfloat16), M.data_ptr(),
-            V.data_ptr(), count.data_ptr(), out.data_ptr(), L, m, r, n, b1, b2, eps, alpha,
+        err = build.entry(_SOURCE, symbol, _ARGTYPES)(
+            *_p_ptrs(P), int(p_int4), codec.device_codebooks(G.device).data_ptr(), G.data_ptr(),
+            int(G.dtype == torch.bfloat16), M.data_ptr(), V.data_ptr(), count.data_ptr(),
+            out.data_ptr(), L, m, r, n, b1, b2, eps, alpha,
             torch.cuda.current_stream(G.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{symbol} failed to launch: cudaError_t {err} "
-                           f"(G {tuple(G.shape)}, r={r})")
-    return out
+                           f"(G {tuple(G.shape)}, r={r}, int4 P {p_int4})")
+    return out, p_int4
 
 
 def _plain_in_place(plain, P, G, M, V, count, b1, b2, eps, alpha):
@@ -149,18 +190,21 @@ def _check_w(G, W, eta):
         raise TypeError(f"eta must be one float32, got {eta.dtype} of {eta.numel()}")
 
 
-def _launch_apply(symbol, P, G, W, M, V, count, b1, b2, eps, alpha, eta, wd, r):
+def _launch_apply(symbol, right, P, G, W, M, V, count, b1, b2, eps, alpha, eta, wd):
+    p_int4, r = _check(P, G, M, V, count, right)
+    _check_w(G, W, eta)
     m, n = G.shape[-2:]
     L = math.prod(G.shape[:-2])
     with torch.cuda.device(G.device):
-        err = _entry(symbol, _SOURCE, _ARGTYPES_APPLY)(
-            P.data_ptr(), G.data_ptr(), int(G.dtype == torch.bfloat16), W.data_ptr(),
-            int(W.dtype == torch.bfloat16), M.data_ptr(), V.data_ptr(), count.data_ptr(),
-            eta.data_ptr(), wd, L, m, r, n, b1, b2, eps, alpha,
-            torch.cuda.current_stream(G.device).cuda_stream)
+        err = build.entry(_SOURCE, symbol, _ARGTYPES_APPLY)(
+            *_p_ptrs(P), int(p_int4), codec.device_codebooks(G.device).data_ptr(), G.data_ptr(),
+            int(G.dtype == torch.bfloat16), W.data_ptr(), int(W.dtype == torch.bfloat16),
+            M.data_ptr(), V.data_ptr(), count.data_ptr(), eta.data_ptr(), wd, L, m, r, n, b1, b2,
+            eps, alpha, torch.cuda.current_stream(G.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{symbol} failed to launch: cudaError_t {err} "
-                           f"(G {tuple(G.shape)}, r={r})")
+                           f"(G {tuple(G.shape)}, r={r}, int4 P {p_int4})")
+    return p_int4
 
 
 def _plain_apply_in_place(plain, P, G, W, moments, count, **kw):
@@ -181,117 +225,70 @@ def galore_fused_adam_apply_step(P, G, W, M, V, count, *, eta, b1=0.9, b2=0.999,
     if G.device.type == "cpu":
         return _plain_apply_in_place(galore_fused_adam_apply_step_plain, P, G, W, (M, V), count,
                                      b1=b1, b2=b2, eps=eps, alpha=alpha, eta=eta, wd=wd)
-    m, n = G.shape[-2:]
-    r = P.shape[-1]
-    lead = tuple(G.shape[:-2])
-    _check(P, G, M, V, count, lead + (m, r), lead + (r, n))
-    _check_w(G, W, eta)
-    _launch_apply("galore_fused_adam_apply_left", P, G, W, M, V, count, b1, b2, eps, alpha,
-                  eta, wd, r)
-    galore_fused_adam_apply_step.launches += 1
+    p_int4 = _launch_apply("galore_fused_adam_apply_left", False, P, G, W, M, V, count, b1, b2,
+                           eps, alpha, eta, wd)
+    _count(galore_fused_adam_apply_step, p_int4)
     return W, M, V
 
 
 def galore_fused_adam_apply_step_right(P, G, W, M, V, count, *, eta, b1=0.9, b2=0.999,
                                        eps=1e-8, alpha=1.0, wd=0.0):
     """The right-side fused step with the weight update folded in (P
-    (..., n, r), M/V (..., m, r)). Returns (W', M', V'), in place."""
+    (..., n, r) f32 or a packed int4 qstate, M/V (..., m, r)). Returns
+    (W', M', V'), in place."""
     if G.device.type == "cpu":
         return _plain_apply_in_place(galore_fused_adam_apply_step_right_plain, P, G, W, (M, V),
                                      count, b1=b1, b2=b2, eps=eps, alpha=alpha, eta=eta, wd=wd)
-    m, n = G.shape[-2:]
-    r = P.shape[-1]
-    lead = tuple(G.shape[:-2])
-    _check(P, G, M, V, count, lead + (n, r), lead + (m, r))
-    _check_w(G, W, eta)
-    _launch_apply("galore_fused_adam_apply_right", P, G, W, M, V, count, b1, b2, eps, alpha,
-                  eta, wd, r)
-    galore_fused_adam_apply_step_right.launches += 1
+    p_int4 = _launch_apply("galore_fused_adam_apply_right", True, P, G, W, M, V, count, b1, b2,
+                           eps, alpha, eta, wd)
+    _count(galore_fused_adam_apply_step_right, p_int4)
     return W, M, V
 
 
 def galore_fused_adam_step(P, G, M, V, count, *, b1=0.9, b2=0.999, eps=1e-8, alpha=1.0):
     """Fused left-side GaLore-Adam step (leaves with m ≤ n).
 
-    P (..., m, r) f32, G (..., m, n) f32 or bf16, M/V (..., r, n) f32, count an
-    int32 tensor holding the step number. Leading dims (stacked layers) run in
-    one launch. Returns (G̃ (..., m, n) f32, M', V'), where M' and V' ARE the
-    passed M and V, updated in place (as the Pallas kernel's aliasing does).
+    P (..., m, r) f32 or a packed int4 qstate {"q": (..., m_pad/2, r) u8,
+    "scale": (..., ⌈m/128⌉, r) f32}; G (..., m, n) f32 or bf16, M/V (..., r, n)
+    f32, count an int32 tensor holding the step number. Leading dims (stacked
+    layers) run in one launch. Returns (G̃ (..., m, n) f32, M', V'), where M'
+    and V' ARE the passed M and V, updated in place (as the Pallas kernel's
+    aliasing does).
     """
     if G.device.type == "cpu":
         return _plain_in_place(galore_fused_adam_step_plain, P, G, M, V, count, b1, b2, eps, alpha)
-    m, n = G.shape[-2:]
-    r = P.shape[-1]
-    lead = tuple(G.shape[:-2])
-    _check(P, G, M, V, count, lead + (m, r), lead + (r, n))
-    out = _launch("galore_fused_adam_left", P, G, M, V, count, b1, b2, eps, alpha, r)
-    galore_fused_adam_step.launches += 1
+    out, p_int4 = _launch("galore_fused_adam_left", False, P, G, M, V, count, b1, b2, eps, alpha)
+    _count(galore_fused_adam_step, p_int4)
     return out, M, V
 
 
 def galore_fused_adam_step_right(P, G, M, V, count, *, b1=0.9, b2=0.999, eps=1e-8, alpha=1.0):
     """Fused right-side GaLore-Adam step (leaves with m > n).
 
-    P (..., n, r) f32, G (..., m, n) f32 or bf16, M/V (..., m, r) f32, count an
-    int32 tensor. Returns (G̃ (..., m, n) f32, M', V'), with M and V updated
-    in place.
+    P (..., n, r) f32 or a packed int4 qstate blocked along n; G (..., m, n)
+    f32 or bf16, M/V (..., m, r) f32, count an int32 tensor. Returns
+    (G̃ (..., m, n) f32, M', V'), with M and V updated in place.
     """
     if G.device.type == "cpu":
         return _plain_in_place(galore_fused_adam_step_right_plain, P, G, M, V, count,
                                b1, b2, eps, alpha)
-    m, n = G.shape[-2:]
-    r = P.shape[-1]
-    lead = tuple(G.shape[:-2])
-    _check(P, G, M, V, count, lead + (n, r), lead + (m, r))
-    out = _launch("galore_fused_adam_right", P, G, M, V, count, b1, b2, eps, alpha, r)
-    galore_fused_adam_step_right.launches += 1
+    out, p_int4 = _launch("galore_fused_adam_right", True, P, G, M, V, count, b1, b2, eps, alpha)
+    _count(galore_fused_adam_step_right, p_int4)
     return out, M, V
 
 
-@functools.lru_cache(maxsize=None)
-def _books(device: torch.device) -> torch.Tensor:
-    """The signed, unsigned and int4 codebooks (256 + 256 + 16 f32) on
-    `device`, made once per device: the kernel decodes through the
-    reference's own tables."""
-    books = torch.cat([torch.from_numpy(codec.dynamic_codebook(True)),
-                       torch.from_numpy(codec.dynamic_codebook(False)),
-                       torch.from_numpy(codec.int4_codebook())])
-    return books.to(device)
-
-
 def _check8(P, G, Mq, Ms, Vq, Vs, count, right: bool):
-    """Raise unless the adam8 kernel takes these tensors as they are."""
+    """Raise unless the adam8 kernel takes these tensors as they are; returns
+    (p_int4, r)."""
     m, n = G.shape[-2:]
     lead = tuple(G.shape[:-2])
-    kept, swept = (n, m) if right else (m, n)
-    p_int4 = codec.is_qstate(P)
-    r = (P["q"] if p_int4 else P).shape[-1]
-    nb = -(-swept // codec.QBLOCK)
-    mom, scale = ((m, r), (nb, r)) if right else ((r, n), (r, nb))
-    if p_int4:
-        kept_pad = -(-kept // codec.QBLOCK) * codec.QBLOCK
-        p_parts = (("P codes", P["q"], torch.uint8, (kept_pad // 2, r)),
-                   ("P scales", P["scale"], torch.float32, (kept_pad // codec.QBLOCK, r)))
-    else:
-        p_parts = (("P", P, torch.float32, (kept, r)),)
-    want = p_parts + (("Mq", Mq, torch.uint8, mom), ("Ms", Ms, torch.float32, scale),
-                      ("Vq", Vq, torch.uint8, mom), ("Vs", Vs, torch.float32, scale))
-    dev = G.device
-    for name, t in (("G", G), ("count", count)) + tuple((w[0], w[1]) for w in want):
-        if not t.is_cuda or t.device != dev:
-            raise ValueError(f"{name} is on {t.device}; every input must be on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if G.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"G must be float32 or bfloat16, got {G.dtype}")
-    if count.dtype != torch.int32 or count.numel() != 1:
-        raise TypeError(f"count must be one int32, got {count.dtype} of {count.numel()}")
-    for name, t, dtype, shape in want:
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != lead + shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}; with G {tuple(G.shape)} "
-                             f"and r={r} it must be {lead + shape}")
+    p_int4, r, parts = _p_parts(P, n if right else m, lead)
+    nb = -(-(m if right else n) // codec.QBLOCK)
+    mom, scale = (lead + (m, r), lead + (nb, r)) if right else (lead + (r, n), lead + (r, nb))
+    _check_inputs(G, count, parts + (("Mq", Mq, torch.uint8, mom),
+                                     ("Ms", Ms, torch.float32, scale),
+                                     ("Vq", Vq, torch.uint8, mom),
+                                     ("Vs", Vs, torch.float32, scale)))
     return p_int4, r
 
 
@@ -300,16 +297,12 @@ def _launch8(symbol, right, P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha, sto
     m, n = G.shape[-2:]
     L = math.prod(G.shape[:-2])
     out = torch.empty(G.shape, dtype=torch.float32, device=G.device)
-    if p_int4:
-        p_ptrs = (None, P["q"].data_ptr(), P["scale"].data_ptr())
-    else:
-        p_ptrs = (P.data_ptr(), None, None)
     with torch.cuda.device(G.device):
-        err = _entry(symbol, _SOURCE8, _ARGTYPES8)(
-            *p_ptrs, int(p_int4), G.data_ptr(), int(G.dtype == torch.bfloat16),
+        err = build.entry(_SOURCE8, symbol, _ARGTYPES8)(
+            *_p_ptrs(P), int(p_int4), G.data_ptr(), int(G.dtype == torch.bfloat16),
             Mq.data_ptr(), Ms.data_ptr(), Vq.data_ptr(), Vs.data_ptr(), count.data_ptr(),
-            _books(G.device).data_ptr(), out.data_ptr(), L, m, r, n, b1, b2, eps, alpha,
-            int(stochastic), torch.cuda.current_stream(G.device).cuda_stream)
+            codec.device_codebooks(G.device).data_ptr(), out.data_ptr(), L, m, r, n, b1, b2,
+            eps, alpha, int(stochastic), torch.cuda.current_stream(G.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{symbol} failed to launch: cudaError_t {err} "
                            f"(G {tuple(G.shape)}, r={r}, int4 P {p_int4})")
@@ -326,16 +319,13 @@ def _launch8_apply(symbol, right, P, G, W, Mq, Ms, Vq, Vs, count, b1, b2, eps, a
     # rank is contracted, in a scratch of the moments' shape
     nhat = (torch.empty(Mq.shape, dtype=torch.float32, device=G.device)
             if r > codec.QBLOCK else None)
-    if p_int4:
-        p_ptrs = (None, P["q"].data_ptr(), P["scale"].data_ptr())
-    else:
-        p_ptrs = (P.data_ptr(), None, None)
     with torch.cuda.device(G.device):
-        err = _entry(symbol, _SOURCE8, _ARGTYPES8_APPLY)(
-            *p_ptrs, int(p_int4), G.data_ptr(), int(G.dtype == torch.bfloat16), W.data_ptr(),
+        err = build.entry(_SOURCE8, symbol, _ARGTYPES8_APPLY)(
+            *_p_ptrs(P), int(p_int4), G.data_ptr(), int(G.dtype == torch.bfloat16), W.data_ptr(),
             int(W.dtype == torch.bfloat16), Mq.data_ptr(), Ms.data_ptr(), Vq.data_ptr(),
-            Vs.data_ptr(), count.data_ptr(), _books(G.device).data_ptr(), eta.data_ptr(), wd,
-            None if nhat is None else nhat.data_ptr(), L, m, r, n, b1, b2, eps, alpha,
+            Vs.data_ptr(), count.data_ptr(), codec.device_codebooks(G.device).data_ptr(),
+            eta.data_ptr(), wd, None if nhat is None else nhat.data_ptr(), L, m, r, n, b1, b2,
+            eps, alpha,
             int(stochastic), torch.cuda.current_stream(G.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{symbol} failed to launch: cudaError_t {err} "
@@ -423,6 +413,8 @@ WRAPPERS = (galore_fused_adam_step, galore_fused_adam_step_right,
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    for fn in WRAPPERS[:2] + WRAPPERS[4:6]:  # the fp32-moment forms, int4 P
+        fn.launches_int4 = 0
 
 
 reset_launch_counts()

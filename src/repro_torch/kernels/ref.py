@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of the GaLore-Adam leaf steps (port of the GaLore
-part of repro/kernels/ref.py): the fp32-moment step and the int8-moment step,
-each in its emit form (returns G̃) and its weight-apply form (returns
-W' = W + η(G̃ + wd·W) in W's dtype).
+"""Plain PyTorch versions of the kernels (port of repro/kernels/ref.py but
+its RMSNorm): the GaLore-Adam leaf steps — the fp32-moment step and the
+int8-moment step, each in its emit form (returns G̃) and its weight-apply form
+(returns W' = W + η(G̃ + wd·W) in W's dtype), P f32 or a packed int4 qstate —
+and the flat 8-bit Adam update on (nb, 256) blocks.
 
 They are the numerical ground truth for the Hopper kernels in
 ``csrc/galore_fused.cu`` and ``csrc/galore_epilogue.cu``, and what the kernel
@@ -13,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.quant import codec
+from repro_torch.quant.codec import dequantize_blocks, quantize_blocks  # noqa: F401
 
 
 def galore_project(P, G):
@@ -50,10 +52,19 @@ def lowrank_adam_update(R, M, V, count, b1=0.9, b2=0.999, eps=1e-8):
     return N_t, M_t, V_t
 
 
+def _p_plain(P, short: int):
+    """f32 P from either an f32 tensor or a packed int4 qstate."""
+    if codec.is_qstate(P):
+        return codec.dequantize4_axis(P["q"], P["scale"], short)
+    return P
+
+
 def galore_fused_adam_step(P, G, M, V, count, b1=0.9, b2=0.999, eps=1e-8, alpha=1.0):
     """Left-side leaf update: R = PᵀG → Adam → G̃ = α P N̂.
 
-    P (..., m, r), G (..., m, n), M/V (..., r, n) f32. Returns (G̃ f32, M_t, V_t)."""
+    P (..., m, r) f32 or a packed int4 qstate, G (..., m, n), M/V (..., r, n)
+    f32. Returns (G̃ f32, M_t, V_t)."""
+    P = _p_plain(P, G.shape[-2])
     N_t, M_t, V_t = lowrank_adam_update(galore_project(P, G), M, V, count, b1, b2, eps)
     return galore_project_back(P, N_t, alpha), M_t, V_t
 
@@ -61,16 +72,11 @@ def galore_fused_adam_step(P, G, M, V, count, b1=0.9, b2=0.999, eps=1e-8, alpha=
 def galore_fused_adam_step_right(P, G, M, V, count, b1=0.9, b2=0.999, eps=1e-8, alpha=1.0):
     """Right-side leaf update: R = G P → Adam → G̃ = α N̂ Pᵀ.
 
-    P (..., n, r), G (..., m, n), M/V (..., m, r) f32. Returns (G̃ f32, M_t, V_t)."""
+    P (..., n, r) f32 or a packed int4 qstate, G (..., m, n), M/V (..., m, r)
+    f32. Returns (G̃ f32, M_t, V_t)."""
+    P = _p_plain(P, G.shape[-1])
     N_t, M_t, V_t = lowrank_adam_update(galore_project_right(P, G), M, V, count, b1, b2, eps)
     return galore_project_back_right(P, N_t, alpha), M_t, V_t
-
-
-def _p_plain(P, short: int):
-    """f32 P from either an f32 tensor or a packed int4 qstate."""
-    if codec.is_qstate(P):
-        return codec.dequantize4_axis(P["q"], P["scale"], short)
-    return P
 
 
 def _adam8(R, Mq, Ms, Vq, Vs, count, b1, b2, eps, stochastic, axis):
@@ -145,3 +151,24 @@ def galore_fused_adam8_apply_step_right(P, G, W, Mq, Ms, Vq, Vs, count, b1=0.9, 
     out = galore_fused_adam8_step_right(P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha,
                                         stochastic=stochastic)
     return (apply_weight(W, out[0], eta, wd),) + out[1:]
+
+
+def adam8bit_update(g_blocks, m_codes, m_scale, v_codes, v_scale, count, book_signed,
+                    book_unsigned, b1=0.9, b2=0.999, eps=1e-8, numel=None):
+    """One 8-bit Adam step on (nb, BLOCK) blocks: dequant m, v → Adam in f32 →
+    requant m, v. Returns (update f32 (nb, BLOCK), m_codes', m_scale',
+    v_codes', v_scale').
+
+    With `numel`, elements past it (the zero-padded tail of a ragged leaf)
+    have their moments zeroed before the requant, as the Pallas kernel's
+    `valid` mask does; the update there is 0."""
+    m = dequantize_blocks(m_codes, m_scale, book_signed)
+    v = dequantize_blocks(v_codes, v_scale, book_unsigned)
+    upd, m, v = lowrank_adam_update(g_blocks, m, v, count, b1, b2, eps)
+    if numel is not None and numel < g_blocks.numel():
+        valid = (torch.arange(g_blocks.numel(), device=g_blocks.device) < numel).view(
+            g_blocks.shape)
+        m, v, upd = (torch.where(valid, x, 0.0) for x in (m, v, upd))
+    m_codes, m_scale = quantize_blocks(m, book_signed)
+    v_codes, v_scale = quantize_blocks(v, book_unsigned)
+    return upd, m_codes, m_scale, v_codes, v_scale

@@ -8,7 +8,8 @@ external / sharded / async refresh modes are not ported yet.
 CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch llama_60m --steps 20 \
           --galore-rank 16 --galore-t 10 --galore-fused
       (add --quant-moments int8 --quant-proj int4 for 8-bit GaLore, and
-      --galore-fused-apply to fold the weight update into the kernel)
+      --galore-fused-apply to fold the weight update into the kernel;
+      --optimizer adam8bit without --galore-rank is the 8-bit Adam baseline)
 """
 from __future__ import annotations
 
@@ -77,7 +78,9 @@ def build_parser():
     ap.add_argument("--arch", default="llama_60m")
     ap.add_argument("--full", action="store_true", help="full-size config (default smoke)")
     ap.add_argument("--steps", type=int, default=200)
-    ap.add_argument("--optimizer", default="adamw")
+    ap.add_argument("--optimizer", default="adamw",
+                    help="adam | adamw | adam8bit (with --galore-rank: 8-bit GaLore; "
+                         "without: 8-bit Adam)")
     ap.add_argument("--galore-rank", type=int, default=0)
     ap.add_argument("--galore-t", type=int, default=200)
     ap.add_argument("--galore-fused", action="store_true",

@@ -5,7 +5,9 @@ Pipeline (the reference's ordering):
 
 8-bit GaLore: ``optimizer="adam8bit"`` with GaLore routes through the
 quantized-moment state of ``core/galore.py`` (``effective_galore_config``
-turns the policy's moments to int8), as the reference does.
+turns the policy's moments to int8), as the reference does; without GaLore
+it is the paper's 8-bit Adam baseline, ``optim/adam8bit.py``. Adafactor, SGD
+and the low-rank baselines are not ported yet.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from repro_torch.configs.base import GaLoreConfig, TrainConfig
 from repro_torch.core.galore import galore
 from repro_torch.optim import schedules
 from repro_torch.optim.adam import scale_by_adam
+from repro_torch.optim.adam8bit import scale_by_adam8bit
 from repro_torch.optim.transform import (
     GradientTransformation,
     add_decayed_weights,
@@ -37,6 +40,15 @@ def effective_galore_config(tc: TrainConfig) -> GaLoreConfig | None:
     return g
 
 
+def _stats_transform(tc: TrainConfig) -> GradientTransformation:
+    if tc.optimizer in ("adam", "adamw"):
+        return scale_by_adam(tc.b1, tc.b2, tc.eps)
+    if tc.optimizer == "adam8bit":
+        return scale_by_adam8bit(tc.b1, tc.b2, tc.eps)
+    raise NotImplementedError(f"optimizer {tc.optimizer!r} is not ported yet "
+                              f"(adam, adamw and adam8bit are)")
+
+
 def galore_state_index(tc: TrainConfig) -> int:
     """Position of the galore/stats state inside the chain state tuple."""
     return 1 if tc.grad_clip > 0 else 0
@@ -53,15 +65,14 @@ def build_optimizer(tc: TrainConfig) -> GradientTransformation:
                              f"(galore manages the Adam math itself), got {tc.optimizer!r}")
         if tc.galore_fused_apply and not tc.galore_fused_adam:
             raise ValueError("galore_fused_apply requires galore_fused_adam")
-    if tc.optimizer not in _ADAM_SHAPED or (tc.optimizer == "adam8bit" and gcfg is None):
-        raise NotImplementedError(f"optimizer {tc.optimizer!r} is not ported yet "
-                                  f"(adam, adamw, and adam8bit with GaLore)")
-    if gcfg is not None:
+        if tc.optimizer not in _ADAM_SHAPED:
+            raise NotImplementedError(f"optimizer {tc.optimizer!r} is not ported yet "
+                                      f"(adam, adamw and adam8bit are)")
         stats = galore(gcfg, b1=tc.b1, b2=tc.b2, eps=tc.eps, fused=tc.galore_fused_adam)
     elif tc.galore_fused_adam:
         raise ValueError("galore_fused_adam requires a GaLore config")
     else:
-        stats = scale_by_adam(tc.b1, tc.b2, tc.eps)
+        stats = _stats_transform(tc)
     parts = []
     if tc.grad_clip > 0:
         parts.append(clip_by_global_norm(tc.grad_clip))

@@ -1,12 +1,16 @@
 """Quantized optimizer state of the port (counterpart of repro/quant/):
-the axis-blocked int8 moment and packed int4 projector codecs
-(``codec.py``) and the per-leaf storage policy (``policy.py``)."""
+the flat int8 codec of the standalone 8-bit Adam, the axis-blocked int8
+moment and packed int4 projector codecs (``codec.py``) and the per-leaf
+storage policy (``policy.py``)."""
 from repro_torch.quant.codec import (
+    BLOCK,
     QBLOCK,
     SR_SALT_M,
     SR_SALT_V,
     dequant4_axis_state,
     dequant_axis_state,
+    dequant_state,
+    dequantize,
     dequantize4_axis,
     dequantize_axis,
     dynamic_codebook,
@@ -15,6 +19,8 @@ from repro_torch.quant.codec import (
     is_qstate,
     quant4_axis_state,
     quant_axis_state,
+    quant_state,
+    quantize,
     quantize4_axis,
     quantize_axis,
     sr_uniform,
@@ -22,6 +28,7 @@ from repro_torch.quant.codec import (
 from repro_torch.quant.policy import MIN_QUANT_SIZE, QuantPolicy
 
 __all__ = [
+    "BLOCK",
     "QBLOCK",
     "SR_SALT_M",
     "SR_SALT_V",
@@ -29,6 +36,8 @@ __all__ = [
     "QuantPolicy",
     "dequant4_axis_state",
     "dequant_axis_state",
+    "dequant_state",
+    "dequantize",
     "dequantize4_axis",
     "dequantize_axis",
     "dynamic_codebook",
@@ -37,6 +46,8 @@ __all__ = [
     "is_qstate",
     "quant4_axis_state",
     "quant_axis_state",
+    "quant_state",
+    "quantize",
     "quantize4_axis",
     "quantize_axis",
     "sr_uniform",

@@ -1,6 +1,11 @@
-"""Axis-blocked low-precision codecs for GaLore optimizer state (port of the
-axis-blocked part of repro/quant/codec.py, bit for bit).
+"""Blockwise low-precision codecs for optimizer state (port of the flat INT8
+and axis-blocked parts of repro/quant/codec.py, bit for bit).
 
+  * Flat INT8 (``quantize`` / ``dequantize``, ``quant_state`` /
+    ``dequant_state``): the dynamic-exponent codebook over ``BLOCK``-element
+    blocks of the flattened array, one absmax each, the tail zero-padded —
+    the state layout of the standalone 8-bit Adam (``optim/adam8bit.py``)
+    and of its kernel (``kernels/adam8bit_update.py``).
   * Axis-blocked INT8 (``quantize_axis`` / ``dequantize_axis``): the dynamic-
     exponent codebook of Dettmers et al. (2022) over blocks of ``QBLOCK``
     elements along ONE trailing axis — the fused kernel's swept axis — so
@@ -17,16 +22,18 @@ axis-blocked part of repro/quant/codec.py, bit for bit).
 The codebooks are the reference's numpy functions, copied, so both packages
 decode through identical f32 tables. Every quantize path computes in f32 in
 the reference's operation order; ragged tails are zero-padded before the
-absmax. The flat (whole-array block) codecs serve the flat 8-bit Adam and
-old checkpoints, and are not ported yet.
+absmax. The flat INT4 codec (read only for projectors stored by older
+checkpoints) is not ported.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 
+BLOCK = 256   # flat-codec block (bitsandbytes convention)
 QBLOCK = 128  # axis-blocked codec block
 
 # per-moment salts for the stochastic-rounding hash (distinct streams for M
@@ -86,6 +93,69 @@ def _book(signed: bool, device) -> torch.Tensor:
 def _mids(book: torch.Tensor) -> torch.Tensor:
     """Midpoints of neighbouring codes, computed as the reference does (f32)."""
     return (book[:-1] + book[1:]) / 2.0
+
+
+@functools.lru_cache(maxsize=None)
+def device_codebooks(device: torch.device) -> torch.Tensor:
+    """The signed, unsigned and int4 codebooks (256 + 256 + 16 f32) in one
+    tensor on `device`, made once per device: the kernels decode through
+    these tables, the reference's own."""
+    books = torch.cat([torch.from_numpy(dynamic_codebook(True)),
+                       torch.from_numpy(dynamic_codebook(False)),
+                       torch.from_numpy(int4_codebook())])
+    return books.to(device)
+
+
+# ---------------------------------------------------------------------------
+# Flat INT8 (blocks of the flattened array)
+# ---------------------------------------------------------------------------
+
+
+def _pad_to_blocks(x: torch.Tensor, block: int = BLOCK) -> tuple[torch.Tensor, int]:
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % block
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return flat.reshape(-1, block), pad
+
+
+def quantize_blocks(x_blocks: torch.Tensor, book: torch.Tensor):
+    """x (nb, BLOCK) f32 -> (codes u8 (nb, BLOCK), absmax f32 (nb,)); `book`
+    the sorted 256-entry codebook. The nearest code is searchsorted(mids, x):
+    a value on a midpoint takes the lower code."""
+    absmax = torch.amax(torch.abs(x_blocks), dim=1) + 1e-12
+    normed = x_blocks / absmax[:, None]
+    codes = torch.searchsorted(_mids(book), normed.contiguous(), out_int32=True)
+    return codes.to(torch.uint8), absmax
+
+
+def dequantize_blocks(codes: torch.Tensor, absmax: torch.Tensor, book: torch.Tensor):
+    return book[codes.to(torch.int32)] * absmax[:, None]
+
+
+def quantize(x: torch.Tensor, signed: bool = True):
+    """x (any shape) -> (codes uint8 (nblocks, BLOCK), absmax (nblocks,) f32)."""
+    blocks, _ = _pad_to_blocks(x.to(torch.float32))
+    return quantize_blocks(blocks, _book(signed, x.device))
+
+
+def dequantize(codes: torch.Tensor, absmax: torch.Tensor, shape, signed: bool = True):
+    vals = dequantize_blocks(codes, absmax, _book(signed, codes.device))
+    return vals.reshape(-1)[:math.prod(shape)].reshape(shape)
+
+
+def quant_state(x: torch.Tensor, signed: bool = True) -> dict:
+    codes, absmax = quantize(x, signed)
+    return {"q": codes, "scale": absmax}
+
+
+def dequant_state(st: dict, shape, signed: bool = True) -> torch.Tensor:
+    return dequantize(st["q"], st["scale"], shape, signed)
+
+
+# ---------------------------------------------------------------------------
+# Axis-blocked INT8 and INT4
+# ---------------------------------------------------------------------------
 
 
 def _blocked(x: torch.Tensor, axis: int, block: int):

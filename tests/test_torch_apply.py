@@ -99,6 +99,35 @@ def test_apply_plain_matches_pallas_interpret(shape, side, w_dtype):
 
 @pytest.mark.parametrize("shape,side", CASES)
 @pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+def test_apply_int4p_plain_matches_pallas_interpret(shape, side, w_dtype):
+    """The fp32-moment apply step with P as the packed int4 qstate against the
+    Pallas epilogue with quant_p and apply_w (interpret mode): f32 W' - W
+    within 2e-5·max, bf16 W' within one ulp, M' and V' within 1e-5."""
+    wdt = getattr(torch, w_dtype)
+    P, G, M, V = fused_inputs(shape, side)
+    jP = jcodec.quant4_axis_state(jnp.asarray(P))
+    tP = {k: torch.from_numpy(np.array(v)) for k, v in jP.items()}
+    W = torch.from_numpy(_weight(shape, 6)).to(wdt)
+    w0 = W.clone()
+    right = side == "right"
+    jfn = jops.galore_fused_adam_apply_step_right if right else jops.galore_fused_adam_apply_step
+    want = jfn(jP, _jax_g(G, wdt), _jax_w(W), jnp.asarray(M), jnp.asarray(V), jnp.int32(COUNT),
+               alpha=ALPHA, eta=jnp.float32(ETA), wd=WD, use_pallas=True, interpret=True)
+    tfn = tk.galore_fused_adam_apply_step_right if right else tk.galore_fused_adam_apply_step
+    Mt, Vt = torch.from_numpy(M.copy()), torch.from_numpy(V.copy())
+    tk.reset_launch_counts()
+    got = tfn(tP, torch.from_numpy(G).to(wdt), W, Mt, Vt, torch.tensor(COUNT, dtype=torch.int32),
+              alpha=ALPHA, eta=torch.tensor(ETA), wd=WD)
+    assert got[0] is W and got[1] is Mt and got[2] is Vt  # all updated in place
+    assert tfn.launches == tfn.launches_int4 == 0  # the plain version ran
+    tag = f"{side} {shape} W {w_dtype} int4 P"
+    assert_weight_close(W, np.asarray(want[0]).astype(np.float32), w0, f"{tag} W", tol=2e-5)
+    _assert_close(Mt, want[1], f"{tag} m")
+    _assert_close(Vt, want[2], f"{tag} v")
+
+
+@pytest.mark.parametrize("shape,side", CASES)
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("p_int4", [False, True])
 def test_adam8_apply_plain_matches_pallas_interpret(shape, side, w_dtype, p_int4):
     wdt = getattr(torch, w_dtype)

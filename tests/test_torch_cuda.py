@@ -11,6 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import adam8bit_update as a8  # noqa: E402
 from repro_torch.kernels import galore_fused as tk  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.quant import codec  # noqa: E402
@@ -78,6 +79,26 @@ def adam8_inputs(shape, side, seed=17):
         moments = plain(torch.from_numpy(P), G, *moments, torch.tensor(t, dtype=torch.int32))[1:]
     G = rng.standard_normal(lead + (m, n), np.float32)
     return P, G, tuple(t.numpy() for t in moments)
+
+
+# leaf sizes of the flat 8-bit Adam checks: one block, a ragged tail, a
+# ragged 1000 x 520 leaf, and 33 whole blocks
+FLAT_NUMELS = [256, 700, 1000 * 520, 33 * 256]
+
+
+@functools.lru_cache(maxsize=None)
+def flat_inputs(numel, seed=23):
+    """numpy g (numel,) and the flat int8 moments (Mq, Ms, Vq, Vs) of step 7:
+    what six earlier steps of the plain 8-bit Adam leave on gradients of the
+    same scale. Cached: callers copy before they update anything in place."""
+    rng = np.random.default_rng(seed)
+    zeros = torch.zeros(numel)
+    moments = (*codec.quantize(zeros, signed=True), *codec.quantize(zeros, signed=False))
+    for t in range(1, 7):
+        g = torch.from_numpy(rng.standard_normal(numel, np.float32) * np.float32(0.01))
+        moments = a8.adam8bit_update_plain(g, *moments, torch.tensor(t, dtype=torch.int32))[1:]
+    g = rng.standard_normal(numel, np.float32) * np.float32(0.01)
+    return g, tuple(t.numpy() for t in moments)
 
 
 def assert_codes_close(got, want, name):
@@ -361,3 +382,185 @@ def test_cuda_apply_wrappers_reject_wrong_weights(quant):
     with pytest.raises(ValueError):  # a weight of another shape than G
         fn(P, G, W[:, :64].contiguous(), *moments, count, eta=eta)
     assert fn.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the flat 8-bit Adam kernel (the 8-bit Adam baseline)
+# ---------------------------------------------------------------------------
+
+
+def _flat_on(dev, numel):
+    g, moments = flat_inputs(numel)
+    return torch.from_numpy(g).to(dev), [torch.from_numpy(t.copy()).to(dev) for t in moments]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("numel", FLAT_NUMELS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_adam8bit_kernel_matches_plain(numel, dtype):
+    """The flat kernel against its plain version on the card: codes, scales
+    and the update (in g's dtype) bit for bit — both run the same explicitly
+    rounded f32 operations in one order, and the same midpoint rule."""
+    dev = _cuda_device()
+    g, moments = _flat_on(dev, numel)
+    g = g.to(getattr(torch, dtype))
+    if numel == 1000 * 520:
+        g = g.view(1000, 520)
+    count = torch.tensor(7, dtype=torch.int32, device=dev)
+    want = a8.adam8bit_update_plain(g, *moments, count)
+    before = a8.adam8bit_update.launches
+    mine = [t.clone() for t in moments]
+    got = a8.adam8bit_update(g, *mine, count)
+    torch.cuda.synchronize()
+    assert a8.adam8bit_update.launches == before + 1
+    assert all(a is b for a, b in zip(got[1:], mine))  # codes and scales updated in place
+    assert got[0].shape == g.shape and got[0].dtype == g.dtype
+    for name, a, b in zip(["update", "mq", "ms", "vq", "vs"], got, want):
+        assert torch.equal(a, b), f"{numel} {dtype} {name}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_adam8bit_kernel_unaligned_matches_plain(dtype):
+    """g, codes and update at odd offsets of larger buffers (too little
+    alignment for the kernel's 16- and 8-byte words): the element-wise path,
+    still bit for bit the plain version."""
+    dev = _cuda_device()
+    g, moments = _flat_on(dev, 700)
+    gbuf = torch.zeros(701, device=dev, dtype=getattr(torch, dtype))
+    gbuf[1:].copy_(g)
+    g = gbuf[1:]
+    mine = []
+    for t in moments:
+        buf = torch.zeros(t.numel() + 1, device=dev, dtype=t.dtype)
+        buf[1:].copy_(t.reshape(-1))
+        mine.append(buf[1:].view(t.shape))
+    count = torch.tensor(7, dtype=torch.int32, device=dev)
+    want = a8.adam8bit_update_plain(g, *moments, count)
+    got = a8.adam8bit_update(g, *mine, count)
+    torch.cuda.synchronize()
+    for name, a, b in zip(["update", "mq", "ms", "vq", "vs"], got, want):
+        assert torch.equal(a, b), f"{dtype} {name}"
+
+
+@pytest.mark.cuda
+def test_cuda_adam8bit_wrapper_rejects_wrong_inputs():
+    dev = _cuda_device()
+    g, (mq, ms, vq, vs) = _flat_on(dev, 700)
+    count = torch.tensor(1, dtype=torch.int32, device=dev)
+    fn = a8.adam8bit_update
+    before = fn.launches
+    with pytest.raises(TypeError):  # an f16 gradient
+        fn(g.half(), mq, ms, vq, vs, count)
+    with pytest.raises(TypeError):  # f32 codes
+        fn(g, mq.float(), ms, vq, vs, count)
+    with pytest.raises(ValueError):  # a CPU tensor among CUDA ones
+        fn(g, mq, ms.cpu(), vq, vs, count)
+    with pytest.raises(ValueError):  # a non-contiguous gradient
+        fn(torch.zeros(2, 700, device=dev)[:, ::2].t(), mq, ms, vq, vs, count)
+    with pytest.raises(ValueError):  # codes for another number of blocks
+        fn(g[:200].contiguous(), mq, ms, vq, vs, count)
+    with pytest.raises(TypeError):  # an int64 count
+        fn(g, mq, ms, vq, vs, count.long())
+    assert fn.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the fp32-moment kernels reading a packed int4 P
+# ---------------------------------------------------------------------------
+
+INT4P_SHAPES = [(72, 16, 130), (1000, 96, 520), (3, 72, 16, 130)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", INT4P_SHAPES)
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("w_dtype", [None, "float32", "bfloat16"])
+def test_cuda_int4p_kernel_equals_dequantized_launch(shape, side, w_dtype):
+    """B1/B2 and their apply forms (w_dtype) launched on a packed int4 P give
+    G̃ (or W'), M' and V' bit for bit as the same kernel launched on the
+    host-dequantized P — only the staging differs — and agree with the plain
+    version (1e-5·max; W' as in the apply test)."""
+    dev = _cuda_device()
+    P, G, M, V = (torch.from_numpy(a).to(dev) for a in fused_inputs(shape, side))
+    P4 = codec.quant4_axis_state(P)
+    P_host = codec.dequantize4_axis(P4["q"], P4["scale"], P.shape[-2]).contiguous()
+    G = G.to(torch.bfloat16)
+    count = torch.tensor(7, dtype=torch.int32, device=dev)
+    right = side == "right"
+    if w_dtype is None:
+        fn = tk.galore_fused_adam_step_right if right else tk.galore_fused_adam_step
+        plain = (tk.galore_fused_adam_step_right_plain if right
+                 else tk.galore_fused_adam_step_plain)
+        kw, W = dict(alpha=0.25), None
+    else:
+        fn = tk.galore_fused_adam_apply_step_right if right else tk.galore_fused_adam_apply_step
+        plain = (tk.galore_fused_adam_apply_step_right_plain if right
+                 else tk.galore_fused_adam_apply_step_plain)
+        kw = dict(eta=torch.tensor(-1e-3, device=dev), **APPLY_KW)
+        W = _w_on(dev, shape, w_dtype)
+
+    def run(P_):
+        args = (P_, G) + (() if W is None else (W.clone(),)) + (M.clone(), V.clone(), count)
+        return [t.clone() for t in fn(*args, **kw)]
+
+    before, before4 = fn.launches, fn.launches_int4
+    got = run(P4)
+    host = run(P_host)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_int4) == (before + 1, before4 + 1)
+    tag = f"{side} {shape} W {w_dtype}"
+    for name, a, b in zip(["out", "m", "v"], got, host):
+        assert torch.equal(a, b), f"{tag} {name}: the int4 launch differs from the f32 one"
+    want = plain(P4, G, *(() if W is None else (W,)), M, V, count, **kw)
+    if W is None:
+        assert_close(got[0], want[0].cpu().numpy(), f"{tag} update")
+    else:
+        assert_weight_close(got[0], want[0], W, f"{tag} W", tol=1e-5, ulps=2)
+    assert_close(got[1], want[1].cpu().numpy(), f"{tag} m")
+    assert_close(got[2], want[2].cpu().numpy(), f"{tag} v")
+
+
+@pytest.mark.cuda
+def test_cuda_int4p_and_flat_never_run_the_plain_version(monkeypatch):
+    dev = _cuda_device()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    for name in ("galore_fused_adam_step_plain", "galore_fused_adam_step_right_plain",
+                 "galore_fused_adam_apply_step_plain", "galore_fused_adam_apply_step_right_plain"):
+        monkeypatch.setattr(tk, name, refuse)
+    monkeypatch.setattr(a8, "adam8bit_update_plain", refuse)
+    count = torch.tensor(1, dtype=torch.int32, device=dev)
+    eta = torch.tensor(-1e-3, device=dev)
+    for shape, side in (((72, 16, 130), "left"), ((130, 16, 72), "right")):
+        right = side == "right"
+        P, G, M, V = (torch.from_numpy(a).to(dev) for a in fused_inputs(shape, side))
+        P4 = codec.quant4_axis_state(P)
+        fn = tk.galore_fused_adam_step_right if right else tk.galore_fused_adam_step
+        fn(P4, G, M, V, count)
+        fn = tk.galore_fused_adam_apply_step_right if right else tk.galore_fused_adam_apply_step
+        fn(P4, G, _w_on(dev, shape, "bfloat16"), M, V, count, eta=eta)
+    g, moments = _flat_on(dev, 700)
+    a8.adam8bit_update(g, *moments, count)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_int4p_wrappers_reject_wrong_projectors():
+    dev = _cuda_device()
+    P, G, M, V = (torch.from_numpy(a).to(dev) for a in fused_inputs((72, 16, 130), "left"))
+    P4 = codec.quant4_axis_state(P)
+    count = torch.tensor(1, dtype=torch.int32, device=dev)
+    fn = tk.galore_fused_adam_step
+    before = (fn.launches, fn.launches_int4)
+    with pytest.raises(TypeError):  # f32 codes
+        fn({"q": P4["q"].float(), "scale": P4["scale"]}, G, M, V, count)
+    with pytest.raises(ValueError):  # scales of another block count
+        fn({"q": P4["q"], "scale": P4["scale"][:0]}, G, M, V, count)
+    with pytest.raises(ValueError):  # codes on the host
+        fn({"q": P4["q"].cpu(), "scale": P4["scale"]}, G, M, V, count)
+    with pytest.raises(ValueError):  # non-contiguous codes
+        fn({"q": P4["q"].t().contiguous().t(), "scale": P4["scale"]}, G, M, V, count)
+    assert (fn.launches, fn.launches_int4) == before

@@ -13,6 +13,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import galore_fused as tk  # noqa: E402
 from test_torch_cuda import SHAPES, assert_close, fused_inputs  # noqa: E402
 
@@ -59,7 +60,8 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     port = ROOT / "src" / "repro_torch"
-    for module in ("quant/codec.py", "quant/policy.py", "launch/cli.py", "kernels/galore_fused.py"):
+    for module in ("quant/codec.py", "quant/policy.py", "launch/cli.py", "kernels/galore_fused.py",
+                   "optim/adam8bit.py", "optim/quant8.py", "kernels/adam8bit_update.py"):
         assert port / module in files, module
     bad = [
         f"{f.relative_to(ROOT)}: {mod}"
@@ -67,3 +69,21 @@ def test_port_imports_no_jax():
         if mod.split(".")[0] in ("jax", "jaxlib", "repro")
     ]
     assert not bad, bad
+
+
+def test_build_digest_follows_local_headers(tmp_path, monkeypatch):
+    """A library is named by the digest of its source and of every local
+    header the source includes (transitively), so an edited header rebuilds
+    it; a system header (<...>) is not read. Needs no nvcc."""
+    for name in ("galore_fused", "galore_epilogue"):  # both kernels share the int4 staging
+        assert {p.name for p in build._sources(name)} == {f"{name}.cu", "int4_p.cuh"}
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint x;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("int b = 1;\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert sorted(p.name for p in build._sources("k")) == ["a.cuh", "b.cuh", "k.cu"]
+    before = build._target("k")
+    (tmp_path / "b.cuh").write_text("int b = 2;\n")
+    after = build._target("k")
+    assert after != before and after.name.startswith("k-")
+    assert build._target("k") == after  # unchanged sources, unchanged name

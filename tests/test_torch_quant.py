@@ -1,7 +1,9 @@
 """The port's 8-bit GaLore state against the JAX package on the same
-inputs: the codecs bit for bit, projector storage and its lazy refresh, and
-the int8-moment leaf step against the Pallas epilogue in interpret mode.
-(The training path is in tests/test_torch_quant_train.py.)"""
+inputs: the codecs bit for bit, projector storage and its lazy refresh, the
+int8-moment leaf step against the Pallas epilogue in interpret mode, and the
+fp32-moment step with a packed int4 projector, as a leaf step against the
+Pallas epilogue and as a 20-step trajectory.
+(The rest of the training path is in tests/test_torch_quant_train.py.)"""
 import dataclasses
 
 import pytest
@@ -12,16 +14,33 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.configs.base import GaLoreConfig as JGaLoreConfig  # noqa: E402
+from repro.configs.base import TrainConfig as JTrainConfig  # noqa: E402
+from repro.configs.base import get_config as jax_get_config  # noqa: E402
 from repro.core.projector import read_projector as jax_read_projector  # noqa: E402
 from repro.core.projector import store_projector as jax_store_projector  # noqa: E402
+from repro.data.pipeline import DataConfig as JDataConfig  # noqa: E402
+from repro.data.pipeline import SyntheticC4 as JSyntheticC4  # noqa: E402
+from repro.distributed.step import make_train_step as jax_make_train_step  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro.quant import QuantPolicy as JQuantPolicy  # noqa: E402
 from repro.quant import codec as jcodec  # noqa: E402
-from repro_torch.configs.base import GaLoreConfig  # noqa: E402
+from repro_torch.bridge import params_from_numpy  # noqa: E402
+from repro_torch.configs.base import GaLoreConfig, TrainConfig, get_config  # noqa: E402
 from repro_torch.core.galore import galore  # noqa: E402
 from repro_torch.core.projector import read_projector, store_projector  # noqa: E402
 from repro_torch.kernels import galore_fused as tk  # noqa: E402
+from repro_torch.launch.train import RunConfig, train_loop  # noqa: E402
 from repro_torch.quant import QuantPolicy, codec  # noqa: E402
-from test_torch_cuda import ADAM8_CASES, adam8_inputs, assert_codes_close  # noqa: E402
+from repro_torch.utils import flatten_up_to  # noqa: E402
+from test_torch_cuda import (  # noqa: E402
+    ADAM8_CASES,
+    adam8_inputs,
+    assert_codes_close,
+    fused_inputs,
+)
+from test_torch_train import _Bridged  # noqa: E402
 
 HP = dict(b1=0.9, b2=0.999, eps=1e-8)
 
@@ -183,3 +202,72 @@ def test_adam8_cpu_wrapper_does_not_count_launches():
                                *[torch.from_numpy(t.copy()) for t in moments],
                                torch.tensor(1, dtype=torch.int32))
     assert all(fn.launches == 0 for fn in tk.WRAPPERS)
+
+
+# ---------------------------------------------------------------------------
+# 4. the fp32-moment step with a packed int4 P
+# ---------------------------------------------------------------------------
+
+# (shape, side): ragged kept dims (72 → 128, 130 → 256), a stacked leaf
+INT4P_CASES = [((72, 16, 130), "left"), ((130, 16, 72), "right"), ((3, 72, 16, 130), "left")]
+
+
+@pytest.mark.parametrize("shape,side", INT4P_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int4p_step_matches_pallas_interpret(shape, side, dtype):
+    """galore_fused_adam_step[_right] with P as the packed int4 qstate (the
+    plain version on the host-dequantized P) against the Pallas epilogue
+    with quant_p, fp32 moments, in interpret mode: G̃, M' and V' within
+    2e-5·max."""
+    P, G, M, V = fused_inputs(shape, side)
+    jP = jcodec.quant4_axis_state(jnp.asarray(P))
+    tP = {k: torch.from_numpy(np.array(v)) for k, v in jP.items()}
+    right = side == "right"
+    jfn = jops.galore_fused_adam_step_right if right else jops.galore_fused_adam_step
+    want = jfn(jP, jnp.asarray(G).astype(dtype), jnp.asarray(M), jnp.asarray(V), jnp.int32(7),
+               alpha=0.25, use_pallas=True, interpret=True)
+    tfn = tk.galore_fused_adam_step_right if right else tk.galore_fused_adam_step
+    Mt, Vt = torch.from_numpy(M.copy()), torch.from_numpy(V.copy())
+    tk.reset_launch_counts()
+    got = tfn(tP, torch.from_numpy(G).to(getattr(torch, dtype)), Mt, Vt,
+              torch.tensor(7, dtype=torch.int32), alpha=0.25)
+    assert got[1] is Mt and got[2] is Vt  # moments updated in place
+    assert tfn.launches == tfn.launches_int4 == 0  # the plain version ran
+    for name, a, b in zip(["update", "m", "v"], got, want):
+        _assert_close(a, b, f"{side} {shape} {dtype} {name}", tol=2e-5)
+
+
+def test_int4p_trajectory_matches_jax():
+    """20 steps of fused GaLore with fp32 moments and int4 projectors
+    (--galore-fused --quant-proj int4; rank 16, T 10) on the llama_60m smoke
+    config from the JAX package's weights and batches: per-step losses within
+    5e-2 of JAX's run."""
+    steps, batch, seq = 20, 4, 64
+    jcfg = jax_get_config("llama_60m", smoke=True)
+    jtc = JTrainConfig(optimizer="adamw", galore=JGaLoreConfig(
+        rank=16, update_freq=10, quant=JQuantPolicy(projectors="int4")),
+        galore_fused_adam=True, total_steps=steps, warmup_steps=2)
+    jdata = JSyntheticC4(JDataConfig(vocab_size=jcfg.vocab_size, seq_len=seq, batch_per_host=batch))
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    step_fn, jopt = jax_make_train_step(jcfg, jtc)
+    step_fn = jax.jit(step_fn)
+    jstate = jopt.init(jparams)
+    want = []
+    for s in range(steps):
+        jparams, jstate, metrics = step_fn(jparams, jstate, jdata.batch(s))
+        want.append(float(metrics["loss"]))
+
+    got = []
+    tc = TrainConfig(optimizer="adamw", galore=GaLoreConfig(
+        rank=16, update_freq=10, quant=QuantPolicy(projectors="int4")),
+        galore_fused_adam=True, total_steps=steps, warmup_steps=2)
+    _, opt_state, _, _ = train_loop(
+        RunConfig(steps=steps, batch_per_host=batch, seq_len=seq, log_every=steps, device="cpu"),
+        tc, cfg=get_config("llama_60m", smoke=True), params=tparams, data=_Bridged(jdata),
+        on_step=lambda s, m: got.append(float(m["loss"])))
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-2)
+    assert want[-1] < want[0]
+    state = opt_state[1]
+    assert any(codec.is_axis4_qstate(P) for P in flatten_up_to(tparams, state["proj"]))
+    assert not any(codec.is_qstate(m) for m in flatten_up_to(tparams, state["inner"]["m"]))
