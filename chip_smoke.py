@@ -37,19 +37,28 @@ Phases, each timed, none of them optional; any failed check raises:
      fp32 kernels' int4-P forms launched (48 left, 8 right each), losses
      within 5e-2 of phase 4 (and of the int4-P emit phase for apply), state
      bytes within 0.01 % of galore_state_bytes;
-  9. the paper's baselines without GaLore: 8-bit Adam (the flat 8-bit Adam
+  9. the paper's 7B rank, r = 1024 (T = 8: one refresh), fp32 fused and
+     composable: every leaf fails the reference's fits_vmem, so the fused
+     step composes the tiled projections (B4 and B5 launched 56 times each,
+     B1/B2 never); losses finite, falling and within 5e-2 of the composable
+     run's; state bytes within 0.01 % of galore_state_bytes;
+  10. the paper's baselines without GaLore: 8-bit Adam (the flat 8-bit Adam
      kernel launched once per quantized leaf a step, the leaves counted
      from the state; state bytes within 0.01 % of adam8bit_state_bytes;
      finite losses) and full-rank AdamW (no kernel; its step-0 loss equal to
      8-bit Adam's within 1e-6), each with its peak memory and state bytes;
-  10. record: a JSON line of the kernels, step times, SVD refresh time, peak
-     memory, state bytes, the card's name and power limit, and last the
-     result line.
+  11. record: the SVD refresh time at ranks 128 and 1024, step times and
+     peak memory of every phase, a JSON line of the kernels, the card's name
+     and power limit, and last the result line.
 The kernel checks of phase 3 also hold the fp32 kernels' int4-P forms (B1,
 B2 and their apply forms) to the same kernel launched on the host-dequantized
-P, bit for bit, and the flat 8-bit Adam kernel to its plain version, codes,
+P, bit for bit; the flat 8-bit Adam kernel to its plain version, codes,
 scales and update bit for bit, at the embedding's and an FFN leaf's size and
-a ragged 1000 x 520 leaf.
+a ragged 1000 x 520 leaf; the tiled projections B4 and B5 at the r = 1024
+leaves (the down leaf's G read, and its G̃ written, transposed) and a ragged
+shape, to 1e-5·max|want|, beside torch.matmul; and RMSNorm (B6, on no path)
+at the model's norm input and a ragged 1000 x 520, f32 within 1e-5 relative
+and bf16 within one ulp, beside torch.nn.functional.rms_norm.
 """
 import dataclasses
 import json
@@ -71,6 +80,8 @@ from repro_torch.core.projector import compute_projector  # noqa: E402
 from repro_torch.kernels import adam8bit_update as a8  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import galore_fused as gf  # noqa: E402
+from repro_torch.kernels import galore_project as tp  # noqa: E402
+from repro_torch.kernels import rmsnorm as trms  # noqa: E402
 from repro_torch.kernels.ref import lowrank_adam_update  # noqa: E402
 from repro_torch.launch.train import RunConfig, train_loop  # noqa: E402
 from repro_torch.optim.adam8bit import adam8bit_state_bytes  # noqa: E402
@@ -83,6 +94,8 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 SOURCE = "src/repro_torch/csrc/galore_fused.cu"
 SOURCE8 = "src/repro_torch/csrc/galore_epilogue.cu"
+SOURCE_PROJECT = "src/repro_torch/csrc/galore_project.cu"
+SOURCE_RMSNORM = "src/repro_torch/csrc/rmsnorm.cu"
 KERNELS = {
     "left": dict(name="galore_fused_adam_left", wrapper=gf.galore_fused_adam_step,
                  plain=gf.galore_fused_adam_step_plain, source=SOURCE,
@@ -131,6 +144,14 @@ KERNELS = {
     "adam8bit": dict(name="adam8bit_blocks_update", wrapper=a8.adam8bit_update,
                      plain=a8.adam8bit_update_plain, source=SOURCE8,
                      replaces="src/repro/kernels/galore_fused.py:762"),
+    "project": dict(name="galore_project", wrapper=tp.galore_project,
+                    plain=tp.galore_project_plain, source=SOURCE_PROJECT,
+                    replaces="src/repro/kernels/galore_project.py:66"),
+    "project_back": dict(name="galore_project_back", wrapper=tp.galore_project_back,
+                         plain=tp.galore_project_back_plain, source=SOURCE_PROJECT,
+                         replaces="src/repro/kernels/galore_project.py:115"),
+    "rmsnorm": dict(name="rmsnorm", wrapper=trms.rmsnorm, plain=trms.rmsnorm_plain,
+                    source=SOURCE_RMSNORM, replaces="src/repro/kernels/rmsnorm.py:25"),
 }
 # each kernel's launch count: the wrapper's `launches`, or `launches_int4` for
 # the int4-P forms of the fp32-moment kernels
@@ -647,17 +668,169 @@ def check_adam8bit():
     return rows
 
 
-def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=True):
-    """8 steps of the main path (AdamW, wd 0.01; with `apply` the weight
-    update folded into the kernels; without `galore` full-rank `optimizer`,
-    AdamW or the 8-bit Adam baseline); returns losses, step times, the
+# (leaf, L, m, r, n, G stored transposed, on the main path) of the tiled
+# projection checks: the r = 1024 leaves of llama_7b with 2 layers — wq wk wv
+# wo, gate up, and down, whose G (2, 11008, 4096) B4 reads transposed and
+# whose G̃ B5 writes transposed — and a ragged shape
+PROJECT_SHAPES = [
+    ("left", 2, 4096, 1024, 4096, False, True),
+    ("left", 2, 4096, 1024, 11008, False, True),
+    ("down", 2, 4096, 1024, 11008, True, True),
+    ("ragged", 1, 1000, 96, 520, False, False),
+]
+
+
+def close_or_raise(got, want, tag):
+    """got within 1e-5·max|want| + 1e-5·|want| of want, and finite; returns
+    max |got - want|."""
+    diff = (got - want).abs()
+    tol = 1e-5 * want.abs().max() + 1e-5 * want.abs()
+    if bool((diff > tol).any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{tag}: max|err| {float(diff.max()):.3e} over tolerance "
+                             f"(1e-5·max|want| = {float(1e-5 * want.abs().max()):.3e})")
+    return float(diff.max())
+
+
+def gemm_bound(L, m, r, n, in_bytes, out_bytes, scale_ops=0):
+    """Least time (s) of one projection launch, and what bounds it: its
+    inputs read once and its output written once, against the f32 FMAs of
+    the contraction (2·L·m·r·n) and any elementwise scale."""
+    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES
+    t_ops = (2 * L * m * r * n + scale_ops) / PEAK_F32
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_project():
+    """B4 and B5 against their plain versions at PROJECT_SHAPES, to
+    1e-5·max|want| (+ 1e-5·|want|) with TF32 off: B4 with G bf16 and f32
+    (stored (L, m, n), or (L, n, m) for down), B5 on N̂-sized f32 input
+    (written (L, m, n), or transposed for down). P has orthonormal columns.
+    Times kernel, plain version and the library call — torch.matmul(P.mT,
+    G.float()) for B4 (the cast timed in), alpha · torch.matmul(P, N) for B5
+    (the scale timed in; through the transposes for down)."""
+    rows = []
+    for i, (leaf, L, m, r, n, trans, main) in enumerate(PROJECT_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(500 + i)
+        P = torch.linalg.qr(torch.randn(L, m, r, generator=gen, device="cuda"))[0].contiguous()
+        G32 = torch.randn(L, *((n, m) if trans else (m, n)), generator=gen, device="cuda")
+        shape = dict(L=L, m=m, r=r, n=n, leaf=leaf, main_path=main)
+        for dt in (torch.bfloat16, torch.float32):
+            G = G32.to(dt)
+            tag = (f"galore_project {leaf} L={L} (m,r,n)=({m},{r},{n}) G "
+                   f"{str(dt).removeprefix('torch.')}{' read transposed' if trans else ''}")
+            want = tp.galore_project_plain(P, G, trans)
+            got = tp.galore_project(P, G, transpose_g=trans)
+            torch.cuda.synchronize()
+            err = close_or_raise(got, want, tag)
+            ms = cuda_ms(lambda: tp.galore_project(P, G, transpose_g=trans), 3, 10)
+            plain_ms = cuda_ms(lambda: tp.galore_project_plain(P, G, trans), 2, 5)
+            lib = ((lambda: torch.matmul(P.mT, G.float().mT)) if trans
+                   else (lambda: torch.matmul(P.mT, G.float())))
+            library_ms = cuda_ms(lib, 3, 10)
+            b_s, b_by = gemm_bound(L, m, r, n, 4 * L * m * r + G.element_size() * L * m * n,
+                                   4 * L * r * n)
+            rows.append(dict(kernel="project", g_dtype=str(dt).removeprefix("torch."),
+                             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                             bound_ms=b_s * 1e3, bound_by=b_by, **shape))
+            log(f"[kernels] {tag}: max|err| {err:.2e} (max|R| {float(want.abs().max()):.2e}) ok  "
+                f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  torch.matmul {library_ms:.3f} ms  "
+                f"bound {b_s * 1e3:.3f} ms ({b_by}; {b_s * 1e3 / ms:.0%} of it)")
+            del G, want, got
+        N = torch.randn(L, r, n, generator=gen, device="cuda")
+        tag = (f"galore_project_back {leaf} L={L} (m,r,n)=({m},{r},{n})"
+               f"{' written transposed' if trans else ''}")
+        want = tp.galore_project_back_plain(P, N, ALPHA, trans)
+        got = tp.galore_project_back(P, N, ALPHA, transpose_out=trans)
+        torch.cuda.synchronize()
+        err = close_or_raise(got, want, tag)
+        ms = cuda_ms(lambda: tp.galore_project_back(P, N, ALPHA, transpose_out=trans), 3, 10)
+        plain_ms = cuda_ms(lambda: tp.galore_project_back_plain(P, N, ALPHA, trans), 2, 5)
+        lib = ((lambda: ALPHA * torch.matmul(N.mT, P.mT)) if trans
+               else (lambda: ALPHA * torch.matmul(P, N)))
+        library_ms = cuda_ms(lib, 3, 10)
+        b_s, b_by = gemm_bound(L, m, r, n, 4 * L * m * r + 4 * L * r * n, 4 * L * m * n,
+                               L * m * n)
+        rows.append(dict(kernel="project_back", g_dtype=None, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_s * 1e3,
+                         bound_by=b_by, **shape))
+        log(f"[kernels] {tag}: max|err| {err:.2e} (max|G̃| {float(want.abs().max()):.2e}) ok  "
+            f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  α·torch.matmul {library_ms:.3f} ms  "
+            f"bound {b_s * 1e3:.3f} ms ({b_by}; {b_s * 1e3 / ms:.0%} of it)")
+        del P, G32, N, want, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+# (shape of x, on the main path): the model's norm input at the main path's
+# batch (8 x 256 tokens, d_model 4096), and a ragged 1000 x 520
+RMSNORM_SHAPES = [((8, 256, 4096), True), ((1000, 520), False)]
+
+
+def check_rmsnorm():
+    """B6 against its plain version at RMSNORM_SHAPES, x and scale both bf16
+    (the model's dtype) or both f32: f32 output within 1e-5 relative (and
+    1e-6 absolute), bf16 output within one bf16 ulp, the count of elements one
+    ulp apart printed. Times kernel, plain version and
+    torch.nn.functional.rms_norm; the bound is bytes: x read and the output
+    written once, and the scale."""
+    rows = []
+    for i, (shape, main) in enumerate(RMSNORM_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(600 + i)
+        x32 = torch.randn(shape, generator=gen, device="cuda")
+        s32 = 1 + 0.1 * torch.randn(shape[-1], generator=gen, device="cuda")
+        for dt in (torch.bfloat16, torch.float32):
+            x, scale = x32.to(dt), s32.to(dt)
+            tag = f"rmsnorm x {tuple(shape)} {str(dt).removeprefix('torch.')}"
+            want = trms.rmsnorm_plain(x, scale)
+            got = trms.rmsnorm(x, scale)
+            torch.cuda.synchronize()
+            g, w = got.double(), want.double()
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"{tag}: non-finite output")
+            if dt == torch.bfloat16:
+                ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=2.0 ** -126))) - 7)
+                beyond = int(((g - w).abs() > ulp).sum())
+                note = (f"{int((g != w).sum())} of {g.numel()} one bf16 ulp apart, {beyond} "
+                        f"beyond")
+                if beyond:
+                    raise AssertionError(f"{tag}: {note}")
+            else:
+                rel = float(((g - w).abs() / w.abs().clamp(min=0.1)).max())
+                if bool(((g - w).abs() > 1e-5 * w.abs() + 1e-6).any()):
+                    raise AssertionError(f"{tag}: beyond 1e-5 relative (max {rel:.2e})")
+                note = f"max relative err {rel:.2e}"
+            err = float((g - w).abs().max())
+            ms = cuda_ms(lambda: trms.rmsnorm(x, scale), 5, 20)
+            plain_ms = cuda_ms(lambda: trms.rmsnorm_plain(x, scale), 3, 10)
+            library_ms = cuda_ms(lambda: torch.nn.functional.rms_norm(
+                x, (shape[-1],), scale, 1e-6), 5, 20)
+            nbytes = 2 * x.numel() * x.element_size() + scale.numel() * scale.element_size()
+            b_s = max(nbytes / PEAK_BYTES, 3 * x.numel() / PEAK_F32)
+            rows.append(dict(kernel="rmsnorm", shape=list(shape), g_dtype=str(dt).removeprefix(
+                "torch."), main_path=main, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=b_s * 1e3, bound_by="bytes",
+                m=x.numel() // shape[-1], n=shape[-1]))
+            log(f"[kernels] {tag}: max|err| {err:.2e}; {note} ok  kernel {ms:.4f} ms  plain "
+                f"{plain_ms:.4f} ms  F.rms_norm {library_ms:.4f} ms  bound {b_s * 1e3:.4f} ms "
+                f"(bytes, {nbytes / 1e6:.1f} MB; {nbytes / ms / 1e6:.0f} GB/s achieved)")
+            del x, scale, want, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=True, rank=128,
+                update_freq=4):
+    """8 steps of the main path (AdamW, wd 0.01; GaLore at `rank`, refreshed
+    every `update_freq` steps; with `apply` the weight update folded into the
+    kernels; without `galore` full-rank `optimizer`, AdamW or the 8-bit Adam
+    baseline); returns losses, step times, the
     launches of every kernel, peak memory, and the optimizer state's bytes
     measured from the tensors (GaLore's m/v/proj, or the baselines' moments)
     beside their analytic count (galore_state_bytes, adam8bit_state_bytes, or
     8 bytes a parameter for AdamW)."""
     cfg = dataclasses.replace(get_config("llama_7b"), n_layers=2)
-    gcfg = (GaLoreConfig(rank=128, update_freq=4, scale=0.25, quant=quant or QuantPolicy())
-            if galore else None)
+    gcfg = (GaLoreConfig(rank=rank, update_freq=update_freq, scale=0.25,
+                         quant=quant or QuantPolicy()) if galore else None)
     tc = TrainConfig(optimizer=optimizer, galore=gcfg, galore_fused_adam=fused,
                      galore_fused_apply=apply, lr=1e-3, weight_decay=WD, total_steps=8,
                      warmup_steps=1)
@@ -692,7 +865,8 @@ def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"non-finite loss: {losses}")
     return dict(losses=losses, times=times, launches=launches, peak=peak, galore=galore,
-                state_bytes=state_bytes, analytic_bytes=analytic, quantized_leaves=quantized)
+                update_freq=update_freq, state_bytes=state_bytes, analytic_bytes=analytic,
+                quantized_leaves=quantized)
 
 
 def check_state_bytes(tag, ph):
@@ -705,11 +879,13 @@ def check_state_bytes(tag, ph):
 
 
 def svd_ms():
-    """The refresh's SVD on the card at the slice's two projector shapes."""
+    """The refresh's SVD on the card at the slice's two projector shapes, for
+    rank-128 and rank-1024 projectors."""
     out = {}
     for m, n in ((4096, 4096), (4096, 11008)):
         G = torch.randn(m, n, device="cuda")
-        out[f"{m}x{n}"] = cuda_ms(lambda: compute_projector(G, 128), 1, 3)
+        for rank in (128, 1024):
+            out[f"r{rank} {m}x{n}"] = cuda_ms(lambda: compute_projector(G, rank), 1, 3)
     return out
 
 
@@ -725,7 +901,7 @@ def main():
         f"{torch.cuda.device_count()} device(s) ({time.perf_counter() - t:.1f} s)")
 
     t = time.perf_counter()
-    libs = build.build(["galore_fused", "galore_epilogue"])
+    libs = build.build(["galore_fused", "galore_epilogue", "galore_project", "rmsnorm"])
     log(f"[build] nvcc sm_90a: {', '.join(p.name for p in libs.values())} "
         f"({time.perf_counter() - t:.1f} s)")
     for path in libs.values():
@@ -741,6 +917,8 @@ def main():
     rows += check_apply()
     rows += check_int4p()
     rows += check_adam8bit()
+    rows += check_project()
+    rows += check_rmsnorm()
     log(f"[kernels] {len(rows)} checks passed ({time.perf_counter() - t:.1f} s)")
 
     none = {name: 0 for name in COUNTERS}
@@ -807,6 +985,27 @@ def main():
         log(f"[parity] {tag} vs {emit_tag} max |Δloss| {gap:.3e} (limit 5e-2)")
         check_state_bytes(tag, ph)
 
+    # the paper's 7B rank: every GaLore leaf fails the reference's fits_vmem
+    # at r = 1024, so the fp32 fused step composes B4 → Adam → B5 (7 leaves ×
+    # 8 steps) and launches no B1/B2; T = 8, so only step 0 refreshes
+    for tag, fused_ in (("r1024-fused", True), ("r1024-composable", False)):
+        t = time.perf_counter()
+        ph = phases[tag] = train_phase(fused=fused_, rank=1024, update_freq=8)
+        log(f"[{tag}] losses {[round(x, 4) for x in ph['losses']]} launches {ph['launches']} "
+            f"({time.perf_counter() - t:.1f} s)")
+        if not ph["losses"][-1] < ph["losses"][0]:
+            raise AssertionError(f"{tag} loss did not decrease: {ph['losses']}")
+        want = dict(none, project=56, project_back=56) if fused_ else none
+        if ph["launches"] != want:
+            what = "B4 and B5 56 each (7 leaves × 8 steps), no B1/B2" if fused_ else "none"
+            raise AssertionError(f"{tag} launches {ph['launches']}, want {what}")
+        check_state_bytes(tag, ph)
+    gap = max(abs(a - b) for a, b in zip(phases["r1024-fused"]["losses"],
+                                         phases["r1024-composable"]["losses"]))
+    if gap > 5e-2:
+        raise AssertionError(f"r1024 fused vs composable losses differ by {gap:.3e} > 5e-2")
+    log(f"[parity] r1024-fused vs r1024-composable max |Δloss| {gap:.3e} (limit 5e-2)")
+
     # the paper's baselines without GaLore: 8-bit Adam (the flat kernel) and
     # full-rank AdamW (no kernel), same lr, schedule, batch and data
     t = time.perf_counter()
@@ -839,14 +1038,17 @@ def main():
     t = time.perf_counter()
     svd = svd_ms()
     shapes = ", ".join(f"{k} {v:.1f} ms" for k, v in svd.items())
-    log(f"[svd] torch.linalg.svd f32, rank-128 projector: {shapes} "
+    log(f"[svd] torch.linalg.svd f32, rank-128 and rank-1024 projectors: {shapes} "
         f"({time.perf_counter() - t:.1f} s)")
     for tag, ph in phases.items():
         times = ph["times"]
         if ph["galore"]:
-            steady = statistics.median(times[i] for i in range(len(times)) if i % 4)
-            first = (f"median non-refresh {steady * 1e3:.1f} ms; refresh steps 0/4 "
-                     f"{times[0] * 1e3:.1f}/{times[4] * 1e3:.1f} ms")
+            T = ph["update_freq"]
+            steady = statistics.median(times[i] for i in range(len(times)) if i % T)
+            refresh = range(0, len(times), T)
+            first = (f"median non-refresh {steady * 1e3:.1f} ms; refresh steps "
+                     f"{'/'.join(map(str, refresh))} "
+                     f"{'/'.join(f'{times[i] * 1e3:.1f}' for i in refresh)} ms")
         else:
             first = (f"median of steps 1-7 {statistics.median(times[1:]) * 1e3:.1f} ms; step 0 "
                      f"{times[0] * 1e3:.1f} ms")
@@ -858,29 +1060,38 @@ def main():
                "apply_left": "fused-apply", "apply_right": "fused-apply",
                "adam8_apply_left": "8bit-apply", "adam8_apply_right": "8bit-apply",
                "p4_left": "int4p", "p4_right": "int4p", "p4_apply_left": "int4p-apply",
-               "p4_apply_right": "int4p-apply", "adam8bit": "adam8bit"}
+               "p4_apply_right": "int4p-apply", "adam8bit": "adam8bit",
+               "project": "r1024-fused", "project_back": "r1024-fused"}
+    # B6 lies on no path (the models call the plain apply_norm, as the
+    # reference's do): it runs in its check only, and its launches are 0
     launches = {key: phases[tag]["launches"][key] for key, tag in runs_in.items()}
+    launches["rmsnorm"] = 0
     kernels = []
     for key, k in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == key]
         # the row of record: the largest main-path shape with bf16 G (and bf16
         # W), as the main path runs it (int4 P, nearest rounding, for the int8
-        # kernel)
-        top = max((r for r in mine if r["main_path"] and r["g_dtype"] == "bfloat16"
+        # kernel; B5 has no G, B6 its bf16 x)
+        top = max((r for r in mine if r["main_path"] and r["g_dtype"] in ("bfloat16", None)
                    and (r.get("w_dtype") or "bfloat16") == "bfloat16" and not r.get("stochastic")
                    and (not key.startswith("adam8_") or r["p"] == "int4")),
                   key=lambda r: r["m"] * r["n"])
-        shape = (dict(numel=top["numel"], g_dtype="bfloat16") if key == "adam8bit" else
-                 dict(L=top["L"], m=top["m"], r=top["r"], n=top["n"], g_dtype="bfloat16",
-                      w_dtype=top.get("w_dtype"), p=top.get("p", "f32")))
-        if launches[key] == 0:
+        if key == "adam8bit":
+            shape = dict(numel=top["numel"], g_dtype="bfloat16")
+        elif key == "rmsnorm":
+            shape = dict(x=top["shape"], x_dtype="bfloat16", scale_dtype="bfloat16")
+        else:
+            shape = dict(L=top["L"], m=top["m"], r=top["r"], n=top["n"], g_dtype=top["g_dtype"],
+                         w_dtype=top.get("w_dtype"), p=top.get("p", "f32"))
+        if key in runs_in and launches[key] == 0:
             raise AssertionError(f"{k['name']} was not launched in the {runs_in[key]} phase")
         kernels.append(dict(
             name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],
-            p=None if key == "adam8bit" else top.get("p", "f32"), launches=launches[key],
+            p=None if key in ("adam8bit", "rmsnorm") else top.get("p", "f32"),
+            launches=launches[key], on_path=runs_in.get(key),
             max_abs_err=max(r["max_abs_err"] for r in mine if r["main_path"]),
             ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
-            bound_by=top["bound_by"], library_ms=None, shape=shape))
+            bound_by=top["bound_by"], library_ms=top.get("library_ms"), shape=shape))
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -9,8 +9,11 @@ weight apply, ``make_fused_apply``, and the analytic ``galore_state_bytes``).
 
 P_t is refreshed from an SVD of the current gradient at galore steps
 0, T, 2T, … Non-matrix leaves and excluded paths (embeddings) get the same
-Adam math at full shape. With ``fused=True`` each GaLore leaf runs one fused
-kernel launch (kernels/ops.py); with ``fused=False`` it runs the composable
+Adam math at full shape. With ``fused=True`` each GaLore leaf goes through
+kernels/ops.py, routed as the reference routes it: one fused kernel launch,
+or, where P exceeds the reference's VMEM budget (``fits_vmem``; at llama_7b
+width r ≥ 512), the tiled projection kernels around a plain Adam update; with
+``fused=False`` it runs the composable
 project → Adam → back-project sequence in plain torch (kernels/ref.py), the
 numerics oracle. ``make_fused_apply`` is the W-in-place form of the fused
 path: each GaLore leaf's kernel also applies W ← W + η(G̃ + wd·W), so no
@@ -82,8 +85,9 @@ def galore(cfg: GaLoreConfig, *, b1: float | None = None, b2: float | None = Non
         plans = mgr.plans(grads)
         step = state["step"]
         proj = mgr.refresh_tree(grads, state["proj"], plans, step)
-        # the fused dispatch keeps packed int4 projectors packed: the kernel
-        # unpacks them, so no f32 projector tree is made
+        # the fused dispatch keeps packed int4 projectors packed: the fused
+        # kernel unpacks them, so no f32 projector tree is made (the composite
+        # route dequantizes each leaf's P on its own)
         proj_eff = _read_proj_tree(grads, proj, plans, keep_packed=fused)
         updates, inner = _managed_adam_update(grads, proj_eff, state["inner"], plans, cfg,
                                               b1, b2, eps, fused=fused)

@@ -1,11 +1,13 @@
-"""Plain PyTorch versions of the kernels (port of repro/kernels/ref.py but
-its RMSNorm): the GaLore-Adam leaf steps — the fp32-moment step and the
-int8-moment step, each in its emit form (returns G̃) and its weight-apply form
-(returns W' = W + η(G̃ + wd·W) in W's dtype), P f32 or a packed int4 qstate —
-and the flat 8-bit Adam update on (nb, 256) blocks.
+"""Plain PyTorch versions of the kernels (port of repro/kernels/ref.py): the
+tiled projections R = PᵀG and G̃ = α P N, the GaLore-Adam leaf steps — the
+fp32-moment step and the int8-moment step, each in its emit form (returns G̃)
+and its weight-apply form (returns W' = W + η(G̃ + wd·W) in W's dtype), P f32
+or a packed int4 qstate — the flat 8-bit Adam update on (nb, 256) blocks, and
+RMSNorm.
 
 They are the numerical ground truth for the Hopper kernels in
-``csrc/galore_fused.cu`` and ``csrc/galore_epilogue.cu``, and what the kernel
+``csrc/galore_fused.cu``, ``csrc/galore_epilogue.cu``,
+``csrc/galore_project.cu`` and ``csrc/rmsnorm.cu``, and what the kernel
 wrappers run on CPU tensors. Pure functions: they return new weights and
 moments (or codes and scales) and leave their inputs untouched.
 """
@@ -172,3 +174,11 @@ def adam8bit_update(g_blocks, m_codes, m_scale, v_codes, v_scale, count, book_si
     m_codes, m_scale = quantize_blocks(m, book_signed)
     v_codes, v_scale = quantize_blocks(v, book_unsigned)
     return upd, m_codes, m_scale, v_codes, v_scale
+
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    """x · rsqrt(mean(x²) + ε) · scale over the last dim, in f32, cast back to
+    x's dtype.  x (..., d), scale (d,)."""
+    xf = x.float()
+    ms = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)

@@ -13,7 +13,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import adam8bit_update as a8  # noqa: E402
 from repro_torch.kernels import galore_fused as tk  # noqa: E402
-from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import galore_project as tp  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import rmsnorm as trms  # noqa: E402
 from repro_torch.quant import codec  # noqa: E402
 
 SHAPES = [
@@ -46,6 +48,22 @@ def fused_inputs(shape, side, seed=13):
         M = np.float32(0.9) * M + np.float32(0.1) * R
         V = np.float32(0.999) * V + np.float32(0.001) * R * R
     return P, G, M, V
+
+
+# (lead..., m, r, n) of the tiled projection checks: ragged everything, a
+# stacked (L = 2) leaf with ragged n, stacked experts (L, E), and a leaf of
+# several 128 x 128 output tiles each way with a K of many 16-deep steps
+PROJECT_SHAPES = [(1000, 96, 520), (2, 300, 64, 130), (2, 3, 40, 8, 96), (2, 520, 264, 1000)]
+
+
+def proj_inputs(shape, seed=3):
+    """numpy P (..., m, r) with orthonormal columns, G (..., m, n) and
+    N (..., r, n) for one (lead..., m, r, n) shape."""
+    rng = np.random.default_rng(seed)
+    lead, (m, r, n) = tuple(shape[:-3]), shape[-3:]
+    P = np.linalg.qr(rng.standard_normal(lead + (m, r)))[0].astype(np.float32)
+    return (P, rng.standard_normal(lead + (m, n), np.float32),
+            rng.standard_normal(lead + (r, n), np.float32))
 
 
 # (shape, side) of the int8-moment kernel checks: ragged n (130, 520), a
@@ -564,3 +582,164 @@ def test_cuda_int4p_wrappers_reject_wrong_projectors():
     with pytest.raises(ValueError):  # non-contiguous codes
         fn({"q": P4["q"].t().contiguous().t(), "scale": P4["scale"]}, G, M, V, count)
     assert (fn.launches, fn.launches_int4) == before
+
+
+# ---------------------------------------------------------------------------
+# the tiled projections (B4, B5), the fp32 step's composite route, RMSNorm (B6)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PROJECT_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("transpose_g", [False, True])
+def test_cuda_project_kernel_matches_plain(shape, dtype, transpose_g):
+    """B4 against its plain version: R within 1e-5·max|want| + 1e-5·|want|,
+    G f32 or bf16, stored as (..., m, n) or, with `transpose_g`, (..., n, m)."""
+    dev = _cuda_device()
+    P, G, _ = (torch.from_numpy(a).to(dev) for a in proj_inputs(shape))
+    G = G.to(getattr(torch, dtype))
+    if transpose_g:
+        G = G.transpose(-1, -2).contiguous()
+    want = tp.galore_project_plain(P, G, transpose_g)
+    before = tp.galore_project.launches
+    got = tp.galore_project(P, G, transpose_g=transpose_g)
+    torch.cuda.synchronize()
+    assert tp.galore_project.launches == before + 1
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert_close(got, want.cpu().numpy(), f"{shape} {dtype} transpose_g {transpose_g}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PROJECT_SHAPES)
+@pytest.mark.parametrize("transpose_out", [False, True])
+def test_cuda_project_back_kernel_matches_plain(shape, transpose_out):
+    """B5 against its plain version (α = 0.25): G̃ within 1e-5·max|want| +
+    1e-5·|want|, written as (..., m, n) or, with `transpose_out`, (..., n, m)."""
+    dev = _cuda_device()
+    P, _, N = (torch.from_numpy(a).to(dev) for a in proj_inputs(shape))
+    want = tp.galore_project_back_plain(P, N, 0.25, transpose_out)
+    before = tp.galore_project_back.launches
+    got = tp.galore_project_back(P, N, 0.25, transpose_out=transpose_out)
+    torch.cuda.synchronize()
+    assert tp.galore_project_back.launches == before + 1
+    assert got.shape == want.shape and got.is_contiguous()
+    assert_close(got, want.cpu().numpy(), f"{shape} transpose_out {transpose_out}")
+
+
+@pytest.mark.cuda
+def test_cuda_project_wrappers_reject_wrong_inputs(monkeypatch):
+    """CPU/CUDA mixes, non-contiguous inputs, wrong dtypes and shapes are
+    refused before any launch; a CUDA tensor never reaches a plain version."""
+    dev = _cuda_device()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(tp, "galore_project_plain", refuse)
+    monkeypatch.setattr(tp, "galore_project_back_plain", refuse)
+    P, G, N = (torch.from_numpy(a).to(dev) for a in proj_inputs((72, 16, 130)))
+    before = (tp.galore_project.launches, tp.galore_project_back.launches)
+    for bad, err in (((P.cpu(), G), ValueError), ((P, G.cpu()), ValueError),
+                     ((P, G.t().contiguous().t()), ValueError), ((P, G.half()), TypeError),
+                     ((P.double(), G), TypeError), ((P, G[:70].contiguous()), ValueError),
+                     ((P[None], G), ValueError)):
+        with pytest.raises(err):
+            tp.galore_project(*bad)
+    with pytest.raises(ValueError):  # (…, m, n) passed where the transpose is wanted
+        tp.galore_project(P, G, transpose_g=True)
+    for bad, err in (((P, N.cpu()), ValueError), ((P, N.t().contiguous().t()), ValueError),
+                     ((P, N.to(torch.bfloat16)), TypeError), ((P, N[:8].contiguous()), ValueError)):
+        with pytest.raises(err):
+            tp.galore_project_back(*bad, 0.25)
+    assert (tp.galore_project.launches, tp.galore_project_back.launches) == before
+    tp.galore_project(P, G)
+    tp.galore_project_back(P, N, 0.25, transpose_out=True)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("p_int4", [False, True])
+def test_cuda_dispatch_composite_route(side, p_int4):
+    """ops.galore_fused_adam_step[_right] at a shape that fails fits_vmem
+    (P (2, 2048, 1024)): one launch each of B4 and B5, none of B1/B2, M and V
+    updated in place, and G̃, M', V' within 1e-5·max of the plain step."""
+    dev = _cuda_device()
+    right = side == "right"
+    shape = (2, 96, 1024, 2048) if right else (2, 2048, 1024, 96)
+    P, G, M, V = (torch.from_numpy(a).to(dev) for a in fused_inputs(shape, side))
+    if p_int4:
+        P = codec.quant4_axis_state(P)
+    count = torch.tensor(7, dtype=torch.int32, device=dev)
+    fn = ops.galore_fused_adam_step_right if right else ops.galore_fused_adam_step
+    plain = ref.galore_fused_adam_step_right if right else ref.galore_fused_adam_step
+    want = plain(P, G, M, V, count, alpha=0.25)
+    ops.reset_launch_counts()
+    M2, V2 = M.clone(), V.clone()
+    got = fn(P, G, M2, V2, count, alpha=0.25)
+    torch.cuda.synchronize()
+    fused = tk.galore_fused_adam_step_right if right else tk.galore_fused_adam_step
+    assert (tp.galore_project.launches, tp.galore_project_back.launches) == (1, 1)
+    assert fused.launches == fused.launches_int4 == 0
+    assert got[1] is M2 and got[2] is V2
+    for name, a, b in zip(["update", "m", "v"], got, want):
+        assert_close(a, b.cpu().numpy(), f"{side} int4 P {p_int4} {name}")
+
+
+# (shape of x): test_kernels.py's rmsnorm shapes, a ragged 1000 x 520, and the
+# widest row the kernel takes
+RMSNORM_SHAPES = [(4, 64), (3, 7, 128), (1, 1024), (33, 96), (1000, 520), (2, 8192)]
+
+
+def assert_rmsnorm_close(got, want, name):
+    """f32: within 1e-5 relative (and 1e-6 absolute); bf16: at most one bf16
+    ulp apart (the kernel and the plain version each round one f32 value)."""
+    g, w = got.float().cpu().numpy(), want.float().cpu().numpy()
+    if got.dtype == torch.bfloat16:
+        assert np.all(np.abs(g - w) <= _bf16_ulp(w)), name
+    else:
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RMSNORM_SHAPES)
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s_dtype", ["float32", "bfloat16"])
+def test_cuda_rmsnorm_kernel_matches_plain(shape, x_dtype, s_dtype):
+    dev = _cuda_device()
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev)
+    scale = torch.from_numpy(rng.standard_normal(shape[-1:], np.float32) + 1).to(dev)
+    x, scale = x.to(getattr(torch, x_dtype)), scale.to(getattr(torch, s_dtype))
+    want = trms.rmsnorm_plain(x, scale)
+    before = trms.rmsnorm.launches
+    got = ops.rmsnorm(x, scale)
+    torch.cuda.synchronize()
+    assert trms.rmsnorm.launches == before + 1
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert_rmsnorm_close(got, want, f"{shape} x {x_dtype} scale {s_dtype}")
+
+
+@pytest.mark.cuda
+def test_cuda_rmsnorm_wrapper_rejects_wrong_inputs(monkeypatch):
+    dev = _cuda_device()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(trms, "rmsnorm_plain", refuse)
+    x = torch.randn(6, 64, device=dev)
+    scale = torch.ones(64, device=dev)
+    before = trms.rmsnorm.launches
+    for bad, err in (((x.cpu(), scale), ValueError), ((x, scale.cpu()), ValueError),
+                     ((x.t().contiguous().t()[:, ::2], scale[:32]), ValueError),
+                     ((x.half(), scale), TypeError), ((x, scale.double()), TypeError),
+                     ((x, scale[:32].contiguous()), ValueError),
+                     ((torch.zeros(2, 8200, device=dev), torch.ones(8200, device=dev)),
+                      ValueError)):
+        with pytest.raises(err):
+            trms.rmsnorm(*bad)
+    assert trms.rmsnorm.launches == before
+    trms.rmsnorm(x, scale)
+    torch.cuda.synchronize()

@@ -61,7 +61,8 @@ def test_port_imports_no_jax():
     assert len(files) > 10
     port = ROOT / "src" / "repro_torch"
     for module in ("quant/codec.py", "quant/policy.py", "launch/cli.py", "kernels/galore_fused.py",
-                   "optim/adam8bit.py", "optim/quant8.py", "kernels/adam8bit_update.py"):
+                   "optim/adam8bit.py", "optim/quant8.py", "kernels/adam8bit_update.py",
+                   "kernels/galore_project.py", "kernels/rmsnorm.py", "kernels/ops.py"):
         assert port / module in files, module
     bad = [
         f"{f.relative_to(ROOT)}: {mod}"
@@ -77,6 +78,8 @@ def test_build_digest_follows_local_headers(tmp_path, monkeypatch):
     it; a system header (<...>) is not read. Needs no nvcc."""
     for name in ("galore_fused", "galore_epilogue"):  # both kernels share the int4 staging
         assert {p.name for p in build._sources(name)} == {f"{name}.cu", "int4_p.cuh"}
+    for name in ("galore_project", "rmsnorm"):  # no local header
+        assert [p.name for p in build._sources(name)] == [f"{name}.cu"]
     (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint x;\n')
     (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')
     (tmp_path / "b.cuh").write_text("int b = 1;\n")
