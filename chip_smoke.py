@@ -41,22 +41,29 @@ Phases, each timed, none of them optional; any failed check raises:
      composable: every leaf fails the reference's fits_vmem, so the fused
      step composes the tiled projections (B4 and B5 launched 56 times each,
      B1/B2 never); losses finite, falling and within 5e-2 of the composable
-     run's; state bytes within 0.01 % of galore_state_bytes;
+     run's; state bytes within 0.01 % of galore_state_bytes; then 8-bit
+     GaLore at r = 1024, fused emit and apply: every leaf takes the
+     reference's plain fallback, so no GaLore kernel is launched at all;
+     losses within 5e-2 of the fp32 fused r = 1024 run (and the apply run's
+     of the emit run's), state bytes within 0.01 %;
   10. the paper's baselines without GaLore: 8-bit Adam (the flat 8-bit Adam
      kernel launched once per quantized leaf a step, the leaves counted
      from the state; state bytes within 0.01 % of adam8bit_state_bytes;
      finite losses) and full-rank AdamW (no kernel; its step-0 loss equal to
      8-bit Adam's within 1e-6), each with its peak memory and state bytes;
   11. record: the SVD refresh time at ranks 128 and 1024, step times and
-     peak memory of every phase, a JSON line of the kernels, the card's name
-     and power limit, and last the result line.
+     peak memory of every phase (the paper's 7B memory comparison, 8-bit
+     GaLore at r = 1024 beside 8-bit Adam and AdamW, on one line), a JSON
+     line of the kernels, the card's name and power limit, and last the
+     result line.
 The kernel checks of phase 3 also hold the fp32 kernels' int4-P forms (B1,
 B2 and their apply forms) to the same kernel launched on the host-dequantized
 P, bit for bit; the flat 8-bit Adam kernel to its plain version, codes,
 scales and update bit for bit, at the embedding's and an FFN leaf's size and
-a ragged 1000 x 520 leaf; the tiled projections B4 and B5 at the r = 1024
-leaves (the down leaf's G read, and its G̃ written, transposed) and a ragged
-shape, to 1e-5·max|want|, beside torch.matmul; and RMSNorm (B6, on no path)
+a ragged 1000 x 520 leaf; the tiled projections B4 and B5 (split TF32 on
+the tensor cores; the HGMMA instructions of their library counted) at the
+r = 1024 leaves (the down leaf's G read, and its G̃ written, transposed) and
+a ragged shape, to 1e-5·max|want|, beside torch.matmul; and RMSNorm (B6, on no path)
 at the model's norm input and a ragged 1000 x 520, f32 within 1e-5 relative
 and bf16 within one ulp, beside torch.nn.functional.rms_norm.
 """
@@ -89,9 +96,11 @@ from repro_torch.optim.factory import galore_state_index  # noqa: E402
 from repro_torch.quant import QuantPolicy, codec  # noqa: E402
 from repro_torch.utils import flatten_up_to, tree_leaves  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, f32 FMA FLOP/s
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, f32 FMA FLOP/s,
+# TF32 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 SOURCE = "src/repro_torch/csrc/galore_fused.cu"
 SOURCE8 = "src/repro_torch/csrc/galore_epilogue.cu"
 SOURCE_PROJECT = "src/repro_torch/csrc/galore_project.cu"
@@ -609,9 +618,11 @@ def check_int4p():
     return rows
 
 
-# (numel, shape) of the flat 8-bit Adam checks: the (tied) embedding, one FFN
-# leaf of the main path, and a ragged leaf whose last block is partial
-FLAT_SHAPES = [(32000, 4096), (2, 4096, 11008), (1000, 520)]
+# (shape, on the main path) of the flat 8-bit Adam checks: the (tied)
+# embedding, an FFN and an attention leaf of the main path, and a ragged leaf
+# whose last block is partial
+FLAT_SHAPES = [((32000, 4096), True), ((2, 4096, 11008), True), ((2, 4096, 4096), True),
+               ((1000, 520), False)]
 FLAT_OPS = 35  # f32 operations an element: dequant 2, moments 7, absmax 4, requant 18, update 4
 
 
@@ -639,7 +650,7 @@ def check_adam8bit():
     rows = []
     k = KERNELS["adam8bit"]
     count = torch.tensor(COUNT, dtype=torch.int32, device="cuda")
-    for i, shape in enumerate(FLAT_SHAPES):
+    for i, (shape, main) in enumerate(FLAT_SHAPES):
         g, mom = flat_inputs(shape, seed=400 + i)
         numel, nb = g.numel(), mom[0].shape[0]
         want = k["plain"](g, *mom, count)
@@ -657,7 +668,7 @@ def check_adam8bit():
         t_bytes, t_ops = nbytes / PEAK_BYTES, FLAT_OPS * numel / PEAK_F32
         b_s, b_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
         rows.append(dict(kernel="adam8bit", shape=list(shape), numel=numel, g_dtype="bfloat16",
-                         main_path=i < 2, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                         main_path=main, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                          bound_ms=b_s * 1e3, bound_by=b_by, m=numel, n=1))
         log(f"[kernels] {k['name']} g {tuple(shape)} bfloat16 ({nb} blocks): update, codes and "
             f"scales equal to the plain version's ok  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
@@ -691,17 +702,22 @@ def close_or_raise(got, want, tag):
     return float(diff.max())
 
 
-def gemm_bound(L, m, r, n, in_bytes, out_bytes, scale_ops=0):
+def gemm_bound(L, m, r, n, in_bytes, out_bytes, passes, scale_ops=0):
     """Least time (s) of one projection launch, and what bounds it: its
-    inputs read once and its output written once, against the f32 FMAs of
-    the contraction (2·L·m·r·n) and any elementwise scale."""
+    inputs read once and its output written once, against its operations —
+    the contraction (2·L·m·r·n) in `passes` split-TF32 passes on the tensor
+    cores (3, or 2 with a bf16 G, which is exact in TF32) and any
+    elementwise scale on the f32 pipes. Also returns the f32-FMA bound, the
+    contraction at 67 TFLOP/s (the least time without the tensor cores)."""
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES
-    t_ops = (2 * L * m * r * n + scale_ops) / PEAK_F32
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    t_ops = passes * 2 * L * m * r * n / PEAK_TF32 + scale_ops / PEAK_F32
+    t_f32 = max(t_bytes, (2 * L * m * r * n + scale_ops) / PEAK_F32)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), t_f32
 
 
 def check_project():
-    """B4 and B5 against their plain versions at PROJECT_SHAPES, to
+    """B4 and B5 (split TF32 on the tensor cores) against their plain
+    versions (cuBLAS SGEMM) at PROJECT_SHAPES, to
     1e-5·max|want| (+ 1e-5·|want|) with TF32 off: B4 with G bf16 and f32
     (stored (L, m, n), or (L, n, m) for down), B5 on N̂-sized f32 input
     (written (L, m, n), or transposed for down). P has orthonormal columns.
@@ -719,43 +735,55 @@ def check_project():
             tag = (f"galore_project {leaf} L={L} (m,r,n)=({m},{r},{n}) G "
                    f"{str(dt).removeprefix('torch.')}{' read transposed' if trans else ''}")
             want = tp.galore_project_plain(P, G, trans)
+            copied = tp.galore_project.launches_thread_copy
             got = tp.galore_project(P, G, transpose_g=trans)
             torch.cuda.synchronize()
             err = close_or_raise(got, want, tag)
+            tag += (" (thread copies)" if tp.galore_project.launches_thread_copy > copied
+                    else " (TMA)")
             ms = cuda_ms(lambda: tp.galore_project(P, G, transpose_g=trans), 3, 10)
             plain_ms = cuda_ms(lambda: tp.galore_project_plain(P, G, trans), 2, 5)
             lib = ((lambda: torch.matmul(P.mT, G.float().mT)) if trans
                    else (lambda: torch.matmul(P.mT, G.float())))
             library_ms = cuda_ms(lib, 3, 10)
-            b_s, b_by = gemm_bound(L, m, r, n, 4 * L * m * r + G.element_size() * L * m * n,
-                                   4 * L * r * n)
+            b_s, b_by, b_f32 = gemm_bound(L, m, r, n,
+                                          4 * L * m * r + G.element_size() * L * m * n,
+                                          4 * L * r * n, 2 if dt == torch.bfloat16 else 3)
             rows.append(dict(kernel="project", g_dtype=str(dt).removeprefix("torch."),
                              max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                             bound_ms=b_s * 1e3, bound_by=b_by, **shape))
-            log(f"[kernels] {tag}: max|err| {err:.2e} (max|R| {float(want.abs().max()):.2e}) ok  "
-                f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  torch.matmul {library_ms:.3f} ms  "
-                f"bound {b_s * 1e3:.3f} ms ({b_by}; {b_s * 1e3 / ms:.0%} of it)")
+                             bound_ms=b_s * 1e3, bound_by=b_by,
+                             **shape))
+            log(f"[kernels] {tag}: max|err| {err:.2e} (max|R| {float(want.abs().max()):.2e}; "
+                f"{err / float(1e-5 * want.abs().max()):.2f} of 1e-5·max) ok  kernel {ms:.3f} ms  "
+                f"plain {plain_ms:.3f} ms  torch.matmul {library_ms:.3f} ms  tensor-core bound "
+                f"{b_s * 1e3:.3f} ms ({b_by}; {b_s * 1e3 / ms:.0%} of it)  f32-FMA bound "
+                f"{b_f32 * 1e3:.3f} ms")
             del G, want, got
         N = torch.randn(L, r, n, generator=gen, device="cuda")
         tag = (f"galore_project_back {leaf} L={L} (m,r,n)=({m},{r},{n})"
                f"{' written transposed' if trans else ''}")
         want = tp.galore_project_back_plain(P, N, ALPHA, trans)
+        copied = tp.galore_project_back.launches_thread_copy
         got = tp.galore_project_back(P, N, ALPHA, transpose_out=trans)
         torch.cuda.synchronize()
         err = close_or_raise(got, want, tag)
+        tag += (" (thread copies)" if tp.galore_project_back.launches_thread_copy > copied
+                else " (TMA)")
         ms = cuda_ms(lambda: tp.galore_project_back(P, N, ALPHA, transpose_out=trans), 3, 10)
         plain_ms = cuda_ms(lambda: tp.galore_project_back_plain(P, N, ALPHA, trans), 2, 5)
         lib = ((lambda: ALPHA * torch.matmul(N.mT, P.mT)) if trans
                else (lambda: ALPHA * torch.matmul(P, N)))
         library_ms = cuda_ms(lib, 3, 10)
-        b_s, b_by = gemm_bound(L, m, r, n, 4 * L * m * r + 4 * L * r * n, 4 * L * m * n,
-                               L * m * n)
+        b_s, b_by, b_f32 = gemm_bound(L, m, r, n, 4 * L * m * r + 4 * L * r * n,
+                                      4 * L * m * n, 3, L * m * n)
         rows.append(dict(kernel="project_back", g_dtype=None, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_s * 1e3,
                          bound_by=b_by, **shape))
-        log(f"[kernels] {tag}: max|err| {err:.2e} (max|G̃| {float(want.abs().max()):.2e}) ok  "
-            f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  α·torch.matmul {library_ms:.3f} ms  "
-            f"bound {b_s * 1e3:.3f} ms ({b_by}; {b_s * 1e3 / ms:.0%} of it)")
+        log(f"[kernels] {tag}: max|err| {err:.2e} (max|G̃| {float(want.abs().max()):.2e}; "
+            f"{err / float(1e-5 * want.abs().max()):.2f} of 1e-5·max) ok  kernel {ms:.3f} ms  "
+            f"plain {plain_ms:.3f} ms  α·torch.matmul {library_ms:.3f} ms  tensor-core bound "
+            f"{b_s * 1e3:.3f} ms ({b_by}; {b_s * 1e3 / ms:.0%} of it)  f32-FMA bound "
+            f"{b_f32 * 1e3:.3f} ms")
         del P, G32, N, want, got
     torch.cuda.empty_cache()
     return rows
@@ -846,6 +874,8 @@ def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=
     ops.reset_launch_counts()
     params, opt_state, _, _ = train_loop(run, tc, cfg=cfg, on_step=on_step)
     launches = {key: getattr(fn, attr) for key, (fn, attr) in COUNTERS.items()}
+    thread_copy = sum(fn.launches_thread_copy for fn in (tp.galore_project,
+                                                         tp.galore_project_back))
     peak = torch.cuda.max_memory_allocated()
     state = opt_state[galore_state_index(tc)]
     quantized = None
@@ -864,7 +894,8 @@ def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=
     torch.cuda.empty_cache()
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"non-finite loss: {losses}")
-    return dict(losses=losses, times=times, launches=launches, peak=peak, galore=galore,
+    return dict(losses=losses, times=times, launches=launches, thread_copy=thread_copy,
+                peak=peak, galore=galore,
                 update_freq=update_freq, state_bytes=state_bytes, analytic_bytes=analytic,
                 quantized_leaves=quantized)
 
@@ -910,6 +941,17 @@ def main():
             for line in report.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"[build] {path.name.split('-')[0]}: {line.strip()}")
+    # the tiled projections run on the tensor cores: count their wgmma
+    # (HGMMA) instructions in the library's SASS
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(libs["galore_project"])], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    hgmma = sum(" HGMMA." in line for line in sass.splitlines())
+    log(f"[build] galore_project: {hgmma} HGMMA instructions in its SASS "
+        f"({sum(' FFMA ' in line for line in sass.splitlines())} FFMA)")
+    if hgmma == 0:
+        raise AssertionError("galore_project's SASS has no HGMMA: "
+                             "B4/B5 do not use the tensor cores")
 
     t = time.perf_counter()
     rows = check_kernels()
@@ -999,12 +1041,38 @@ def main():
         if ph["launches"] != want:
             what = "B4 and B5 56 each (7 leaves × 8 steps), no B1/B2" if fused_ else "none"
             raise AssertionError(f"{tag} launches {ph['launches']}, want {what}")
+        # every leaf's operands have 16-byte rows: B4/B5 copy them by the TMA
+        if ph["thread_copy"] != 0:
+            raise AssertionError(f"{tag}: {ph['thread_copy']} B4/B5 launches copied their "
+                                 f"operands by the threads instead of by the TMA")
         check_state_bytes(tag, ph)
     gap = max(abs(a - b) for a, b in zip(phases["r1024-fused"]["losses"],
                                          phases["r1024-composable"]["losses"]))
     if gap > 5e-2:
         raise AssertionError(f"r1024 fused vs composable losses differ by {gap:.3e} > 5e-2")
     log(f"[parity] r1024-fused vs r1024-composable max |Δloss| {gap:.3e} (limit 5e-2)")
+
+    # 8-bit GaLore at the paper's 7B rank: the int8-moment emit and apply
+    # steps fail fits_vmem at every leaf too, and the reference runs its
+    # plain step there, so no GaLore kernel is launched at all
+    q8 = QuantPolicy(moments="int8", projectors="int4")
+    for tag, apply, ref_tag in (("r1024-8bit", False, "r1024-fused"),
+                                ("r1024-8bit-apply", True, "r1024-8bit")):
+        t = time.perf_counter()
+        ph = phases[tag] = train_phase(fused=True, quant=q8, apply=apply, rank=1024,
+                                       update_freq=8)
+        log(f"[{tag}] losses {[round(x, 4) for x in ph['losses']]} launches {ph['launches']} "
+            f"({time.perf_counter() - t:.1f} s)")
+        if not ph["losses"][-1] < ph["losses"][0]:
+            raise AssertionError(f"{tag} loss did not decrease: {ph['losses']}")
+        if ph["launches"] != none:
+            raise AssertionError(f"{tag} launches {ph['launches']}, want none: every leaf "
+                                 f"fails fits_vmem and takes the plain step")
+        gap = max(abs(a - b) for a, b in zip(ph["losses"], phases[ref_tag]["losses"]))
+        if gap > 5e-2:
+            raise AssertionError(f"{tag} vs {ref_tag} losses differ by {gap:.3e} > 5e-2")
+        log(f"[parity] {tag} vs {ref_tag} max |Δloss| {gap:.3e} (limit 5e-2)")
+        check_state_bytes(tag, ph)
 
     # the paper's baselines without GaLore: 8-bit Adam (the flat kernel) and
     # full-rank AdamW (no kernel), same lr, schedule, batch and data
@@ -1034,6 +1102,13 @@ def main():
         f"{phases['adam8bit']['peak'] / 2**30:.2f} GiB, adamw {ph['peak'] / 2**30:.2f} GiB; "
         f"state bytes adam8bit {phases['adam8bit']['state_bytes']}, adamw {ph['state_bytes']} "
         f"({phases['adam8bit']['state_bytes'] / ph['state_bytes']:.4f})")
+
+    log("[memory] the paper's 7B comparison at 2 layers, peak device memory: 8-bit GaLore "
+        f"r = 1024 {phases['r1024-8bit']['peak'] / 2**30:.2f} GiB (apply "
+        f"{phases['r1024-8bit-apply']['peak'] / 2**30:.2f} GiB), 8-bit Adam "
+        f"{phases['adam8bit']['peak'] / 2**30:.2f} GiB, AdamW {ph['peak'] / 2**30:.2f} GiB; "
+        f"optimizer state {phases['r1024-8bit']['state_bytes']} / "
+        f"{phases['adam8bit']['state_bytes']} / {ph['state_bytes']} B")
 
     t = time.perf_counter()
     svd = svd_ms()
@@ -1091,7 +1166,8 @@ def main():
             launches=launches[key], on_path=runs_in.get(key),
             max_abs_err=max(r["max_abs_err"] for r in mine if r["main_path"]),
             ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
-            bound_by=top["bound_by"], library_ms=top.get("library_ms"), shape=shape))
+            bound_by=top["bound_by"],
+            library_ms=top.get("library_ms"), shape=shape))
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -10,10 +10,12 @@ weight apply, ``make_fused_apply``, and the analytic ``galore_state_bytes``).
 P_t is refreshed from an SVD of the current gradient at galore steps
 0, T, 2T, … Non-matrix leaves and excluded paths (embeddings) get the same
 Adam math at full shape. With ``fused=True`` each GaLore leaf goes through
-kernels/ops.py, routed as the reference routes it: one fused kernel launch,
-or, where P exceeds the reference's VMEM budget (``fits_vmem``; at llama_7b
-width r ≥ 512), the tiled projection kernels around a plain Adam update; with
-``fused=False`` it runs the composable
+kernels/ops.py, and every step form (fp32 or int8 moments, emit or apply) is
+routed as the reference routes it: one fused kernel launch where P fits the
+reference's VMEM budget (``fits_vmem``), and where it does not (at llama_7b
+width r ≥ 512) the reference's fallback — the tiled projection kernels
+around a plain Adam update for the fp32 emit step, the plain step for the
+int8 and apply forms; with ``fused=False`` it runs the composable
 project → Adam → back-project sequence in plain torch (kernels/ref.py), the
 numerics oracle. ``make_fused_apply`` is the W-in-place form of the fused
 path: each GaLore leaf's kernel also applies W ← W + η(G̃ + wd·W), so no

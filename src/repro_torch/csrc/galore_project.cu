@@ -21,214 +21,592 @@
 //
 // What bounds it on an H100. At the paper's 7B rank, (m, r, n) =
 // (4096, 1024, 11008) with L = 2, one launch does 2·L·m·r·n = 184.7 GFLOP
-// (2.76 ms at 67 TFLOP/s of f32 FMA) and moves at most G 180 MB (bf16) +
-// P 34 MB + R 90 MB (≈ 0.09 ms at 3.35 TB/s): arithmetic, by 30x. The f32
-// accuracy the reference keeps (an f32 accumulator over f32 products) rules
-// out a single TF32 or bf16 tensor-core pass; a split-precision (3xTF32)
-// scheme on tensor cores is the way past the f32 FMA rate, left to a later
-// change.
+// and moves at most G 180 MB (bf16) + P 34 MB + R 90 MB (≈ 0.09 ms at
+// 3.35 TB/s): arithmetic. On the f32 FMA pipes that is 2.76 ms at 67
+// TFLOP/s; the reference keeps f32 accuracy (an f32 accumulator over f32
+// products), which a single TF32 tensor-core pass does not.
 //
-// Design: one generic batched SIMT GEMM, C = α A B with an f32 accumulator,
-// templated on the storage order of A, B and C and on B's element type.
-//   grid = (⌈N/128⌉, ⌈M/128⌉, L); 256 threads; a 128 x 128 tile of C a block,
-//   an 8 x 8 register tile a thread (two 4-wide groups 64 apart in each
-//   direction, so the warp's shared-memory reads are broadcasts or 16-byte
-//   vectors without conflicts).
-//   The contraction walks K in 16-deep steps through two shared-memory
-//   buffers: the next step's tiles are loaded into registers while the
-//   current one is multiplied, then stored to the other buffer, one barrier
-//   a step. Tiles are kept k-major in shared memory whatever the storage
-//   order in device memory; a transposed operand is transposed while staged.
-//   Ragged M, N and K are masked: staged values past an edge are zero (the
-//   Pallas kernels' `jnp.where(valid, ·, 0)`), stores past an edge skipped.
-// Sums run in a fixed order (per thread over K), not the plain PyTorch
-// version's; tolerance 1e-5·max|want| with TF32 off.
+// Accuracy: split TF32 (3xTF32). Each f32 operand x is split in registers
+// into x_hi = rna_tf32(x) and x_lo = rna_tf32(x - x_hi); the tensor cores
+// multiply TF32 exactly into f32, and A_hi·B_lo + A_lo·B_hi + A_hi·B_hi
+// (the lo·lo term dropped, ~2^-22 relative) recovers an f32-accurate
+// product: three passes, 3 · 2·L·m·r·n / 495 TFLOP/s = 1.12 ms at the shape
+// above. A bf16 G is exact in TF32 (8 significant bits against 11), so B4
+// with a bf16 G takes two passes, A_lo·G + A_hi·G (0.75 ms).
+// The tensor cores' own f32 accumulation does not round to nearest at every
+// add: accumulating all of K = 4096 inside the wgmma accumulator missed the
+// gate on an H100. So each 32-deep k-tile (all passes, 8 or 12 MMAs) goes
+// into a fresh wgmma accumulator, which is then added into a separate f32
+// register accumulator with FADD (within a third of the gate on an H100,
+// chip_smoke.py::check_project).
+//
+// Design: one batched GEMM template, C = α A B, A (M x K) f32, B (K x N) f32
+// or bf16, templated on each operand's storage order and on C's.
+//   grid = (⌈M/128⌉, ⌈N/128⌉, L), M-tiles fastest, so that the blocks in
+//   flight share one B column tile and walk A (P, 16 MB a layer at r = 1024)
+//   in L2; 256 threads = two warpgroups, each owning 64 rows of the 128 x
+//   128 output tile, one wgmma.m64n128k8.f32.tf32.tf32 per pass and 8-deep
+//   k-step, A from registers, B from shared memory.
+//   Loads: the Tensor Memory Accelerator copies each 32-deep stage of A and
+//   B, whole 128-byte lines in the operand's own storage order, into a ring
+//   of 5 raw slots, completion signalled on one mbarrier a slot, so the
+//   copies of the next stages are in flight while a stage is split and
+//   multiplied. A copy past an edge of the operand is zero-filled by the
+//   hardware (the Pallas kernels' `jnp.where(valid, ·, 0)`). Per-thread 16-
+//   byte loads, whose lanes must follow the split's conflict-free maps, read
+//   only 16 or 32 bytes a row and held the kernel to the L2's request rate.
+//   Split: wgmma reads a 32-bit operand from shared memory only K-major, and
+//   the hi/lo split passes through registers anyway. B: the threads read the
+//   raw slot in 16-byte chunks, split the values and store hi and lo into
+//   K-major tiles (a row of 32 k values = 128 bytes, its 16-byte chunks
+//   swizzled by row % 8: the wgmma descriptor's 128-byte swizzle); two such
+//   stages, the next one split while the current one multiplies, one
+//   barrier a stage. A: each thread reads its own wgmma fragment values
+//   from the raw slot and splits them into registers, so A needs no split
+//   tile and the tensor cores read only B from shared memory. Raw slots are
+//   laid out with the TMA's own swizzle, and the lane-to-element maps are
+//   chosen, so that the 16-byte reads and the stores do not conflict on
+//   shared-memory banks.
+//   One block an SM (≤ 227 KB of shared memory, ≤ 255 registers).
+//   An operand the TMA cannot describe (its rows not a multiple of 16 bytes,
+//   or not 16-byte aligned) is copied element by element by the threads
+//   into the same raw layout, stages ahead, behind the same barriers. That
+//   route is slower; the wrappers count its launches (launches_thread_copy),
+//   and no leaf of the models takes it.
+// Sums run in another order than the plain PyTorch version's (cuBLAS SGEMM
+// with TF32 off); tolerance 1e-5·max|want| + 1e-5·|want|.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: libcuda is not linked)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int kThreads = 256;  // a 16 x 16 thread grid
+constexpr int kThreads = 256;  // two warpgroups
 constexpr int kBM = 128;       // rows of C a block
 constexpr int kBN = 128;       // columns of C a block
-constexpr int kBK = 16;        // contraction depth staged a step
-constexpr int kLd = kBM + 4;   // padded row of a k-major stage (16-byte aligned)
-constexpr int kPer = kBM * kBK / kThreads;  // 8 values of each operand a thread stages
-static_assert(kBM == kBN, "the A and B stages share one geometry");
+constexpr int kBK = 32;        // contraction depth a stage: one 128-byte row of f32
+constexpr int kTile = kBM * kBK;  // floats of one split part (hi or lo)
+static_assert(kBM == kBN, "the A and B tiles share one geometry");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// Stage value e (0..kPer) of this thread: its (k, i) inside a kBK x kBM tile.
-// A k-major operand (stored with the contraction as rows) is read along its
-// rows, so consecutive threads take consecutive i; an i-major one along k.
-template <bool kKMajor>
-__device__ __forceinline__ void stage_pos(int tid, int e, int& k, int& i) {
-  if (kKMajor) {
-    k = tid / kBM + e * (kThreads / kBM);
-    i = tid % kBM;
-  } else {
-    k = tid % kBK;
-    i = tid / kBK + e * (kThreads / kBK);
-  }
+// Offset (floats) of (row, k) in a K-major split tile: 32 k values a row,
+// the row's 16-byte chunks permuted by row % 8 (the 128-byte swizzle).
+__device__ __forceinline__ int swz(int row, int k) {
+  return row * kBK + ((((k >> 2) ^ row) & 7) << 2) + (k & 3);
 }
 
-// Load one operand's values of the step at k0 into registers: X is (K, D)
-// row-major when kKMajor, else (D, K); tile columns start at d0; zero past
-// the edges of D and K.
+// Shared-memory matrix descriptor of a K-major tile with the 128-byte
+// swizzle: 8-row groups 1024 bytes apart (SBO); LBO unused for this layout.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// order the threads' shared-memory accesses before the async proxy's (the
+// tensor cores' reads of the split tiles, the TMA's writes of a raw slot)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keep the compiler from moving register reads or writes across a wgmma
+__device__ __forceinline__ void reg_fence(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// TMA copy of the box at (c0, c1, c2) of `map` into shared memory at dst,
+// completing `bytes` of the transaction on the mbarrier
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// d (+)= A B for one 8-deep k-step, A (64 x 8) from registers — this
+// thread's 4 values of its warp's 16 x 8 slice: rows lane/4 and lane/4 + 8,
+// columns lane%4 and lane%4 + 4, as TF32 bit patterns — and B (8 x 128)
+// K-major in shared memory; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_tf32_ra(float (&d)[64], const uint32_t* a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <int kBytes>
+struct BitsOf;
+template <>
+struct BitsOf<4> {
+  using type = uint32_t;
+};
+template <>
+struct BitsOf<2> {
+  using type = uint16_t;
+};
+
+// One operand's 128 x 32 stage: logical rows d (M for A, N for B) and depth
+// k; stored K-major ((D, K) row-major, k contiguous) or not ((K, D), d
+// contiguous), elements of type T; a 16-byte chunk holds kVec elements
+// along the contiguous axis.
+//
+// Raw slot (the TMA's boxes, as the hardware writes them):
+//   not K-major: boxes of 128 bytes of d by 32 k (32 f32 or 64 bf16 of d),
+//     4 or 2 of them; in a box, row k holds its 8 chunks permuted by k % 8
+//     (the TMA's 128-byte swizzle);
+//   K-major, f32: one box, row d = 32 k = 128 bytes, chunks permuted by
+//     d % 8 (which is already the split tiles' layout);
+//   K-major, bf16: one box, row d = 32 k = 64 bytes, no swizzle.
+// Split (of B; A is read value by value into its wgmma fragments): each
+// thread reads kLoads chunks, at (warp w, lane, c = kLoads·w + e):
+//   not K-major, f32:  d = 8·(c/2) + 4·(lane/16), k = 16·(c%2) + lane%16
+//   not K-major, bf16: d = 8·c,                   k = lane
+//   K-major, f32:      d = 4·c + lane/8,  k = 4·(lane%8)
+//   K-major, bf16:     d = 8·c + lane/4,  k = 8·(lane%4)
+// so that 8 lanes reading one 128-byte phase, and the 32 lanes storing
+// one value each into the split tile, hit distinct banks.
 template <bool kKMajor, typename T>
-__device__ __forceinline__ void load_stage(const T* __restrict__ X, int D, int K, int d0, int k0,
-                                           int tid, float (&reg)[kPer]) {
-#pragma unroll
-  for (int e = 0; e < kPer; ++e) {
-    int k, i;
-    stage_pos<kKMajor>(tid, e, k, i);
-    const int kk = k0 + k, dd = d0 + i;
-    float v = 0.f;
-    if (kk < K && dd < D) v = to_f32(X[kKMajor ? kk * D + dd : dd * K + kk]);
-    reg[e] = v;
-  }
-}
+struct Operand {
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  static constexpr int kLoads = kBM * kBK / kVec / kThreads;
+  static constexpr int kRawBytes = kBM * kBK * static_cast<int>(sizeof(T));  // one raw slot
+  static constexpr int kBoxD = kKMajor ? kBM : 128 / static_cast<int>(sizeof(T));
+  static constexpr int kBoxes = kBM / kBoxD;
 
-template <bool kKMajor>
-__device__ __forceinline__ void store_stage(float (*S)[kLd], int tid, const float (&reg)[kPer]) {
-#pragma unroll
-  for (int e = 0; e < kPer; ++e) {
-    int k, i;
-    stage_pos<kKMajor>(tid, e, k, i);
-    S[k][i] = reg[e];
+  __device__ __forceinline__ static void pos(int tid, int e, int& d, int& k) {
+    const int lane = tid & 31, c = (tid >> 5) * kLoads + e;
+    if (kKMajor) {
+      d = c * (kVec == 4 ? 4 : 8) + (kVec == 4 ? lane >> 3 : lane >> 2);
+      k = kVec * (kVec == 4 ? lane & 7 : lane & 3);
+    } else if (kVec == 4) {
+      d = 8 * (c >> 1) + 4 * (lane >> 4);
+      k = 16 * (c & 1) + (lane & 15);
+    } else {
+      d = 8 * c;
+      k = lane;
+    }
   }
-}
 
-// C[l] = alpha · A[l] B[l], A (M x K), B (K x N), f32 accumulate.
-//   kAT: A stored (K, M) row-major, else (M, K);
-//   kBT: B stored (N, K) row-major, else (K, N); BT its element type;
+  // Byte offset in the raw slot of the chunk that starts at (d, k).
+  __device__ __forceinline__ static int raw_off(int d, int k) {
+    if (!kKMajor) {
+      const int q = (d % kBoxD) / kVec;
+      return (d / kBoxD) * (kBK * 128) + k * 128 + ((q ^ (k & 7)) << 4);
+    }
+    if (sizeof(T) == 4) return d * 128 + (((k >> 2) ^ d) & 7) * 16;
+    return d * 64 + (k >> 3) * 16;
+  }
+
+  // Byte offset in the raw slot of the element (d, k).
+  __device__ __forceinline__ static int raw_elem(int d, int k) {
+    return kKMajor ? raw_off(d, k & ~(kVec - 1)) + (k % kVec) * static_cast<int>(sizeof(T))
+                   : raw_off(d & ~(kVec - 1), k) + (d % kVec) * static_cast<int>(sizeof(T));
+  }
+
+  // TMA copies of the stage at (d0, k0) of leaf l.
+  __device__ __forceinline__ static void tma(const CUtensorMap* map, uint8_t* raw, int d0, int k0,
+                                             int l, uint32_t bar) {
+#pragma unroll
+    for (int b = 0; b < kBoxes; ++b) {
+      if (kKMajor)
+        tma_load(smem_u32(raw), map, k0, d0, l, bar);
+      else
+        tma_load(smem_u32(raw + b * kBK * 128), map, d0 + b * kBoxD, k0, l, bar);
+    }
+  }
+
+  // The same stage copied by the threads, element by element (as raw bits),
+  // into the same layout; zero past the edges of X (D rows, depth K).
+  __device__ __forceinline__ static void fill(const T* __restrict__ X, int D, int K, int d0,
+                                              int k0, int tid, uint8_t* raw) {
+    using Bits = typename BitsOf<sizeof(T)>::type;
+    const Bits* Xb = reinterpret_cast<const Bits*>(X);
+#pragma unroll 4
+    for (int i = tid; i < kBM * kBK; i += kThreads) {
+      const int d = kKMajor ? i / kBK : i % kBM, k = kKMajor ? i % kBK : i / kBM;
+      const int gd = d0 + d, gk = k0 + k;
+      *reinterpret_cast<Bits*>(raw + raw_elem(d, k)) =
+          (gd < D && gk < K) ? Xb[kKMajor ? gd * K + gk : gk * D + gd] : Bits(0);
+    }
+  }
+
+  // Split the thread's raw chunks into the K-major tiles: the TF32 hi part,
+  // and with kSplit the lo part (a bf16 value is exact in TF32: hi only).
+  template <bool kSplit>
+  __device__ __forceinline__ static void split(const uint8_t* raw, float* hi, float* lo,
+                                               int tid) {
+#pragma unroll
+    for (int e = 0; e < kLoads; ++e) {
+      int d, k;
+      pos(tid, e, d, k);
+      const uint4 r = *reinterpret_cast<const uint4*>(raw + raw_off(d, k));
+      const T* v = reinterpret_cast<const T*>(&r);
+      if (kKMajor) {  // kVec consecutive k: whole 16-byte chunks of one row
+#pragma unroll
+        for (int q = 0; q < kVec / 4; ++q) {
+          float h[4], l[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float x = to_f32(v[4 * q + i]);
+            h[i] = kSplit ? tf32_rna(x) : x;
+            l[i] = kSplit ? tf32_rna(x - h[i]) : 0.f;
+          }
+          const int off = swz(d, k + 4 * q);
+          *reinterpret_cast<float4*>(hi + off) = make_float4(h[0], h[1], h[2], h[3]);
+          if (kSplit) *reinterpret_cast<float4*>(lo + off) = make_float4(l[0], l[1], l[2], l[3]);
+        }
+      } else {  // kVec consecutive rows at one k
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) {
+          const float x = to_f32(v[i]);
+          const int off = swz(d + i, k);
+          if (kSplit) {
+            const float h = tf32_rna(x);
+            hi[off] = h;
+            lo[off] = tf32_rna(x - h);
+          } else {
+            hi[off] = x;
+          }
+        }
+      }
+    }
+  }
+};
+
+// Shared memory of one kernel form: two split stages of B (B hi and, for an
+// f32 B, B lo; A is split into registers), the raw ring (as many slots as
+// fit, at most 5), and one mbarrier a raw slot.
+template <typename BT>
+struct Smem {
+  static constexpr bool kSplitB = sizeof(BT) == 4;  // a bf16 B is exact in TF32
+  static constexpr int kStage = (kSplitB ? 2 : 1) * kTile * 4;
+  static constexpr int kRawSlot = Operand<true, float>::kRawBytes + Operand<true, BT>::kRawBytes;
+  static constexpr int kBudget = 232448 - 1024 - 64;  // the opt-in maximum, less slack and bars
+  static constexpr int kFit = (kBudget - 2 * kStage) / kRawSlot;
+  static constexpr int kRaw = kFit > 5 ? 5 : kFit;
+  static constexpr int kBars = 2 * kStage + kRaw * kRawSlot;  // offset of the mbarriers
+  static constexpr int kBytes = kBars + 8 * kRaw + 1024;
+  static_assert(kRaw >= 3, "the raw ring needs three slots");
+};
+
+// C[l] = alpha · A[l] B[l], A (M x K) f32, B (K x N) f32 or bf16 (BT).
+//   kAK: A stored (M, K) row-major (K-major), else (K, M);
+//   kBKm: B stored (N, K) row-major (K-major), else (K, N);
 //   kCT: C stored (N, M) row-major, else (M, N).
+// With use_tma, map_a and map_b describe A and B as 3-d tensors (contiguous
+// axis, other axis, leaf); otherwise the threads copy the stages.
 // Element offsets inside one leaf are 32-bit (the host refuses larger leaves).
-template <bool kAT, bool kBT, bool kCT, typename BT>
-__global__ void __launch_bounds__(kThreads, 2)
-gemm_kernel(const float* __restrict__ A, const BT* __restrict__ B, float* __restrict__ C, int M,
-            int N, int K, float alpha) {
-  __shared__ __align__(16) float As[2][kBK][kLd];
-  __shared__ __align__(16) float Bs[2][kBK][kLd];
-  const size_t l = blockIdx.z;
-  A += l * M * K;
-  B += l * K * N;
-  C += l * M * N;
-  const int i0 = blockIdx.y * kBM, j0 = blockIdx.x * kBN;
-  const int tid = threadIdx.x;
-  // The thread's rows tr*4 + {0..3} and 64 + tr*4 + {0..3}, columns likewise
-  // from tc. With C transposed the roles swap, so that the lanes of a warp
-  // walk C's contiguous axis (i) when they store.
-  const int tr = kCT ? tid % 16 : tid / 16;
-  const int tc = kCT ? tid / 16 : tid % 16;
+template <bool kAK, bool kBKm, bool kCT, typename BT>
+__global__ void __launch_bounds__(kThreads, 1)
+gemm_tf32x3_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_b, const float* __restrict__ A,
+                   const BT* __restrict__ B, float* __restrict__ C, int M, int N, int K,
+                   float alpha, int use_tma) {
+  using OpA = Operand<kAK, float>;
+  using OpB = Operand<kBKm, BT>;
+  using S = Smem<BT>;
+  constexpr bool kSplitB = S::kSplitB;
+  constexpr int kRaw = S::kRaw;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzles are functions of address bits, so tiles start 1024-aligned
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  auto part_of = [&](int st, int which) {  // split stage st: B hi (, B lo)
+    return reinterpret_cast<float*>(smem + st * S::kStage) + which * kTile;
+  };
+  auto raw_a = [&](int slot) { return smem + 2 * S::kStage + slot * S::kRawSlot; };
+  auto raw_b = [&](int slot) { return raw_a(slot) + OpA::kRawBytes; };
+  auto bar = [&](int slot) { return smem_u32(smem + S::kBars + 8 * slot); };
 
-  float acc[8][8];
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
+  const int l = blockIdx.z;
+  A += static_cast<size_t>(l) * M * K;
+  B += static_cast<size_t>(l) * K * N;
+  C += static_cast<size_t>(l) * M * N;
+  const int i0 = blockIdx.x * kBM, j0 = blockIdx.y * kBN;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int steps = (K + kBK - 1) / kBK;
 
-  float ra[kPer], rb[kPer];
-  load_stage<kAT>(A, M, K, i0, 0, tid, ra);
-  load_stage<!kBT>(B, N, K, j0, 0, tid, rb);
-  store_stage<kAT>(As[0], tid, ra);
-  store_stage<!kBT>(Bs[0], tid, rb);
+  if (tid == 0) {
+    for (int slot = 0; slot < kRaw; ++slot) mbar_init(bar(slot));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  const int steps = (K + kBK - 1) / kBK;
+  auto issue = [&](int st) {  // stage st into raw slot st % kRaw (nothing past the end)
+    if (st >= steps) return;
+    const int slot = st % kRaw;
+    if (use_tma) {
+      if (tid == 0) {
+        mbar_expect(bar(slot), S::kRawSlot);
+        OpA::tma(&map_a, raw_a(slot), i0, st * kBK, l, bar(slot));
+        OpB::tma(&map_b, raw_b(slot), j0, st * kBK, l, bar(slot));
+      }
+    } else {
+      OpA::fill(A, M, K, i0, st * kBK, tid, raw_a(slot));
+      OpB::fill(B, N, K, j0, st * kBK, tid, raw_b(slot));
+    }
+  };
+  auto split = [&](int st) {  // B of raw stage st into split stage st % 2
+    const int slot = st % kRaw;
+    if (use_tma) mbar_wait(bar(slot), (st / kRaw) & 1);
+    OpB::template split<kSplitB>(raw_b(slot), part_of(st & 1, 0), part_of(st & 1, 1), tid);
+  };
+  // A of raw stage st (landed: its slot's barrier was waited on when B was
+  // split), split into this thread's register fragments: k-step kk's four
+  // values at a_hi/a_lo[4·kk ..], rows lane/4 (+ 8) of the warp's 16, columns
+  // lane%4 (+ 4). Each thread reads 16 single values a stage.
+  uint32_t a_hi[4 * (kBK / 8)], a_lo[4 * (kBK / 8)];
+  const int a_row = wg * 64 + ((tid >> 5) & 3) * 16 + ((tid & 31) >> 2), a_col = tid & 3;
+  auto load_a = [&](int st) {
+    const uint8_t* raw = raw_a(st % kRaw);
+#pragma unroll
+    for (int kk = 0; kk < kBK / 8; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float x = *reinterpret_cast<const float*>(
+            raw + OpA::raw_elem(a_row + 8 * (j & 1), 8 * kk + a_col + 4 * (j >> 1)));
+        const float h = tf32_rna(x);
+        a_hi[4 * kk + j] = __float_as_uint(h);
+        a_lo[4 * kk + j] = __float_as_uint(tf32_rna(x - h));
+      }
+  };
+
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+
+  for (int st = 0; st < kRaw - 1; ++st) issue(st);
+  __syncthreads();  // the threads' copies of stage 0, when they made them
+  split(0);
+  fence_async_smem();
+  __syncthreads();
+
   for (int s = 0; s < steps; ++s) {
     const int cur = s & 1;
-    const bool more = s + 1 < steps;
-    if (more) {  // the next step's loads are in flight while this one multiplies
-      load_stage<kAT>(A, M, K, i0, (s + 1) * kBK, tid, ra);
-      load_stage<!kBT>(B, N, K, j0, (s + 1) * kBK, tid, rb);
+    // its slot held stage s - 1, split two barriers ago; threads' copies of
+    // stage s + 1 were made at least one barrier ago (kRaw >= 3)
+    issue(s + kRaw - 1);
+    load_a(s);
+    const uint64_t b_hi = desc_sw128(smem_u32(part_of(cur, 0)));
+    const uint64_t b_lo = desc_sw128(smem_u32(part_of(cur, 1)));
+    reg_fence(part);
+    wgmma_fence();
+    // small terms first; B's k-step advances 8 f32 = 32 bytes (2 in the
+    // descriptor's 16-byte units) inside the swizzled rows
+#pragma unroll
+    for (int kk = 0; kk < kBK / 8; ++kk)
+      wgmma_tf32_ra(part, a_lo + 4 * kk, b_hi + 2 * kk, kk > 0);
+    if (kSplitB) {
+#pragma unroll
+      for (int kk = 0; kk < kBK / 8; ++kk) wgmma_tf32_ra(part, a_hi + 4 * kk, b_lo + 2 * kk, 1);
     }
 #pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][tr * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][k][64 + tr * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][k][tc * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][k][64 + tc * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    for (int kk = 0; kk < kBK / 8; ++kk) wgmma_tf32_ra(part, a_hi + 4 * kk, b_hi + 2 * kk, 1);
+    wgmma_commit();
+    if (s + 1 < steps) split(s + 1);  // into the other split stage, freed by the last barrier
+    wgmma_wait_all();
+    reg_fence(part);
 #pragma unroll
-      for (int a = 0; a < 8; ++a)
+    for (int i = 0; i < 4 * (kBK / 8); ++i)  // the fragments stay live until the wgmmas end
+      asm volatile("" : "+r"(a_hi[i]), "+r"(a_lo[i])::"memory");
 #pragma unroll
-        for (int b = 0; b < 8; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-    }
-    if (more) {
-      store_stage<kAT>(As[cur ^ 1], tid, ra);
-      store_stage<!kBT>(Bs[cur ^ 1], tid, rb);
-    }
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    fence_async_smem();
     __syncthreads();
   }
 
-  // C = alpha · acc, four contiguous values a store where they are aligned
-  // and inside the edge
+  // C = alpha · acc. wgmma's accumulator layout: thread t of the warpgroup
+  // holds rows 16·(t/32) + (t%32)/4 (+ 8), columns 8·(i/4) + 2·(t%4) + i%2.
+  const int t = tid & 127, row0 = i0 + wg * 64 + 16 * (t >> 5) + ((t & 31) >> 2);
+  const int col0 = j0 + 2 * (t & 3);
   if (!kCT) {
-    const bool vec = N % 4 == 0;
+    const bool vec = (N % 2 == 0) && ((reinterpret_cast<uintptr_t>(C) & 7) == 0);
 #pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      const int i = i0 + (a / 4) * 64 + tr * 4 + a % 4;
-      if (i >= M) continue;
-#pragma unroll
-      for (int g = 0; g < 2; ++g) {
-        const int j = j0 + g * 64 + tc * 4;
-        float* dst = C + i * N + j;
-        if (vec && j + 3 < N) {
-          *reinterpret_cast<float4*>(dst) =
-              make_float4(alpha * acc[a][4 * g], alpha * acc[a][4 * g + 1],
-                          alpha * acc[a][4 * g + 2], alpha * acc[a][4 * g + 3]);
-        } else {
-#pragma unroll
-          for (int b = 0; b < 4; ++b)
-            if (j + b < N) dst[b] = alpha * acc[a][4 * g + b];
-        }
+    for (int i = 0; i < 64; i += 2) {
+      const int row = row0 + 8 * ((i >> 1) & 1), col = col0 + 8 * (i >> 2);
+      if (row >= M) continue;
+      float* dst = C + row * N + col;
+      if (vec && col + 1 < N) {
+        *reinterpret_cast<float2*>(dst) = make_float2(alpha * acc[i], alpha * acc[i + 1]);
+      } else {
+        if (col < N) dst[0] = alpha * acc[i];
+        if (col + 1 < N) dst[1] = alpha * acc[i + 1];
       }
     }
-  } else {
-    const bool vec = M % 4 == 0;
+  } else {  // lanes t%4 alike store 8 consecutive rows: 32 contiguous bytes
 #pragma unroll
-    for (int b = 0; b < 8; ++b) {
-      const int j = j0 + (b / 4) * 64 + tc * 4 + b % 4;
-      if (j >= N) continue;
-#pragma unroll
-      for (int g = 0; g < 2; ++g) {
-        const int i = i0 + g * 64 + tr * 4;
-        float* dst = C + j * M + i;
-        if (vec && i + 3 < M) {
-          *reinterpret_cast<float4*>(dst) =
-              make_float4(alpha * acc[4 * g][b], alpha * acc[4 * g + 1][b],
-                          alpha * acc[4 * g + 2][b], alpha * acc[4 * g + 3][b]);
-        } else {
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-            if (i + a < M) dst[a] = alpha * acc[4 * g + a][b];
-        }
-      }
+    for (int i = 0; i < 64; ++i) {
+      const int row = row0 + 8 * ((i >> 1) & 1), col = col0 + 8 * (i >> 2) + (i & 1);
+      if (row < M && col < N) C[col * M + row] = alpha * acc[i];
     }
   }
 }
 
 // Refuse shapes the grid or the 32-bit in-leaf offsets cannot hold.
 bool valid(int L, int M, int N, int K) {
-  if (L <= 0 || M <= 0 || N <= 0 || K <= 0 || L > 65535 || (M + kBM - 1) / kBM > 65535)
+  if (L <= 0 || M <= 0 || N <= 0 || K <= 0 || L > 65535 || (N + kBN - 1) / kBN > 65535)
     return false;
   const long long lim = 1LL << 31;
   return (long long)M * K < lim && (long long)K * N < lim && (long long)M * N < lim;
 }
 
-template <bool kAT, bool kBT, bool kCT, typename BT>
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, fetched through the runtime's entry-point lookup
+// (libcuda is not linked); null where it is unavailable.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The 3-d map (contiguous extent, other extent, L) of an operand, with the
+// box Operand<kKMajor, T> copies. Returns cudaSuccess, cudaErrorNotSupported
+// where the TMA cannot describe the operand (rows not a multiple of 16
+// bytes, or X not 16-byte aligned: the threads copy it, a slower route that
+// galore_project_last_copied reports, so that the wrappers count it), or an
+// error where encoding fails for an operand it should describe.
+template <bool kKMajor, typename T>
+cudaError_t make_map(CUtensorMap* map, const void* X, int D, int K, int L) {
+  using Op = Operand<kKMajor, T>;
+  const cuuint64_t inner = kKMajor ? K : D, outer = kKMajor ? D : K;
+  if ((inner * sizeof(T)) % 16 != 0 || (reinterpret_cast<uintptr_t>(X) & 15) != 0)
+    return cudaErrorNotSupported;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorInitializationError;
+  const cuuint64_t dims[3] = {inner, outer, static_cast<cuuint64_t>(L)};
+  const cuuint64_t strides[2] = {inner * sizeof(T), inner * outer * sizeof(T)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kKMajor ? kBK : Op::kBoxD),
+                             static_cast<cuuint32_t>(kKMajor ? Op::kBoxD : kBK), 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const bool swizzle = !(kKMajor && sizeof(T) == 2);
+  return encode(map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                3, const_cast<void*>(X), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// 1 where this host thread's last launch copied its operands by the threads
+// instead of by the TMA, else 0
+thread_local int last_copied = 0;
+
+template <bool kAK, bool kBKm, bool kCT, typename BT>
 int launch(const float* A, const void* B, float* C, int L, int M, int N, int K, double alpha,
            void* stream) {
   if (!valid(L, M, N, K)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, L);
-  gemm_kernel<kAT, kBT, kCT, BT><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      A, static_cast<const BT*>(B), C, M, N, K, (float)alpha);
+  auto kernel = gemm_tf32x3_kernel<kAK, kBKm, kCT, BT>;
+  constexpr int kBytes = Smem<BT>::kBytes;
+  // the shared-memory opt-in, once per instance and device (devices 0-31)
+  static std::atomic<unsigned> opted_in{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if ((opted_in.load() & bit) == 0 || bit == 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+    if (err != cudaSuccess) return (int)err;
+    opted_in.fetch_or(bit);
+  }
+  CUtensorMap map_a{}, map_b{};
+  const cudaError_t ea = make_map<kAK, float>(&map_a, A, M, K, L);
+  const cudaError_t eb = make_map<kBKm, BT>(&map_b, B, N, K, L);
+  for (cudaError_t e : {ea, eb})
+    if (e != cudaSuccess && e != cudaErrorNotSupported) return (int)e;
+  // both operands by TMA, or both by the threads
+  const int use_tma = ea == cudaSuccess && eb == cudaSuccess;
+  last_copied = !use_tma;
+  const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, L);
+  kernel<<<grid, kThreads, kBytes, static_cast<cudaStream_t>(stream)>>>(
+      map_a, map_b, A, static_cast<const BT*>(B), C, M, N, K, (float)alpha, use_tma);
   return (int)cudaGetLastError();
 }
 
@@ -241,11 +619,17 @@ extern "C" int galore_project(const float* P, const void* G, int g_bf16, int g_t
                               int m, int r, int n, void* stream) {
   // C = R (M = r, N = n), A = Pᵀ stored (K = m, M = r), B = G
   if (g_t)
-    return g_bf16 ? launch<true, true, false, __nv_bfloat16>(P, G, R, L, r, n, m, 1.0, stream)
-                  : launch<true, true, false, float>(P, G, R, L, r, n, m, 1.0, stream);
-  return g_bf16 ? launch<true, false, false, __nv_bfloat16>(P, G, R, L, r, n, m, 1.0, stream)
-                : launch<true, false, false, float>(P, G, R, L, r, n, m, 1.0, stream);
+    return g_bf16 ? launch<false, true, false, __nv_bfloat16>(P, G, R, L, r, n, m, 1.0, stream)
+                  : launch<false, true, false, float>(P, G, R, L, r, n, m, 1.0, stream);
+  return g_bf16 ? launch<false, false, false, __nv_bfloat16>(P, G, R, L, r, n, m, 1.0, stream)
+                : launch<false, false, false, float>(P, G, R, L, r, n, m, 1.0, stream);
 }
+
+// 1 where the last galore_project or galore_project_back launch of the
+// calling thread copied its operands by the threads (an operand's rows not a
+// multiple of 16 bytes, or its base not 16-byte aligned), 0 where the TMA
+// copied them.
+extern "C" int galore_project_last_copied() { return last_copied; }
 
 // out[l] = alpha · P[l] N[l]. P (L, m, r) f32, N (L, r, n) f32; out (L, m, n)
 // f32, or with out_t = 1 written transposed as (L, n, m). All contiguous.
@@ -253,6 +637,6 @@ extern "C" int galore_project(const float* P, const void* G, int g_bf16, int g_t
 extern "C" int galore_project_back(const float* P, const float* N, float* out, int out_t, int L,
                                    int m, int r, int n, double alpha, void* stream) {
   // C = out (M = m, N = n), A = P stored (M, K = r), B = N stored (K, N)
-  return out_t ? launch<false, false, true, float>(P, N, out, L, m, n, r, alpha, stream)
-               : launch<false, false, false, float>(P, N, out, L, m, n, r, alpha, stream);
+  return out_t ? launch<true, false, true, float>(P, N, out, L, m, n, r, alpha, stream)
+               : launch<true, false, false, float>(P, N, out, L, m, n, r, alpha, stream);
 }

@@ -17,11 +17,12 @@ a wrapper runs the plain PyTorch version (kernels/ref.py) and writes the
 weight and moments back in place; on CUDA tensors it checks device, dtype,
 shape and contiguity and launches the kernel, or raises. There is no fallback
 from a CUDA tensor to the plain version. The kernels stream P through shared
-memory, so every wrapper takes any rank. Which leaves reach the fp32 emit
-wrappers is decided one level up, in kernels/ops.py, by ``fits_vmem`` below:
-the reference's dispatch predicate, copied so that the same leaves take the
-same route as in the reference (at llama_7b width, r ≤ 256 here and r ≥ 512
-through the tiled projections of kernels/galore_project.py).
+memory, so every wrapper takes any rank. Which leaves reach the wrappers is
+decided one level up, in kernels/ops.py, by ``fits_vmem`` below: the
+reference's dispatch predicate, copied so that the same leaves take the same
+route as in the reference (at llama_7b width, r ≤ 256 here; r ≥ 512 through
+the tiled projections of kernels/galore_project.py for the fp32 emit step,
+and the plain step for the int8-moment and apply forms).
 
 Each wrapper counts its launches in ``<wrapper>.launches`` (a plain integer,
 incremented only where the kernel is launched). The fp32-moment wrappers

@@ -13,10 +13,17 @@ composite step contracts over swapaxes(G) and returns swapaxes(G̃)
 as (..., n, m) as its transpose, and with ``transpose_out`` it writes G̃
 transposed, (..., n, m), so neither transpose is copied.
 
+The kernels multiply on the tensor cores in split TF32 (each f32 operand as a
+TF32 hi and lo part; three products, two with a bf16 G, summed in f32): within
+1e-5·max|want| + 1e-5·|want| of the plain version, not bit for bit.
+
 On CPU tensors (all of them) a wrapper runs its plain version (``*_plain``, from
 kernels/ref.py); on CUDA tensors it checks device, dtype, shape and
 contiguity and launches the kernel, or raises. ``<wrapper>.launches`` counts
-the launches.
+the launches, and ``<wrapper>.launches_thread_copy`` those of them whose
+operands the kernel copied by its threads instead of by the TMA (rows not a
+multiple of 16 bytes, or a base not 16-byte aligned): a slower route that the
+models' leaves do not take.
 """
 from __future__ import annotations
 
@@ -77,6 +84,12 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _count(wrapper):
+    """Count a launch of `wrapper`, and whether it copied by the threads."""
+    wrapper.launches += 1
+    wrapper.launches_thread_copy += build.entry(_SOURCE, "galore_project_last_copied", [])()
+
+
 def galore_project(P, G, *, transpose_g: bool = False):
     """R = Pᵀ G.  P (..., m, r) f32; G (..., m, n) f32 or bf16, or with
     `transpose_g` G (..., n, m) read as its transpose. Returns R (..., r, n)
@@ -95,7 +108,7 @@ def galore_project(P, G, *, transpose_g: bool = False):
     if err != 0:
         raise RuntimeError(f"galore_project failed to launch: cudaError_t {err} "
                            f"(P {tuple(P.shape)}, G {tuple(G.shape)})")
-    galore_project.launches += 1
+    _count(galore_project)
     return R
 
 
@@ -116,9 +129,9 @@ def galore_project_back(P, N, alpha: float, *, transpose_out: bool = False):
     if err != 0:
         raise RuntimeError(f"galore_project_back failed to launch: cudaError_t {err} "
                            f"(P {tuple(P.shape)}, N {tuple(N.shape)})")
-    galore_project_back.launches += 1
+    _count(galore_project_back)
     return out
 
 
-galore_project.launches = 0
-galore_project_back.launches = 0
+galore_project.launches = galore_project.launches_thread_copy = 0
+galore_project_back.launches = galore_project_back.launches_thread_copy = 0

@@ -22,12 +22,14 @@ from repro_torch.utils import canonical_dtype, resolve_device, tree_map
 
 def check_ported(cfg) -> None:
     """Raise unless `cfg` is a dense LLaMA the port implements: RMSNorm,
-    SwiGLU, rope, full causal attention, no biases, no experts."""
+    SwiGLU, rope, full causal attention, no biases, no experts, and no
+    activation checkpointing (the reference's ``remat``)."""
     unported = {
         "family": cfg.family != "dense", "norm_type": cfg.norm_type != "rmsnorm",
         "act": cfg.act != "swiglu", "rope_style": cfg.rope_style != "rope",
         "qkv_bias": cfg.qkv_bias, "n_experts": cfg.n_experts > 0,
         "attention_chunk": cfg.attention_chunk > 0, "full_attn_every": cfg.full_attn_every > 0,
+        "remat": cfg.remat != "none",
     }
     bad = [k for k, v in unported.items() if v]
     if bad:

@@ -87,7 +87,10 @@ def int4_codebook() -> np.ndarray:
 
 
 def _book(signed: bool, device) -> torch.Tensor:
-    return torch.from_numpy(dynamic_codebook(signed)).to(device)
+    """The signed or unsigned codebook on `device`: a view of the per-device
+    copy, so that a step on the card copies nothing from the host."""
+    books = device_codebooks(torch.device(device))
+    return books[:256] if signed else books[256:512]
 
 
 def _mids(book: torch.Tensor) -> torch.Tensor:
@@ -273,7 +276,7 @@ def dequantize4_axis(packed: torch.Tensor, scales: torch.Tensor, short: int, *,
 
     Gather, concatenate, then one f32 multiply by the scale — the order the
     kernel uses, so both dequantize to the same bits."""
-    book = torch.from_numpy(int4_codebook()).to(packed.device)
+    book = device_codebooks(packed.device)[512:]  # the int4 codebook, no host copy
     p = packed.to(torch.int64)
     vals = torch.cat([book[p & 0xF], book[p >> 4]], dim=-2)
     nb = scales.shape[-2]

@@ -627,6 +627,217 @@ def test_cuda_project_back_kernel_matches_plain(shape, transpose_out):
     assert_close(got, want.cpu().numpy(), f"{shape} transpose_out {transpose_out}")
 
 
+def tf32_rna(x):
+    """x (f32) rounded to TF32 (10 explicit mantissa bits) to nearest, ties
+    away from zero, as cvt.rna.tf32.f32 does: add half a TF32 ulp to the
+    magnitude bits, then clear the 13 bits below."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split_tf32_matmul(A, B, b_exact=False, chunk=32):
+    """A (M, K) @ B (K, N) as the kernels compute it: A = A_hi + A_lo and B =
+    B_hi + B_lo in TF32, the products exact, each 32-deep k-tile's passes
+    (A_lo·B_hi + A_hi·B_lo + A_hi·B_hi, or A_lo·B + A_hi·B when B is exact
+    in TF32) summed in f32 and added into an f32 accumulator."""
+    a_hi = tf32_rna(A)
+    a_lo = tf32_rna(A - a_hi)
+    b_hi = tf32_rna(B)
+    b_lo = tf32_rna(B - b_hi)
+    if b_exact:
+        assert np.array_equal(b_hi, B)
+    acc = np.zeros((A.shape[0], B.shape[1]), np.float32)
+    for k in range(0, A.shape[1], chunk):
+        s = slice(k, k + chunk)
+        part = a_lo[:, s] @ b_hi[s]
+        if not b_exact:
+            part += a_hi[:, s] @ b_lo[s]
+        part += a_hi[:, s] @ b_hi[s]
+        acc += part
+    return acc
+
+
+def within_gate(got, want):
+    """The kernels' gate: |got - want| ≤ 1e-5·max|want| + 1e-5·|want|."""
+    return bool(np.all(np.abs(got - want) <= 1e-5 * np.abs(want).max() + 1e-5 * np.abs(want)))
+
+
+# the split-TF32 model's cases: B4 with G f32 (three passes) or bf16 (two
+# passes), and B5 (three passes)
+SPLIT_CASES = ["project f32", "project bf16", "project_back"]
+
+
+def split_tf32_inputs(case):
+    """One case at a small shape with a ragged k-tile (m = 520, r = 264, n =
+    130): P (m, r) with orthonormal columns, as every GaLore projector; X, the
+    case's second operand (G (m, n), its bf16 values widened to f32 for
+    "project bf16", or N (r, n)); and the model's A, B and whether B is exact
+    in TF32 (R = Pᵀ G: A = Pᵀ, B = G; G̃ = P N: A = P, B = N)."""
+    rng = np.random.default_rng(11)
+    m, r, n = 520, 264, 130
+    P = np.linalg.qr(rng.standard_normal((m, r)))[0].astype(np.float32)
+    if case == "project_back":
+        N = rng.standard_normal((r, n)).astype(np.float32)
+        return P, N, P, N, False
+    G = rng.standard_normal((m, n)).astype(np.float32)
+    exact = case.endswith("bf16")
+    if exact:  # the bf16 values, widened to f32 as the kernel reads them
+        G = torch.from_numpy(G).to(torch.bfloat16).float().numpy()
+    return P, G, np.ascontiguousarray(P.T), G, exact
+
+
+# (lead..., m, r, n) checked on the card only: the r = 1024 leaves of
+# llama_7b with 2 layers (wq wk wv wo; gate up; down, whose G B4 reads and
+# whose G̃ B5 writes transposed) and dims no 16-byte row holds, which the
+# kernel copies element by element instead of by TMA
+CARD_PROJECT_SHAPES = [(2, 4096, 1024, 4096), (2, 4096, 1024, 11008), (1, 37, 21, 45),
+                       (3, 61, 13, 7)]
+
+
+def _thread_copied(shape) -> int:
+    """1 where the kernel copies the operands of a CARD_PROJECT_SHAPES entry
+    by its threads (P's rows of r floats not a multiple of 16 bytes), 0 where
+    the TMA copies them."""
+    return int(shape[-2] % 4 != 0)
+
+
+def _card_proj_inputs(shape, dev, seed=7):
+    """P (orthonormal columns), G and N of one (lead..., m, r, n) shape, drawn
+    on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lead, (m, r, n) = tuple(shape[:-3]), shape[-3:]
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    return (torch.linalg.qr(rnd(*lead, m, r))[0].contiguous(), rnd(*lead, m, n),
+            rnd(*lead, r, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CARD_PROJECT_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("transpose_g", [False, True])
+def test_cuda_project_kernel_at_rank_1024_and_odd_dims(shape, dtype, transpose_g):
+    """B4 (split TF32) against its plain version at the r = 1024 leaves (K =
+    4096 deep), G f32 or bf16 stored either way, and at dims no TMA row
+    holds (K = 37 and 61, not multiples of the 32-deep k-tile): within
+    1e-5·max|want| + 1e-5·|want|."""
+    dev = _cuda_device()
+    P, G, _ = _card_proj_inputs(shape, dev)
+    G = G.to(getattr(torch, dtype))
+    if transpose_g:
+        G = G.transpose(-1, -2).contiguous()
+    want = tp.galore_project_plain(P, G, transpose_g)
+    before = tp.galore_project.launches_thread_copy
+    got = tp.galore_project(P, G, transpose_g=transpose_g)
+    torch.cuda.synchronize()
+    assert tp.galore_project.launches_thread_copy == before + _thread_copied(shape)
+    tol = 1e-5 * want.abs().max() + 1e-5 * want.abs()
+    assert bool(((got - want).abs() <= tol).all()), float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CARD_PROJECT_SHAPES)
+@pytest.mark.parametrize("transpose_out", [False, True])
+def test_cuda_project_back_kernel_at_rank_1024_and_odd_dims(shape, transpose_out):
+    """B5 (split TF32) against its plain version (α = 0.25) at the r = 1024
+    leaves and at dims no TMA row holds, G̃ written as (..., m, n) or
+    transposed: within 1e-5·max|want| + 1e-5·|want|."""
+    dev = _cuda_device()
+    P, _, N = _card_proj_inputs(shape, dev)
+    want = tp.galore_project_back_plain(P, N, 0.25, transpose_out)
+    before = tp.galore_project_back.launches_thread_copy
+    got = tp.galore_project_back(P, N, 0.25, transpose_out=transpose_out)
+    torch.cuda.synchronize()
+    assert tp.galore_project_back.launches_thread_copy == before + _thread_copied(shape)
+    assert got.shape == want.shape and got.is_contiguous()
+    tol = 1e-5 * want.abs().max() + 1e-5 * want.abs()
+    assert bool(((got - want).abs() <= tol).all()), float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_cuda_project_kernels_follow_the_split_tf32_model(case):
+    """B4 (G f32 or bf16) and B5 (α = 1) on the card against
+    split_tf32_matmul, the CPU model of their arithmetic, at the model's own
+    small shape (m = 520, r = 264, n = 130): within the kernels' gate of the
+    model's output, and not within it of one TF32 pass."""
+    dev = _cuda_device()
+    P, X, A, B, exact = split_tf32_inputs(case)
+    Pd = torch.from_numpy(P).to(dev)
+    if case == "project_back":
+        got = tp.galore_project_back(Pd, torch.from_numpy(X).to(dev), 1.0)
+    else:
+        Xd = torch.from_numpy(X).to(dev)
+        got = tp.galore_project(Pd, Xd.to(torch.bfloat16) if exact else Xd)
+    got = got.cpu().numpy()
+    model = split_tf32_matmul(A, B, b_exact=exact)
+    assert within_gate(got, model), float(np.abs(got - model).max())
+    one_pass = (tf32_rna(A).astype(np.float64) @ tf32_rna(B).astype(np.float64))
+    assert not within_gate(got, one_pass.astype(np.float32))
+
+
+# the adam8 and apply dispatchers, by name, and whether they take int8 moments
+PLAIN_ROUTE_FORMS = [("galore_fused_adam8_step", True, False),
+                     ("galore_fused_adam_apply_step", False, True),
+                     ("galore_fused_adam8_apply_step", True, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", PLAIN_ROUTE_FORMS, ids=lambda f: f[0])
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("p_int4", [False, True])
+def test_cuda_dispatch_plain_route_at_rank_1024(form, side, p_int4):
+    """At a llama_7b leaf with r = 1024 (fits_vmem fails) each adam8 and apply
+    dispatcher runs the plain step on the card, as the reference runs plain
+    jnp there: no kernel launched, results equal to the plain step's, W and
+    the moments updated in place, and no host synchronisation on the way
+    (stochastic rounding included)."""
+    dev = _cuda_device()
+    name, int8, apply = form
+    right = side == "right"
+    m, r, n = (11008, 1024, 4096) if right else (4096, 1024, 11008)
+    kept, mv = ((n, r), (m, r)) if right else ((m, r), (r, n))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    P = torch.linalg.qr(rnd(1, *kept))[0].contiguous()
+    if p_int4:
+        P = codec.quant4_axis_state(P)
+    G = rnd(1, m, n).to(torch.bfloat16)
+    if int8:
+        ax = -2 if right else -1
+        moments = (*codec.quantize_axis(0.01 * rnd(1, *mv), axis=ax, signed=True),
+                   *codec.quantize_axis(1e-4 * rnd(1, *mv).square(), axis=ax, signed=False))
+    else:
+        moments = (0.01 * rnd(1, *mv), 1e-4 * rnd(1, *mv).square())
+    count = torch.tensor(7, dtype=torch.int32, device=dev)
+    kw = dict(alpha=0.25)
+    if int8:
+        kw["stochastic"] = True
+    lead = ()
+    if apply:
+        kw.update(eta=torch.tensor(-1e-3, device=dev), wd=0.01)
+        lead = ((0.02 * rnd(1, m, n)).to(torch.bfloat16),)
+    full = name + ("_right" if right else "")
+    want = getattr(ref, full)(P, G, *lead, *moments, count, **kw)
+    mine = tuple(x.clone() for x in lead + moments)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = getattr(ops, full)(P, G, *mine, count, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(fn.launches == 0 for fn in tk.WRAPPERS)
+    assert all(fn.launches_int4 == 0 for fn in tk.WRAPPERS[:2] + tk.WRAPPERS[4:6])
+    assert (tp.galore_project.launches, tp.galore_project_back.launches) == (0, 0)
+    if apply:
+        assert all(a is b for a, b in zip(got, mine))
+    else:
+        assert all(a is b for a, b in zip(got[1:], mine))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_cuda_project_wrappers_reject_wrong_inputs(monkeypatch):
     """CPU/CUDA mixes, non-contiguous inputs, wrong dtypes and shapes are
