@@ -6,7 +6,9 @@
 Phases, each timed, none of them optional; any failed check raises:
   1. device: require CUDA, print the card's name and power limit, TF32 off;
   2. build the Hopper kernels from src/repro_torch/csrc with nvcc (sm_90a),
-     one nvcc per source, all started together;
+     one nvcc per source, all started together; count the wgmma (HGMMA)
+     instructions of the tiled projections' and the int8-moment kernel's
+     libraries, and fail on none;
   3. hold every kernel against its plain PyTorch version on the card at the
      main path's shapes (and r = 1024, and a ragged shape), G in bf16 and
      f32, to 1e-5·max|want| (+ 1e-5·|want|) on G̃, M' and V' — or, for the
@@ -16,8 +18,11 @@ Phases, each timed, none of them optional; any failed check raises:
      launch exactly; the weight-apply forms of both kernels likewise, W bf16
      and f32 (f32 W' - W within 1e-5·max + 2 ulp of W', bf16 W' within one
      bf16 ulp + the same 1e-5·max), W' bitwise the plain version's
-     wherever the emit form's G̃ is, and W updated in place; time kernel and
-     plain version with CUDA events;
+     wherever the emit form's G̃ is, and W updated in place; the int8-moment
+     kernel also at llama_1b's leaves at the paper's 1B rank r = 512, each
+     of its launches logged with its route (TMA or thread copies) and its
+     cluster size, and two launches on the same inputs bitwise equal; time
+     kernel and plain version with CUDA events;
   4. the main path, fused: 8 GaLore-AdamW steps (rank 128, T 4, wd 0.01) of
      llama_7b at full width, 2 layers, bf16, batch 8 × 256 tokens, through
      train_loop; every loss finite, the last below the first, and each fp32
@@ -27,12 +32,13 @@ Phases, each timed, none of them optional; any failed check raises:
      per-step losses within 5e-2 of phase 4;
   6. 8-bit GaLore, fused: phase 4's run with int8 moments and packed int4
      projectors; every loss finite and falling, only the int8-moment kernel
-     launched (48 left, 8 right), losses within 5e-2 of phase 4, and the
-     m/v/proj state bytes measured from the tensors within 0.01 % of the
-     analytic galore_state_bytes;
+     launched (48 left, 8 right), none of its launches by thread copies,
+     losses within 5e-2 of phase 4, and the m/v/proj state bytes measured
+     from the tensors within 0.01 % of the analytic galore_state_bytes;
   7. phases 4 and 6 again with the weight update folded into the kernels
      (galore_fused_apply): only the apply kernels launched (48 left, 8
-     right), losses within 5e-2 of the emit phase, state bytes as in 6;
+     right; the int8 one never by thread copies), losses within 5e-2 of the
+     emit phase, state bytes as in 6;
   8. fp32 moments with packed int4 projectors, emit and apply: only the
      fp32 kernels' int4-P forms launched (48 left, 8 right each), losses
      within 5e-2 of phase 4 (and of the int4-P emit phase for apply), state
@@ -61,11 +67,16 @@ B2 and their apply forms) to the same kernel launched on the host-dequantized
 P, bit for bit; the flat 8-bit Adam kernel to its plain version, codes,
 scales and update bit for bit, at the embedding's and an FFN leaf's size and
 a ragged 1000 x 520 leaf; the tiled projections B4 and B5 (split TF32 on
-the tensor cores; the HGMMA instructions of their library counted) at the
+the tensor cores) at the
 r = 1024 leaves (the down leaf's G read, and its G̃ written, transposed) and
 a ragged shape, to 1e-5·max|want|, beside torch.matmul; and RMSNorm (B6, on no path)
 at the model's norm input and a ragged 1000 x 520, f32 within 1e-5 relative
 and bf16 within one ulp, beside torch.nn.functional.rms_norm.
+Every bound is the least time the card could take: the bytes (each input
+read once, each output written once) against the operations, the
+projections as split TF32 on the tensor cores (2 passes with a bf16
+operand, else 3) and the elementwise work on the f32 pipes; the f32-FMA
+bound (no tensor cores) is printed beside it in the log lines.
 """
 import dataclasses
 import json
@@ -179,8 +190,16 @@ SHAPES = [
 ]
 ALPHA, COUNT = 0.25, 7
 ETA, WD = -1e-3, 0.01  # the apply checks' -lr and weight decay
-# the int8-moment kernel runs at the same shapes; stochastic rounding at one
-# main shape per side
+# the int8-moment kernel runs at the same shapes, and at the leaves of
+# llama_1b (2 layers) at the paper's 1B rank, r = 512, where the reference's
+# fits_vmem holds, so 8-bit GaLore at 1B width runs it with four rank chunks:
+# wq wk wv wo, gate up (G rows of 5461 bf16 = 10,922 bytes, which the TMA
+# cannot describe) and down; stochastic rounding at one main shape per side
+SHAPES8 = [
+    ("left", 2, 2048, 512, 2048, False),
+    ("left", 2, 2048, 512, 5461, False),
+    ("right", 2, 5461, 512, 2048, False),
+]
 STOCHASTIC8 = {("left", 2, 4096, 128, 11008), ("right", 2, 11008, 128, 4096)}
 
 
@@ -244,17 +263,31 @@ def out_cost(L, m, n, w_itemsize):
     return 2 * w_itemsize * L * m * n, 4 * L * m * n
 
 
+def step_bound(L, m, r, n, g_itemsize, nbytes, ew_ops):
+    """Least time (s) of one GaLore leaf step, what bounds it, and its
+    f32-FMA bound: its bytes (each input read once, each output written once)
+    against its operations — the two contractions R = PᵀG and G̃ = αPN̂
+    (2·L·m·r·n each) as split TF32 on the tensor cores at f32 accuracy (R in
+    2 passes with a bf16 G, which is exact in TF32, else 3; G̃ in 3), as
+    gemm_bound counts B4/B5, plus `ew_ops` elementwise f32 operations on the
+    FMA pipes. The f32-FMA bound (both contractions at 67 TFLOP/s) is the
+    least time without the tensor cores; it goes to the log lines only."""
+    mac = 2 * L * m * r * n
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = ((2 if g_itemsize == 2 else 3) + 3) * mac / PEAK_TF32 + ew_ops / PEAK_F32
+    t_f32 = max(t_bytes, (2 * mac + ew_ops) / PEAK_F32)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), t_f32
+
+
 def bound(side, L, m, r, n, g_itemsize, w_itemsize=None, p_int4=False):
-    """Least time (s) for one launch, and what bounds it: each input read once
-    and each output written once, and the f32 operations of the two
-    contractions plus the elementwise Adam (and the weight apply)."""
+    """step_bound of one fp32-moment launch: P, G, M and V read once, M', V'
+    and G̃ (or W') written once; ~12 f32 operations a moment element (the
+    elementwise Adam) and the weight apply's 4 an element."""
     kept = m if side == "left" else n
     mv = L * r * (n if side == "left" else m)
     out_bytes, out_flops = out_cost(L, m, n, w_itemsize)
     nbytes = p_bytes(L, kept, r, p_int4) + g_itemsize * L * m * n + 4 * 4 * mv + out_bytes
-    flops = 4 * L * m * r * n + 12 * mv + out_flops
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return step_bound(L, m, r, n, g_itemsize, nbytes, 12 * mv + out_flops)
 
 
 def check_kernels():
@@ -278,7 +311,7 @@ def check_kernels():
             Mw, Vw = M.clone(), V.clone()
             ms = cuda_ms(lambda: k["wrapper"](P, G, Mw, Vw, count, alpha=ALPHA), 3, 10)
             plain_ms = cuda_ms(lambda: k["plain"](P, G, M, V, count, alpha=ALPHA), 2, 5)
-            b_s, b_by = bound(side, L, m, r, n, G.element_size())
+            b_s, b_by, b_f32 = bound(side, L, m, r, n, G.element_size())
             row = dict(kernel=side, side=side, L=L, m=m, r=r, n=n,
                        g_dtype=str(dt).removeprefix("torch."), main_path=main,
                        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_s * 1e3,
@@ -286,7 +319,8 @@ def check_kernels():
             rows.append(row)
             log(f"[kernels] {k['name']:24s} L={L} (m,r,n)=({m},{r},{n}) G {row['g_dtype']:8s} "
                 f"max|err| G̃/M'/V' {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} ok  "
-                f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {b_s * 1e3:.3f} ms ({b_by})")
+                f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {b_s * 1e3:.3f} ms ({b_by}; "
+                f"f32-FMA {b_f32 * 1e3:.3f})")
             del P, G, M, V, Mw, Vw, got, want
     torch.cuda.empty_cache()
     return rows
@@ -311,19 +345,31 @@ def adam8_inputs(side, L, m, r, n, seed):
 
 
 def bound8(side, L, m, r, n, g_itemsize, p_int4, w_itemsize=None):
-    """Least time (s) for one int8-moment launch, and what bounds it: G read
-    and G̃ written once (or W read and written), the codes and scales of M
-    and V read and written once, P read once (packed nibbles + scales, or
-    f32); the f32 operations of the two contractions plus ~20 a moment
-    element (dequant, Adam, absmax, requant), and the weight apply."""
+    """step_bound of one int8-moment launch: G read and G̃ written once (or W
+    read and written), the codes and scales of M and V read and written
+    once, P read once (packed nibbles + scales, or f32); ~20 f32 operations
+    a moment element (dequant, Adam, absmax, requant), and the weight
+    apply's 4 an element."""
     kept, swept = (m, n) if side == "left" else (n, m)
     nb = -(-swept // codec.QBLOCK)
     out_bytes, out_flops = out_cost(L, m, n, w_itemsize)
     nbytes = (g_itemsize * L * m * n + out_bytes + 2 * 2 * L * r * swept
               + 2 * 2 * 4 * L * r * nb + p_bytes(L, kept, r, p_int4))
-    flops = 4 * L * m * r * n + 20 * L * r * swept + out_flops
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return step_bound(L, m, r, n, g_itemsize, nbytes, 20 * L * r * swept + out_flops)
+
+
+def check_bound8():
+    """bound8 at the main gate/up leaf (2, 4096, 128, 11008) counts the two
+    contractions as split TF32 — 2 + 3 passes with a bf16 G, 3 + 3 with an
+    f32 G — plus 20 f32 operations a moment element, and is bound by them."""
+    L, m, r, n = 2, 4096, 128, 11008
+    mac = 2 * L * m * r * n
+    for g_itemsize, passes in ((2, 5), (4, 6)):
+        t, by, t_f32 = bound8("left", L, m, r, n, g_itemsize, True)
+        want = passes * mac / PEAK_TF32 + 20 * L * r * n / PEAK_F32
+        if by != "operations" or abs(t - want) > 1e-12 * want or not t < t_f32:
+            raise AssertionError(f"bound8 at the main shape, G {g_itemsize} B: {t:.6e} s "
+                                 f"({by}), want {want:.6e} s (operations, below {t_f32:.6e})")
 
 
 def compare8(got, want, tag, names=("update", "mq", "ms", "vq", "vs")):
@@ -347,10 +393,22 @@ def compare8(got, want, tag, names=("update", "mq", "ms", "vq", "vs")):
     return max(errs), differ / total
 
 
+def route8(copied_before):
+    """The route and cluster of the int8-moment kernel's last launch, for the
+    log: "(TMA, C=2)" or "(thread copies, C=1)"; the thread copies counted
+    since `copied_before` (the four wrappers' launches_thread_copy)."""
+    copied = thread_copies8() > copied_before
+    return f"({'thread copies' if copied else 'TMA'}, C={gf.adam8_last_cluster()})"
+
+
+def thread_copies8():
+    return sum(fn.launches_thread_copy for fn in gf.WRAPPERS8)
+
+
 def check_adam8():
     rows = []
     count = torch.tensor(COUNT, dtype=torch.int32, device="cuda")
-    for i, (side, L, m, r, n, main) in enumerate(SHAPES):
+    for i, (side, L, m, r, n, main) in enumerate(SHAPES + SHAPES8):
         k = KERNELS["adam8_" + side]
         P, mom, G32 = adam8_inputs(side, L, m, r, n, seed=100 + i)
         P4 = codec.quant4_axis_state(P)
@@ -366,9 +424,15 @@ def check_adam8():
             run = lambda P_, mom_: k["wrapper"](P_, G, *mom_, count, alpha=ALPHA,  # noqa: E731
                                                 stochastic=sr)
             want = k["plain"](Pa, G, *mom, count, alpha=ALPHA, stochastic=sr)
+            before = thread_copies8()
             got = run(Pa, [x.clone() for x in mom])
             torch.cuda.synchronize()
+            tag += " " + route8(before)
             err, share = compare8(got, want, tag)
+            again = run(Pa, [x.clone() for x in mom])
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{tag}: two launches on the same inputs differ")
             host = ""
             if p4:  # in-kernel int4 dequant == launching with the host-dequantized P
                 ref_ = run(P4_host, [x.clone() for x in mom])
@@ -384,16 +448,18 @@ def check_adam8():
             ms = cuda_ms(lambda: run(Pa, mine), 3, 10)
             plain_ms = cuda_ms(lambda: k["plain"](Pa, G, *mom, count, alpha=ALPHA,
                                                   stochastic=sr), 2, 5)
-            b_s, b_by = bound8(side, L, m, r, n, G.element_size(), p4)
+            b_s, b_by, b_f32 = bound8(side, L, m, r, n, G.element_size(), p4)
             rows.append(dict(kernel="adam8_" + side, side=side, L=L, m=m, r=r, n=n,
                              g_dtype=str(dt).removeprefix("torch."),
                              p="int4" if p4 else "f32", stochastic=sr, main_path=main,
                              max_abs_err=err, codes_differ=share, ms=ms, plain_ms=plain_ms,
                              bound_ms=b_s * 1e3, bound_by=b_by))
             log(f"[kernels] {tag}: max|err| G̃/scales {err:.2e} (max|G̃| "
-                f"{float(want[0].abs().max()):.2e}), codes differing {share:.2e}{host} ok  "
-                f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {b_s * 1e3:.3f} ms ({b_by})")
-            del G, want, got, mine
+                f"{float(want[0].abs().max()):.2e}), codes differing {share:.2e}{host}; two "
+                f"launches equal ok  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound "
+                f"{b_s * 1e3:.3f} ms ({b_by}; {b_s / ms * 1e5:.0f} % of it; f32-FMA "
+                f"{b_f32 * 1e3:.3f})")
+            del G, want, got, mine, again
         del P, P4, P4_host, mom, G32
     torch.cuda.empty_cache()
     return rows
@@ -434,8 +500,8 @@ def weight_check(got, want, w0, tag):
 
 def check_apply():
     """The weight-apply forms of both kernels against their plain versions at
-    every SHAPES entry, G bf16, W bf16 and f32 (and P f32 and int4 for the
-    int8 kernel). Beside the tolerances, W' must equal the plain version's
+    every SHAPES entry (and SHAPES8 for the int8 kernel), G bf16, W bf16 and
+    f32 (and P f32 and int4 for the int8 kernel). Beside the tolerances, W' must equal the plain version's
     bit for bit wherever the emit form's G̃ equals the plain G̃ (the two forms
     share every operation up to the store; the int8 kernel with more than one
     rank chunk contracts G̃ in another order, so not there), and the wrapper
@@ -444,29 +510,30 @@ def check_apply():
     count = torch.tensor(COUNT, dtype=torch.int32, device="cuda")
     eta = torch.tensor(ETA, device="cuda")
     hp = dict(alpha=ALPHA, eta=eta, wd=WD)
-    for i, (side, L, m, r, n, main) in enumerate(SHAPES):
+    for i, (side, L, m, r, n, main) in enumerate(SHAPES + SHAPES8):
         W32 = 0.02 * torch.randn(L, m, n, generator=torch.Generator(device="cuda").manual_seed(
             200 + i), device="cuda")
-        # fp32 moments: B1/B2 with the apply epilogue
-        k, emit = KERNELS["apply_" + side], KERNELS[side]
-        P, G, M, V, _ = kernel_inputs(side, L, m, r, n, torch.bfloat16, seed=i)
-        gt_k = emit["wrapper"](P, G, M.clone(), V.clone(), count, alpha=ALPHA)[0]
-        gt_p = emit["plain"](P, G, M, V, count, alpha=ALPHA)[0]
-        for wdt in (torch.bfloat16, torch.float32):
-            W = W32.to(wdt)
-            tag = (f"{k['name']} L={L} (m,r,n)=({m},{r},{n}) G bfloat16 "
-                   f"W {str(wdt).removeprefix('torch.')}")
-            want = k["plain"](P, G, W, M, V, count, **hp)
-            w0, mine = W.clone(), (M.clone(), V.clone())
-            got = k["wrapper"](P, G, W, *mine, count, **hp)
-            torch.cuda.synchronize()
-            rows.append(apply_row(k, side, L, m, r, n, main, wdt, "f32", False, P, G, W, w0,
-                                  mine, got, want, gt_k, gt_p, tag,
-                                  lambda: k["wrapper"](P, G, W, *mine, count, **hp),
-                                  lambda: k["plain"](P, G, w0, M, V, count, **hp),
-                                  bound(side, L, m, r, n, 2, W.element_size())))
-            del W, want, got, w0, mine
-        del P, G, M, V, gt_k, gt_p
+        # fp32 moments: B1/B2 with the apply epilogue (at SHAPES only)
+        if i < len(SHAPES):
+            k, emit = KERNELS["apply_" + side], KERNELS[side]
+            P, G, M, V, _ = kernel_inputs(side, L, m, r, n, torch.bfloat16, seed=i)
+            gt_k = emit["wrapper"](P, G, M.clone(), V.clone(), count, alpha=ALPHA)[0]
+            gt_p = emit["plain"](P, G, M, V, count, alpha=ALPHA)[0]
+            for wdt in (torch.bfloat16, torch.float32):
+                W = W32.to(wdt)
+                tag = (f"{k['name']} L={L} (m,r,n)=({m},{r},{n}) G bfloat16 "
+                       f"W {str(wdt).removeprefix('torch.')}")
+                want = k["plain"](P, G, W, M, V, count, **hp)
+                w0, mine = W.clone(), (M.clone(), V.clone())
+                got = k["wrapper"](P, G, W, *mine, count, **hp)
+                torch.cuda.synchronize()
+                rows.append(apply_row(k, side, L, m, r, n, main, wdt, "f32", False, P, G, W, w0,
+                                      mine, got, want, gt_k, gt_p, tag,
+                                      lambda: k["wrapper"](P, G, W, *mine, count, **hp),
+                                      lambda: k["plain"](P, G, w0, M, V, count, **hp),
+                                      bound(side, L, m, r, n, 2, W.element_size())))
+                del W, want, got, w0, mine
+            del P, G, M, V, gt_k, gt_p
         # int8 moments: the adam8 kernel with the apply epilogue
         k, emit = KERNELS["adam8_apply_" + side], KERNELS["adam8_" + side]
         P, mom, G32 = adam8_inputs(side, L, m, r, n, seed=100 + i)
@@ -487,8 +554,18 @@ def check_apply():
             gt_p = emit["plain"](Pa, G, *mom, count, alpha=ALPHA, stochastic=sr)[0]
             want = k["plain"](Pa, G, W, *mom, count, stochastic=sr, **hp)
             w0, mine = W.clone(), [x.clone() for x in mom]
+            before = thread_copies8()
             got = k["wrapper"](Pa, G, W, *mine, count, stochastic=sr, **hp)
             torch.cuda.synchronize()
+            tag += " " + route8(before)
+            W_2 = w0.clone()
+            again = k["wrapper"](Pa, G, W_2, *[x.clone() for x in mom], count, stochastic=sr,
+                                 **hp)
+            torch.cuda.synchronize()
+            if not (torch.equal(W, W_2) and all(torch.equal(a, b)
+                                                for a, b in zip(got[1:], again[1:]))):
+                raise AssertionError(f"{tag}: two launches on the same inputs differ")
+            del W_2, again
             if p4:  # in-kernel int4 dequant == launching with the host-dequantized P
                 W_h = w0.clone()
                 ref_ = k["wrapper"](P4_host, G, W_h, *[x.clone() for x in mom], count,
@@ -539,10 +616,11 @@ def apply_row(k, side, L, m, r, n, main, wdt, p, sr, P, G, W, w0, mine, got, wan
         same = f"; G̃ bitwise at {float(eq.float().mean()):.1%}, W' bitwise there"
     ms = cuda_ms(run, 3, 10)
     plain_ms = cuda_ms(run_plain, 2, 5)
-    b_s, b_by = bound_
+    b_s, b_by, b_f32 = bound_
     log(f"[kernels] {tag}: max|err| W' {w_err:.2e}{w_note}; moments {mom_err:.2e}"
         f"{f', codes differing {share:.2e}' if len(want) == 5 else ''}{same}; in place ok  "
-        f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {b_s * 1e3:.3f} ms ({b_by})")
+        f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {b_s * 1e3:.3f} ms ({b_by}; "
+        f"{b_s / ms * 1e5:.0f} % of it; f32-FMA {b_f32 * 1e3:.3f})")
     key = ("adam8_apply_" if len(want) == 5 else "apply_") + side
     return dict(kernel=key, side=side, L=L, m=m, r=r, n=n, g_dtype="bfloat16",
                 w_dtype=str(wdt).removeprefix("torch."), p=p, stochastic=sr, main_path=main,
@@ -601,8 +679,8 @@ def check_int4p():
             ms = cuda_ms(lambda: k["wrapper"](P4, G, *ins, count, **kw), 3, 10)
             ms_f32p = cuda_ms(lambda: k["wrapper"](P_host, G, *ins, count, **kw), 3, 10)
             plain_ms = cuda_ms(lambda: k["plain"](P4, G, *lead, M, V, count, **kw), 2, 5)
-            b_s, b_by = bound(side, L, m, r, n, 2, None if W is None else W.element_size(),
-                              p_int4=True)
+            b_s, b_by, b_f32 = bound(side, L, m, r, n, 2,
+                                     None if W is None else W.element_size(), p_int4=True)
             rows.append(dict(kernel=key, side=side, L=L, m=m, r=r, n=n, g_dtype="bfloat16",
                              w_dtype=None if W is None else str(wdt).removeprefix("torch."),
                              p="int4", main_path=main, max_abs_err=errs[0],
@@ -610,8 +688,9 @@ def check_int4p():
                              bound_ms=b_s * 1e3, bound_by=b_by))
             what = "G̃" if W is None else "W'"
             log(f"[kernels] {tag}: equal to the host-dequantized-P launch; vs plain max|err| "
-                f"{what}/M'/V' {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} ok  kernel {ms:.3f} ms (f32 P {ms_f32p:.3f})  plain {plain_ms:.3f} ms  "
-                f"bound {b_s * 1e3:.3f} ms ({b_by})")
+                f"{what}/M'/V' {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} ok  kernel {ms:.3f} ms (f32 P "
+                f"{ms_f32p:.3f})  plain {plain_ms:.3f} ms  bound {b_s * 1e3:.3f} ms ({b_by}; "
+                f"f32-FMA {b_f32 * 1e3:.3f})")
             del got, host, want, W, ins
         del P, G, M, V, P4, P_host, W32
     torch.cuda.empty_cache()
@@ -876,6 +955,7 @@ def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=
     launches = {key: getattr(fn, attr) for key, (fn, attr) in COUNTERS.items()}
     thread_copy = sum(fn.launches_thread_copy for fn in (tp.galore_project,
                                                          tp.galore_project_back))
+    thread_copy8 = thread_copies8()
     peak = torch.cuda.max_memory_allocated()
     state = opt_state[galore_state_index(tc)]
     quantized = None
@@ -895,7 +975,7 @@ def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"non-finite loss: {losses}")
     return dict(losses=losses, times=times, launches=launches, thread_copy=thread_copy,
-                peak=peak, galore=galore,
+                thread_copy8=thread_copy8, peak=peak, galore=galore,
                 update_freq=update_freq, state_bytes=state_bytes, analytic_bytes=analytic,
                 quantized_leaves=quantized)
 
@@ -941,19 +1021,21 @@ def main():
             for line in report.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"[build] {path.name.split('-')[0]}: {line.strip()}")
-    # the tiled projections run on the tensor cores: count their wgmma
-    # (HGMMA) instructions in the library's SASS
+    # the tiled projections and the int8-moment kernel run on the tensor
+    # cores: count their wgmma (HGMMA) instructions in each library's SASS
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(libs["galore_project"])], capture_output=True,
-                          text=True, check=True, timeout=120).stdout
-    hgmma = sum(" HGMMA." in line for line in sass.splitlines())
-    log(f"[build] galore_project: {hgmma} HGMMA instructions in its SASS "
-        f"({sum(' FFMA ' in line for line in sass.splitlines())} FFMA)")
-    if hgmma == 0:
-        raise AssertionError("galore_project's SASS has no HGMMA: "
-                             "B4/B5 do not use the tensor cores")
+    for name, what in (("galore_project", "B4/B5"), ("galore_epilogue", "the int8-moment kernel")):
+        sass = subprocess.run([cuobjdump, "-sass", str(libs[name])], capture_output=True,
+                              text=True, check=True, timeout=120).stdout
+        hgmma = sum(" HGMMA." in line for line in sass.splitlines())
+        log(f"[build] {name}: {hgmma} HGMMA instructions in its SASS "
+            f"({sum(' FFMA ' in line for line in sass.splitlines())} FFMA)")
+        if hgmma == 0:
+            raise AssertionError(f"{name}'s SASS has no HGMMA: {what} do not use the tensor "
+                                 f"cores")
 
     t = time.perf_counter()
+    check_bound8()
     rows = check_kernels()
     rows += check_adam8()
     rows += check_apply()
@@ -994,6 +1076,9 @@ def main():
     if q8["launches"] != dict(none, adam8_left=48, adam8_right=8):
         raise AssertionError(f"8-bit path launches {q8['launches']}, want adam8 left 48, "
                              f"right 8, no fp32 kernel")
+    if q8["thread_copy8"] != 0:
+        raise AssertionError(f"8-bit path: {q8['thread_copy8']} int8-kernel launches copied "
+                             f"their operands by the threads instead of by the TMA")
     gap8 = max(abs(a - b) for a, b in zip(fused["losses"], q8["losses"]))
     if gap8 > 5e-2:
         raise AssertionError(f"8-bit vs fp32 fused losses differ by {gap8:.3e} > 5e-2")
@@ -1021,6 +1106,11 @@ def main():
             raise AssertionError(f"{tag} launches {ph['launches']}, want only "
                                  f"{[k for k, v in want.items() if v]}, left 48 (6 leaves × 8 "
                                  f"steps) and right 8")
+        # every leaf's operands have 16-byte rows: the int8 kernel copies them
+        # by the TMA
+        if ph["thread_copy8"] != 0:
+            raise AssertionError(f"{tag}: {ph['thread_copy8']} int8-kernel launches copied "
+                                 f"their operands by the threads instead of by the TMA")
         gap = max(abs(a - b) for a, b in zip(ph["losses"], phases[emit_tag]["losses"]))
         if gap > 5e-2:
             raise AssertionError(f"{tag} vs {emit_tag} losses differ by {gap:.3e} > 5e-2")

@@ -21,96 +21,103 @@
 //   Mq', Vq' = nearest code of M'/absmax (or stochastic rounding), in place
 //   G̃ = alpha P N̂ (left) or alpha N̂ Pᵀ (right), f32
 // Codes and scales are updated in place, as the Pallas aliasing does; the
-// wrapper allocates only G̃.
+// wrapper allocates only G̃ (and, for the apply form with r > 128, the N̂
+// scratch below).
 //
 // What bounds it on an H100. At the main path's largest left leaf,
 // (L, m, r, n) = (2, 4096, 128, 11008) with bf16 G and int4 P, one launch
 // moves G 180 MB + G̃ 361 MB + codes and scales read and written 11 MB + P
 // 0.6 MB ≈ 553 MB (0.165 ms at 3.35 TB/s) and does 4·L·m·r·n = 46.2 GFLOP in
-// its two contractions (0.69 ms of f32 FMA at 67 TFLOP/s). It is bound by
-// operations, 0.69 ms, like the fp32 kernel of galore_fused.cu.
+// its two contractions: 0.69 ms on the f32 FMA pipes at 67 TFLOP/s, 0.23 ms
+// as split TF32 on the tensor cores (R in two passes with a bf16 G, G̃ in
+// three, at 495 TFLOP/s). Operations bound it, on the tensor cores.
 //
-// Design. A quantization block is 128 elements of the swept axis, and its
-// absmax needs all of them, so one thread block owns exactly 128 swept
-// positions of one stacked leaf: grid = (⌈swept/128⌉, L), 256 threads as a
-// 16 x 16 grid with an 8 x 8 register tile each (a 128 x 128 tile); a grid
-// larger than the SM count is compiled for two blocks per SM. Rows of R
-// on the left (columns on the right) quantize independently, so the block
-// walks the rank in chunks of 128 and, per chunk:
-//   1. R_c (128 x 128) = the chunk's contraction, P and G staged through
-//      shared memory 32 deep (P is streamed, never resident, as in
-//      galore_fused.cu); R_c lands in a 66 KB shared tile.
-//   2. dequant → Adam → absmax → requant on the tile; N̂ replaces R_c.
-//   3. G̃ for the block's 128 swept positions: alpha P_c N̂_c, accumulated in
-//      the block's own output tile (written on the first chunk, added on
-//      later ones; only this block touches those elements, so no atomics).
-// Shared memory is therefore 105 KB whatever r is: r = 1024 is eight chunks
-// through the same kernel, at the cost of re-reading the output tile from L2
-// seven times; no shape is refused for size. (The other design, N̂ in a
-// scratch tensor and a second pass, would move r·n more f32 through memory
-// at every r.)
-// The apply form cannot accumulate into W: W' must be formed once, from the
-// whole of G̃, with the wd W term and the rounding to W's dtype applied once.
-// With one rank chunk (r <= 128, the main path) step 3 applies W directly,
-// with explicitly rounded operations in the plain version's order, so W' is
-// bitwise the plain version's wherever G̃ is. With more chunks each chunk's
-// N̂_c goes to a compact f32 scratch (L, r, n) / (L, m, r) that the wrapper
-// allocates, and a last pass over the block's swept positions contracts the
-// full rank from it and applies W. W's dtype is a template parameter; each W
-// tile is asked of L2 when its contraction starts, and a row's W loads are
-// all issued before its stores.
+// Design: one formulation for both sides. The right leaf is the left one on
+// swapped views: Rᵀ = Pᵀ Gᵀ (G read transposed: K-major) and G̃ᵀ = α P N̂ᵀ
+// (written transposed), so an R tile is always (rank x swept) and a rank row
+// of it is one quantization block; only the moments' indexing differs
+// (right: (L, m, r), scales (L, ⌈m/128⌉, r)).
+//   A quantization block's absmax needs all 128 of its swept positions, so a
+//   slab of 128 swept positions of one stacked leaf is one unit of work,
+//   spread over a thread-block cluster of C ∈ {1, 2, 4} CTAs (256 threads,
+//   two warpgroups, one CTA an SM), C chosen on the host from the number of
+//   slabs and the clusters the card holds at once, so that e.g. the 64
+//   slabs of the 4096 x 4096 leaves fill the card. Per rank chunk of 128:
+//   1. Partial R_c = P_cᵀ G_slab over the CTA's 1/C of the kept axis: split
+//      TF32 on wgmma.m64n128k8, P the register operand (an f32 P split in
+//      registers; an int4 P's codes and scales copied in by the TMA and
+//      decoded in registers, int4_p.cuh's operation, so the value is
+//      bitwise the host-dequantized P's), G the shared-memory operand (TMA
+//      boxes into an mbarrier ring, split into K-major swizzled hi/lo tiles;
+//      a bf16 G is exact in TF32: two passes). Each 32-deep stage goes into a
+//      fresh wgmma accumulator that FADD adds into an f32 register one, the
+//      rule that holds the tiled projections' gate over K = 4096.
+//   2. The partials meet in the CTAs' shared memory: each CTA owns 128/C
+//      rank rows and sums them from every CTA of the cluster over
+//      distributed shared memory (mapa + ld.shared::cluster), in CTA order,
+//      so two launches are bitwise equal.
+//   3. dequant → Adam → absmax → requant on the owned rows, in shared
+//      memory, with the codec's explicitly rounded f32 operations (below);
+//      only the owner writes a row's codes and scales. N̂ replaces R.
+//   4. Each CTA splits N̂_c once into K-major hi/lo tiles, its own rows from
+//      its shared memory and the others from their owners' over
+//      distributed shared memory, and computes the G̃ tiles of its 1/C of
+//      the kept axis: P's kept tile the register operand (a TMA ring in the
+//      freed R tile, split, or decoded and split, in registers), N̂ the
+//      shared-memory one, three passes, α applied after the accumulation.
+//      The emit form writes f32 G̃ (added to the earlier chunks' for
+//      r > 128); the apply form W' = W + η(αacc + wd·W) in the plain
+//      version's operation order, a bf16 W tile brought in and written back
+//      by the TMA through shared memory (an f32 W, or one the TMA cannot
+//      describe, through L2 prefetches and registers).
+// Shared memory (≤ 227 KB) holds the R/N̂ tile (64 KB; contraction 2's ring
+// once N̂ is split) and one region reused by the phases: contraction 1's
+// ring and split stages, the epilogue's codebooks, N̂'s hi/lo tiles (128 KB)
+// and the W tile (32 KB).
+// With r > 128 each chunk re-reads the CTA's share of G_slab (through L2:
+// the slab does not fit in shared memory at any model's width), and the
+// emit form re-reads and re-writes its G̃ tiles. The apply form cannot add
+// into W: W' is formed once, from the whole of G̃. There each chunk's N̂_c
+// goes to a compact f32 scratch (L, r, n) / (L, m, r) that the wrapper
+// allocates, and a last pass contracts the whole rank from it (splitting
+// N̂ again from L2 for every kept tile) and applies W.
 // The requant follows the codec (quant/codec.py), not the Pallas body: the
 // nearest code is searchsorted(mids, x), the number of midpoints strictly
 // below x, found by binary search over the 255 midpoints in shared memory;
 // the stochastic coin is sr_uniform(ravel index, count, salt) in uint32. The
 // elementwise math uses explicitly rounded f32 operations in the codec's
 // order (no FMA contraction), so for equal R the codes are the plain
-// version's bit for bit; only the contractions' summation order differs.
-// An int4 P is decoded while staging (int4_p.cuh), book4[nibble] * scale in
-// f32, the order of dequantize4_axis, so it is bitwise the host-dequantized P;
-// rows past the logical kept dim are never read.
+// version's bit for bit; only the contractions' summation order differs. W'
+// is bitwise the plain version's wherever the emit form's G̃ is.
+// An operand the TMA cannot describe (rows not a multiple of 16 bytes, or a
+// base not 16-byte aligned) is copied by the threads into the same layouts:
+// a G of odd bf16 rows alone, leaving P on the TMA; a P (or an int4 P's
+// codes or scales) with G, as both share contraction 1's stages.
+// galore_epilogue_last_copied reports a launch that copied either, so that
+// the wrappers count those launches.
 
+#include <cuda.h>  // CUtensorMap (types only: libcuda is not linked)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <atomic>
 
 #include "int4_p.cuh"
+#include "tf32_wgmma.cuh"
 
 namespace {
 
 using int4p::P4;
+using namespace tf32w;
 
-constexpr int kThreads = 256;  // 16 x 16 thread grid, 8 warps
-constexpr int kT = 128;        // tile edge: one quantization block, one rank chunk
-constexpr int kTR = 8;         // register tile per thread: kTR x kTR
-constexpr int kBK = 32;        // contraction depth staged per step
-constexpr int kS = kT + 1;     // padded row stride of every shared tile
-constexpr int kBooks = 256 + 256 + 16;  // book_s | book_u | book4, from the wrapper
+constexpr int kT = 128;  // a quantization block, a rank chunk, a kept tile
 constexpr uint32_t kSaltM = 0x5BD1E995u;
 constexpr uint32_t kSaltV = 0xC2B2AE35u;
-// An int4 P's codes are decoded as they arrive (int4_p.cuh's kBatch = 1): this
-// kernel runs two blocks an SM at 128 registers, and holding a stage's codes
-// in registers before decoding them measured slower here at the main shapes
-// (it is faster in galore_fused.cu, which is not capped).
-constexpr int kP4Batch = 1;
-static_assert(kBK == int4p::kStageK && kT == int4p::kStageW && kS == int4p::kStageS &&
-                  kThreads == int4p::kStageThreads,
-              "the int4 P stages of int4_p.cuh assume this kernel's stage geometry");
-
-// shared layout, in floats
-constexpr int kOffT = 0;
-constexpr int kOffA = kOffT + kT * kS;
-constexpr int kOffB = kOffA + kBK * kS;
-constexpr int kOffBookS = kOffB + kBK * kS;
-constexpr int kOffBookU = kOffBookS + 256;
-constexpr int kOffMidS = kOffBookU + 256;
-constexpr int kOffMidU = kOffMidS + 256;
-constexpr int kOffBook4 = kOffMidU + 256;
-constexpr int kOffRed = kOffBook4 + 16;  // 4 x 128 partial absmax (right side)
-constexpr int kSmemFloats = kOffRed + 4 * kT;
-constexpr size_t kSmemBytes = sizeof(float) * kSmemFloats;
+static_assert(kT == kBM && kT == int4p::kStageW, "one tile edge throughout");
 
 struct Args {
   const float* P;      // f32 P (L, kept, r), or null with an int4 P
@@ -122,10 +129,14 @@ struct Args {
   uint8_t* Vq;
   float* Vs;
   const int* count;    // the step number, on the device
-  const float* books;  // kBooks floats: signed, unsigned and int4 codebooks
+  const float* books;  // 528 floats: signed, unsigned and int4 codebooks
   float* out;          // emit: G̃ (L, m, n) f32
   void* W;             // apply: W (L, m, n) f32 or bf16, in place
+  int apply;
   int w_bf16;
+  int w_tma;           // apply, bf16 W: its tiles go through shared memory by the TMA
+  int g_tma;           // G's boxes come by the TMA (else the threads copy them); needs p_tma
+  int p_tma;           // P's (or its codes' and scales') boxes come by the TMA
   const float* eta;    // apply: -lr of this step, on the device
   float wd;            // apply: decoupled weight decay
   float* nhat;         // apply with r > 128: N̂ scratch, the moments' shape
@@ -134,126 +145,22 @@ struct Args {
   float b1, omb1, b2, omb2, eps, alpha;
 };
 
+// The TMA maps of one launch: G; an f32 P as contraction 1's A (Pᵀ, 32
+// ranks by 32 kept rows a box) and contraction 2's (its kept tile, 32 ranks
+// by 128 rows); or an int4 P's codes and scales, each in both boxes;
+// and a bf16 W in boxes of 64 columns by 128 rows.
+struct Maps {
+  CUtensorMap g, pa, pb, qa, qb, sa, sb, w;
+};
+
 __device__ __forceinline__ float load_g(const float* p, size_t i) { return p[i]; }
 __device__ __forceinline__ float load_g(const __nv_bfloat16* p, size_t i) {
   return __bfloat162float(p[i]);
 }
 
-// A row-major (rows, cols) matrix of one leaf; zero outside.
-template <typename GT>
-struct Mat {
-  const GT* p;
-  int rows, cols;
-  __device__ __forceinline__ float at(int row, int col) const {
-    return (row < rows && col < cols) ? load_g(p, (size_t)row * cols + col) : 0.f;
-  }
-};
-
-// The N̂ scratch of one leaf, read back by the block that wrote it (through
-// L2, after a barrier); zero outside.
-struct Scratch {
-  const float* p;
-  int rows, cols;
-  __device__ __forceinline__ float at(int row, int col) const {
-    return (row < rows && col < cols) ? __ldcg(p + (size_t)row * cols + col) : 0.f;
-  }
-};
-
 __device__ __forceinline__ void store_w(float* W, size_t i, float v) { W[i] = v; }
 __device__ __forceinline__ void store_w(__nv_bfloat16* W, size_t i, float v) {
   W[i] = __float2bfloat16_rn(v);
-}
-
-// Ask L2 for rows [r0, r0 + nr) x columns [c0, c0 + nc) of the row-major
-// (rows x cols) W at `base`, clipped to its edges, one 128-byte line per thread
-// and step. Issued when a tile's contraction starts, so that the tile's W is
-// in L2 by the time its stores read it.
-template <typename WT>
-__device__ __forceinline__ void prefetch_w(const WT* W, size_t base, int rows, int cols, int r0,
-                                           int nr, int c0, int nc, int tid, int nthreads) {
-  constexpr int esz = sizeof(WT), per_line = 128 / esz;
-  const int lines = (nc + per_line - 1) / per_line;
-  for (int e = tid; e < nr * lines; e += nthreads) {
-    const int row = r0 + e / lines, col = c0 + (e % lines) * per_line;
-    if (row < rows && col < cols)
-      asm volatile("prefetch.global.L2 [%0];" ::"l"(W + base + (size_t)row * cols + col));
-  }
-}
-
-// W'[row][c0 + 16 j] = W + eta (alpha acc[j] + wd W) for one row of a thread's
-// 8 x 8 tile, each operation rounded, in the plain version's order; W is f32
-// or bf16 (WT), rounded to nearest once. The row's 8 loads are issued before
-// any store: a store to W would order every later load behind it.
-template <typename WT>
-__device__ __forceinline__ void apply_row(const Args& a, size_t o0, int row, int c0,
-                                          const float (&acc)[kTR], float eta) {
-  WT* const W = static_cast<WT*>(a.W);
-  float w[kTR];
-#pragma unroll
-  for (int j = 0; j < kTR; ++j) {
-    const int col = c0 + 16 * j;
-    w[j] = (row < a.m && col < a.n) ? load_g(W, o0 + (size_t)row * a.n + col) : 0.f;
-  }
-#pragma unroll
-  for (int j = 0; j < kTR; ++j) {
-    const int col = c0 + 16 * j;
-    const float g = __fmul_rn(a.alpha, acc[j]);
-    if (row < a.m && col < a.n)
-      store_w(W, o0 + (size_t)row * a.n + col,
-              __fadd_rn(w[j], __fmul_rn(eta, __fadd_rn(g, __fmul_rn(a.wd, w[j])))));
-  }
-}
-
-// buf[kk][c] = src(k0 + kk, c0 + c): contraction along the source's rows.
-// Each thread stages one column c, rows kk = tid / 128 + 2i; the loop has a
-// fixed trip count, so it unrolls and its 16 loads are in flight together.
-template <class Src>
-__device__ __forceinline__ void stage_rows(float* buf, const Src& src, int k0, int c0, int tid) {
-  const int c = tid % kT;
-#pragma unroll
-  for (int i = 0; i < kBK * kT / kThreads; ++i) {
-    const int kk = tid / kT + (kThreads / kT) * i;
-    buf[kk * kS + c] = src.at(k0 + kk, c0 + c);
-  }
-}
-
-// buf[kk][c] = src(c0 + c, k0 + kk): contraction along the source's columns.
-// Each thread stages one kk, c = tid / 32 + 8i.
-template <class Src>
-__device__ __forceinline__ void stage_cols(float* buf, const Src& src, int c0, int k0, int tid) {
-  const int kk = tid % kBK;
-#pragma unroll
-  for (int i = 0; i < kBK * kT / kThreads; ++i) {
-    const int c = tid / kBK + (kThreads / kBK) * i;
-    buf[kk * kS + c] = src.at(c0 + c, k0 + kk);
-  }
-}
-
-// acc[a][b] += sum_kk A(kk, ty + 16a) * B(kk, tx + 16b), A(k, i) = A[k*ak + i*ai],
-// B(k, j) = B[k*bk + j*bj]. Within a warp the A reads touch two addresses and
-// the B reads 16 distinct banks, so neither has bank conflicts.
-__device__ __forceinline__ void tile_fma(const float* __restrict__ A, int ak, int ai,
-                                         const float* __restrict__ B, int bk, int bj,
-                                         float (&acc)[kTR][kTR], int tx, int ty) {
-#pragma unroll 2
-  for (int kk = 0; kk < kBK; ++kk) {
-    float a[kTR], b[kTR];
-#pragma unroll
-    for (int i = 0; i < kTR; ++i) a[i] = A[kk * ak + (ty + 16 * i) * ai];
-#pragma unroll
-    for (int j = 0; j < kTR; ++j) b[j] = B[kk * bk + (tx + 16 * j) * bj];
-#pragma unroll
-    for (int i = 0; i < kTR; ++i)
-#pragma unroll
-      for (int j = 0; j < kTR; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-__device__ __forceinline__ void zero_acc(float (&acc)[kTR][kTR]) {
-#pragma unroll
-  for (int i = 0; i < kTR; ++i)
-#pragma unroll
-    for (int j = 0; j < kTR; ++j) acc[i][j] = 0.f;
 }
 
 // Counter-based uniform in [0, 1): codec.sr_uniform, bit for bit.
@@ -318,93 +225,620 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// kMinBlocks = 2 caps registers at 128 a thread so that two blocks share an
-// SM; the host picks it only for grids larger than one block per SM.
-template <bool kRight, bool kP4, typename GT, int kMinBlocks, bool kApply, typename WT>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) adam8_kernel(const Args a) {
-  extern __shared__ float smem[];
-  float* T = smem + kOffT;  // R_c, then N̂_c: left [rank][swept], right [swept][rank]
-  float* As = smem + kOffA;
-  float* Bs = smem + kOffB;
-  float* book_s = smem + kOffBookS;
-  float* book_u = smem + kOffBookU;
-  float* mids_s = smem + kOffMidS;
-  float* mids_u = smem + kOffMidU;
-  float* book4 = smem + kOffBook4;
-  float* red = smem + kOffRed;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int warp = tid / 32, lane = tid % 32;
-  const int m = a.m, r = a.r, n = a.n;
-  const size_t l = blockIdx.y;
-  const int blk = blockIdx.x;    // the block's quantization block of the swept axis
-  const int s0 = blk * kT;       // its first swept position
-  const int kept = kRight ? n : m;
-  const int swept = kRight ? m : n;
-  const int nb = (swept + kT - 1) / kT;
+// ---- thread-block clusters and distributed shared memory ----
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t v;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(v));
+  return static_cast<int>(v);
+}
+__device__ __forceinline__ int cluster_size() {
+  uint32_t v;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(v));
+  return static_cast<int>(v);
+}
+// Every thread of every CTA of the cluster arrives and waits; the shared-
+// and global-memory writes before it are visible to the cluster after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// The shared::cluster address of this CTA's shared address `addr` in CTA `rank`.
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, int rank) {
+  uint32_t v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(v) : "r"(addr), "r"(rank));
+  return v;
+}
+__device__ __forceinline__ float ld_peer(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
 
-  for (int i = tid; i < kBooks; i += kThreads) {
-    const float v = a.books[i];
-    if (i < 256) book_s[i] = v;
-    else if (i < 512) book_u[i - 256] = v;
-    else book4[i - 512] = v;
+// Offset (floats) of (rank row i, swept column j) in the 128 x 128 tile T:
+// rows of 128 floats, the low five bits of j permuted by i, so that 32 rows
+// at one column (the right-side epilogue, the split of N̂ into contraction
+// 2's tiles) and the accumulator stores (8 rows by 4 column pairs) each hit
+// 32 distinct banks, as do 32 columns of one row.
+__device__ __forceinline__ int tix(int i, int j) {
+  return i * kT + (j ^ (((i & 3) << 3) | ((i >> 2) & 7)));
+}
+
+// Byte offset of (row, col) in a 128 x 128 bf16 tile held as two TMA boxes
+// of 64 columns (128-byte rows, the 128-byte swizzle): the apply form's W.
+__device__ __forceinline__ int wix(int row, int col) {
+  return (col >> 6) * (kT * 128) + row * 128 + ((((col & 63) >> 3) ^ (row & 7)) << 4) +
+         (col & 7) * 2;
+}
+
+// TMA store of the box at (c0, c1, c2) of `map` from shared memory at src,
+// in this thread's bulk group; the group's commit and its waits.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {  // the stores have read shared memory
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {  // the stores are complete
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Shared memory of one kernel form, in bytes from a 1024-aligned base:
+//   T       the 128 x 128 f32 tile: partial R, then R, then N̂ (tix layout);
+//           then contraction 2's raw ring of P's kept-tile stages (f32, or
+//           int4 codes 4 KB and scales 128 B)
+//   X       one region, reused: contraction 1's two split stages of G and
+//           its raw ring (G's box, then P's: f32, or int4 codes 4 KB and
+//           scales 512 B); the epilogue's codebooks, midpoints and absmax
+//           partials; contraction 2's N̂ as four 32-deep K-major stages of
+//           hi and lo (128 KB), and the bf16 W tile of the apply form (two
+//           TMA boxes of 64 columns, 32 KB)
+//   book4   the 16 int4 codes, for the whole launch
+//   bars    one mbarrier a raw slot of each ring, and one for the W tile
+template <typename GT, bool kP4>
+struct Layout {
+  static constexpr bool kSplitG = sizeof(GT) == 4;  // a bf16 G is exact in TF32
+  static constexpr int kTBytes = kT * kT * 4;
+  static constexpr int kStage1 = (kSplitG ? 2 : 1) * kTile * 4;
+  static constexpr int kRawG = kBM * kBK * static_cast<int>(sizeof(GT));
+  static constexpr int kRawP1 = kP4 ? 5 * 1024 : kBM * kBK * 4;
+  static constexpr int kSlot1 = kRawG + kRawP1;
+  static constexpr int kStage2 = 2 * kTile * 4;  // one 32-deep stage of N̂, hi and lo
+  static constexpr int kSlot2 = kP4 ? 5 * 1024 : kBM * kBK * 4;
+  static constexpr int kBudgetX = 232448 - 1024 - kTBytes - 64 - 128;
+  static constexpr int kFit1 = (kBudgetX - 2 * kStage1) / kSlot1;
+  static constexpr int kWTile = kT * kT * 2;
+  static constexpr int kFit2 = kTBytes / kSlot2;
+  static constexpr int kRaw1 = kFit1 > 5 ? 5 : kFit1;
+  static constexpr int kRaw2 = kFit2 > 5 ? 5 : kFit2;
+  static constexpr int kX1 = 2 * kStage1 + kRaw1 * kSlot1;
+  static constexpr int kOffW = 4 * kStage2;  // in X
+  static constexpr int kX2 = kOffW + kWTile;
+  static constexpr int kEpi = (4 * 256 + 2 * 256) * 4;  // books, mids, absmax partials
+  static constexpr int kX = kX1 > kX2 ? (kX1 > kEpi ? kX1 : kEpi) : (kX2 > kEpi ? kX2 : kEpi);
+  static constexpr int kOffX = kTBytes;
+  static constexpr int kOffBook4 = kOffX + kX;
+  static constexpr int kOffBars = kOffBook4 + 64;
+  static constexpr int kBars = kRaw1 + kRaw2 + 1;
+  static constexpr int kBytes = kOffBars + 8 * kBars + 1024;
+  static_assert(kRaw1 >= 3 && kRaw2 >= 3, "each raw ring needs three slots");
+  static_assert(kOffW % 1024 == 0, "the W tile's swizzle needs a 1024-aligned base");
+  static_assert(kBytes <= 232448, "over the shared-memory opt-in maximum");
+  static_assert(kX2 <= kBudgetX, "N̂'s tiles and the W tile exceed the shared region");
+};
+
+// Contraction 1's int4 stage copied by the threads: codes of kept rows
+// k0 .. k0+31 (byte rows k0, or k0 - half for the high nibbles) by ranks
+// rc0 .. rc0+127 in the TMA's 128-byte swizzle, then the 128 scales of kept
+// block k0/128; zero past the rank.
+__device__ __forceinline__ void fill_codes_a(uint8_t* raw, const P4& p, int k0, int rc0,
+                                             int tid) {
+  const int brow = k0 >= p.half ? k0 - p.half : k0;
+  for (int e = tid; e < kBK * kT; e += kThreads) {
+    const int kk = e / kT, i = e % kT, c = rc0 + i;
+    raw[kk * 128 + ((((i >> 4) ^ kk) & 7) << 4) + (i & 15)] =
+        c < p.cols ? p.q[(size_t)(brow + kk) * p.cols + c] : 0;
+  }
+  float* sc = reinterpret_cast<float*>(raw + 4096);
+  for (int i = tid; i < kT; i += kThreads)
+    sc[i] = rc0 + i < p.cols ? p.s[(size_t)(k0 / kT) * p.cols + rc0 + i] : 0.f;
+}
+
+// Contraction 2's int4 stage copied by the threads: codes of the 128 kept
+// rows m0.. (two boxes of 64 rows, each on one side of `half`) by ranks
+// kg .. kg+31, 32 bytes a row, then the 32 scales of kept block m0/128.
+__device__ __forceinline__ void fill_codes_b(uint8_t* raw, const P4& p, int m0, int kg, int tid) {
+  for (int e = tid; e < kT * kBK; e += kThreads) {
+    const int d = e / kBK, k = e % kBK, row = m0 + d, c = kg + k;
+    const int brow = row >= p.half ? row - p.half : row;
+    raw[d * kBK + k] = c < p.cols ? p.q[(size_t)brow * p.cols + c] : 0;
+  }
+  float* sc = reinterpret_cast<float*>(raw + 4096);
+  for (int i = tid; i < kBK; i += kThreads)
+    sc[i] = kg + i < p.cols ? p.s[(size_t)(m0 / kT) * p.cols + kg + i] : 0.f;
+}
+
+template <bool kRight, bool kP4, typename GT>
+__global__ void __launch_bounds__(kThreads, 1)
+    adam8_kernel(const __grid_constant__ Maps maps, const Args a) {
+  using S = Layout<GT, kP4>;
+  using OpG = Operand<kRight, GT>;     // contraction 1's B: the G slab (kept x swept)
+  using OpPa = Operand<false, float>;  // contraction 1's A: Pᵀ of an f32 P stored (kept, r)
+  using OpPb = Operand<true, float>;   // contraction 2's A: a kept tile of P, K-major
+  constexpr bool kSplitG = S::kSplitG;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzles are functions of address bits, so tiles start 1024-aligned
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* T = reinterpret_cast<float*>(smem);
+  uint8_t* X = smem + S::kOffX;
+  float* book4 = reinterpret_cast<float*>(smem + S::kOffBook4);
+  auto bar = [&](int i) { return smem_u32(smem + S::kOffBars + 8 * i); };
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int C = cluster_size(), cr = cluster_rank();
+  const int m = a.m, r = a.r, n = a.n;
+  const int kept = kRight ? n : m, swept = kRight ? m : n;
+  const int l = blockIdx.y;
+  const int blk = blockIdx.x / C, s0 = blk * kT;  // the slab: a quantization block of swept
+  const int nb = (swept + kT - 1) / kT;
+  const int kept_pad = (kept + kT - 1) / kT * kT, half = kept_pad / 2;
+  const int nr = kT / C, row0 = cr * nr;  // the rank rows of the tile this CTA requantizes
+  // wgmma fragments: accumulator rows f_row (+ 8), columns 2·f_col + 8b (+ 1);
+  // A rows f_row (+ 8), columns f_col (+ 4) of each 8-deep k-step
+  const int f_row = (tid >> 7) * 64 + 16 * ((tid >> 5) & 3) + ((tid & 31) >> 2);
+  const int f_col = tid & 3;
+
+  if (tid < 16) book4[tid] = a.books[512 + tid];
+  if (tid == 0) {
+    for (int i = 0; i < S::kBars; ++i) mbar_init(bar(i));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  for (int i = tid; i < 255; i += kThreads) {
-    mids_s[i] = __fdiv_rn(__fadd_rn(book_s[i], book_s[i + 1]), 2.f);
-    mids_u[i] = __fdiv_rn(__fadd_rn(book_u[i], book_u[i + 1]), 2.f);
-  }
 
   // this leaf's operands
-  const Mat<float> Pf{kP4 ? nullptr : a.P + l * kept * r, kept, r};
-  const P4 Pi = kP4 ? int4p::p4_leaf(a.Pq, a.Ps, book4, l, kept, r) : P4{};
-  const Mat<GT> Gm{static_cast<const GT*>(a.G) + l * m * n, m, n};
-  const size_t mom0 = l * (kRight ? (size_t)m * r : (size_t)r * n);
-  const size_t sc0 = l * (kRight ? (size_t)nb * r : (size_t)r * nb);
-  const size_t o0 = l * m * n;  // this leaf's first element of G̃ or W
-  const WT* const Wp = static_cast<const WT*>(a.W);  // apply: W (prefetched)
+  const float* Pf = kP4 ? nullptr : a.P + (size_t)l * kept * r;
+  const P4 p4{kP4 ? a.Pq + (size_t)l * half * r : nullptr,
+              kP4 ? a.Ps + (size_t)l * (kept_pad / kT) * r : nullptr, book4, kept, r, half};
+  const GT* Gl = static_cast<const GT*>(a.G) + (size_t)l * m * n;
+  const size_t mom0 = (size_t)l * r * swept;
+  const size_t sc0 = (size_t)l * r * nb;
+  const size_t o0 = (size_t)l * m * n;  // this leaf's first element of G̃ or W
   const int cnt = *a.count;
   const float t = (float)cnt;
-  const Coef k{a.b1, a.omb1, a.b2, a.omb2, a.eps, 1.f - powf(a.b1, t), 1.f - powf(a.b2, t)};
+  const Coef co{a.b1, a.omb1, a.b2, a.omb2, a.eps, 1.f - powf(a.b1, t), 1.f - powf(a.b2, t)};
   const bool sr = a.stochastic != 0;
-  const float eta = kApply ? *a.eta : 0.f;
-  const bool keep_nhat = kApply && r > kT;  // W waits for the whole rank
-  __syncthreads();
+  const bool apply = a.apply != 0;
+  const float eta = apply ? *a.eta : 0.f;
+  const bool keep_nhat = apply && r > kT;  // W waits for the whole rank
 
-  for (int rc0 = 0; rc0 < r; rc0 += kT) {
-    // 1. R_c into T
-    float acc[kTR][kTR];
-    zero_acc(acc);
-    if (!kRight) {  // R_c[i][j] = sum_k P[k][rc0+i] G[k][s0+j], k over m
-      for (int k0 = 0; k0 < m; k0 += kBK) {
-        if (kP4) int4p::stage_rows<kP4Batch>(As, Pi, k0, rc0, tid);
-        else stage_rows(As, Pf, k0, rc0, tid);
-        stage_rows(Bs, Gm, k0, s0, tid);
-        __syncthreads();
-        tile_fma(As, kS, 1, Bs, kS, 1, acc, tx, ty);
-        __syncthreads();
-      }
-    } else {  // R_c[i][j] = sum_k G[s0+i][k] P[k][rc0+j], k over n
-      for (int k0 = 0; k0 < n; k0 += kBK) {
-        stage_cols(As, Gm, s0, k0, tid);
-        if (kP4) int4p::stage_rows<kP4Batch>(Bs, Pi, k0, rc0, tid);
-        else stage_rows(Bs, Pf, k0, rc0, tid);
-        __syncthreads();
-        tile_fma(As, kS, 1, Bs, kS, 1, acc, tx, ty);
-        __syncthreads();
-      }
+  float acc[64];
+  uint32_t a_hi[4 * (kBK / 8)], a_lo[4 * (kBK / 8)];
+  int q1 = 0, q2 = 0;  // stages through each raw ring so far: slot and mbarrier phase
+  int nw = 0;          // W tiles through shared memory so far: the W mbarrier's phase
+
+  auto split_a = [&](int kk, int j, float x) {
+    const float h = tf32_rna(x);
+    a_hi[4 * kk + j] = __float_as_uint(h);
+    a_lo[4 * kk + j] = __float_as_uint(tf32_rna(x - h));
+  };
+  // One 32-deep stage: part = A B in split TF32 (small terms first; B's lo
+  // pass only with split_b: a bf16 G is exact in TF32), then acc += part;
+  // B's k-step advances 8 f32 = 32 bytes (2 in the descriptor's 16-byte
+  // units) inside the swizzled rows. `next` runs while the tensor cores do
+  // (contraction 1 splits its next stage of G there).
+  auto mma_stage = [&](const float* b_tile, bool split_b, auto next) {
+    float part[64];  // live only inside the stage: its first wgmma overwrites it
+    const uint64_t b_hi = desc_sw128(smem_u32(b_tile));
+    const uint64_t b_lo = desc_sw128(smem_u32(b_tile + kTile));
+    reg_fence(part);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 8; ++kk) wgmma_tf32_ra(part, a_lo + 4 * kk, b_hi + 2 * kk, kk > 0);
+    if (split_b) {
+#pragma unroll
+      for (int kk = 0; kk < kBK / 8; ++kk) wgmma_tf32_ra(part, a_hi + 4 * kk, b_lo + 2 * kk, 1);
     }
 #pragma unroll
-    for (int i = 0; i < kTR; ++i)
+    for (int kk = 0; kk < kBK / 8; ++kk) wgmma_tf32_ra(part, a_hi + 4 * kk, b_hi + 2 * kk, 1);
+    wgmma_commit();
+    next();
+    wgmma_wait_all();
+    reg_fence(part);
 #pragma unroll
-      for (int j = 0; j < kTR; ++j) T[(ty + 16 * i) * kS + tx + 16 * j] = acc[i][j];
+    for (int i = 0; i < 4 * (kBK / 8); ++i)  // the fragments stay live until the wgmmas end
+      asm volatile("" : "+r"(a_hi[i]), "+r"(a_lo[i])::"memory");
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    fence_async_smem();
+    __syncthreads();
+  };
+
+  // N̂ (rank rows k of the chunk, swept columns j) split into contraction
+  // 2's K-major hi/lo stages in X: stage k/32, row j, column k%32. A warp
+  // takes 32 consecutive k at one j, so its reads of T (tix) and its stores
+  // (swz) are conflict-free.
+  auto put_b = [&](int k, int j, float x) {
+    float* hi = reinterpret_cast<float*>(X + (k >> 5) * S::kStage2);
+    const float h = tf32_rna(x);
+    hi[swz(j, k & 31)] = h;
+    hi[kTile + swz(j, k & 31)] = tf32_rna(x - h);
+  };
+  // N̂_c's tiles from the cluster's T: rows this CTA owns from its own, the
+  // others from their owners' over distributed shared memory.
+  auto build_b = [&]() {
+    uint32_t base[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) base[p] = p < C ? peer_addr(smem_u32(T), p) : 0;
+#pragma unroll 8
+    for (int u = 0; u < kT * kT / kThreads; ++u) {
+      const int e = tid + kThreads * u, k = e % kT, j = e / kT, owner = k / nr;
+      float x;
+      if (owner == cr) {
+        x = T[tix(k, j)];
+      } else {
+        uint32_t src = base[0];
+#pragma unroll
+        for (int p = 1; p < 4; ++p)
+          if (p == owner) src = base[p];
+        x = ld_peer(src + 4 * tix(k, j));
+      }
+      put_b(k, j, x);
+    }
+  };
+
+  // ---- contraction 2: G̃ tiles = α P N̂ over the rank [kbase, kbase + Kc)
+  // for this CTA's kept tiles (cr, cr + C, ...): P's kept tile the register
+  // operand (stages through a TMA ring in T, split in registers), N̂ the
+  // shared-memory one (its K-major hi/lo stages in X). Resident: build_b
+  // made N̂_c's stages. From the scratch: they are rebuilt from it for every
+  // 128 of the rank of every tile. `first`: the emit form writes G̃;
+  // otherwise it adds to it.
+  auto contraction2 = [&](int kbase, int Kc, bool scratch, bool first) {
+    const int ntile = (kept + kT - 1) / kT;
+    const int nmine = cr < ntile ? (ntile - cr + C - 1) / C : 0;
+    const int nk = (Kc + kBK - 1) / kBK, nq = nmine * nk;
+    auto raw = [&](int q) { return smem + ((q2 + q) % S::kRaw2) * S::kSlot2; };
+    auto tile_m0 = [&](int q) { return (cr + C * (q / nk)) * kT; };
+    auto issue = [&](int q) {  // the P stage q into its raw slot (nothing past the end)
+      if (q >= nq) return;
+      const int m0 = tile_m0(q), kg = kbase + (q % nk) * kBK;
+      uint8_t* dst = raw(q);
+      if (a.p_tma) {
+        if (tid == 0) {
+          const uint32_t b = bar(S::kRaw1 + (q2 + q) % S::kRaw2);
+          if (kP4) {
+            mbar_expect(b, 4096 + 128);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = m0 + 64 * h;
+              tma_load(smem_u32(dst + 2048 * h), &maps.qb, kg, row >= half ? row - half : row, l,
+                       b);
+            }
+            tma_load(smem_u32(dst + 4096), &maps.sb, kg, m0 / kT, l, b);
+          } else {
+            mbar_expect(b, S::kSlot2);
+            OpPb::tma(&maps.pb, dst, m0, kg, l, b);
+          }
+        }
+      } else if (kP4) {
+        fill_codes_b(dst, p4, m0, kg, tid);
+      } else {
+        OpPb::fill(Pf, kept, r, m0, kg, tid, dst);
+      }
+    };
+    auto rebuild = [&](int c) {  // N̂'s stages of rank rows kbase + 128c .. from the scratch
+#pragma unroll 8
+      for (int u = 0; u < kT * kT / kThreads; ++u) {
+        const int e = tid + kThreads * u;
+        const int k = kRight ? e % kT : e / kT, j = kRight ? e / kT : e % kT;
+        const int rk = kbase + kT * c + k, sw = s0 + j;
+        float x = 0.f;
+        if (rk < r && sw < swept)
+          x = __ldcg(a.nhat + mom0 + (kRight ? (size_t)sw * r + rk : (size_t)rk * n + sw));
+        put_b(k, j, x);
+      }
+    };
+    // P's fragments of stage q (kept row i, rank k), split into registers: an
+    // f32 P from the K-major box; an int4 P decoded from its codes (rows
+    // 0-63 and 64-127 each on one side of `half`) and the rank's scales
+    auto load_a = [&](int q) {
+      const int ks = q % nk;
+      if (scratch && ks % 4 == 0) {
+        rebuild(ks / 4);
+        fence_async_smem();
+        __syncthreads();
+      }
+      if (a.p_tma) mbar_wait(bar(S::kRaw1 + (q2 + q) % S::kRaw2), ((q2 + q) / S::kRaw2) & 1);
+      const uint8_t* src = raw(q);
+      if (kP4) {
+        const int m0 = tile_m0(q);
+        const bool hn = (f_row < 64 ? m0 : m0 + 64) >= half;  // f_row, f_row + 8: one box
+        const float* sc = reinterpret_cast<const float*>(src + 4096);
+#pragma unroll
+        for (int kk = 0; kk < kBK / 8; ++kk)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int i = f_row + 8 * (j & 1), k = 8 * kk + f_col + 4 * (j >> 1);
+            split_a(kk, j, int4p::decode(p4, src[i * kBK + k], hn, sc[k]));
+          }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < kBK / 8; ++kk)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            split_a(kk, j, *reinterpret_cast<const float*>(
+                               src + OpPb::raw_elem(f_row + 8 * (j & 1),
+                                                    8 * kk + f_col + 4 * (j >> 1))));
+      }
+    };
+    const bool w_smem = apply && a.w_tma;
+    uint8_t* Ws = X + S::kOffW;
+    const uint32_t bar_w = bar(S::kRaw1 + S::kRaw2);
+    auto load_w = [&](int m0) {  // the bf16 W tile of kept tile m0 into Ws
+      if (tid != 0) return;
+      bulk_wait_read();  // the last tile's W' has left Ws
+      mbar_expect(bar_w, S::kWTile);
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+        tma_load(smem_u32(Ws + b * kT * 128), &maps.w, (kRight ? m0 : s0) + 64 * b,
+                 kRight ? s0 : m0, l, bar_w);
+    };
+    // the tile's G̃ (or W') from acc: element q of the accumulator is kept
+    // m0 + f_row + 8·((q/2)%2), swept s0 + 2·f_col + 8·(q/4) + q%2
+    auto store = [&](int m0) {
+      if (w_smem) {
+        // W' = W + eta (alpha acc + wd W) in place in Ws (as below), then the
+        // TMA writes the tile back; what lies past the leaf is not written
+        mbar_wait(bar_w, nw & 1);
+        ++nw;
+#pragma unroll
+        for (int q = 0; q < 64; ++q) {
+          const int kp = f_row + 8 * ((q >> 1) & 1), sw = 2 * f_col + 8 * (q >> 2) + (q & 1);
+          __nv_bfloat16* wp =
+              reinterpret_cast<__nv_bfloat16*>(Ws + (kRight ? wix(sw, kp) : wix(kp, sw)));
+          const float w = __bfloat162float(*wp);
+          const float g = __fmul_rn(a.alpha, acc[q]);
+          *wp = __float2bfloat16_rn(
+              __fadd_rn(w, __fmul_rn(eta, __fadd_rn(g, __fmul_rn(a.wd, w)))));
+        }
+        fence_async_smem();
+        __syncthreads();
+        if (tid == 0) {
+#pragma unroll
+          for (int b = 0; b < 2; ++b)
+            tma_store(&maps.w, smem_u32(Ws + b * kT * 128), (kRight ? m0 : s0) + 64 * b,
+                      kRight ? s0 : m0, l);
+          bulk_commit();
+        }
+        return;
+      }
+      auto index = [&](int q, bool& ok) {
+        const int kp = m0 + f_row + 8 * ((q >> 1) & 1);
+        const int sw = s0 + 2 * f_col + 8 * (q >> 2) + (q & 1);
+        ok = sw < swept && kp < kept;
+        return o0 + (kRight ? (size_t)sw * n + kp : (size_t)kp * n + sw);
+      };
+      if (!apply) {
+        // on the left, accumulator elements q and q + 1 are neighbours in G̃
+        const bool pairs = !kRight && first && n % 2 == 0;
+#pragma unroll
+        for (int q = 0; q < 64; q += 2) {
+          bool ok0, ok1;
+          const size_t o0_ = index(q, ok0), o1_ = index(q + 1, ok1);
+          const float v0 = __fmul_rn(a.alpha, acc[q]), v1 = __fmul_rn(a.alpha, acc[q + 1]);
+          if (pairs && ok1) {
+            *reinterpret_cast<float2*>(a.out + o0_) = make_float2(v0, v1);
+            continue;
+          }
+          if (ok0) a.out[o0_] = first ? v0 : __fadd_rn(a.out[o0_], v0);
+          if (ok1) a.out[o1_] = first ? v1 : __fadd_rn(a.out[o1_], v1);
+        }
+        return;
+      }
+      // W' = W + eta (alpha acc + wd W), each operation rounded, in the plain
+      // version's order; a batch's W loads are issued before its stores (a
+      // store to W would order every later load behind it)
+#pragma unroll
+      for (int q0 = 0; q0 < 64; q0 += 32) {
+        float w[32];
+#pragma unroll
+        for (int q = 0; q < 32; ++q) {
+          bool ok;
+          const size_t o = index(q0 + q, ok);
+          w[q] = !ok ? 0.f
+                 : a.w_bf16 ? load_g(static_cast<const __nv_bfloat16*>(a.W), o)
+                            : load_g(static_cast<const float*>(a.W), o);
+        }
+#pragma unroll
+        for (int q = 0; q < 32; ++q) {
+          bool ok;
+          const size_t o = index(q0 + q, ok);
+          const float g = __fmul_rn(a.alpha, acc[q0 + q]);
+          const float v = __fadd_rn(w[q], __fmul_rn(eta, __fadd_rn(g, __fmul_rn(a.wd, w[q]))));
+          if (!ok) continue;
+          if (a.w_bf16) store_w(static_cast<__nv_bfloat16*>(a.W), o, v);
+          else store_w(static_cast<float*>(a.W), o, v);
+        }
+      }
+    };
+
+    // Ask L2 for the W tile of kept tile m0 (rows m0.. by columns s0.. on the
+    // left, rows s0.. by columns m0.. on the right), one 128-byte line a
+    // thread and step, when its contraction starts: its epilogue's loads
+    // then find W in L2.
+    auto prefetch_w = [&](int m0) {
+      const int esz = a.w_bf16 ? 2 : 4, per_line = 128 / esz, lines = kT / per_line;
+      const int r0 = kRight ? s0 : m0, c0 = kRight ? m0 : s0;
+      const char* W = static_cast<const char*>(a.W);
+      for (int e = tid; e < kT * lines; e += kThreads) {
+        const int row = r0 + e / lines, col = c0 + (e % lines) * per_line;
+        if (row < m && col < n)
+          asm volatile("prefetch.global.L2 [%0];" ::"l"(W + (o0 + (size_t)row * n + col) * esz));
+      }
+    };
+
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    if (nq > 0) {
+      if (apply && !w_smem) prefetch_w(tile_m0(0));
+      for (int q = 0; q < S::kRaw2 - 1; ++q) issue(q);
+      __syncthreads();  // the threads' copies of stage 0, when they made them
+      for (int q = 0; q < nq; ++q) {
+        // its slot held stage q - 1, read two barriers ago; threads' copies
+        // of stage q + 1 were made at least one barrier ago (kRaw2 >= 3)
+        issue(q + S::kRaw2 - 1);
+        if (w_smem && q % nk == (nk > 1 ? 1 : 0)) load_w(tile_m0(q));
+        if (apply && !w_smem && q % nk == 0 && q + nk < nq) prefetch_w(tile_m0(q + nk));
+        load_a(q);
+        mma_stage(reinterpret_cast<const float*>(X + ((q % nk) % 4) * S::kStage2), true, [] {});
+        if ((q + 1) % nk == 0) {
+          store(tile_m0(q));
+#pragma unroll
+          for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+        }
+      }
+    }
+    q2 += nq;
+    if (w_smem && tid == 0) bulk_wait();  // Ws stays in use until the stores end
+  };
+
+  const int steps1 = (kept + kBK - 1) / kBK;
+  const int k_lo = cr * steps1 / C, n1 = (cr + 1) * steps1 / C - k_lo;
+  for (int rc0 = 0; rc0 < r; rc0 += kT) {
+    // ---- 1. partial R_c = P_cᵀ G_slab over kept stages [k_lo, k_lo + n1)
+    auto raw = [&](int st) { return X + 2 * S::kStage1 + ((q1 + st) % S::kRaw1) * S::kSlot1; };
+    auto issue = [&](int st) {  // stage st: G's box, then P's (nothing past the end)
+      if (st >= n1) return;
+      uint8_t* dst = raw(st);
+      uint8_t* dp = dst + S::kRawG;
+      const int k0 = (k_lo + st) * kBK;
+      if (a.p_tma) {
+        if (tid == 0) {
+          const uint32_t b = bar((q1 + st) % S::kRaw1);
+          mbar_expect(b, (a.g_tma ? S::kRawG : 0) + (kP4 ? 4096 + 512 : S::kRawP1));
+          if (a.g_tma) OpG::tma(&maps.g, dst, s0, k0, l, b);
+          if (kP4) {
+            tma_load(smem_u32(dp), &maps.qa, rc0, k0 >= half ? k0 - half : k0, l, b);
+            tma_load(smem_u32(dp + 4096), &maps.sa, rc0, k0 / kT, l, b);
+          } else {
+            OpPa::tma(&maps.pa, dp, rc0, k0, l, b);
+          }
+        }
+        if (!a.g_tma) OpG::fill(Gl, swept, kept, s0, k0, tid, dst);
+      } else {
+        OpG::fill(Gl, swept, kept, s0, k0, tid, dst);
+        if (kP4) fill_codes_a(dp, p4, k0, rc0, tid);
+        else OpPa::fill(Pf, r, kept, rc0, k0, tid, dp);
+      }
+    };
+    auto split = [&](int st) {  // G of stage st into split stage st % 2
+      if (a.p_tma) mbar_wait(bar((q1 + st) % S::kRaw1), ((q1 + st) / S::kRaw1) & 1);
+      float* hi = reinterpret_cast<float*>(X + (st & 1) * S::kStage1);
+      OpG::template split<kSplitG>(raw(st), hi, hi + kTile, tid);
+    };
+    auto load_a = [&](int st) {  // Pᵀ's fragments of stage st (landed), split into registers
+      const uint8_t* dp = raw(st) + S::kRawG;
+      if (kP4) {  // rank row i, kept k: code byte (k, i) of the swizzled box, scale of row i
+        const bool hn = (k_lo + st) * kBK >= half;
+        const float* sc = reinterpret_cast<const float*>(dp + 4096);
+        const float s_a = sc[f_row], s_b = sc[f_row + 8];
+#pragma unroll
+        for (int kk = 0; kk < kBK / 8; ++kk)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int i = f_row + 8 * (j & 1), k = 8 * kk + f_col + 4 * (j >> 1);
+            const unsigned byte = dp[k * 128 + ((((i >> 4) ^ k) & 7) << 4) + (i & 15)];
+            split_a(kk, j, int4p::decode(p4, byte, hn, (j & 1) ? s_b : s_a));
+          }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < kBK / 8; ++kk)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            split_a(kk, j, *reinterpret_cast<const float*>(
+                               dp + OpPa::raw_elem(f_row + 8 * (j & 1),
+                                                   8 * kk + f_col + 4 * (j >> 1))));
+      }
+    };
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    if (n1 > 0) {
+      for (int st = 0; st < S::kRaw1 - 1; ++st) issue(st);
+      __syncthreads();  // the threads' copies of stage 0, when they made them
+      split(0);
+      fence_async_smem();
+      __syncthreads();
+      for (int s = 0; s < n1; ++s) {
+        issue(s + S::kRaw1 - 1);
+        load_a(s);
+        mma_stage(reinterpret_cast<const float*>(X + (s & 1) * S::kStage1), kSplitG, [&] {
+          if (s + 1 < n1) split(s + 1);
+        });
+      }
+    }
+    q1 += n1;
+#pragma unroll
+    for (int q = 0; q < 64; ++q)
+      T[tix(f_row + 8 * ((q >> 1) & 1), 2 * f_col + 8 * (q >> 2) + (q & 1))] = acc[q];
+    cluster_sync();  // every CTA's partial R_c is in its T
+
+    // ---- 2. R_c's owned rows: the partials summed in CTA order
+    if (C > 1) {
+      constexpr int kMax = kT * kT / 2 / kThreads;  // owned elements a thread, C = 2
+      const int per = kT * kT / C / kThreads;
+      uint32_t base[4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) base[p] = p < C ? peer_addr(smem_u32(T), p) : 0;
+      float sum[kMax];
+#pragma unroll
+      for (int u = 0; u < kMax; ++u) {
+        if (u >= per) break;
+        const int e = tid + kThreads * u;
+        const uint32_t off = 4 * tix(row0 + e / kT, e % kT);
+        float s = ld_peer(base[0] + off);
+#pragma unroll
+        for (int p = 1; p < 4; ++p)
+          if (p < C) s += ld_peer(base[p] + off);
+        sum[u] = s;
+      }
+      cluster_sync();  // every CTA has read what it needs of the others' partials
+#pragma unroll
+      for (int u = 0; u < kMax; ++u) {
+        if (u >= per) break;
+        const int e = tid + kThreads * u;
+        T[tix(row0 + e / kT, e % kT)] = sum[u];
+      }
+    }
+    // the codebooks and midpoints, in X (contraction 1's ring is drained)
+    float* book_s = reinterpret_cast<float*>(X);
+    float* book_u = book_s + 256;
+    float* mids_s = book_s + 512;
+    float* mids_u = book_s + 768;
+    float* red = book_s + 1024;  // 2 x 8 warps x 32 absmax partials (right side)
+    for (int i = tid; i < 512; i += kThreads) book_s[i] = a.books[i];
+    __syncthreads();
+    for (int i = tid; i < 255; i += kThreads) {
+      mids_s[i] = __fdiv_rn(__fadd_rn(book_s[i], book_s[i + 1]), 2.f);
+      mids_u[i] = __fdiv_rn(__fadd_rn(book_u[i], book_u[i + 1]), 2.f);
+    }
     __syncthreads();
 
-    // 2. dequant -> Adam -> requant; N̂_c replaces R_c (0 outside the leaf)
+    // ---- 3. dequant -> Adam -> requant on the owned rows; N̂ replaces R
+    // (0 outside the leaf); with keep_nhat N̂ also goes to the scratch
     if (!kRight) {
       // a warp per rank row (its quantization block is the row's 128
       // columns), a lane per 4 columns
-      for (int i = warp; i < kT; i += kThreads / 32) {
-        const int rr = rc0 + i;
+      for (int ii = warp; ii < nr; ii += kThreads / 32) {
+        const int i = row0 + ii, rr = rc0 + i;
         const bool row_ok = rr < r;
         const size_t srow = sc0 + (size_t)rr * nb + blk;
         const float sm = row_ok ? a.Ms[srow] : 0.f, sv = row_ok ? a.Vs[srow] : 0.f;
@@ -415,8 +849,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) adam8_kernel(const Args 
           mn[q] = vn[q] = 0.f;
           if (row_ok && col < n) {
             const size_t off = mom0 + (size_t)rr * n + col;
-            adam_moments(k, __fmul_rn(book_s[a.Mq[off]], sm), __fmul_rn(book_u[a.Vq[off]], sv),
-                         T[i * kS + j], &mn[q], &vn[q]);
+            adam_moments(co, __fmul_rn(book_s[a.Mq[off]], sm), __fmul_rn(book_u[a.Vq[off]], sv),
+                         T[tix(i, j)], &mn[q], &vn[q]);
           }
           am = fmaxf(am, fabsf(mn[q]));
           av = fmaxf(av, fabsf(vn[q]));
@@ -432,9 +866,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) adam8_kernel(const Args 
             const uint32_t idx = (uint32_t)off;  // ravel index in (L, r, n), mod 2^32
             a.Mq[off] = requant(mn[q], am, book_s, mids_s, sr, idx, (uint32_t)cnt, kSaltM);
             a.Vq[off] = requant(vn[q], av, book_u, mids_u, sr, idx, (uint32_t)cnt, kSaltV);
-            nh = adam_step(k, mn[q], vn[q]);
+            nh = adam_step(co, mn[q], vn[q]);
+            if (keep_nhat) a.nhat[off] = nh;
           }
-          T[i * kS + j] = nh;
+          T[tix(i, j)] = nh;
         }
         if (row_ok && lane == 0) {
           a.Ms[srow] = am;
@@ -442,158 +877,75 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) adam8_kernel(const Args 
         }
       }
     } else {
-      // a thread per (rank column, half of the 128 rows): the column's
-      // quantization block is its 128 rows; the halves' absmax meet in `red`.
-      // Pass 1 finds the absmax, pass 2 recomputes M', V' and requantizes.
-      const int j = tid % kT, h = tid / kT;
-      const int rk = rc0 + j;
+      // a lane per rank row (the codes are rank-contiguous), warps of a
+      // group of 32 rows splitting the 128 swept positions; the absmax
+      // partials meet in `red`. Pass 1 finds the absmax, pass 2 recomputes
+      // M', V' and requantizes.
+      const int wpg = (kThreads / 32) / (nr / 32), span = kT / wpg;
+      const int grp = warp / wpg, wi = warp % wpg;
+      const int i = row0 + 32 * grp + lane, rk = rc0 + i;
       const bool col_ok = rk < r;
       const size_t scol = sc0 + (size_t)blk * r + rk;
       const float sm = col_ok ? a.Ms[scol] : 0.f, sv = col_ok ? a.Vs[scol] : 0.f;
       float am = 0.f, av = 0.f;
-      for (int i = h * (kT / 2); i < (h + 1) * (kT / 2); ++i) {
-        const int row = s0 + i;
+      for (int j = wi * span; j < (wi + 1) * span; ++j) {
+        const int row = s0 + j;
         if (col_ok && row < m) {
           const size_t off = mom0 + (size_t)row * r + rk;
           float mn, vn;
-          adam_moments(k, __fmul_rn(book_s[a.Mq[off]], sm), __fmul_rn(book_u[a.Vq[off]], sv),
-                       T[i * kS + j], &mn, &vn);
+          adam_moments(co, __fmul_rn(book_s[a.Mq[off]], sm), __fmul_rn(book_u[a.Vq[off]], sv),
+                       T[tix(i, j)], &mn, &vn);
           am = fmaxf(am, fabsf(mn));
           av = fmaxf(av, fabsf(vn));
         }
       }
-      red[h * kT + j] = am;
-      red[(2 + h) * kT + j] = av;
+      red[warp * 32 + lane] = am;
+      red[256 + warp * 32 + lane] = av;
       __syncthreads();
-      am = __fadd_rn(fmaxf(red[j], red[kT + j]), 1e-12f);
-      av = __fadd_rn(fmaxf(red[2 * kT + j], red[3 * kT + j]), 1e-12f);
-      for (int i = h * (kT / 2); i < (h + 1) * (kT / 2); ++i) {
-        const int row = s0 + i;
+      am = av = 0.f;
+      for (int w = 0; w < wpg; ++w) {
+        am = fmaxf(am, red[(grp * wpg + w) * 32 + lane]);
+        av = fmaxf(av, red[256 + (grp * wpg + w) * 32 + lane]);
+      }
+      am = __fadd_rn(am, 1e-12f);
+      av = __fadd_rn(av, 1e-12f);
+      for (int j = wi * span; j < (wi + 1) * span; ++j) {
+        const int row = s0 + j;
         float nh = 0.f;
         if (col_ok && row < m) {
           const size_t off = mom0 + (size_t)row * r + rk;
           float mn, vn;
-          adam_moments(k, __fmul_rn(book_s[a.Mq[off]], sm), __fmul_rn(book_u[a.Vq[off]], sv),
-                       T[i * kS + j], &mn, &vn);
+          adam_moments(co, __fmul_rn(book_s[a.Mq[off]], sm), __fmul_rn(book_u[a.Vq[off]], sv),
+                       T[tix(i, j)], &mn, &vn);
           const uint32_t idx = (uint32_t)off;  // ravel index in (L, m, r), mod 2^32
           a.Mq[off] = requant(mn, am, book_s, mids_s, sr, idx, (uint32_t)cnt, kSaltM);
           a.Vq[off] = requant(vn, av, book_u, mids_u, sr, idx, (uint32_t)cnt, kSaltV);
-          nh = adam_step(k, mn, vn);
+          nh = adam_step(co, mn, vn);
+          if (keep_nhat) a.nhat[off] = nh;
         }
-        T[i * kS + j] = nh;
+        T[tix(i, j)] = nh;
       }
-      if (col_ok && h == 0) {
+      if (col_ok && wi == 0) {
         a.Ms[scol] = am;
         a.Vs[scol] = av;
       }
     }
-    __syncthreads();
-
-    // 3. G̃ for the block's swept positions, accumulated over rank chunks;
-    // or W' from the one chunk; or N̂_c kept for the last pass
-    const int kn = min(kT, r - rc0);
-    if (keep_nhat) {
-      for (int e = tid; e < kT * kT; e += kThreads) {
-        const int i = e / kT, j = e % kT;
-        if (!kRight && rc0 + i < r && s0 + j < n)
-          a.nhat[mom0 + (size_t)(rc0 + i) * n + s0 + j] = T[i * kS + j];
-        if (kRight && s0 + i < m && rc0 + j < r)
-          a.nhat[mom0 + (size_t)(s0 + i) * r + rc0 + j] = T[i * kS + j];
-      }
-    } else if (!kRight) {  // out[m0+i][s0+j] (+)= alpha sum_k P[m0+i][rc0+k] N̂[k][j]
-      for (int m0 = 0; m0 < m; m0 += kT) {
-        zero_acc(acc);
-        if (kApply) prefetch_w(Wp, o0, m, n, m0, kT, s0, kT, tid, kThreads);
-        for (int k0 = 0; k0 < kn; k0 += kBK) {
-          if (kP4) int4p::stage_cols<kP4Batch>(As, Pi, m0, rc0 + k0, tid);
-          else stage_cols(As, Pf, m0, rc0 + k0, tid);
-          __syncthreads();
-          tile_fma(As, kS, 1, T + k0 * kS, kS, 1, acc, tx, ty);
-          __syncthreads();
-        }
-        if (kApply) {
-#pragma unroll
-          for (int i = 0; i < kTR; ++i) apply_row<WT>(a, o0, m0 + ty + 16 * i, s0 + tx, acc[i], eta);
-          continue;
-        }
-#pragma unroll
-        for (int i = 0; i < kTR; ++i)
-#pragma unroll
-          for (int j = 0; j < kTR; ++j) {
-            const int row = m0 + ty + 16 * i, col = s0 + tx + 16 * j;
-            if (row < m && col < n) {
-              float* o = a.out + o0 + (size_t)row * n + col;
-              const float v = a.alpha * acc[i][j];
-              *o = rc0 == 0 ? v : *o + v;
-            }
-          }
-      }
-    } else {  // out[s0+i][n0+j] (+)= alpha sum_k N̂[i][k] P[n0+j][rc0+k]
-      for (int n0 = 0; n0 < n; n0 += kT) {
-        zero_acc(acc);
-        if (kApply) prefetch_w(Wp, o0, m, n, s0, kT, n0, kT, tid, kThreads);
-        for (int k0 = 0; k0 < kn; k0 += kBK) {
-          if (kP4) int4p::stage_cols<kP4Batch>(Bs, Pi, n0, rc0 + k0, tid);
-          else stage_cols(Bs, Pf, n0, rc0 + k0, tid);
-          __syncthreads();
-          tile_fma(T + k0, 1, kS, Bs, kS, 1, acc, tx, ty);
-          __syncthreads();
-        }
-        if (kApply) {
-#pragma unroll
-          for (int i = 0; i < kTR; ++i) apply_row<WT>(a, o0, s0 + ty + 16 * i, n0 + tx, acc[i], eta);
-          continue;
-        }
-#pragma unroll
-        for (int i = 0; i < kTR; ++i)
-#pragma unroll
-          for (int j = 0; j < kTR; ++j) {
-            const int row = s0 + ty + 16 * i, col = n0 + tx + 16 * j;
-            if (row < m && col < n) {
-              float* o = a.out + o0 + (size_t)row * n + col;
-              const float v = a.alpha * acc[i][j];
-              *o = rc0 == 0 ? v : *o + v;
-            }
-          }
-      }
+    fence_async_smem();  // X held the codebooks; the TMA writes there next
+    if (keep_nhat) {  // G̃ waits for the whole rank: the last pass below
+      __syncthreads();
+      continue;
     }
-    __syncthreads();  // T is rewritten by the next chunk
+    cluster_sync();  // every CTA's N̂_c rows are in its T
+
+    // ---- 4. N̂_c's hi/lo stages from the cluster, then this CTA's G̃ tiles
+    build_b();
+    fence_async_smem();  // the tensor cores read the stages; the TMA writes T next
+    cluster_sync();      // no CTA reads this one's T again this chunk
+    contraction2(rc0, min(kT, r - rc0), false, rc0 == 0);
   }
-  if (!keep_nhat) return;
-
-  // 4. (apply, r > 128) G̃ over the whole rank from the N̂ scratch, into W
-  const Scratch Nm{a.nhat + mom0, kRight ? m : r, kRight ? r : n};
-  float acc[kTR][kTR];
-  if (!kRight) {  // W[m0+i][s0+j] <- alpha sum_k P[m0+i][k] N̂[k][s0+j]
-    for (int m0 = 0; m0 < m; m0 += kT) {
-      zero_acc(acc);
-      prefetch_w(Wp, o0, m, n, m0, kT, s0, kT, tid, kThreads);
-      for (int k0 = 0; k0 < r; k0 += kBK) {
-        if (kP4) int4p::stage_cols<kP4Batch>(As, Pi, m0, k0, tid);
-        else stage_cols(As, Pf, m0, k0, tid);
-        stage_rows(Bs, Nm, k0, s0, tid);
-        __syncthreads();
-        tile_fma(As, kS, 1, Bs, kS, 1, acc, tx, ty);
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < kTR; ++i) apply_row<WT>(a, o0, m0 + ty + 16 * i, s0 + tx, acc[i], eta);
-    }
-  } else {  // W[s0+i][n0+j] <- alpha sum_k N̂[s0+i][k] P[n0+j][k]
-    for (int n0 = 0; n0 < n; n0 += kT) {
-      zero_acc(acc);
-      prefetch_w(Wp, o0, m, n, s0, kT, n0, kT, tid, kThreads);
-      for (int k0 = 0; k0 < r; k0 += kBK) {
-        stage_cols(As, Nm, s0, k0, tid);
-        if (kP4) int4p::stage_cols<kP4Batch>(Bs, Pi, n0, k0, tid);
-        else stage_cols(Bs, Pf, n0, k0, tid);
-        __syncthreads();
-        tile_fma(As, kS, 1, Bs, kS, 1, acc, tx, ty);
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < kTR; ++i) apply_row<WT>(a, o0, s0 + ty + 16 * i, n0 + tx, acc[i], eta);
-    }
+  if (keep_nhat) {
+    cluster_sync();  // every CTA's N̂ rows of every chunk are in the scratch
+    contraction2(0, r, true, true);
   }
 }
 
@@ -703,60 +1055,156 @@ cudaError_t launch_flat(const void* g, long long numel, uint8_t* mq, float* ms, 
   return cudaGetLastError();
 }
 
-template <bool kRight, bool kP4, typename GT, int kMinBlocks, bool kApply, typename WT>
-cudaError_t launch_with(const Args& a, const dim3& grid, cudaStream_t stream) {
-  auto kern = &adam8_kernel<kRight, kP4, GT, kMinBlocks, kApply, WT>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+// 1 where this host thread's last adam8 launch copied an operand by the
+// threads instead of by the TMA, else 0; and the CTAs a cluster it took.
+thread_local int last_copied = 0;
+thread_local int last_cluster = 0;
+
+// The clusters of C CTAs of `kernel` that the card holds at once (0 where
+// the occupancy query fails).
+template <typename K>
+int active_clusters(K kernel, int C, int bytes) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int count = 0;
+  if (cudaOccupancyMaxActiveClusters(&count, (const void*)kernel, &cfg) != cudaSuccess) {
+    cudaGetLastError();  // clear it: this launch goes on without the cluster size
+    return 0;
+  }
+  return count;
+}
+
+template <bool kRight, bool kP4, typename GT>
+cudaError_t launch(Args a, int L, cudaStream_t stream) {
+  using S = Layout<GT, kP4>;
+  auto kernel = adam8_kernel<kRight, kP4, GT>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  kern<<<grid, kThreads, kSmemBytes, stream>>>(a);
+  // the shared-memory opt-in and the occupancy of each cluster size, once
+  // per instance and device (devices 0-31)
+  static std::atomic<unsigned> opted_in{0};
+  static std::atomic<int> active[3][32];
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if ((opted_in.load() & bit) == 0 || bit == 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
+    if (err != cudaSuccess) return err;
+    if (bit != 0)
+      for (int ci = 0; ci < 3; ++ci) active[ci][dev].store(active_clusters(kernel, 1 << ci, S::kBytes));
+    opted_in.fetch_or(bit);
+  }
+
+  const int kept = kRight ? a.n : a.m, swept = kRight ? a.m : a.n, r = a.r;
+  const int kept_pad = (kept + kT - 1) / kT * kT;
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  const cudaError_t eg = make_map<kRight, GT>(&maps.g, a.G, swept, kept, L);
+  cudaError_t e[4];
+  int ne = 0;
+  if (kP4) {
+    e[ne++] = make_map_3d(&maps.qa, a.Pq, 1, r, kept_pad / 2, L, kT, kBK, true);
+    e[ne++] = make_map_3d(&maps.qb, a.Pq, 1, r, kept_pad / 2, L, kBK, 64, false);
+    e[ne++] = make_map_3d(&maps.sa, a.Ps, 4, r, kept_pad / kT, L, kT, 1, false);
+    e[ne++] = make_map_3d(&maps.sb, a.Ps, 4, r, kept_pad / kT, L, kBK, 1, false);
+  } else {
+    e[ne++] = make_map<false, float>(&maps.pa, a.P, r, kept, L);
+    e[ne++] = make_map<true, float>(&maps.pb, a.P, kept, r, L);
+  }
+  // P with its scales by the TMA where it can describe them, and then G too
+  // where it can describe G; what it cannot, the threads copy
+  if (eg != cudaSuccess && eg != cudaErrorNotSupported) return eg;
+  a.p_tma = 1;
+  for (int i = 0; i < ne; ++i) {
+    if (e[i] == cudaErrorNotSupported) a.p_tma = 0;
+    else if (e[i] != cudaSuccess) return e[i];
+  }
+  a.g_tma = a.p_tma && eg == cudaSuccess;
+  // a bf16 W goes through shared memory by the TMA where it can describe W
+  if (a.apply && a.w_bf16) {
+    const cudaError_t ew = make_map_3d(&maps.w, a.W, 2, a.n, a.m, L, 64, kT, true);
+    if (ew != cudaSuccess && ew != cudaErrorNotSupported) return ew;
+    a.w_tma = ew == cudaSuccess;
+  }
+  // the threads' element offsets inside one leaf are 32-bit
+  if ((!a.g_tma && (long long)a.m * a.n >= (1LL << 31)) ||
+      (!a.p_tma && (long long)kept * r >= (1LL << 31)))
+    return cudaErrorInvalidValue;
+
+  // The cluster size: the fewest waves of slabs per CTA's share of a slab,
+  // each CTA of a cluster doing 1/C of the contractions and the epilogue;
+  // a cluster beyond one CTA pays ~5 % for the exchange of partial sums and
+  // N̂. A CTA needs one 32-deep stage of the kept axis at least.
+  const int nslab = (swept + kT - 1) / kT, steps1 = (kept + kBK - 1) / kBK;
+  const long long items = (long long)nslab * L;
+  int C = 1;
+  double best = 1e300;
+  for (int ci = 0; ci < 3; ++ci) {
+    const int c = 1 << ci;
+    const int act = bit != 0 ? active[ci][dev].load() : (ci == 0 ? 1 : 0);
+    if (act <= 0 || (c > 1 && steps1 < c)) continue;
+    const double waves = (double)((items + act - 1) / act);
+    const double cost = waves / c * (c > 1 ? 1.05 : 1.0);
+    if (cost < best) {
+      best = cost;
+      C = c;
+    }
+  }
+  if ((long long)nslab * C > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  last_copied = !a.g_tma;
+  last_cluster = C;
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(nslab * C), (unsigned)L, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = S::kBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, maps, a);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// One block per SM (up to 255 registers a thread) while the grid fits in one
-// wave; two per SM (128 registers) when it does not, so that e.g. the 172
-// blocks of a (2, 4096, 128, 11008) leaf run in one wave instead of two.
-template <bool kRight, bool kP4, typename GT, bool kApply, typename WT>
-cudaError_t launch(const Args& a, int L, cudaStream_t stream) {
-  const int swept = kRight ? a.m : a.n;
-  const dim3 grid((swept + kT - 1) / kT, L);
-  if ((long)grid.x * grid.y > sm_count())
-    return launch_with<kRight, kP4, GT, 2, kApply, WT>(a, grid, stream);
-  return launch_with<kRight, kP4, GT, 1, kApply, WT>(a, grid, stream);
-}
-
-template <bool kRight, bool kApply, typename WT>
+template <bool kRight>
 cudaError_t dispatch(const Args& a, int p_int4, int g_bf16, int L, cudaStream_t s) {
   if (L <= 0 || a.m <= 0 || a.r <= 0 || a.n <= 0 || L > 65535) return cudaErrorInvalidValue;
-  if (kApply && a.r > kT && a.nhat == nullptr) return cudaErrorInvalidValue;
+  if (a.apply && a.r > kT && a.nhat == nullptr) return cudaErrorInvalidValue;
   if (p_int4) {
-    return g_bf16 ? launch<kRight, true, __nv_bfloat16, kApply, WT>(a, L, s)
-                  : launch<kRight, true, float, kApply, WT>(a, L, s);
+    return g_bf16 ? launch<kRight, true, __nv_bfloat16>(a, L, s)
+                  : launch<kRight, true, float>(a, L, s);
   }
-  return g_bf16 ? launch<kRight, false, __nv_bfloat16, kApply, WT>(a, L, s)
-                : launch<kRight, false, float, kApply, WT>(a, L, s);
+  return g_bf16 ? launch<kRight, false, __nv_bfloat16>(a, L, s)
+                : launch<kRight, false, float>(a, L, s);
 }
 
-template <bool kRight>
-cudaError_t dispatch_w(bool apply, const Args& a, int p_int4, int g_bf16, int L, cudaStream_t s) {
-  if (!apply) return dispatch<kRight, false, float>(a, p_int4, g_bf16, L, s);
-  if (a.w_bf16) return dispatch<kRight, true, __nv_bfloat16>(a, p_int4, g_bf16, L, s);
-  return dispatch<kRight, true, float>(a, p_int4, g_bf16, L, s);
-}
-
-int run(bool right, bool apply, const Args& a, int p_int4, int g_bf16, int L, void* stream) {
+int run(bool right, const Args& a, int p_int4, int g_bf16, int L, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(right ? dispatch_w<true>(apply, a, p_int4, g_bf16, L, s)
-                     : dispatch_w<false>(apply, a, p_int4, g_bf16, L, s));
+  return (int)(right ? dispatch<true>(a, p_int4, g_bf16, L, s)
+                     : dispatch<false>(a, p_int4, g_bf16, L, s));
 }
 
 Args make_args(const float* P, const uint8_t* Pq, const float* Ps, const void* G, uint8_t* Mq,
                float* Ms, uint8_t* Vq, float* Vs, const int* count, const float* books,
-               float* out, void* W, int w_bf16, const float* eta, double wd, float* nhat, int m,
-               int r, int n, double b1, double b2, double eps, double alpha, int stochastic) {
-  return Args{P, Pq, Ps, G, Mq, Ms, Vq, Vs, count, books, out, W, w_bf16, eta, (float)wd, nhat,
-              m, r, n, stochastic, (float)b1, (float)(1.0 - b1), (float)b2, (float)(1.0 - b2),
-              (float)eps, (float)alpha};
+               float* out, void* W, int apply, int w_bf16, const float* eta, double wd,
+               float* nhat, int m, int r, int n, double b1, double b2, double eps, double alpha,
+               int stochastic) {
+  return Args{P, Pq, Ps, G, Mq, Ms, Vq, Vs, count, books, out, W, apply, w_bf16, 0, 0, 0, eta,
+              (float)wd, nhat, m, r, n, stochastic, (float)b1, (float)(1.0 - b1), (float)b2,
+              (float)(1.0 - b2), (float)eps, (float)alpha};
 }
 
 }  // namespace
@@ -772,9 +1220,9 @@ extern "C" int galore_fused_adam8_left(const float* P, const uint8_t* Pq, const 
                                        const float* books, float* out, int L, int m, int r, int n,
                                        double b1, double b2, double eps, double alpha,
                                        int stochastic, void* stream) {
-  const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, count, books, out, nullptr, 0, nullptr,
-                           0.0, nullptr, m, r, n, b1, b2, eps, alpha, stochastic);
-  return run(false, false, a, p_int4, g_bf16, L, stream);
+  const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, count, books, out, nullptr, 0, 0,
+                           nullptr, 0.0, nullptr, m, r, n, b1, b2, eps, alpha, stochastic);
+  return run(false, a, p_int4, g_bf16, L, stream);
 }
 
 // P: f32 (L, n, r), or Pq (L, n_pad/2, r) and Ps (L, ⌈n/128⌉, r); G (L, m, n);
@@ -786,9 +1234,9 @@ extern "C" int galore_fused_adam8_right(const float* P, const uint8_t* Pq, const
                                         const float* books, float* out, int L, int m, int r, int n,
                                         double b1, double b2, double eps, double alpha,
                                         int stochastic, void* stream) {
-  const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, count, books, out, nullptr, 0, nullptr,
-                           0.0, nullptr, m, r, n, b1, b2, eps, alpha, stochastic);
-  return run(true, false, a, p_int4, g_bf16, L, stream);
+  const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, count, books, out, nullptr, 0, 0,
+                           nullptr, 0.0, nullptr, m, r, n, b1, b2, eps, alpha, stochastic);
+  return run(true, a, p_int4, g_bf16, L, stream);
 }
 
 // The apply forms: as above, with W (L, m, n) f32 or bf16 (w_bf16 = 1) updated
@@ -803,9 +1251,9 @@ extern "C" int galore_fused_adam8_apply_left(const float* P, const uint8_t* Pq, 
                                              int m, int r, int n, double b1, double b2,
                                              double eps, double alpha, int stochastic,
                                              void* stream) {
-  const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, count, books, nullptr, W, w_bf16, eta,
-                           wd, nhat, m, r, n, b1, b2, eps, alpha, stochastic);
-  return run(false, true, a, p_int4, g_bf16, L, stream);
+  const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, count, books, nullptr, W, 1, w_bf16,
+                           eta, wd, nhat, m, r, n, b1, b2, eps, alpha, stochastic);
+  return run(false, a, p_int4, g_bf16, L, stream);
 }
 
 extern "C" int galore_fused_adam8_apply_right(const float* P, const uint8_t* Pq, const float* Ps,
@@ -816,10 +1264,19 @@ extern "C" int galore_fused_adam8_apply_right(const float* P, const uint8_t* Pq,
                                               int m, int r, int n, double b1, double b2,
                                               double eps, double alpha, int stochastic,
                                               void* stream) {
-  const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, count, books, nullptr, W, w_bf16, eta,
-                           wd, nhat, m, r, n, b1, b2, eps, alpha, stochastic);
-  return run(true, true, a, p_int4, g_bf16, L, stream);
+  const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, count, books, nullptr, W, 1, w_bf16,
+                           eta, wd, nhat, m, r, n, b1, b2, eps, alpha, stochastic);
+  return run(true, a, p_int4, g_bf16, L, stream);
 }
+
+// 1 where the calling thread's last launch of the four adam8 entry points
+// above copied G or P by the threads (its rows not a multiple of 16 bytes, or
+// its base not 16-byte aligned), 0 where the TMA copied both.
+extern "C" int galore_epilogue_last_copied() { return last_copied; }
+
+// The CTAs a cluster (1, 2 or 4) of the calling thread's last launch of the
+// adam8 entry points.
+extern "C" int galore_epilogue_last_cluster() { return last_cluster; }
 
 // The flat 8-bit Adam update of one leaf: g (numel elements) f32 or bf16
 // (g_bf16 = 1); Mq/Vq (nb, 256) u8 and Ms/Vs (nb,) f32, nb = ⌈numel/256⌉,

@@ -1,8 +1,9 @@
 // A packed int4 projector, decoded while it is staged into shared memory.
-// Included by galore_fused.cu (the fp32-moment kernels) and galore_epilogue.cu
-// (the int8-moment kernel), whose stages share one geometry: kStageK rows of
-// the contraction by kStageW = 128 output columns, a padded row stride of
-// kStageS floats, filled by kStageThreads threads.
+// Included by galore_fused.cu (the fp32-moment kernels), whose stages have
+// this geometry: kStageK rows of the contraction by kStageW = 128 output
+// columns, a padded row stride of kStageS floats, filled by kStageThreads
+// threads; and by galore_epilogue.cu (the int8-moment kernel), which decodes
+// the TMA's copies of the codes in registers with `decode`.
 //
 // The layout is codec.quantize4_axis's (the reference's quant/codec.py): P
 // (kept, r) blocked along the kept axis in blocks of 128 (QBLOCK), codes q

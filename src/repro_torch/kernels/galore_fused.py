@@ -27,7 +27,13 @@ and the plain step for the int8-moment and apply forms).
 Each wrapper counts its launches in ``<wrapper>.launches`` (a plain integer,
 incremented only where the kernel is launched). The fp32-moment wrappers
 launch one kernel for an f32 P and another for an int4 P, and count the
-latter in ``<wrapper>.launches_int4``.
+latter in ``<wrapper>.launches_int4``. The int8-moment kernel copies G and P
+by the TMA, or by its threads what the TMA cannot describe (a row not a
+multiple of 16 bytes, or a base not 16-byte aligned: a slower route; G alone
+where only G's rows defeat it, else both); its four wrappers count the
+launches that copied by the threads in ``<wrapper>.launches_thread_copy``,
+and ``adam8_last_cluster()`` says how many CTAs a thread-block cluster the
+last launch took.
 """
 from __future__ import annotations
 
@@ -320,6 +326,19 @@ def _check8(P, G, Mq, Ms, Vq, Vs, count, right: bool):
     return p_int4, r
 
 
+def _copied8() -> int:
+    """1 where this thread's last int8-moment launch copied G or P by the
+    threads instead of by the TMA, else 0."""
+    return build.entry(_SOURCE8, "galore_epilogue_last_copied", [])()
+
+
+def adam8_last_cluster() -> int:
+    """The CTAs a cluster (1, 2 or 4) of this thread's last int8-moment
+    launch: the kernel spreads each 128-wide slab of the swept axis over
+    them, sized on the host to the grid and the card."""
+    return build.entry(_SOURCE8, "galore_epilogue_last_cluster", [])()
+
+
 def _launch8(symbol, right, P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha, stochastic):
     p_int4, r = _check8(P, G, Mq, Ms, Vq, Vs, count, right)
     m, n = G.shape[-2:]
@@ -383,6 +402,7 @@ def galore_fused_adam8_step(P, G, Mq, Ms, Vq, Vs, count, *, b1=0.9, b2=0.999, ep
     out = _launch8("galore_fused_adam8_left", False, P, G, Mq, Ms, Vq, Vs, count,
                    b1, b2, eps, alpha, stochastic)
     galore_fused_adam8_step.launches += 1
+    galore_fused_adam8_step.launches_thread_copy += _copied8()
     return out, Mq, Ms, Vq, Vs
 
 
@@ -399,6 +419,7 @@ def galore_fused_adam8_step_right(P, G, Mq, Ms, Vq, Vs, count, *, b1=0.9, b2=0.9
     out = _launch8("galore_fused_adam8_right", True, P, G, Mq, Ms, Vq, Vs, count,
                    b1, b2, eps, alpha, stochastic)
     galore_fused_adam8_step_right.launches += 1
+    galore_fused_adam8_step_right.launches_thread_copy += _copied8()
     return out, Mq, Ms, Vq, Vs
 
 
@@ -415,6 +436,7 @@ def galore_fused_adam8_apply_step(P, G, W, Mq, Ms, Vq, Vs, count, *, eta, b1=0.9
     _launch8_apply("galore_fused_adam8_apply_left", False, P, G, W, Mq, Ms, Vq, Vs, count,
                    b1, b2, eps, alpha, eta, wd, stochastic)
     galore_fused_adam8_apply_step.launches += 1
+    galore_fused_adam8_apply_step.launches_thread_copy += _copied8()
     return W, Mq, Ms, Vq, Vs
 
 
@@ -429,6 +451,7 @@ def galore_fused_adam8_apply_step_right(P, G, W, Mq, Ms, Vq, Vs, count, *, eta, 
     _launch8_apply("galore_fused_adam8_apply_right", True, P, G, W, Mq, Ms, Vq, Vs, count,
                    b1, b2, eps, alpha, eta, wd, stochastic)
     galore_fused_adam8_apply_step_right.launches += 1
+    galore_fused_adam8_apply_step_right.launches_thread_copy += _copied8()
     return W, Mq, Ms, Vq, Vs
 
 
@@ -436,6 +459,8 @@ WRAPPERS = (galore_fused_adam_step, galore_fused_adam_step_right,
             galore_fused_adam8_step, galore_fused_adam8_step_right,
             galore_fused_adam_apply_step, galore_fused_adam_apply_step_right,
             galore_fused_adam8_apply_step, galore_fused_adam8_apply_step_right)
+WRAPPERS8 = (galore_fused_adam8_step, galore_fused_adam8_step_right,
+             galore_fused_adam8_apply_step, galore_fused_adam8_apply_step_right)
 
 
 def reset_launch_counts() -> None:
@@ -443,6 +468,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in WRAPPERS[:2] + WRAPPERS[4:6]:  # the fp32-moment forms, int4 P
         fn.launches_int4 = 0
+    for fn in WRAPPERS8:  # the int8-moment forms, operands copied by the threads
+        fn.launches_thread_copy = 0
 
 
 reset_launch_counts()

@@ -898,6 +898,193 @@ def test_cuda_dispatch_composite_route(side, p_int4):
         assert_close(a, b.cpu().numpy(), f"{side} int4 P {p_int4} {name}")
 
 
+# ---------------------------------------------------------------------------
+# the int8-moment kernel at the models' leaves (split TF32 on the tensor
+# cores, TMA-fed, each slab spread over a thread-block cluster)
+# ---------------------------------------------------------------------------
+
+# ((lead..., m, r, n), side): llama_7b's leaves with 2 layers at r = 128 (wq
+# wk wv wo; gate up; down), llama_1b's at the paper's 1B rank r = 512 (gate
+# up's G rows of 5461 bf16 are no multiple of 16 bytes: G by thread copies), r =
+# 256 (two rank chunks: the apply form's N̂ scratch), and a ragged stacked
+# leaf with r = 200 on each side
+CARD8_CASES = [
+    ((2, 4096, 128, 4096), "left"), ((2, 4096, 128, 11008), "left"),
+    ((2, 11008, 128, 4096), "right"),
+    ((2, 2048, 512, 2048), "left"), ((2, 2048, 512, 5461), "left"),
+    ((2, 5461, 512, 2048), "right"),
+    ((2, 4096, 256, 4096), "left"),
+    ((3, 1000, 200, 520), "left"), ((3, 520, 200, 1000), "right"),
+]
+
+
+def _adam8_card_inputs(shape, side, dev, seed):
+    """P (orthonormal columns), the int8 moments of step 7 (what six steps of
+    the plain 8-bit version leave on gradients of unit scale) and an f32 G,
+    all drawn on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lead, (m, r, n) = tuple(shape[:-3]), shape[-3:]
+    left = side == "left"
+    kept, mv = ((m, r), (r, n)) if left else ((n, r), (m, r))
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    P = torch.linalg.qr(rnd(*lead, *kept))[0].contiguous()
+    ax = -1 if left else -2
+    zeros = torch.zeros(*lead, *mv, device=dev)
+    moments = (*codec.quantize_axis(zeros, axis=ax, signed=True),
+               *codec.quantize_axis(zeros, axis=ax, signed=False))
+    plain = ref.galore_fused_adam8_step if left else ref.galore_fused_adam8_step_right
+    for t in range(1, 7):
+        moments = plain(P, rnd(*lead, m, n), *moments,
+                        torch.tensor(t, dtype=torch.int32, device=dev))[1:]
+    return P, [x.contiguous() for x in moments], rnd(*lead, m, n)
+
+
+def _copies8(shape, side, p_int4) -> int:
+    """1 where the int8-moment kernel copies an operand of a bf16-G launch by
+    its threads: a row of G, of an f32 P, or of an int4 P's codes or scales
+    that is no multiple of 16 bytes."""
+    m, r, n = shape[-3:]
+    rows = [2 * n] + ([r, 4 * r] if p_int4 else [4 * r])
+    return int(any(b % 16 for b in rows))
+
+
+def _within(got, want):
+    """|got - want| ≤ 1e-5·max|want| + 1e-5·|want|, and finite, on the card."""
+    tol = 1e-5 * want.abs().max() + 1e-5 * want.abs()
+    return bool(((got - want).abs() <= tol).all()) and bool(torch.isfinite(got).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD8_CASES, ids=lambda c: f"{c[1]}{c[0]}")
+@pytest.mark.parametrize("apply", [False, True], ids=["emit", "apply"])
+@pytest.mark.parametrize("p_int4", [False, True])
+def test_cuda_adam8_kernel_at_model_leaves(case, apply, p_int4):
+    """The int8-moment kernel (emit, or apply with W bf16), G bf16, P f32 or
+    int4, at the models' leaves against its plain version: G̃ and the scales
+    within 1e-5·max|want| + 1e-5·|want|, codes at most 1 apart, W' as the
+    apply checks hold it; two launches on the same inputs bitwise equal; the
+    thread-copy route taken exactly where an operand's rows are no multiple
+    of 16 bytes; each slab spread over a cluster of 2 or 4 CTAs; outputs
+    updated in place."""
+    dev = _cuda_device()
+    shape, side = case
+    right = side == "right"
+    P, moments, G = _adam8_card_inputs(shape, side, dev, seed=sum(shape))
+    G = G.to(torch.bfloat16)
+    if p_int4:
+        P = codec.quant4_axis_state(P)
+    count = torch.tensor(7, dtype=torch.int32, device=dev)
+    name = ("galore_fused_adam8_apply_step" if apply else "galore_fused_adam8_step") + (
+        "_right" if right else "")
+    fn, plain = getattr(tk, name), getattr(tk, name + "_plain")
+    kw, lead = dict(alpha=0.25), ()
+    if apply:
+        kw.update(eta=torch.tensor(-1e-3, device=dev), wd=0.01)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        lead = ((0.02 * torch.randn(*shape[:-3], shape[-3], shape[-1], generator=gen,
+                                    device=dev)).to(torch.bfloat16),)
+    want = plain(P, G, *lead, *moments, count, **kw)
+    runs = []
+    for _ in range(2):
+        ins = [x.clone() for x in lead + tuple(moments)]
+        before = (fn.launches, fn.launches_thread_copy)
+        got = fn(P, G, *ins, count, **kw)
+        torch.cuda.synchronize()
+        assert (fn.launches, fn.launches_thread_copy) == (
+            before[0] + 1, before[1] + _copies8(shape, side, p_int4))
+        # at most 172 slabs: one CTA a slab would leave SMs idle
+        assert tk.adam8_last_cluster() in (2, 4)
+        assert all(a is b for a, b in zip(got[-4:], ins[-4:]))
+        if apply:
+            assert got[0] is ins[0]
+        runs.append(got)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    got = runs[0]
+    tag = f"{side} {shape} {'apply' if apply else 'emit'} int4 P {p_int4}"
+    if apply:
+        assert_weight_close(got[0], want[0], lead[0], f"{tag} W", tol=1e-5, ulps=2)
+    else:
+        assert _within(got[0], want[0]), tag
+    for name_, a, b in zip(["mq", "ms", "vq", "vs"], got[1:], want[1:]):
+        if b.dtype == torch.uint8:
+            assert int((a.int() - b.int()).abs().max()) <= 1, f"{tag} {name_}"
+        else:
+            assert _within(a, b), f"{tag} {name_}"
+
+
+# cluster size -> a stacked leaf the host sends to it, left and right: a kept
+# side of 32 (one 32-deep stage: one CTA a slab), of 64 (two stages: too few
+# for four CTAs, and 16 slabs too few to fill the card alone) and of 640
+# with 16 slabs (a cluster of four fills the card in one wave)
+CLUSTER_CASES = {1: (2, 32, 16, 1000), 2: (2, 64, 48, 1000), 4: (2, 640, 200, 1000)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clusters", [1, 2, 4])
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("apply", [False, True], ids=["emit", "apply"])
+def test_cuda_adam8_each_cluster_size(clusters, side, apply):
+    """The kernel at a stacked leaf that its host sends to 1, 2 or 4 CTAs a
+    cluster (int4 P, stochastic rounding; two rank chunks at C = 4): the
+    launch takes that size, and its results are within the gates of the
+    plain step's."""
+    dev = _cuda_device()
+    L, kept, r, swept = CLUSTER_CASES[clusters]
+    shape = (L, swept, r, kept) if side == "right" else (L, kept, r, swept)
+    P, moments, G = _adam8_card_inputs(shape, side, dev, seed=clusters)
+    P = codec.quant4_axis_state(P)
+    G = G.to(torch.bfloat16)
+    count = torch.tensor(7, dtype=torch.int32, device=dev)
+    name = ("galore_fused_adam8_apply_step" if apply else "galore_fused_adam8_step") + (
+        "_right" if side == "right" else "")
+    kw, lead = dict(alpha=0.25, stochastic=True), ()
+    if apply:
+        kw.update(eta=torch.tensor(-1e-3, device=dev), wd=0.01)
+        lead = ((0.02 * torch.randn(L, shape[-3], shape[-1], device=dev)),)
+    want = getattr(tk, name + "_plain")(P, G, *lead, *moments, count, **kw)
+    ins = [x.clone() for x in lead + tuple(moments)]
+    got = getattr(tk, name)(P, G, *ins, count, **kw)
+    torch.cuda.synchronize()
+    assert tk.adam8_last_cluster() == clusters
+    if apply:
+        assert_weight_close(got[0], want[0], lead[0], "W", tol=1e-5, ulps=2)
+    else:
+        assert _within(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        if b.dtype == torch.uint8:
+            assert int((a.int() - b.int()).abs().max()) <= 1
+        else:
+            assert _within(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_adam8_never_falls_back_at_model_leaves(monkeypatch):
+    """The four int8-moment wrappers at a llama_7b attention leaf and at
+    llama_1b's gate/up leaf (the thread-copy route) launch the kernel: a CUDA
+    tensor never reaches a plain version."""
+    dev = _cuda_device()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    for name in ("galore_fused_adam8_step", "galore_fused_adam8_step_right",
+                 "galore_fused_adam8_apply_step", "galore_fused_adam8_apply_step_right"):
+        monkeypatch.setattr(tk, name + "_plain", refuse)
+    count = torch.tensor(7, dtype=torch.int32, device=dev)
+    for shape, side in (((2, 4096, 128, 4096), "left"), ((2, 2048, 512, 5461), "left"),
+                        ((2, 5461, 512, 2048), "right")):
+        P, moments, G = _adam8_card_inputs(shape, side, dev, seed=1)
+        G = G.to(torch.bfloat16)
+        sfx = "_right" if side == "right" else ""
+        getattr(tk, "galore_fused_adam8_step" + sfx)(P, G, *moments, count)
+        W = torch.zeros(G.shape, dtype=torch.bfloat16, device=dev)
+        getattr(tk, "galore_fused_adam8_apply_step" + sfx)(
+            codec.quant4_axis_state(P), G, W, *moments, count,
+            eta=torch.tensor(-1e-3, device=dev))
+    torch.cuda.synchronize()
+
+
 # (shape of x): test_kernels.py's rmsnorm shapes, a ragged 1000 x 520, and the
 # widest row the kernel takes
 RMSNORM_SHAPES = [(4, 64), (3, 7, 128), (1, 1024), (33, 96), (1000, 520), (2, 8192)]

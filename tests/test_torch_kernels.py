@@ -15,7 +15,7 @@ import numpy as np  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import galore_fused as tk  # noqa: E402
-from test_torch_cuda import SHAPES, assert_close, fused_inputs  # noqa: E402
+from test_torch_cuda import SHAPES, adam8_inputs, assert_close, fused_inputs  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -44,6 +44,33 @@ def test_cpu_wrapper_does_not_count_launches():
     P, G, M, V = (torch.from_numpy(a) for a in fused_inputs((64, 16, 48), "left"))
     tk.galore_fused_adam_step(P, G, M, V, torch.tensor(1, dtype=torch.int32))
     assert tk.galore_fused_adam_step.launches == 0
+
+
+def test_reset_launch_counts_zeroes_every_counter():
+    """ops.reset_launch_counts zeroes every wrapper's counters, the int8-moment
+    wrappers' thread-copy counts among them; the plain versions on CPU
+    tensors count nothing."""
+    from repro_torch.kernels import adam8bit_update, galore_project, ops, rmsnorm
+    counted = [(fn, "launches") for fn in tk.WRAPPERS]
+    counted += [(fn, "launches_int4") for fn in tk.WRAPPERS[:2] + tk.WRAPPERS[4:6]]
+    counted += [(fn, "launches_thread_copy") for fn in tk.WRAPPERS8]
+    counted += [(fn, "launches") for fn in (adam8bit_update.adam8bit_update,
+                                            galore_project.galore_project,
+                                            galore_project.galore_project_back, rmsnorm.rmsnorm)]
+    counted += [(fn, "launches_thread_copy") for fn in (galore_project.galore_project,
+                                                        galore_project.galore_project_back)]
+    assert set(tk.WRAPPERS8) == {tk.galore_fused_adam8_step, tk.galore_fused_adam8_step_right,
+                                 tk.galore_fused_adam8_apply_step,
+                                 tk.galore_fused_adam8_apply_step_right}
+    for fn, attr in counted:
+        setattr(fn, attr, 3)
+    ops.reset_launch_counts()
+    assert all(getattr(fn, attr) == 0 for fn, attr in counted)
+    P, G, moments = adam8_inputs((72, 16, 130), "left")
+    tk.galore_fused_adam8_step(torch.from_numpy(P), torch.from_numpy(G),
+                               *[torch.from_numpy(t.copy()) for t in moments],
+                               torch.tensor(7, dtype=torch.int32))
+    assert all(getattr(fn, attr) == 0 for fn, attr in counted)
 
 
 def _imported_modules(path):
@@ -76,10 +103,14 @@ def test_build_digest_follows_local_headers(tmp_path, monkeypatch):
     """A library is named by the digest of its source and of every local
     header the source includes (transitively), so an edited header rebuilds
     it; a system header (<...>) is not read. Needs no nvcc."""
-    for name in ("galore_fused", "galore_epilogue"):  # both kernels share the int4 staging
-        assert {p.name for p in build._sources(name)} == {f"{name}.cu", "int4_p.cuh"}
-    for name in ("galore_project", "rmsnorm"):  # no local header
-        assert [p.name for p in build._sources(name)] == [f"{name}.cu"]
+    # the int4 P decode is shared by both GaLore-Adam kernels, the split-TF32
+    # wgmma and TMA pieces by the int8-moment kernel and the tiled projections
+    assert {p.name for p in build._sources("galore_fused")} == {"galore_fused.cu", "int4_p.cuh"}
+    assert {p.name for p in build._sources("galore_epilogue")} == {
+        "galore_epilogue.cu", "int4_p.cuh", "tf32_wgmma.cuh"}
+    assert {p.name for p in build._sources("galore_project")} == {
+        "galore_project.cu", "tf32_wgmma.cuh"}
+    assert [p.name for p in build._sources("rmsnorm")] == ["rmsnorm.cu"]  # no local header
     (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint x;\n')
     (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')
     (tmp_path / "b.cuh").write_text("int b = 1;\n")
