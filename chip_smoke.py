@@ -7,22 +7,25 @@ Phases, each timed, none of them optional; any failed check raises:
   1. device: require CUDA, print the card's name and power limit, TF32 off;
   2. build the Hopper kernels from src/repro_torch/csrc with nvcc (sm_90a),
      one nvcc per source, all started together; count the wgmma (HGMMA)
-     instructions of the tiled projections' and the int8-moment kernel's
-     libraries, and fail on none;
+     instructions of the tiled projections' library and of galore_epilogue's
+     (the int8-moment kernel and the fp32-moment apply form), and fail on
+     none;
   3. hold every kernel against its plain PyTorch version on the card at the
      main path's shapes (and r = 1024, and a ragged shape), G in bf16 and
      f32, to 1e-5·max|want| (+ 1e-5·|want|) on G̃, M' and V' — or, for the
      int8-moment kernel, on G̃ and the scales, with codes at most 1 apart,
      P both f32 and packed int4, stochastic rounding on one main shape per
      side, and the int4 launch giving the codes of the host-dequantized-P
-     launch exactly; the weight-apply forms of both kernels likewise, W bf16
-     and f32 (f32 W' - W within 1e-5·max + 2 ulp of W', bf16 W' within one
-     bf16 ulp + the same 1e-5·max), W' bitwise the plain version's
-     wherever the emit form's G̃ is, and W updated in place; the int8-moment
-     kernel also at llama_1b's leaves at the paper's 1B rank r = 512, each
-     of its launches logged with its route (TMA or thread copies) and its
-     cluster size, and two launches on the same inputs bitwise equal; time
-     kernel and plain version with CUDA events;
+     launch exactly; the weight-apply forms (fp32 and int8 moments)
+     likewise, W bf16 and f32 (f32 W' - W within 1e-5·max + 2 ulp of W', bf16
+     W' within one bf16 ulp + the same 1e-5·max), the fp32 form's W' bitwise
+     ref.apply_weight of the kernel's own G̃ (read out by a launch on W = 0,
+     η = 1, wd = 0), the int8 form's bitwise the plain version's wherever
+     its emit form's G̃ is, and W updated in place; galore_epilogue's kernel
+     also at llama_1b's leaves at the paper's 1B rank r = 512, each of its
+     launches logged with its route (TMA or thread copies) and its cluster
+     size, and two launches on the same inputs bitwise equal; time kernel
+     and plain version with CUDA events;
   4. the main path, fused: 8 GaLore-AdamW steps (rank 128, T 4, wd 0.01) of
      llama_7b at full width, 2 layers, bf16, batch 8 × 256 tokens, through
      train_loop; every loss finite, the last below the first, and each fp32
@@ -37,10 +40,11 @@ Phases, each timed, none of them optional; any failed check raises:
      from the tensors within 0.01 % of the analytic galore_state_bytes;
   7. phases 4 and 6 again with the weight update folded into the kernels
      (galore_fused_apply): only the apply kernels launched (48 left, 8
-     right; the int8 one never by thread copies), losses within 5e-2 of the
-     emit phase, state bytes as in 6;
+     right; never by thread copies), losses within 5e-2 of the emit phase,
+     state bytes as in 6;
   8. fp32 moments with packed int4 projectors, emit and apply: only the
-     fp32 kernels' int4-P forms launched (48 left, 8 right each), losses
+     fp32-moment kernels' int4-P forms launched (48 left, 8 right each; the
+     apply form never by thread copies), losses
      within 5e-2 of phase 4 (and of the int4-P emit phase for apply), state
      bytes within 0.01 % of galore_state_bytes;
   9. the paper's 7B rank, r = 1024 (T = 8: one refresh), fp32 fused and
@@ -62,9 +66,9 @@ Phases, each timed, none of them optional; any failed check raises:
      GaLore at r = 1024 beside 8-bit Adam and AdamW, on one line), a JSON
      line of the kernels, the card's name and power limit, and last the
      result line.
-The kernel checks of phase 3 also hold the fp32 kernels' int4-P forms (B1,
-B2 and their apply forms) to the same kernel launched on the host-dequantized
-P, bit for bit; the flat 8-bit Adam kernel to its plain version, codes,
+The kernel checks of phase 3 also hold the fp32-moment kernels' int4-P forms
+(B1, B2 and the apply form) to the same kernel launched on the
+host-dequantized P, bit for bit; the flat 8-bit Adam kernel to its plain version, codes,
 scales and update bit for bit, at the embedding's and an FFN leaf's size and
 a ragged 1000 x 520 leaf; the tiled projections B4 and B5 (split TF32 on
 the tensor cores) at the
@@ -100,7 +104,7 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import galore_fused as gf  # noqa: E402
 from repro_torch.kernels import galore_project as tp  # noqa: E402
 from repro_torch.kernels import rmsnorm as trms  # noqa: E402
-from repro_torch.kernels.ref import lowrank_adam_update  # noqa: E402
+from repro_torch.kernels.ref import apply_weight, lowrank_adam_update  # noqa: E402
 from repro_torch.launch.train import RunConfig, train_loop  # noqa: E402
 from repro_torch.optim.adam8bit import adam8bit_state_bytes  # noqa: E402
 from repro_torch.optim.factory import galore_state_index  # noqa: E402
@@ -131,11 +135,11 @@ KERNELS = {
                         replaces="src/repro/kernels/galore_fused.py:702"),
     "apply_left": dict(name="galore_fused_adam_apply_left",
                        wrapper=gf.galore_fused_adam_apply_step,
-                       plain=gf.galore_fused_adam_apply_step_plain, source=SOURCE,
+                       plain=gf.galore_fused_adam_apply_step_plain, source=SOURCE8,
                        replaces="src/repro/kernels/galore_fused.py:714"),
     "apply_right": dict(name="galore_fused_adam_apply_right",
                         wrapper=gf.galore_fused_adam_apply_step_right,
-                        plain=gf.galore_fused_adam_apply_step_right_plain, source=SOURCE,
+                        plain=gf.galore_fused_adam_apply_step_right_plain, source=SOURCE8,
                         replaces="src/repro/kernels/galore_fused.py:727"),
     "adam8_apply_left": dict(name="galore_fused_adam8_apply_left",
                              wrapper=gf.galore_fused_adam8_apply_step,
@@ -155,11 +159,11 @@ KERNELS = {
                      replaces="src/repro/kernels/galore_fused.py:284"),
     "p4_apply_left": dict(name="galore_fused_adam_apply_left (int4 P)",
                           wrapper=gf.galore_fused_adam_apply_step,
-                          plain=gf.galore_fused_adam_apply_step_plain, source=SOURCE,
+                          plain=gf.galore_fused_adam_apply_step_plain, source=SOURCE8,
                           replaces="src/repro/kernels/galore_fused.py:714"),
     "p4_apply_right": dict(name="galore_fused_adam_apply_right (int4 P)",
                            wrapper=gf.galore_fused_adam_apply_step_right,
-                           plain=gf.galore_fused_adam_apply_step_right_plain, source=SOURCE,
+                           plain=gf.galore_fused_adam_apply_step_right_plain, source=SOURCE8,
                            replaces="src/repro/kernels/galore_fused.py:727"),
     "adam8bit": dict(name="adam8bit_blocks_update", wrapper=a8.adam8bit_update,
                      plain=a8.adam8bit_update_plain, source=SOURCE8,
@@ -190,9 +194,10 @@ SHAPES = [
 ]
 ALPHA, COUNT = 0.25, 7
 ETA, WD = -1e-3, 0.01  # the apply checks' -lr and weight decay
-# the int8-moment kernel runs at the same shapes, and at the leaves of
-# llama_1b (2 layers) at the paper's 1B rank, r = 512, where the reference's
-# fits_vmem holds, so 8-bit GaLore at 1B width runs it with four rank chunks:
+# galore_epilogue's kernel (int8 moments, and the fp32-moment apply form)
+# runs at the same shapes, and at the leaves of llama_1b (2 layers) at the
+# paper's 1B rank, r = 512, where the reference's fits_vmem holds, so 8-bit
+# GaLore and the fp32 apply step at 1B width run it with four rank chunks:
 # wq wk wv wo, gate up (G rows of 5461 bf16 = 10,922 bytes, which the TMA
 # cannot describe) and down; stochastic rounding at one main shape per side
 SHAPES8 = [
@@ -393,16 +398,17 @@ def compare8(got, want, tag, names=("update", "mq", "ms", "vq", "vs")):
     return max(errs), differ / total
 
 
-def route8(copied_before):
-    """The route and cluster of the int8-moment kernel's last launch, for the
-    log: "(TMA, C=2)" or "(thread copies, C=1)"; the thread copies counted
-    since `copied_before` (the four wrappers' launches_thread_copy)."""
-    copied = thread_copies8() > copied_before
-    return f"({'thread copies' if copied else 'TMA'}, C={gf.adam8_last_cluster()})"
+def route(copied_before):
+    """The route and cluster of the last launch of galore_epilogue's GaLore
+    kernel (int8 moments, or the fp32-moment apply form), for the log:
+    "(TMA, C=2)" or "(thread copies, C=1)"; the thread copies counted since
+    `copied_before` (its six wrappers' launches_thread_copy)."""
+    copied = thread_copies() > copied_before
+    return f"({'thread copies' if copied else 'TMA'}, C={gf.epilogue_last_cluster()})"
 
 
-def thread_copies8():
-    return sum(fn.launches_thread_copy for fn in gf.WRAPPERS8)
+def thread_copies():
+    return sum(fn.launches_thread_copy for fn in gf.WRAPPERS_TMA)
 
 
 def check_adam8():
@@ -424,10 +430,10 @@ def check_adam8():
             run = lambda P_, mom_: k["wrapper"](P_, G, *mom_, count, alpha=ALPHA,  # noqa: E731
                                                 stochastic=sr)
             want = k["plain"](Pa, G, *mom, count, alpha=ALPHA, stochastic=sr)
-            before = thread_copies8()
+            before = thread_copies()
             got = run(Pa, [x.clone() for x in mom])
             torch.cuda.synchronize()
-            tag += " " + route8(before)
+            tag += " " + route(before)
             err, share = compare8(got, want, tag)
             again = run(Pa, [x.clone() for x in mom])
             torch.cuda.synchronize()
@@ -498,14 +504,28 @@ def weight_check(got, want, w0, tag):
     return float((g - w).abs().max()), note
 
 
+def own_gt(wrapper, P, G, moments, count):
+    """The fp32-moment apply kernel's own G̃: a launch on an f32 W of zeros
+    with η = 1 and wd = 0 writes W' = 0 + 1·(G̃ + 0·0) = G̃ exactly (the
+    moments are copies)."""
+    out = torch.zeros(G.shape, device="cuda")
+    wrapper(P, G, out, *[x.clone() for x in moments], count, alpha=ALPHA,
+            eta=torch.tensor(1.0, device="cuda"), wd=0.0)
+    return out
+
+
 def check_apply():
-    """The weight-apply forms of both kernels against their plain versions at
-    every SHAPES entry (and SHAPES8 for the int8 kernel), G bf16, W bf16 and
-    f32 (and P f32 and int4 for the int8 kernel). Beside the tolerances, W' must equal the plain version's
-    bit for bit wherever the emit form's G̃ equals the plain G̃ (the two forms
-    share every operation up to the store; the int8 kernel with more than one
-    rank chunk contracts G̃ in another order, so not there), and the wrapper
-    must return W itself, updated in place."""
+    """The weight-apply forms of galore_epilogue's kernel, fp32 and int8
+    moments, against their plain versions at every SHAPES and SHAPES8 entry,
+    G bf16, W bf16 and f32, P f32 and int4. Beside the tolerances: the fp32
+    form's W' must equal ref.apply_weight of the kernel's own G̃ (own_gt) bit
+    for bit, at every rank; the int8 form's W' must equal the plain
+    version's bit for bit wherever its emit form's G̃ equals the plain G̃ (the
+    two forms share every operation up to the store; with more than one rank
+    chunk the apply form contracts G̃ in another order, so not there); two
+    launches on the same inputs are bitwise equal; an int4-P launch equals
+    the launch on the host-dequantized P; and the wrapper returns W itself,
+    updated in place. Each line names the launch's route and cluster size."""
     rows = []
     count = torch.tensor(COUNT, dtype=torch.int32, device="cuda")
     eta = torch.tensor(ETA, device="cuda")
@@ -513,27 +533,44 @@ def check_apply():
     for i, (side, L, m, r, n, main) in enumerate(SHAPES + SHAPES8):
         W32 = 0.02 * torch.randn(L, m, n, generator=torch.Generator(device="cuda").manual_seed(
             200 + i), device="cuda")
-        # fp32 moments: B1/B2 with the apply epilogue (at SHAPES only)
-        if i < len(SHAPES):
-            k, emit = KERNELS["apply_" + side], KERNELS[side]
-            P, G, M, V, _ = kernel_inputs(side, L, m, r, n, torch.bfloat16, seed=i)
-            gt_k = emit["wrapper"](P, G, M.clone(), V.clone(), count, alpha=ALPHA)[0]
-            gt_p = emit["plain"](P, G, M, V, count, alpha=ALPHA)[0]
+        # fp32 moments
+        P, G, M, V, _ = kernel_inputs(side, L, m, r, n, torch.bfloat16, seed=i)
+        P4 = codec.quant4_axis_state(P)
+        P4_host = codec.dequantize4_axis(P4["q"], P4["scale"], P.shape[-2]).contiguous()
+        for p4 in (False, True):
+            key = ("p4_apply_" if p4 else "apply_") + side
+            k, Pa = KERNELS[key], (P4 if p4 else P)
+            gt_own = own_gt(k["wrapper"], Pa, G, (M, V), count)
             for wdt in (torch.bfloat16, torch.float32):
                 W = W32.to(wdt)
                 tag = (f"{k['name']} L={L} (m,r,n)=({m},{r},{n}) G bfloat16 "
                        f"W {str(wdt).removeprefix('torch.')}")
-                want = k["plain"](P, G, W, M, V, count, **hp)
+                want = k["plain"](Pa, G, W, M, V, count, **hp)
                 w0, mine = W.clone(), (M.clone(), V.clone())
-                got = k["wrapper"](P, G, W, *mine, count, **hp)
+                before = thread_copies()
+                got = k["wrapper"](Pa, G, W, *mine, count, **hp)
                 torch.cuda.synchronize()
-                rows.append(apply_row(k, side, L, m, r, n, main, wdt, "f32", False, P, G, W, w0,
-                                      mine, got, want, gt_k, gt_p, tag,
-                                      lambda: k["wrapper"](P, G, W, *mine, count, **hp),
-                                      lambda: k["plain"](P, G, w0, M, V, count, **hp),
-                                      bound(side, L, m, r, n, 2, W.element_size())))
+                tag += " " + route(before)
+                again = k["wrapper"](Pa, G, w0.clone(), M.clone(), V.clone(), count, **hp)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"{tag}: two launches on the same inputs differ")
+                if p4:  # in-kernel int4 dequant == launching with the host-dequantized P
+                    host = k["wrapper"](P4_host, G, w0.clone(), M.clone(), V.clone(), count, **hp)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(got, host)):
+                        raise AssertionError(f"{tag}: differs from the host-dequantized-P launch")
+                    del host
+                del again
+                rows.append(apply_row(key, k, side, L, m, r, n, main, wdt, "int4" if p4 else "f32",
+                                      False, W, w0, mine, got, want, None, None, tag,
+                                      lambda: k["wrapper"](Pa, G, W, *mine, count, **hp),
+                                      lambda: k["plain"](Pa, G, w0, M, V, count, **hp),
+                                      bound(side, L, m, r, n, 2, W.element_size(), p4),
+                                      own=apply_weight(w0, gt_own, eta, WD)))
                 del W, want, got, w0, mine
-            del P, G, M, V, gt_k, gt_p
+            del gt_own
+        del P, P4, P4_host, G, M, V
         # int8 moments: the adam8 kernel with the apply epilogue
         k, emit = KERNELS["adam8_apply_" + side], KERNELS["adam8_" + side]
         P, mom, G32 = adam8_inputs(side, L, m, r, n, seed=100 + i)
@@ -554,10 +591,10 @@ def check_apply():
             gt_p = emit["plain"](Pa, G, *mom, count, alpha=ALPHA, stochastic=sr)[0]
             want = k["plain"](Pa, G, W, *mom, count, stochastic=sr, **hp)
             w0, mine = W.clone(), [x.clone() for x in mom]
-            before = thread_copies8()
+            before = thread_copies()
             got = k["wrapper"](Pa, G, W, *mine, count, stochastic=sr, **hp)
             torch.cuda.synchronize()
-            tag += " " + route8(before)
+            tag += " " + route(before)
             W_2 = w0.clone()
             again = k["wrapper"](Pa, G, W_2, *[x.clone() for x in mom], count, stochastic=sr,
                                  **hp)
@@ -576,8 +613,9 @@ def check_apply():
                 if not torch.equal(W, W_h):
                     raise AssertionError(f"{tag}: W' differs from the host-dequantized-P launch")
                 del W_h, ref_
-            rows.append(apply_row(k, side, L, m, r, n, main, wdt, "int4" if p4 else "f32", sr,
-                                  Pa, G, W, w0, mine, got, want, gt_k, gt_p, tag,
+            rows.append(apply_row("adam8_apply_" + side, k, side, L, m, r, n, main, wdt,
+                                  "int4" if p4 else "f32", sr, W, w0, mine, got, want, gt_k, gt_p,
+                                  tag,
                                   lambda: k["wrapper"](Pa, G, W, *mine, count, stochastic=sr,
                                                        **hp),
                                   lambda: k["plain"](Pa, G, w0, *mom, count, stochastic=sr,
@@ -589,10 +627,11 @@ def check_apply():
     return rows
 
 
-def apply_row(k, side, L, m, r, n, main, wdt, p, sr, P, G, W, w0, mine, got, want, gt_k, gt_p,
-              tag, run, run_plain, bound_):
+def apply_row(key, k, side, L, m, r, n, main, wdt, p, sr, W, w0, mine, got, want, gt_k, gt_p,
+              tag, run, run_plain, bound_, own=None):
     """Check one apply launch (its outputs are `got`, W updated in place from
-    `w0`), time it and its plain version, and return its row."""
+    `w0`; `own`, where given, the W' it must equal bit for bit), time it and
+    its plain version, and return its row."""
     if got[0] is not W or got[0].data_ptr() != W.data_ptr():
         raise AssertionError(f"{tag}: the wrapper did not return W itself")
     w_err, w_note = weight_check(W, want[0], w0, tag)
@@ -614,6 +653,10 @@ def apply_row(k, side, L, m, r, n, main, wdt, p, sr, P, G, W, w0, mine, got, wan
             raise AssertionError(f"{tag}: W' differs from the plain version's where the emit "
                                  f"kernel's G̃ equals the plain G̃")
         same = f"; G̃ bitwise at {float(eq.float().mean()):.1%}, W' bitwise there"
+    if own is not None:
+        if not torch.equal(W, own):
+            raise AssertionError(f"{tag}: W' differs from ref.apply_weight of the kernel's own G̃")
+        same = "; W' bitwise ref.apply_weight of its own G̃; two launches equal"
     ms = cuda_ms(run, 3, 10)
     plain_ms = cuda_ms(run_plain, 2, 5)
     b_s, b_by, b_f32 = bound_
@@ -621,7 +664,6 @@ def apply_row(k, side, L, m, r, n, main, wdt, p, sr, P, G, W, w0, mine, got, wan
         f"{f', codes differing {share:.2e}' if len(want) == 5 else ''}{same}; in place ok  "
         f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {b_s * 1e3:.3f} ms ({b_by}; "
         f"{b_s / ms * 1e5:.0f} % of it; f32-FMA {b_f32 * 1e3:.3f})")
-    key = ("adam8_apply_" if len(want) == 5 else "apply_") + side
     return dict(kernel=key, side=side, L=L, m=m, r=r, n=n, g_dtype="bfloat16",
                 w_dtype=str(wdt).removeprefix("torch."), p=p, stochastic=sr, main_path=main,
                 max_abs_err=w_err, moment_err=mom_err, codes_differ=share, ms=ms,
@@ -634,8 +676,9 @@ def check_int4p():
     f32 for the apply forms): G̃ (or W'), M' and V' bit for bit those of the
     same kernel launched on the host-dequantized f32 P — only the staging
     differs — and within the f32-P kernel's tolerances of the plain version
-    (1e-5·max on G̃, M', V'; W' as in check_apply). Times the int4-P launch,
-    the f32-P launch on the same data, and the plain version."""
+    (1e-5·max on G̃, M', V'; W' as in check_apply, and bit for bit
+    ref.apply_weight of the kernel's own G̃). Times the int4-P launch, the
+    f32-P launch on the same data, and the plain version."""
     rows = []
     count = torch.tensor(COUNT, dtype=torch.int32, device="cuda")
     eta = torch.tensor(ETA, device="cuda")
@@ -660,7 +703,18 @@ def check_int4p():
                 ins = tuple(x.clone() for x in lead) + (M.clone(), V.clone())
                 return k["wrapper"](P_, G, *ins, count, **kw)
 
-            got, host = launch(P4), launch(P_host)
+            before = thread_copies()
+            got = launch(P4)
+            torch.cuda.synchronize()
+            own = ""
+            if W is not None:  # galore_epilogue's kernel: its route and cluster size
+                tag += " " + route(before)
+                if not torch.equal(got[0], apply_weight(W, own_gt(k["wrapper"], P4, G, (M, V),
+                                                                  count), eta, WD)):
+                    raise AssertionError(f"{tag}: W' differs from ref.apply_weight of the "
+                                         f"kernel's own G̃")
+                own = "; W' bitwise ref.apply_weight of its own G̃"
+            host = launch(P_host)
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(got, host)):
                 raise AssertionError(f"{tag}: differs from the launch on the host-dequantized P")
@@ -687,7 +741,7 @@ def check_int4p():
                              moment_err=max(errs[1:]), ms=ms, ms_f32_p=ms_f32p, plain_ms=plain_ms,
                              bound_ms=b_s * 1e3, bound_by=b_by))
             what = "G̃" if W is None else "W'"
-            log(f"[kernels] {tag}: equal to the host-dequantized-P launch; vs plain max|err| "
+            log(f"[kernels] {tag}: equal to the host-dequantized-P launch{own}; vs plain max|err| "
                 f"{what}/M'/V' {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} ok  kernel {ms:.3f} ms (f32 P "
                 f"{ms_f32p:.3f})  plain {plain_ms:.3f} ms  bound {b_s * 1e3:.3f} ms ({b_by}; "
                 f"f32-FMA {b_f32 * 1e3:.3f})")
@@ -955,7 +1009,7 @@ def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=
     launches = {key: getattr(fn, attr) for key, (fn, attr) in COUNTERS.items()}
     thread_copy = sum(fn.launches_thread_copy for fn in (tp.galore_project,
                                                          tp.galore_project_back))
-    thread_copy8 = thread_copies8()
+    thread_copy_epilogue = thread_copies()
     peak = torch.cuda.max_memory_allocated()
     state = opt_state[galore_state_index(tc)]
     quantized = None
@@ -975,7 +1029,7 @@ def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"non-finite loss: {losses}")
     return dict(losses=losses, times=times, launches=launches, thread_copy=thread_copy,
-                thread_copy8=thread_copy8, peak=peak, galore=galore,
+                thread_copy_epilogue=thread_copy_epilogue, peak=peak, galore=galore,
                 update_freq=update_freq, state_bytes=state_bytes, analytic_bytes=analytic,
                 quantized_leaves=quantized)
 
@@ -1021,10 +1075,12 @@ def main():
             for line in report.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"[build] {path.name.split('-')[0]}: {line.strip()}")
-    # the tiled projections and the int8-moment kernel run on the tensor
-    # cores: count their wgmma (HGMMA) instructions in each library's SASS
+    # the tiled projections and galore_epilogue's GaLore kernel run on the
+    # tensor cores: count their wgmma (HGMMA) instructions in each library's
+    # SASS
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
-    for name, what in (("galore_project", "B4/B5"), ("galore_epilogue", "the int8-moment kernel")):
+    for name, what in (("galore_project", "B4/B5"),
+                       ("galore_epilogue", "the int8-moment and fp32-apply kernel")):
         sass = subprocess.run([cuobjdump, "-sass", str(libs[name])], capture_output=True,
                               text=True, check=True, timeout=120).stdout
         hgmma = sum(" HGMMA." in line for line in sass.splitlines())
@@ -1076,9 +1132,9 @@ def main():
     if q8["launches"] != dict(none, adam8_left=48, adam8_right=8):
         raise AssertionError(f"8-bit path launches {q8['launches']}, want adam8 left 48, "
                              f"right 8, no fp32 kernel")
-    if q8["thread_copy8"] != 0:
-        raise AssertionError(f"8-bit path: {q8['thread_copy8']} int8-kernel launches copied "
-                             f"their operands by the threads instead of by the TMA")
+    if q8["thread_copy_epilogue"] != 0:
+        raise AssertionError(f"8-bit path: {q8['thread_copy_epilogue']} int8-kernel launches "
+                             f"copied their operands by the threads instead of by the TMA")
     gap8 = max(abs(a - b) for a, b in zip(fused["losses"], q8["losses"]))
     if gap8 > 5e-2:
         raise AssertionError(f"8-bit vs fp32 fused losses differ by {gap8:.3e} > 5e-2")
@@ -1106,11 +1162,12 @@ def main():
             raise AssertionError(f"{tag} launches {ph['launches']}, want only "
                                  f"{[k for k, v in want.items() if v]}, left 48 (6 leaves × 8 "
                                  f"steps) and right 8")
-        # every leaf's operands have 16-byte rows: the int8 kernel copies them
-        # by the TMA
-        if ph["thread_copy8"] != 0:
-            raise AssertionError(f"{tag}: {ph['thread_copy8']} int8-kernel launches copied "
-                                 f"their operands by the threads instead of by the TMA")
+        # every leaf's operands have 16-byte rows: galore_epilogue's kernel (the
+        # int8 and fp32-apply phases) copies them by the TMA
+        if ph["thread_copy_epilogue"] != 0:
+            raise AssertionError(f"{tag}: {ph['thread_copy_epilogue']} launches of "
+                                 f"galore_epilogue's kernel copied their operands by the threads "
+                                 f"instead of by the TMA")
         gap = max(abs(a - b) for a, b in zip(ph["losses"], phases[emit_tag]["losses"]))
         if gap > 5e-2:
             raise AssertionError(f"{tag} vs {emit_tag} losses differ by {gap:.3e} > 5e-2")

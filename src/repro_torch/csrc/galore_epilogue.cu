@@ -1,28 +1,34 @@
-// Fused GaLore-Adam leaf step with int8 moments for Hopper (sm_90a): one
-// kernel, a left and a right form, P either f32 or packed int4, emitting G̃
-// or folding it into the weight. After adam8_kernel, the same dequant →
-// Adam → requant without the projection: the flat 8-bit Adam update
-// (adam8bit_blocks_update), described there.
+// Fused GaLore-Adam leaf step for Hopper (sm_90a): one kernel,
+// lowrank_adam_kernel, a left and a right form, P either f32 or packed int4,
+// with its moments in one of two stores: int8 codes with per-block scales
+// (emitting G̃ or folding it into the weight), or f32 M and V (folding it
+// into the weight). After it, the same dequant → Adam → requant without the
+// projection: the flat 8-bit Adam update (adam8bit_blocks_update), described
+// there.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/galore_fused.py
-// `_fused_epilogue_call` (body `_epilogue_kernel`) in its int8-moment variants,
-// reached through `galore_fused_adam8_step` / `galore_fused_adam8_step_right`
-// and, with `apply_w`, `galore_fused_adam8_apply_step[_right]`, with
+// `_fused_epilogue_call` (body `_epilogue_kernel`) in its int8-moment
+// variants, reached through `galore_fused_adam8_step[_right]` and, with
+// `apply_w`, `galore_fused_adam8_apply_step[_right]`, and in its fp32-moment
+// apply variant, `galore_fused_adam_apply_step[_right]` (:714/:727), each with
 // `quant_p` (a packed int4 P) or an f32 P:
 //   galore_fused_adam8_left   R = Pᵀ G   (P (m, r), moments (r, n), blocks along n)
 //   galore_fused_adam8_right  R = G P    (P (n, r), moments (m, r), blocks along m)
 //   galore_fused_adam8_apply_left / _right: the same, then W' = W + eta (G̃ + wd W)
 //     in place of writing G̃ (W f32 or bf16, eta on the device)
+//   galore_fused_adam_apply_left / _right: the apply form with f32 moments
 // then, per element of R:
-//   M = book_s[Mq] * Ms,  V = book_u[Vq] * Vs          (dequant, f32)
+//   int8:  M = book_s[Mq] * Ms,  V = book_u[Vq] * Vs    (dequant, f32)
+//   f32:   M, V as stored
 //   M' = b1 M + (1-b1) R,  V' = b2 V + (1-b2) R²        (0 past the long dim)
 //   N̂ = (M'/c1) / (sqrt(V'/c2) + eps),  c_i = 1 - b_i^count
-//   absmax over each 128-block of the swept axis, + 1e-12
-//   Mq', Vq' = nearest code of M'/absmax (or stochastic rounding), in place
+//   int8:  absmax over each 128-block of the swept axis, + 1e-12;
+//          Mq', Vq' = nearest code of M'/absmax (or stochastic rounding)
+//   f32:   M', V' stored
 //   G̃ = alpha P N̂ (left) or alpha N̂ Pᵀ (right), f32
-// Codes and scales are updated in place, as the Pallas aliasing does; the
-// wrapper allocates only G̃ (and, for the apply form with r > 128, the N̂
-// scratch below).
+// The moments are updated in place, as the Pallas aliasing does; the wrapper
+// allocates only G̃ (and, for the apply form with r > 128, the N̂ scratch
+// below). c1 and c2 come from powf of the count read on the device.
 //
 // What bounds it on an H100. At the main path's largest left leaf,
 // (L, m, r, n) = (2, 4096, 128, 11008) with bf16 G and int4 P, one launch
@@ -30,7 +36,8 @@
 // 0.6 MB ≈ 553 MB (0.165 ms at 3.35 TB/s) and does 4·L·m·r·n = 46.2 GFLOP in
 // its two contractions: 0.69 ms on the f32 FMA pipes at 67 TFLOP/s, 0.23 ms
 // as split TF32 on the tensor cores (R in two passes with a bf16 G, G̃ in
-// three, at 495 TFLOP/s). Operations bound it, on the tensor cores.
+// three, at 495 TFLOP/s). The f32 store moves 45 MB of moments (read and
+// written) instead of 11. Operations bound it, on the tensor cores.
 //
 // Design: one formulation for both sides. The right leaf is the left one on
 // swapped views: Rᵀ = Pᵀ Gᵀ (G read transposed: K-major) and G̃ᵀ = α P N̂ᵀ
@@ -42,7 +49,9 @@
 //   spread over a thread-block cluster of C ∈ {1, 2, 4} CTAs (256 threads,
 //   two warpgroups, one CTA an SM), C chosen on the host from the number of
 //   slabs and the clusters the card holds at once, so that e.g. the 64
-//   slabs of the 4096 x 4096 leaves fill the card. Per rank chunk of 128:
+//   slabs of the 4096 x 4096 leaves fill the card. The f32 store needs no
+//   block-wide value, but takes the same unit: the contractions are the same.
+//   Per rank chunk of 128:
 //   1. Partial R_c = P_cᵀ G_slab over the CTA's 1/C of the kept axis: split
 //      TF32 on wgmma.m64n128k8, P the register operand (an f32 P split in
 //      registers; an int4 P's codes and scales copied in by the TMA and
@@ -56,9 +65,10 @@
 //      rank rows and sums them from every CTA of the cluster over
 //      distributed shared memory (mapa + ld.shared::cluster), in CTA order,
 //      so two launches are bitwise equal.
-//   3. dequant → Adam → absmax → requant on the owned rows, in shared
-//      memory, with the codec's explicitly rounded f32 operations (below);
-//      only the owner writes a row's codes and scales. N̂ replaces R.
+//   3. The moment update on the owned rows, in shared memory, with
+//      explicitly rounded f32 operations in the plain version's order
+//      (below): dequant → Adam → absmax → requant, or Adam alone; only the
+//      owner writes a row's moments. N̂ replaces R.
 //   4. Each CTA splits N̂_c once into K-major hi/lo tiles, its own rows from
 //      its shared memory and the others from their owners' over
 //      distributed shared memory, and computes the G̃ tiles of its 1/C of
@@ -86,9 +96,10 @@
 // below x, found by binary search over the 255 midpoints in shared memory;
 // the stochastic coin is sr_uniform(ravel index, count, salt) in uint32. The
 // elementwise math uses explicitly rounded f32 operations in the codec's
-// order (no FMA contraction), so for equal R the codes are the plain
-// version's bit for bit; only the contractions' summation order differs. W'
-// is bitwise the plain version's wherever the emit form's G̃ is.
+// and ref.lowrank_adam_update's order (no FMA contraction), so for equal R
+// the codes (or M', V') are the plain version's bit for bit; only the
+// contractions' summation order differs. W' is bitwise ref.apply_weight of
+// the kernel's own G̃, which a launch on W = 0 (f32), η = 1, wd = 0 reads out.
 // An operand the TMA cannot describe (rows not a multiple of 16 bytes, or a
 // base not 16-byte aligned) is copied by the threads into the same layouts:
 // a G of odd bf16 rows alone, leaving P on the TMA; a P (or an int4 P's
@@ -128,6 +139,8 @@ struct Args {
   float* Ms;           // scales, left (L, r, ⌈n/128⌉), right (L, ⌈m/128⌉, r); in place
   uint8_t* Vq;
   float* Vs;
+  float* M;            // f32 moments, left (L, r, n), right (L, m, r); in place
+  float* V;
   const int* count;    // the step number, on the device
   const float* books;  // 528 floats: signed, unsigned and int4 codebooks
   float* out;          // emit: G̃ (L, m, n) f32
@@ -366,9 +379,10 @@ __device__ __forceinline__ void fill_codes_b(uint8_t* raw, const P4& p, int m0, 
     sc[i] = kg + i < p.cols ? p.s[(size_t)(m0 / kT) * p.cols + kg + i] : 0.f;
 }
 
-template <bool kRight, bool kP4, typename GT>
+// kQ8: the moments as int8 codes and scales (else f32 M and V)
+template <bool kRight, bool kP4, bool kQ8, typename GT>
 __global__ void __launch_bounds__(kThreads, 1)
-    adam8_kernel(const __grid_constant__ Maps maps, const Args a) {
+    lowrank_adam_kernel(const __grid_constant__ Maps maps, const Args a) {
   using S = Layout<GT, kP4>;
   using OpG = Operand<kRight, GT>;     // contraction 1's B: the G slab (kept x swept)
   using OpPa = Operand<false, float>;  // contraction 1's A: Pᵀ of an f32 P stored (kept, r)
@@ -818,23 +832,64 @@ __global__ void __launch_bounds__(kThreads, 1)
         T[tix(row0 + e / kT, e % kT)] = sum[u];
       }
     }
-    // the codebooks and midpoints, in X (contraction 1's ring is drained)
+    // the int8 store's codebooks and midpoints, in X (contraction 1's ring
+    // is drained)
     float* book_s = reinterpret_cast<float*>(X);
     float* book_u = book_s + 256;
     float* mids_s = book_s + 512;
     float* mids_u = book_s + 768;
     float* red = book_s + 1024;  // 2 x 8 warps x 32 absmax partials (right side)
-    for (int i = tid; i < 512; i += kThreads) book_s[i] = a.books[i];
-    __syncthreads();
-    for (int i = tid; i < 255; i += kThreads) {
-      mids_s[i] = __fdiv_rn(__fadd_rn(book_s[i], book_s[i + 1]), 2.f);
-      mids_u[i] = __fdiv_rn(__fadd_rn(book_u[i], book_u[i + 1]), 2.f);
+    if (kQ8) {
+      for (int i = tid; i < 512; i += kThreads) book_s[i] = a.books[i];
+      __syncthreads();
+      for (int i = tid; i < 255; i += kThreads) {
+        mids_s[i] = __fdiv_rn(__fadd_rn(book_s[i], book_s[i + 1]), 2.f);
+        mids_u[i] = __fdiv_rn(__fadd_rn(book_u[i], book_u[i + 1]), 2.f);
+      }
     }
-    __syncthreads();
+    __syncthreads();  // the owned rows of R_c (and the midpoints) are in place
 
-    // ---- 3. dequant -> Adam -> requant on the owned rows; N̂ replaces R
-    // (0 outside the leaf); with keep_nhat N̂ also goes to the scratch
-    if (!kRight) {
+    // ---- 3. the moment update on the owned rows; N̂ replaces R (0 outside
+    // the leaf); with keep_nhat N̂ also goes to the scratch
+    if constexpr (!kQ8) {
+      // f32 M and V in place. A warp takes 32 swept columns of one rank row
+      // on the left (M's rows run along n), 32 rank rows at one swept
+      // position on the right (along r): 128 contiguous bytes either way.
+      // Each thread loads a batch's moments before it updates any.
+      constexpr int kB = 8;
+      const int per = nr * kT / kThreads;  // 64, 32 or 16: whole batches
+      for (int u0 = 0; u0 < per; u0 += kB) {
+        int ti[kB];
+        size_t off[kB];
+        float mo[kB], vo[kB];
+#pragma unroll
+        for (int b = 0; b < kB; ++b) {
+          const int u = tid + kThreads * (u0 + b);
+          const int i = row0 + (kRight ? u % 32 + 32 * (u / (32 * kT)) : u / kT);
+          const int j = kRight ? u / 32 % kT : u % kT;
+          const int rk = rc0 + i, sw = s0 + j;
+          ti[b] = tix(i, j);
+          off[b] = rk < r && sw < swept
+                       ? mom0 + (kRight ? (size_t)sw * r + rk : (size_t)rk * n + sw)
+                       : ~(size_t)0;
+          mo[b] = off[b] != ~(size_t)0 ? a.M[off[b]] : 0.f;
+          vo[b] = off[b] != ~(size_t)0 ? a.V[off[b]] : 0.f;
+        }
+#pragma unroll
+        for (int b = 0; b < kB; ++b) {
+          float nh = 0.f;
+          if (off[b] != ~(size_t)0) {
+            float mn, vn;
+            adam_moments(co, mo[b], vo[b], T[ti[b]], &mn, &vn);
+            a.M[off[b]] = mn;
+            a.V[off[b]] = vn;
+            nh = adam_step(co, mn, vn);
+            if (keep_nhat) a.nhat[off[b]] = nh;
+          }
+          T[ti[b]] = nh;
+        }
+      }
+    } else if (!kRight) {
       // a warp per rank row (its quantization block is the row's 128
       // columns), a lane per 4 columns
       for (int ii = warp; ii < nr; ii += kThreads / 32) {
@@ -969,7 +1024,7 @@ int sm_count() {
 //   update = (M'/c1) / (sqrt(V'/c2) + eps), in g's dtype  (none past numel)
 //   Ms'[b] = max |M'| over the block + 1e-12, Mq' = searchsorted(mids, M'/Ms')
 // with the codec's nearest-code rule and explicitly rounded f32 operations in
-// the plain version's order, as in adam8_kernel: for equal inputs codes,
+// the plain version's order, as in lowrank_adam_kernel: for equal inputs codes,
 // scales and the update are the plain version's bit for bit. The state is
 // padded to whole blocks as the codec pads it; g and the update are not: the
 // last block's tail is masked.
@@ -1055,8 +1110,9 @@ cudaError_t launch_flat(const void* g, long long numel, uint8_t* mq, float* ms, 
   return cudaGetLastError();
 }
 
-// 1 where this host thread's last adam8 launch copied an operand by the
-// threads instead of by the TMA, else 0; and the CTAs a cluster it took.
+// 1 where this host thread's last launch of lowrank_adam_kernel copied an
+// operand by the threads instead of by the TMA, else 0; and the CTAs a
+// cluster it took.
 thread_local int last_copied = 0;
 thread_local int last_cluster = 0;
 
@@ -1083,10 +1139,10 @@ int active_clusters(K kernel, int C, int bytes) {
   return count;
 }
 
-template <bool kRight, bool kP4, typename GT>
+template <bool kRight, bool kP4, bool kQ8, typename GT>
 cudaError_t launch(Args a, int L, cudaStream_t stream) {
   using S = Layout<GT, kP4>;
-  auto kernel = adam8_kernel<kRight, kP4, GT>;
+  auto kernel = lowrank_adam_kernel<kRight, kP4, kQ8, GT>;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -1179,32 +1235,36 @@ cudaError_t launch(Args a, int L, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool kRight>
+template <bool kRight, bool kQ8>
 cudaError_t dispatch(const Args& a, int p_int4, int g_bf16, int L, cudaStream_t s) {
   if (L <= 0 || a.m <= 0 || a.r <= 0 || a.n <= 0 || L > 65535) return cudaErrorInvalidValue;
   if (a.apply && a.r > kT && a.nhat == nullptr) return cudaErrorInvalidValue;
   if (p_int4) {
-    return g_bf16 ? launch<kRight, true, __nv_bfloat16>(a, L, s)
-                  : launch<kRight, true, float>(a, L, s);
+    return g_bf16 ? launch<kRight, true, kQ8, __nv_bfloat16>(a, L, s)
+                  : launch<kRight, true, kQ8, float>(a, L, s);
   }
-  return g_bf16 ? launch<kRight, false, __nv_bfloat16>(a, L, s)
-                : launch<kRight, false, float>(a, L, s);
+  return g_bf16 ? launch<kRight, false, kQ8, __nv_bfloat16>(a, L, s)
+                : launch<kRight, false, kQ8, float>(a, L, s);
 }
 
-int run(bool right, const Args& a, int p_int4, int g_bf16, int L, void* stream) {
+// q8: the moments are int8 codes and scales (Mq .. Vs), else f32 (M, V)
+int run(bool right, bool q8, const Args& a, int p_int4, int g_bf16, int L, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(right ? dispatch<true>(a, p_int4, g_bf16, L, s)
-                     : dispatch<false>(a, p_int4, g_bf16, L, s));
+  if (q8)
+    return (int)(right ? dispatch<true, true>(a, p_int4, g_bf16, L, s)
+                       : dispatch<false, true>(a, p_int4, g_bf16, L, s));
+  return (int)(right ? dispatch<true, false>(a, p_int4, g_bf16, L, s)
+                     : dispatch<false, false>(a, p_int4, g_bf16, L, s));
 }
 
 Args make_args(const float* P, const uint8_t* Pq, const float* Ps, const void* G, uint8_t* Mq,
-               float* Ms, uint8_t* Vq, float* Vs, const int* count, const float* books,
-               float* out, void* W, int apply, int w_bf16, const float* eta, double wd,
-               float* nhat, int m, int r, int n, double b1, double b2, double eps, double alpha,
-               int stochastic) {
-  return Args{P, Pq, Ps, G, Mq, Ms, Vq, Vs, count, books, out, W, apply, w_bf16, 0, 0, 0, eta,
-              (float)wd, nhat, m, r, n, stochastic, (float)b1, (float)(1.0 - b1), (float)b2,
-              (float)(1.0 - b2), (float)eps, (float)alpha};
+               float* Ms, uint8_t* Vq, float* Vs, float* M, float* V, const int* count,
+               const float* books, float* out, void* W, int apply, int w_bf16, const float* eta,
+               double wd, float* nhat, int m, int r, int n, double b1, double b2, double eps,
+               double alpha, int stochastic) {
+  return Args{P, Pq, Ps, G, Mq, Ms, Vq, Vs, M, V, count, books, out, W, apply, w_bf16, 0, 0, 0,
+              eta, (float)wd, nhat, m, r, n, stochastic, (float)b1, (float)(1.0 - b1),
+              (float)b2, (float)(1.0 - b2), (float)eps, (float)alpha};
 }
 
 }  // namespace
@@ -1220,9 +1280,10 @@ extern "C" int galore_fused_adam8_left(const float* P, const uint8_t* Pq, const 
                                        const float* books, float* out, int L, int m, int r, int n,
                                        double b1, double b2, double eps, double alpha,
                                        int stochastic, void* stream) {
-  const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, count, books, out, nullptr, 0, 0,
-                           nullptr, 0.0, nullptr, m, r, n, b1, b2, eps, alpha, stochastic);
-  return run(false, a, p_int4, g_bf16, L, stream);
+  const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, nullptr, nullptr, count, books, out,
+                           nullptr, 0, 0, nullptr, 0.0, nullptr, m, r, n, b1, b2, eps, alpha,
+                           stochastic);
+  return run(false, true, a, p_int4, g_bf16, L, stream);
 }
 
 // P: f32 (L, n, r), or Pq (L, n_pad/2, r) and Ps (L, ⌈n/128⌉, r); G (L, m, n);
@@ -1234,9 +1295,10 @@ extern "C" int galore_fused_adam8_right(const float* P, const uint8_t* Pq, const
                                         const float* books, float* out, int L, int m, int r, int n,
                                         double b1, double b2, double eps, double alpha,
                                         int stochastic, void* stream) {
-  const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, count, books, out, nullptr, 0, 0,
-                           nullptr, 0.0, nullptr, m, r, n, b1, b2, eps, alpha, stochastic);
-  return run(true, a, p_int4, g_bf16, L, stream);
+  const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, nullptr, nullptr, count, books, out,
+                           nullptr, 0, 0, nullptr, 0.0, nullptr, m, r, n, b1, b2, eps, alpha,
+                           stochastic);
+  return run(true, true, a, p_int4, g_bf16, L, stream);
 }
 
 // The apply forms: as above, with W (L, m, n) f32 or bf16 (w_bf16 = 1) updated
@@ -1251,9 +1313,10 @@ extern "C" int galore_fused_adam8_apply_left(const float* P, const uint8_t* Pq, 
                                              int m, int r, int n, double b1, double b2,
                                              double eps, double alpha, int stochastic,
                                              void* stream) {
-  const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, count, books, nullptr, W, 1, w_bf16,
-                           eta, wd, nhat, m, r, n, b1, b2, eps, alpha, stochastic);
-  return run(false, a, p_int4, g_bf16, L, stream);
+  const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, nullptr, nullptr, count, books,
+                           nullptr, W, 1, w_bf16, eta, wd, nhat, m, r, n, b1, b2, eps, alpha,
+                           stochastic);
+  return run(false, true, a, p_int4, g_bf16, L, stream);
 }
 
 extern "C" int galore_fused_adam8_apply_right(const float* P, const uint8_t* Pq, const float* Ps,
@@ -1264,18 +1327,46 @@ extern "C" int galore_fused_adam8_apply_right(const float* P, const uint8_t* Pq,
                                               int m, int r, int n, double b1, double b2,
                                               double eps, double alpha, int stochastic,
                                               void* stream) {
-  const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, count, books, nullptr, W, 1, w_bf16,
-                           eta, wd, nhat, m, r, n, b1, b2, eps, alpha, stochastic);
-  return run(true, a, p_int4, g_bf16, L, stream);
+  const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, nullptr, nullptr, count, books,
+                           nullptr, W, 1, w_bf16, eta, wd, nhat, m, r, n, b1, b2, eps, alpha,
+                           stochastic);
+  return run(true, true, a, p_int4, g_bf16, L, stream);
 }
 
-// 1 where the calling thread's last launch of the four adam8 entry points
+// The fp32-moment apply forms: P, Pq, Ps, p_int4 and books as above; G (L,
+// m, n) f32 or bf16; W (L, m, n) f32 or bf16 (w_bf16 = 1) updated in place to
+// W + eta (G̃ + wd W); M/V f32, left (L, r, n), right (L, m, r), updated in
+// place; count -> int32 and eta -> one f32 on the device; nhat -> f32
+// scratch of the moments' shape, needed only when r > 128 (null otherwise).
+extern "C" int galore_fused_adam_apply_left(const float* P, const uint8_t* Pq, const float* Ps,
+                                            int p_int4, const float* books, const void* G,
+                                            int g_bf16, void* W, int w_bf16, float* M, float* V,
+                                            const int* count, const float* eta, double wd,
+                                            float* nhat, int L, int m, int r, int n, double b1,
+                                            double b2, double eps, double alpha, void* stream) {
+  const Args a = make_args(P, Pq, Ps, G, nullptr, nullptr, nullptr, nullptr, M, V, count, books,
+                           nullptr, W, 1, w_bf16, eta, wd, nhat, m, r, n, b1, b2, eps, alpha, 0);
+  return run(false, false, a, p_int4, g_bf16, L, stream);
+}
+
+extern "C" int galore_fused_adam_apply_right(const float* P, const uint8_t* Pq, const float* Ps,
+                                             int p_int4, const float* books, const void* G,
+                                             int g_bf16, void* W, int w_bf16, float* M, float* V,
+                                             const int* count, const float* eta, double wd,
+                                             float* nhat, int L, int m, int r, int n, double b1,
+                                             double b2, double eps, double alpha, void* stream) {
+  const Args a = make_args(P, Pq, Ps, G, nullptr, nullptr, nullptr, nullptr, M, V, count, books,
+                           nullptr, W, 1, w_bf16, eta, wd, nhat, m, r, n, b1, b2, eps, alpha, 0);
+  return run(true, false, a, p_int4, g_bf16, L, stream);
+}
+
+// 1 where the calling thread's last launch of the six GaLore entry points
 // above copied G or P by the threads (its rows not a multiple of 16 bytes, or
 // its base not 16-byte aligned), 0 where the TMA copied both.
 extern "C" int galore_epilogue_last_copied() { return last_copied; }
 
 // The CTAs a cluster (1, 2 or 4) of the calling thread's last launch of the
-// adam8 entry points.
+// six GaLore entry points.
 extern "C" int galore_epilogue_last_cluster() { return last_cluster; }
 
 // The flat 8-bit Adam update of one leaf: g (numel elements) f32 or bf16

@@ -1,14 +1,14 @@
-// Fused GaLore-Adam leaf step for Hopper (sm_90a), one kernel per side, in
-// an emit form (writes G̃) and a weight-apply form (updates W in place).
+// Fused GaLore-Adam leaf step for Hopper (sm_90a) in its emit form (writes
+// G̃), one kernel per side; SIMT, f32 FMA.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/galore_fused.py:
 //   galore_fused_adam_step        (_fused_kernel)       -> galore_fused_adam_left
 //   galore_fused_adam_step_right  (_fused_right_kernel) -> galore_fused_adam_right
-//   galore_fused_adam_apply_step[_right] (_fused_epilogue_call with apply_w,
-//     fp32 moments)            -> galore_fused_adam_apply_left / _right
-// each with P either f32 or the packed int4 qstate (the fp32-moment variants of
-// `_fused_epilogue_call` with quant_p, reached through the same four
-// functions when P is a qstate).
+// each with P either f32 or the packed int4 qstate (the fp32-moment emit
+// variants of `_fused_epilogue_call` with quant_p, reached through the same
+// two functions when P is a qstate). The weight-apply forms with fp32
+// moments (`galore_fused_adam_apply_step[_right]`) are galore_epilogue.cu's
+// lowrank_adam_kernel, on the tensor cores.
 //
 // Left side (m <= n), per stacked leaf l:
 //   R  = Pᵀ G                         P (m, r) f32, G (m, n) f32 or bf16
@@ -18,15 +18,6 @@
 // Right side (m > n) is the transpose: P (n, r), M/V (m, r), R = G P,
 // G̃ = alpha N̂ Pᵀ. `count` is read from device memory, so no leaf forces a
 // host sync; c1/c2 are computed here in f32 as the reference does.
-// The apply form replaces the store of G̃ by W' = W + eta (G̃ + wd W), W f32 or
-// bf16 (a template parameter) and updated in place, eta (= -lr of the step)
-// read from device memory like `count`. The operations are explicitly rounded
-// in the plain version's order, so no FMA contraction moves W' where G̃ equals
-// the emit form's: the two forms share every arithmetic operation up to that
-// store. The apply form moves W's bytes twice (read, write) in place of G̃'s
-// f32 write; it asks L2 for each W tile when the tile's contraction starts and
-// issues all of a tile's W loads before its stores, so that the loads do not
-// wait one by one.
 //
 // What bounds it on an H100. At the main path's largest left leaf
 // (m, r, n) = (4096, 128, 11008) with bf16 G, one leaf moves at least
@@ -34,7 +25,7 @@
 // (≈ 88 µs at 3.35 TB/s) but does 4·m·r·n = 23.1 GFLOP in its two
 // contractions (≈ 345 µs at 67 TFLOP/s of f32 FMA). So the kernel is bound by
 // arithmetic, not memory; tensor cores with a split-precision scheme that
-// keeps f32 accuracy are the next step.
+// keeps f32 accuracy are the next step (galore_epilogue.cu's kernel has it).
 //
 // Design. The Pallas kernel keeps all of P resident in VMEM; at m = 4096 that
 // is 2 MB for r = 128 and 16 MB for r = 1024, far over the 227 KB of shared
@@ -68,6 +59,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include "int4_p.cuh"
 
 namespace {
@@ -89,42 +82,6 @@ __device__ __forceinline__ float load_f32(const float* p, size_t i) { return p[i
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p, size_t i) {
   return __bfloat162float(p[i]);
 }
-
-// W is f32 or bf16 (WT); the apply forms read all of a thread's W values of a
-// tile before they store any, since a store to W would order every later load
-// of W behind it and leave one load in flight at a time.
-__device__ __forceinline__ void store_w(float* W, size_t i, float v) { W[i] = v; }
-__device__ __forceinline__ void store_w(__nv_bfloat16* W, size_t i, float v) {
-  W[i] = __float2bfloat16_rn(v);
-}
-
-// Ask L2 for rows [r0, r0 + nr) x columns [c0, c0 + nc) of the row-major
-// (rows x cols) W at `base`, clipped to its edges, one 128-byte line per thread
-// and step. Issued when a tile's contraction starts, so that the tile's W is
-// in L2 by the time its stores read it.
-template <typename WT>
-__device__ __forceinline__ void prefetch_w(const WT* W, size_t base, int rows, int cols, int r0,
-                                           int nr, int c0, int nc, int tid, int nthreads) {
-  constexpr int esz = sizeof(WT), per_line = 128 / esz;
-  const int lines = (nc + per_line - 1) / per_line;
-  for (int e = tid; e < nr * lines; e += nthreads) {
-    const int row = r0 + e / lines, col = c0 + (e % lines) * per_line;
-    if (row < rows && col < cols)
-      asm volatile("prefetch.global.L2 [%0];" ::"l"(W + base + (size_t)row * cols + col));
-  }
-}
-
-// W' = W + eta (g + wd W), each operation rounded, in the plain version's order.
-__device__ __forceinline__ float apply_w(float w, float g, float eta, float wd) {
-  return __fadd_rn(w, __fmul_rn(eta, __fadd_rn(g, __fmul_rn(wd, w))));
-}
-
-// What a block writes at the end: G̃ (emit) or W' in place (apply).
-struct Out {
-  void* p;             // G̃ (L, m, n) f32, or W (L, m, n) f32 or bf16
-  const float* eta;    // apply: -lr of this step, on the device
-  float wd;            // apply: decoupled weight decay
-};
 
 struct AdamCoef {
   float b1, omb1, b2, omb2, eps, c1, c2;
@@ -172,6 +129,14 @@ __device__ __forceinline__ void zero_acc(float (&acc)[kTR][TN]) {
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 }
+
+// G̃ (L, m, n) f32. Passed in a struct: with it the emit kernels compile to
+// the instructions they had when the struct also carried the weight-apply
+// form's W, η and wd (cuobjdump -sass, up to the offsets of the parameters
+// after it), so their results are unchanged.
+struct Out {
+  void* p;
+};
 
 // The projector as the wrapper passes it: f32, or packed int4 codes, scales
 // and the codebook table (whose 16 int4 codes a block copies to shared memory).
@@ -222,7 +187,7 @@ __device__ __forceinline__ void store_tile(float* Rs, int rs, int r0, const floa
 }
 
 // Left side: one block per (column tile of n, stacked leaf l).
-template <int TN, typename GT, typename WT, bool kApply, bool kP4>
+template <int TN, typename GT, bool kP4>
 __global__ void __launch_bounds__(kThreads)
     galore_fused_left_kernel(const PArg p, const GT* __restrict__ G,
                              float* __restrict__ M, float* __restrict__ V,
@@ -248,9 +213,7 @@ __global__ void __launch_bounds__(kThreads)
   G += l * m * n;
   M += l * r * n;
   V += l * r * n;
-  float* out = kApply ? nullptr : static_cast<float*>(o.p) + l * m * n;
-  WT* const Wp = static_cast<WT*>(o.p);  // apply: W, in place
-  const size_t w0 = l * m * n;            // this leaf's first element of W
+  float* out = static_cast<float*>(o.p) + l * m * n;
 
   // Phase 1: R tile (r x BN) = Pᵀ G[:, c0:c0+BN], contraction over m.
   for (int rc0 = 0; rc0 < r_pad; rc0 += kRC) {
@@ -289,39 +252,16 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  // Phase 3: G̃[m0:m0+128, c0:c0+BN] = alpha P[m0:m0+128, :] N̂, contraction over r;
-  // stored, or folded into W.
-  const float eta = kApply ? *o.eta : 0.f;
+  // Phase 3: G̃[m0:m0+128, c0:c0+BN] = alpha P[m0:m0+128, :] N̂, contraction over r.
   for (int m0 = 0; m0 < m; m0 += kRC) {
     float acc[kTR][TN];
     zero_acc(acc);
-    if (kApply) prefetch_w(Wp, w0, m, n, m0, kRC, c0, BN, tid, kThreads);
     for (int k0 = 0; k0 < r; k0 += kBK) {
       if (kP4) stage_cols(As, Pi, m0, k0, tid);
       else stage_cols(As, Pf, m0, k0, tid);
       __syncthreads();
       stage_fma<TN>(As, Rs + (size_t)k0 * RS, RS, acc, tx, ty);
       __syncthreads();
-    }
-    if (kApply) {
-      float w[kTR][TN];
-#pragma unroll
-      for (int i = 0; i < kTR; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          const int row = m0 + ty + 16 * i, col = c0 + tx + 16 * j;
-          w[i][j] = (row < m && col < n) ? load_f32(Wp, w0 + (size_t)row * n + col) : 0.f;
-        }
-#pragma unroll
-      for (int i = 0; i < kTR; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          const int row = m0 + ty + 16 * i, col = c0 + tx + 16 * j;
-          if (row < m && col < n)
-            store_w(Wp, w0 + (size_t)row * n + col,
-                    apply_w(w[i][j], __fmul_rn(alpha, acc[i][j]), eta, o.wd));
-        }
-      continue;
     }
 #pragma unroll
     for (int i = 0; i < kTR; ++i)
@@ -334,7 +274,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Right side: one block per (row tile of m, stacked leaf l).
-template <int TN, typename GT, typename WT, bool kApply, bool kP4>
+template <int TN, typename GT, bool kP4>
 __global__ void __launch_bounds__(kThreads)
     galore_fused_right_kernel(const PArg p, const GT* __restrict__ G,
                               float* __restrict__ M, float* __restrict__ V,
@@ -361,9 +301,7 @@ __global__ void __launch_bounds__(kThreads)
   G += l * m * n;
   M += l * m * r;
   V += l * m * r;
-  float* out = kApply ? nullptr : static_cast<float*>(o.p) + l * m * n;
-  WT* const Wp = static_cast<WT*>(o.p);
-  const size_t w0 = l * m * n;
+  float* out = static_cast<float*>(o.p) + l * m * n;
 
   // Phase 1: Rᵀ tile (r x BM) = Pᵀ G[row0:row0+BM, :]ᵀ, contraction over n.
   for (int rc0 = 0; rc0 < r_pad; rc0 += kRC) {
@@ -402,13 +340,10 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  // Phase 3: G̃ᵀ[n0:n0+128, row0:row0+BM] = alpha P[n0:n0+128, :] N̂ᵀ, contraction over r;
-  // stored, or folded into W.
-  const float eta = kApply ? *o.eta : 0.f;
+  // Phase 3: G̃ᵀ[n0:n0+128, row0:row0+BM] = alpha P[n0:n0+128, :] N̂ᵀ, contraction over r.
   for (int n0 = 0; n0 < n; n0 += kRC) {
     float acc[kTR][TN];
     zero_acc(acc);
-    if (kApply) prefetch_w(Wp, w0, m, n, row0, BM, n0, kRC, tid, kThreads);
     for (int k0 = 0; k0 < r; k0 += kBK) {
       if (kP4) stage_cols(As, Pi, n0, k0, tid);
       else stage_cols(As, Pf, n0, k0, tid);
@@ -421,28 +356,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < TN; ++j) Os[(tx + 16 * j) * kAS + ty + 16 * i] = alpha * acc[i][j];
     __syncthreads();
-    if (kApply) {
-      constexpr int kIt = BM * kRC / kThreads;  // elements a thread stores
-      float w[kIt];
-#pragma unroll
-      for (int it = 0; it < kIt; ++it) {
-        const int e = tid + it * kThreads, j = e / kRC, i = e % kRC;
-        const int row = row0 + j, col = n0 + i;
-        w[it] = (row < m && col < n) ? load_f32(Wp, w0 + (size_t)row * n + col) : 0.f;
-      }
-#pragma unroll
-      for (int it = 0; it < kIt; ++it) {
-        const int e = tid + it * kThreads, j = e / kRC, i = e % kRC;
-        const int row = row0 + j, col = n0 + i;
-        if (row < m && col < n)
-          store_w(Wp, w0 + (size_t)row * n + col, apply_w(w[it], Os[j * kAS + i], eta, o.wd));
-      }
-    } else {
-      for (int e = tid; e < BM * kRC; e += kThreads) {
-        const int j = e / kRC, i = e % kRC;
-        const int row = row0 + j, col = n0 + i;
-        if (row < m && col < n) out[(size_t)row * n + col] = Os[j * kAS + i];
-      }
+    for (int e = tid; e < BM * kRC; e += kThreads) {
+      const int j = e / kRC, i = e % kRC;
+      const int row = row0 + j, col = n0 + i;
+      if (row < m && col < n) out[(size_t)row * n + col] = Os[j * kAS + i];
     }
     __syncthreads();
   }
@@ -485,53 +402,55 @@ struct Step {
   const void* G;
   float *M, *V;
   const int* count;
-  Out out;
+  float* out;
   int L, m, r, n;
   double b1, b2, eps, alpha;
   cudaStream_t stream;
 };
 
-template <int TN, typename GT, typename WT, bool kApply, bool kP4>
+template <int TN, typename GT, bool kP4>
 cudaError_t launch(bool right, const Step& s) {
-  auto kern = right ? &galore_fused_right_kernel<TN, GT, WT, kApply, kP4>
-                    : &galore_fused_left_kernel<TN, GT, WT, kApply, kP4>;
+  auto kern = right ? &galore_fused_right_kernel<TN, GT, kP4>
+                    : &galore_fused_left_kernel<TN, GT, kP4>;
   const size_t smem = smem_bytes(TN, s.r, right);
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  // the shared-memory opt-in, once per instance, side and device (devices
+  // 0-31), to the most that any rank may ask (pick_tn keeps every launch
+  // within it)
+  static std::atomic<unsigned> opted_in[2];
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if ((opted_in[right].load() & bit) == 0 || bit == 0) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+    if (err != cudaSuccess) return err;
+    opted_in[right].fetch_or(bit);
+  }
   const int swept = right ? s.m : s.n;
   const dim3 grid((swept + 16 * TN - 1) / (16 * TN), s.L);
   kern<<<grid, kThreads, smem, s.stream>>>(
-      s.p, static_cast<const GT*>(s.G), s.M, s.V, s.count, s.out, s.m, s.r, s.n, (float)s.b1,
+      s.p, static_cast<const GT*>(s.G), s.M, s.V, s.count, Out{s.out}, s.m, s.r, s.n, (float)s.b1,
       (float)(1.0 - s.b1), (float)s.b2, (float)(1.0 - s.b2), (float)s.eps, (float)s.alpha);
   return cudaGetLastError();
 }
 
-template <typename GT, typename WT, bool kApply, bool kP4>
+template <typename GT, bool kP4>
 cudaError_t dispatch(bool right, const Step& s) {
   if (s.L <= 0 || s.m <= 0 || s.r <= 0 || s.n <= 0 || s.L > 65535) return cudaErrorInvalidValue;
   switch (pick_tn(s.r, right ? s.m : s.n, s.L, right)) {
-    case 4: return launch<4, GT, WT, kApply, kP4>(right, s);
-    case 2: return launch<2, GT, WT, kApply, kP4>(right, s);
-    case 1: return launch<1, GT, WT, kApply, kP4>(right, s);
+    case 4: return launch<4, GT, kP4>(right, s);
+    case 2: return launch<2, GT, kP4>(right, s);
+    case 1: return launch<1, GT, kP4>(right, s);
     default: return cudaErrorInvalidValue;  // the r x 16 tile does not fit shared memory
   }
 }
 
-// apply: 0 emits G̃, 1 applies to an f32 W, 2 to a bf16 W
-template <typename GT, bool kP4>
-cudaError_t run_p(bool right, int apply, const Step& s) {
-  if (apply == 2) return dispatch<GT, __nv_bfloat16, true, kP4>(right, s);
-  if (apply == 1) return dispatch<GT, float, true, kP4>(right, s);
-  return dispatch<GT, float, false, kP4>(right, s);
-}
-
-int run(bool right, int p_int4, int g_bf16, int apply, const Step& s) {
+int run(bool right, int p_int4, int g_bf16, const Step& s) {
   if (p_int4)
-    return (int)(g_bf16 ? run_p<__nv_bfloat16, true>(right, apply, s)
-                        : run_p<float, true>(right, apply, s));
-  return (int)(g_bf16 ? run_p<__nv_bfloat16, false>(right, apply, s)
-                      : run_p<float, false>(right, apply, s));
+    return (int)(g_bf16 ? dispatch<__nv_bfloat16, true>(right, s)
+                        : dispatch<float, true>(right, s));
+  return (int)(g_bf16 ? dispatch<__nv_bfloat16, false>(right, s)
+                      : dispatch<float, false>(right, s));
 }
 
 }  // namespace
@@ -547,9 +466,9 @@ extern "C" int galore_fused_adam_left(const float* P, const uint8_t* Pq, const f
                                       float* M, float* V, const int* count, float* out, int L,
                                       int m, int r, int n, double b1, double b2, double eps,
                                       double alpha, void* stream) {
-  const Step s{PArg{P, Pq, Ps, books}, G, M, V, count, Out{out, nullptr, 0.f}, L, m, r, n, b1,
-               b2, eps, alpha, static_cast<cudaStream_t>(stream)};
-  return run(false, p_int4, g_bf16, 0, s);
+  const Step s{PArg{P, Pq, Ps, books}, G, M, V, count, out, L, m, r, n, b1, b2, eps, alpha,
+               static_cast<cudaStream_t>(stream)};
+  return run(false, p_int4, g_bf16, s);
 }
 
 // P: f32 (L, n, r), or Pq (L, n_pad/2, r) and Ps (L, ⌈n/128⌉, r); G (L, m, n)
@@ -559,32 +478,7 @@ extern "C" int galore_fused_adam_right(const float* P, const uint8_t* Pq, const 
                                        float* M, float* V, const int* count, float* out, int L,
                                        int m, int r, int n, double b1, double b2, double eps,
                                        double alpha, void* stream) {
-  const Step s{PArg{P, Pq, Ps, books}, G, M, V, count, Out{out, nullptr, 0.f}, L, m, r, n, b1,
-               b2, eps, alpha, static_cast<cudaStream_t>(stream)};
-  return run(true, p_int4, g_bf16, 0, s);
-}
-
-// The apply forms: as above, with W (L, m, n) f32 or bf16 (w_bf16 = 1) updated
-// in place to W + eta (G̃ + wd W) instead of writing G̃; eta -> one f32 on the
-// device.
-extern "C" int galore_fused_adam_apply_left(const float* P, const uint8_t* Pq, const float* Ps,
-                                            int p_int4, const float* books, const void* G,
-                                            int g_bf16, void* W, int w_bf16, float* M, float* V,
-                                            const int* count, const float* eta, double wd, int L,
-                                            int m, int r, int n, double b1, double b2, double eps,
-                                            double alpha, void* stream) {
-  const Step s{PArg{P, Pq, Ps, books}, G, M, V, count, Out{W, eta, (float)wd}, L, m, r, n, b1,
-               b2, eps, alpha, static_cast<cudaStream_t>(stream)};
-  return run(false, p_int4, g_bf16, 1 + (w_bf16 != 0), s);
-}
-
-extern "C" int galore_fused_adam_apply_right(const float* P, const uint8_t* Pq, const float* Ps,
-                                             int p_int4, const float* books, const void* G,
-                                             int g_bf16, void* W, int w_bf16, float* M, float* V,
-                                             const int* count, const float* eta, double wd,
-                                             int L, int m, int r, int n, double b1, double b2,
-                                             double eps, double alpha, void* stream) {
-  const Step s{PArg{P, Pq, Ps, books}, G, M, V, count, Out{W, eta, (float)wd}, L, m, r, n, b1,
-               b2, eps, alpha, static_cast<cudaStream_t>(stream)};
-  return run(true, p_int4, g_bf16, 1 + (w_bf16 != 0), s);
+  const Step s{PArg{P, Pq, Ps, books}, G, M, V, count, out, L, m, r, n, b1, b2, eps, alpha,
+               static_cast<cudaStream_t>(stream)};
+  return run(true, p_int4, g_bf16, s);
 }

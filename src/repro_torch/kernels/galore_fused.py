@@ -1,6 +1,8 @@
 """Fused GaLore-Adam leaf steps: wrappers around the Hopper kernels of
-``csrc/galore_fused.cu`` and ``csrc/galore_epilogue.cu`` (the port of the
-Pallas kernels in repro/kernels/galore_fused.py: ``galore_fused_adam_step``,
+``csrc/galore_fused.cu`` (the fp32-moment emit steps) and
+``csrc/galore_epilogue.cu`` (the int8-moment steps and the fp32-moment
+weight-apply steps, on the tensor cores), the port of the
+Pallas kernels in repro/kernels/galore_fused.py (``galore_fused_adam_step``,
 ``galore_fused_adam_step_right``, and the int8-moment and weight-apply
 variants of ``_fused_epilogue_call``, ``galore_fused_adam8_step[_right]``,
 ``galore_fused_adam_apply_step[_right]`` and
@@ -27,13 +29,13 @@ and the plain step for the int8-moment and apply forms).
 Each wrapper counts its launches in ``<wrapper>.launches`` (a plain integer,
 incremented only where the kernel is launched). The fp32-moment wrappers
 launch one kernel for an f32 P and another for an int4 P, and count the
-latter in ``<wrapper>.launches_int4``. The int8-moment kernel copies G and P
-by the TMA, or by its threads what the TMA cannot describe (a row not a
-multiple of 16 bytes, or a base not 16-byte aligned: a slower route; G alone
-where only G's rows defeat it, else both); its four wrappers count the
-launches that copied by the threads in ``<wrapper>.launches_thread_copy``,
-and ``adam8_last_cluster()`` says how many CTAs a thread-block cluster the
-last launch took.
+latter in ``<wrapper>.launches_int4``. galore_epilogue's GaLore kernel copies
+G and P by the TMA, or by its threads what the TMA cannot describe (a row
+not a multiple of 16 bytes, or a base not 16-byte aligned: a slower route; G
+alone where only G's rows defeat it, else both); its six wrappers
+(``WRAPPERS_TMA``) count the launches that copied by the threads in
+``<wrapper>.launches_thread_copy``, and ``epilogue_last_cluster()`` says how
+many CTAs a thread-block cluster the last launch took.
 """
 from __future__ import annotations
 
@@ -89,19 +91,19 @@ _ARGTYPES = [
     ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,  # b1, b2, eps, alpha
     ctypes.c_void_p,                                  # stream
 ]
+
+
+_SOURCE8 = "galore_epilogue"
 _ARGTYPES_APPLY = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # P, Pq, Ps, p_int4
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # books, G, g_bf16
     ctypes.c_void_p, ctypes.c_int,                    # W, w_bf16
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # M, V, count
-    ctypes.c_void_p, ctypes.c_double,                 # eta, wd
+    ctypes.c_void_p, ctypes.c_double, ctypes.c_void_p,  # eta, wd, nhat
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # L, m, r, n
     ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,  # b1, b2, eps, alpha
     ctypes.c_void_p,                                  # stream
 ]
-
-
-_SOURCE8 = "galore_epilogue"
 _ARGTYPES8 = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # P, Pq, Ps, p_int4
     ctypes.c_void_p, ctypes.c_int,                    # G, g_bf16
@@ -224,17 +226,28 @@ def _check_w(G, W, eta):
         raise TypeError(f"eta must be one float32, got {eta.dtype} of {eta.numel()}")
 
 
+def _nhat_scratch(moments, r: int):
+    """The apply kernel keeps N̂ until the whole rank is contracted when it
+    has more than one 128-row rank chunk: an f32 scratch of the moments'
+    shape; None otherwise."""
+    if r <= codec.QBLOCK:
+        return None
+    return torch.empty(moments.shape, dtype=torch.float32, device=moments.device)
+
+
 def _launch_apply(symbol, right, P, G, W, M, V, count, b1, b2, eps, alpha, eta, wd):
     p_int4, r = _check(P, G, M, V, count, right)
     _check_w(G, W, eta)
     m, n = G.shape[-2:]
     L = math.prod(G.shape[:-2])
+    nhat = _nhat_scratch(M, r)
     with torch.cuda.device(G.device):
-        err = build.entry(_SOURCE, symbol, _ARGTYPES_APPLY)(
+        err = build.entry(_SOURCE8, symbol, _ARGTYPES_APPLY)(
             *_p_ptrs(P), int(p_int4), codec.device_codebooks(G.device).data_ptr(), G.data_ptr(),
             int(G.dtype == torch.bfloat16), W.data_ptr(), int(W.dtype == torch.bfloat16),
-            M.data_ptr(), V.data_ptr(), count.data_ptr(), eta.data_ptr(), wd, L, m, r, n, b1, b2,
-            eps, alpha, torch.cuda.current_stream(G.device).cuda_stream)
+            M.data_ptr(), V.data_ptr(), count.data_ptr(), eta.data_ptr(), wd,
+            None if nhat is None else nhat.data_ptr(), L, m, r, n, b1, b2, eps, alpha,
+            torch.cuda.current_stream(G.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{symbol} failed to launch: cudaError_t {err} "
                            f"(G {tuple(G.shape)}, r={r}, int4 P {p_int4})")
@@ -262,6 +275,7 @@ def galore_fused_adam_apply_step(P, G, W, M, V, count, *, eta, b1=0.9, b2=0.999,
     p_int4 = _launch_apply("galore_fused_adam_apply_left", False, P, G, W, M, V, count, b1, b2,
                            eps, alpha, eta, wd)
     _count(galore_fused_adam_apply_step, p_int4)
+    galore_fused_adam_apply_step.launches_thread_copy += _thread_copied()
     return W, M, V
 
 
@@ -276,6 +290,7 @@ def galore_fused_adam_apply_step_right(P, G, W, M, V, count, *, eta, b1=0.9, b2=
     p_int4 = _launch_apply("galore_fused_adam_apply_right", True, P, G, W, M, V, count, b1, b2,
                            eps, alpha, eta, wd)
     _count(galore_fused_adam_apply_step_right, p_int4)
+    galore_fused_adam_apply_step_right.launches_thread_copy += _thread_copied()
     return W, M, V
 
 
@@ -326,16 +341,17 @@ def _check8(P, G, Mq, Ms, Vq, Vs, count, right: bool):
     return p_int4, r
 
 
-def _copied8() -> int:
-    """1 where this thread's last int8-moment launch copied G or P by the
+def _thread_copied() -> int:
+    """1 where this thread's last launch of galore_epilogue's GaLore kernel
+    (int8 moments, or the fp32-moment apply form) copied G or P by the
     threads instead of by the TMA, else 0."""
     return build.entry(_SOURCE8, "galore_epilogue_last_copied", [])()
 
 
-def adam8_last_cluster() -> int:
-    """The CTAs a cluster (1, 2 or 4) of this thread's last int8-moment
-    launch: the kernel spreads each 128-wide slab of the swept axis over
-    them, sized on the host to the grid and the card."""
+def epilogue_last_cluster() -> int:
+    """The CTAs a cluster (1, 2 or 4) of this thread's last launch of
+    galore_epilogue's GaLore kernel: it spreads each 128-wide slab of the
+    swept axis over them, sized on the host to the grid and the card."""
     return build.entry(_SOURCE8, "galore_epilogue_last_cluster", [])()
 
 
@@ -362,10 +378,7 @@ def _launch8_apply(symbol, right, P, G, W, Mq, Ms, Vq, Vs, count, b1, b2, eps, a
     _check_w(G, W, eta)
     m, n = G.shape[-2:]
     L = math.prod(G.shape[:-2])
-    # more than one 128-row rank chunk: the kernel keeps N̂ until the whole
-    # rank is contracted, in a scratch of the moments' shape
-    nhat = (torch.empty(Mq.shape, dtype=torch.float32, device=G.device)
-            if r > codec.QBLOCK else None)
+    nhat = _nhat_scratch(Mq, r)
     with torch.cuda.device(G.device):
         err = build.entry(_SOURCE8, symbol, _ARGTYPES8_APPLY)(
             *_p_ptrs(P), int(p_int4), G.data_ptr(), int(G.dtype == torch.bfloat16), W.data_ptr(),
@@ -402,7 +415,7 @@ def galore_fused_adam8_step(P, G, Mq, Ms, Vq, Vs, count, *, b1=0.9, b2=0.999, ep
     out = _launch8("galore_fused_adam8_left", False, P, G, Mq, Ms, Vq, Vs, count,
                    b1, b2, eps, alpha, stochastic)
     galore_fused_adam8_step.launches += 1
-    galore_fused_adam8_step.launches_thread_copy += _copied8()
+    galore_fused_adam8_step.launches_thread_copy += _thread_copied()
     return out, Mq, Ms, Vq, Vs
 
 
@@ -419,7 +432,7 @@ def galore_fused_adam8_step_right(P, G, Mq, Ms, Vq, Vs, count, *, b1=0.9, b2=0.9
     out = _launch8("galore_fused_adam8_right", True, P, G, Mq, Ms, Vq, Vs, count,
                    b1, b2, eps, alpha, stochastic)
     galore_fused_adam8_step_right.launches += 1
-    galore_fused_adam8_step_right.launches_thread_copy += _copied8()
+    galore_fused_adam8_step_right.launches_thread_copy += _thread_copied()
     return out, Mq, Ms, Vq, Vs
 
 
@@ -436,7 +449,7 @@ def galore_fused_adam8_apply_step(P, G, W, Mq, Ms, Vq, Vs, count, *, eta, b1=0.9
     _launch8_apply("galore_fused_adam8_apply_left", False, P, G, W, Mq, Ms, Vq, Vs, count,
                    b1, b2, eps, alpha, eta, wd, stochastic)
     galore_fused_adam8_apply_step.launches += 1
-    galore_fused_adam8_apply_step.launches_thread_copy += _copied8()
+    galore_fused_adam8_apply_step.launches_thread_copy += _thread_copied()
     return W, Mq, Ms, Vq, Vs
 
 
@@ -451,7 +464,7 @@ def galore_fused_adam8_apply_step_right(P, G, W, Mq, Ms, Vq, Vs, count, *, eta, 
     _launch8_apply("galore_fused_adam8_apply_right", True, P, G, W, Mq, Ms, Vq, Vs, count,
                    b1, b2, eps, alpha, eta, wd, stochastic)
     galore_fused_adam8_apply_step_right.launches += 1
-    galore_fused_adam8_apply_step_right.launches_thread_copy += _copied8()
+    galore_fused_adam8_apply_step_right.launches_thread_copy += _thread_copied()
     return W, Mq, Ms, Vq, Vs
 
 
@@ -459,8 +472,11 @@ WRAPPERS = (galore_fused_adam_step, galore_fused_adam_step_right,
             galore_fused_adam8_step, galore_fused_adam8_step_right,
             galore_fused_adam_apply_step, galore_fused_adam_apply_step_right,
             galore_fused_adam8_apply_step, galore_fused_adam8_apply_step_right)
-WRAPPERS8 = (galore_fused_adam8_step, galore_fused_adam8_step_right,
-             galore_fused_adam8_apply_step, galore_fused_adam8_apply_step_right)
+# the wrappers of galore_epilogue's GaLore kernel, which counts the launches
+# that copied operands by the threads
+WRAPPERS_TMA = (galore_fused_adam8_step, galore_fused_adam8_step_right,
+                galore_fused_adam8_apply_step, galore_fused_adam8_apply_step_right,
+                galore_fused_adam_apply_step, galore_fused_adam_apply_step_right)
 
 
 def reset_launch_counts() -> None:
@@ -468,7 +484,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in WRAPPERS[:2] + WRAPPERS[4:6]:  # the fp32-moment forms, int4 P
         fn.launches_int4 = 0
-    for fn in WRAPPERS8:  # the int8-moment forms, operands copied by the threads
+    for fn in WRAPPERS_TMA:
         fn.launches_thread_copy = 0
 
 

@@ -993,7 +993,7 @@ def test_cuda_adam8_kernel_at_model_leaves(case, apply, p_int4):
         assert (fn.launches, fn.launches_thread_copy) == (
             before[0] + 1, before[1] + _copies8(shape, side, p_int4))
         # at most 172 slabs: one CTA a slab would leave SMs idle
-        assert tk.adam8_last_cluster() in (2, 4)
+        assert tk.epilogue_last_cluster() in (2, 4)
         assert all(a is b for a, b in zip(got[-4:], ins[-4:]))
         if apply:
             assert got[0] is ins[0]
@@ -1046,7 +1046,7 @@ def test_cuda_adam8_each_cluster_size(clusters, side, apply):
     ins = [x.clone() for x in lead + tuple(moments)]
     got = getattr(tk, name)(P, G, *ins, count, **kw)
     torch.cuda.synchronize()
-    assert tk.adam8_last_cluster() == clusters
+    assert tk.epilogue_last_cluster() == clusters
     if apply:
         assert_weight_close(got[0], want[0], lead[0], "W", tol=1e-5, ulps=2)
     else:
@@ -1082,6 +1082,140 @@ def test_cuda_adam8_never_falls_back_at_model_leaves(monkeypatch):
         getattr(tk, "galore_fused_adam8_apply_step" + sfx)(
             codec.quant4_axis_state(P), G, W, *moments, count,
             eta=torch.tensor(-1e-3, device=dev))
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the fp32-moment apply form of galore_epilogue's kernel
+# ---------------------------------------------------------------------------
+
+
+def _fp32_card_inputs(shape, side, dev, seed):
+    """P (orthonormal columns), the f32 moments of step 7 (what six Adam
+    steps leave on compact gradients of unit scale), a bf16 G and a weight
+    of the main path's scale, all drawn on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lead, (m, r, n) = tuple(shape[:-3]), shape[-3:]
+    kept, mv = ((m, r), (r, n)) if side == "left" else ((n, r), (m, r))
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    P = torch.linalg.qr(rnd(*lead, *kept))[0].contiguous()
+    M = V = torch.zeros(*lead, *mv, device=dev)
+    for t in range(1, 7):
+        _, M, V = ref.lowrank_adam_update(rnd(*lead, *mv), M, V, torch.tensor(t, device=dev))
+    return P, M.contiguous(), V.contiguous(), rnd(*lead, m, n).to(torch.bfloat16), 0.02 * rnd(
+        *lead, m, n)
+
+
+def _fp32_apply(side):
+    right = side == "right"
+    fn = tk.galore_fused_adam_apply_step_right if right else tk.galore_fused_adam_apply_step
+    plain = (tk.galore_fused_adam_apply_step_right_plain if right
+             else tk.galore_fused_adam_apply_step_plain)
+    return fn, plain
+
+
+def _own_gt(fn, P, G, M, V, count):
+    """The kernel's own G̃: a launch on an f32 W of zeros with η = 1 and wd = 0
+    writes W' = 0 + 1·(G̃ + 0·0) = G̃ exactly."""
+    out = torch.zeros(G.shape, device=G.device)
+    fn(P, G, out, M.clone(), V.clone(), torch.tensor(7, dtype=torch.int32, device=G.device),
+       eta=torch.tensor(1.0, device=G.device), alpha=0.25, wd=0.0)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD8_CASES, ids=lambda c: f"{c[1]}{c[0]}")
+@pytest.mark.parametrize("p_int4", [False, True])
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+def test_cuda_fp32_apply_kernel_at_model_leaves(case, p_int4, w_dtype):
+    """The fp32-moment apply form, G bf16, P f32 or int4, W f32 or bf16, at
+    the models' leaves against its plain version: M' and V' within
+    1e-5·max|want| + 1e-5·|want|, W' as the apply checks hold it and bit for
+    bit ref.apply_weight of the kernel's own G̃; two launches on the same
+    inputs bitwise equal; an int4-P launch equal to the launch on the
+    host-dequantized P; the thread-copy route taken exactly where an
+    operand's rows are no multiple of 16 bytes; each slab spread over a
+    cluster of 2 or 4 CTAs; outputs updated in place."""
+    dev = _cuda_device()
+    shape, side = case
+    P, M, V, G, W32 = _fp32_card_inputs(shape, side, dev, seed=sum(shape))
+    if p_int4:
+        P4 = codec.quant4_axis_state(P)
+        P, P_host = P4, codec.dequantize4_axis(P4["q"], P4["scale"], P.shape[-2]).contiguous()
+    W = W32.to(getattr(torch, w_dtype))
+    count = torch.tensor(7, dtype=torch.int32, device=dev)
+    eta = torch.tensor(-1e-3, device=dev)
+    kw = dict(eta=eta, **APPLY_KW)
+    fn, plain = _fp32_apply(side)
+    want = plain(P, G, W, M, V, count, **kw)
+    runs = []
+    for P_ in (P, P) + ((P_host,) if p_int4 else ()):
+        ins = [W.clone(), M.clone(), V.clone()]
+        before = (fn.launches + fn.launches_int4, fn.launches_thread_copy)
+        got = fn(P_, G, *ins, count, **kw)
+        torch.cuda.synchronize()
+        assert (fn.launches + fn.launches_int4, fn.launches_thread_copy) == (
+            before[0] + 1, before[1] + _copies8(shape, side, p_int4 and P_ is P))
+        assert tk.epilogue_last_cluster() in (2, 4)
+        assert all(a is b for a, b in zip(got, ins))
+        runs.append(got)
+    for other in runs[1:]:  # again, and on the host-dequantized P
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+    got = runs[0]
+    tag = f"{side} {shape} int4 P {p_int4} W {w_dtype}"
+    assert torch.equal(got[0], ref.apply_weight(W, _own_gt(fn, P, G, M, V, count), eta, 0.01)), tag
+    assert_weight_close(got[0], want[0], W, f"{tag} W", tol=1e-5, ulps=2)
+    assert _within(got[1], want[1]), f"{tag} m"
+    assert _within(got[2], want[2]), f"{tag} v"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clusters", [1, 2, 4])
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_cuda_fp32_apply_each_cluster_size(clusters, side):
+    """The fp32-moment apply form at a stacked leaf that its host sends to
+    1, 2 or 4 CTAs a cluster (int4 P; two rank chunks at C = 4): the launch
+    takes that size, its W' is bit for bit ref.apply_weight of its own G̃,
+    and its results are within the gates of the plain step's."""
+    dev = _cuda_device()
+    L, kept, r, swept = CLUSTER_CASES[clusters]
+    shape = (L, swept, r, kept) if side == "right" else (L, kept, r, swept)
+    P, M, V, G, W = _fp32_card_inputs(shape, side, dev, seed=clusters)
+    P = codec.quant4_axis_state(P)
+    count = torch.tensor(7, dtype=torch.int32, device=dev)
+    eta = torch.tensor(-1e-3, device=dev)
+    fn, plain = _fp32_apply(side)
+    want = plain(P, G, W, M, V, count, eta=eta, **APPLY_KW)
+    got = fn(P, G, W.clone(), M.clone(), V.clone(), count, eta=eta, **APPLY_KW)
+    torch.cuda.synchronize()
+    assert tk.epilogue_last_cluster() == clusters
+    assert torch.equal(got[0], ref.apply_weight(W, _own_gt(fn, P, G, M, V, count), eta, 0.01))
+    assert_weight_close(got[0], want[0], W, "W", tol=1e-5, ulps=2)
+    assert _within(got[1], want[1]) and _within(got[2], want[2])
+
+
+@pytest.mark.cuda
+def test_cuda_fp32_apply_never_falls_back_at_model_leaves(monkeypatch):
+    """The fp32-moment apply wrappers at a llama_7b attention leaf, llama_1b's
+    gate/up leaf (G by the threads) and its down leaf launch the kernel, P f32
+    and int4: a CUDA tensor never reaches a plain version."""
+    dev = _cuda_device()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    for name in ("galore_fused_adam_apply_step_plain", "galore_fused_adam_apply_step_right_plain"):
+        monkeypatch.setattr(tk, name, refuse)
+    count = torch.tensor(7, dtype=torch.int32, device=dev)
+    eta = torch.tensor(-1e-3, device=dev)
+    for shape, side in (((2, 4096, 128, 4096), "left"), ((2, 2048, 512, 5461), "left"),
+                        ((2, 5461, 512, 2048), "right")):
+        P, M, V, G, W = _fp32_card_inputs(shape, side, dev, seed=1)
+        fn, _ = _fp32_apply(side)
+        before = fn.launches + fn.launches_int4
+        fn(P, G, W.to(torch.bfloat16), M, V, count, eta=eta)
+        fn(codec.quant4_axis_state(P), G, W, M, V, count, eta=eta)
+        assert fn.launches + fn.launches_int4 == before + 2
     torch.cuda.synchronize()
 
 

@@ -47,21 +47,24 @@ def test_cpu_wrapper_does_not_count_launches():
 
 
 def test_reset_launch_counts_zeroes_every_counter():
-    """ops.reset_launch_counts zeroes every wrapper's counters, the int8-moment
-    wrappers' thread-copy counts among them; the plain versions on CPU
-    tensors count nothing."""
+    """ops.reset_launch_counts zeroes every wrapper's counters, the thread-copy
+    counts of galore_epilogue's kernel (int8 moments and the fp32-moment
+    apply form) among them; the plain versions on CPU tensors count
+    nothing."""
     from repro_torch.kernels import adam8bit_update, galore_project, ops, rmsnorm
     counted = [(fn, "launches") for fn in tk.WRAPPERS]
     counted += [(fn, "launches_int4") for fn in tk.WRAPPERS[:2] + tk.WRAPPERS[4:6]]
-    counted += [(fn, "launches_thread_copy") for fn in tk.WRAPPERS8]
+    counted += [(fn, "launches_thread_copy") for fn in tk.WRAPPERS_TMA]
     counted += [(fn, "launches") for fn in (adam8bit_update.adam8bit_update,
                                             galore_project.galore_project,
                                             galore_project.galore_project_back, rmsnorm.rmsnorm)]
     counted += [(fn, "launches_thread_copy") for fn in (galore_project.galore_project,
                                                         galore_project.galore_project_back)]
-    assert set(tk.WRAPPERS8) == {tk.galore_fused_adam8_step, tk.galore_fused_adam8_step_right,
-                                 tk.galore_fused_adam8_apply_step,
-                                 tk.galore_fused_adam8_apply_step_right}
+    assert set(tk.WRAPPERS_TMA) == {tk.galore_fused_adam8_step, tk.galore_fused_adam8_step_right,
+                                    tk.galore_fused_adam8_apply_step,
+                                    tk.galore_fused_adam8_apply_step_right,
+                                    tk.galore_fused_adam_apply_step,
+                                    tk.galore_fused_adam_apply_step_right}
     for fn, attr in counted:
         setattr(fn, attr, 3)
     ops.reset_launch_counts()
