@@ -8,8 +8,7 @@ Phases, each timed, none of them optional; any failed check raises:
   2. build the Hopper kernels from src/repro_torch/csrc with nvcc (sm_90a),
      one nvcc per source, all started together; count the wgmma (HGMMA)
      instructions of the tiled projections' library and of galore_epilogue's
-     (the int8-moment kernel and the fp32-moment apply form), and fail on
-     none;
+     (the GaLore kernel of every step form), and fail on none;
   3. hold every kernel against its plain PyTorch version on the card at the
      main path's shapes (and r = 1024, and a ragged shape), G in bf16 and
      f32, to 1e-5·max|want| (+ 1e-5·|want|) on G̃, M' and V' — or, for the
@@ -30,7 +29,7 @@ Phases, each timed, none of them optional; any failed check raises:
      llama_7b at full width, 2 layers, bf16, batch 8 × 256 tokens, through
      train_loop; every loss finite, the last below the first, and each fp32
      kernel launched once per stacked leaf per step (6 left leaves, 1 right
-     leaf);
+     leaf), none by thread copies;
   5. the same run on the composable plain-torch path: no kernel launches,
      per-step losses within 5e-2 of phase 4;
   6. 8-bit GaLore, fused: phase 4's run with int8 moments and packed int4
@@ -43,8 +42,8 @@ Phases, each timed, none of them optional; any failed check raises:
      right; never by thread copies), losses within 5e-2 of the emit phase,
      state bytes as in 6;
   8. fp32 moments with packed int4 projectors, emit and apply: only the
-     fp32-moment kernels' int4-P forms launched (48 left, 8 right each; the
-     apply form never by thread copies), losses
+     fp32-moment kernels' int4-P forms launched (48 left, 8 right each;
+     never by thread copies), losses
      within 5e-2 of phase 4 (and of the int4-P emit phase for apply), state
      bytes within 0.01 % of galore_state_bytes;
   9. the paper's 7B rank, r = 1024 (T = 8: one refresh), fp32 fused and
@@ -66,11 +65,12 @@ Phases, each timed, none of them optional; any failed check raises:
      GaLore at r = 1024 beside 8-bit Adam and AdamW, on one line), a JSON
      line of the kernels, the card's name and power limit, and last the
      result line.
-The kernel checks of phase 3 also hold the fp32-moment kernels' int4-P forms
+The kernel checks of phase 3 also hold the fp32-moment kernel's int4-P forms
 (B1, B2 and the apply form) to the same kernel launched on the
-host-dequantized P, bit for bit; the flat 8-bit Adam kernel to its plain version, codes,
-scales and update bit for bit, at the embedding's and an FFN leaf's size and
-a ragged 1000 x 520 leaf; the tiled projections B4 and B5 (split TF32 on
+host-dequantized P, bit for bit; the flat 8-bit Adam kernel to its plain
+version, codes, scales and update bit for bit, at the embedding's, an FFN,
+an attention and the norm leaves' sizes and a ragged 1000 x 520 leaf; the
+tiled projections B4 and B5 (split TF32 on
 the tensor cores) at the
 r = 1024 leaves (the down leaf's G read, and its G̃ written, transposed) and
 a ragged shape, to 1e-5·max|want|, beside torch.matmul; and RMSNorm (B6, on no path)
@@ -116,8 +116,7 @@ from repro_torch.utils import flatten_up_to, tree_leaves  # noqa: E402
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_TF32 = 495e12
-SOURCE = "src/repro_torch/csrc/galore_fused.cu"
-SOURCE8 = "src/repro_torch/csrc/galore_epilogue.cu"
+SOURCE = "src/repro_torch/csrc/galore_epilogue.cu"
 SOURCE_PROJECT = "src/repro_torch/csrc/galore_project.cu"
 SOURCE_RMSNORM = "src/repro_torch/csrc/rmsnorm.cu"
 KERNELS = {
@@ -128,26 +127,26 @@ KERNELS = {
                   plain=gf.galore_fused_adam_step_right_plain, source=SOURCE,
                   replaces="src/repro/kernels/galore_fused.py:268"),
     "adam8_left": dict(name="galore_fused_adam8_left", wrapper=gf.galore_fused_adam8_step,
-                       plain=gf.galore_fused_adam8_step_plain, source=SOURCE8,
+                       plain=gf.galore_fused_adam8_step_plain, source=SOURCE,
                        replaces="src/repro/kernels/galore_fused.py:685"),
     "adam8_right": dict(name="galore_fused_adam8_right", wrapper=gf.galore_fused_adam8_step_right,
-                        plain=gf.galore_fused_adam8_step_right_plain, source=SOURCE8,
+                        plain=gf.galore_fused_adam8_step_right_plain, source=SOURCE,
                         replaces="src/repro/kernels/galore_fused.py:702"),
     "apply_left": dict(name="galore_fused_adam_apply_left",
                        wrapper=gf.galore_fused_adam_apply_step,
-                       plain=gf.galore_fused_adam_apply_step_plain, source=SOURCE8,
+                       plain=gf.galore_fused_adam_apply_step_plain, source=SOURCE,
                        replaces="src/repro/kernels/galore_fused.py:714"),
     "apply_right": dict(name="galore_fused_adam_apply_right",
                         wrapper=gf.galore_fused_adam_apply_step_right,
-                        plain=gf.galore_fused_adam_apply_step_right_plain, source=SOURCE8,
+                        plain=gf.galore_fused_adam_apply_step_right_plain, source=SOURCE,
                         replaces="src/repro/kernels/galore_fused.py:727"),
     "adam8_apply_left": dict(name="galore_fused_adam8_apply_left",
                              wrapper=gf.galore_fused_adam8_apply_step,
-                             plain=gf.galore_fused_adam8_apply_step_plain, source=SOURCE8,
+                             plain=gf.galore_fused_adam8_apply_step_plain, source=SOURCE,
                              replaces="src/repro/kernels/galore_fused.py:737"),
     "adam8_apply_right": dict(name="galore_fused_adam8_apply_right",
                               wrapper=gf.galore_fused_adam8_apply_step_right,
-                              plain=gf.galore_fused_adam8_apply_step_right_plain, source=SOURCE8,
+                              plain=gf.galore_fused_adam8_apply_step_right_plain, source=SOURCE,
                               replaces="src/repro/kernels/galore_fused.py:751"),
     # the fp32-moment kernels' int4-P forms: the same wrappers, counted apart
     "p4_left": dict(name="galore_fused_adam_left (int4 P)", wrapper=gf.galore_fused_adam_step,
@@ -159,14 +158,14 @@ KERNELS = {
                      replaces="src/repro/kernels/galore_fused.py:284"),
     "p4_apply_left": dict(name="galore_fused_adam_apply_left (int4 P)",
                           wrapper=gf.galore_fused_adam_apply_step,
-                          plain=gf.galore_fused_adam_apply_step_plain, source=SOURCE8,
+                          plain=gf.galore_fused_adam_apply_step_plain, source=SOURCE,
                           replaces="src/repro/kernels/galore_fused.py:714"),
     "p4_apply_right": dict(name="galore_fused_adam_apply_right (int4 P)",
                            wrapper=gf.galore_fused_adam_apply_step_right,
-                           plain=gf.galore_fused_adam_apply_step_right_plain, source=SOURCE8,
+                           plain=gf.galore_fused_adam_apply_step_right_plain, source=SOURCE,
                            replaces="src/repro/kernels/galore_fused.py:727"),
     "adam8bit": dict(name="adam8bit_blocks_update", wrapper=a8.adam8bit_update,
-                     plain=a8.adam8bit_update_plain, source=SOURCE8,
+                     plain=a8.adam8bit_update_plain, source=SOURCE,
                      replaces="src/repro/kernels/galore_fused.py:762"),
     "project": dict(name="galore_project", wrapper=tp.galore_project,
                     plain=tp.galore_project_plain, source=SOURCE_PROJECT,
@@ -296,37 +295,60 @@ def bound(side, L, m, r, n, g_itemsize, w_itemsize=None, p_int4=False):
 
 
 def check_kernels():
+    """The fp32-moment emit form of galore_epilogue's kernel (B1, B2, and
+    their int4-P forms) against its plain version at every SHAPES entry (G
+    bf16 and f32) and every SHAPES8 entry (G bf16), P f32 and packed int4:
+    G̃, M' and V' within 1e-5·max|want| + 1e-5·|want|, two launches on the
+    same inputs bitwise equal, and an int4-P launch bit for bit the launch on
+    the host-dequantized P. Each line names the launch's route and cluster
+    size; times kernel and plain version."""
     rows = []
-    for i, (side, L, m, r, n, main) in enumerate(SHAPES):
-        k = KERNELS[side]
-        for dt in (torch.bfloat16, torch.float32):
+    for i, (side, L, m, r, n, main) in enumerate(SHAPES + SHAPES8):
+        dtypes = (torch.bfloat16, torch.float32) if i < len(SHAPES) else (torch.bfloat16,)
+        for dt in dtypes:
             P, G, M, V, count = kernel_inputs(side, L, m, r, n, dt, seed=i)
-            want = k["plain"](P, G, M, V, count, alpha=ALPHA)
-            got = k["wrapper"](P, G, M.clone(), V.clone(), count, alpha=ALPHA)
-            torch.cuda.synchronize()
-            errs = []
-            for name, a, b in zip(("update", "m", "v"), got, want):
-                tol = 1e-5 * b.abs().max() + 1e-5 * b.abs()
-                diff = (a - b).abs()
-                if bool((diff > tol).any()) or not bool(torch.isfinite(a).all()):
-                    raise AssertionError(f"{k['name']} {side} L={L} (m,r,n)=({m},{r},{n}) {dt} "
-                                         f"{name}: max|err| {float(diff.max()):.3e} over tolerance "
-                                         f"(1e-5·max|want| = {float(1e-5 * b.abs().max()):.3e})")
-                errs.append(float(diff.max()))
-            Mw, Vw = M.clone(), V.clone()
-            ms = cuda_ms(lambda: k["wrapper"](P, G, Mw, Vw, count, alpha=ALPHA), 3, 10)
-            plain_ms = cuda_ms(lambda: k["plain"](P, G, M, V, count, alpha=ALPHA), 2, 5)
-            b_s, b_by, b_f32 = bound(side, L, m, r, n, G.element_size())
-            row = dict(kernel=side, side=side, L=L, m=m, r=r, n=n,
-                       g_dtype=str(dt).removeprefix("torch."), main_path=main,
-                       max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_s * 1e3,
-                       bound_by=b_by)
-            rows.append(row)
-            log(f"[kernels] {k['name']:24s} L={L} (m,r,n)=({m},{r},{n}) G {row['g_dtype']:8s} "
-                f"max|err| G̃/M'/V' {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} ok  "
-                f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {b_s * 1e3:.3f} ms ({b_by}; "
-                f"f32-FMA {b_f32 * 1e3:.3f})")
-            del P, G, M, V, Mw, Vw, got, want
+            P4 = codec.quant4_axis_state(P)
+            P4_host = codec.dequantize4_axis(P4["q"], P4["scale"], P.shape[-2]).contiguous()
+            for p4 in (False, True):
+                key = ("p4_" if p4 else "") + side
+                k, Pa = KERNELS[key], (P4 if p4 else P)
+                tag = (f"{k['name']} L={L} (m,r,n)=({m},{r},{n}) G "
+                       f"{str(dt).removeprefix('torch.')}")
+                want = k["plain"](Pa, G, M, V, count, alpha=ALPHA)
+                before = thread_copies()
+                got = k["wrapper"](Pa, G, M.clone(), V.clone(), count, alpha=ALPHA)
+                torch.cuda.synchronize()
+                tag += " " + route(before)
+                errs = [close_or_raise(a, b, f"{tag} {name}")
+                        for name, a, b in zip(("G̃", "M'", "V'"), got, want)]
+                again = k["wrapper"](Pa, G, M.clone(), V.clone(), count, alpha=ALPHA)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"{tag}: two launches on the same inputs differ")
+                note = "two launches equal"
+                if p4:  # in-kernel int4 dequant == launching with the host-dequantized P
+                    host = k["wrapper"](P4_host, G, M.clone(), V.clone(), count, alpha=ALPHA)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(got, host)):
+                        raise AssertionError(f"{tag}: differs from the host-dequantized-P launch")
+                    note += ", equal to the host-dequantized-P launch"
+                    del host
+                Mw, Vw = M.clone(), V.clone()
+                ms = cuda_ms(lambda: k["wrapper"](Pa, G, Mw, Vw, count, alpha=ALPHA), 3, 10)
+                plain_ms = cuda_ms(lambda: k["plain"](Pa, G, M, V, count, alpha=ALPHA), 2, 5)
+                b_s, b_by, b_f32 = bound(side, L, m, r, n, G.element_size(), p_int4=p4)
+                rows.append(dict(kernel=key, side=side, L=L, m=m, r=r, n=n,
+                                 g_dtype=str(dt).removeprefix("torch."),
+                                 p="int4" if p4 else "f32", main_path=main,
+                                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                                 bound_ms=b_s * 1e3, bound_by=b_by))
+                log(f"[kernels] {tag} P {'int4' if p4 else 'f32'}: max|err| G̃/M'/V' "
+                    f"{errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} (max|G̃| "
+                    f"{float(want[0].abs().max()):.2e}); {note} ok  kernel {ms:.3f} ms  plain "
+                    f"{plain_ms:.3f} ms  bound {b_s * 1e3:.3f} ms ({b_by}; {b_s / ms * 1e5:.0f} % "
+                    f"of it; f32-FMA {b_f32 * 1e3:.3f})")
+                del want, got, again, Mw, Vw
+            del P, P4, P4_host, G, M, V
     torch.cuda.empty_cache()
     return rows
 
@@ -400,9 +422,9 @@ def compare8(got, want, tag, names=("update", "mq", "ms", "vq", "vs")):
 
 def route(copied_before):
     """The route and cluster of the last launch of galore_epilogue's GaLore
-    kernel (int8 moments, or the fp32-moment apply form), for the log:
-    "(TMA, C=2)" or "(thread copies, C=1)"; the thread copies counted since
-    `copied_before` (its six wrappers' launches_thread_copy)."""
+    kernel, for the log: "(TMA, C=2)" or "(thread copies, C=1)"; the thread
+    copies counted since `copied_before` (its eight wrappers'
+    launches_thread_copy)."""
     copied = thread_copies() > copied_before
     return f"({'thread copies' if copied else 'TMA'}, C={gf.epilogue_last_cluster()})"
 
@@ -670,92 +692,12 @@ def apply_row(key, k, side, L, m, r, n, main, wdt, p, sr, W, w0, mine, got, want
                 plain_ms=plain_ms, bound_ms=b_s * 1e3, bound_by=b_by)
 
 
-def check_int4p():
-    """The fp32-moment kernels (B1, B2) and their apply forms launched on a
-    packed int4 P, at the main shapes and the ragged one, G bf16 (W bf16 and
-    f32 for the apply forms): G̃ (or W'), M' and V' bit for bit those of the
-    same kernel launched on the host-dequantized f32 P — only the staging
-    differs — and within the f32-P kernel's tolerances of the plain version
-    (1e-5·max on G̃, M', V'; W' as in check_apply, and bit for bit
-    ref.apply_weight of the kernel's own G̃). Times the int4-P launch, the
-    f32-P launch on the same data, and the plain version."""
-    rows = []
-    count = torch.tensor(COUNT, dtype=torch.int32, device="cuda")
-    eta = torch.tensor(ETA, device="cuda")
-    for i, (side, L, m, r, n, main) in enumerate(SHAPES):
-        if r > codec.QBLOCK:
-            continue
-        P, G, M, V, _ = kernel_inputs(side, L, m, r, n, torch.bfloat16, seed=i)
-        P4 = codec.quant4_axis_state(P)
-        P_host = codec.dequantize4_axis(P4["q"], P4["scale"], P.shape[-2]).contiguous()
-        W32 = 0.02 * torch.randn(L, m, n, generator=torch.Generator(device="cuda").manual_seed(
-            300 + i), device="cuda")
-        for wdt in (None, torch.bfloat16, torch.float32):
-            key = ("p4_" if wdt is None else "p4_apply_") + side
-            k = KERNELS[key]
-            kw = dict(alpha=ALPHA) if wdt is None else dict(alpha=ALPHA, eta=eta, wd=WD)
-            W = None if wdt is None else W32.to(wdt)
-            lead = () if W is None else (W,)
-            tag = (f"{k['name']} L={L} (m,r,n)=({m},{r},{n}) G bfloat16"
-                   + ("" if W is None else f" W {str(wdt).removeprefix('torch.')}"))
-
-            def launch(P_, k=k, lead=lead, kw=kw):
-                ins = tuple(x.clone() for x in lead) + (M.clone(), V.clone())
-                return k["wrapper"](P_, G, *ins, count, **kw)
-
-            before = thread_copies()
-            got = launch(P4)
-            torch.cuda.synchronize()
-            own = ""
-            if W is not None:  # galore_epilogue's kernel: its route and cluster size
-                tag += " " + route(before)
-                if not torch.equal(got[0], apply_weight(W, own_gt(k["wrapper"], P4, G, (M, V),
-                                                                  count), eta, WD)):
-                    raise AssertionError(f"{tag}: W' differs from ref.apply_weight of the "
-                                         f"kernel's own G̃")
-                own = "; W' bitwise ref.apply_weight of its own G̃"
-            host = launch(P_host)
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(got, host)):
-                raise AssertionError(f"{tag}: differs from the launch on the host-dequantized P")
-            want = k["plain"](P4, G, *lead, M, V, count, **kw)
-            errs = []
-            for name, a, b in zip(("out", "m", "v"), got, want):
-                if name == "out" and W is not None:
-                    errs.append(weight_check(a, b, W, tag)[0])
-                    continue
-                tol = 1e-5 * b.abs().max() + 1e-5 * b.abs()
-                if bool(((a - b).abs() > tol).any()) or not bool(torch.isfinite(a).all()):
-                    raise AssertionError(f"{tag} {name}: max|err| "
-                                         f"{float((a - b).abs().max()):.3e} over tolerance")
-                errs.append(float((a - b).abs().max()))
-            ins = tuple(x.clone() for x in lead) + (M.clone(), V.clone())
-            ms = cuda_ms(lambda: k["wrapper"](P4, G, *ins, count, **kw), 3, 10)
-            ms_f32p = cuda_ms(lambda: k["wrapper"](P_host, G, *ins, count, **kw), 3, 10)
-            plain_ms = cuda_ms(lambda: k["plain"](P4, G, *lead, M, V, count, **kw), 2, 5)
-            b_s, b_by, b_f32 = bound(side, L, m, r, n, 2,
-                                     None if W is None else W.element_size(), p_int4=True)
-            rows.append(dict(kernel=key, side=side, L=L, m=m, r=r, n=n, g_dtype="bfloat16",
-                             w_dtype=None if W is None else str(wdt).removeprefix("torch."),
-                             p="int4", main_path=main, max_abs_err=errs[0],
-                             moment_err=max(errs[1:]), ms=ms, ms_f32_p=ms_f32p, plain_ms=plain_ms,
-                             bound_ms=b_s * 1e3, bound_by=b_by))
-            what = "G̃" if W is None else "W'"
-            log(f"[kernels] {tag}: equal to the host-dequantized-P launch{own}; vs plain max|err| "
-                f"{what}/M'/V' {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} ok  kernel {ms:.3f} ms (f32 P "
-                f"{ms_f32p:.3f})  plain {plain_ms:.3f} ms  bound {b_s * 1e3:.3f} ms ({b_by}; "
-                f"f32-FMA {b_f32 * 1e3:.3f})")
-            del got, host, want, W, ins
-        del P, G, M, V, P4, P_host, W32
-    torch.cuda.empty_cache()
-    return rows
-
-
 # (shape, on the main path) of the flat 8-bit Adam checks: the (tied)
-# embedding, an FFN and an attention leaf of the main path, and a ragged leaf
+# embedding, an FFN, an attention and the two norm leaf sizes of the main path
+# (the stacked attention and FFN norms, the final norm), and a ragged leaf
 # whose last block is partial
 FLAT_SHAPES = [((32000, 4096), True), ((2, 4096, 11008), True), ((2, 4096, 4096), True),
-               ((1000, 520), False)]
+               ((2, 4096), True), ((4096,), True), ((1000, 520), False)]
 FLAT_OPS = 35  # f32 operations an element: dequant 2, moments 7, absmax 4, requant 18, update 4
 
 
@@ -805,7 +747,7 @@ def check_adam8bit():
                          bound_ms=b_s * 1e3, bound_by=b_by, m=numel, n=1))
         log(f"[kernels] {k['name']} g {tuple(shape)} bfloat16 ({nb} blocks): update, codes and "
             f"scales equal to the plain version's ok  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
-            f"bound {b_s * 1e3:.3f} ms ({b_by}, {nbytes / 1e9:.3f} GB; "
+            f"bound {b_s * 1e3:.5f} ms ({b_by}, {nbytes / 1e9:.6f} GB; "
             f"{nbytes / ms / 1e6:.0f} GB/s achieved)")
         del g, mom, want, mine, got
     torch.cuda.empty_cache()
@@ -1066,7 +1008,7 @@ def main():
         f"{torch.cuda.device_count()} device(s) ({time.perf_counter() - t:.1f} s)")
 
     t = time.perf_counter()
-    libs = build.build(["galore_fused", "galore_epilogue", "galore_project", "rmsnorm"])
+    libs = build.build(["galore_epilogue", "galore_project", "rmsnorm"])
     log(f"[build] nvcc sm_90a: {', '.join(p.name for p in libs.values())} "
         f"({time.perf_counter() - t:.1f} s)")
     for path in libs.values():
@@ -1080,7 +1022,7 @@ def main():
     # SASS
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     for name, what in (("galore_project", "B4/B5"),
-                       ("galore_epilogue", "the int8-moment and fp32-apply kernel")):
+                       ("galore_epilogue", "the GaLore kernel (every step form)")):
         sass = subprocess.run([cuobjdump, "-sass", str(libs[name])], capture_output=True,
                               text=True, check=True, timeout=120).stdout
         hgmma = sum(" HGMMA." in line for line in sass.splitlines())
@@ -1095,7 +1037,6 @@ def main():
     rows = check_kernels()
     rows += check_adam8()
     rows += check_apply()
-    rows += check_int4p()
     rows += check_adam8bit()
     rows += check_project()
     rows += check_rmsnorm()
@@ -1111,6 +1052,10 @@ def main():
     if fused["launches"] != dict(none, left=48, right=8):
         raise AssertionError(f"main path launches {fused['launches']}, want left 48 (6 leaves × "
                              f"8 steps), right 8 (1 leaf × 8 steps), no adam8")
+    if fused["thread_copy_epilogue"] != 0:
+        raise AssertionError(f"main path: {fused['thread_copy_epilogue']} launches of "
+                             f"galore_epilogue's kernel copied their operands by the threads "
+                             f"instead of by the TMA")
 
     t = time.perf_counter()
     comp = train_phase(fused=False)
@@ -1162,8 +1107,8 @@ def main():
             raise AssertionError(f"{tag} launches {ph['launches']}, want only "
                                  f"{[k for k, v in want.items() if v]}, left 48 (6 leaves × 8 "
                                  f"steps) and right 8")
-        # every leaf's operands have 16-byte rows: galore_epilogue's kernel (the
-        # int8 and fp32-apply phases) copies them by the TMA
+        # every leaf's operands have 16-byte rows: galore_epilogue's kernel
+        # copies them by the TMA
         if ph["thread_copy_epilogue"] != 0:
             raise AssertionError(f"{tag}: {ph['thread_copy_epilogue']} launches of "
                                  f"galore_epilogue's kernel copied their operands by the threads "

@@ -5,6 +5,6 @@ parameter layout (dense kernels stored (d_in, d_out), layers stacked on a
 leading L axis, nested dicts keyed like the JAX tree), and imports torch,
 numpy and the standard library only. Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``; the GaLore-Adam leaf steps run as hand-written
-Hopper kernels (``csrc/galore_fused.cu``) on the card and as their plain
+Hopper kernel (``csrc/galore_epilogue.cu``) on the card and as their plain
 PyTorch versions on the CPU.
 """

@@ -1,23 +1,25 @@
 // Fused GaLore-Adam leaf step for Hopper (sm_90a): one kernel,
 // lowrank_adam_kernel, a left and a right form, P either f32 or packed int4,
-// with its moments in one of two stores: int8 codes with per-block scales
-// (emitting G̃ or folding it into the weight), or f32 M and V (folding it
-// into the weight). After it, the same dequant → Adam → requant without the
-// projection: the flat 8-bit Adam update (adam8bit_blocks_update), described
-// there.
+// with its moments in one of two stores, int8 codes with per-block scales or
+// f32 M and V, each either emitting G̃ or folding it into the weight. After
+// it, the same dequant → Adam → requant without the projection: the flat
+// 8-bit Adam update (adam8bit_blocks_update), described there.
 //
-// Replaces the Pallas TPU kernel of src/repro/kernels/galore_fused.py
-// `_fused_epilogue_call` (body `_epilogue_kernel`) in its int8-moment
-// variants, reached through `galore_fused_adam8_step[_right]` and, with
-// `apply_w`, `galore_fused_adam8_apply_step[_right]`, and in its fp32-moment
-// apply variant, `galore_fused_adam_apply_step[_right]` (:714/:727), each with
-// `quant_p` (a packed int4 P) or an f32 P:
-//   galore_fused_adam8_left   R = Pᵀ G   (P (m, r), moments (r, n), blocks along n)
-//   galore_fused_adam8_right  R = G P    (P (n, r), moments (m, r), blocks along m)
-//   galore_fused_adam8_apply_left / _right: the same, then W' = W + eta (G̃ + wd W)
-//     in place of writing G̃ (W f32 or bf16, eta on the device)
-//   galore_fused_adam_apply_left / _right: the apply form with f32 moments
-// then, per element of R:
+// Replaces the Pallas TPU kernels of src/repro/kernels/galore_fused.py, each
+// with `quant_p` (a packed int4 P) or an f32 P:
+//   galore_fused_adam_left / _right (fp32 moments, emit): `galore_fused_adam_step`
+//     (:169, pallas_call :208; int4 P :184) and `galore_fused_adam_step_right`
+//     (:268, :308; int4 P :284)
+//   galore_fused_adam8_left / _right (int8 moments, emit) and
+//   galore_fused_adam8_apply_left / _right (int8, apply): `_fused_epilogue_call`
+//     (body `_epilogue_kernel`) through `galore_fused_adam8_step[_right]` and,
+//     with `apply_w`, `galore_fused_adam8_apply_step[_right]`
+//   galore_fused_adam_apply_left / _right (fp32 moments, apply): the same call
+//     through `galore_fused_adam_apply_step[_right]` (:714/:727)
+// where the left form has R = Pᵀ G (P (m, r), moments (r, n), blocks along n)
+// and the right one R = G P (P (n, r), moments (m, r), blocks along m), and
+// the apply forms write W' = W + eta (G̃ + wd W) in place of G̃ (W f32 or
+// bf16, eta on the device). Then, per element of R:
 //   int8:  M = book_s[Mq] * Ms,  V = book_u[Vq] * Vs    (dequant, f32)
 //   f32:   M, V as stored
 //   M' = b1 M + (1-b1) R,  V' = b2 V + (1-b2) R²        (0 past the long dim)
@@ -31,13 +33,14 @@
 // below). c1 and c2 come from powf of the count read on the device.
 //
 // What bounds it on an H100. At the main path's largest left leaf,
-// (L, m, r, n) = (2, 4096, 128, 11008) with bf16 G and int4 P, one launch
-// moves G 180 MB + G̃ 361 MB + codes and scales read and written 11 MB + P
-// 0.6 MB ≈ 553 MB (0.165 ms at 3.35 TB/s) and does 4·L·m·r·n = 46.2 GFLOP in
-// its two contractions: 0.69 ms on the f32 FMA pipes at 67 TFLOP/s, 0.23 ms
-// as split TF32 on the tensor cores (R in two passes with a bf16 G, G̃ in
-// three, at 495 TFLOP/s). The f32 store moves 45 MB of moments (read and
-// written) instead of 11. Operations bound it, on the tensor cores.
+// (L, m, r, n) = (2, 4096, 128, 11008) with bf16 G, one launch does 4·L·m·r·n
+// = 46.2 GFLOP in its two contractions: 0.69 ms on the f32 FMA pipes at 67
+// TFLOP/s, 0.23 ms as split TF32 on the tensor cores (R in two passes with a
+// bf16 G, G̃ in three, at 495 TFLOP/s). It moves G 180 MB and G̃ 361 MB
+// (emit) or W 180 MB read and written (bf16 apply), P 0.6 MB (int4) or 4 MB
+// (f32), and the moments read and written: 11 MB as int8 codes and scales,
+// 45 MB in f32. The fp32 emit form is the heaviest, ≈ 590 MB (0.18 ms at
+// 3.35 TB/s). Operations bound every form, on the tensor cores.
 //
 // Design: one formulation for both sides. The right leaf is the left one on
 // swapped views: Rᵀ = Pᵀ Gᵀ (G read transposed: K-major) and G̃ᵀ = α P N̂ᵀ
@@ -1360,13 +1363,38 @@ extern "C" int galore_fused_adam_apply_right(const float* P, const uint8_t* Pq, 
   return run(true, false, a, p_int4, g_bf16, L, stream);
 }
 
-// 1 where the calling thread's last launch of the six GaLore entry points
+// The fp32-moment emit forms: P, Pq, Ps, p_int4 and books as above; G (L, m,
+// n) f32 or bf16 (g_bf16 = 1); M/V f32, left (L, r, n), right (L, m, r),
+// updated in place; count -> int32 on the device; out (L, m, n) f32, G̃.
+extern "C" int galore_fused_adam_left(const float* P, const uint8_t* Pq, const float* Ps,
+                                      int p_int4, const float* books, const void* G, int g_bf16,
+                                      float* M, float* V, const int* count, float* out, int L,
+                                      int m, int r, int n, double b1, double b2, double eps,
+                                      double alpha, void* stream) {
+  const Args a = make_args(P, Pq, Ps, G, nullptr, nullptr, nullptr, nullptr, M, V, count, books,
+                           out, nullptr, 0, 0, nullptr, 0.0, nullptr, m, r, n, b1, b2, eps, alpha,
+                           0);
+  return run(false, false, a, p_int4, g_bf16, L, stream);
+}
+
+extern "C" int galore_fused_adam_right(const float* P, const uint8_t* Pq, const float* Ps,
+                                       int p_int4, const float* books, const void* G, int g_bf16,
+                                       float* M, float* V, const int* count, float* out, int L,
+                                       int m, int r, int n, double b1, double b2, double eps,
+                                       double alpha, void* stream) {
+  const Args a = make_args(P, Pq, Ps, G, nullptr, nullptr, nullptr, nullptr, M, V, count, books,
+                           out, nullptr, 0, 0, nullptr, 0.0, nullptr, m, r, n, b1, b2, eps, alpha,
+                           0);
+  return run(true, false, a, p_int4, g_bf16, L, stream);
+}
+
+// 1 where the calling thread's last launch of the eight GaLore entry points
 // above copied G or P by the threads (its rows not a multiple of 16 bytes, or
 // its base not 16-byte aligned), 0 where the TMA copied both.
 extern "C" int galore_epilogue_last_copied() { return last_copied; }
 
 // The CTAs a cluster (1, 2 or 4) of the calling thread's last launch of the
-// six GaLore entry points.
+// eight GaLore entry points.
 extern "C" int galore_epilogue_last_cluster() { return last_cluster; }
 
 // The flat 8-bit Adam update of one leaf: g (numel elements) f32 or bf16

@@ -1,8 +1,8 @@
-"""Fused GaLore-Adam leaf steps: wrappers around the Hopper kernels of
-``csrc/galore_fused.cu`` (the fp32-moment emit steps) and
-``csrc/galore_epilogue.cu`` (the int8-moment steps and the fp32-moment
-weight-apply steps, on the tensor cores), the port of the
-Pallas kernels in repro/kernels/galore_fused.py (``galore_fused_adam_step``,
+"""Fused GaLore-Adam leaf steps: wrappers around the Hopper kernel of
+``csrc/galore_epilogue.cu`` (``lowrank_adam_kernel``, on the tensor cores:
+the fp32-moment and int8-moment steps, each in its emit and its
+weight-apply form), the port of the Pallas kernels in
+repro/kernels/galore_fused.py (``galore_fused_adam_step``,
 ``galore_fused_adam_step_right``, and the int8-moment and weight-apply
 variants of ``_fused_epilogue_call``, ``galore_fused_adam8_step[_right]``,
 ``galore_fused_adam_apply_step[_right]`` and
@@ -12,13 +12,13 @@ One launch per (possibly stacked) leaf computes R = PᵀG → Adam → G̃ = α 
 (left) or R = G P → Adam → G̃ = α N̂ Pᵀ (right); the adam8 forms keep M and V
 as int8 codes with per-128-block scales, dequantized and requantized in the
 kernel. Every form takes P either as f32 or as a packed int4 qstate, which the
-kernel decodes while staging it (no f32 P is made). The apply forms
+kernel decodes in registers (no f32 P is made). The apply forms
 write no G̃: they update the weight in place, W ← W + η(G̃ + wd·W), with η
 (= -lr of the step) a one-element f32 tensor on the device. On CPU tensors
 a wrapper runs the plain PyTorch version (kernels/ref.py) and writes the
 weight and moments back in place; on CUDA tensors it checks device, dtype,
 shape and contiguity and launches the kernel, or raises. There is no fallback
-from a CUDA tensor to the plain version. The kernels stream P through shared
+from a CUDA tensor to the plain version. The kernel streams P through shared
 memory, so every wrapper takes any rank. Which leaves reach the wrappers is
 decided one level up, in kernels/ops.py, by ``fits_vmem`` below: the
 reference's dispatch predicate, copied so that the same leaves take the same
@@ -28,14 +28,14 @@ and the plain step for the int8-moment and apply forms).
 
 Each wrapper counts its launches in ``<wrapper>.launches`` (a plain integer,
 incremented only where the kernel is launched). The fp32-moment wrappers
-launch one kernel for an f32 P and another for an int4 P, and count the
-latter in ``<wrapper>.launches_int4``. galore_epilogue's GaLore kernel copies
-G and P by the TMA, or by its threads what the TMA cannot describe (a row
-not a multiple of 16 bytes, or a base not 16-byte aligned: a slower route; G
-alone where only G's rows defeat it, else both); its six wrappers
-(``WRAPPERS_TMA``) count the launches that copied by the threads in
-``<wrapper>.launches_thread_copy``, and ``epilogue_last_cluster()`` says how
-many CTAs a thread-block cluster the last launch took.
+count the launches on an int4 P apart, in ``<wrapper>.launches_int4``. The
+kernel copies G and P by the TMA, or by its threads what the TMA cannot
+describe (a row not a multiple of 16 bytes, or a base not 16-byte aligned: a
+slower route; G alone where only G's rows defeat it, else both); each of the
+eight wrappers (``WRAPPERS_TMA``, all of ``WRAPPERS``) counts the launches
+that copied by the threads in ``<wrapper>.launches_thread_copy``, and
+``epilogue_last_cluster()`` says how many CTAs a thread-block cluster the
+last launch took.
 """
 from __future__ import annotations
 
@@ -81,7 +81,7 @@ def fits_vmem(m: int, r: int, n: int, g_itemsize: int) -> bool:
     return p_bytes + tile_bytes(min(bn, 128)) <= VMEM_BUDGET
 
 
-_SOURCE = "galore_fused"
+_SOURCE = "galore_epilogue"
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # P, Pq, Ps, p_int4
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # books, G, g_bf16
@@ -92,8 +92,6 @@ _ARGTYPES = [
     ctypes.c_void_p,                                  # stream
 ]
 
-
-_SOURCE8 = "galore_epilogue"
 _ARGTYPES_APPLY = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # P, Pq, Ps, p_int4
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # books, G, g_bf16
@@ -179,11 +177,15 @@ def _check(P, G, M, V, count, right: bool):
     return p_int4, r
 
 
-def _count(fn, p_int4: bool):
+def _count(fn, p_int4: bool = False):
+    """Count a launch of galore_epilogue's GaLore kernel on its wrapper: in
+    `launches_int4` for an fp32-moment form on an int4 P, else `launches`,
+    and in `launches_thread_copy` where it copied G or P by the threads."""
     if p_int4:
         fn.launches_int4 += 1
     else:
         fn.launches += 1
+    fn.launches_thread_copy += _thread_copied()
 
 
 def _launch(symbol, right, P, G, M, V, count, b1, b2, eps, alpha):
@@ -242,7 +244,7 @@ def _launch_apply(symbol, right, P, G, W, M, V, count, b1, b2, eps, alpha, eta, 
     L = math.prod(G.shape[:-2])
     nhat = _nhat_scratch(M, r)
     with torch.cuda.device(G.device):
-        err = build.entry(_SOURCE8, symbol, _ARGTYPES_APPLY)(
+        err = build.entry(_SOURCE, symbol, _ARGTYPES_APPLY)(
             *_p_ptrs(P), int(p_int4), codec.device_codebooks(G.device).data_ptr(), G.data_ptr(),
             int(G.dtype == torch.bfloat16), W.data_ptr(), int(W.dtype == torch.bfloat16),
             M.data_ptr(), V.data_ptr(), count.data_ptr(), eta.data_ptr(), wd,
@@ -275,7 +277,6 @@ def galore_fused_adam_apply_step(P, G, W, M, V, count, *, eta, b1=0.9, b2=0.999,
     p_int4 = _launch_apply("galore_fused_adam_apply_left", False, P, G, W, M, V, count, b1, b2,
                            eps, alpha, eta, wd)
     _count(galore_fused_adam_apply_step, p_int4)
-    galore_fused_adam_apply_step.launches_thread_copy += _thread_copied()
     return W, M, V
 
 
@@ -290,7 +291,6 @@ def galore_fused_adam_apply_step_right(P, G, W, M, V, count, *, eta, b1=0.9, b2=
     p_int4 = _launch_apply("galore_fused_adam_apply_right", True, P, G, W, M, V, count, b1, b2,
                            eps, alpha, eta, wd)
     _count(galore_fused_adam_apply_step_right, p_int4)
-    galore_fused_adam_apply_step_right.launches_thread_copy += _thread_copied()
     return W, M, V
 
 
@@ -343,16 +343,15 @@ def _check8(P, G, Mq, Ms, Vq, Vs, count, right: bool):
 
 def _thread_copied() -> int:
     """1 where this thread's last launch of galore_epilogue's GaLore kernel
-    (int8 moments, or the fp32-moment apply form) copied G or P by the
-    threads instead of by the TMA, else 0."""
-    return build.entry(_SOURCE8, "galore_epilogue_last_copied", [])()
+    copied G or P by the threads instead of by the TMA, else 0."""
+    return build.entry(_SOURCE, "galore_epilogue_last_copied", [])()
 
 
 def epilogue_last_cluster() -> int:
     """The CTAs a cluster (1, 2 or 4) of this thread's last launch of
     galore_epilogue's GaLore kernel: it spreads each 128-wide slab of the
     swept axis over them, sized on the host to the grid and the card."""
-    return build.entry(_SOURCE8, "galore_epilogue_last_cluster", [])()
+    return build.entry(_SOURCE, "galore_epilogue_last_cluster", [])()
 
 
 def _launch8(symbol, right, P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha, stochastic):
@@ -361,7 +360,7 @@ def _launch8(symbol, right, P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha, sto
     L = math.prod(G.shape[:-2])
     out = torch.empty(G.shape, dtype=torch.float32, device=G.device)
     with torch.cuda.device(G.device):
-        err = build.entry(_SOURCE8, symbol, _ARGTYPES8)(
+        err = build.entry(_SOURCE, symbol, _ARGTYPES8)(
             *_p_ptrs(P), int(p_int4), G.data_ptr(), int(G.dtype == torch.bfloat16),
             Mq.data_ptr(), Ms.data_ptr(), Vq.data_ptr(), Vs.data_ptr(), count.data_ptr(),
             codec.device_codebooks(G.device).data_ptr(), out.data_ptr(), L, m, r, n, b1, b2,
@@ -380,7 +379,7 @@ def _launch8_apply(symbol, right, P, G, W, Mq, Ms, Vq, Vs, count, b1, b2, eps, a
     L = math.prod(G.shape[:-2])
     nhat = _nhat_scratch(Mq, r)
     with torch.cuda.device(G.device):
-        err = build.entry(_SOURCE8, symbol, _ARGTYPES8_APPLY)(
+        err = build.entry(_SOURCE, symbol, _ARGTYPES8_APPLY)(
             *_p_ptrs(P), int(p_int4), G.data_ptr(), int(G.dtype == torch.bfloat16), W.data_ptr(),
             int(W.dtype == torch.bfloat16), Mq.data_ptr(), Ms.data_ptr(), Vq.data_ptr(),
             Vs.data_ptr(), count.data_ptr(), codec.device_codebooks(G.device).data_ptr(),
@@ -414,8 +413,7 @@ def galore_fused_adam8_step(P, G, Mq, Ms, Vq, Vs, count, *, b1=0.9, b2=0.999, ep
                                 b1, b2, eps, alpha, stochastic)
     out = _launch8("galore_fused_adam8_left", False, P, G, Mq, Ms, Vq, Vs, count,
                    b1, b2, eps, alpha, stochastic)
-    galore_fused_adam8_step.launches += 1
-    galore_fused_adam8_step.launches_thread_copy += _thread_copied()
+    _count(galore_fused_adam8_step)
     return out, Mq, Ms, Vq, Vs
 
 
@@ -431,8 +429,7 @@ def galore_fused_adam8_step_right(P, G, Mq, Ms, Vq, Vs, count, *, b1=0.9, b2=0.9
                                 count, b1, b2, eps, alpha, stochastic)
     out = _launch8("galore_fused_adam8_right", True, P, G, Mq, Ms, Vq, Vs, count,
                    b1, b2, eps, alpha, stochastic)
-    galore_fused_adam8_step_right.launches += 1
-    galore_fused_adam8_step_right.launches_thread_copy += _thread_copied()
+    _count(galore_fused_adam8_step_right)
     return out, Mq, Ms, Vq, Vs
 
 
@@ -448,8 +445,7 @@ def galore_fused_adam8_apply_step(P, G, W, Mq, Ms, Vq, Vs, count, *, eta, b1=0.9
                                      alpha=alpha, eta=eta, wd=wd, stochastic=stochastic)
     _launch8_apply("galore_fused_adam8_apply_left", False, P, G, W, Mq, Ms, Vq, Vs, count,
                    b1, b2, eps, alpha, eta, wd, stochastic)
-    galore_fused_adam8_apply_step.launches += 1
-    galore_fused_adam8_apply_step.launches_thread_copy += _thread_copied()
+    _count(galore_fused_adam8_apply_step)
     return W, Mq, Ms, Vq, Vs
 
 
@@ -463,8 +459,7 @@ def galore_fused_adam8_apply_step_right(P, G, W, Mq, Ms, Vq, Vs, count, *, eta, 
                                      alpha=alpha, eta=eta, wd=wd, stochastic=stochastic)
     _launch8_apply("galore_fused_adam8_apply_right", True, P, G, W, Mq, Ms, Vq, Vs, count,
                    b1, b2, eps, alpha, eta, wd, stochastic)
-    galore_fused_adam8_apply_step_right.launches += 1
-    galore_fused_adam8_apply_step_right.launches_thread_copy += _thread_copied()
+    _count(galore_fused_adam8_apply_step_right)
     return W, Mq, Ms, Vq, Vs
 
 
@@ -473,19 +468,16 @@ WRAPPERS = (galore_fused_adam_step, galore_fused_adam_step_right,
             galore_fused_adam_apply_step, galore_fused_adam_apply_step_right,
             galore_fused_adam8_apply_step, galore_fused_adam8_apply_step_right)
 # the wrappers of galore_epilogue's GaLore kernel, which counts the launches
-# that copied operands by the threads
-WRAPPERS_TMA = (galore_fused_adam8_step, galore_fused_adam8_step_right,
-                galore_fused_adam8_apply_step, galore_fused_adam8_apply_step_right,
-                galore_fused_adam_apply_step, galore_fused_adam_apply_step_right)
+# that copied operands by the threads: all of them
+WRAPPERS_TMA = WRAPPERS
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+        fn.launches_thread_copy = 0
     for fn in WRAPPERS[:2] + WRAPPERS[4:6]:  # the fp32-moment forms, int4 P
         fn.launches_int4 = 0
-    for fn in WRAPPERS_TMA:
-        fn.launches_thread_copy = 0
 
 
 reset_launch_counts()

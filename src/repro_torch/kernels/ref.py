@@ -6,10 +6,10 @@ or a packed int4 qstate — the flat 8-bit Adam update on (nb, 256) blocks, and
 RMSNorm.
 
 They are the numerical ground truth for the Hopper kernels in
-``csrc/galore_fused.cu``, ``csrc/galore_epilogue.cu``,
-``csrc/galore_project.cu`` and ``csrc/rmsnorm.cu``, and what the kernel
-wrappers run on CPU tensors. Pure functions: they return new weights and
-moments (or codes and scales) and leave their inputs untouched.
+``csrc/galore_epilogue.cu``, ``csrc/galore_project.cu`` and ``csrc/rmsnorm.cu``,
+and what the kernel wrappers run on CPU tensors. Pure functions: they return
+new weights and moments (or codes and scales) and leave their inputs
+untouched.
 """
 from __future__ import annotations
 

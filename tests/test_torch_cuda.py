@@ -1219,6 +1219,133 @@ def test_cuda_fp32_apply_never_falls_back_at_model_leaves(monkeypatch):
     torch.cuda.synchronize()
 
 
+# ---------------------------------------------------------------------------
+# the fp32-moment emit form of galore_epilogue's kernel (B1, B2, int4 P)
+# ---------------------------------------------------------------------------
+
+
+def _fp32_emit(side):
+    right = side == "right"
+    fn = tk.galore_fused_adam_step_right if right else tk.galore_fused_adam_step
+    plain = tk.galore_fused_adam_step_right_plain if right else tk.galore_fused_adam_step_plain
+    return fn, plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD8_CASES, ids=lambda c: f"{c[1]}{c[0]}")
+@pytest.mark.parametrize("p_int4", [False, True])
+def test_cuda_fp32_emit_kernel_at_model_leaves(case, p_int4):
+    """The fp32-moment emit form (B1/B2), G bf16, P f32 or int4, at the
+    models' leaves against its plain version: G̃, M' and V' within
+    1e-5·max|want| + 1e-5·|want|; two launches on the same inputs bitwise
+    equal; an int4-P launch equal to the launch on the host-dequantized P;
+    the thread-copy route taken exactly where an operand's rows are no
+    multiple of 16 bytes; each slab spread over a cluster of 2 or 4 CTAs;
+    M and V updated in place."""
+    dev = _cuda_device()
+    shape, side = case
+    P, M, V, G, _ = _fp32_card_inputs(shape, side, dev, seed=sum(shape))
+    if p_int4:
+        P4 = codec.quant4_axis_state(P)
+        P, P_host = P4, codec.dequantize4_axis(P4["q"], P4["scale"], P.shape[-2]).contiguous()
+    count = torch.tensor(7, dtype=torch.int32, device=dev)
+    fn, plain = _fp32_emit(side)
+    want = plain(P, G, M, V, count, alpha=0.25)
+    runs = []
+    for P_ in (P, P) + ((P_host,) if p_int4 else ()):
+        ins = [M.clone(), V.clone()]
+        before = (fn.launches + fn.launches_int4, fn.launches_thread_copy)
+        got = fn(P_, G, *ins, count, alpha=0.25)
+        torch.cuda.synchronize()
+        assert (fn.launches + fn.launches_int4, fn.launches_thread_copy) == (
+            before[0] + 1, before[1] + _copies8(shape, side, p_int4 and P_ is P))
+        assert tk.epilogue_last_cluster() in (2, 4)
+        assert got[1] is ins[0] and got[2] is ins[1]
+        runs.append(got)
+    for other in runs[1:]:  # again, and on the host-dequantized P
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+    tag = f"{side} {shape} int4 P {p_int4}"
+    for name, a, b in zip(("G̃", "m", "v"), runs[0], want):
+        assert _within(a, b), f"{tag} {name}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clusters", [1, 2, 4])
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_cuda_fp32_emit_each_cluster_size(clusters, side):
+    """The fp32-moment emit form at a stacked leaf that its host sends to 1,
+    2 or 4 CTAs a cluster (int4 P; two rank chunks at C = 4, whose G̃ the
+    second adds into): the launch takes that size, and G̃, M' and V' are
+    within the gates of the plain step's."""
+    dev = _cuda_device()
+    L, kept, r, swept = CLUSTER_CASES[clusters]
+    shape = (L, swept, r, kept) if side == "right" else (L, kept, r, swept)
+    P, M, V, G, _ = _fp32_card_inputs(shape, side, dev, seed=clusters)
+    P = codec.quant4_axis_state(P)
+    count = torch.tensor(7, dtype=torch.int32, device=dev)
+    fn, plain = _fp32_emit(side)
+    want = plain(P, G, M, V, count, alpha=0.25)
+    got = fn(P, G, M.clone(), V.clone(), count, alpha=0.25)
+    torch.cuda.synchronize()
+    assert tk.epilogue_last_cluster() == clusters
+    assert all(_within(a, b) for a, b in zip(got, want))
+
+
+# ((lead..., m, r, n), side) of leaves whose G rows (n elements) are no
+# multiple of 16 bytes in bf16 or f32, so the threads copy G; P's rows suit
+# the TMA
+ODD_ROW_CASES = [((2, 64, 48, 999), "left"), ((2, 1000, 48, 333), "right")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ODD_ROW_CASES, ids=lambda c: f"{c[1]}{c[0]}")
+@pytest.mark.parametrize("g_dtype", ["bfloat16", "float32"])
+def test_cuda_fp32_emit_thread_copies_at_odd_rows(case, g_dtype):
+    """The fp32-moment emit form at a leaf whose G rows defeat the TMA: the
+    launch copies G by the threads and is counted in launches_thread_copy,
+    and G̃ (written element by element where n is odd), M' and V' are within
+    the gates of the plain step's."""
+    dev = _cuda_device()
+    shape, side = case
+    P, M, V, G, _ = _fp32_card_inputs(shape, side, dev, seed=3)
+    G = G.to(getattr(torch, g_dtype))
+    count = torch.tensor(7, dtype=torch.int32, device=dev)
+    fn, plain = _fp32_emit(side)
+    want = plain(P, G, M, V, count, alpha=0.25)
+    before = (fn.launches, fn.launches_thread_copy)
+    got = fn(P, G, M.clone(), V.clone(), count, alpha=0.25)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_thread_copy) == (before[0] + 1, before[1] + 1)
+    assert all(_within(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_fp32_emit_never_runs_the_plain_version(monkeypatch):
+    """The fp32-moment emit wrappers, and the dispatch above them, at a
+    llama_7b attention leaf, llama_1b's gate/up leaf (G by the threads) and
+    its down leaf launch the kernel, P f32 and int4: a CUDA tensor never
+    reaches a plain version."""
+    dev = _cuda_device()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    for name in ("galore_fused_adam_step_plain", "galore_fused_adam_step_right_plain"):
+        monkeypatch.setattr(tk, name, refuse)
+    count = torch.tensor(7, dtype=torch.int32, device=dev)
+    for shape, side in (((2, 4096, 128, 4096), "left"), ((2, 2048, 512, 5461), "left"),
+                        ((2, 5461, 512, 2048), "right")):
+        P, M, V, G, _ = _fp32_card_inputs(shape, side, dev, seed=1)
+        fn, _ = _fp32_emit(side)
+        step = ops.galore_fused_adam_step_right if side == "right" else ops.galore_fused_adam_step
+        before = fn.launches + fn.launches_int4
+        fn(P, G, M, V, count)
+        fn(codec.quant4_axis_state(P), G, M, V, count)
+        step(P, G, M, V, count)
+        assert fn.launches + fn.launches_int4 == before + 3
+    torch.cuda.synchronize()
+
+
 # (shape of x): test_kernels.py's rmsnorm shapes, a ragged 1000 x 520, and the
 # widest row the kernel takes
 RMSNORM_SHAPES = [(4, 64), (3, 7, 128), (1, 1024), (33, 96), (1000, 520), (2, 8192)]

@@ -4,6 +4,7 @@ from JAX. The kernels themselves are held against the plain versions on the
 card by tests/test_torch_cuda.py."""
 import ast
 import pathlib
+import re
 
 import pytest
 
@@ -48,9 +49,8 @@ def test_cpu_wrapper_does_not_count_launches():
 
 def test_reset_launch_counts_zeroes_every_counter():
     """ops.reset_launch_counts zeroes every wrapper's counters, the thread-copy
-    counts of galore_epilogue's kernel (int8 moments and the fp32-moment
-    apply form) among them; the plain versions on CPU tensors count
-    nothing."""
+    counts of galore_epilogue's kernel (every GaLore step form) among them;
+    the plain versions on CPU tensors count nothing."""
     from repro_torch.kernels import adam8bit_update, galore_project, ops, rmsnorm
     counted = [(fn, "launches") for fn in tk.WRAPPERS]
     counted += [(fn, "launches_int4") for fn in tk.WRAPPERS[:2] + tk.WRAPPERS[4:6]]
@@ -60,11 +60,7 @@ def test_reset_launch_counts_zeroes_every_counter():
                                             galore_project.galore_project_back, rmsnorm.rmsnorm)]
     counted += [(fn, "launches_thread_copy") for fn in (galore_project.galore_project,
                                                         galore_project.galore_project_back)]
-    assert set(tk.WRAPPERS_TMA) == {tk.galore_fused_adam8_step, tk.galore_fused_adam8_step_right,
-                                    tk.galore_fused_adam8_apply_step,
-                                    tk.galore_fused_adam8_apply_step_right,
-                                    tk.galore_fused_adam_apply_step,
-                                    tk.galore_fused_adam_apply_step_right}
+    assert set(tk.WRAPPERS_TMA) == set(tk.WRAPPERS)
     for fn, attr in counted:
         setattr(fn, attr, 3)
     ops.reset_launch_counts()
@@ -106,9 +102,13 @@ def test_build_digest_follows_local_headers(tmp_path, monkeypatch):
     """A library is named by the digest of its source and of every local
     header the source includes (transitively), so an edited header rebuilds
     it; a system header (<...>) is not read. Needs no nvcc."""
-    # the int4 P decode is shared by both GaLore-Adam kernels, the split-TF32
-    # wgmma and TMA pieces by the int8-moment kernel and the tiled projections
-    assert {p.name for p in build._sources("galore_fused")} == {"galore_fused.cu", "int4_p.cuh"}
+    # the SIMT fp32-moment emit kernel is gone: galore_epilogue's kernel runs
+    # every GaLore step form, and no name resolves to the deleted source
+    assert not (build.CSRC / "galore_fused.cu").exists()
+    with pytest.raises(FileNotFoundError):
+        build._sources("galore_fused")
+    # the int4 P decode and the split-TF32 wgmma and TMA pieces are shared by
+    # galore_epilogue's GaLore kernel, the latter with the tiled projections
     assert {p.name for p in build._sources("galore_epilogue")} == {
         "galore_epilogue.cu", "int4_p.cuh", "tf32_wgmma.cuh"}
     assert {p.name for p in build._sources("galore_project")} == {
@@ -124,3 +124,90 @@ def test_build_digest_follows_local_headers(tmp_path, monkeypatch):
     after = build._target("k")
     assert after != before and after.name.startswith("k-")
     assert build._target("k") == after  # unchanged sources, unchanged name
+
+
+_EXTERN_C = re.compile(r'extern "C" int (\w+)\(([^)]*)\)')
+
+
+def _exports():
+    """{source name: {C symbol: parameter count}} of every ``extern "C"``
+    definition in csrc/*.cu."""
+    out = {}
+    for path in sorted(build.CSRC.glob("*.cu")):
+        out[path.stem] = {name: len([p for p in params.split(",") if p.strip()])
+                          for name, params in _EXTERN_C.findall(path.read_text())}
+    return out
+
+
+def _entry_calls(path):
+    """(source, symbol, argtypes length) of every ``build.entry(source, symbol,
+    argtypes)`` call in a wrapper module. The source and the argtypes list
+    are literals or module-level constants; a symbol that is a parameter of
+    the enclosing function is read from every call of that function in the
+    module (its string literal at that position)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    consts = {t.id: node.value for node in tree.body if isinstance(node, ast.Assign)
+              for t in node.targets if isinstance(t, ast.Name)}
+    value = lambda n: consts[n.id] if isinstance(n, ast.Name) and n.id in consts else n  # noqa: E731
+    funcs = {f.name: f for f in ast.walk(tree) if isinstance(f, ast.FunctionDef)}
+    calls = [c for c in ast.walk(tree) if isinstance(c, ast.Call)]
+    found = []
+    for fname, f in funcs.items():
+        for call in ast.walk(f):
+            if not (isinstance(call, ast.Call) and isinstance(call.func, ast.Attribute)
+                    and call.func.attr == "entry" and isinstance(call.func.value, ast.Name)
+                    and call.func.value.id == "build"):
+                continue
+            src, sym, types = (value(a) for a in call.args)
+            assert isinstance(src, ast.Constant) and isinstance(types, ast.List), (path, fname)
+            if isinstance(sym, ast.Constant):
+                symbols = [sym.value]
+            else:  # a parameter of f: the literals its callers pass there
+                pos = [a.arg for a in f.args.args].index(sym.id)
+                symbols = [c.args[pos].value for c in calls
+                           if isinstance(c.func, ast.Name) and c.func.id == fname]
+                assert symbols and all(isinstance(s_, str) for s_ in symbols), (path, fname)
+            found += [(src.value, s_, len(types.elts)) for s_ in symbols]
+    return found
+
+
+def test_every_wrapper_symbol_is_exported_by_its_source():
+    """Every C symbol a wrapper passes to build.entry is an ``extern "C"``
+    definition of the source it names, with as many parameters as the
+    wrapper's argtypes list, and every definition is some wrapper's: the
+    wiring that only a launch on the card would otherwise check. The
+    fp32-moment emit steps come from galore_epilogue, and nothing names the
+    deleted galore_fused source."""
+    exports = _exports()
+    assert "galore_fused" not in exports
+    calls = [c for f in sorted((ROOT / "src" / "repro_torch" / "kernels").glob("*.py"))
+             for c in _entry_calls(f)]
+    assert ("galore_epilogue", "galore_fused_adam_left", 20) in calls
+    assert ("galore_epilogue", "galore_fused_adam_right", 20) in calls
+    # and every export is some wrapper's: 11 of galore_epilogue, 3 of
+    # galore_project, rmsnorm's one
+    assert {(src, sym) for src, sym, _ in calls} == {
+        (src, sym) for src, names in exports.items() for sym in names}
+    for src, sym, n_types in calls:
+        assert src in exports, f"{sym}: no csrc/{src}.cu"
+        assert sym in exports[src], f"csrc/{src}.cu exports no {sym}"
+        assert exports[src][sym] == n_types, (
+            f"{src}.{sym} takes {exports[src][sym]} parameters, its wrapper passes {n_types}")
+
+
+def test_every_galore_wrapper_counts_thread_copies():
+    """All eight GaLore wrappers launch galore_epilogue's kernel, so all eight
+    are in WRAPPERS_TMA and count the launches that copied by the threads;
+    reset_launch_counts zeroes each count, and the fp32 emit steps on CPU
+    tensors (their plain versions) add nothing to them."""
+    from repro_torch.kernels import ops
+    assert set(tk.WRAPPERS_TMA) == set(tk.WRAPPERS) and len(set(tk.WRAPPERS)) == 8
+    for fn in tk.WRAPPERS:
+        fn.launches_thread_copy = 5
+    ops.reset_launch_counts()
+    assert [fn.launches_thread_copy for fn in tk.WRAPPERS_TMA] == [0] * 8
+    for side, fn in (("left", tk.galore_fused_adam_step), ("right", tk.galore_fused_adam_step_right)):
+        shape = (64, 16, 48) if side == "left" else (48, 16, 64)
+        P, G, M, V = (torch.from_numpy(a) for a in fused_inputs(shape, side))
+        fn(P, G, M, V, torch.tensor(1, dtype=torch.int32))
+        assert (fn.launches, fn.launches_int4, fn.launches_thread_copy) == (0, 0, 0)
