@@ -75,7 +75,11 @@ the tensor cores) at the
 r = 1024 leaves (the down leaf's G read, and its G̃ written, transposed) and
 a ragged shape, to 1e-5·max|want|, beside torch.matmul; and RMSNorm (B6, on no path)
 at the model's norm input and a ragged 1000 x 520, f32 within 1e-5 relative
-and bf16 within one ulp, beside torch.nn.functional.rms_norm.
+and bf16 within one ulp, beside torch.nn.functional.rms_norm. These two
+short kernels (and their plain versions and F.rms_norm) are timed by their
+device time (device_ms of tools/kernel_times.py: calls queued back to back
+between one pair of events); a single call between two events ("call")
+holds the host's time in the wrapper too, and is logged beside it.
 Every bound is the least time the card could take: the bytes (each input
 read once, each output written once) against the operations, the
 projections as split TF32 on the tensor cores (2 passes with a bf16
@@ -93,9 +97,11 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 import torch  # noqa: E402
 
+from kernel_times import copies_for, cuda_ms, device_ms, reps_for  # noqa: E402
 from repro_torch.configs.base import GaLoreConfig, TrainConfig, get_config  # noqa: E402
 from repro_torch.core.galore import galore_state_bytes  # noqa: E402
 from repro_torch.core.projector import compute_projector  # noqa: E402
@@ -215,21 +221,6 @@ def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, warmup, reps):
-    """Median time of fn() on the card, from CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def kernel_inputs(side, L, m, r, n, g_dtype, seed):
@@ -720,8 +711,10 @@ def check_adam8bit():
     bf16 as the main path gives it: codes, scales and the bf16 update bit for
     bit (both run the same explicitly rounded f32 operations in one order and
     the codec's midpoint rule, then round the update once). Times kernel and
-    plain version; the bound is bytes: g and the update once, each code read
-    and written once, each scale read and written once."""
+    plain version by their device time (device_ms, the inputs in copies that
+    exceed the L2) and the kernel's single call (cuda_ms, host included); the
+    bound is bytes: g and the update once, each code read and written once,
+    each scale read and written once."""
     rows = []
     k = KERNELS["adam8bit"]
     count = torch.tensor(COUNT, dtype=torch.int32, device="cuda")
@@ -737,19 +730,24 @@ def check_adam8bit():
                 d = (a.float() - b.float()).abs()
                 raise AssertionError(f"{k['name']} {shape} {name}: {int((d > 0).sum())} elements "
                                      f"differ from the plain version (max {float(d.max()):.3e})")
-        ms = cuda_ms(lambda: k["wrapper"](g, *mine, count), 3, 10)
-        plain_ms = cuda_ms(lambda: k["plain"](g, *mom, count), 2, 5)
         nbytes = 2 * numel * g.element_size() + 4 * nb * codec.BLOCK + 4 * 4 * nb
+        sets = [(g.clone(), [x.clone() for x in mom]) for _ in range(copies_for(nbytes))]
+        call_ms = cuda_ms(lambda: k["wrapper"](g, *mine, count), 3, 10)
+        ms = device_ms([lambda g=g_, m=m_: k["wrapper"](g, *m, count) for g_, m_ in sets],
+                       reps_for(call_ms))
+        plain_ms = device_ms([lambda g=g_, m=m_: k["plain"](g, *m, count) for g_, m_ in sets],
+                             reps_for(10 * call_ms))
         t_bytes, t_ops = nbytes / PEAK_BYTES, FLAT_OPS * numel / PEAK_F32
         b_s, b_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
         rows.append(dict(kernel="adam8bit", shape=list(shape), numel=numel, g_dtype="bfloat16",
-                         main_path=main, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_s * 1e3, bound_by=b_by, m=numel, n=1))
+                         main_path=main, max_abs_err=0.0, ms=ms, call_ms=call_ms,
+                         plain_ms=plain_ms, bound_ms=b_s * 1e3, bound_by=b_by, m=numel, n=1))
         log(f"[kernels] {k['name']} g {tuple(shape)} bfloat16 ({nb} blocks): update, codes and "
-            f"scales equal to the plain version's ok  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
-            f"bound {b_s * 1e3:.5f} ms ({b_by}, {nbytes / 1e9:.6f} GB; "
-            f"{nbytes / ms / 1e6:.0f} GB/s achieved)")
-        del g, mom, want, mine, got
+            f"scales equal to the plain version's ok  kernel {ms:.4f} ms (device; call "
+            f"{call_ms:.4f} ms)  plain {plain_ms:.4f} ms (device)  bound {b_s * 1e3:.5f} ms "
+            f"({b_by}, {nbytes / 1e9:.6f} GB; {nbytes / ms / 1e6:.0f} GB/s achieved; "
+            f"{len(sets)} input copies)")
+        del g, mom, want, mine, got, sets
     torch.cuda.empty_cache()
     return rows
 
@@ -874,8 +872,10 @@ def check_rmsnorm():
     (the model's dtype) or both f32: f32 output within 1e-5 relative (and
     1e-6 absolute), bf16 output within one bf16 ulp, the count of elements one
     ulp apart printed. Times kernel, plain version and
-    torch.nn.functional.rms_norm; the bound is bytes: x read and the output
-    written once, and the scale."""
+    torch.nn.functional.rms_norm by their device time (device_ms, x in copies
+    that exceed the L2), and the kernel's single call (cuda_ms, host
+    included); the bound is bytes: x read and the output written once, and
+    the scale."""
     rows = []
     for i, (shape, main) in enumerate(RMSNORM_SHAPES):
         gen = torch.Generator(device="cuda").manual_seed(600 + i)
@@ -903,20 +903,24 @@ def check_rmsnorm():
                     raise AssertionError(f"{tag}: beyond 1e-5 relative (max {rel:.2e})")
                 note = f"max relative err {rel:.2e}"
             err = float((g - w).abs().max())
-            ms = cuda_ms(lambda: trms.rmsnorm(x, scale), 5, 20)
-            plain_ms = cuda_ms(lambda: trms.rmsnorm_plain(x, scale), 3, 10)
-            library_ms = cuda_ms(lambda: torch.nn.functional.rms_norm(
-                x, (shape[-1],), scale, 1e-6), 5, 20)
             nbytes = 2 * x.numel() * x.element_size() + scale.numel() * scale.element_size()
+            xs = [x.clone() for _ in range(copies_for(nbytes))]
+            call_ms = cuda_ms(lambda: trms.rmsnorm(x, scale), 5, 20)
+            n = reps_for(call_ms)
+            ms = device_ms([lambda x=x_: trms.rmsnorm(x, scale) for x_ in xs], n)
+            plain_ms = device_ms([lambda x=x_: trms.rmsnorm_plain(x, scale) for x_ in xs], n)
+            library_ms = device_ms([lambda x=x_: torch.nn.functional.rms_norm(
+                x, (shape[-1],), scale, 1e-6) for x_ in xs], n)
             b_s = max(nbytes / PEAK_BYTES, 3 * x.numel() / PEAK_F32)
             rows.append(dict(kernel="rmsnorm", shape=list(shape), g_dtype=str(dt).removeprefix(
-                "torch."), main_path=main, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=b_s * 1e3, bound_by="bytes",
+                "torch."), main_path=main, max_abs_err=err, ms=ms, call_ms=call_ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_s * 1e3, bound_by="bytes",
                 m=x.numel() // shape[-1], n=shape[-1]))
-            log(f"[kernels] {tag}: max|err| {err:.2e}; {note} ok  kernel {ms:.4f} ms  plain "
-                f"{plain_ms:.4f} ms  F.rms_norm {library_ms:.4f} ms  bound {b_s * 1e3:.4f} ms "
-                f"(bytes, {nbytes / 1e6:.1f} MB; {nbytes / ms / 1e6:.0f} GB/s achieved)")
-            del x, scale, want, got
+            log(f"[kernels] {tag}: max|err| {err:.2e}; {note} ok  kernel {ms:.4f} ms (device; "
+                f"call {call_ms:.4f} ms)  plain {plain_ms:.4f} ms  F.rms_norm {library_ms:.4f} ms "
+                f"(device)  bound {b_s * 1e3:.4f} ms (bytes, {nbytes / 1e6:.1f} MB; "
+                f"{nbytes / ms / 1e6:.0f} GB/s achieved; {len(xs)} input copies)")
+            del x, xs, scale, want, got
     torch.cuda.empty_cache()
     return rows
 

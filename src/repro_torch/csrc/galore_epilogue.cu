@@ -1018,10 +1018,11 @@ int sm_count() {
 // ---------------------------------------------------------------------------
 // The flat 8-bit Adam update (the paper's 8-bit Adam baseline)
 // ---------------------------------------------------------------------------
-// Replaces `adam8bit_blocks_update` of src/repro/kernels/galore_fused.py (the
-// same `_fused_epilogue_call` with project=False: R = G, one quantization
-// block per 256 elements of the flattened leaf), reached through
-// kernels/adam8bit_update.py and ops.adam8bit_step. Per element of block b:
+// Replaces `adam8bit_blocks_update` of src/repro/kernels/galore_fused.py:762
+// (the same `_fused_epilogue_call`, pallas_call :676, with project=False:
+// R = G, one quantization block per 256 elements of the flattened leaf),
+// reached through kernels/adam8bit_update.py and ops.adam8bit_step. Per
+// element of block b:
 //   M = book_s[Mq] * Ms[b],  V = book_u[Vq] * Vs[b]      (dequant, f32)
 //   M' = b1 M + (1-b1) g,  V' = b2 V + (1-b2) g²          (0 past numel)
 //   update = (M'/c1) / (sqrt(V'/c2) + eps), in g's dtype  (none past numel)
@@ -1034,62 +1035,208 @@ int sm_count() {
 //
 // What bounds it on an H100: bytes. An element moves g (2 B in bf16), its two
 // codes read and written (4 B) and the update (2 B), 8 B, against ~35 f32
-// operations: a (2, 4096, 11008) leaf moves 0.73 GB (0.217 ms at 3.35 TB/s).
-// What holds it below that rate is its instruction count, not its loads: two
-// IEEE divisions and an 8-step binary search a moment, and a square root, an
-// element (16-byte vector loads and stores measured no faster).
-// Design: one warp per 256-element block, a lane per 8 elements at a stride
-// of 32 (each load instruction covers 32 consecutive elements), the absmax by
-// a shuffle reduction; 8 warps a block walk the leaf's blocks grid-stride, so
-// each thread block loads the codebooks into shared memory once.
-constexpr int kFlat = 256;  // optim/quant8.BLOCK
-constexpr int kFlatPerLane = kFlat / 32;
+// operations: the (32000, 4096) embedding leaf moves 1.06 GB, 0.315 ms at
+// 3.35 TB/s. The first design (a lane per 8 elements at a stride of 32, the
+// nearest code by an 8-step binary search over the 255 midpoints in shared
+// memory) issued about 170 instructions an element, some 100 of them the
+// two searches' dependent shared-memory loads at data-dependent,
+// bank-conflicting addresses, beside five IEEE divisions, a square root and
+// six 1- or 2-byte memory instructions. Issue time, not bytes, set its pace:
+// 1.444 ms at the embedding leaf, 22 % of the bound (H100 80GB HBM3, 700 W).
+// Design:
+//  - The nearest code from a bracket table (codec.bracket_table, built on the
+//    host, 5.5 KB in shared memory beside the books and the midpoints): one
+//    byte load keyed on the f32 bits of x/absmax (sign, clamped exponent, top
+//    mantissa bits) gives the count of midpoints below x's bucket, and one
+//    comparison with the next midpoint ends it, as no bucket holds two. The
+//    same strict comparisons against the same f32 midpoints: the code is
+//    searchsorted(mids, x) bit for bit.
+//  - A lane owns 8 consecutive elements of its warp's 256-element block: one
+//    16-byte load of a bf16 g (two of an f32 g), one 8-byte load and one
+//    8-byte store of each moment's codes, one 16-byte store of a bf16 update;
+//    a warp's load of g covers 512 contiguous bytes. Where g or the update is
+//    not 16-byte aligned, the codes not 8-byte aligned, or numel cuts a
+//    lane's 8 elements, that lane takes the element path of the same kernel;
+//    the word path carries no per-element test.
+//  - The IEEE divisions and the square root stay: they are what keeps the
+//    update and the codes the plain version's bit for bit.
+//  - 8 warps a thread block walk the leaf's blocks grid-stride, as many
+//    thread blocks as the card holds at once, so each loads the books and
+//    the tables once.
+// The word path issues 121 instructions an element (cuobjdump -sass of the
+// bf16 instance built for sm_90a: 969 for a lane's 8 elements). 50 of them
+// are the five divisions (10 each: MUFU.RCP, five FFMA, FCHK, a branch and
+// its convergence pair), 9 the square root and 26 the two table lookups. At
+// 4 warp instructions a clock on each of 132 SMs that is ≈ 0.5 ms of issue
+// at the embedding leaf, against 0.315 ms of bytes: issue still bounds it.
+constexpr int kFlat = 256;  // optim/quant8.BLOCK: a warp's block
+constexpr int kFlatThreads = 256;
+constexpr int kFlatPerLane = kFlat / 32;  // consecutive elements a lane owns
+
+// codec.BRACKETS: the exponents [lo, hi] and the mantissa bits of a bucket's
+// key, for the signed (M) and the unsigned (V) codebook
+template <bool kSigned>
+struct Bracket;
+template <>
+struct Bracket<true> { static constexpr int lo = 107, hi = 126, bits = 6; };
+template <>
+struct Bracket<false> { static constexpr int lo = 104, hi = 126, bits = 7; };
+template <bool kSigned>
+constexpr int bracket_len() {
+  return (Bracket<kSigned>::hi - Bracket<kSigned>::lo + 1) << Bracket<kSigned>::bits;
+}
+constexpr int kTableS = 2 * bracket_len<true>();  // a row of buckets for each sign
+constexpr int kTables = kTableS + bracket_len<false>();
+static_assert(kTables % 16 == 0, "the tables load in 16-byte words");
+
+// searchsorted(mids, x): the count of midpoints strictly below x, from x's
+// bucket in `table` and one comparison; mids[255] is +inf.
+template <bool kSigned>
+__device__ __forceinline__ uint8_t bracket_code(float x, const uint8_t* table, const float* mids) {
+  using B = Bracket<kSigned>;
+  constexpr uint32_t kFirst = B::lo << B::bits, kLast = ((B::hi + 1) << B::bits) - 1;
+  const uint32_t u = __float_as_uint(x);
+  // the unsigned book's midpoints are all above 0: a negative x takes bucket 0
+  const uint32_t mag = (!kSigned && (u >> 31)) ? 0u : (u & 0x7fffffffu);
+  uint32_t key = min(max(mag >> (23 - B::bits), kFirst), kLast) - kFirst;
+  if (kSigned) key += (u >> 31) * (kLast + 1 - kFirst);
+  const int below = table[key];
+  return (uint8_t)(below + (mids[below] < x ? 1 : 0));
+}
+
+// 8 consecutive elements of g from i, as f32 (a bf16 is its f32's top half)
+__device__ __forceinline__ void load8(const __nv_bfloat16* g, size_t i, float* v) {
+  const uint4 w = *reinterpret_cast<const uint4*>(g + i);
+  const uint32_t h[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    v[2 * q] = __uint_as_float(h[q] << 16);
+    v[2 * q + 1] = __uint_as_float(h[q] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void load8(const float* g, size_t i, float* v) {
+  const float4 a = *reinterpret_cast<const float4*>(g + i);
+  const float4 b = *reinterpret_cast<const float4*>(g + i + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* p, size_t i, const float* v) {
+  uint32_t h[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    h[q] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * q])) |
+           ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * q + 1])) << 16);
+  *reinterpret_cast<uint4*>(p + i) = make_uint4(h[0], h[1], h[2], h[3]);
+}
+__device__ __forceinline__ void store8(float* p, size_t i, const float* v) {
+  *reinterpret_cast<float4*>(p + i) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + i + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// 8 codes from i, one 8-byte word
+__device__ __forceinline__ void load_codes(const uint8_t* c, size_t i, uint8_t* out) {
+  const uint2 w = *reinterpret_cast<const uint2*>(c + i);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    out[q] = (uint8_t)(w.x >> (8 * q));
+    out[q + 4] = (uint8_t)(w.y >> (8 * q));
+  }
+}
+__device__ __forceinline__ void store_codes(uint8_t* c, size_t i, const uint8_t* v) {
+  uint2 w = make_uint2(0u, 0u);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    w.x |= (uint32_t)v[q] << (8 * q);
+    w.y |= (uint32_t)v[q + 4] << (8 * q);
+  }
+  *reinterpret_cast<uint2*>(c + i) = w;
+}
 
 template <typename GT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFlatThreads, 4)
     adam8bit_flat_kernel(const GT* __restrict__ g, long long numel, long long nb,
                          uint8_t* __restrict__ mq, float* __restrict__ ms, uint8_t* __restrict__ vq,
                          float* __restrict__ vs, const int* __restrict__ count,
-                         const float* __restrict__ books, GT* __restrict__ upd, float b1,
-                         float omb1, float b2, float omb2, float eps) {
+                         const float* __restrict__ books, const uint8_t* __restrict__ tables,
+                         GT* __restrict__ upd, float b1, float omb1, float b2, float omb2,
+                         float eps) {
   __shared__ float book_s[256], book_u[256], mids_s[256], mids_u[256];
+  __shared__ __align__(16) uint8_t table_s[kTables];
   const int tid = threadIdx.x, lane = tid % 32;
-  for (int i = tid; i < 512; i += kThreads) {
+  for (int i = tid; i < 512; i += kFlatThreads) {
     if (i < 256) book_s[i] = books[i];
     else book_u[i - 256] = books[i];
   }
+  for (int i = tid; i < kTables / 16; i += kFlatThreads)
+    reinterpret_cast<uint4*>(table_s)[i] = reinterpret_cast<const uint4*>(tables)[i];
   __syncthreads();
-  for (int i = tid; i < 255; i += kThreads) {
-    mids_s[i] = __fdiv_rn(__fadd_rn(book_s[i], book_s[i + 1]), 2.f);
-    mids_u[i] = __fdiv_rn(__fadd_rn(book_u[i], book_u[i + 1]), 2.f);
+  for (int i = tid; i < 256; i += kFlatThreads) {
+    mids_s[i] = i < 255 ? __fdiv_rn(__fadd_rn(book_s[i], book_s[i + 1]), 2.f) : INFINITY;
+    mids_u[i] = i < 255 ? __fdiv_rn(__fadd_rn(book_u[i], book_u[i + 1]), 2.f) : INFINITY;
   }
   const float t = (float)*count;
   const Coef k{b1, omb1, b2, omb2, eps, 1.f - powf(b1, t), 1.f - powf(b2, t)};
   __syncthreads();
 
-  const long long warps = (long long)gridDim.x * (kThreads / 32);
-  for (long long b = (long long)blockIdx.x * (kThreads / 32) + tid / 32; b < nb; b += warps) {
-    const size_t base = (size_t)b * kFlat;
+  // whole-word loads and stores need their words' alignment
+  const uintptr_t g_at = reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(upd);
+  const uintptr_t code_at = reinterpret_cast<uintptr_t>(mq) | reinterpret_cast<uintptr_t>(vq);
+  const bool g_words = (g_at & 15) == 0, code_words = (code_at & 7) == 0;
+  const long long warps = (long long)gridDim.x * (kFlatThreads / 32);
+  for (long long b = (long long)blockIdx.x * (kFlatThreads / 32) + tid / 32; b < nb; b += warps) {
+    const long long i0 = b * kFlat + lane * kFlatPerLane;
+    // whole words: no element of the lane's 8 past numel, every word aligned
+    const bool words = g_words && code_words && i0 + kFlatPerLane <= numel;
     const float sm = ms[b], sv = vs[b];
-    float mn[kFlatPerLane], vn[kFlatPerLane], am = 0.f, av = 0.f;
+    float mn[kFlatPerLane], vn[kFlatPerLane];
+    if (words) {
+      float gv[kFlatPerLane];
+      uint8_t cm[kFlatPerLane], cv[kFlatPerLane];
+      load8(g, i0, gv);
+      load_codes(mq, i0, cm);
+      load_codes(vq, i0, cv);
+#pragma unroll
+      for (int q = 0; q < kFlatPerLane; ++q)
+        adam_moments(k, __fmul_rn(book_s[cm[q]], sm), __fmul_rn(book_u[cv[q]], sv), gv[q], &mn[q],
+                     &vn[q]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < kFlatPerLane; ++q) {
+        mn[q] = vn[q] = 0.f;
+        if (i0 + q < numel)
+          adam_moments(k, __fmul_rn(book_s[mq[i0 + q]], sm), __fmul_rn(book_u[vq[i0 + q]], sv),
+                       load_g(g, i0 + q), &mn[q], &vn[q]);
+      }
+    }
+    float am = 0.f, av = 0.f;
 #pragma unroll
     for (int q = 0; q < kFlatPerLane; ++q) {
-      const size_t i = base + lane + 32 * q;
-      mn[q] = vn[q] = 0.f;
-      if ((long long)i < numel)
-        adam_moments(k, __fmul_rn(book_s[mq[i]], sm), __fmul_rn(book_u[vq[i]], sv),
-                     load_g(g, i), &mn[q], &vn[q]);
       am = fmaxf(am, fabsf(mn[q]));
       av = fmaxf(av, fabsf(vn[q]));
     }
     am = __fadd_rn(warp_max(am), 1e-12f);
     av = __fadd_rn(warp_max(av), 1e-12f);
+    uint8_t cm[kFlatPerLane], cv[kFlatPerLane];
+    float u[kFlatPerLane];
 #pragma unroll
     for (int q = 0; q < kFlatPerLane; ++q) {
-      const size_t i = base + lane + 32 * q;
-      mq[i] = requant(mn[q], am, book_s, mids_s, false, 0, 0, 0);
-      vq[i] = requant(vn[q], av, book_u, mids_u, false, 0, 0, 0);
-      if ((long long)i < numel) store_w(upd, i, adam_step(k, mn[q], vn[q]));
+      cm[q] = bracket_code<true>(__fdiv_rn(mn[q], am), table_s, mids_s);
+      cv[q] = bracket_code<false>(__fdiv_rn(vn[q], av), table_s + kTableS, mids_u);
+      u[q] = adam_step(k, mn[q], vn[q]);
+    }
+    if (words) {
+      store_codes(mq, i0, cm);
+      store_codes(vq, i0, cv);
+      store8(upd, i0, u);
+    } else {
+      // the codes are padded to whole blocks: only the update stops at numel
+#pragma unroll
+      for (int q = 0; q < kFlatPerLane; ++q) {
+        mq[i0 + q] = cm[q];
+        vq[i0 + q] = cv[q];
+        if (i0 + q < numel) store_w(upd, i0 + q, u[q]);
+      }
     }
     if (lane == 0) {
       ms[b] = am;
@@ -1100,16 +1247,25 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename GT>
 cudaError_t launch_flat(const void* g, long long numel, uint8_t* mq, float* ms, uint8_t* vq,
-                        float* vs, const int* count, const float* books, void* upd, double b1,
-                        double b2, double eps, cudaStream_t stream) {
+                        float* vs, const int* count, const float* books, const uint8_t* tables,
+                        void* upd, double b1, double b2, double eps, cudaStream_t stream) {
+  // the thread blocks the card holds at once (found once a process): more
+  // would only load the tables again
+  static const int per_sm = [] {
+    int n = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, adam8bit_flat_kernel<GT>, kFlatThreads,
+                                                      0) != cudaSuccess || n < 1)
+      n = 1;
+    return n;
+  }();
   const long long nb = (numel + kFlat - 1) / kFlat;
-  const long long per_block = kThreads / 32;
-  // eight 256-thread blocks fill an SM; more than that wave only re-loads the books
-  const long long want = (nb + per_block - 1) / per_block, fill = 8LL * sm_count();
+  const long long per_block = kFlatThreads / 32;
+  const long long want = (nb + per_block - 1) / per_block, fill = (long long)per_sm * sm_count();
   const long long blocks = want < fill ? want : fill;
-  adam8bit_flat_kernel<GT><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const GT*>(g), numel, nb, mq, ms, vq, vs, count, books, static_cast<GT*>(upd),
-      (float)b1, (float)(1.0 - b1), (float)b2, (float)(1.0 - b2), (float)eps);
+  adam8bit_flat_kernel<GT><<<(unsigned)blocks, kFlatThreads, 0, stream>>>(
+      static_cast<const GT*>(g), numel, nb, mq, ms, vq, vs, count, books, tables,
+      static_cast<GT*>(upd), (float)b1, (float)(1.0 - b1), (float)b2, (float)(1.0 - b2),
+      (float)eps);
   return cudaGetLastError();
 }
 
@@ -1400,16 +1556,19 @@ extern "C" int galore_epilogue_last_cluster() { return last_cluster; }
 // The flat 8-bit Adam update of one leaf: g (numel elements) f32 or bf16
 // (g_bf16 = 1); Mq/Vq (nb, 256) u8 and Ms/Vs (nb,) f32, nb = ⌈numel/256⌉,
 // updated in place; count -> int32 on the device; books -> the 528-float
-// codebook table (only the signed and unsigned tables are read); upd (numel
-// elements) in g's dtype. All contiguous. Returns a cudaError_t.
+// codebook table (only the signed and unsigned tables are read); tables ->
+// the bracket tables (codec.device_code_tables: kTables bytes, signed first,
+// 16-byte aligned); upd (numel elements) in g's dtype. All contiguous.
+// Returns a cudaError_t.
 extern "C" int adam8bit_blocks_update(const void* g, int g_bf16, long long numel, uint8_t* Mq,
                                       float* Ms, uint8_t* Vq, float* Vs, const int* count,
-                                      const float* books, void* upd, double b1, double b2,
-                                      double eps, void* stream) {
-  if (numel <= 0) return (int)cudaErrorInvalidValue;
+                                      const float* books, const uint8_t* tables, void* upd,
+                                      double b1, double b2, double eps, void* stream) {
+  if (numel <= 0 || (reinterpret_cast<uintptr_t>(tables) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(g_bf16 ? launch_flat<__nv_bfloat16>(g, numel, Mq, Ms, Vq, Vs, count, books, upd,
-                                                  b1, b2, eps, s)
-                      : launch_flat<float>(g, numel, Mq, Ms, Vq, Vs, count, books, upd, b1, b2,
-                                           eps, s));
+  return (int)(g_bf16 ? launch_flat<__nv_bfloat16>(g, numel, Mq, Ms, Vq, Vs, count, books,
+                                                  tables, upd, b1, b2, eps, s)
+                      : launch_flat<float>(g, numel, Mq, Ms, Vq, Vs, count, books, tables, upd,
+                                           b1, b2, eps, s));
 }

@@ -9,7 +9,9 @@ repro/kernels/adam8bit_update.py, whose Pallas body is
 
 The moments are the flat INT8 codec's state (``quant/codec.py``: codes
 (nb, 256) u8, one absmax per block), padded to whole blocks; g and the update
-are not padded: the kernel masks the last block's tail. On CPU tensors the
+are not padded: the kernel masks the last block's tail. The kernel finds
+each nearest code in the codec's bracket tables (``codec.device_code_tables``)
+rather than by searching the midpoints. On CPU tensors the
 wrapper runs the plain version (``adam8bit_update_plain``, the port of
 ``ref.adam8bit_update``) and writes codes and scales back in place; on CUDA
 tensors it checks device, dtype, shape and contiguity and launches the
@@ -27,7 +29,8 @@ from repro_torch.quant import codec
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,    # g, g_bf16, numel
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # Mq, Ms, Vq, Vs
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # count, books, update
+    ctypes.c_void_p, ctypes.c_void_p,                    # count, books
+    ctypes.c_void_p, ctypes.c_void_p,                    # bracket tables, update
     ctypes.c_double, ctypes.c_double, ctypes.c_double,   # b1, b2, eps
     ctypes.c_void_p,                                     # stream
 ]
@@ -94,7 +97,8 @@ def adam8bit_update(g, m_codes, m_scale, v_codes, v_scale, count, *, b1=0.9, b2=
         err = build.entry("galore_epilogue", "adam8bit_blocks_update", _ARGTYPES)(
             g.data_ptr(), int(g.dtype == torch.bfloat16), g.numel(), m_codes.data_ptr(),
             m_scale.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(), count.data_ptr(),
-            codec.device_codebooks(g.device).data_ptr(), upd.data_ptr(), b1, b2, eps,
+            codec.device_codebooks(g.device).data_ptr(),
+            codec.device_code_tables(g.device).data_ptr(), upd.data_ptr(), b1, b2, eps,
             torch.cuda.current_stream(g.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"adam8bit_blocks_update failed to launch: cudaError_t {err} "

@@ -25,6 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}  # per-process cache of loaded libraries
+_entries: dict[tuple[str, str], ctypes._CFuncPtr] = {}  # and of their configured functions
 _LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
 
@@ -103,8 +104,12 @@ def load(name: str) -> ctypes.CDLL:
 def entry(name: str, symbol: str, argtypes):
     """The C function `symbol` of ``csrc/<name>.cu``, with its argument types
     set (every pointer a ``c_void_p``, so none is cut to 32 bits) and a
-    ``cudaError_t`` result."""
-    fn = getattr(load(name), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+    ``cudaError_t`` result. Configured once per library and symbol, so a
+    wrapper's call pays for no more than the lookup."""
+    key = (name, symbol)
+    if key not in _entries:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[key] = fn
+    return _entries[key]

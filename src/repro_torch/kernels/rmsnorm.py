@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-MAX_D = 8192  # the kernel keeps a row in registers, ⌈d/256⌉ ≤ 32 values a thread
+MAX_D = 8192  # the kernel keeps a row in the registers of at most 8 warps
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,  # x, x_bf16, scale, s_bf16
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,               # out, rows, d

@@ -5,7 +5,8 @@ and axis-blocked parts of repro/quant/codec.py, bit for bit).
     ``dequant_state``): the dynamic-exponent codebook over ``BLOCK``-element
     blocks of the flattened array, one absmax each, the tail zero-padded —
     the state layout of the standalone 8-bit Adam (``optim/adam8bit.py``)
-    and of its kernel (``kernels/adam8bit_update.py``).
+    and of its kernel (``kernels/adam8bit_update.py``), which finds each
+    nearest code in the bracket tables of ``device_code_tables``.
   * Axis-blocked INT8 (``quantize_axis`` / ``dequantize_axis``): the dynamic-
     exponent codebook of Dettmers et al. (2022) over blocks of ``QBLOCK``
     elements along ONE trailing axis — the fused kernel's swept axis — so
@@ -107,6 +108,56 @@ def device_codebooks(device: torch.device) -> torch.Tensor:
                        torch.from_numpy(dynamic_codebook(False)),
                        torch.from_numpy(int4_codebook())])
     return books.to(device)
+
+
+# The bracket tables of the nearest-code rule, which the flat 8-bit Adam
+# kernel reads in place of a binary search over the midpoints. A value's
+# bucket is keyed by its f32 bits: the sign, the exponent clamped to
+# [lo, hi] and the top `bits` mantissa bits (a lower exponent, ±0 among
+# them, falls in the sign's first bucket, a higher one in its last). The
+# entry is the count of midpoints below the bucket's lowest value, and no
+# bucket holds more than one midpoint, so the code of x is
+# entry + (mids[entry] < x): searchsorted(mids, x), bit for bit. The
+# signed table has a bucket row for each sign, negatives after positives;
+# the unsigned table has none for negatives, which take the first bucket
+# (every unsigned midpoint is above 0, so their code is 0).
+# (lowest exponent, highest exponent, mantissa bits), signed and unsigned;
+# csrc/galore_epilogue.cu's Bracket<true> and Bracket<false> hold the same.
+BRACKETS = {True: (107, 126, 6), False: (104, 126, 7)}
+
+
+@functools.lru_cache(maxsize=None)
+def bracket_table(signed: bool) -> np.ndarray:
+    """The bracket table (uint8) of the signed or unsigned codebook's f32
+    midpoints, formed as the kernels form them. Raises if a bucket would
+    hold more than one midpoint."""
+    lo, hi, bits = BRACKETS[signed]
+    book = torch.from_numpy(dynamic_codebook(signed))
+    mids = _mids(book)
+    n = (hi - lo + 1) << bits
+    mag = (torch.arange(n, dtype=torch.int64) + (lo << bits)) << (23 - bits)
+    # each bucket's least and greatest magnitude (the clamped ends reach 0 and inf)
+    least = mag.to(torch.int32).view(torch.float32).clone()
+    most = (mag + (1 << (23 - bits)) - 1).to(torch.int32).view(torch.float32).clone()
+    least[0], most[-1] = 0.0, float("inf")
+    edges = [(least, most), (-most, -least)] if signed else [(least, most)]
+    table, holds = [], []
+    for low, high in edges:
+        below = torch.searchsorted(mids, low.contiguous())
+        table.append(below)
+        holds.append(torch.searchsorted(mids, high.contiguous()) - below)
+    if int(torch.cat(holds).max()) > 1:
+        raise ValueError(f"a bracket bucket of the {'signed' if signed else 'unsigned'} book "
+                         f"holds {int(torch.cat(holds).max())} midpoints")
+    return torch.cat(table).to(torch.uint8).numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def device_code_tables(device: torch.device) -> torch.Tensor:
+    """The signed and unsigned bracket tables (uint8, signed first) in one
+    tensor on `device`, made once per device: what the flat kernel reads."""
+    tables = np.concatenate([bracket_table(True), bracket_table(False)])
+    return torch.from_numpy(tables).to(device)
 
 
 # ---------------------------------------------------------------------------

@@ -4,6 +4,8 @@ the flat 8-bit Adam step against the Pallas kernel in interpret mode and
 against ``ref.adam8bit_update``, ``scale_by_adam8bit`` over three steps, a
 20-step trajectory, the state's bytes and its bridge, and the CLI."""
 import os
+import pathlib
+import re
 import subprocess
 import sys
 
@@ -43,6 +45,7 @@ from test_torch_quant import _assert_bitwise, _assert_close  # noqa: E402
 from test_torch_train import _Bridged  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT_PATH = pathlib.Path(ROOT)
 COUNT = 7
 
 
@@ -74,6 +77,128 @@ def test_flat_codec_matches(shape, signed):
     _assert_bitwise(codec.dequant_state(st, shape, signed),
                     jcodec.dequant_state(jcodec.quant_state(jnp.asarray(x), signed), shape,
                                          signed), "state")
+
+
+# ---------------------------------------------------------------------------
+# 1b. the bracket tables the flat kernel finds its nearest codes in
+# ---------------------------------------------------------------------------
+
+
+def _bracket_key(x, signed):
+    """The kernel's bucket of each f32 value (bracket_code in
+    csrc/galore_epilogue.cu): sign, exponent clamped to [lo, hi] and the top
+    `bits` mantissa bits; the unsigned book's negatives go to bucket 0."""
+    lo, hi, bits = codec.BRACKETS[signed]
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    neg = u >> 31
+    mag = u & 0x7FFFFFFF
+    if not signed:
+        mag = torch.where(neg == 1, torch.zeros_like(mag), mag)
+    key = torch.clamp(mag >> (23 - bits), lo << bits, ((hi + 1) << bits) - 1) - (lo << bits)
+    return key + neg * ((hi - lo + 1) << bits) if signed else key
+
+
+def _mids(signed):
+    return codec._mids(torch.from_numpy(codec.dynamic_codebook(signed)))
+
+
+def _bracket_codes(x, signed):
+    """A plain-PyTorch emulation of the kernel's lookup, through the very
+    tensor the kernel reads (codec.device_code_tables): the table's count of
+    midpoints below x's bucket, plus one comparison with the next midpoint
+    (the kernel pads the midpoints with +inf)."""
+    tables = codec.device_code_tables(torch.device("cpu")).to(torch.int64)
+    n_signed = codec.bracket_table(True).size
+    table = tables[:n_signed] if signed else tables[n_signed:]
+    mids = torch.cat([_mids(signed), torch.tensor([float("inf")])])
+    below = table[_bracket_key(x, signed)]
+    return below + (mids[below] < x).to(torch.int64)
+
+
+def _assert_searchsorted(x, signed, what):
+    want = torch.searchsorted(_mids(signed), x.contiguous())
+    got = _bracket_codes(x, signed)
+    bad = (got != want).nonzero().reshape(-1)
+    assert bad.numel() == 0, (what, x[bad[:5]].tolist(), got[bad[:5]].tolist(),
+                              want[bad[:5]].tolist())
+
+
+@pytest.mark.parametrize("signed", [True, False])
+def test_bracket_table_gives_searchsorted_at_every_edge(signed):
+    """Every midpoint and its neighbours 1 and 2 f32 ulps either side, ±0,
+    ±1, ±inf, the smallest non-zero midpoints and values below them (down to
+    the smallest subnormal), and every bucket's edges: the lookup's code is
+    searchsorted(mids, x) bit for bit."""
+    mids = _mids(signed)
+    up, down = torch.tensor(float("inf")), torch.tensor(float("-inf"))
+    near = [mids]
+    for toward in (up, down):
+        once = torch.nextafter(mids, toward)
+        near += [once, torch.nextafter(once, toward)]
+    least = mids[mids > 0].min()
+    small = torch.tensor([least / 2, least / 1e3, 1e-30, 1e-38, 1e-45, 0.0, -0.0, 1.0, -1.0,
+                          float("inf"), float("-inf")], dtype=torch.float32)
+    neg_least = mids[mids < 0].max() if signed else least
+    small = torch.cat([small, -small, torch.stack([least, neg_least, -least])])
+    lo, hi, bits = codec.BRACKETS[signed]
+    edge_bits = torch.arange(lo << bits, (hi + 1) << bits, dtype=torch.int64) << (23 - bits)
+    edges = edge_bits.to(torch.int32).view(torch.float32)
+    edges = torch.cat([edges, torch.nextafter(edges, down), torch.nextafter(edges, up)])
+    edges = torch.cat([edges, -edges])
+    for what, x in (("midpoints ± 2 ulps", torch.cat(near)), ("small and special", small),
+                    ("bucket edges", edges)):
+        _assert_searchsorted(x, signed, what)
+
+
+@pytest.mark.parametrize("signed", [True, False])
+def test_bracket_table_gives_the_codecs_codes_on_normed_blocks(signed):
+    """10⁶ seeded values x / (max|x| + 1e-12) over 256-element blocks of
+    normal draws (squared for the unsigned book, as V is): the lookup's codes
+    equal searchsorted's and JAX's codec's (jcodec.quantize) bit for bit."""
+    rng = np.random.default_rng(29 if signed else 31)
+    x = rng.standard_normal((4096, codec.BLOCK), np.float32)
+    x = x if signed else x * x
+    jq, _ = jcodec.quantize(jnp.asarray(x), signed)
+    blocks = torch.from_numpy(x)
+    normed = blocks / (torch.amax(blocks.abs(), dim=1, keepdim=True) + 1e-12)
+    _assert_searchsorted(normed.reshape(-1), signed, "normed blocks")
+    got = _bracket_codes(normed.reshape(-1), signed).to(torch.uint8).view(x.shape)
+    _assert_bitwise(got, jq, "codes")
+
+
+@pytest.mark.parametrize("signed", [True, False])
+def test_bracket_buckets_hold_at_most_one_midpoint(signed):
+    """The kernel compares x with one midpoint past its bucket's entry, so no
+    bucket may hold two: counted here from each midpoint's own bucket, not
+    by codec.bracket_table. The table spans the kernel's key range (a row
+    of buckets for each sign of the signed book), and its entries grow with
+    the bucket."""
+    lo, hi, bits = codec.BRACKETS[signed]
+    rows = (2 if signed else 1) * ((hi - lo + 1) << bits)
+    table = codec.bracket_table(signed)
+    assert table.dtype == np.uint8 and table.shape == (rows,)
+    positives = table[:(hi - lo + 1) << bits]
+    assert np.all(np.diff(positives.astype(np.int32)) >= 0)  # larger buckets, more below
+    per_bucket = torch.bincount(_bracket_key(_mids(signed), signed), minlength=rows)
+    assert int(per_bucket.max()) == 1, int(per_bucket.max())
+
+
+def test_bracket_tables_match_the_kernel_source():
+    """codec.BRACKETS and the kernel's Bracket<true> / Bracket<false> hold the
+    same exponent ranges and mantissa bits, and device_code_tables is the
+    signed table then the unsigned one, kTables bytes (a multiple of 16, as
+    the kernel copies it in 16-byte words), made once per device."""
+    src = (ROOT_PATH / "src" / "repro_torch" / "csrc" / "galore_epilogue.cu").read_text()
+    found = dict(re.findall(r"struct Bracket<(true|false)> \{ static constexpr int "
+                            r"(lo = \d+, hi = \d+, bits = \d+); \}", src))
+    for signed in (True, False):
+        lo, hi, bits = codec.BRACKETS[signed]
+        assert found[str(signed).lower()] == f"lo = {lo}, hi = {hi}, bits = {bits}"
+    tables = codec.device_code_tables(torch.device("cpu"))
+    assert tables is codec.device_code_tables(torch.device("cpu"))
+    assert tables.dtype == torch.uint8 and tables.numel() % 16 == 0
+    np.testing.assert_array_equal(tables.numpy(), np.concatenate(
+        [codec.bracket_table(True), codec.bracket_table(False)]))
 
 
 # ---------------------------------------------------------------------------

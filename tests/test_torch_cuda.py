@@ -100,8 +100,11 @@ def adam8_inputs(shape, side, seed=17):
 
 
 # leaf sizes of the flat 8-bit Adam checks: one block, a ragged tail, a
-# ragged 1000 x 520 leaf, and 33 whole blocks
-FLAT_NUMELS = [256, 700, 1000 * 520, 33 * 256]
+# ragged 1000 x 520 leaf, and 33 whole blocks; single elements, a block's
+# edges, a lane's 8 elements cut by numel (8191), the model's norm leaves
+# (4096,) and (2, 4096) and a (2, 4096, 4096) attention leaf
+FLAT_NUMELS = [256, 700, 1000 * 520, 33 * 256, 1, 7, 255, 257, 8191, 4096, 2 * 4096,
+               2 * 4096 * 4096]
 
 
 @functools.lru_cache(maxsize=None)
@@ -407,9 +410,32 @@ def test_cuda_apply_wrappers_reject_wrong_weights(quant):
 # ---------------------------------------------------------------------------
 
 
-def _flat_on(dev, numel):
-    g, moments = flat_inputs(numel)
-    return torch.from_numpy(g).to(dev), [torch.from_numpy(t.copy()).to(dev) for t in moments]
+# the plain flat step as the input maker runs it, bound here so that a test
+# that forbids the plain version on CUDA tensors can still make its inputs
+_plain_flat_step = a8.adam8bit_update_plain
+
+
+def _flat_on(dev, numel, seed=23):
+    """flat_inputs made on the card: g (numel,) f32 drawn with numpy, and the
+    moments six plain steps leave there (the CPU would take minutes at the
+    largest leaf)."""
+    rng = np.random.default_rng(seed)
+    draw = lambda: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(numel, np.float32) * np.float32(0.01)).to(dev)
+    zeros = torch.zeros(numel, device=dev)
+    moments = (*codec.quantize(zeros, signed=True), *codec.quantize(zeros, signed=False))
+    for t in range(1, 7):
+        count = torch.tensor(t, dtype=torch.int32, device=dev)
+        moments = _plain_flat_step(draw(), *moments, count)[1:]
+    return draw(), list(moments)
+
+
+def _offset(t, by=1):
+    """t's values `by` elements into a larger buffer: a contiguous view whose
+    base lacks the alignment that t's has."""
+    buf = torch.zeros(t.numel() + by, device=t.device, dtype=t.dtype)
+    buf[by:].copy_(t.reshape(-1))
+    return buf[by:].view(t.shape)
 
 
 @pytest.mark.cuda
@@ -438,27 +464,22 @@ def test_cuda_adam8bit_kernel_matches_plain(numel, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("numel", FLAT_NUMELS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_adam8bit_kernel_unaligned_matches_plain(dtype):
+def test_cuda_adam8bit_kernel_unaligned_matches_plain(numel, dtype):
     """g, codes and update at odd offsets of larger buffers (too little
     alignment for the kernel's 16- and 8-byte words): the element-wise path,
     still bit for bit the plain version."""
     dev = _cuda_device()
-    g, moments = _flat_on(dev, 700)
-    gbuf = torch.zeros(701, device=dev, dtype=getattr(torch, dtype))
-    gbuf[1:].copy_(g)
-    g = gbuf[1:]
-    mine = []
-    for t in moments:
-        buf = torch.zeros(t.numel() + 1, device=dev, dtype=t.dtype)
-        buf[1:].copy_(t.reshape(-1))
-        mine.append(buf[1:].view(t.shape))
+    g, moments = _flat_on(dev, numel)
+    g = _offset(g.to(getattr(torch, dtype)))
+    mine = [_offset(t) for t in moments]
     count = torch.tensor(7, dtype=torch.int32, device=dev)
     want = a8.adam8bit_update_plain(g, *moments, count)
     got = a8.adam8bit_update(g, *mine, count)
     torch.cuda.synchronize()
     for name, a, b in zip(["update", "mq", "ms", "vq", "vs"], got, want):
-        assert torch.equal(a, b), f"{dtype} {name}"
+        assert torch.equal(a, b), f"{numel} {dtype} {name}"
 
 
 @pytest.mark.cuda
@@ -1346,9 +1367,12 @@ def test_cuda_fp32_emit_never_runs_the_plain_version(monkeypatch):
     torch.cuda.synchronize()
 
 
-# (shape of x): test_kernels.py's rmsnorm shapes, a ragged 1000 x 520, and the
-# widest row the kernel takes
-RMSNORM_SHAPES = [(4, 64), (3, 7, 128), (1, 1024), (33, 96), (1000, 520), (2, 8192)]
+# (shape of x): test_kernels.py's rmsnorm shapes, a ragged 1000 x 520, the
+# widest row the kernel takes, and rows of every width class in more rows
+# than the grid holds at once (its thread blocks walk them): d = 1 and 7
+# (element-wise), 4096 (two or four warps a row) and 8192 (four or eight)
+RMSNORM_SHAPES = [(4, 64), (3, 7, 128), (1, 1024), (33, 96), (1000, 520), (2, 8192),
+                  (2999, 1), (2999, 7), (2999, 4096), (2999, 8192)]
 
 
 def assert_rmsnorm_close(got, want, name):
@@ -1402,3 +1426,53 @@ def test_cuda_rmsnorm_wrapper_rejects_wrong_inputs(monkeypatch):
     assert trms.rmsnorm.launches == before
     trms.rmsnorm(x, scale)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 7, 520, 4096, 8192])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s_dtype", ["float32", "bfloat16"])
+def test_cuda_rmsnorm_kernel_at_offset_bases(d, x_dtype, s_dtype):
+    """x and scale one element into larger buffers (bases the kernel's
+    16-byte words cannot take): the element-wise path, within the gate."""
+    dev = _cuda_device()
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.standard_normal((999, d), np.float32)).to(dev)
+    scale = torch.from_numpy(rng.standard_normal(d, np.float32) + 1).to(dev)
+    x = _offset(x.to(getattr(torch, x_dtype)))
+    scale = _offset(scale.to(getattr(torch, s_dtype)))
+    want = trms.rmsnorm_plain(x, scale)
+    before = trms.rmsnorm.launches
+    got = ops.rmsnorm(x, scale)
+    torch.cuda.synchronize()
+    assert trms.rmsnorm.launches == before + 1
+    assert_rmsnorm_close(got, want, f"d {d} x {x_dtype} scale {s_dtype} at an offset")
+
+
+@pytest.mark.cuda
+def test_cuda_flat_and_rmsnorm_never_run_the_plain_version(monkeypatch):
+    """Neither wrapper takes its plain version on a CUDA tensor, on the word
+    path or the element path."""
+    dev = _cuda_device()
+    count = torch.tensor(7, dtype=torch.int32, device=dev)
+    flat = [(n, _flat_on(dev, n)) for n in (7, 4096, 1000 * 520)]
+    norm = [torch.randn(33, d, device=dev) for d in (7, 520, 4096)]
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(a8, "adam8bit_update_plain", refuse)
+    monkeypatch.setattr(trms, "rmsnorm_plain", refuse)
+    launches = a8.adam8bit_update.launches, trms.rmsnorm.launches
+    for _, (g, moments) in flat:
+        for dtype in (torch.float32, torch.bfloat16):
+            a8.adam8bit_update(g.to(dtype), *[t.clone() for t in moments], count)
+            a8.adam8bit_update(_offset(g.to(dtype)), *[_offset(t) for t in moments], count)
+    for x in norm:
+        for dtype in (torch.float32, torch.bfloat16):
+            scale = torch.ones(x.shape[-1], device=dev, dtype=dtype)
+            trms.rmsnorm(x.to(dtype), scale)
+            trms.rmsnorm(_offset(x.to(dtype)), _offset(scale))
+    torch.cuda.synchronize()
+    assert (a8.adam8bit_update.launches, trms.rmsnorm.launches) == (
+        launches[0] + 4 * len(flat), launches[1] + 4 * len(norm))
