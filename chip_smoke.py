@@ -29,14 +29,22 @@ Phases, each timed, none of them optional; any failed check raises:
      llama_7b at full width, 2 layers, bf16, batch 8 × 256 tokens, through
      train_loop; every loss finite, the last below the first, and each fp32
      kernel launched once per stacked leaf per step (6 left leaves, 1 right
-     leaf), none by thread copies;
+     leaf), none by thread copies. [ckpt]: the run checkpoints at step 4 into
+     a fresh directory; its final state is saved through the checkpoint
+     manager (host copy and write timed apart, bytes on disk, and again with
+     the int4 file codec) and restored onto the card, every leaf bit for
+     bit; a second run on the directory resumes from step 4 and takes steps
+     5-7: step 5's loss equal to the straight run's bit for bit, 6-7 within
+     5e-2;
   5. the same run on the composable plain-torch path: no kernel launches,
      per-step losses within 5e-2 of phase 4;
   6. 8-bit GaLore, fused: phase 4's run with int8 moments and packed int4
      projectors; every loss finite and falling, only the int8-moment kernel
      launched (48 left, 8 right), none of its launches by thread copies,
      losses within 5e-2 of phase 4, and the m/v/proj state bytes measured
-     from the tensors within 0.01 % of the analytic galore_state_bytes;
+     from the tensors within 0.01 % of the analytic galore_state_bytes; its
+     final state (int8 codes and scales, int4 P) saved and restored through
+     the checkpoint manager bit for bit on the card ([ckpt]);
   7. phases 4 and 6 again with the weight update folded into the kernels
      (galore_fused_apply): only the apply kernels launched (48 left, 8
      right; never by thread copies), losses within 5e-2 of the emit phase,
@@ -46,6 +54,15 @@ Phases, each timed, none of them optional; any failed check raises:
      never by thread copies), losses
      within 5e-2 of phase 4 (and of the int4-P emit phase for apply), state
      bytes within 0.01 % of galore_state_bytes;
+  8a. [guard]: phase 4 with the anomaly guard, checkpointing at step 4, and
+     NaN gradients injected at steps 5-7: the three skips each a bitwise
+     no-op on every leaf of params and state and launching nothing, one
+     rollback to step 4, steps 5-7 replayed finite, step 5's loss equal bit
+     for bit to the rejected attempt's and to phase 4's; the guarded
+     non-refresh step time beside phase 4's, and the guarded step without
+     fault hooks timed in turns with the unguarded one on one state (no
+     refresh); and a guarded fused-apply run refused with ValueError, as in
+     the reference;
   9. the paper's 7B rank, r = 1024 (T = 8: one refresh), fp32 fused and
      composable: every leaf fails the reference's fits_vmem, so the fused
      step composes the tiled projections (B4 and B5 launched 56 times each,
@@ -90,9 +107,11 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -101,10 +120,14 @@ sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 import torch  # noqa: E402
 
+import repro_torch.launch.train as launcher  # noqa: E402
 from kernel_times import copies_for, cuda_ms, device_ms, reps_for  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs.base import GaLoreConfig, TrainConfig, get_config  # noqa: E402
 from repro_torch.core.galore import galore_state_bytes  # noqa: E402
 from repro_torch.core.projector import compute_projector  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticC4  # noqa: E402
+from repro_torch.distributed.step import make_train_step  # noqa: E402
 from repro_torch.kernels import adam8bit_update as a8  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import galore_fused as gf  # noqa: E402
@@ -112,10 +135,12 @@ from repro_torch.kernels import galore_project as tp  # noqa: E402
 from repro_torch.kernels import rmsnorm as trms  # noqa: E402
 from repro_torch.kernels.ref import apply_weight, lowrank_adam_update  # noqa: E402
 from repro_torch.launch.train import RunConfig, train_loop  # noqa: E402
+from repro_torch.models.model import init_params  # noqa: E402
 from repro_torch.optim.adam8bit import adam8bit_state_bytes  # noqa: E402
 from repro_torch.optim.factory import galore_state_index  # noqa: E402
 from repro_torch.quant import QuantPolicy, codec  # noqa: E402
-from repro_torch.utils import flatten_up_to, tree_leaves  # noqa: E402
+from repro_torch.robust import init_guard_state  # noqa: E402
+from repro_torch.utils import flatten_up_to, tree_leaves, tree_leaves_with_path  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, f32 FMA FLOP/s,
 # TF32 tensor-core FLOP/s
@@ -926,32 +951,44 @@ def check_rmsnorm():
 
 
 def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=True, rank=128,
-                update_freq=4):
+                update_freq=4, ckpt_dir=None, ckpt_every=0, guard=False, faults=None,
+                on_state=None):
     """8 steps of the main path (AdamW, wd 0.01; GaLore at `rank`, refreshed
     every `update_freq` steps; with `apply` the weight update folded into the
     kernels; without `galore` full-rank `optimizer`, AdamW or the 8-bit Adam
-    baseline); returns losses, step times, the
+    baseline); returns the steps taken, losses, step times, the
     launches of every kernel, peak memory, and the optimizer state's bytes
     measured from the tensors (GaLore's m/v/proj, or the baselines' moments)
     beside their analytic count (galore_state_bytes, adam8bit_state_bytes, or
-    8 bytes a parameter for AdamW)."""
+    8 bytes a parameter for AdamW). The run checkpoints into `ckpt_dir` every
+    `ckpt_every` steps and resumes from what it finds there; without one it
+    gets a fresh directory of its own, removed afterwards. `guard` turns on
+    the anomaly guard (with the fault specs `faults`); `on_state(params,
+    opt_state)` sees the final state before it is freed."""
     cfg = dataclasses.replace(get_config("llama_7b"), n_layers=2)
     gcfg = (GaLoreConfig(rank=rank, update_freq=update_freq, scale=0.25,
                          quant=quant or QuantPolicy()) if galore else None)
     tc = TrainConfig(optimizer=optimizer, galore=gcfg, galore_fused_adam=fused,
                      galore_fused_apply=apply, lr=1e-3, weight_decay=WD, total_steps=8,
-                     warmup_steps=1)
+                     warmup_steps=1, anomaly_guard=guard)
+    own_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_") if ckpt_dir is None else None
     run = RunConfig(arch="llama_7b", smoke=False, steps=8, batch_per_host=8, seq_len=256,
-                    log_every=1, device="cuda")
-    losses, times = [], []
+                    ckpt_dir=ckpt_dir or own_dir, ckpt_every=ckpt_every, log_every=1,
+                    device="cuda")
+    steps, losses, times = [], [], []
 
     def on_step(step, metrics):
+        steps.append(step)
         losses.append(float(metrics["loss"]))
         times.append(metrics["step_s"])
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    params, opt_state, _, _ = train_loop(run, tc, cfg=cfg, on_step=on_step)
+    try:
+        params, opt_state, _, _ = train_loop(run, tc, cfg=cfg, on_step=on_step, faults=faults)
+    finally:
+        if own_dir is not None:
+            shutil.rmtree(own_dir, ignore_errors=True)
     launches = {key: getattr(fn, attr) for key, (fn, attr) in COUNTERS.items()}
     thread_copy = sum(fn.launches_thread_copy for fn in (tp.galore_project,
                                                          tp.galore_project_back))
@@ -970,14 +1007,110 @@ def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=
         leaves = tree_leaves([state["m"], state["v"]])
         analytic = 8 * sum(p.numel() for p in tree_leaves(params))
     state_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    if on_state is not None:
+        on_state(params, opt_state)
     del params, opt_state, state, leaves
     torch.cuda.empty_cache()
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"non-finite loss: {losses}")
-    return dict(losses=losses, times=times, launches=launches, thread_copy=thread_copy,
-                thread_copy_epilogue=thread_copy_epilogue, peak=peak, galore=galore,
-                update_freq=update_freq, state_bytes=state_bytes, analytic_bytes=analytic,
-                quantized_leaves=quantized)
+    return dict(steps=steps, losses=losses, times=times, launches=launches,
+                thread_copy=thread_copy, thread_copy_epilogue=thread_copy_epilogue, peak=peak,
+                galore=galore, update_freq=update_freq, state_bytes=state_bytes,
+                analytic_bytes=analytic, quantized_leaves=quantized)
+
+
+def npz_bytes(root):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(root) for f in fs if f.endswith(".npz"))
+
+
+def check_roundtrip(tag, params, opt_state, int4=False):
+    """Save a phase's final state through the checkpoint manager (async: the
+    host copy inside save(), then the write, timed apart), restore it onto
+    the card, and require every leaf bit for bit in its dtype on its device;
+    with `int4`, save it again with the int4 file codec for its bytes."""
+    tree = {"params": params, "opt_state": opt_state}
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    row = dict(tag=tag)
+    try:
+        mgr = CheckpointManager(os.path.join(root, "plain"), async_save=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mgr.save(7, tree)
+        row["copy_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        mgr.wait()
+        row["write_s"] = time.perf_counter() - t
+        row["bytes"] = npz_bytes(os.path.join(root, "plain"))
+        t = time.perf_counter()
+        restored = mgr.restore(7, tree)
+        torch.cuda.synchronize()
+        row["restore_s"] = time.perf_counter() - t
+        want = dict(tree_leaves_with_path(tree))
+        got = dict(tree_leaves_with_path(restored))
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"[ckpt] {tag}: restored leaves {sorted(set(got) ^ set(want))}")
+        for k, w in want.items():
+            g = got[k]
+            same = (g == w if not isinstance(w, torch.Tensor) else
+                    g.dtype == w.dtype and g.device == w.device and torch.equal(g, w))
+            if not same:
+                raise AssertionError(f"[ckpt] {tag}: leaf {k} did not restore bit for bit")
+        row["leaves"] = len(want)
+        row["device"] = str(tree_leaves(params)[0].device)
+        row["int_leaves"] = sum(isinstance(w, torch.Tensor) and not w.is_floating_point()
+                                for w in want.values())
+        del restored, got
+        if int4:
+            mgr4 = CheckpointManager(os.path.join(root, "int4"), async_save=False,
+                                     quantize="int4")
+            t = time.perf_counter()
+            mgr4.save(7, tree, block=True)
+            row["int4_save_s"] = time.perf_counter() - t
+            row["int4_bytes"] = npz_bytes(os.path.join(root, "int4"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[ckpt] {tag} state at step 7: save {row['copy_s']:.2f} s host copy + "
+        f"{row['write_s']:.2f} s write, {row['bytes']} bytes on disk; restore "
+        f"{row['restore_s']:.2f} s; {row['leaves']} leaves ({row['int_leaves']} integer: codes, "
+        f"counts, key) bit for bit on {row['device']}"
+        + (f"; --ckpt-quantize int4: {row['int4_bytes']} bytes "
+           f"({row['bytes'] / row['int4_bytes']:.2f}x smaller), save {row['int4_save_s']:.2f} s"
+           if int4 else ""))
+    return row
+
+
+def checked_guarded_steps(skips):
+    """A make_train_step for the launcher that holds every step the guard
+    rejects to a bitwise no-op: where the step's fault input is poisoned it
+    clones params and state first, and after a rejected step requires every
+    leaf unchanged, appending the number of leaves compared to `skips`."""
+    make = launcher.make_train_step
+
+    def make_checked(cfg, tc):
+        step, opt = make(cfg, tc)
+
+        def checked(params, opt_state, guard, batch, fault=None):
+            poisoned = fault is not None and not (bool(torch.isfinite(fault["grad_scale"]))
+                                                  and float(fault["loss_add"]) == 0.0)
+            before = ({k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in
+                       tree_leaves_with_path({"p": params, "s": opt_state})} if poisoned else None)
+            out = step(params, opt_state, guard, batch, fault)
+            if int(out[3]["guard_ok"]) == 0:
+                if before is None:
+                    raise AssertionError("the guard rejected a step with no fault")
+                after = dict(tree_leaves_with_path({"p": out[0], "s": out[1]}))
+                for k, w in before.items():
+                    if not (torch.equal(after[k], w) if isinstance(w, torch.Tensor)
+                            else after[k] == w):
+                        raise AssertionError(f"[guard] a rejected step changed {k}")
+                skips.append(len(before))
+            return out
+
+        return checked, opt
+
+    return make_checked
 
 
 def check_state_bytes(tag, ph):
@@ -987,6 +1120,41 @@ def check_state_bytes(tag, ph):
     if rel > 1e-4:
         raise AssertionError(f"{tag} state bytes {ph['state_bytes']} are not within 0.01 % of "
                              f"the analytic {ph['analytic_bytes']:.0f}")
+
+
+def guard_cost(reps=5):
+    """The guarded step against the unguarded one at the main path, fp32
+    fused, without fault hooks and without a refresh (the galore step held
+    at 1, so no leaf is due): calls in turns (unguarded, guarded, guarded,
+    unguarded, …) on one state, each timed to a device sync, after two of
+    each as warm-up. Returns the median ms of each."""
+    cfg = dataclasses.replace(get_config("llama_7b"), n_layers=2)
+    tc = TrainConfig(galore=GaLoreConfig(rank=128, update_freq=4, scale=0.25),
+                     galore_fused_adam=True, lr=1e-3, weight_decay=WD, total_steps=8,
+                     warmup_steps=1)
+    plain, opt = make_train_step(cfg, tc)
+    guarded, _ = make_train_step(cfg, dataclasses.replace(tc, anomaly_guard=True))
+    params = init_params(cfg, seed=0, device="cuda")
+    state = opt.init(params)
+    guard = init_guard_state("cuda")
+    batch = SyntheticC4(DataConfig(vocab_size=cfg.vocab_size, seq_len=256, batch_per_host=8),
+                        device="cuda").batch(0)
+    times = {"unguarded": [], "guarded": []}
+    for i in range(2 + reps):
+        for name in (("unguarded", "guarded") if i % 2 == 0 else ("guarded", "unguarded")):
+            state[galore_state_index(tc)]["step"] = 1  # no leaf due: no refresh
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if name == "guarded":
+                params, state, guard, _ = guarded(params, state, guard, batch)
+            else:
+                params, state, _ = plain(params, state, batch)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times[name].append((time.perf_counter() - t) * 1e3)
+    del params, state
+    torch.cuda.empty_cache()
+    return {k: statistics.median(v) for k, v in times.items()}
 
 
 def svd_ms():
@@ -1047,8 +1215,14 @@ def main():
     log(f"[kernels] {len(rows)} checks passed ({time.perf_counter() - t:.1f} s)")
 
     none = {name: 0 for name in COUNTERS}
+    # the fused phase checkpoints at step 4 into a directory of its own, which
+    # the [ckpt] resume below reads; its final state goes through the manager
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    ckpt_rows = []
     t = time.perf_counter()
-    fused = train_phase(fused=True)
+    fused = train_phase(fused=True, ckpt_dir=ckpt_dir, ckpt_every=4,
+                        on_state=lambda p, s: ckpt_rows.append(check_roundtrip("fused", p, s,
+                                                                               int4=True)))
     log(f"[fused] losses {[round(x, 4) for x in fused['losses']]} launches {fused['launches']} "
         f"({time.perf_counter() - t:.1f} s)")
     if not fused["losses"][-1] < fused["losses"][0]:
@@ -1060,6 +1234,29 @@ def main():
         raise AssertionError(f"main path: {fused['thread_copy_epilogue']} launches of "
                              f"galore_epilogue's kernel copied their operands by the threads "
                              f"instead of by the TMA")
+
+    # [ckpt] resume: a second run on the fused phase's directory restores its
+    # step-4 checkpoint and takes steps 5-7; step 5 sees the params and batch
+    # of the straight run's step 5, so its loss is the same bit for bit
+    t = time.perf_counter()
+    try:
+        resumed = train_phase(fused=True, ckpt_dir=ckpt_dir, ckpt_every=4)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if resumed["steps"] != [5, 6, 7]:
+        raise AssertionError(f"[ckpt] the resumed run took steps {resumed['steps']}, want 5-7 "
+                             f"after the step-4 checkpoint")
+    if resumed["launches"] != dict(none, left=18, right=3):
+        raise AssertionError(f"[ckpt] resumed launches {resumed['launches']}, want left 18, "
+                             f"right 3 (3 steps)")
+    resume_gaps = [a - b for a, b in zip(resumed["losses"], fused["losses"][5:])]
+    log(f"[ckpt] resume from step 4: steps 5-7 losses {resumed['losses']} vs straight "
+        f"{fused['losses'][5:]}; Δ {resume_gaps} ({time.perf_counter() - t:.1f} s)")
+    if resume_gaps[0] != 0.0:
+        raise AssertionError(f"[ckpt] the resumed step-5 loss {resumed['losses'][0]!r} is not "
+                             f"the straight run's {fused['losses'][5]!r} bit for bit")
+    if max(map(abs, resume_gaps)) > 5e-2:
+        raise AssertionError(f"[ckpt] resumed steps 6-7 differ by more than 5e-2: {resume_gaps}")
 
     t = time.perf_counter()
     comp = train_phase(fused=False)
@@ -1073,7 +1270,8 @@ def main():
     log(f"[parity] fused vs composable max |Δloss| {gap:.3e} (limit 5e-2)")
 
     t = time.perf_counter()
-    q8 = train_phase(fused=True, quant=QuantPolicy(moments="int8", projectors="int4"))
+    q8 = train_phase(fused=True, quant=QuantPolicy(moments="int8", projectors="int4"),
+                     on_state=lambda p, s: ckpt_rows.append(check_roundtrip("8bit", p, s)))
     log(f"[8bit] losses {[round(x, 4) for x in q8['losses']]} launches {q8['launches']} "
         f"({time.perf_counter() - t:.1f} s)")
     if not q8["losses"][-1] < q8["losses"][0]:
@@ -1122,6 +1320,52 @@ def main():
             raise AssertionError(f"{tag} vs {emit_tag} losses differ by {gap:.3e} > 5e-2")
         log(f"[parity] {tag} vs {emit_tag} max |Δloss| {gap:.3e} (limit 5e-2)")
         check_state_bytes(tag, ph)
+
+    # [guard] the fused phase guarded, checkpointing at step 4, with NaN
+    # gradients at steps 5-7: three skips (each a bitwise no-op, checked by
+    # checked_guarded_steps), a rollback to step 4, and steps 5-7 replayed
+    # clean (a traced fault fires once)
+    t = time.perf_counter()
+    skips = []
+    launcher.make_train_step = checked_guarded_steps(skips)
+    try:
+        guarded = train_phase(fused=True, guard=True, ckpt_every=4, faults=["nan_grad@5*3"])
+    finally:
+        launcher.make_train_step = make_train_step
+    log(f"[guard] steps {guarded['steps']} losses {[round(x, 4) for x in guarded['losses']]} "
+        f"launches {guarded['launches']} ({time.perf_counter() - t:.1f} s)")
+    if guarded["steps"] != [0, 1, 2, 3, 4, 5, 6, 5, 6, 7] or len(skips) != 3:
+        raise AssertionError(f"[guard] steps {guarded['steps']} with {len(skips)} checked skips, "
+                             f"want 0-6 with 5-7 skipped, a rollback, then 5-7 replayed")
+    if guarded["launches"] != dict(none, left=48, right=8):
+        raise AssertionError(f"[guard] launches {guarded['launches']}: a skipped step must "
+                             f"launch nothing (8 accepted steps: left 48, right 8)")
+    replay = guarded["losses"][7:]
+    if replay[0] != guarded["losses"][5]:
+        raise AssertionError(f"[guard] the replayed step-5 loss {replay[0]!r} is not the "
+                             f"rejected attempt's {guarded['losses'][5]!r} (the same params "
+                             f"from the step-4 checkpoint, the same batch)")
+    if replay[0] != fused["losses"][5]:
+        raise AssertionError(f"[guard] the replayed step-5 loss {replay[0]!r} is not the "
+                             f"[ckpt] straight run's {fused['losses'][5]!r} bit for bit")
+    guard_steady = statistics.median(guarded["times"][i] for i in (1, 2, 3, 7, 8, 9))
+    fused_steady = statistics.median(fused["times"][i] for i in (1, 2, 3, 5, 6, 7))
+    log(f"[guard] {len(skips)} skips, each a bitwise no-op on all {skips[0]} leaves of params "
+        f"and state; replayed steps 5-7 losses {replay} (step 5 = the straight run's bit for "
+        f"bit; 6-7 Δ {[a - b for a, b in zip(replay[1:], fused['losses'][6:])]}); median "
+        f"non-refresh step {guard_steady * 1e3:.1f} ms guarded vs {fused_steady * 1e3:.1f} ms "
+        f"unguarded ({(guard_steady / fused_steady - 1) * 100:+.1f} %)")
+    cost = guard_cost()
+    log(f"[guard] guarded step without fault hooks or refresh, in turns with the unguarded "
+        f"one on one state: {cost['guarded']:.1f} ms vs {cost['unguarded']:.1f} ms "
+        f"({cost['guarded'] - cost['unguarded']:+.1f} ms: the global norm and the host's read "
+        f"of the verdict between the backward and the optimizer)")
+    try:
+        train_phase(fused=True, apply=True, guard=True)
+    except ValueError as e:
+        log(f"[guard] guarded --galore-fused-apply refused, as in the reference: {e}")
+    else:
+        raise AssertionError("[guard] a guarded fused-apply run did not raise ValueError")
 
     # the paper's 7B rank: every GaLore leaf fails the reference's fits_vmem
     # at r = 1024, so the fp32 fused step composes B4 → Adam → B5 (7 leaves ×

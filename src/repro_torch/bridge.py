@@ -48,9 +48,9 @@ def params_to_numpy(params):
 def galore_state_from_numpy(state, device):
     """The galore transform's state from its numpy form.
 
-    Reads ``step``, ``proj`` and ``inner`` {``m``, ``v``, ``count``} — the
-    layout of the JAX ``galore`` state (its PRNG ``key`` is not used by the
-    port's SVD projector and is ignored). ``step`` becomes a host int;
+    Reads ``step``, ``key``, ``proj`` and ``inner`` {``m``, ``v``,
+    ``count``} — the layout of the JAX ``galore`` state. ``step`` becomes a
+    host int; ``key`` a uint32[2] CPU tensor, passed through untouched;
     ``count`` stays an int32 tensor on `device`. Every other leaf keeps its
     dtype: f32 moments and projectors, bf16 projectors, and the uint8 codes
     and f32 scales of quantized leaves."""
@@ -61,6 +61,7 @@ def galore_state_from_numpy(state, device):
 
     return {
         "step": int(np.asarray(state["step"])),
+        "key": _to_tensor(state["key"], "cpu", torch.uint32),
         "proj": leaves(state["proj"]),
         "inner": {"m": leaves(inner["m"]), "v": leaves(inner["v"]),
                   "count": _to_tensor(inner["count"], device, torch.int32)},
@@ -71,6 +72,7 @@ def galore_state_to_numpy(state):
     inner = state["inner"]
     return {
         "step": np.asarray(state["step"], np.int32),
+        "key": _to_numpy(state["key"]),
         "proj": tree_map(_to_numpy, state["proj"]),
         "inner": {"m": tree_map(_to_numpy, inner["m"]), "v": tree_map(_to_numpy, inner["v"]),
                   "count": _to_numpy(inner["count"]).astype(np.int32)},

@@ -117,8 +117,13 @@ class GaLoreConfig:
     rank: int = 128
     update_freq: int = 200  # T — subspace change frequency
     scale: float = 0.25  # alpha
-    projector: str = "svd"  # the port computes "svd" only
+    projector: str = "svd"  # svd | randomized | newton_schulz
+    power_iters: int = 2  # subspace/power iterations for randomized modes
     min_dim: int = 0  # only project matrices with min(m, n) > max(rank, min_dim)
+    guard_refresh: bool = False  # validate the refresh: a non-finite gradient
+    # makes the whole refresh a no-op (every projector kept), and an SVD that
+    # fails (non-finite P, or LinAlgError) falls back to the randomized
+    # projector. Off: the unguarded refresh exactly.
     # low-precision optimizer state (int8 moments, bf16/int4 projectors);
     # resolved per leaf into SubspacePlan.moments / .proj_store
     quant: QuantPolicy = QuantPolicy()
@@ -143,6 +148,24 @@ class TrainConfig:
     # (requires galore_fused_adam; no full-size f32 update is written — the
     # emit path + chain remains the numerics oracle)
     z_loss: float = 0.0
+    # --- fault tolerance (robust/) ---
+    anomaly_guard: bool = False  # per-step guard: a non-finite loss or global
+    # grad norm, or a loss z-score spike, makes the step a no-op (params and
+    # optimizer state untouched). Changes the step signature to
+    # (params, opt_state, guard, batch[, fault]).
+    guard_zmax: float = 6.0  # trip when (loss - EMA mean) / EMA std > zmax
+    guard_warmup: int = 8  # accepted steps before the z-score monitor arms
+    guard_ema: float = 0.9  # decay of the running loss mean/variance EMAs
+    fault_hooks: bool = False  # thread fault-injection scalars
+    # ({"loss_add", "grad_scale"}) through the guarded step (robust/faults.py)
+    # --- escalating recovery (launch/train.py) ---
+    recover_max_skips: int = 3  # consecutive skips that trigger a rollback
+    recover_max_rollbacks: int = 2  # rollbacks before TrainingFailure
+    recover_backoff: float = 0.0  # seconds slept per accumulated rollback
+    recover_lr_decay: float = 1.0  # <1: multiply lr by this on every rollback
+    recover_resync: bool = False  # force a refresh after a rollback (needs an
+    # external refresh, which the port lacks: accepted and unused, as the
+    # reference does without one)
 
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}

@@ -7,8 +7,10 @@ weight apply, ``make_fused_apply``, and the analytic ``galore_state_bytes``).
     N_t  = Adam(R_t)                 compact moments live in r × n (or m × r)
     G̃_t = α P_t N_t  or  α N_t P_tᵀ
 
-P_t is refreshed from an SVD of the current gradient at galore steps
-0, T, 2T, … Non-matrix leaves and excluded paths (embeddings) get the same
+P_t is refreshed from the current gradient at galore steps 0, T, 2T, … by
+``GaLoreConfig.projector`` (an SVD, or the randomized / Newton–Schulz range
+finder; core/projector.py), validated under ``guard_refresh``
+(core/subspace.py). Non-matrix leaves and excluded paths (embeddings) get the same
 Adam math at full shape. With ``fused=True`` each GaLore leaf goes through
 kernels/ops.py, and every step form (fp32 or int8 moments, emit or apply) is
 routed as the reference routes it: one fused kernel launch where P fits the
@@ -30,9 +32,12 @@ otherwise and for passthrough leaves. Projectors are stored fp32, bf16 or
 packed int4 and dequantized on read, except that the fused kernels (fp32 and
 int8 moments alike) take the packed int4 P as it is.
 
-State layout (the reference's, minus its unused PRNG key):
-    {"step": int, "proj": tree of P (scalar placeholders on non-galore
-     leaves), "inner": {"m": tree, "v": tree, "count": int32 tensor}}
+State layout (the reference's):
+    {"step": int, "key": uint32[2] CPU tensor (the reference's
+     PRNGKey(seed), passed through untouched; it seeds the randomized
+     projector's sketch with the step), "proj": tree of P (scalar
+     placeholders on non-galore leaves),
+     "inner": {"m": tree, "v": tree, "count": int32 tensor}}
 """
 from __future__ import annotations
 
@@ -41,7 +46,7 @@ import math
 import torch
 
 from repro_torch.configs.base import GaLoreConfig
-from repro_torch.core.projector import init_projector_state, read_projector
+from repro_torch.core.projector import init_projector_state, prng_key, read_projector
 from repro_torch.core.subspace import (
     DEFAULT_EXCLUDE,
     SubspaceManager,
@@ -56,12 +61,13 @@ from repro_torch.utils import flatten_up_to, tree_leaves, tree_map, tree_unflatt
 
 
 def galore(cfg: GaLoreConfig, *, b1: float | None = None, b2: float | None = None,
-           eps: float | None = None, fused: bool = False,
-           exclude=DEFAULT_EXCLUDE) -> GradientTransformation:
+           eps: float | None = None, fused: bool = False, exclude=DEFAULT_EXCLUDE,
+           seed: int = 0) -> GradientTransformation:
     """GaLore-Adam as a GradientTransformation. b1/b2/eps are Adam's and are
     required: the transform owns the Adam math on every leaf (as the
     reference's managed path does), so its state has scale_by_adam's
-    {m, v, count} layout."""
+    {m, v, count} layout. `seed` makes the state's key (TrainConfig.seed,
+    threaded by optim/factory.py)."""
     if None in (b1, b2, eps):
         if cfg.quant.quantizes_moments:
             raise ValueError(
@@ -80,20 +86,20 @@ def galore(cfg: GaLoreConfig, *, b1: float | None = None, b2: float | None = Non
                 return torch.zeros((), dtype=torch.float32, device=p.device)
             return init_projector_state(proj_shape(p, plan), plan.proj_store, p.device)
 
-        return {"step": 0, "proj": tree_map(proj_init, params, plans),
+        return {"step": 0, "key": prng_key(seed), "proj": tree_map(proj_init, params, plans),
                 "inner": _managed_adam_init(params, plans)}
 
     def update(grads, state, params=None):
         plans = mgr.plans(grads)
         step = state["step"]
-        proj = mgr.refresh_tree(grads, state["proj"], plans, step)
+        proj = mgr.refresh_tree(grads, state["proj"], plans, step, key=state["key"])
         # the fused dispatch keeps packed int4 projectors packed: the fused
         # kernel unpacks them, so no f32 projector tree is made (the composite
         # route dequantizes each leaf's P on its own)
         proj_eff = _read_proj_tree(grads, proj, plans, keep_packed=fused)
         updates, inner = _managed_adam_update(grads, proj_eff, state["inner"], plans, cfg,
                                               b1, b2, eps, fused=fused)
-        return updates, {"step": step + 1, "proj": proj, "inner": inner}
+        return updates, {"step": step + 1, "key": state["key"], "proj": proj, "inner": inner}
 
     return GradientTransformation(init, update)
 
@@ -234,12 +240,14 @@ def make_fused_apply(cfg: GaLoreConfig, *, b1: float, b2: float, eps: float,
     def apply_step(params, grads, galore_state, eta):
         plans = mgr.plans(grads)
         step = galore_state["step"]
-        proj = mgr.refresh_tree(grads, galore_state["proj"], plans, step)
+        proj = mgr.refresh_tree(grads, galore_state["proj"], plans, step,
+                                key=galore_state["key"])
         proj_eff = _read_proj_tree(grads, proj, plans, keep_packed=True)
         params, inner = _managed_adam_update(grads, proj_eff, galore_state["inner"], plans, cfg,
                                              b1, b2, eps, fused=True, params=params, eta=eta,
                                              wd=weight_decay)
-        return params, {"step": step + 1, "proj": proj, "inner": inner}
+        return params, {"step": step + 1, "key": galore_state["key"], "proj": proj,
+                        "inner": inner}
 
     return apply_step
 

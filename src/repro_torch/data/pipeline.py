@@ -22,6 +22,7 @@ class DataConfig:
     seq_len: int = 256
     batch_per_host: int = 8
     seed: int = 0
+    n_hosts: int = 1
     host_id: int = 0
 
 
@@ -63,3 +64,8 @@ class SyntheticC4:
         mask[:, -1] = 0.0
         out = {"tokens": tokens, "targets": targets, "loss_mask": mask}
         return {k: v.to(self.device) for k, v in out.items()}
+
+    def state(self, step: int) -> dict:
+        """Checkpointable pipeline state (a batch is a pure function of its
+        step, so the position is all there is), saved in META as ``data``."""
+        return {"step": step, "seed": self.cfg.seed, "n_hosts": self.cfg.n_hosts}

@@ -1,6 +1,6 @@
-"""The train step (port of the default and fused-apply branches of
-repro/distributed/step.py::make_train_step and its ``_grads_and_loss``), on a
-single device."""
+"""The train step (port of the default, fused-apply and anomaly-guarded
+branches of repro/distributed/step.py::make_train_step and its
+``_grads_and_loss``), on a single device."""
 from __future__ import annotations
 
 import torch
@@ -11,17 +11,25 @@ from repro_torch.models import model as M
 from repro_torch.optim import schedules
 from repro_torch.optim.factory import build_optimizer, effective_galore_config, galore_state_index
 from repro_torch.optim.transform import apply_updates, clip_by_global_norm
-from repro_torch.utils import tree_leaves, tree_unflatten_like
+from repro_torch.robust.guard import global_grad_norm, guard_step
+from repro_torch.utils import tree_leaves, tree_map, tree_unflatten_like
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig):
     """Returns (train_step(params, opt_state, batch) -> (params, opt_state, metrics), opt).
 
-    train_step updates `params` in place and returns them."""
+    train_step updates `params` in place and returns them. With
+    tc.anomaly_guard the step is the guarded one (_make_guarded_train_step)."""
     opt = build_optimizer(tc)
 
     def loss_of(params, batch):
         return M.loss_fn(cfg, params, batch, z_loss=tc.z_loss)
+
+    if tc.anomaly_guard:
+        if tc.galore_fused_apply:
+            raise ValueError("anomaly_guard wraps the default/chain train step; the "
+                             "galore_fused_apply fast path has no guarded variant yet")
+        return _make_guarded_train_step(tc, opt, loss_of), opt
 
     if tc.galore_fused_apply:
         if tc.microbatch and tc.microbatch > 1:
@@ -37,6 +45,43 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
         return params, opt_state, metrics
 
     return train_step, opt
+
+
+def _make_guarded_train_step(tc, opt, loss_of):
+    """The anomaly-guarded step (tc.anomaly_guard, robust/):
+
+        train_step(params, opt_state, guard, batch[, fault])
+            -> (params', opt_state', guard', metrics)
+
+    After the unchanged loss and gradient, the guard checks the loss and the
+    global grad norm for finiteness and the loss for a z-score spike. The
+    reference branches on its verdict inside the program (``lax.cond``); the
+    port reads it on the host before any optimizer call — one device→host
+    sync a step, between the backward and the optimizer — because the GaLore
+    kernels update moments (and W) in place. A rejected step calls nothing
+    of the optimizer, so params, moments, projectors, the schedule's count
+    and the galore step stay exactly as they were. Metrics gain "guard_ok"
+    (this step's verdict, int32) and "guard_skips" (the running total).
+    With tc.fault_hooks the fault scalars ({"loss_add", "grad_scale"},
+    robust/faults.py) perturb the loss value and scale every gradient."""
+    use_faults = bool(tc.fault_hooks)
+
+    def train_step(params, opt_state, guard, batch, fault=None):
+        loss, metrics, grads = _grads_and_loss(tc, loss_of, params, batch)
+        if use_faults and fault is not None:
+            loss = loss + fault["loss_add"]
+            grads = tree_map(lambda g: g * fault["grad_scale"].to(g.dtype), grads)
+        ok, guard = guard_step(guard, loss, global_grad_norm(grads), zmax=tc.guard_zmax,
+                               warmup=tc.guard_warmup, ema=tc.guard_ema)
+        if bool(ok):  # the guarded step's one host read
+            with torch.no_grad():
+                updates, opt_state = opt.update(grads, opt_state, params)
+                params = apply_updates(params, updates)
+        metrics = dict(metrics, loss=loss, guard_ok=ok.to(torch.int32),
+                       guard_skips=guard["skips"])
+        return params, opt_state, guard, metrics
+
+    return train_step
 
 
 def _make_fused_apply_train_step(tc, opt, loss_of):

@@ -1,5 +1,5 @@
 """Shared argparse helpers of the port's launchers (port of the quantized-
-state part of repro/launch/cli.py)."""
+state and checkpoint parts of repro/launch/cli.py)."""
 from __future__ import annotations
 
 import argparse
@@ -22,6 +22,21 @@ def add_quant_flags(ap: argparse.ArgumentParser):
                     help="int8 moments: stochastic rounding on the requant "
                          "(Q-GaLore; counter-hash RNG seeded by the step "
                          "count, bitwise-shared between kernel and oracle)")
+    return ap
+
+
+def add_ckpt_flags(ap: argparse.ArgumentParser, default_dir=None, save_flags: bool = True):
+    """Checkpoint location (+ save cadence and file codec when `save_flags`)."""
+    ap.add_argument("--ckpt-dir", default=default_dir,
+                    help="CheckpointManager root (a run resumes from the newest "
+                         "checkpoint it finds there)")
+    if save_flags:
+        ap.add_argument("--ckpt-every", type=int, default=50)
+        ap.add_argument("--ckpt-quantize", choices=["int8", "int4"], default=None,
+                        help="write quantized checkpoint files: large float params "
+                             "leaves become blockwise codes + scales (~4× / ~7× "
+                             "smaller, lossy); optimizer state stays verbatim and "
+                             "restore is META-driven")
     return ap
 
 

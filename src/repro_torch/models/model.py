@@ -72,7 +72,10 @@ def forward(cfg, params, batch_dict):
 
 
 def loss_fn(cfg, params, batch_dict, z_loss: float = 0.0):
-    """Next-token cross entropy. Returns (loss, metrics)."""
+    """Next-token cross entropy. Returns (loss, metrics): metrics are the
+    reference's {"loss", "aux_loss", "ppl_proxy"}, 0-d f32 tensors on the
+    loss's device (aux_loss is 0 for the dense family, ppl_proxy is
+    exp(min(loss, 20)))."""
     logits = forward(cfg, params, batch_dict).float()
     tokens = batch_dict["tokens"]
     targets = batch_dict.get("targets")
@@ -89,4 +92,7 @@ def loss_fn(cfg, params, batch_dict, z_loss: float = 0.0):
     total = loss
     if z_loss > 0:
         total = total + z_loss * (logz.square() * mask).sum() / denom
-    return total, {"loss": loss.detach()}
+    loss = loss.detach()
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return total, {"loss": loss, "aux_loss": aux,
+                   "ppl_proxy": torch.exp(torch.clamp(loss, max=20.0))}

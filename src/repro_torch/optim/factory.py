@@ -68,7 +68,8 @@ def build_optimizer(tc: TrainConfig) -> GradientTransformation:
         if tc.optimizer not in _ADAM_SHAPED:
             raise NotImplementedError(f"optimizer {tc.optimizer!r} is not ported yet "
                                       f"(adam, adamw and adam8bit are)")
-        stats = galore(gcfg, b1=tc.b1, b2=tc.b2, eps=tc.eps, fused=tc.galore_fused_adam)
+        stats = galore(gcfg, b1=tc.b1, b2=tc.b2, eps=tc.eps, fused=tc.galore_fused_adam,
+                       seed=tc.seed)
     elif tc.galore_fused_adam:
         raise ValueError("galore_fused_adam requires a GaLore config")
     else:

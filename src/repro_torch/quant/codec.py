@@ -19,12 +19,16 @@ and axis-blocked parts of repro/quant/codec.py, bit for bit).
     absmax along the kept axis, the symmetric 15-level map of
     ``int4_codebook``, split-half packing (row i shares a byte with row
     i + m_pad/2).
+  * Flat packed INT4 (``quantize4`` / ``dequantize4``, ``quant4_state`` /
+    ``dequant4_state``): ``BLOCK``-element blocks of the flattened array,
+    even positions in the low nibble — the projector layout of the
+    reference's older checkpoints, which ``core/projector.py::read_projector``
+    still reads.
 
 The codebooks are the reference's numpy functions, copied, so both packages
 decode through identical f32 tables. Every quantize path computes in f32 in
 the reference's operation order; ragged tails are zero-padded before the
-absmax. The flat INT4 codec (read only for projectors stored by older
-checkpoints) is not ported.
+absmax.
 """
 from __future__ import annotations
 
@@ -205,6 +209,42 @@ def quant_state(x: torch.Tensor, signed: bool = True) -> dict:
 
 def dequant_state(st: dict, shape, signed: bool = True) -> torch.Tensor:
     return dequantize(st["q"], st["scale"], shape, signed)
+
+
+# ---------------------------------------------------------------------------
+# Flat INT4 (two codes a byte): the reference's legacy projector layout
+# ---------------------------------------------------------------------------
+
+
+def quantize4(x: torch.Tensor):
+    """x (any shape) -> (packed uint8 (nblocks, BLOCK//2), absmax (nblocks,)).
+
+    Even flat positions take the low nibble, odd ones the high nibble. Only
+    checkpoints of the reference's older projector storage hold this layout;
+    `store_projector` writes the axis-blocked one."""
+    blocks, _ = _pad_to_blocks(x.to(torch.float32))
+    absmax = torch.amax(torch.abs(blocks), dim=1) + 1e-12
+    normed = blocks / absmax[:, None]
+    q = torch.clamp(torch.round(normed * 7.0), -7, 7).to(torch.int32) + 7  # 0..14
+    packed = (q[:, 0::2] | (q[:, 1::2] << 4)).to(torch.uint8)
+    return packed, absmax
+
+
+def dequantize4(packed: torch.Tensor, absmax: torch.Tensor, shape) -> torch.Tensor:
+    book = device_codebooks(packed.device)[512:]
+    p = packed.to(torch.int64)
+    codes = torch.stack([p & 0xF, p >> 4], dim=-1).reshape(p.shape[0], -1)
+    vals = book[codes] * absmax[:, None]
+    return vals.reshape(-1)[:math.prod(shape)].reshape(shape)
+
+
+def quant4_state(x: torch.Tensor) -> dict:
+    packed, absmax = quantize4(x)
+    return {"q": packed, "scale": absmax}
+
+
+def dequant4_state(st: dict, shape) -> torch.Tensor:
+    return dequantize4(st["q"], st["scale"], shape)
 
 
 # ---------------------------------------------------------------------------

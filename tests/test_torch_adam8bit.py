@@ -334,7 +334,7 @@ def test_factory_routes_adam8bit_and_refuses_the_unported():
 # ---------------------------------------------------------------------------
 
 
-def test_adam8bit_trajectory_matches_jax():
+def test_adam8bit_trajectory_matches_jax(tmp_path):
     """20 steps of the 8-bit Adam baseline on the llama_60m smoke config from
     the JAX package's weights and batches: per-step losses within 5e-2 of
     JAX's run."""
@@ -355,7 +355,8 @@ def test_adam8bit_trajectory_matches_jax():
     got = []
     tc = TrainConfig(optimizer="adam8bit", total_steps=steps, warmup_steps=2)
     _, opt_state, _, _ = train_loop(
-        RunConfig(steps=steps, batch_per_host=batch, seq_len=seq, log_every=steps, device="cpu"),
+        RunConfig(steps=steps, batch_per_host=batch, seq_len=seq, log_every=steps,
+                  ckpt_dir=str(tmp_path), device="cpu"),
         tc, cfg=get_config("llama_60m", smoke=True), params=tparams, data=_Bridged(jdata),
         on_step=lambda s, m: got.append(float(m["loss"])))
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-2)
@@ -382,10 +383,11 @@ def test_bridge_round_trips_adam8bit_state():
         _assert_bitwise(back[path], want[path], path)
 
 
-def test_cli_trains_adam8bit_on_cpu_and_refuses_without_gpu():
+def test_cli_trains_adam8bit_on_cpu_and_refuses_without_gpu(tmp_path):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=os.path.join(ROOT, "src"))
     cli = [sys.executable, "-m", "repro_torch.launch.train", "--steps", "3", "--seq", "32",
-           "--batch", "2", "--optimizer", "adam8bit", "--log-every", "1"]
+           "--batch", "2", "--optimizer", "adam8bit", "--log-every", "1",
+           "--ckpt-dir", str(tmp_path)]
     ok = subprocess.run(cli + ["--device", "cpu"], cwd=ROOT, env=env, capture_output=True,
                         text=True, timeout=300)
     assert ok.returncode == 0, ok.stderr

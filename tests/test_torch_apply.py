@@ -267,7 +267,7 @@ def test_composable_apply_matches_fused_apply(quant):
 
 
 @pytest.mark.parametrize("quant", [False, True])
-def test_apply_trajectory_matches_jax(quant):
+def test_apply_trajectory_matches_jax(quant, tmp_path):
     """20 steps of the W-in-place path (rank 16, T 10, wd 0.01) from the JAX
     package's weights and batches: per-step losses within 5e-2 of JAX's
     galore_fused_apply run, fp32 and 8-bit."""
@@ -294,7 +294,7 @@ def test_apply_trajectory_matches_jax(quant):
                      galore_fused_adam=True, galore_fused_apply=True, weight_decay=0.01,
                      total_steps=steps, warmup_steps=2)
     train_loop(RunConfig(steps=steps, batch_per_host=batch, seq_len=seq, log_every=steps,
-                         device="cpu"),
+                         ckpt_dir=str(tmp_path), device="cpu"),
                tc, cfg=get_config("llama_60m", smoke=True), params=tparams, data=_Bridged(jdata),
                on_step=lambda s, m: got.append(float(m["loss"])))
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-2)
@@ -315,11 +315,11 @@ def test_apply_refuses_microbatch_and_a_missing_fused_flag():
         make_train_step(cfg, dataclasses.replace(tc, galore_fused_adam=False))
 
 
-def test_cli_apply_trains_on_cpu_and_needs_galore_fused():
+def test_cli_apply_trains_on_cpu_and_needs_galore_fused(tmp_path):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=os.path.join(ROOT, "src"))
     cli = [sys.executable, "-m", "repro_torch.launch.train", "--steps", "3", "--seq", "32",
            "--batch", "2", "--galore-rank", "16", "--galore-t", "2", "--galore-fused-apply",
-           "--log-every", "1", "--device", "cpu"]
+           "--log-every", "1", "--device", "cpu", "--ckpt-dir", str(tmp_path)]
     ok = subprocess.run(cli + ["--galore-fused"], cwd=ROOT, env=env, capture_output=True,
                         text=True, timeout=300)
     assert ok.returncode == 0, ok.stderr

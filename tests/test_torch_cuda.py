@@ -1476,3 +1476,108 @@ def test_cuda_flat_and_rmsnorm_never_run_the_plain_version(monkeypatch):
     torch.cuda.synchronize()
     assert (a8.adam8bit_update.launches, trms.rmsnorm.launches) == (
         launches[0] + 4 * len(flat), launches[1] + 4 * len(norm))
+
+
+# ---------------------------------------------------------------------------
+# checkpoints and the guarded step on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_restore_bitwise(tmp_path):
+    """CUDA leaves of every dtype the state holds (bf16 params, f32 moments,
+    uint8 codes and f32 scales, an int32 count) come back from an async save
+    bit for bit, on the card, although the live tensors are updated in place
+    right after save returns; the CPU uint32 key and a host step round-trip
+    too."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.projector import prng_key
+
+    dev = _cuda_device()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tree = {"params": {"w": torch.randn(512, 384, device=dev, generator=gen).bfloat16()},
+            "opt_state": ((), {"step": 5, "key": prng_key(3),
+                               "inner": {"m": torch.randn(16, 384, device=dev, generator=gen),
+                                         "v": {"q": torch.randint(0, 256, (16, 384), device=dev,
+                                                                  dtype=torch.uint8,
+                                                                  generator=gen),
+                                               "scale": torch.rand(16, 3, device=dev,
+                                                                   generator=gen)},
+                                         "count": torch.tensor(5, dtype=torch.int32,
+                                                               device=dev)}})}
+    saved = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+             for k, v in _leaves(tree).items()}
+    ckpt = CheckpointManager(str(tmp_path), async_save=True)
+    ckpt.save(5, tree)
+    for t in _leaves(tree).values():  # the next step's in-place updates
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            t.add_(1)
+    ckpt.wait()
+    target = {"params": {"w": torch.zeros(512, 384, device=dev, dtype=torch.bfloat16)},
+              "opt_state": ((), {"step": 0, "key": prng_key(0),
+                                 "inner": {"m": torch.zeros(16, 384, device=dev),
+                                           "v": {"q": torch.zeros(16, 384, device=dev,
+                                                                  dtype=torch.uint8),
+                                                 "scale": torch.zeros(16, 3, device=dev)},
+                                           "count": torch.zeros((), dtype=torch.int32,
+                                                                device=dev)}})}
+    restored = _leaves(ckpt.restore(5, target))
+    assert sorted(restored) == sorted(saved)
+    for k, want in saved.items():
+        got = restored[k]
+        if not isinstance(want, torch.Tensor):
+            assert got == want, k
+            continue
+        assert got.dtype == want.dtype and got.device == want.device, k
+        assert torch.equal(got, want), k
+
+
+def _leaves(tree):
+    from repro_torch.utils import tree_leaves_with_path
+
+    return dict(tree_leaves_with_path(tree))
+
+
+def _galore_launches():
+    return sum(fn.launches for fn in tk.WRAPPERS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moments", ["fp32", "int8"])
+def test_cuda_guarded_skip_is_noop(moments):
+    """On the card, a step the guard rejects (NaN gradients) launches no
+    GaLore kernel and leaves params and every state leaf bit for bit; the
+    next clean step launches the kernel once per GaLore leaf."""
+    from repro_torch.configs.base import GaLoreConfig, TrainConfig, get_config
+    from repro_torch.distributed.step import make_train_step
+    from repro_torch.models import model as TM
+    from repro_torch.quant import QuantPolicy
+    from repro_torch.robust import FaultInjector, identity_fault, init_guard_state
+
+    dev = _cuda_device()
+    quant = QuantPolicy(moments="int8", projectors="int4") if moments == "int8" else QuantPolicy()
+    tc = TrainConfig(galore=GaLoreConfig(rank=16, update_freq=4, quant=quant),
+                     galore_fused_adam=True, weight_decay=0.01, total_steps=8, warmup_steps=1,
+                     anomaly_guard=True, fault_hooks=True)
+    cfg = get_config("llama_60m", smoke=True)
+    params = TM.init_params(cfg, seed=0, device=dev)
+    step, opt = make_train_step(cfg, tc)
+    state = opt.init(params)
+    guard = init_guard_state(dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 32), device=dev)}
+    params, state, guard, m = step(params, state, guard, batch, identity_fault(dev))
+    assert int(m["guard_ok"]) == 1
+    before = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+              for k, v in _leaves({"p": params, "s": state}).items()}
+    launches = _galore_launches()
+    params, state, guard, m = step(params, state, guard, batch,
+                                   FaultInjector(["nan_grad@1"]).traced_fault(1, dev))
+    torch.cuda.synchronize()
+    assert int(m["guard_ok"]) == 0 and _galore_launches() == launches
+    after = _leaves({"p": params, "s": state})
+    for k, want in before.items():
+        assert (torch.equal(after[k], want) if isinstance(want, torch.Tensor)
+                else after[k] == want), k
+    params, state, guard, m = step(params, state, guard, batch, identity_fault(dev))
+    torch.cuda.synchronize()
+    assert int(m["guard_ok"]) == 1 and _galore_launches() == launches + 7

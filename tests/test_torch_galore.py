@@ -78,7 +78,7 @@ def test_update_at_fixed_projector_matches_jax(fused):
     opt = galore(GaLoreConfig(rank=16, update_freq=10, scale=0.25),
                  b1=0.9, b2=0.999, eps=1e-8, fused=fused)
     tparams = params_from_numpy(params, "cpu")
-    assert sorted(opt.init(tparams)) == ["inner", "proj", "step"]
+    assert sorted(opt.init(tparams)) == ["inner", "key", "proj", "step"]
     upd, state = opt.update(tree_map(torch.from_numpy, g2), state, tparams)
 
     jupd = _by_path(jupd)

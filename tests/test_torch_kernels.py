@@ -89,7 +89,9 @@ def test_port_imports_no_jax():
     port = ROOT / "src" / "repro_torch"
     for module in ("quant/codec.py", "quant/policy.py", "launch/cli.py", "kernels/galore_fused.py",
                    "optim/adam8bit.py", "optim/quant8.py", "kernels/adam8bit_update.py",
-                   "kernels/galore_project.py", "kernels/rmsnorm.py", "kernels/ops.py"):
+                   "kernels/galore_project.py", "kernels/rmsnorm.py", "kernels/ops.py",
+                   "checkpoint/manager.py", "robust/guard.py", "robust/faults.py",
+                   "robust/recovery.py"):
         assert port / module in files, module
     bad = [
         f"{f.relative_to(ROOT)}: {mod}"

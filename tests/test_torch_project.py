@@ -182,7 +182,7 @@ def test_dispatch_takes_the_reference_route(monkeypatch, side, fits):
     assert calls == want
 
 
-def test_composite_route_trajectory_matches_jax(monkeypatch):
+def test_composite_route_trajectory_matches_jax(monkeypatch, tmp_path):
     """20 steps of --galore-fused on the llama_60m smoke config (rank 16,
     T 10) with every leaf sent through the composite route (fits_vmem made to
     fail), against the JAX package's fused run: per-step losses within 5e-2,
@@ -210,7 +210,7 @@ def test_composite_route_trajectory_matches_jax(monkeypatch):
     tc = TrainConfig(optimizer="adamw", galore=GaLoreConfig(rank=16, update_freq=10),
                      galore_fused_adam=True, total_steps=steps, warmup_steps=2)
     train_loop(RunConfig(steps=steps, batch_per_host=batch, seq_len=seq, log_every=steps,
-                         device="cpu"),
+                         ckpt_dir=str(tmp_path), device="cpu"),
                tc, cfg=get_config("llama_60m", smoke=True), params=tparams,
                data=_Bridged(jdata), on_step=lambda s, m: got.append(float(m["loss"])))
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-2)

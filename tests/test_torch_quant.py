@@ -237,7 +237,7 @@ def test_int4p_step_matches_pallas_interpret(shape, side, dtype):
         _assert_close(a, b, f"{side} {shape} {dtype} {name}", tol=2e-5)
 
 
-def test_int4p_trajectory_matches_jax():
+def test_int4p_trajectory_matches_jax(tmp_path):
     """20 steps of fused GaLore with fp32 moments and int4 projectors
     (--galore-fused --quant-proj int4; rank 16, T 10) on the llama_60m smoke
     config from the JAX package's weights and batches: per-step losses within
@@ -263,7 +263,8 @@ def test_int4p_trajectory_matches_jax():
         rank=16, update_freq=10, quant=QuantPolicy(projectors="int4")),
         galore_fused_adam=True, total_steps=steps, warmup_steps=2)
     _, opt_state, _, _ = train_loop(
-        RunConfig(steps=steps, batch_per_host=batch, seq_len=seq, log_every=steps, device="cpu"),
+        RunConfig(steps=steps, batch_per_host=batch, seq_len=seq, log_every=steps,
+                  ckpt_dir=str(tmp_path), device="cpu"),
         tc, cfg=get_config("llama_60m", smoke=True), params=tparams, data=_Bridged(jdata),
         on_step=lambda s, m: got.append(float(m["loss"])))
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-2)

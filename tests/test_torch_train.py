@@ -43,7 +43,7 @@ class _Bridged:
 
 
 @pytest.mark.parametrize("fused", [True, False])
-def test_galore_trajectory_matches_jax(fused):
+def test_galore_trajectory_matches_jax(fused, tmp_path):
     """Per-step losses within 5e-2 of the JAX run (rank 16, T 10: SVD
     refreshes at steps 0 and 10)."""
     jcfg = jax_get_config("llama_60m", smoke=True)
@@ -65,7 +65,7 @@ def test_galore_trajectory_matches_jax(fused):
     tc = TrainConfig(optimizer="adamw", galore=GaLoreConfig(rank=16, update_freq=10),
                      galore_fused_adam=fused, total_steps=STEPS, warmup_steps=2)
     train_loop(RunConfig(steps=STEPS, batch_per_host=BATCH, seq_len=SEQ, log_every=STEPS,
-                         device="cpu"),
+                         ckpt_dir=str(tmp_path), device="cpu"),
                tc, cfg=get_config("llama_60m", smoke=True), params=tparams, data=_Bridged(jdata),
                on_step=lambda s, m: got.append(float(m["loss"])))
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-2)

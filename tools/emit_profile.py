@@ -34,6 +34,7 @@ import json
 import os
 import statistics
 import sys
+import tempfile
 import time
 
 SHAPES = [  # (side, L, m, r, n)
@@ -113,8 +114,13 @@ def trace_step(torch, repro, phase):
     tc = TrainConfig(optimizer="adamw", galore=GaLoreConfig(rank=128, update_freq=4, scale=0.25),
                      galore_fused_adam=True, galore_fused_apply=phase == "fused-apply", lr=1e-3,
                      weight_decay=0.01, total_steps=8, warmup_steps=1)
+    # a checkpoint directory of its own (the launcher resumes from what it
+    # finds in one), where the checkout's launcher has checkpoints
+    ckpt_dir = tempfile.TemporaryDirectory()
+    own = ({"ckpt_dir": ckpt_dir.name}
+           if "ckpt_dir" in {f.name for f in dataclasses.fields(RunConfig)} else {})
     run = RunConfig(arch="llama_7b", smoke=False, steps=4, batch_per_host=8, seq_len=256,
-                    log_every=1, device="cuda")
+                    log_every=1, device="cuda", **own)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     times = []
 
@@ -126,6 +132,7 @@ def trace_step(torch, repro, phase):
             prof.stop()
 
     train_loop(run, tc, cfg=cfg, on_step=on_step)
+    ckpt_dir.cleanup()
     wall_us = times[2] * 1e6
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)

@@ -39,6 +39,7 @@ import math
 import os
 import statistics
 import sys
+import tempfile
 import time
 
 import torch
@@ -183,10 +184,16 @@ def adam8bit_steps(steps):
     cfg = dataclasses.replace(get_config("llama_7b"), n_layers=2)
     tc = TrainConfig(optimizer="adam8bit", galore=None, lr=1e-3, weight_decay=0.01,
                      total_steps=steps, warmup_steps=1)
-    run = RunConfig(arch="llama_7b", smoke=False, steps=steps, batch_per_host=8, seq_len=256,
-                    log_every=1, device="cuda")
     times = []
-    train_loop(run, tc, cfg=cfg, on_step=lambda step, metrics: times.append(metrics["step_s"]))
+    # a checkpoint directory of its own (the launcher resumes from what it
+    # finds in one), where the checkout's launcher has checkpoints
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        own = ({"ckpt_dir": ckpt_dir}
+               if "ckpt_dir" in {f.name for f in dataclasses.fields(RunConfig)} else {})
+        run = RunConfig(arch="llama_7b", smoke=False, steps=steps, batch_per_host=8,
+                        seq_len=256, log_every=1, device="cuda", **own)
+        train_loop(run, tc, cfg=cfg,
+                   on_step=lambda step, metrics: times.append(metrics["step_s"]))
     torch.cuda.empty_cache()
     ms = [t * 1e3 for t in times]
     print(f"[adam8bit] step ms {[round(t, 2) for t in ms]}; median after step 0 "
