@@ -77,6 +77,20 @@ Phases, each timed, none of them optional; any failed check raises:
      from the state; state bytes within 0.01 % of adam8bit_state_bytes;
      finite losses) and full-rank AdamW (no kernel; its step-0 loss equal to
      8-bit Adam's within 1e-6), each with its peak memory and state bytes;
+  10a. the refresh lifecycle at T = 8 (lifecycle_phases): `stagger` (fp32
+     fused, r = 128, staggered: the SVD units per step 14, 2 × 6, 0, as the
+     plan's offsets (pos·8)//7 make due), `stagger-external` (the same
+     through the external refresh caller: losses and every projector bit
+     for bit `stagger`'s; both without the chain's clip), `async` (8-bit
+     fused, staggered, the async double buffer with moment re-projection:
+     each dispatch's SVD units, the thread's time and the main thread's
+     wait at the swap logged, and the swap of the step-6 refresh held
+     against a synchronous refresh on the main stream: overlap > 0.999,
+     codes at most one apart, scales within 1e-5) and `hetero-adaptive`
+     (the MLP leaves at r = 1024 on B4/B5, attention at r = 128 on B1,
+     adaptive T from T = 4: every refresh's period and next by the
+     reference's rule, within t_bounds), each with its launches, state
+     bytes within 0.01 % and peak memory;
   11. record: the SVD refresh time at ranks 128 and 1024, step times and
      peak memory of every phase (the paper's 7B memory comparison, 8-bit
      GaLore at r = 1024 beside 8-bit Adam and AdamW, on one line), a JSON
@@ -118,16 +132,26 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import repro_torch.launch.train as launcher  # noqa: E402
 from kernel_times import copies_for, cuda_ms, device_ms, reps_for  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs.base import GaLoreConfig, TrainConfig, get_config  # noqa: E402
-from repro_torch.core.galore import galore_state_bytes  # noqa: E402
-from repro_torch.core.projector import compute_projector  # noqa: E402
+from repro_torch.core import subspace  # noqa: E402
+from repro_torch.core.galore import (  # noqa: E402
+    galore_state_bytes,
+    refresh_projectors_pending,
+    swap_pending_state,
+)
+from repro_torch.core.projector import (  # noqa: E402
+    compute_projector,
+    read_projector,
+    subspace_overlap,
+)
 from repro_torch.data.pipeline import DataConfig, SyntheticC4  # noqa: E402
-from repro_torch.distributed.step import make_train_step  # noqa: E402
+from repro_torch.distributed.step import make_refresh_grads, make_train_step  # noqa: E402
 from repro_torch.kernels import adam8bit_update as a8  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import galore_fused as gf  # noqa: E402
@@ -140,7 +164,12 @@ from repro_torch.optim.adam8bit import adam8bit_state_bytes  # noqa: E402
 from repro_torch.optim.factory import galore_state_index  # noqa: E402
 from repro_torch.quant import QuantPolicy, codec  # noqa: E402
 from repro_torch.robust import init_guard_state  # noqa: E402
-from repro_torch.utils import flatten_up_to, tree_leaves, tree_leaves_with_path  # noqa: E402
+from repro_torch.utils import (  # noqa: E402
+    flatten_up_to,
+    tree_leaves,
+    tree_leaves_with_path,
+    tree_map,
+)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, f32 FMA FLOP/s,
 # TF32 tensor-core FLOP/s
@@ -952,7 +981,7 @@ def check_rmsnorm():
 
 def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=True, rank=128,
                 update_freq=4, ckpt_dir=None, ckpt_every=0, guard=False, faults=None,
-                on_state=None):
+                on_state=None, galore_kw=None, tc_kw=None, units=None):
     """8 steps of the main path (AdamW, wd 0.01; GaLore at `rank`, refreshed
     every `update_freq` steps; with `apply` the weight update folded into the
     kernels; without `galore` full-rank `optimizer`, AdamW or the 8-bit Adam
@@ -964,23 +993,27 @@ def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=
     `ckpt_every` steps and resumes from what it finds there; without one it
     gets a fresh directory of its own, removed afterwards. `guard` turns on
     the anomaly guard (with the fault specs `faults`); `on_state(params,
-    opt_state)` sees the final state before it is freed."""
+    opt_state)` sees the final state before it is freed. `galore_kw` and
+    `tc_kw` add GaLoreConfig and TrainConfig fields (the refresh lifecycle's);
+    `units` (an SvdUnits) records the SVD units each step computed."""
     cfg = dataclasses.replace(get_config("llama_7b"), n_layers=2)
     gcfg = (GaLoreConfig(rank=rank, update_freq=update_freq, scale=0.25,
-                         quant=quant or QuantPolicy()) if galore else None)
+                         quant=quant or QuantPolicy(), **(galore_kw or {})) if galore else None)
     tc = TrainConfig(optimizer=optimizer, galore=gcfg, galore_fused_adam=fused,
                      galore_fused_apply=apply, lr=1e-3, weight_decay=WD, total_steps=8,
-                     warmup_steps=1, anomaly_guard=guard)
+                     warmup_steps=1, anomaly_guard=guard, **(tc_kw or {}))
     own_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_") if ckpt_dir is None else None
     run = RunConfig(arch="llama_7b", smoke=False, steps=8, batch_per_host=8, seq_len=256,
                     ckpt_dir=ckpt_dir or own_dir, ckpt_every=ckpt_every, log_every=1,
                     device="cuda")
-    steps, losses, times = [], [], []
+    steps, losses, times, step_units = [], [], [], []
 
     def on_step(step, metrics):
         steps.append(step)
         losses.append(float(metrics["loss"]))
         times.append(metrics["step_s"])
+        if units is not None:
+            step_units.append(units.take())
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -1016,7 +1049,7 @@ def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=
     return dict(steps=steps, losses=losses, times=times, launches=launches,
                 thread_copy=thread_copy, thread_copy_epilogue=thread_copy_epilogue, peak=peak,
                 galore=galore, update_freq=update_freq, state_bytes=state_bytes,
-                analytic_bytes=analytic, quantized_leaves=quantized)
+                analytic_bytes=analytic, quantized_leaves=quantized, units=step_units)
 
 
 def npz_bytes(root):
@@ -1157,6 +1190,200 @@ def guard_cost(reps=5):
     return {k: statistics.median(v) for k, v in times.items()}
 
 
+class SvdUnits:
+    """Counts the SVD units (stacked (m, n) elements) the refresh computes on
+    the launching thread, by wrapping core/subspace.py's
+    compute_leaf_projector while active; take() returns the count since the
+    last take."""
+
+    def __init__(self):
+        self.total = self._taken = 0
+        self._real = None
+
+    def __enter__(self):
+        self._real = real = subspace.compute_leaf_projector
+
+        def counted(g, plan, cfg, key=None, step=0):
+            self.total += math.prod(g.shape[:-2])
+            return real(g, plan, cfg, key, step)
+
+        subspace.compute_leaf_projector = counted
+        return self
+
+    def __exit__(self, *exc):
+        subspace.compute_leaf_projector = self._real
+
+    def take(self):
+        n, self._taken = self.total - self._taken, self.total
+        return n
+
+
+def plan_units(params, gcfg, steps):
+    """The SVD units the plan makes due at each step of the fixed (staggered)
+    schedule: the stacked elements of the galore leaves due there."""
+    mgr = subspace.SubspaceManager(gcfg)
+    plans = mgr.plans(params)
+    lead = [math.prod(p.shape[:-2]) for p in tree_leaves(params)]
+    return [sum(u for u, due in zip(lead, mgr.due_mask(plans, None, s)) if due)
+            for s in range(steps)]
+
+
+def clone_tree(tree, grad=False):
+    def leaf(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        c = t.detach().clone()
+        return c.requires_grad_(True) if grad else c
+
+    return tree_map(leaf, tree)
+
+
+def checked_async_driver(check_step, drivers):
+    """A launcher.AsyncRefreshDriver that, at the swap of the refresh it
+    dispatched at `check_step`, holds the installed state against a
+    synchronous refresh_projectors_pending + swap_pending_state on the main
+    stream, from copies of the params, galore state and stale batch that
+    the dispatch saw and of the state the swap saw: flagged leaves' P by
+    subspace_overlap (> 0.999), their reprojected moments (int8 codes at
+    most one apart, scales within 1e-5; fp32 within 1e-5·max), every other
+    leaf bit for bit. Each driver built is appended to `drivers`, its
+    verdict in `.check` (with the check's seconds). The copies and the check
+    are kept out of the peak: `.peak_before` is the peak before the copies
+    are made, and the peak is reset after the check."""
+
+    class Checked(launcher.AsyncRefreshDriver):
+        def __init__(self, cfg, tc, params):
+            super().__init__(cfg, tc, params)
+            self.cfg, self.tc, self.check, self._snap = cfg, tc, None, None
+            self.peak_before = None
+            drivers.append(self)
+
+        def _dispatch(self, params, sub, batch, step):
+            if step == check_step:
+                self.peak_before = torch.cuda.max_memory_allocated()
+                self._snap = (clone_tree(params, grad=True), clone_tree(sub), batch, step)
+            super()._dispatch(params, sub, batch, step)
+
+        def _swap_if_pending(self, opt_state, params):
+            if self._snap is None or not self.in_flight:
+                return super()._swap_if_pending(opt_state, params)
+            before = clone_tree(opt_state[self.idx])
+            out = super()._swap_if_pending(opt_state, params)
+            t = time.perf_counter()
+            self.check = dict(self._hold(before, out[self.idx]))
+            self.check["check_s"] = time.perf_counter() - t
+            self._snap = before = None
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            return out
+
+        def _hold(self, before, got):
+            snap_params, snap_sub, batch, step = self._snap
+            grads = make_refresh_grads(self.cfg, self.tc)(snap_params, batch)
+            with torch.no_grad():
+                pending = refresh_projectors_pending(grads, snap_sub, self.gcfg, step=step)
+                want = swap_pending_state(snap_params, before, pending, self.gcfg)
+            del grads
+            plans = subspace.SubspaceManager(self.gcfg).plans(snap_params)
+            row = dict(step=step, leaves=0, overlap=1.0, code_diff=0, scale_rel=0.0, m32_rel=0.0)
+            leaves = zip(tree_leaves(snap_params), tree_leaves(plans),
+                         *(flatten_up_to(snap_params, t) for t in (
+                             pending["flag"], got["proj"], want["proj"], before["proj"],
+                             got["inner"]["m"], want["inner"]["m"], before["inner"]["m"],
+                             got["inner"]["v"], want["inner"]["v"], before["inner"]["v"])))
+            for p, plan, flag, gp, wp, bp, gm, wm, bm, gv, wv, bv in leaves:
+                if not plan.galore:
+                    continue
+                if not flag:
+                    if not all(torch.equal(a, b) for a, b in zip(tree_leaves([gp, gm, gv]),
+                                                                 tree_leaves([bp, bm, bv]))):
+                        raise AssertionError(f"[async] the swap changed the unflagged leaf of "
+                                             f"shape {tuple(p.shape)}")
+                    continue
+                row["leaves"] += 1
+                shape = subspace.proj_shape(p, plan)
+                ov = float(subspace_overlap(read_projector(gp, shape),
+                                            read_projector(wp, shape)).min())
+                row["overlap"] = min(row["overlap"], ov)
+                for g, w in ((gm, wm), (gv, wv)):
+                    if isinstance(g, dict):
+                        row["code_diff"] = max(row["code_diff"], int(
+                            (g["q"].int() - w["q"].int()).abs().max()))
+                        row["scale_rel"] = max(row["scale_rel"], float(
+                            ((g["scale"] - w["scale"]).abs() / w["scale"].abs().clamp_min(1e-30))
+                            .max()))
+                    else:
+                        row["m32_rel"] = max(row["m32_rel"], float(
+                            (g - w).abs().max() / w.abs().max().clamp_min(1e-30)))
+            if not (row["leaves"] and row["overlap"] > 0.999 and row["code_diff"] <= 1
+                    and row["scale_rel"] <= 1e-5 and row["m32_rel"] <= 1e-5):
+                raise AssertionError(f"[async] the swap of the step-{step} refresh is not the "
+                                     f"synchronous refresh's: {row}")
+            return row
+
+    return Checked
+
+
+def schedule_recorder(log):
+    """A make_train_step for the launcher that records, around each train
+    step, the galore step and the adaptive schedule before and after it
+    (period and next host ints, overlap read to the host)."""
+    make = launcher.make_train_step
+
+    def snap(g):
+        return {k: dict(tree_leaves_with_path(g["schedule"][k])) for k in ("period", "next")} | {
+            "overlap": {k: float(v) for k, v in tree_leaves_with_path(g["schedule"]["overlap"])}}
+
+    def make_recording(cfg, tc):
+        step, opt = make(cfg, tc)
+        idx = galore_state_index(tc)
+
+        def recorded(params, opt_state, batch):
+            gstep, before = opt_state[idx]["step"], snap(opt_state[idx])
+            out = step(params, opt_state, batch)
+            log.append((gstep, before, snap(out[1][idx])))
+            return out
+
+        return recorded, opt
+
+    return make_recording
+
+
+def check_schedule(log, gcfg, plans):
+    """Every refresh the adaptive schedule took follows the reference's rule
+    (core/subspace.py): a leaf is due iff step ≥ next; at a due step its
+    period doubles at overlap ≥ hi, halves below lo (left alone at the first
+    refresh), clipped to t_bounds, and next becomes the offset at step 0 and
+    step + period afterwards; a leaf not due keeps its scalars. Returns the
+    refresh events (step, leaf, overlap, period, next)."""
+    t_min, t_max = subspace.SubspaceManager(gcfg).t_bounds()
+    hi, lo = float(np.float32(gcfg.overlap_hi)), float(np.float32(gcfg.overlap_lo))
+    events = []
+    galore_paths = {p: pl for p, pl in tree_leaves_with_path(plans) if pl.galore}
+    for step, before, after in log:
+        for path, plan in galore_paths.items():
+            per, nxt = before["period"][path], before["next"][path]
+            if step < nxt:
+                if any(after[k][path] != before[k][path] for k in ("period", "next", "overlap")):
+                    raise AssertionError(f"[hetero-adaptive] {path} changed its schedule at "
+                                         f"step {step}, not due (next {nxt})")
+                continue
+            ov = after["overlap"][path]
+            want = per
+            if step > 0:
+                want = per * 2 if ov >= hi else (per // 2 if ov < lo else per)
+                want = min(max(want, t_min), t_max)
+            want_next = (plan.refresh_offset if step == 0 and plan.refresh_offset > 0
+                         else step + want)
+            if (after["period"][path], after["next"][path]) != (want, want_next) or not (
+                    t_min <= want <= t_max):
+                raise AssertionError(f"[hetero-adaptive] {path} at step {step}: period/next "
+                                     f"{after['period'][path]}/{after['next'][path]}, want "
+                                     f"{want}/{want_next} (overlap {ov}, bounds {t_min}-{t_max})")
+            events.append((step, path, ov, want, want_next))
+    return events
+
+
 def svd_ms():
     """The refresh's SVD on the card at the slice's two projector shapes, for
     rank-128 and rank-1024 projectors."""
@@ -1166,6 +1393,135 @@ def svd_ms():
         for rank in (128, 1024):
             out[f"r{rank} {m}x{n}"] = cuda_ms(lambda: compute_projector(G, rank), 1, 3)
     return out
+
+
+def lifecycle_phases(phases, none):
+    """The refresh lifecycle at the main path's width (T = 8, 8 steps):
+    `stagger` (fp32 fused, inline stagger), `stagger-external` (the same
+    through the external refresh caller: losses and projectors bit for bit
+    `stagger`'s), `async` (8-bit fused, stagger, the async double buffer,
+    moments re-projected; one swap held against the synchronous refresh)
+    and `hetero-adaptive` (fp32 fused, MLP leaves at r = 1024 and attention
+    at r = 128, adaptive T from T = 4). The two stagger phases run without
+    the chain's clip: it rescales the gradient the in-step refresh sees,
+    while the external refresh, as the reference's, decomposes the raw
+    gradient. Adds each phase to `phases`."""
+    stagger_kw = dict(refresh_stagger=True)
+    finals = {}
+
+    def keep_final(tag, want_units):
+        def on_state(params, opt_state):
+            finals[tag] = clone_tree(opt_state[0]["proj"])  # no clip: galore state first
+            want_units.extend(plan_units(params, GaLoreConfig(rank=128, update_freq=8,
+                                                              **stagger_kw), 8))
+        return on_state
+
+    for tag, tc_kw in (("stagger", {}), ("stagger-external", dict(galore_external_refresh=True))):
+        t = time.perf_counter()
+        want_units = []
+        with SvdUnits() as units:
+            ph = phases[tag] = train_phase(fused=True, update_freq=8, galore_kw=stagger_kw,
+                                           tc_kw=dict(grad_clip=0.0, **tc_kw), units=units,
+                                           on_state=keep_final(tag, want_units))
+        ph["refresh_steps"] = [i for i, u in enumerate(ph["units"]) if u]
+        log(f"[{tag}] losses {[round(x, 4) for x in ph['losses']]} launches {ph['launches']}; "
+            f"SVD units per step {ph['units']} (plan {want_units}); step ms "
+            f"{[round(x * 1e3, 1) for x in ph['times']]}; peak memory "
+            f"{ph['peak'] / 2**30:.2f} GiB ({time.perf_counter() - t:.1f} s)")
+        if ph["units"] != want_units or want_units != [14, 2, 2, 2, 2, 2, 2, 0]:
+            raise AssertionError(f"{tag}: SVD units per step {ph['units']}, plan {want_units}, "
+                                 f"want 14 at step 0, 2 at each of steps 1-6 (offsets "
+                                 f"(pos·8)//7), 0 at step 7")
+        if ph["launches"] != dict(none, left=48, right=8):
+            raise AssertionError(f"{tag} launches {ph['launches']}, want left 48, right 8")
+        check_state_bytes(tag, ph)
+    st, ext = phases["stagger"], phases["stagger-external"]
+    if ext["losses"] != st["losses"]:
+        raise AssertionError(f"stagger-external losses {ext['losses']} are not stagger's "
+                             f"{st['losses']} bit for bit")
+    same = [torch.equal(a, b) for a, b in zip(tree_leaves(finals["stagger-external"]),
+                                              tree_leaves(finals["stagger"]))]
+    if not all(same):
+        raise AssertionError(f"stagger-external: {same.count(False)} projector leaves differ "
+                             f"from stagger's")
+    log(f"[stagger-external] losses and all {len(same)} leaves of the projector tree bit for bit "
+        f"stagger's; "
+        f"median due step (1-6) {statistics.median(ext['times'][1:7]) * 1e3:.1f} ms vs stagger "
+        f"{statistics.median(st['times'][1:7]) * 1e3:.1f} ms")
+    del finals
+
+    # the async double buffer: 8-bit fused, the swap of the last (step-6)
+    # refresh held against the synchronous refresh on the main stream, so
+    # steps 1-5 run untouched by the check
+    t = time.perf_counter()
+    drivers = []
+    launcher.AsyncRefreshDriver, plain_driver = (checked_async_driver(6, drivers),
+                                                 launcher.AsyncRefreshDriver)
+    try:
+        ph = phases["async"] = train_phase(
+            fused=True, quant=QuantPolicy(moments="int8", projectors="int4"), update_freq=8,
+            galore_kw=dict(refresh_stagger=True, reproject_moments=True),
+            tc_kw=dict(galore_refresh_async=True))
+    finally:
+        launcher.AsyncRefreshDriver = plain_driver
+    driver = drivers[-1]
+    ph["peak"] = max(ph["peak"], driver.peak_before)  # the check's copies left out
+    # a step dispatches a refresh or swaps one in (waiting for its thread)
+    ph["refresh_steps"] = list(range(8))
+    hist = [(h["step"], h["units"], round(h["dispatch_s"] * 1e3, 1), round(h["refresh_s"] * 1e3, 1),
+             round(h["wait_s"] * 1e3, 1)) for h in driver.history]
+    log(f"[async] losses {[round(x, 4) for x in ph['losses']]} launches {ph['launches']}; step ms "
+        f"{[round(x * 1e3, 1) for x in ph['times']]}; peak memory {ph['peak'] / 2**30:.2f} GiB "
+        f"({time.perf_counter() - t:.1f} s)")
+    log(f"[async] dispatches (step, SVD units, gradient enqueue ms, refresh thread ms, main "
+        f"thread's wait at the swap ms): {hist}; overlapped with the train step "
+        f"{[round((h['refresh_s'] - h['wait_s']) * 1e3, 1) for h in driver.history]} ms")
+    if [h[0] for h in hist] != [1, 2, 3, 4, 5, 6] or any(h[1] != 2 for h in hist):
+        raise AssertionError(f"[async] dispatches {hist}: want steps 1-6, 2 SVD units each")
+    if driver.check is None:
+        raise AssertionError("[async] the swap of the step-6 refresh was not checked")
+    log(f"[async] swap of the step-6 refresh vs the synchronous refresh on the main stream: "
+        f"{driver.check['leaves']} leaf, subspace overlap {driver.check['overlap']:.6f} (> 0.999), "
+        f"int8 codes at most {driver.check['code_diff']} apart (≤ 1), scales within "
+        f"{driver.check['scale_rel']:.2e} (≤ 1e-5); the check took "
+        f"{driver.check['check_s']:.2f} s of step 7")
+    if ph["launches"] != dict(none, adam8_left=48, adam8_right=8):
+        raise AssertionError(f"async launches {ph['launches']}, want adam8 left 48, right 8")
+    check_state_bytes("async", ph)
+    due = [round(ph["times"][i] * 1e3, 1) for i in range(1, 6)]
+    log(f"[async] steps 1-5 (each dispatches a refresh and swaps the last) {due} ms vs "
+        f"stagger's due steps {[round(x * 1e3, 1) for x in st['times'][1:6]]} ms; peak memory "
+        f"{ph['peak'] / 2**30:.2f} GiB (before the check's copies) vs stagger's "
+        f"{st['peak'] / 2**30:.2f} GiB")
+
+    # per-leaf ranks and adaptive T: the MLP leaves at r = 1024 (B4/B5), the
+    # attention leaves at r = 128 (B1)
+    t = time.perf_counter()
+    hetero = dict(rank_overrides=(("ffn.gate", 1024), ("ffn.up", 1024), ("ffn.down", 1024)),
+                  adaptive_t=True)
+    log_sched, plans = [], []
+    launcher.make_train_step = schedule_recorder(log_sched)
+    try:
+        ph = phases["hetero-adaptive"] = train_phase(
+            fused=True, update_freq=4, galore_kw=hetero,
+            on_state=lambda p, s: plans.append(subspace.SubspaceManager(
+                GaLoreConfig(rank=128, update_freq=4, **hetero)).plans(p)))
+    finally:
+        launcher.make_train_step = make_train_step
+    gcfg = GaLoreConfig(rank=128, update_freq=4, scale=0.25, **hetero)
+    ranks = sorted({(path, pl.rank) for path, pl in tree_leaves_with_path(plans[0]) if pl.galore})
+    events = check_schedule(log_sched, gcfg, plans[0])
+    ph["refresh_steps"] = sorted({e[0] for e in events})
+    log(f"[hetero-adaptive] ranks {ranks}; losses {[round(x, 4) for x in ph['losses']]} launches "
+        f"{ph['launches']}; step ms {[round(x * 1e3, 1) for x in ph['times']]}; peak memory "
+        f"{ph['peak'] / 2**30:.2f} GiB ({time.perf_counter() - t:.1f} s)")
+    log(f"[hetero-adaptive] refreshes (step, leaf, overlap, period, next), every one by the "
+        f"reference's rule, periods within t_bounds {subspace.SubspaceManager(gcfg).t_bounds()}: "
+        f"{[(s, p, round(o, 4), per, n) for s, p, o, per, n in events]}")
+    if ph["launches"] != dict(none, left=32, project=24, project_back=24):
+        raise AssertionError(f"hetero-adaptive launches {ph['launches']}, want B1 32 (4 attention "
+                             f"leaves × 8 steps), B4 and B5 24 each (gate, up, down × 8)")
+    check_state_bytes("hetero-adaptive", ph)
 
 
 def main():
@@ -1443,6 +1799,8 @@ def main():
         f"state bytes adam8bit {phases['adam8bit']['state_bytes']}, adamw {ph['state_bytes']} "
         f"({phases['adam8bit']['state_bytes'] / ph['state_bytes']:.4f})")
 
+    lifecycle_phases(phases, none)
+
     log("[memory] the paper's 7B comparison at 2 layers, peak device memory: 8-bit GaLore "
         f"r = 1024 {phases['r1024-8bit']['peak'] / 2**30:.2f} GiB (apply "
         f"{phases['r1024-8bit-apply']['peak'] / 2**30:.2f} GiB), 8-bit Adam "
@@ -1459,9 +1817,11 @@ def main():
         times = ph["times"]
         if ph["galore"]:
             T = ph["update_freq"]
-            steady = statistics.median(times[i] for i in range(len(times)) if i % T)
-            refresh = range(0, len(times), T)
-            first = (f"median non-refresh {steady * 1e3:.1f} ms; refresh steps "
+            refresh = ph.get("refresh_steps", range(0, len(times), T))
+            rest = [times[i] for i in range(len(times)) if i not in refresh]
+            steady = (f"median non-refresh {statistics.median(rest) * 1e3:.1f} ms" if rest
+                      else "every step refreshes or swaps")
+            first = (f"{steady}; refresh steps "
                      f"{'/'.join(map(str, refresh))} "
                      f"{'/'.join(f'{times[i] * 1e3:.1f}' for i in refresh)} ms")
         else:

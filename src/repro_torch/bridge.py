@@ -1,5 +1,6 @@
 """numpy ⇄ torch bridge for parameter and optimizer-state trees (GaLore's
-state, and the standalone 8-bit Adam's).
+state with its adaptive schedule, the async refresh's pending buffer, and
+the standalone 8-bit Adam's).
 
 The trees are nested dicts keyed like the JAX package's (``np.asarray`` of
 each leaf of a ``repro`` tree is a valid input), so a test can run the port on
@@ -48,35 +49,74 @@ def params_to_numpy(params):
 def galore_state_from_numpy(state, device):
     """The galore transform's state from its numpy form.
 
-    Reads ``step``, ``key``, ``proj`` and ``inner`` {``m``, ``v``,
-    ``count``} — the layout of the JAX ``galore`` state. ``step`` becomes a
-    host int; ``key`` a uint32[2] CPU tensor, passed through untouched;
-    ``count`` stays an int32 tensor on `device`. Every other leaf keeps its
-    dtype: f32 moments and projectors, bf16 projectors, and the uint8 codes
-    and f32 scales of quantized leaves."""
+    Reads ``step``, ``key``, ``proj``, ``inner`` {``m``, ``v``, ``count``}
+    and, under adaptive T, ``schedule`` — the layout of the JAX ``galore``
+    state, at any per-leaf ranks. ``step`` becomes a host int; ``key`` a
+    uint32[2] CPU tensor, passed through untouched; ``count`` stays an int32
+    tensor on `device`; the schedule's ``period`` and ``next`` become host
+    ints and its ``overlap`` 0-d f32 tensors on `device`. Every other leaf
+    keeps its dtype: f32 moments and projectors, bf16 projectors, and the
+    uint8 codes and f32 scales of quantized leaves."""
     inner = state["inner"]
 
     def leaves(tree):
         return tree_map(lambda a: _to_tensor(a, device), tree)
 
-    return {
+    out = {
         "step": int(np.asarray(state["step"])),
         "key": _to_tensor(state["key"], "cpu", torch.uint32),
         "proj": leaves(state["proj"]),
         "inner": {"m": leaves(inner["m"]), "v": leaves(inner["v"]),
                   "count": _to_tensor(inner["count"], device, torch.int32)},
     }
+    if "schedule" in state:
+        out["schedule"] = _schedule_from_numpy(state["schedule"], device)
+    return out
 
 
 def galore_state_to_numpy(state):
     inner = state["inner"]
-    return {
+    out = {
         "step": np.asarray(state["step"], np.int32),
         "key": _to_numpy(state["key"]),
         "proj": tree_map(_to_numpy, state["proj"]),
         "inner": {"m": tree_map(_to_numpy, inner["m"]), "v": tree_map(_to_numpy, inner["v"]),
                   "count": _to_numpy(inner["count"]).astype(np.int32)},
     }
+    if "schedule" in state:
+        out["schedule"] = _schedule_to_numpy(state["schedule"])
+    return out
+
+
+def _schedule_from_numpy(sched, device):
+    return {"period": tree_map(lambda a: int(np.asarray(a)), sched["period"]),
+            "next": tree_map(lambda a: int(np.asarray(a)), sched["next"]),
+            "overlap": tree_map(lambda a: _to_tensor(a, device, torch.float32), sched["overlap"])}
+
+
+def _schedule_to_numpy(sched):
+    return {"period": tree_map(lambda x: np.asarray(x, np.int32), sched["period"]),
+            "next": tree_map(lambda x: np.asarray(x, np.int32), sched["next"]),
+            "overlap": tree_map(_to_numpy, sched["overlap"])}
+
+
+def pending_from_numpy(pending, device):
+    """The async refresh's pending buffer {"proj", "flag"[, "schedule"]}
+    from its numpy (or JAX) form: projectors in their dtype on `device`,
+    flags as host ints, the schedule as galore_state_from_numpy's."""
+    out = {"proj": tree_map(lambda a: _to_tensor(a, device), pending["proj"]),
+           "flag": tree_map(lambda a: int(np.asarray(a)), pending["flag"])}
+    if "schedule" in pending:
+        out["schedule"] = _schedule_from_numpy(pending["schedule"], device)
+    return out
+
+
+def pending_to_numpy(pending):
+    out = {"proj": tree_map(_to_numpy, pending["proj"]),
+           "flag": tree_map(lambda x: np.asarray(x, np.int32), pending["flag"])}
+    if "schedule" in pending:
+        out["schedule"] = _schedule_to_numpy(pending["schedule"])
+    return out
 
 
 def adam8bit_state_from_numpy(state, device):

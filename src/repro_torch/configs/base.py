@@ -2,6 +2,9 @@
 
 The port's own copy of ``repro/configs/base.py``: ``ModelConfig`` whole, and
 the ``GaLoreConfig`` / ``TrainConfig`` fields the ported training path reads.
+Not ported with them (one card, no replicas): ``unit_costs``, ``zero``,
+``tp_aware_side``, ``galore_refresh_shard``, ``galore_calibrate_costs``,
+``galore_recalibrate_every`` and ``galore_dp_compress`` (ROADMAP A.9).
 Field names and defaults are the reference's, so a config built here means
 the same run as one built there.
 """
@@ -120,6 +123,22 @@ class GaLoreConfig:
     projector: str = "svd"  # svd | randomized | newton_schulz
     power_iters: int = 2  # subspace/power iterations for randomized modes
     min_dim: int = 0  # only project matrices with min(m, n) > max(rank, min_dim)
+    # --- per-leaf subspace lifecycle policies (core/subspace.py) ---
+    # every default keeps the paper's global-(rank, T) refresh and today's
+    # state layout bit for bit
+    rank_frac: float = 0.0  # >0: per-leaf rank = max(1, rank_frac * min(m, n))
+    rank_overrides: tuple = ()  # ((path_substring, rank), ...): first match wins
+    refresh_stagger: bool = False  # per-leaf refresh offsets (pos·T)//n_galore
+    adaptive_t: bool = False  # overlap-gated per-leaf period (Q-GaLore-style)
+    stagger_by_importance: bool = False  # order the offsets by importance_order
+    importance_order: tuple = ()  # leaf paths by descending measured grad norm
+    # (stamped by the launcher from one gradient; static, so every plan agrees)
+    t_min: int = 0  # adaptive period floor; 0 -> max(1, update_freq // 4)
+    t_max: int = 0  # adaptive period ceiling; 0 -> 8 * update_freq
+    overlap_hi: float = 0.9  # double a leaf's period when its refresh overlap >= hi
+    overlap_lo: float = 0.5  # halve it when the overlap < lo
+    reproject_moments: bool = False  # on an async swap, rotate the compact
+    # moments into the new basis: M <- (P_newᵀP_old)M, V <- (P_newᵀP_old)∘²V
     guard_refresh: bool = False  # validate the refresh: a non-finite gradient
     # makes the whole refresh a no-op (every projector kept), and an SVD that
     # fails (non-finite P, or LinAlgError) falls back to the randomized
@@ -143,6 +162,12 @@ class TrainConfig:
     grad_clip: float = 1.0
     seed: int = 0
     microbatch: int = 0  # >0 -> gradient accumulation
+    galore_external_refresh: bool = False  # refresh P in a step of its own,
+    # driven by the launcher (launch/train.py::make_refresh_caller)
+    galore_refresh_async: bool = False  # double-buffered refresh: the due
+    # leaves' P_next computed on a host thread and a CUDA stream of their own
+    # from the previous step's batch, swapped in at the next step boundary
+    # (implies the external refresh; launch/train.py::AsyncRefreshDriver)
     galore_fused_adam: bool = False  # one fused kernel per GaLore leaf
     galore_fused_apply: bool = False  # fold W ← W + η(G̃ + wd·W) into that kernel
     # (requires galore_fused_adam; no full-size f32 update is written — the
@@ -163,9 +188,8 @@ class TrainConfig:
     recover_max_rollbacks: int = 2  # rollbacks before TrainingFailure
     recover_backoff: float = 0.0  # seconds slept per accumulated rollback
     recover_lr_decay: float = 1.0  # <1: multiply lr by this on every rollback
-    recover_resync: bool = False  # force a refresh after a rollback (needs an
-    # external refresh, which the port lacks: accepted and unused, as the
-    # reference does without one)
+    recover_resync: bool = False  # after a rollback, one force-all refresh
+    # (external or async refresh, fixed period; as the reference)
 
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}

@@ -1,27 +1,36 @@
 """GaLore around Adam: gradient low-rank projection as a gradient transform
-(port of repro/core/galore.py: ``galore`` with the in-step every-T refresh,
-``_managed_adam_update`` with its fp32 and int8-moment branches and its
-weight apply, ``make_fused_apply``, and the analytic ``galore_state_bytes``).
+(port of repro/core/galore.py: ``galore`` with the in-step refresh or an
+external one, ``_managed_adam_update`` with its fp32 and int8-moment
+branches and its weight apply, ``make_fused_apply``, the external and
+pending refresh entry points ``refresh_projectors``,
+``init_pending_state``, ``refresh_projectors_pending`` and
+``swap_pending_state``, and the analytic ``galore_state_bytes``).
 
     R_t  = P_tᵀ G_t  (left, m ≤ n)  or  G_t P_t  (right)
     N_t  = Adam(R_t)                 compact moments live in r × n (or m × r)
     G̃_t = α P_t N_t  or  α N_t P_tᵀ
 
-P_t is refreshed from the current gradient at galore steps 0, T, 2T, … by
-``GaLoreConfig.projector`` (an SVD, or the randomized / Newton–Schulz range
-finder; core/projector.py), validated under ``guard_refresh``
-(core/subspace.py). Non-matrix leaves and excluded paths (embeddings) get the same
-Adam math at full shape. With ``fused=True`` each GaLore leaf goes through
-kernels/ops.py, and every step form (fp32 or int8 moments, emit or apply) is
-routed as the reference routes it: one fused kernel launch where P fits the
-reference's VMEM budget (``fits_vmem``), and where it does not (at llama_7b
-width r ≥ 512) the reference's fallback — the tiled projection kernels
-around a plain Adam update for the fp32 emit step, the plain step for the
-int8 and apply forms; with ``fused=False`` it runs the composable
-project → Adam → back-project sequence in plain torch (kernels/ref.py), the
-numerics oracle. ``make_fused_apply`` is the W-in-place form of the fused
-path: each GaLore leaf's kernel also applies W ← W + η(G̃ + wd·W), so no
-full-size update tree is made.
+P_t is refreshed from the current gradient when its leaf is due (galore
+steps 0, T, 2T, … by default; staggered or adaptive per leaf, and each leaf
+at its own rank, as core/subspace.py plans it) by ``GaLoreConfig.projector``
+(an SVD, or the randomized / Newton–Schulz range finder; core/projector.py),
+validated under ``guard_refresh``. With ``external_refresh`` the update
+never refreshes: the launcher calls ``refresh_projectors`` before the step,
+or runs the async double buffer (``refresh_projectors_pending`` on a stale
+gradient, ``swap_pending_state`` at the next step boundary), whose pending
+buffer lives beside the optimizer state, never inside it. Non-matrix leaves
+and excluded paths (embeddings) get the same Adam math at full shape. With
+``fused=True`` each GaLore leaf goes through kernels/ops.py, and every step
+form (fp32 or int8 moments, emit or apply) is routed as the reference routes
+it: one fused kernel launch where P fits the reference's VMEM budget
+(``fits_vmem``), and where it does not (at llama_7b width r ≥ 512) the
+reference's fallback — the tiled projection kernels around a plain Adam
+update for the fp32 emit step, the plain step for the int8 and apply forms;
+with ``fused=False`` it runs the composable project → Adam → back-project
+sequence in plain torch (kernels/ref.py), the numerics oracle.
+``make_fused_apply`` is the W-in-place form of the fused path: each GaLore
+leaf's kernel also applies W ← W + η(G̃ + wd·W), so no full-size update tree
+is made.
 
 Quantized state (``GaLoreConfig.quant``, resolved per leaf into
 ``SubspacePlan.moments`` / ``.proj_store``): an int8 leaf stores each moment
@@ -38,6 +47,8 @@ State layout (the reference's):
      projector's sketch with the step), "proj": tree of P (scalar
      placeholders on non-galore leaves),
      "inner": {"m": tree, "v": tree, "count": int32 tensor}}
+plus, only under ``adaptive_t``, "schedule": per-leaf {period, next (host
+ints), overlap (0-d f32)} (core/subspace.py), checkpointed with the rest.
 """
 from __future__ import annotations
 
@@ -62,12 +73,14 @@ from repro_torch.utils import flatten_up_to, tree_leaves, tree_map, tree_unflatt
 
 def galore(cfg: GaLoreConfig, *, b1: float | None = None, b2: float | None = None,
            eps: float | None = None, fused: bool = False, exclude=DEFAULT_EXCLUDE,
-           seed: int = 0) -> GradientTransformation:
+           seed: int = 0, external_refresh: bool = False) -> GradientTransformation:
     """GaLore-Adam as a GradientTransformation. b1/b2/eps are Adam's and are
     required: the transform owns the Adam math on every leaf (as the
     reference's managed path does), so its state has scale_by_adam's
     {m, v, count} layout. `seed` makes the state's key (TrainConfig.seed,
-    threaded by optim/factory.py)."""
+    threaded by optim/factory.py). `external_refresh` takes the refresh out
+    of the update: the launcher refreshes the projectors itself
+    (``refresh_projectors``, or the async pending buffer)."""
     if None in (b1, b2, eps):
         if cfg.quant.quantizes_moments:
             raise ValueError(
@@ -86,22 +99,42 @@ def galore(cfg: GaLoreConfig, *, b1: float | None = None, b2: float | None = Non
                 return torch.zeros((), dtype=torch.float32, device=p.device)
             return init_projector_state(proj_shape(p, plan), plan.proj_store, p.device)
 
-        return {"step": 0, "key": prng_key(seed), "proj": tree_map(proj_init, params, plans),
-                "inner": _managed_adam_init(params, plans)}
+        state = {"step": 0, "key": prng_key(seed), "proj": tree_map(proj_init, params, plans),
+                 "inner": _managed_adam_init(params, plans)}
+        sched = mgr.init_schedule(params, plans)
+        if sched is not None:
+            state["schedule"] = sched
+        return state
 
     def update(grads, state, params=None):
         plans = mgr.plans(grads)
         step = state["step"]
-        proj = mgr.refresh_tree(grads, state["proj"], plans, step, key=state["key"])
+        proj, sched = _maybe_refresh(mgr, grads, state, plans, external_refresh)
         # the fused dispatch keeps packed int4 projectors packed: the fused
         # kernel unpacks them, so no f32 projector tree is made (the composite
         # route dequantizes each leaf's P on its own)
         proj_eff = _read_proj_tree(grads, proj, plans, keep_packed=fused)
         updates, inner = _managed_adam_update(grads, proj_eff, state["inner"], plans, cfg,
                                               b1, b2, eps, fused=fused)
-        return updates, {"step": step + 1, "key": state["key"], "proj": proj, "inner": inner}
+        return updates, _next_state(state, proj, inner, sched)
 
     return GradientTransformation(init, update)
+
+
+def _maybe_refresh(mgr, grads, state, plans, external_refresh: bool):
+    """(proj, schedule) for this step: the in-step refresh of the leaves due
+    at the state's step, or the state's own under an external refresh."""
+    if external_refresh:
+        return state["proj"], state.get("schedule")
+    return mgr.refresh_tree(grads, state["proj"], state.get("schedule"), plans, state["key"],
+                            step=state["step"])
+
+
+def _next_state(state, proj, inner, sched):
+    out = {"step": state["step"] + 1, "key": state["key"], "proj": proj, "inner": inner}
+    if sched is not None:
+        out["schedule"] = sched
+    return out
 
 
 def _read_proj_tree(ref_tree, proj, plans, keep_packed: bool = False):
@@ -224,7 +257,8 @@ def _managed_adam_update(grads, proj_eff, inner_state, plans, cfg: GaLoreConfig,
 
 
 def make_fused_apply(cfg: GaLoreConfig, *, b1: float, b2: float, eps: float,
-                     weight_decay: float = 0.0, exclude=DEFAULT_EXCLUDE):
+                     weight_decay: float = 0.0, exclude=DEFAULT_EXCLUDE,
+                     external_refresh: bool = False):
     """The W-in-place fast path: returns
         apply_step(params, grads, galore_state, eta) -> (params, galore_state')
     where every GaLore leaf runs one kernel that folds the weight update into
@@ -234,22 +268,72 @@ def make_fused_apply(cfg: GaLoreConfig, *, b1: float, b2: float, eps: float,
     order clip → galore → +wd·W → ·(-lr)). Other leaves get the same math at
     full shape. The state layout and refresh are exactly `galore(...)`'s, so
     states swap freely between the two paths, and the emit path + chain
-    stays the numerics oracle."""
+    stays the numerics oracle (`external_refresh` as ``galore``'s)."""
     mgr = SubspaceManager(cfg, exclude)
 
     def apply_step(params, grads, galore_state, eta):
         plans = mgr.plans(grads)
-        step = galore_state["step"]
-        proj = mgr.refresh_tree(grads, galore_state["proj"], plans, step,
-                                key=galore_state["key"])
+        proj, sched = _maybe_refresh(mgr, grads, galore_state, plans, external_refresh)
         proj_eff = _read_proj_tree(grads, proj, plans, keep_packed=True)
         params, inner = _managed_adam_update(grads, proj_eff, galore_state["inner"], plans, cfg,
                                              b1, b2, eps, fused=True, params=params, eta=eta,
                                              wd=weight_decay)
-        return params, {"step": step + 1, "key": galore_state["key"], "proj": proj,
-                        "inner": inner}
+        return params, _next_state(galore_state, proj, inner, sched)
 
     return apply_step
+
+
+def refresh_projectors(grads, galore_state, cfg: GaLoreConfig, exclude=DEFAULT_EXCLUDE,
+                       step: int | None = None) -> dict:
+    """The external refresh: the galore state with the projectors (and the
+    adaptive schedule) refreshed from `grads`. step None recomputes every
+    projector (the every-T force-all refresh); a step refreshes only the
+    leaves due at it, so a staggered launcher calls it every step. The
+    sketch is seeded from the state's key and step, as the in-step
+    refresh's."""
+    mgr = SubspaceManager(cfg, exclude)
+    gstep = galore_state["step"]
+    proj, sched = mgr.refresh_tree(grads, galore_state["proj"], galore_state.get("schedule"),
+                                   mgr.plans(grads), galore_state["key"],
+                                   step=gstep if step is None else step,
+                                   force_all=step is None, key_step=gstep)
+    out = {**galore_state, "proj": proj}
+    if sched is not None:
+        out["schedule"] = sched
+    return out
+
+
+def init_pending_state(params, cfg: GaLoreConfig, exclude=DEFAULT_EXCLUDE) -> dict:
+    """Zero pending buffer, the structure refresh_projectors_pending returns
+    (the restore target of a checkpoint taken with a refresh in flight)."""
+    mgr = SubspaceManager(cfg, exclude)
+    return mgr.init_pending(params, mgr.plans(params))
+
+
+def refresh_projectors_pending(grads, galore_state, cfg: GaLoreConfig, exclude=DEFAULT_EXCLUDE,
+                               step: int | None = None) -> dict:
+    """refresh_projectors written into a pending buffer: the active state is
+    untouched, the due leaves' P_next land in pending["proj"] with
+    pending["flag"] marking them, and the post-refresh adaptive schedule
+    rides along. Only "step", "key", "proj" and "schedule" of `galore_state`
+    are read (the moments never enter the refresh). `grads` is the previous
+    step's (stale) gradient in the async driver, the snapshot guard_refresh
+    validates."""
+    mgr = SubspaceManager(cfg, exclude)
+    gstep = galore_state["step"]
+    return mgr.refresh_pending_tree(grads, galore_state["proj"], galore_state.get("schedule"),
+                                    mgr.plans(grads), galore_state["key"],
+                                    step=gstep if step is None else step,
+                                    force_all=step is None, key_step=gstep)
+
+
+def swap_pending_state(params, galore_state, pending, cfg: GaLoreConfig,
+                       exclude=DEFAULT_EXCLUDE) -> dict:
+    """P_active ← P_next on the flagged leaves, with their schedule scalars
+    and, under cfg.reproject_moments, their moments rotated into the new
+    basis (SubspaceManager.swap_pending). `params` supplies leaf shapes."""
+    mgr = SubspaceManager(cfg, exclude)
+    return mgr.swap_pending(galore_state, pending, mgr.plans(params), params)
 
 
 # bytes per element of persistent storage, scale overhead included
@@ -261,8 +345,9 @@ _MOMENT_BYTES = {"fp32": 4.0,
 
 def galore_state_bytes(params, cfg: GaLoreConfig, exclude=DEFAULT_EXCLUDE) -> dict:
     """Analytic optimizer-state bytes (paper Table 1): projectors and
-    moments, each leaf in its resolved storage mode (int8 codes + per-block
-    absmax, packed int4 projectors), beside fp32 Adam's 8 bytes a weight."""
+    moments, each leaf at its own plan's rank (rank_frac / rank_overrides)
+    and in its resolved storage mode (int8 codes + per-block absmax, packed
+    int4 projectors), beside fp32 Adam's 8 bytes a weight."""
     plans = SubspaceManager(cfg, exclude).plans(params)
     proj_elems = moment_elems = full_moment_elems = total_params = 0
     proj_bytes = moment_bytes = 0.0

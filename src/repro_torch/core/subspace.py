@@ -1,37 +1,73 @@
-"""Per-leaf GaLore plans and the every-T refresh (port of the global-rank,
-unstaggered part of repro/core/subspace.py, with its poison-proof refresh:
-``tree_all_finite``, ``projector_or_fallback`` and the ``guard_refresh``
-gate).
+"""Subspace lifecycle: per-leaf GaLore plans, the refresh schedule, and the
+async double buffer (port of the one-device part of repro/core/subspace.py,
+with its poison-proof refresh: ``tree_all_finite``, ``projector_or_fallback``
+and the ``guard_refresh`` gate).
 
 A leaf projects iff it is at least 2-D, its path names no excluded module,
 and min(m, n) > max(rank, min_dim); it projects on the left (R = PᵀG) iff
-m ≤ n, else on the right (R = GP). Every plan shares the config's rank and
-period T, and every leaf refreshes at galore steps 0, T, 2T, … (the
-reference's schedule with its stagger off). Each plan also carries the
-leaf's storage modes, resolved once from ``GaLoreConfig.quant`` against the
+m ≤ n, else on the right (R = GP). Each plan carries the leaf's own rank
+(``leaf_rank``: the first ``rank_overrides`` pattern found in its path, else
+``rank_frac``·min(m, n), else ``rank``), its period T and its stagger offset
+(with ``refresh_stagger``, (pos·T) // n_galore over the galore leaves in
+flatten order, or in ``importance_order`` with ``stagger_by_importance``),
+and its storage modes, resolved from ``GaLoreConfig.quant`` against the
 leaf's full element count: ``moments`` (fp32 | int8) and ``proj_store``
 (fp32 | bf16 | int4).
 
+A leaf refreshes at galore step t iff t % T == offset % T, or t == 0
+(``_leaf_due``, the one dueness predicate). Under ``adaptive_t`` the
+schedule is state: per leaf ``{"period", "next", "overlap"}``, the leaf due
+iff t ≥ next; at each refresh the period doubles where the new P overlaps
+the old one by ≥ ``overlap_hi``, halves below ``overlap_lo``, is clipped to
+``t_bounds`` and left alone on the first refresh, and next becomes the
+offset at step 0 and t + period afterwards. The reference keeps these
+scalars on the device and decides dueness inside its program; the port
+keeps period and next as host ints (int32 in a checkpoint), so dueness is
+read with no device sync, and the overlap as an f32 scalar on the device,
+read only at a due step (whose SVD has synchronised already).
+
+The async double buffer: ``refresh_pending_tree`` writes a refresh into a
+pending buffer ``{"proj", "flag"[, "schedule"]}`` (flag 1 on the leaves it
+recomputed, host ints) beside the optimizer state, and ``swap_pending``
+installs it at a step boundary, with ``reproject_moments`` rotating the
+compact moments into the new basis.
+
 Under ``GaLoreConfig.guard_refresh`` a gradient with a non-finite element
-makes the whole refresh a no-op (every projector kept; each leaf retries at
-its next due step), and an SVD that fails — a non-finite P, or a
-``torch.linalg.LinAlgError`` — falls back to the randomized projector. The
-reference decides both inside its program; the port reads each verdict on
-the host, only at a step where some leaf is due.
+makes the whole refresh a no-op (every projector and schedule scalar kept,
+no pending flag set; each leaf retries at its next due step), an SVD that
+fails — a non-finite P, or a ``torch.linalg.LinAlgError`` — falls back to
+the randomized projector, and the swap rejects a non-finite or all-zero
+P_next leaf by leaf. The reference decides these inside its program; the
+port reads each verdict on the host, only where some leaf is due.
+
+Not ported (one card has no replicas; ROADMAP A.9): ``partition_refresh``,
+``sharded_projector_tree``, ``ownership_axes`` and the ``zero_*``
+constraints, ``tp_aware_side``, ``calibrate_unit_costs`` and the
+``leaf_unit_cost`` model they feed.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import GaLoreConfig
-from repro_torch.core.projector import compute_projector, sketch_generator, store_projector
+from repro_torch.core.projector import (
+    compute_projector,
+    init_projector_state,
+    read_projector,
+    sketch_generator,
+    store_projector,
+    subspace_overlap,
+)
+from repro_torch.quant import codec
 from repro_torch.utils import (
     flatten_up_to,
     tree_leaves,
     tree_leaves_with_path,
+    tree_map,
     tree_unflatten_like,
 )
 
@@ -44,8 +80,9 @@ class SubspacePlan:
 
     galore: bool
     side: str = "left"  # "left": R = P^T G ; "right": R = G P
-    rank: int = 0  # projection rank (0 for non-galore leaves)
-    refresh_period: int = 0  # T
+    rank: int = 0  # this leaf's projection rank (0 for non-galore leaves)
+    refresh_period: int = 0  # base T
+    refresh_offset: int = 0  # stagger phase in [0, refresh_period)
     moments: str = "fp32"  # "fp32" | "int8": Adam M/V storage (compact or full-shape)
     proj_store: str = "fp32"  # "fp32" | "bf16" | "int4": persistent P storage
 
@@ -71,6 +108,22 @@ def r_shape(p, plan: SubspacePlan) -> tuple:
     if plan.side == "left":
         return tuple(p.shape[:-2]) + (plan.rank, n)
     return tuple(p.shape[:-2]) + (m, plan.rank)
+
+
+def importance_order_from_grads(grads) -> tuple:
+    """Paths of the ≥ 2-D leaves by descending Frobenius norm (ties by path):
+    the launcher measures it once from a real gradient and stamps it into
+    GaLoreConfig.importance_order."""
+    scored = [(float(torch.linalg.vector_norm(g.detach().float())), path)
+              for path, g in tree_leaves_with_path(grads)
+              if isinstance(g, torch.Tensor) and g.ndim >= 2]
+    return tuple(p for _, p in sorted(scored, key=lambda t: (-t[0], t[1])))
+
+
+def subspace_overlap_mean(P: torch.Tensor, P_ref: torch.Tensor) -> torch.Tensor:
+    """0-d f32: mean squared principal cosine between two (possibly stacked)
+    projectors' column subspaces, averaged over the leading dims."""
+    return subspace_overlap(P, P_ref).mean()
 
 
 def tree_all_finite(tree) -> torch.Tensor:
@@ -110,62 +163,285 @@ def compute_leaf_projector(g, plan: SubspacePlan, cfg: GaLoreConfig, key=None, s
 
 
 class SubspaceManager:
-    """Computes per-leaf SubspacePlans and drives the refresh."""
+    """Computes per-leaf SubspacePlans and drives the refresh lifecycle."""
 
     def __init__(self, cfg: GaLoreConfig, exclude=DEFAULT_EXCLUDE):
         self.cfg = cfg
         self.exclude = exclude
 
+    # -- policy ------------------------------------------------------------
+
+    @property
+    def adaptive(self) -> bool:
+        return bool(self.cfg.adaptive_t)
+
+    def t_bounds(self) -> tuple[int, int]:
+        """(t_min, t_max) of the adaptive period: the config's, else
+        (max(1, T // 4), 8·T)."""
+        T = self.cfg.update_freq
+        return self.cfg.t_min or max(1, T // 4), self.cfg.t_max or 8 * T
+
+    def leaf_rank(self, path: str, m: int, n: int) -> int:
+        """The first rank_overrides pattern that is a substring of `path`
+        wins; else max(1, rank_frac·min(m, n)) when rank_frac > 0; else
+        cfg.rank."""
+        for pattern, r in self.cfg.rank_overrides:
+            if pattern in path:
+                return int(r)
+        if self.cfg.rank_frac > 0:
+            return max(1, int(self.cfg.rank_frac * min(m, n)))
+        return self.cfg.rank
+
+    def importance_rank(self, path: str) -> int:
+        """Position of a leaf in cfg.importance_order (first match wins);
+        unlisted leaves sort after every listed one."""
+        for i, pat in enumerate(self.cfg.importance_order):
+            if pat == path or pat in path:
+                return i
+        return len(self.cfg.importance_order)
+
+    # -- plans -------------------------------------------------------------
+
     def plans(self, params):
-        """Tree of SubspacePlan mirroring `params`."""
+        """Tree of SubspacePlan mirroring `params`. The stagger offsets depend
+        only on the galore leaves' flatten order (and the static importance
+        order), so init, update and the external refresh always agree."""
         cfg = self.cfg
-        out = []
+        raw, paths = [], []
         for path, p in tree_leaves_with_path(params):
+            paths.append(path)
             # the min_quant_size floor is held against the weight's size,
             # not the compact moment's (quant/policy.py)
             moments, proj_store = cfg.quant.resolve(path, math.prod(p.shape))
             if p.ndim < 2 or any(e in path for e in self.exclude):
-                out.append(SubspacePlan(False, moments=moments))
+                raw.append(SubspacePlan(False, moments=moments))
                 continue
             m, n = p.shape[-2], p.shape[-1]
-            if min(m, n) <= max(cfg.rank, cfg.min_dim):
-                out.append(SubspacePlan(False, moments=moments))
+            rank = self.leaf_rank(path, m, n)
+            if min(m, n) <= max(rank, cfg.min_dim):
+                raw.append(SubspacePlan(False, moments=moments))
                 continue
-            out.append(SubspacePlan(True, "left" if m <= n else "right",
-                                    rank=cfg.rank, refresh_period=cfg.update_freq,
-                                    moments=moments, proj_store=proj_store))
-        return tree_unflatten_like(params, out)
+            raw.append(SubspacePlan(True, "left" if m <= n else "right", rank=rank,
+                                    refresh_period=cfg.update_freq, moments=moments,
+                                    proj_store=proj_store))
+        galore_idx = [i for i, pl in enumerate(raw) if pl.galore]
+        if cfg.refresh_stagger and galore_idx:
+            order = list(range(len(galore_idx)))
+            if cfg.stagger_by_importance and cfg.importance_order:
+                # the most important leaf refreshes first in the window: the
+                # same offsets, given to the leaves in another order
+                order.sort(key=lambda j: (self.importance_rank(paths[galore_idx[j]]), j))
+            for pos, j in enumerate(order):
+                i = galore_idx[j]
+                raw[i] = dataclasses.replace(
+                    raw[i], refresh_offset=(pos * cfg.update_freq) // len(galore_idx))
+        return tree_unflatten_like(params, raw)
 
-    @staticmethod
-    def leaf_due(plan: SubspacePlan, step: int) -> bool:
-        """Whether a galore leaf refreshes at galore step `step`."""
-        return step % plan.refresh_period == 0
+    # -- schedule ------------------------------------------------------------
 
-    def refresh_tree(self, grads, proj, plans, step: int, key=None):
-        """New projector tree: the due leaves recomputed from `grads` and
-        stored in their plan's form (fp32, bf16 or a packed int4 qstate).
-        `key` (the galore state's uint32[2]) seeds the randomized sketches.
+    def init_schedule(self, params, plans):
+        """The adaptive schedule {period, next, overlap}, trees mirroring
+        params (0 on non-galore leaves): period and next host ints, overlap a
+        0-d f32 tensor on the leaf's device; None when adaptive_t is off, so
+        the state layout stays the fixed-schedule one."""
+        if not self.adaptive:
+            return None
+        return {"period": tree_map(lambda p, pl: pl.refresh_period if pl.galore else 0,
+                                   params, plans),
+                "next": tree_map(lambda p: 0, params),  # every leaf refreshes at step 0
+                "overlap": tree_map(lambda p: torch.zeros((), dtype=torch.float32,
+                                                          device=p.device), params)}
 
-        With ``quant.lazy_refresh`` an int4 leaf whose new codes equal the
-        stored ones keeps its stored state, scales included (Q-GaLore: the
-        refresh did not move the projector at 4-bit resolution). With
-        ``guard_refresh`` a non-finite gradient keeps every projector."""
-        lazy = self.cfg.quant.lazy_refresh
+    def _leaf_due(self, plan: SubspacePlan, nxt: int, step: int, force_all: bool,
+                  adaptive: bool) -> bool:
+        """The one dueness predicate of a galore leaf at `step`."""
+        if force_all:
+            return True
+        if adaptive:
+            return step >= nxt
+        T = plan.refresh_period
+        return step % T == plan.refresh_offset % T or step == 0
+
+    def due_mask(self, plans, sched, step: int, force_all: bool = False) -> list[bool]:
+        """Per leaf (flatten order): a galore leaf due at `step`."""
         flat_plans = tree_leaves(plans)
-        if (self.cfg.guard_refresh
-                and any(pl.galore and self.leaf_due(pl, step) for pl in flat_plans)
-                and not bool(tree_all_finite(grads))):
-            return proj
+        nxt = (flatten_up_to(plans, sched["next"]) if sched is not None
+               else [0] * len(flat_plans))
+        return [pl.galore and self._leaf_due(pl, n, step, force_all, sched is not None)
+                for pl, n in zip(flat_plans, nxt)]
 
-        def refresh(g, P, plan):
-            if not (plan.galore and self.leaf_due(plan, step)):
-                return P
-            new = store_projector(compute_leaf_projector(g, plan, self.cfg, key, step),
-                                  plan.proj_store)
+    def _snapshot_valid(self, grads, due) -> bool:
+        """guard_refresh: the gradient snapshot is finite (read on the host,
+        only where some leaf is due); always True unguarded."""
+        if not (self.cfg.guard_refresh and any(due)):
+            return True
+        return bool(tree_all_finite(grads))
+
+    # -- refresh -----------------------------------------------------------
+
+    def refresh_tree(self, grads, proj, sched, plans, key=None, *, step: int,
+                     force_all: bool = False, key_step: int | None = None, valid=None):
+        """One refresh pass; returns (proj', sched').
+
+        A galore leaf recomputes its projector from `grads` iff it is due at
+        `step` (every leaf with `force_all`) and stores it in its plan's form
+        (fp32, bf16 or a packed int4 qstate); every other leaf keeps its P.
+        `key` (the galore state's uint32[2]) and `key_step` (default `step`)
+        seed the randomized sketches. With ``quant.lazy_refresh`` an int4 leaf
+        whose new codes equal the stored ones keeps its stored state (scales
+        included). With ``guard_refresh`` a non-finite gradient keeps every
+        projector and schedule scalar (`valid`: the verdict, when the caller
+        has read it already). Under adaptive_t the refreshed leaves' schedule
+        scalars follow the reference's rule (module docstring); sched is None
+        otherwise and comes back None."""
+        cfg = self.cfg
+        adaptive = sched is not None
+        flat_plans = tree_leaves(plans)
+        due = self.due_mask(plans, sched, step, force_all)
+        if valid is None:
+            valid = self._snapshot_valid(grads, due)
+        if not valid or not any(due):
+            return proj, sched
+        t_min, t_max = self.t_bounds()
+        # the reference compares its f32 overlap with f32 thresholds
+        hi, lo = float(np.float32(cfg.overlap_hi)), float(np.float32(cfg.overlap_lo))
+        kstep = step if key_step is None else key_step
+        lazy = cfg.quant.lazy_refresh
+        n = len(flat_plans)
+        per_f = flatten_up_to(grads, sched["period"]) if adaptive else [0] * n
+        nxt_f = flatten_up_to(grads, sched["next"]) if adaptive else [0] * n
+        ov_f = flatten_up_to(grads, sched["overlap"]) if adaptive else [None] * n
+
+        def refresh(g, P, plan, per, nxt, ov_old, is_due):
+            if not is_due:
+                return P, per, nxt, ov_old
+            P_new = compute_leaf_projector(g, plan, cfg, key, kstep)
+            new = store_projector(P_new, plan.proj_store)
             if lazy and plan.proj_store == "int4" and torch.equal(new["q"], P["q"]):
-                return P
-            return new
+                new = P  # Q-GaLore: unmoved at 4-bit resolution
+            if not adaptive:
+                return new, per, nxt, ov_old
+            P_old = read_projector(P, proj_shape(g, plan))
+            ov = subspace_overlap_mean(P_new, P_old)
+            has_old = bool(P_old.abs().sum() > 0)  # no signal on the first refresh
+            per2 = per
+            if has_old:
+                ovf = float(ov)
+                per2 = per * 2 if ovf >= hi else (per // 2 if ovf < lo else per)
+                per2 = min(max(per2, t_min), t_max)
+            # the step-0 refresh sets the stagger phase; then the leaf runs
+            # at its own period
+            nxt2 = (plan.refresh_offset if step == 0 and plan.refresh_offset > 0
+                    else step + per2)
+            return new, per2, nxt2, (ov if has_old else torch.zeros_like(ov))
 
-        out = [refresh(g, P, plan) for g, P, plan in zip(
-            tree_leaves(grads), flatten_up_to(grads, proj), flat_plans)]
-        return tree_unflatten_like(grads, out)
+        flat = [refresh(*xs) for xs in zip(tree_leaves(grads), flatten_up_to(grads, proj),
+                                           flat_plans, per_f, nxt_f, ov_f, due)]
+        proj_out = tree_unflatten_like(grads, [t[0] for t in flat])
+        if not adaptive:
+            return proj_out, None
+        return proj_out, {name: tree_unflatten_like(grads, [t[i] for t in flat])
+                          for i, name in ((1, "period"), (2, "next"), (3, "overlap"))}
+
+    # -- async double-buffered refresh (P_active / P_next) -------------------
+
+    def init_pending(self, params, plans) -> dict:
+        """Zero pending buffer, the structure refresh_pending_tree returns
+        (a checkpoint restore's target): {"proj": P_next storage, "flag":
+        host-int flags, 0}, plus "schedule" under adaptive_t."""
+
+        def proj_init(p, plan):
+            if not plan.galore:
+                return torch.zeros((), dtype=torch.float32, device=p.device)
+            return init_projector_state(proj_shape(p, plan), plan.proj_store, p.device)
+
+        pending = {"proj": tree_map(proj_init, params, plans),
+                   "flag": tree_map(lambda p: 0, params)}
+        sched = self.init_schedule(params, plans)
+        if sched is not None:
+            pending["schedule"] = sched
+        return pending
+
+    def pending_flags(self, params, plans, sched, *, step: int, force_all: bool = False,
+                      valid: bool = True):
+        """Per-leaf host-int dueness at `step` (the refresh's own predicate),
+        0 everywhere when the guarded snapshot was invalid."""
+        due = self.due_mask(plans, sched, step, force_all)
+        return tree_unflatten_like(params, [int(d and valid) for d in due])
+
+    def refresh_pending_tree(self, grads, proj, sched, plans, key=None, *, step: int,
+                             force_all: bool = False, key_step: int | None = None) -> dict:
+        """A refresh pass written into a pending buffer instead of the active
+        store: P_next on the due leaves, the active P passed through
+        elsewhere, their flags, and (adaptive) the post-refresh schedule.
+        One guard verdict gates both the refresh and the flags, so a
+        poisoned snapshot gives an all-zero-flag buffer whose swap is a
+        no-op."""
+        valid = self._snapshot_valid(grads, self.due_mask(plans, sched, step, force_all))
+        proj2, sched2 = self.refresh_tree(grads, proj, sched, plans, key, step=step,
+                                          force_all=force_all, key_step=key_step, valid=valid)
+        pending = {"proj": proj2, "flag": self.pending_flags(grads, plans, sched, step=step,
+                                                             force_all=force_all, valid=valid)}
+        if sched2 is not None:
+            pending["schedule"] = sched2
+        return pending
+
+    def swap_pending(self, galore_state, pending, plans, ref_tree) -> dict:
+        """P_active ← P_next on every flagged leaf (its schedule scalars with
+        it); step, key and, by default, the moments stay as the synchronous
+        refresh leaves them.
+
+        Under guard_refresh a flagged leaf's P_next must be finite and not
+        all zero, or that leaf keeps its P, schedule and moments and retries
+        at its next due step. With cfg.reproject_moments a swapped leaf's
+        compact moments, accumulated in the old basis, rotate into the new
+        one: M by Q = P_newᵀP_old (Qᵀ on the right side), V by Q∘Q, which
+        keeps it nonnegative; int8 moments dequantize, rotate and requantize
+        (nearest rounding) along their blocked axis. `ref_tree` (params or
+        grads) gives each leaf's full shape."""
+        cfg = self.cfg
+        flat_ref = tree_leaves(ref_tree)
+        plan_flat = tree_leaves(plans)
+        flags = flatten_up_to(ref_tree, pending["flag"])
+        old_proj = flatten_up_to(ref_tree, galore_state["proj"])
+        new_proj = flatten_up_to(ref_tree, pending["proj"])
+        takes = []
+        for p, plan, flag, new in zip(flat_ref, plan_flat, flags, new_proj):
+            take = plan.galore and int(flag) > 0
+            if take and cfg.guard_refresh:
+                P_new = read_projector(new, proj_shape(p, plan))
+                take = bool(torch.isfinite(P_new).all()) and bool(P_new.abs().sum() > 0)
+            takes.append(take)
+        out = dict(galore_state)
+        out["proj"] = tree_unflatten_like(ref_tree, [n if t else o for t, n, o in
+                                                     zip(takes, new_proj, old_proj)])
+        if "schedule" in galore_state and "schedule" in pending:
+            out["schedule"] = {
+                k: tree_unflatten_like(ref_tree, [
+                    n if t else o for t, n, o in zip(
+                        takes, flatten_up_to(ref_tree, pending["schedule"][k]),
+                        flatten_up_to(ref_tree, galore_state["schedule"][k]))])
+                for k in galore_state["schedule"]}
+        inner = galore_state["inner"]
+        if not (cfg.reproject_moments and any(takes)):
+            return out
+
+        def rotate(mom, p, plan, take, old, new, second):
+            if not take:
+                return mom
+            shape = proj_shape(p, plan)
+            Q = read_projector(new, shape).transpose(-1, -2) @ read_projector(old, shape)
+            R = Q.square() if second else Q
+            quant = plan.moments == "int8"
+            ax = moment_quant_axis(plan)
+            x = codec.dequant_axis_state(mom, axis=ax, signed=not second) if quant else mom
+            x = R @ x if plan.side == "left" else x @ R.transpose(-1, -2)
+            return codec.quant_axis_state(x, axis=ax, signed=not second) if quant else x
+
+        new_inner = dict(inner)
+        for name, second in (("m", False), ("v", True)):
+            new_inner[name] = tree_unflatten_like(ref_tree, [
+                rotate(*xs, second) for xs in zip(flatten_up_to(ref_tree, inner[name]), flat_ref,
+                                                  plan_flat, takes, old_proj, new_proj)])
+        out["inner"] = new_inner
+        return out

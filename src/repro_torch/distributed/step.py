@@ -1,15 +1,28 @@
-"""The train step (port of the default, fused-apply and anomaly-guarded
-branches of repro/distributed/step.py::make_train_step and its
-``_grads_and_loss``), on a single device."""
+"""The train step and the refresh steps, on a single device (port of the
+default, fused-apply and anomaly-guarded branches of
+repro/distributed/step.py::make_train_step and its ``_grads_and_loss``, and
+of the one-device forms of ``make_refresh_step``, ``make_async_refresh_step``
+and ``make_swap_step``). The sharded refresh, GaLore-DP compression and
+ZeRO are not ported (ROADMAP A.9)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
-from repro_torch.core.galore import make_fused_apply
+from repro_torch.core.galore import (
+    make_fused_apply,
+    refresh_projectors,
+    refresh_projectors_pending,
+    swap_pending_state,
+)
 from repro_torch.models import model as M
 from repro_torch.optim import schedules
-from repro_torch.optim.factory import build_optimizer, effective_galore_config, galore_state_index
+from repro_torch.optim.factory import (
+    build_optimizer,
+    effective_galore_config,
+    external_refresh,
+    galore_state_index,
+)
 from repro_torch.optim.transform import apply_updates, clip_by_global_norm
 from repro_torch.robust.guard import global_grad_norm, guard_step
 from repro_torch.utils import tree_leaves, tree_map, tree_unflatten_like
@@ -98,7 +111,8 @@ def _make_fused_apply_train_step(tc, opt, loss_of):
     clip = clip_by_global_norm(tc.grad_clip)
     sched = schedules.warmup_cosine(tc.lr, tc.warmup_steps, tc.total_steps)
     wd = tc.weight_decay if tc.optimizer == "adamw" else 0.0
-    apply_fn = make_fused_apply(gcfg, b1=tc.b1, b2=tc.b2, eps=tc.eps, weight_decay=wd)
+    apply_fn = make_fused_apply(gcfg, b1=tc.b1, b2=tc.b2, eps=tc.eps, weight_decay=wd,
+                                external_refresh=external_refresh(tc))
 
     def train_step(params, opt_state, batch):
         _, metrics, grads = _grads_and_loss(tc, loss_of, params, batch)
@@ -133,3 +147,79 @@ def _grads_and_loss(tc, loss_of, params, batch):
     loss, metrics = loss_of(params, batch)
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), metrics, tree_unflatten_like(params, list(grads))
+
+
+def make_refresh_grads(cfg: ModelConfig, tc: TrainConfig):
+    """refresh_grads(params, batch) -> grads: the refresh's own gradient, on
+    the batch's first microbatch (the whole batch without accumulation), as
+    the reference's refresh programs take it; raw, not clipped."""
+
+    def refresh_grads(params, batch):
+        if tc.microbatch and tc.microbatch > 1:
+            batch = {k: v.chunk(tc.microbatch, dim=0)[0] for k, v in batch.items()}
+        loss, _ = M.loss_fn(cfg, params, batch, z_loss=tc.z_loss)
+        return tree_unflatten_like(params, list(torch.autograd.grad(loss, tree_leaves(params))))
+
+    return refresh_grads
+
+
+def make_refresh_step(cfg: ModelConfig, tc: TrainConfig):
+    """The external refresh: refresh_step(params, opt_state, batch, step=None)
+    -> opt_state, the galore state's projectors (and adaptive schedule)
+    refreshed from the gradient of `batch`. step None refreshes every
+    projector; a step only the leaves due at it (core/galore.py
+    ``refresh_projectors``)."""
+    if tc.galore is None:
+        raise ValueError("the refresh step needs a GaLore config")
+    gcfg = effective_galore_config(tc)
+    idx = galore_state_index(tc)
+    refresh_grads = make_refresh_grads(cfg, tc)
+
+    def refresh_step(params, opt_state, batch, step=None):
+        grads = refresh_grads(params, batch)
+        with torch.no_grad():
+            g = refresh_projectors(grads, opt_state[idx], gcfg, step=step)
+        return opt_state[:idx] + (g,) + opt_state[idx + 1:]
+
+    return refresh_step
+
+
+def make_async_refresh_step(cfg: ModelConfig, tc: TrainConfig):
+    """refresh_pending(params, galore_sub, batch, step=None) -> pending: the
+    refresh written into a pending buffer, never the state. `galore_sub` is
+    the {"step", "key", "proj"[, "schedule"]} slice of the galore state: the
+    moments never enter it. Dueness as make_refresh_step's. The async driver
+    (launch/train.py) runs its two halves apart: the gradient on a CUDA
+    stream of its own, the refresh on a host thread."""
+    if tc.galore is None:
+        raise ValueError("the async refresh needs a GaLore config")
+    gcfg = effective_galore_config(tc)
+    refresh_grads = make_refresh_grads(cfg, tc)
+
+    def refresh_pending(params, sub, batch, step=None):
+        grads = refresh_grads(params, batch)
+        with torch.no_grad():
+            return refresh_projectors_pending(grads, sub, gcfg, step=step)
+
+    return refresh_pending
+
+
+def make_swap_step(cfg: ModelConfig, tc: TrainConfig):
+    """swap(opt_state, pending, params) -> opt_state: the async refresh's
+    step boundary, P_next installed on the flagged leaves (with their
+    schedule scalars, and under reproject_moments their moments rotated;
+    core/subspace.py ``swap_pending``). `params` gives the leaf shapes."""
+    if tc.galore is None:
+        raise ValueError("the async refresh needs a GaLore config")
+    gcfg = effective_galore_config(tc)
+    idx = galore_state_index(tc)
+    if gcfg.reproject_moments and tc.optimizer not in ("adam", "adamw", "adam8bit"):
+        raise ValueError("GaLoreConfig.reproject_moments rotates Adam-shaped {m, v} moments; "
+                         f"optimizer {tc.optimizer!r} has no such state")
+
+    def swap_step(opt_state, pending, params):
+        with torch.no_grad():
+            g = swap_pending_state(params, opt_state[idx], pending, gcfg)
+        return opt_state[:idx] + (g,) + opt_state[idx + 1:]
+
+    return swap_step

@@ -1,10 +1,26 @@
-"""Shared argparse helpers of the port's launchers (port of the quantized-
-state and checkpoint parts of repro/launch/cli.py)."""
+"""Shared argparse helpers of the port's launchers (port of the subspace,
+quantized-state and checkpoint parts of repro/launch/cli.py)."""
 from __future__ import annotations
 
 import argparse
 
 from repro_torch.quant import QuantPolicy
+
+
+def add_galore_subspace_flags(ap: argparse.ArgumentParser):
+    """Per-leaf subspace lifecycle knobs (the reference's ``--galore-*``
+    spellings, with its bare aliases)."""
+    ap.add_argument("--galore-rank-frac", "--rank-frac", dest="galore_rank_frac",
+                    type=float, default=0.0,
+                    help="proportional per-leaf rank: max(1, frac·min(m,n)); "
+                         "overrides --galore-rank per leaf")
+    ap.add_argument("--galore-adaptive-t", "--adaptive-t", dest="galore_adaptive_t",
+                    action="store_true",
+                    help="overlap-gated per-leaf refresh period (Q-GaLore-style)")
+    ap.add_argument("--galore-stagger", "--stagger", dest="galore_stagger",
+                    action="store_true",
+                    help="stagger per-leaf projector refreshes across the window")
+    return ap
 
 
 def add_quant_flags(ap: argparse.ArgumentParser):

@@ -1,5 +1,4 @@
-"""Training launcher (port of repro/launch/train.py without its refresh
-drivers).
+"""Training launcher (port of the one-device repro/launch/train.py).
 
 Takes GaLore (or full-rank) Adam steps on a synthetic C4-like stream and logs
 ``[train] step N loss …``. Runs on ``cuda`` unless ``--device`` says
@@ -11,17 +10,28 @@ otherwise. Ported with the loop:
     guarded) in ``--ckpt-dir``;
   * preemption: touch <ckpt_dir>/PREEMPT to save (blocking) and return;
   * the anomaly guard (``--anomaly-guard``): a non-finite or spiking step is
-    a no-op, and with GaLore a non-finite gradient voids the refresh and a
-    failed SVD falls back to the randomized projector (guard_refresh);
+    a no-op, and with GaLore a non-finite gradient voids the refresh, a
+    failed SVD falls back to the randomized projector and the async swap
+    rejects a poisoned P_next (guard_refresh);
   * fault injection (``--inject-fault``) and escalation (``--recover-*``):
     K consecutive skips roll back to the newest valid checkpoint (or to the
-    initial state), a bounded number of times, then TrainingFailure;
-  * the straggler watchdog line (a step over twice the EMA step time).
-Still missing: the external, sharded and async refresh modes (so
-``--recover-resync`` has nothing to resync, and a saved ``pending`` group is
-not restored, as the reference does without its async driver) and the
-subspace lifecycle extras (per-leaf ranks, stagger, adaptive T, moment
-re-projection, SVD cost calibration).
+    initial state), a bounded number of times, then TrainingFailure; with
+    ``--recover-resync`` and an external or async refresh, one force-all
+    refresh follows the rollback;
+  * the straggler watchdog line (a step over twice the EMA step time);
+  * the refresh lifecycle: per-leaf ranks (``--galore-rank-frac``), stagger
+    (``--galore-stagger``, by measured gradient norm with
+    ``--galore-stagger-importance``), adaptive T (``--galore-adaptive-t``),
+    the external refresh (``--galore-external-refresh``,
+    ``make_refresh_caller``) and the async double buffer
+    (``--galore-refresh-async``, ``AsyncRefreshDriver``, with
+    ``--galore-reproject-moments``); a checkpoint taken with an async
+    refresh in flight carries its ``pending`` group, and a resume swaps it
+    in where the interrupted run would have.
+Not ported (one card; ROADMAP A.9): the sharded refresh
+(``--galore-refresh-shard``) and SVD cost calibration
+(``--galore-calibrate-costs``, ``--galore-recalibrate-costs``), whose costs
+only the sharded refresh's bin packing reads.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch llama_60m --steps 20 \\
           --galore-rank 16 --galore-t 10 --galore-fused --ckpt-dir /path/to/ckpt
@@ -29,12 +39,14 @@ CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch llama_60m --steps
       --galore-fused-apply to fold the weight update into the kernel;
       --optimizer adam8bit without --galore-rank is the 8-bit Adam baseline;
       --anomaly-guard --inject-fault nan_grad@5*3 --ckpt-every 4 drives a
-      rollback)
+      rollback; --galore-stagger --galore-refresh-async the async refresh)
 """
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
+import math
 import os
 import tempfile
 import time
@@ -43,10 +55,22 @@ import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import GaLoreConfig, TrainConfig, get_config
+from repro_torch.core.galore import init_pending_state, refresh_projectors_pending
+from repro_torch.core.subspace import SubspaceManager, importance_order_from_grads
 from repro_torch.data.pipeline import DataConfig, SyntheticC4
-from repro_torch.distributed.step import make_train_step
+from repro_torch.distributed.step import (
+    make_refresh_grads,
+    make_refresh_step,
+    make_swap_step,
+    make_train_step,
+)
 from repro_torch.launch import cli
 from repro_torch.models import model as M
+from repro_torch.optim.factory import (
+    effective_galore_config,
+    external_refresh,
+    galore_state_index,
+)
 from repro_torch.robust import (
     TRACED_KINDS,
     FaultInjector,
@@ -55,7 +79,7 @@ from repro_torch.robust import (
     init_guard_state,
     parse_fault,
 )
-from repro_torch.utils import resolve_device, tree_map
+from repro_torch.utils import resolve_device, tree_leaves, tree_map, tree_unflatten_like
 
 # the reference's /tmp/repro_ckpt, under the process's temporary directory
 DEFAULT_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_ckpt")
@@ -73,6 +97,225 @@ class RunConfig:
     log_every: int = 10
     ckpt_quantize: str | None = None  # file codec of large params leaves: None | int8 | int4
     device: str | None = None  # None -> cuda, and an error when there is none
+
+
+def with_measured_importance(cfg, tc: TrainConfig, params, batch) -> TrainConfig:
+    """tc with GaLoreConfig.importance_order stamped from one measured
+    gradient: the ≥ 2-D leaves by the Frobenius norm of `batch`'s gradient,
+    descending. The order is static config, so every plan derivation (the
+    optimizer's init and update, the external refresh) agrees on it."""
+    loss, _ = M.loss_fn(cfg, params, batch, z_loss=tc.z_loss)
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    order = importance_order_from_grads(tree_unflatten_like(params, list(grads)))
+    return dataclasses.replace(tc, galore=dataclasses.replace(tc.galore, importance_order=order))
+
+
+def galore_due_offsets(params, tc: TrainConfig) -> set:
+    """The due phases of a staggered schedule (refresh_offset % T over the
+    galore leaves): make_due's, so the refresh caller and the async driver
+    can never disagree on dueness."""
+    gcfg = effective_galore_config(tc)
+    T = gcfg.update_freq
+    return {pl.refresh_offset % T for pl in tree_leaves(SubspaceManager(gcfg).plans(params))
+            if pl.galore}
+
+
+def make_due(tc: TrainConfig, params):
+    """due(galore_state, step) -> (due, step_arg): whether any leaf is due
+    at `step`, decided on the host, and the step its refresh takes. A
+    staggered schedule is due at the phases its offsets hold (and step 0),
+    adaptive T where some leaf's `next` has come (the host-int schedule; the
+    reference runs a refresh that changes nothing at the other steps), both
+    refreshing only the due leaves; the plain schedule at steps 0, T, 2T, …,
+    every projector (step_arg None). The port passes the real step where the
+    reference folds it into a window phase to bound its retraces; dueness is
+    the same."""
+    gcfg = effective_galore_config(tc)
+    T = gcfg.update_freq
+    offsets = galore_due_offsets(params, tc)
+    mgr = SubspaceManager(gcfg)
+    plans = mgr.plans(params)
+
+    def due(galore_state, step):
+        if gcfg.adaptive_t:
+            return any(mgr.due_mask(plans, galore_state["schedule"], step)), step
+        if gcfg.refresh_stagger:
+            return step == 0 or step % T in offsets, step
+        return step % T == 0, None
+
+    return due
+
+
+def make_refresh_caller(cfg, tc: TrainConfig, params):
+    """The external refresh's driver: maybe_refresh(params, opt_state, batch,
+    step) -> opt_state, run before the train step: where `make_due` says a
+    leaf is due, a refresh from its own gradient of the step's batch."""
+    idx = galore_state_index(tc)
+    refresh = make_refresh_step(cfg, tc)
+    due = make_due(tc, params)
+
+    def maybe_refresh(params, opt_state, batch, step):
+        is_due, arg = due(opt_state[idx], step)
+        return refresh(params, opt_state, batch, arg) if is_due else opt_state
+
+    return maybe_refresh
+
+
+class AsyncRefreshDriver:
+    """The double-buffered refresh (tc.galore_refresh_async).
+
+    At a due step t the refresh runs on the previous step's batch (the stale
+    gradient, GaLore 2's) while the train step at t runs on P_active; its
+    result, the pending buffer {"proj", "flag"[, "schedule"]}, swaps in at
+    the next step boundary, where the reference swaps. Step 0 refreshes
+    synchronously (the projectors are zeros and there is no earlier batch).
+
+    The reference overlaps through XLA's asynchronous dispatch. Here
+    ``torch.linalg.svd`` on a CUDA tensor blocks its host thread until it
+    is done (it reads its ``info`` on the host), so the refresh's gradient
+    is enqueued on a CUDA stream of its own, and its SVDs run on a host
+    thread on that stream. The main stream waits, on the device, for that
+    gradient before the train step, which updates the params in place, so
+    the refresh reads the params as they were at dispatch; the SVDs overlap
+    the train step. Every tensor of the pending buffer is recorded on the
+    main stream at the swap (``record_stream``), so the caching allocator
+    never hands its memory back while the main stream reads it. A failure of
+    the thread re-raises at the swap; nothing catches it.
+
+    ``pending`` (which waits for an in-flight refresh) is what a checkpoint
+    saves while ``in_flight``; ``restore_pending`` re-arms it after a resume
+    and ``prime_stale`` gives the first resumed step its stale batch, so the
+    resumed run swaps what the interrupted one would have. ``history`` holds,
+    per refresh dispatched, its step, SVD units (stacked elements
+    recomputed), host seconds to enqueue its gradient, seconds the thread
+    took, and seconds the main thread waited for it at the swap."""
+
+    def __init__(self, cfg, tc: TrainConfig, params):
+        self.gcfg = effective_galore_config(tc)
+        self.idx = galore_state_index(tc)
+        self._grads = make_refresh_grads(cfg, tc)
+        self._swap = make_swap_step(cfg, tc)
+        self._cold = make_refresh_step(cfg, tc)
+        self._due = make_due(tc, params)
+        # SVD units a leaf's refresh takes: its stacked elements
+        self._units = [math.prod(p.shape[:-2]) for p in tree_leaves(params)]
+        device = tree_leaves(params)[0].device
+        self._stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="galore-refresh")
+        self._future = None
+        self._pending = None
+        self._prev_batch = None
+        self.history: list[dict] = []
+
+    # -- the pending buffer --------------------------------------------------
+
+    @property
+    def in_flight(self) -> bool:
+        return self._future is not None or self._pending is not None
+
+    @property
+    def pending(self):
+        """The pending buffer (waiting for the thread when it is still
+        refreshing), or None."""
+        self._join()
+        return self._pending
+
+    @pending.setter
+    def pending(self, value):
+        self._join()
+        self._pending = value
+
+    def restore_pending(self, pending):
+        """Re-arm a checkpointed in-flight refresh: it swaps in at the next
+        maybe_refresh, as in the interrupted run."""
+        self.pending = pending
+
+    def prime_stale(self, batch):
+        """The stale-gradient batch of the first step after a resume (the
+        previous step's, as the uninterrupted run would have held)."""
+        self._prev_batch = batch
+
+    def reset(self):
+        """Drop an in-flight refresh and the stale batch (a rollback). A
+        thread that failed re-raises here."""
+        self.pending = None
+        self._prev_batch = None
+
+    def flush(self, opt_state, params):
+        """Install any in-flight refresh (end of training)."""
+        return self._swap_if_pending(opt_state, params)
+
+    def close(self):
+        self._pool.shutdown(wait=True)
+
+    # -- the step boundary -----------------------------------------------------
+
+    def maybe_refresh(self, params, opt_state, batch, step):
+        opt_state = self._swap_if_pending(opt_state, params)
+        stale = self._prev_batch if self._prev_batch is not None else batch
+        self._prev_batch = batch
+        is_due, arg = self._due(opt_state[self.idx], step)
+        if step == 0:  # synchronous cold start
+            return self._cold(params, opt_state, batch, arg)
+        if is_due:
+            sub = {k: v for k, v in opt_state[self.idx].items() if k != "inner"}
+            self._dispatch(params, sub, stale, arg)
+        return opt_state
+
+    def _dispatch(self, params, sub, batch, step):
+        t0 = time.perf_counter()
+        if self._stream is None:
+            grads = self._grads(params, batch)
+        else:
+            main = torch.cuda.current_stream(self._stream.device)
+            self._stream.wait_stream(main)  # the params as the last step left them
+            with torch.cuda.stream(self._stream):
+                grads = self._grads(params, batch)
+            # the train step writes the params in place: not before the
+            # refresh's backward has read them
+            main.wait_stream(self._stream)
+        self.history.append({"step": step if step is not None else sub["step"],
+                             "dispatch_s": time.perf_counter() - t0})
+        self._future = self._pool.submit(self._refresh, grads, sub, step)
+
+    def _refresh(self, grads, sub, step):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            if self._stream is None:
+                pending = refresh_projectors_pending(grads, sub, self.gcfg, step=step)
+            else:
+                with torch.cuda.stream(self._stream):
+                    pending = refresh_projectors_pending(grads, sub, self.gcfg, step=step)
+                    self._stream.synchronize()
+        return pending, time.perf_counter() - t0
+
+    def _join(self):
+        if self._future is None:
+            return
+        t0 = time.perf_counter()
+        future, self._future = self._future, None
+        pending, refresh_s = future.result()  # the thread's failure re-raises here
+        wait_s = time.perf_counter() - t0
+        if self._stream is not None:
+            main = torch.cuda.current_stream(self._stream.device)
+            main.wait_stream(self._stream)
+            for t in tree_leaves(pending):
+                if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+                    t.record_stream(main)
+        units = sum(u for u, flag in zip(self._units, tree_leaves(pending["flag"])) if flag)
+        self.history[-1].update(units=units, refresh_s=refresh_s, wait_s=wait_s)
+        print(f"[refresh] async step {self.history[-1]['step']}: {units} SVD units, refresh "
+              f"thread {refresh_s * 1e3:.0f} ms, main thread waited {wait_s * 1e3:.0f} ms at "
+              f"the swap")
+        self._pending = pending
+
+    def _swap_if_pending(self, opt_state, params):
+        pending = self.pending
+        if pending is None:
+            return opt_state
+        self._pending = None
+        return self._swap(opt_state, pending, params)
 
 
 def train_loop(run: RunConfig, tc: TrainConfig, cfg=None, on_step=None, params=None, data=None,
@@ -117,8 +360,30 @@ def train_loop(run: RunConfig, tc: TrainConfig, cfg=None, on_step=None, params=N
 
     if params is None:
         params = initial_params()
+    gcfg = tc.galore
+    if gcfg is not None and gcfg.stagger_by_importance and not gcfg.importance_order:
+        tc = with_measured_importance(cfg, tc, params, data.batch(0))
+    external = external_refresh(tc)
+
+    def build_programs(tc_eff):
+        """(train_step, opt, driver, maybe_refresh, resync) for an effective
+        config: at start-up, and again on a rollback that decays the lr."""
+        train_step, opt = make_train_step(cfg, tc_eff)
+        driver = maybe_refresh = resync = None
+        if external and tc_eff.galore_refresh_async:
+            driver = AsyncRefreshDriver(cfg, tc_eff, params)
+            maybe_refresh = driver.maybe_refresh
+        elif external:
+            maybe_refresh = make_refresh_caller(cfg, tc_eff, params)
+        if guarded and tc_eff.recover_resync and external and not tc_eff.galore.adaptive_t:
+            # after a rollback, projectors from the restored run's own
+            # gradient (phase 0: every leaf due); adaptive T owns its schedule
+            resync = make_refresh_step(cfg, tc_eff)
+        return train_step, opt, driver, maybe_refresh, resync
+
     tc_eff = tc
-    train_step, opt = make_train_step(cfg, tc_eff)
+    train_step, opt, driver, maybe_refresh, resync = build_programs(tc_eff)
+    drivers = [driver]  # every async driver built, each closed at the end
     opt_state = opt.init(params)
     guard = recov = None
     if guarded:
@@ -129,16 +394,26 @@ def train_loop(run: RunConfig, tc: TrainConfig, cfg=None, on_step=None, params=N
 
     def try_restore(params, opt_state, guard, which):
         """(params, opt_state, guard, first step) from checkpoint `which`; a
-        saved guard group is restored when guarded, a pending group never."""
+        saved guard group is restored when guarded, a saved pending group
+        (a refresh in flight at the save) re-armed in the async driver."""
+        groups = ckpt.groups(which)
         target = {"params": params, "opt_state": opt_state}
-        if guarded and "guard" in ckpt.groups(which):
+        if driver is not None and "pending" in groups:
+            target["pending"] = init_pending_state(params, effective_galore_config(tc))
+        if guarded and "guard" in groups:
             target["guard"] = guard
         restored = ckpt.restore(which, target)
-        return (restored["params"], restored["opt_state"], restored.get("guard", guard),
-                ckpt.meta(which)["step"] + 1)
+        start = ckpt.meta(which)["step"] + 1
+        if "pending" in restored:
+            driver.restore_pending(restored["pending"])
+        if driver is not None and start > 0:
+            driver.prime_stale(data.batch(start - 1))
+        return restored["params"], restored["opt_state"], restored.get("guard", guard), start
 
     def state_tree(params, opt_state, guard):
         tree = {"params": params, "opt_state": opt_state}
+        if driver is not None and driver.in_flight:
+            tree["pending"] = driver.pending  # the in-flight refresh rides along
         if guarded:
             tree["guard"] = guard  # the monitor resumes with the run
         return tree
@@ -156,73 +431,101 @@ def train_loop(run: RunConfig, tc: TrainConfig, cfg=None, on_step=None, params=N
     metrics = {}
     preempt_flag = os.path.join(run.ckpt_dir, "PREEMPT")
     step = start_step
-    while step < run.steps:
-        t0 = time.perf_counter()
-        batch = data.batch(step)
-        if guarded:
-            fault = None
-            if tc.fault_hooks:
-                fault = (injector.traced_fault(step, device) if injector is not None
-                         else identity_fault(device))
-            params, opt_state, guard, metrics = train_step(params, opt_state, guard, batch, fault)
-            ok = bool(metrics["guard_ok"])
-            if not ok:
-                print(f"[guard] anomalous step {step}: update skipped "
-                      f"(total skips {int(metrics['guard_skips'])})")
-        else:
-            ok = True
-            params, opt_state, metrics = train_step(params, opt_state, batch)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        if recov is not None and recov.observe_step(ok):
-            n = recov.start_rollback()
-            ckpt.wait()  # let an in-flight save commit before choosing a target
-            if tc.recover_lr_decay < 1.0:
-                tc_eff = dataclasses.replace(tc_eff, lr=tc_eff.lr * tc.recover_lr_decay)
-                train_step, opt = make_train_step(cfg, tc_eff)
-            # the checkpointed monitor only ever absorbed accepted steps, so
-            # restoring it keeps the z-score armed across the rollback
-            guard = init_guard_state(device)
-            which = ckpt.latest_valid_step()
-            if which is not None:
-                params, opt_state, guard, step = try_restore(params, opt_state, guard, which)
-            else:  # nothing valid on disk: restart from the initial state
-                params = initial_params()
-                opt_state = opt.init(params)
-                step = 0
-            print(f"[recover] rollback {n}/{tc.recover_max_rollbacks}: restored step {which}, "
-                  f"resuming at step {step}"
-                  + (f", lr -> {tc_eff.lr:.2e}" if tc.recover_lr_decay < 1.0 else ""))
-            continue  # re-enter the loop at the restored step
-        dt = time.perf_counter() - t0
-        ema_dt = dt if ema_dt is None else 0.9 * ema_dt + 0.1 * dt
-        if dt > 2.0 * ema_dt and step > start_step + 3:
-            print(f"[watchdog] straggler step {step}: {dt:.3f}s vs EMA {ema_dt:.3f}s")
-        metrics = dict(metrics, step_s=dt)
-        if step % run.log_every == 0:
-            print(f"[train] step {step} loss {float(metrics['loss']):.4f} ({dt * 1e3:.0f} ms)")
-        if on_step is not None:
-            on_step(step, metrics)
-        if run.ckpt_every and step > 0 and step % run.ckpt_every == 0:
-            ckpt.save(step, state_tree(params, opt_state, guard), extra_meta=data_meta(step))
-            if injector is not None:
-                if injector.take("corrupt_ckpt", step):
-                    ckpt.wait()  # corrupt the committed files, not the tmp
-                    print(f"[faults] corrupting latest checkpoint after step {step}")
-                    injector.corrupt_latest(run.ckpt_dir)
-                if injector.take("kill_save", step):
-                    ckpt.wait()
-                    print(f"[faults] simulating kill mid-save at step {step}")
-                    injector.leave_stale_tmp(run.ckpt_dir, step)
-        if os.path.exists(preempt_flag):
-            print(f"[train] preemption signal at step {step}: checkpoint + exit")
-            ckpt.save(step, state_tree(params, opt_state, guard), extra_meta=data_meta(step),
-                      block=True)
-            os.remove(preempt_flag)
-            return params, opt_state, metrics, step
-        step += 1
-    ckpt.wait()
-    return params, opt_state, metrics, run.steps - 1
+    try:
+        while step < run.steps:
+            t0 = time.perf_counter()
+            batch = data.batch(step)
+            if maybe_refresh is not None:
+                opt_state = maybe_refresh(params, opt_state, batch, step)
+                if (injector is not None and driver is not None and driver.in_flight
+                        and injector.take("corrupt_pending", step)):
+                    print(f"[faults] poisoning in-flight pending buffer at step {step}")
+                    driver.pending = injector.poison_pending(driver.pending)
+            if guarded:
+                fault = None
+                if tc.fault_hooks:
+                    fault = (injector.traced_fault(step, device) if injector is not None
+                             else identity_fault(device))
+                params, opt_state, guard, metrics = train_step(params, opt_state, guard, batch,
+                                                               fault)
+                ok = bool(metrics["guard_ok"])
+                if not ok:
+                    print(f"[guard] anomalous step {step}: update skipped "
+                          f"(total skips {int(metrics['guard_skips'])})")
+            else:
+                ok = True
+                params, opt_state, metrics = train_step(params, opt_state, batch)
+            if device.type == "cuda":
+                # the main stream only: an async refresh's SVDs run on a
+                # stream of their own, beside the next steps
+                torch.cuda.current_stream(device).synchronize()
+            if recov is not None and recov.observe_step(ok):
+                n = recov.start_rollback()
+                ckpt.wait()  # let an in-flight save commit before choosing a target
+                if tc.recover_lr_decay < 1.0:
+                    tc_eff = dataclasses.replace(tc_eff, lr=tc_eff.lr * tc.recover_lr_decay)
+                    if driver is not None:
+                        driver.reset()  # joins the old driver's thread
+                    train_step, opt, driver, maybe_refresh, resync = build_programs(tc_eff)
+                    drivers.append(driver)
+                elif driver is not None:
+                    driver.reset()  # an in-flight refresh may be the poison
+                # the checkpointed monitor only ever absorbed accepted steps, so
+                # restoring it keeps the z-score armed across the rollback
+                guard = init_guard_state(device)
+                which = ckpt.latest_valid_step()
+                if which is not None:
+                    params, opt_state, guard, step = try_restore(params, opt_state, guard, which)
+                else:  # nothing valid on disk: restart from the initial state
+                    params = initial_params()
+                    opt_state = opt.init(params)
+                    step = 0
+                print(f"[recover] rollback {n}/{tc.recover_max_rollbacks}: restored step "
+                      f"{which}, resuming at step {step}"
+                      + (f", lr -> {tc_eff.lr:.2e}" if tc.recover_lr_decay < 1.0 else ""))
+                if resync is not None:
+                    opt_state = resync(params, opt_state, data.batch(step),
+                                       0 if tc_eff.galore.refresh_stagger else None)
+                    print(f"[recover] resync: force-all refresh at step {step}")
+                    if driver is not None:
+                        driver.prime_stale(data.batch(step))
+                continue  # re-enter the loop at the restored step
+            dt = time.perf_counter() - t0
+            ema_dt = dt if ema_dt is None else 0.9 * ema_dt + 0.1 * dt
+            if dt > 2.0 * ema_dt and step > start_step + 3:
+                print(f"[watchdog] straggler step {step}: {dt:.3f}s vs EMA {ema_dt:.3f}s")
+            metrics = dict(metrics, step_s=dt)
+            if step % run.log_every == 0:
+                print(f"[train] step {step} loss {float(metrics['loss']):.4f} "
+                      f"({dt * 1e3:.0f} ms)")
+            if on_step is not None:
+                on_step(step, metrics)
+            if run.ckpt_every and step > 0 and step % run.ckpt_every == 0:
+                ckpt.save(step, state_tree(params, opt_state, guard), extra_meta=data_meta(step))
+                if injector is not None:
+                    if injector.take("corrupt_ckpt", step):
+                        ckpt.wait()  # corrupt the committed files, not the tmp
+                        print(f"[faults] corrupting latest checkpoint after step {step}")
+                        injector.corrupt_latest(run.ckpt_dir)
+                    if injector.take("kill_save", step):
+                        ckpt.wait()
+                        print(f"[faults] simulating kill mid-save at step {step}")
+                        injector.leave_stale_tmp(run.ckpt_dir, step)
+            if os.path.exists(preempt_flag):
+                print(f"[train] preemption signal at step {step}: checkpoint + exit")
+                ckpt.save(step, state_tree(params, opt_state, guard), extra_meta=data_meta(step),
+                          block=True)
+                os.remove(preempt_flag)
+                return params, opt_state, metrics, step
+            step += 1
+        if driver is not None:
+            opt_state = driver.flush(opt_state, params)
+        ckpt.wait()
+        return params, opt_state, metrics, run.steps - 1
+    finally:
+        for d in drivers:
+            if d is not None:
+                d.close()
 
 
 def build_parser():
@@ -242,6 +545,22 @@ def build_parser():
     ap.add_argument("--galore-fused-apply", action="store_true",
                     help="fold the weight update W ← W + η(G̃ + wd·W) into the fused "
                          "kernel (requires --galore-fused; no full-size update is written)")
+    cli.add_galore_subspace_flags(ap)
+    ap.add_argument("--galore-stagger-importance", action="store_true",
+                    help="order stagger offsets by measured gradient norm "
+                         "(AdaRankGrad-style; implies --galore-stagger)")
+    ap.add_argument("--galore-external-refresh", action="store_true",
+                    help="refresh projectors in a step of their own driven by the "
+                         "launcher (no refresh inside the optimizer update)")
+    ap.add_argument("--galore-refresh-async", action="store_true",
+                    help="double-buffered async refresh: the SVDs of the due leaves run "
+                         "on a host thread and a CUDA stream of their own from the previous "
+                         "step's batch, and P_active <- P_next swaps at the next step "
+                         "boundary (implies external refresh)")
+    ap.add_argument("--galore-reproject-moments", action="store_true",
+                    help="on each async buffer swap, rotate the compact Adam moments into "
+                         "the new subspace (ReLoRA-style reset hygiene) instead of carrying "
+                         "old-basis statistics")
     cli.add_quant_flags(ap)
     ap.add_argument("--anomaly-guard", action="store_true",
                     help="per-step anomaly guard: a non-finite loss or grad norm, or an "
@@ -250,8 +569,8 @@ def build_parser():
     ap.add_argument("--inject-fault", action="append", default=[], metavar="KIND@STEP[*N]",
                     help="deterministic fault injection (repeatable): traced kinds "
                          "nan_loss/inf_loss/spike_loss/nan_grad (require --anomaly-guard), "
-                         "host kinds corrupt_ckpt/kill_save (corrupt_pending needs the "
-                         "async refresh, which is not ported, and never fires)")
+                         "host kinds corrupt_pending/corrupt_ckpt/kill_save (corrupt_pending "
+                         "poisons the async refresh's in-flight buffer)")
     ap.add_argument("--recover-max-skips", type=int, default=3,
                     help="consecutive guard skips before rolling back to the newest valid "
                          "checkpoint")
@@ -260,9 +579,8 @@ def build_parser():
     ap.add_argument("--recover-lr-decay", type=float, default=1.0,
                     help="multiply the lr by this on each rollback (<1 enables)")
     ap.add_argument("--recover-resync", action="store_true",
-                    help="force a refresh after a rollback; it acts on the external refresh, "
-                         "which is not ported, so it changes nothing here (as in the "
-                         "reference without one)")
+                    help="after a rollback, one synchronous force-all projector refresh "
+                         "before resuming (with an external or async refresh, fixed period)")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
@@ -281,10 +599,21 @@ def main(argv=None):
     except RuntimeError as e:
         ap.error(str(e))
     galore = (GaLoreConfig(rank=args.galore_rank, update_freq=args.galore_t,
+                           rank_frac=args.galore_rank_frac, adaptive_t=args.galore_adaptive_t,
+                           refresh_stagger=args.galore_stagger or args.galore_stagger_importance,
+                           stagger_by_importance=args.galore_stagger_importance,
+                           reproject_moments=args.galore_reproject_moments,
                            quant=cli.quant_policy_from(args))
-              if args.galore_rank > 0 else None)
+              if args.galore_rank > 0 or args.galore_rank_frac > 0 else None)
     if args.galore_fused and galore is None:
-        ap.error("--galore-fused requires --galore-rank > 0")
+        ap.error("--galore-fused requires --galore-rank or --galore-rank-frac > 0")
+    for flag in ("external_refresh", "refresh_async"):
+        if getattr(args, "galore_" + flag) and galore is None:
+            ap.error(f"--galore-{flag.replace('_', '-')} requires --galore-rank or "
+                     f"--galore-rank-frac > 0")
+    if args.galore_reproject_moments and not args.galore_refresh_async:
+        ap.error("--galore-reproject-moments acts on async buffer swaps; add "
+                 "--galore-refresh-async")
     if args.galore_fused_apply and not args.galore_fused:
         ap.error("--galore-fused-apply requires --galore-fused")
     if args.anomaly_guard and args.galore_fused_apply:
@@ -304,6 +633,8 @@ def main(argv=None):
                      total_steps=args.steps, warmup_steps=max(1, args.steps // 10),
                      galore_fused_adam=args.galore_fused,
                      galore_fused_apply=args.galore_fused_apply,
+                     galore_external_refresh=args.galore_external_refresh,
+                     galore_refresh_async=args.galore_refresh_async,
                      anomaly_guard=args.anomaly_guard,
                      recover_max_skips=args.recover_max_skips,
                      recover_max_rollbacks=args.recover_max_rollbacks,

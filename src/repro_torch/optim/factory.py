@@ -6,8 +6,10 @@ Pipeline (the reference's ordering):
 8-bit GaLore: ``optimizer="adam8bit"`` with GaLore routes through the
 quantized-moment state of ``core/galore.py`` (``effective_galore_config``
 turns the policy's moments to int8), as the reference does; without GaLore
-it is the paper's 8-bit Adam baseline, ``optim/adam8bit.py``. Adafactor, SGD
-and the low-rank baselines are not ported yet.
+it is the paper's 8-bit Adam baseline, ``optim/adam8bit.py``. An external
+or async refresh (``external_refresh``) takes the refresh out of the GaLore
+update, as the reference's does. Adafactor, SGD and the low-rank baselines
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -49,6 +51,13 @@ def _stats_transform(tc: TrainConfig) -> GradientTransformation:
                               f"(adam, adamw and adam8bit are)")
 
 
+def external_refresh(tc: TrainConfig) -> bool:
+    """Whether the launcher, not the GaLore update, refreshes the projectors
+    (``galore_external_refresh``, or ``galore_refresh_async``, which implies
+    it)."""
+    return tc.galore is not None and (tc.galore_external_refresh or tc.galore_refresh_async)
+
+
 def galore_state_index(tc: TrainConfig) -> int:
     """Position of the galore/stats state inside the chain state tuple."""
     return 1 if tc.grad_clip > 0 else 0
@@ -68,8 +77,9 @@ def build_optimizer(tc: TrainConfig) -> GradientTransformation:
         if tc.optimizer not in _ADAM_SHAPED:
             raise NotImplementedError(f"optimizer {tc.optimizer!r} is not ported yet "
                                       f"(adam, adamw and adam8bit are)")
+        # the async double buffer runs the refresh in a step of its own too
         stats = galore(gcfg, b1=tc.b1, b2=tc.b2, eps=tc.eps, fused=tc.galore_fused_adam,
-                       seed=tc.seed)
+                       seed=tc.seed, external_refresh=external_refresh(tc))
     elif tc.galore_fused_adam:
         raise ValueError("galore_fused_adam requires a GaLore config")
     else:

@@ -15,9 +15,9 @@ persists `count` consecutive steps):
   checkpoint (corrupt_ckpt truncates its npz, so validation fails and a
   rollback must walk back) and a kill mid-save (kill_save leaves a stale
   ``step_XXXXXXXX.tmp_<pid>`` directory for the manager's init to collect).
-  corrupt_pending poisons an async refresh's in-flight pending buffer; the
-  port has no async refresh driver, so, as in the reference without one,
-  nothing calls ``poison_pending``.
+  corrupt_pending poisons an async refresh's in-flight pending buffer
+  (``poison_pending``; the launcher fires it after the step's dispatch),
+  which the guarded swap then rejects leaf by leaf.
 
 Injection is deterministic and fires once per (spec, step): two runs with
 the same specs see the same faults.

@@ -245,7 +245,7 @@ def test_composable_apply_matches_fused_apply(quant):
     grads = tree_map(lambda p: torch.from_numpy(rng.standard_normal(p.shape).astype(np.float32)),
                      params)
     state = galore(gcfg, b1=0.9, b2=0.999, eps=1e-8).init(params)
-    proj = mgr.refresh_tree(grads, state["proj"], plans, 0)
+    proj, _ = mgr.refresh_tree(grads, state["proj"], None, plans, step=0)
     out = {}
     for fused in (True, False):
         inner = tree_map(lambda x: x.clone(), state["inner"])

@@ -12,7 +12,13 @@ launcher's resume and preemption, against the JAX package's manager.
    every leaf bit for bit, with the same npz keys and META dtypes, and the
    port's next step from the JAX checkpoint within 2e-5 of JAX's;
 3. the port's resume (6 steps + save + resume + 6 = 12 straight, bit for
-   bit, with a refresh after the resume point) and PREEMPT.
+   bit, with a refresh after the resume point) and PREEMPT;
+4. the async refresh's checkpoints: a save with a refresh in flight carries
+   the ``pending`` group (and, under adaptive T, the ``schedule`` scalars);
+   one written by the reference's driver restores in the port and resumes
+   where the JAX run goes on (losses within 5e-2), one written by the port
+   restores in the JAX manager bit for bit, and the port's resume lands the
+   same swap as the uninterrupted run, bit for bit.
 """
 import json
 import os
@@ -492,3 +498,162 @@ def test_preempt_saves_and_returns(tmp_path):
     seen = []
     _loop(tmp_path, 5, on_step=lambda s, m: seen.append(s))
     assert seen == [4]
+
+
+# ---------------------------------------------------------------------------
+# 4. a refresh in flight: the pending group and the adaptive schedule
+# ---------------------------------------------------------------------------
+
+_ASYNC_G = dict(rank=8, update_freq=4, refresh_stagger=True, adaptive_t=True)
+
+
+def _async_tc(quant=None, steps=12):
+    """Fused GaLore with the async, staggered, adaptive-T refresh (8-bit with
+    `quant`): every step has a refresh in flight after step 0."""
+    g = GaLoreConfig(**_ASYNC_G, reproject_moments=True,
+                     quant=QuantPolicy(**quant) if quant else QuantPolicy())
+    return TrainConfig(optimizer="adam8bit" if quant else "adamw", galore=g,
+                       galore_refresh_async=True, galore_fused_adam=True, lr=1e-3,
+                       weight_decay=0.01, total_steps=steps, warmup_steps=2)
+
+
+def _async_loop(ckpt_dir, steps, quant=None, ckpt_every=0, on_step=None, **kw):
+    run = RunConfig(steps=steps, batch_per_host=BATCH, seq_len=SEQ, ckpt_dir=str(ckpt_dir),
+                    ckpt_every=ckpt_every, log_every=100, device="cpu")
+    return train_loop(run, _async_tc(quant), on_step=on_step, **kw)
+
+
+@pytest.mark.parametrize("quant", [None, _Q8], ids=["fp32", "8bit"])
+def test_async_resume_lands_the_same_swap(tmp_path, quant):
+    """12 straight async steps equal 6 steps with a save at step 5 (a
+    refresh in flight: the checkpoint holds its pending group and the
+    adaptive schedule) and a resume for 6 more, bit for bit: the resumed
+    run re-arms the pending buffer and its stale batch (prime_stale) and
+    swaps it in at step 6, as the straight run does."""
+    straight, resumed = {}, {}
+    p1, s1, _, _ = _async_loop(tmp_path / "straight", 12, quant,
+                               on_step=lambda s, m: straight.__setitem__(s, float(m["loss"])))
+    _async_loop(tmp_path / "split", 6, quant, ckpt_every=5)
+    ckpt = CheckpointManager(str(tmp_path / "split"))
+    assert ckpt.groups(5) == ("opt_state", "params", "pending")
+    with np.load(tmp_path / "split" / "step_00000005" / "host_0.npz") as z:
+        assert "pending.flag.blocks.attn.wq" in z.files
+        assert "opt_state.1.schedule.next.blocks.ffn.down" in z.files
+        assert "pending.schedule.period.blocks.ffn.up" in z.files
+    p2, s2, _, _ = _async_loop(tmp_path / "split", 12, quant, ckpt_every=5,
+                               on_step=lambda s, m: resumed.__setitem__(s, float(m["loss"])))
+    assert sorted(resumed) == list(range(6, 12))
+    assert resumed == {s: straight[s] for s in resumed}
+    _assert_trees_bitwise(_flat({"p": p2, "s": s2}), _flat({"p": p1, "s": s1}))
+
+
+def _jax_async_run(root, steps, save_at):
+    """The reference's AsyncRefreshDriver and train step on one device (its
+    launcher's host mesh refuses its sharding constraints on the CPU:
+    ROADMAP C.4), from the port's initial weights, saving {params,
+    opt_state, pending} after step `save_at` as its launcher does; returns
+    (losses, JAX data pipeline, JAX optimizer, model config, TrainConfig)."""
+    from repro.data.pipeline import DataConfig as JDataConfig
+    from repro.data.pipeline import SyntheticC4 as JSyntheticC4
+    from repro.launch.train import AsyncRefreshDriver as JAsyncRefreshDriver
+
+    jcfg = jax_get_config("llama_60m", smoke=True)
+    jtc = JTrainConfig(optimizer="adamw", galore=JGaLoreConfig(**_ASYNC_G, reproject_moments=True),
+                       galore_refresh_async=True, galore_fused_adam=True, lr=1e-3,
+                       weight_decay=0.01, total_steps=12, warmup_steps=2)
+    step_fn, jopt = jax_make_train_step(jcfg, jtc)
+    step_fn = jax.jit(step_fn)
+    p0 = TM.init_params(get_config("llama_60m", smoke=True), seed=0, device="cpu")
+    jp = tree_map(lambda t: jnp.asarray(t.detach().numpy()), p0)
+    js = jopt.init(jp)
+    driver = JAsyncRefreshDriver(jcfg, jtc, None)
+    jdata = JSyntheticC4(JDataConfig(vocab_size=jcfg.vocab_size, seq_len=SEQ,
+                                     batch_per_host=BATCH))
+    losses = []
+    for s in range(steps):
+        b = jdata.batch(s)
+        js = driver.maybe_refresh(jp, js, b, s)
+        jp, js, metrics = step_fn(jp, js, b)
+        losses.append(float(metrics["loss"]))
+        if s == save_at:
+            assert driver.pending is not None
+            JCheckpointManager(str(root), async_save=False).save(
+                s, {"params": jp, "opt_state": js, "pending": driver.pending}, block=True)
+    return losses, jdata, jopt, jcfg, jtc
+
+
+class _JBatches:
+    """The JAX pipeline's batches as CPU tensors."""
+
+    def __init__(self, jdata):
+        self.jdata = jdata
+
+    def batch(self, step):
+        b = self.jdata.batch(step)
+        return {k: torch.from_numpy(np.array(v).astype(np.int64) if k != "loss_mask"
+                                    else np.array(v)) for k, v in b.items()}
+
+
+def test_jax_pending_checkpoint_resumes_in_port(tmp_path):
+    """A checkpoint the reference's driver wrote with a refresh in flight
+    (pending group, adaptive schedule) restores in the port bit for bit,
+    and the port's run resumed from it — the pending buffer swapped in at
+    the next step, its stale batch primed — follows the JAX run within
+    5e-2 to step 9."""
+    want, jdata, jopt, _, jtc = _jax_async_run(tmp_path / "jax", 10, save_at=4)
+    assert set(JCheckpointManager(str(tmp_path / "jax")).groups(4)) == {
+        "opt_state", "params", "pending"}
+    cfg = get_config("llama_60m", smoke=True)
+    tc = _async_tc()
+    _, opt = make_train_step(cfg, tc)
+    params = TM.init_params(cfg, seed=0, device="cpu")
+    from repro_torch.core.galore import init_pending_state
+
+    target = {"params": params, "opt_state": opt.init(params),
+              "pending": init_pending_state(params, tc.galore)}
+    restored = CheckpointManager(str(tmp_path / "jax"), async_save=False).restore(4, target)
+    with np.load(tmp_path / "jax" / "step_00000004" / "host_0.npz") as z:
+        saved = {k: z[k] for k in z.files}
+    got = _flat(restored)
+    assert sorted(got) == sorted(saved)
+    for k, w in saved.items():
+        np.testing.assert_array_equal(got[k].astype(w.dtype), w, err_msg=k)
+    assert isinstance(restored["opt_state"][1]["schedule"]["next"]["blocks"]["attn"]["wq"], int)
+    got_losses = {}
+    train_loop(RunConfig(steps=10, batch_per_host=BATCH, seq_len=SEQ, log_every=100,
+                         ckpt_every=0, ckpt_dir=str(tmp_path / "jax"), device="cpu"),
+               tc, cfg=cfg, data=_JBatches(jdata),
+               on_step=lambda s, m: got_losses.__setitem__(s, float(m["loss"])))
+    assert sorted(got_losses) == list(range(5, 10))
+    np.testing.assert_allclose([got_losses[s] for s in range(5, 10)], want[5:], rtol=0,
+                               atol=5e-2)
+
+
+def test_port_pending_checkpoint_restores_in_jax(tmp_path):
+    """A port checkpoint taken with a refresh in flight restores in the JAX
+    manager into the reference's {params, opt_state, pending} tree bit for
+    bit (int32 schedule and flags, f32 overlap and projectors)."""
+    from repro.core.galore import init_pending_state as jax_init_pending_state
+
+    _async_loop(tmp_path, 3, ckpt_every=2)
+    port_ckpt = CheckpointManager(str(tmp_path), async_save=False)
+    assert port_ckpt.groups(2) == ("opt_state", "params", "pending")
+    jcfg = jax_get_config("llama_60m", smoke=True)
+    jtc = JTrainConfig(optimizer="adamw", galore=JGaLoreConfig(**_ASYNC_G, reproject_moments=True),
+                       galore_refresh_async=True, galore_fused_adam=True, weight_decay=0.01)
+    _, jopt = jax_make_train_step(jcfg, jtc)
+    p0 = TM.init_params(get_config("llama_60m", smoke=True), seed=0, device="cpu")
+    jp0 = tree_map(lambda t: jnp.asarray(t.detach().numpy()), p0)
+    jtarget = {"params": jp0, "opt_state": jopt.init(jp0),
+               "pending": jax_init_pending_state(jp0, jtc.galore)}
+    jrestored = JCheckpointManager(str(tmp_path), async_save=False).restore(2, jtarget)
+    with np.load(tmp_path / "step_00000002" / "host_0.npz") as z:
+        saved = {k: z[k] for k in z.files}
+    got = _jflat(jrestored)
+    assert sorted(got) == sorted(saved)
+    meta = json.loads((tmp_path / "step_00000002" / "META.json").read_text())
+    for k, w in saved.items():
+        assert got[k].dtype.name == meta["dtypes"][k], k
+        np.testing.assert_array_equal(got[k].astype(w.dtype), w, err_msg=k)
+    assert meta["dtypes"]["pending.flag.blocks.attn.wq"] == "int32"
+    assert meta["dtypes"]["opt_state.1.schedule.overlap.blocks.attn.wq"] == "float32"

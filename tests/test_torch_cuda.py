@@ -1581,3 +1581,175 @@ def test_cuda_guarded_skip_is_noop(moments):
     params, state, guard, m = step(params, state, guard, batch, identity_fault(dev))
     torch.cuda.synchronize()
     assert int(m["guard_ok"]) == 1 and _galore_launches() == launches + 7
+
+
+# ---------------------------------------------------------------------------
+# the refresh lifecycle on the card: ranks from rank_frac, the async driver
+# ---------------------------------------------------------------------------
+
+
+def _frac_rank(m, n, frac=0.1):
+    from repro_torch.configs.base import GaLoreConfig
+    from repro_torch.core.subspace import SubspaceManager
+
+    return SubspaceManager(GaLoreConfig(rank_frac=frac)).leaf_rank("blocks.ffn.up", m, n)
+
+
+# (kernel, side, (lead, m, r, n)) at rank_frac = 0.1: llama_60m's FFN leaves
+# (r = 51, where the reference's fits_vmem holds) and llama_7b's (r = 409,
+# where it fails, so the fp32 emit step composes B4 → Adam → B5)
+RANK_FRAC_CASES = [("B1", "left", (2, 512, _frac_rank(512, 1376), 1376)),
+                   ("B2", "right", (2, 1376, _frac_rank(1376, 512), 512)),
+                   ("B3", "left", (2, 512, _frac_rank(512, 1376), 1376)),
+                   ("B3", "right", (2, 1376, _frac_rank(1376, 512), 512)),
+                   ("B4/B5", "left", (2, 4096, _frac_rank(4096, 11008), 11008))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RANK_FRAC_CASES, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_cuda_rank_frac_ranks_through_each_kernel(case):
+    """Ranks that rank_frac = 0.1 gives (51 and 409, not multiples of 8 or
+    128) through the kernel the dispatch routes them to, each within its
+    existing gate of its plain twin: B1/B2 and the int8 kernel (B3) where
+    fits_vmem holds, B4 and B5 where it fails."""
+    from repro_torch.kernels.galore_fused import fits_vmem
+
+    kernel, side, shape = case
+    lead, (m, r, n) = shape[:-3], shape[-3:]
+    assert r % 8 and r in (51, 409)
+    kept, swept = (m, n) if side == "left" else (n, m)
+    assert fits_vmem(kept, r, swept, 2) == (kernel != "B4/B5")
+    if kernel in ("B1", "B2"):
+        test_cuda_kernel_matches_plain(shape, side, "bfloat16")
+    elif kernel == "B3":
+        test_cuda_adam8_kernel_matches_plain(shape, side, True, False)
+    else:
+        for transpose in (False, True):
+            test_cuda_project_kernel_matches_plain(shape, "bfloat16", transpose)
+            test_cuda_project_back_kernel_matches_plain(shape, transpose)
+
+
+def _lifecycle_run(dev, tc, cfg, steps, sync):
+    """train_loop on the card (`sync` False), or the async driver's schedule
+    run synchronously in the main thread and on the main stream (`sync`
+    True): swap at the boundary, refresh at step 0, at a due step the
+    pending buffer from the previous batch's gradient at the current
+    params, then the train step. Returns (losses, params, state)."""
+    import tempfile
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticC4
+    from repro_torch.distributed.step import (
+        make_async_refresh_step,
+        make_refresh_step,
+        make_swap_step,
+        make_train_step,
+    )
+    from repro_torch.launch.train import RunConfig, galore_due_offsets, train_loop
+    from repro_torch.models import model as TM
+
+    if not sync:
+        losses = []
+        with tempfile.TemporaryDirectory() as ckpt:
+            params, state, _, _ = train_loop(
+                RunConfig(steps=steps, batch_per_host=4, seq_len=64, log_every=100,
+                          ckpt_every=0, ckpt_dir=ckpt, device=str(dev)),
+                tc, cfg=cfg, on_step=lambda s, m: losses.append(float(m["loss"])))
+        return losses, params, state
+    params = TM.init_params(cfg, seed=tc.seed, device=dev)
+    step_fn, opt = make_train_step(cfg, tc)
+    refresh, pend_fn, swap = (make_refresh_step(cfg, tc), make_async_refresh_step(cfg, tc),
+                              make_swap_step(cfg, tc))
+    offsets, T = galore_due_offsets(params, tc), tc.galore.update_freq
+    data = SyntheticC4(DataConfig(vocab_size=cfg.vocab_size, seq_len=64, batch_per_host=4),
+                       device=dev)
+    state = opt.init(params)
+    pending, prev, losses = None, None, []
+    for s in range(steps):
+        b = data.batch(s)
+        if pending is not None:
+            state, pending = swap(state, pending, params), None
+        stale, prev = (prev if prev is not None else b), b
+        if s == 0:
+            state = refresh(params, state, b, 0)
+        elif s % T in offsets:
+            pending = pend_fn(params, {k: v for k, v in state[1].items() if k != "inner"},
+                              stale, s)
+        params, state, m = step_fn(params, state, b)
+        losses.append(float(m["loss"]))
+    if pending is not None:
+        state = swap(state, pending, params)
+    return losses, params, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moments", ["fp32", "int8"])
+def test_cuda_async_driver_matches_synchronous_refresh(moments):
+    """The async driver on the card — the refresh's gradient on a stream of
+    its own, its SVDs on a host thread — against the same schedule run
+    synchronously on the main stream (llama_60m at full width, 2 layers,
+    staggered T = 4, moments re-projected): every loss, param and state leaf
+    bit for bit, so no train step wrote the params before the refresh read
+    them and no pending tensor was reused early; the GaLore kernel ran."""
+    import dataclasses
+
+    from repro_torch.configs.base import GaLoreConfig, TrainConfig, get_config
+    from repro_torch.quant import QuantPolicy
+
+    dev = _cuda_device()
+    cfg = dataclasses.replace(get_config("llama_60m"), n_layers=2)
+    quant = QuantPolicy(moments="int8", projectors="int4") if moments == "int8" else QuantPolicy()
+    tc = TrainConfig(galore=GaLoreConfig(rank=64, update_freq=4, refresh_stagger=True,
+                                         reproject_moments=True, quant=quant),
+                     galore_refresh_async=True, galore_fused_adam=True, weight_decay=0.01,
+                     total_steps=9, warmup_steps=1)
+    before = _galore_launches()
+    got = _lifecycle_run(dev, tc, cfg, 9, sync=False)
+    assert _galore_launches() - before == 7 * 9  # one launch per GaLore leaf and step
+    want = _lifecycle_run(dev, tc, cfg, 9, sync=True)
+    assert got[0] == want[0]
+    for name, a, b in (("params", got[1], want[1]), ("state", got[2], want[2])):
+        a, b = _leaves(a), _leaves(b)
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert (torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+                    else a[k] == b[k]), (name, k)
+
+
+@pytest.mark.cuda
+def test_cuda_rank_frac_training_run():
+    """llama_60m at full width (2 layers) trained 8 steps with rank_frac =
+    0.1, fused: r = 51 on the attention and FFN leaves, and r = 1 on the
+    stacked norm scales (2, 512), which rank_frac makes GaLore leaves as the
+    reference's plans do (max(1, 0.1·2) = 1 < min(2, 512)); B1 on the six
+    left matrices and the two norm leaves and B2 on the down leaf each step,
+    losses finite and within 5e-2 of the composable run's."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs.base import GaLoreConfig, TrainConfig, get_config
+    from repro_torch.launch.train import RunConfig, train_loop
+
+    dev = _cuda_device()
+    cfg = dataclasses.replace(get_config("llama_60m"), n_layers=2)
+    runs = {}
+    for fused in (True, False):
+        tc = TrainConfig(galore=GaLoreConfig(rank=128, rank_frac=0.1, update_freq=4),
+                         galore_fused_adam=fused, total_steps=8, warmup_steps=1)
+        losses = []
+        left, right = (tk.galore_fused_adam_step.launches,
+                       tk.galore_fused_adam_step_right.launches)
+        with tempfile.TemporaryDirectory() as ckpt:
+            _, state, _, _ = train_loop(
+                RunConfig(steps=8, batch_per_host=4, seq_len=64, log_every=100, ckpt_every=0,
+                          ckpt_dir=ckpt, device=str(dev)),
+                tc, cfg=cfg, on_step=lambda s, m: losses.append(float(m["loss"])))
+        runs[fused] = losses
+        proj = state[1]["proj"]["blocks"]
+        assert {t.shape[-1] for t in proj["attn"].values()} == {51}
+        assert {t.shape[-1] for t in proj["ffn"].values()} == {51}
+        assert proj["ln1"]["scale"].shape == proj["ln2"]["scale"].shape == (2, 1)
+        launched = (tk.galore_fused_adam_step.launches - left,
+                    tk.galore_fused_adam_step_right.launches - right)
+        assert launched == ((64, 8) if fused else (0, 0))
+    assert all(np.isfinite(runs[True]))
+    np.testing.assert_allclose(runs[True], runs[False], rtol=0, atol=5e-2)

@@ -414,9 +414,9 @@ def test_guard_refresh_skips_nonfinite_gradient():
     bad = dict(grads, a=grads["a"].clone().index_put_((torch.tensor(0), torch.tensor(0)),
                                                       torch.tensor(NAN)))
     assert not bool(subspace.tree_all_finite(bad)) and bool(subspace.tree_all_finite(grads))
-    kept = mgr.refresh_tree(bad, proj, plans, 0)
+    kept, _ = mgr.refresh_tree(bad, proj, None, plans, step=0)
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(kept), tree_leaves(proj)))
-    new = mgr.refresh_tree(grads, proj, plans, 0)
+    new, _ = mgr.refresh_tree(grads, proj, None, plans, step=0)
     assert all(torch.isfinite(p).all() and p.abs().sum() > 0 for p in tree_leaves(new))
 
 
@@ -454,3 +454,119 @@ def test_loss_metrics_match_jax():
     np.testing.assert_allclose(float(got["loss"]), float(want["loss"]), rtol=0, atol=1e-5)
     assert float(got["aux_loss"]) == float(want["aux_loss"]) == 0.0
     np.testing.assert_allclose(float(got["ppl_proxy"]), float(want["ppl_proxy"]), rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# 6. the async refresh's poisoned buffer and the post-rollback resync
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("poison", ["every-leaf", "one-leaf"])
+def test_poisoned_pending_rejected_per_leaf_as_jax(poison):
+    """corrupt_pending (poison_pending) NaNs the in-flight P_next, flags
+    kept. Under guard_refresh the swap rejects each poisoned leaf — its P,
+    schedule scalars and moments stay — and takes each healthy one, leaf for
+    leaf as JAX's swap on the same buffer; the poisoned buffers are JAX's
+    bit for bit."""
+    from repro.configs.base import GaLoreConfig as JGaLoreConfig
+    from repro.core import galore as jgal
+    from repro.optim.adam import scale_by_adam as jax_scale_by_adam
+    from repro_torch.bridge import galore_state_from_numpy, pending_from_numpy, pending_to_numpy
+    from repro_torch.core.galore import swap_pending_state
+
+    rng = np.random.default_rng(4)
+    params = {"a": rng.standard_normal((24, 64)).astype(np.float32),
+              "b": rng.standard_normal((48, 32)).astype(np.float32)}
+    grads = {k: rng.standard_normal(p.shape).astype(np.float32) for k, p in params.items()}
+    kw = dict(rank=8, update_freq=4, adaptive_t=True, reproject_moments=True,
+              guard_refresh=True)
+    jcfg, cfg = JGaLoreConfig(**kw), GaLoreConfig(**kw)
+    jopt = jgal.galore(jax_scale_by_adam(), jcfg, external_refresh=True, fused_adam=True,
+                       b1=0.9, b2=0.999, eps=1e-8)
+    jstate = jgal.refresh_projectors(grads, jopt.init(params), jcfg)
+    _, jstate = jopt.update(grads, jstate, params)
+    jpending = jgal.refresh_projectors_pending(
+        jax.tree_util.tree_map(lambda g: 0.3 - g, grads), jstate, jcfg, step=4)
+    pending = pending_from_numpy(jax.tree_util.tree_map(np.asarray, jpending), "cpu")
+    if poison == "every-leaf":
+        jpois = JFaultInjector.poison_pending(jpending)
+        pois = FaultInjector.poison_pending(pending)
+        _assert_trees_bitwise(_flat(pending_to_numpy(pois)),
+                              _flat(jax.tree_util.tree_map(np.asarray, jpois)))
+    else:
+        jpois = {**jpending, "proj": {**jpending["proj"],
+                                      "a": jnp.full_like(jpending["proj"]["a"], jnp.nan)}}
+        pois = {**pending, "proj": {**pending["proj"],
+                                    "a": torch.full_like(pending["proj"]["a"], NAN)}}
+    assert pois["flag"] == {"a": 1, "b": 1}
+    jswapped = jgal.swap_pending_state(params, jstate, jpois, jcfg)
+    state = galore_state_from_numpy(jax.tree_util.tree_map(np.asarray, jstate), "cpu")
+    swapped = swap_pending_state(params_from_numpy(params, "cpu"), state, pois, cfg)
+    for k in params:
+        took_jax = not np.array_equal(np.asarray(jswapped["proj"][k]),
+                                      np.asarray(jstate["proj"][k]))
+        took = swapped["proj"][k] is not state["proj"][k]
+        assert took == took_jax == (poison == "one-leaf" and k == "b"), k
+        assert torch.isfinite(swapped["proj"][k]).all()
+        for name in ("period", "next"):
+            assert swapped["schedule"][name][k] == int(jswapped["schedule"][name][k]), (k, name)
+        if not took:
+            assert swapped["schedule"]["next"][k] == state["schedule"]["next"][k]
+            for name in ("m", "v"):
+                assert swapped["inner"][name][k] is state["inner"][name][k]
+
+
+def test_corrupt_pending_fault_fires_and_run_stays_finite(tmp_path, capsys):
+    """--inject-fault corrupt_pending@3 with the async refresh and the guard:
+    the launcher poisons the buffer dispatched at step 3, the swap at step 4
+    rejects every leaf of it (each keeps its P and retries at its next due
+    step), and the run finishes with finite losses and projectors."""
+    p, s, losses = _loop(tmp_path, steps=8, ckpt_every=0, anomaly_guard=True,
+                         faults=["corrupt_pending@3"], galore_refresh_async=True,
+                         galore=GaLoreConfig(**_G, refresh_stagger=True, guard_refresh=True))
+    assert "[faults] poisoning in-flight pending buffer at step 3" in capsys.readouterr().out
+    assert len(losses) == 8 and all(np.isfinite([x for _, x in losses]))
+    assert all(torch.isfinite(t).all() for t in tree_leaves(s[1]["proj"]))
+
+
+def test_recover_resync_runs_a_force_all_refresh(tmp_path, capsys, monkeypatch):
+    """--recover-resync with the external refresh: after the rollback to step
+    4 one refresh recomputes every projector from the restored params and
+    step 5's batch (phase 0 of the stagger: every leaf due) — bit for bit
+    that refresh recomputed from the checkpoint — before step 5 replays."""
+    calls = []
+    make = launcher.make_refresh_step
+
+    def spying(cfg, tc):
+        fn = make(cfg, tc)
+
+        def refresh(params, opt_state, batch, step=None):
+            out = fn(params, opt_state, batch, step)
+            calls.append((step, opt_state[1]["proj"], out[1]["proj"]))
+            return out
+
+        return refresh
+
+    monkeypatch.setattr(launcher, "make_refresh_step", spying)
+    g = GaLoreConfig(**_G, refresh_stagger=True, guard_refresh=True)
+    _loop(tmp_path, steps=8, anomaly_guard=True, faults=["nan_grad@5*3"],
+          galore_external_refresh=True, recover_resync=True, galore=g)
+    out = capsys.readouterr().out
+    assert "[recover] resync: force-all refresh at step 5" in out
+    steps = [c[0] for c in calls]
+    assert steps == [0, 1, 2, 3, 4, 5, 6, 7, 0, 5, 6, 7]  # the resync after step 7's call
+    _, before, after = calls[8]
+    assert all(not torch.equal(a, b) for a, b in zip(tree_leaves(after), tree_leaves(before))
+               if a.ndim)  # every galore leaf recomputed
+    tc = _tc(anomaly_guard=True, galore_external_refresh=True, galore=g)
+    cfg = get_config("llama_60m", smoke=True)
+    _, opt = make_train_step(cfg, tc)
+    params = TM.init_params(cfg, seed=0, device="cpu")
+    restored = launcher.CheckpointManager(str(tmp_path)).restore(
+        4, {"params": params, "opt_state": opt.init(params)})
+    from repro_torch.data.pipeline import DataConfig, SyntheticC4
+
+    batch = SyntheticC4(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, batch_per_host=2),
+                        device="cpu").batch(5)
+    want = make(cfg, tc)(restored["params"], restored["opt_state"], batch, 0)[1]["proj"]
+    _assert_trees_bitwise(_flat(after), _flat(want))
