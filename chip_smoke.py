@@ -25,7 +25,7 @@ Phases, each timed, none of them optional; any failed check raises:
      launches logged with its route (TMA or thread copies) and its cluster
      size, and two launches on the same inputs bitwise equal; time kernel
      and plain version with CUDA events;
-  4. the main path, fused: 8 GaLore-AdamW steps (rank 128, T 4, wd 0.01) of
+  4. the main path, fused: 8 GaLore-AdamW steps (rank 128, T 8, wd 0.01) of
      llama_7b at full width, 2 layers, bf16, batch 8 × 256 tokens, through
      train_loop; every loss finite, the last below the first, and each fp32
      kernel launched once per stacked leaf per step (6 left leaves, 1 right
@@ -77,7 +77,22 @@ Phases, each timed, none of them optional; any failed check raises:
      from the state; state bytes within 0.01 % of adam8bit_state_bytes;
      finite losses) and full-rank AdamW (no kernel; its step-0 loss equal to
      8-bit Adam's within 1e-6), each with its peak memory and state bytes;
-  10a. the refresh lifecycle at T = 8 (lifecycle_phases): `stagger` (fp32
+  10a. the paper's other baselines (baseline_phases), none launching a
+     kernel: `adafactor` (full-rank Adafactor, β1 0.9, the 7B baseline of
+     Fig. 1: step-0 loss equal to AdamW's within 1e-6, its v and m bytes
+     measured equal to the analytic count), `galore-adafactor` (GaLore
+     r = 128, T = 8 over Adafactor, Fig. 3, the composable path: SVDs at
+     step 0 only, proj + compact m + factored v within 0.01 % of the
+     analytic count), and the low-rank weight methods of Table 2 through
+     the loop of benchmarks/table2_methods.py::_train_lowrank (Adam on the
+     adaptors, constant −lr): `lora` (r = 128, alpha 32: step-0 loss equal
+     to AdamW's within 1e-6, B = 0; the adaptors' elements counted equal
+     to adaptor_param_count and to r(m + n) a matrix; adaptors + Adam state
+     12 B an element), `relora` (the same, merged at step 4: the effective
+     weights just before and just after relora_merge equal element for
+     element, B′ = 0, a fresh Adam state) and `lowrank` (W = s·BA from
+     scratch, alpha 4r: finite losses);
+  10b. the refresh lifecycle at T = 8 (lifecycle_phases): `stagger` (fp32
      fused, r = 128, staggered: the SVD units per step 14, 2 × 6, 0, as the
      plan's offsets (pos·8)//7 make due), `stagger-external` (the same
      through the external refresh caller: losses and every projector bit
@@ -93,7 +108,8 @@ Phases, each timed, none of them optional; any failed check raises:
      bytes within 0.01 % and peak memory;
   11. record: the SVD refresh time at ranks 128 and 1024, step times and
      peak memory of every phase (the paper's 7B memory comparison, 8-bit
-     GaLore at r = 1024 beside 8-bit Adam and AdamW, on one line), a JSON
+     GaLore at r = 1024 beside 8-bit Adam, Adafactor and AdamW, on one
+     line), a JSON
      line of the kernels, the card's name and power limit, and last the
      result line.
 The kernel checks of phase 3 also hold the fp32-moment kernel's int4-P forms
@@ -159,9 +175,13 @@ from repro_torch.kernels import galore_project as tp  # noqa: E402
 from repro_torch.kernels import rmsnorm as trms  # noqa: E402
 from repro_torch.kernels.ref import apply_weight, lowrank_adam_update  # noqa: E402
 from repro_torch.launch.train import RunConfig, train_loop  # noqa: E402
-from repro_torch.models.model import init_params  # noqa: E402
+from repro_torch.models.model import init_params, loss_fn  # noqa: E402
+from repro_torch.optim import lowrank  # noqa: E402
+from repro_torch.optim.adafactor import adafactor_state_bytes  # noqa: E402
+from repro_torch.optim.adam import scale_by_adam  # noqa: E402
 from repro_torch.optim.adam8bit import adam8bit_state_bytes  # noqa: E402
 from repro_torch.optim.factory import galore_state_index  # noqa: E402
+from repro_torch.optim.transform import apply_updates  # noqa: E402
 from repro_torch.quant import QuantPolicy, codec  # noqa: E402
 from repro_torch.robust import init_guard_state  # noqa: E402
 from repro_torch.utils import (  # noqa: E402
@@ -980,18 +1000,20 @@ def check_rmsnorm():
 
 
 def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=True, rank=128,
-                update_freq=4, ckpt_dir=None, ckpt_every=0, guard=False, faults=None,
+                update_freq=8, ckpt_dir=None, ckpt_every=0, guard=False, faults=None,
                 on_state=None, galore_kw=None, tc_kw=None, units=None):
     """8 steps of the main path (AdamW, wd 0.01; GaLore at `rank`, refreshed
     every `update_freq` steps; with `apply` the weight update folded into the
-    kernels; without `galore` full-rank `optimizer`, AdamW or the 8-bit Adam
-    baseline); returns the steps taken, losses, step times, the
+    kernels; `optimizer` adafactor the reference's GaLore-Adafactor; without
+    `galore` full-rank `optimizer`, AdamW, the 8-bit Adam baseline or
+    Adafactor); returns the steps taken, losses, step times, the
     launches of every kernel, peak memory, and the optimizer state's bytes
     measured from the tensors (GaLore's m/v/proj, or the baselines' moments)
-    beside their analytic count (galore_state_bytes, adam8bit_state_bytes, or
-    8 bytes a parameter for AdamW). The run checkpoints into `ckpt_dir` every
-    `ckpt_every` steps and resumes from what it finds there; without one it
-    gets a fresh directory of its own, removed afterwards. `guard` turns on
+    beside their analytic count (galore_state_bytes, adam8bit_state_bytes,
+    adafactor_state_bytes, or 8 bytes a parameter for AdamW). The run
+    checkpoints into `ckpt_dir` every `ckpt_every` steps and resumes from
+    what it finds there; without one it gets a fresh directory of its own,
+    removed afterwards. `guard` turns on
     the anomaly guard (with the fault specs `faults`); `on_state(params,
     opt_state)` sees the final state before it is freed. `galore_kw` and
     `tc_kw` add GaLoreConfig and TrainConfig fields (the refresh lifecycle's);
@@ -1029,9 +1051,16 @@ def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=
     peak = torch.cuda.max_memory_allocated()
     state = opt_state[galore_state_index(tc)]
     quantized = None
-    if galore:
+    if galore and optimizer == "adafactor":
+        leaves = tree_leaves([state["proj"], state["inner"]["m"], state["inner"]["v"]])
+        analytic = (galore_state_bytes(params, gcfg)["projector_bytes"]
+                    + adafactor_state_bytes(compact_shapes(params, gcfg)))
+    elif galore:
         leaves = tree_leaves([state["proj"], state["inner"]["m"], state["inner"]["v"]])
         analytic = galore_state_bytes(params, gcfg)["optimizer_state_bytes"]
+    elif optimizer == "adafactor":
+        leaves = tree_leaves([state["v"], state["m"]])
+        analytic = adafactor_state_bytes(params)
     elif optimizer == "adam8bit":
         leaves = tree_leaves(state["mv"])
         analytic = adam8bit_state_bytes(params)
@@ -1050,6 +1079,14 @@ def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=
                 thread_copy=thread_copy, thread_copy_epilogue=thread_copy_epilogue, peak=peak,
                 galore=galore, update_freq=update_freq, state_bytes=state_bytes,
                 analytic_bytes=analytic, quantized_leaves=quantized, units=step_units)
+
+
+def compact_shapes(params, gcfg):
+    """What GaLore's inner transform holds statistics over: each GaLore
+    leaf's compact shape (meta tensors), every other leaf as it is."""
+    plans = subspace.SubspaceManager(gcfg).plans(params)
+    return tree_map(lambda p, pl: torch.empty(subspace.r_shape(p, pl), device="meta")
+                    if pl.galore else p, params, plans)
 
 
 def npz_bytes(root):
@@ -1524,6 +1561,157 @@ def lifecycle_phases(phases, none):
     check_state_bytes("hetero-adaptive", ph)
 
 
+def lowrank_phase(mode, merge_at=None):
+    """8 steps of the paper's low-rank weight methods (Table 2) at the main
+    path's width, batch and data, through the loop of
+    benchmarks/table2_methods.py::_train_lowrank: LoRA / ReLoRA (r = 128,
+    alpha 32) or low-rank (W = s·BA from scratch, alpha 4r), Adam on the
+    adaptors with a constant −lr, the base frozen; with `merge_at` a
+    relora_merge before that step, the merged effective weights just before
+    and just after it held equal element for element, B′ = 0, and a fresh
+    Adam state. Returns train_phase's record (state bytes: the adaptors
+    and their Adam moments, analytic 12 B an adaptor element) and the
+    adaptor counts."""
+    cfg = dataclasses.replace(get_config("llama_7b"), n_layers=2)
+    rank = 128
+    lcfg = lowrank.LoraConfig(rank=rank, alpha=4 * rank if mode == "lowrank" else 32.0,
+                              mode=mode, merge_freq=merge_at or 0)
+    lr = 1e-3
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    # train_loop's initial params and data for seed 0: the AdamW phase's
+    params = tree_map(lambda t: t.detach(), init_params(cfg, seed=0, device="cuda"))
+    data = SyntheticC4(DataConfig(vocab_size=cfg.vocab_size, seq_len=256, batch_per_host=8,
+                                  seed=0), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    adaptors = lowrank.init_adaptors(params, lcfg, gen)
+    opt = scale_by_adam()
+    st = opt.init(adaptors)
+    losses, times, merged = [], [], None
+    for i in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if lcfg.merge_freq and i > 0 and i % lcfg.merge_freq == 0:
+            with torch.no_grad():
+                before = lowrank.merge(params, adaptors, lcfg)
+            params, adaptors = lowrank.relora_merge(params, adaptors, lcfg, gen)
+            st = opt.init(adaptors)  # the ReLoRA optimizer reset
+            with torch.no_grad():
+                after = lowrank.merge(params, adaptors, lcfg)
+            diff = [k for (k, a), b in zip(tree_leaves_with_path(after), tree_leaves(before))
+                    if not torch.equal(a, b)]
+            zero_b = all(not bool(t.any()) for k, t in tree_leaves_with_path(adaptors)
+                         if k.endswith(".B"))
+            fresh = int(st["count"]) == 0 and not any(bool(t.any()) for t in
+                                                      tree_leaves([st["m"], st["v"]]))
+            merged = dict(step=i, leaves=len(tree_leaves(after)), differ=diff, zero_b=zero_b,
+                          fresh=fresh)
+            del before, after
+        loss, _ = loss_fn(cfg, lowrank.merge(params, adaptors, lcfg), data.batch(i))
+        grads = lowrank.adaptor_grads(loss, adaptors)
+        with torch.no_grad():
+            upd, st = opt.update(grads, st, adaptors)
+            apply_updates(adaptors, tree_map(lambda u: -lr * u, upd))
+        del grads, upd
+        losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del loss
+    launches = {key: getattr(fn, attr) for key, (fn, attr) in COUNTERS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    mats = [t for t in tree_leaves([adaptors, st["m"], st["v"]]) if t.ndim >= 2]
+    state_bytes = sum(t.numel() * t.element_size() for t in mats)
+    counted = sum(t.numel() for t in tree_leaves(adaptors) if t.ndim >= 2)
+    # r(m + n) a matrix of each adapted leaf: every ≥ 2-D leaf of the blocks
+    # but the norm scales (the embedding and the norms are excluded)
+    analytic = sum(math.prod(p.shape[:-2]) * rank * (p.shape[-2] + p.shape[-1])
+                   for path, p in tree_leaves_with_path(params)
+                   if path.startswith("blocks.") and p.ndim == 3 and ".ln" not in f".{path}")
+    out = dict(steps=list(range(8)), losses=losses, times=times, launches=launches,
+               thread_copy=0, thread_copy_epilogue=0, peak=peak, galore=False,
+               update_freq=None, state_bytes=state_bytes, analytic_bytes=12 * counted,
+               adaptors=counted, adaptor_param_count=lowrank.adaptor_param_count(adaptors),
+               analytic_adaptors=analytic, merged=merged)
+    del params, adaptors, st, mats
+    torch.cuda.empty_cache()
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{mode}: non-finite loss: {losses}")
+    return out
+
+
+def baseline_phases(phases, none):
+    """The paper's other baselines at the main path's width (10a): full-rank
+    Adafactor, GaLore over Adafactor, LoRA, ReLoRA and low-rank; none of
+    them launches a kernel (the reference's paths for them reach no Pallas
+    call). Adds each phase to `phases`."""
+    adamw0 = phases["adamw"]["losses"][0]
+    t = time.perf_counter()
+    ph = phases["adafactor"] = train_phase(optimizer="adafactor", galore=False)
+    log(f"[adafactor] losses {[round(x, 4) for x in ph['losses']]} launches {ph['launches']}; "
+        f"step ms {[round(x * 1e3, 1) for x in ph['times']]}; peak memory "
+        f"{ph['peak'] / 2**30:.2f} GiB ({time.perf_counter() - t:.1f} s)")
+    if ph["launches"] != none:
+        raise AssertionError(f"adafactor launched kernels: {ph['launches']}")
+    if ph["state_bytes"] != ph["analytic_bytes"]:
+        raise AssertionError(f"adafactor state bytes {ph['state_bytes']} are not the analytic "
+                             f"{ph['analytic_bytes']} (m 4 B a parameter, v 4 B × (rows + "
+                             f"columns) a ≥ 2-D leaf)")
+    check_state_bytes("adafactor", ph)
+    d0 = abs(ph["losses"][0] - adamw0)
+    if d0 > 1e-6:
+        raise AssertionError(f"step-0 losses of adafactor and adamw differ by {d0:.3e}")
+    log(f"[adafactor] step-0 loss - adamw's {d0:.1e} (limit 1e-6); per-step loss - adamw's "
+        f"{[f'{a - b:.4f}' for a, b in zip(ph['losses'], phases['adamw']['losses'])]}")
+
+    t = time.perf_counter()
+    with SvdUnits() as units:
+        ph = phases["galore-adafactor"] = train_phase(optimizer="adafactor", units=units)
+    log(f"[galore-adafactor] losses {[round(x, 4) for x in ph['losses']]} launches "
+        f"{ph['launches']}; SVD units per step {ph['units']}; step ms "
+        f"{[round(x * 1e3, 1) for x in ph['times']]}; peak memory {ph['peak'] / 2**30:.2f} GiB "
+        f"({time.perf_counter() - t:.1f} s)")
+    if ph["launches"] != none:
+        raise AssertionError(f"galore-adafactor launched kernels: {ph['launches']} (the "
+                             f"composable path has none)")
+    if ph["units"] != [14, 0, 0, 0, 0, 0, 0, 0]:
+        raise AssertionError(f"galore-adafactor SVD units per step {ph['units']}: want all 14 "
+                             f"at step 0 (T = 8) and none after")
+    check_state_bytes("galore-adafactor", ph)
+
+    for tag, merge_at in (("lora", None), ("relora", 4), ("lowrank", None)):
+        t = time.perf_counter()
+        ph = phases[tag] = lowrank_phase(tag, merge_at)
+        log(f"[{tag}] losses {[round(x, 4) for x in ph['losses']]} launches {ph['launches']}; "
+            f"step ms {[round(x * 1e3, 1) for x in ph['times']]}; peak memory "
+            f"{ph['peak'] / 2**30:.2f} GiB; adaptors {ph['adaptors']} elements "
+            f"(adaptor_param_count {ph['adaptor_param_count']}, r(m + n) a matrix "
+            f"{ph['analytic_adaptors']}); adaptors + Adam state {ph['state_bytes']} B "
+            f"({time.perf_counter() - t:.1f} s)")
+        if ph["launches"] != none:
+            raise AssertionError(f"{tag} launched kernels: {ph['launches']}")
+        if not ph["adaptors"] == ph["adaptor_param_count"] == ph["analytic_adaptors"]:
+            raise AssertionError(f"{tag}: adaptor elements {ph['adaptors']}, "
+                                 f"adaptor_param_count {ph['adaptor_param_count']}, r(m + n) "
+                                 f"{ph['analytic_adaptors']}")
+        if ph["state_bytes"] != ph["analytic_bytes"]:
+            raise AssertionError(f"{tag}: adaptors + Adam state {ph['state_bytes']} B, want 12 B "
+                                 f"an adaptor element ({ph['analytic_bytes']})")
+        if tag != "lowrank":
+            d0 = abs(ph["losses"][0] - adamw0)
+            if d0 > 1e-6:
+                raise AssertionError(f"step-0 losses of {tag} and adamw differ by {d0:.3e} "
+                                     f"(B = 0: the effective weights are W0)")
+            log(f"[{tag}] step-0 loss - adamw's {d0:.1e} (limit 1e-6)")
+    mg = phases["relora"]["merged"]
+    if mg is None or mg["step"] != 4 or mg["differ"] or not mg["zero_b"] or not mg["fresh"]:
+        raise AssertionError(f"[relora] the merge at step 4: {mg}; want the effective weights "
+                             f"equal just before and after, B' = 0 and a fresh Adam state")
+    log(f"[relora] merge before step 4: all {mg['leaves']} effective weight leaves equal "
+        f"element for element just before and after relora_merge (W0' = cast(W0 + sBA), "
+        f"B' = 0), Adam state fresh (count 0, moments 0)")
+
+
+
 def main():
     t_all = time.perf_counter()
     t = time.perf_counter()
@@ -1799,14 +1987,17 @@ def main():
         f"state bytes adam8bit {phases['adam8bit']['state_bytes']}, adamw {ph['state_bytes']} "
         f"({phases['adam8bit']['state_bytes'] / ph['state_bytes']:.4f})")
 
+    baseline_phases(phases, none)
     lifecycle_phases(phases, none)
 
-    log("[memory] the paper's 7B comparison at 2 layers, peak device memory: 8-bit GaLore "
-        f"r = 1024 {phases['r1024-8bit']['peak'] / 2**30:.2f} GiB (apply "
+    log("[memory] the paper's 7B comparison (Fig. 1) at 2 layers, peak device memory: 8-bit "
+        f"GaLore r = 1024 {phases['r1024-8bit']['peak'] / 2**30:.2f} GiB (apply "
         f"{phases['r1024-8bit-apply']['peak'] / 2**30:.2f} GiB), 8-bit Adam "
-        f"{phases['adam8bit']['peak'] / 2**30:.2f} GiB, AdamW {ph['peak'] / 2**30:.2f} GiB; "
-        f"optimizer state {phases['r1024-8bit']['state_bytes']} / "
-        f"{phases['adam8bit']['state_bytes']} / {ph['state_bytes']} B")
+        f"{phases['adam8bit']['peak'] / 2**30:.2f} GiB, Adafactor "
+        f"{phases['adafactor']['peak'] / 2**30:.2f} GiB, AdamW "
+        f"{phases['adamw']['peak'] / 2**30:.2f} GiB; optimizer state "
+        f"{phases['r1024-8bit']['state_bytes']} / {phases['adam8bit']['state_bytes']} / "
+        f"{phases['adafactor']['state_bytes']} / {phases['adamw']['state_bytes']} B")
 
     t = time.perf_counter()
     svd = svd_ms()

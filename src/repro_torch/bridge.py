@@ -1,6 +1,7 @@
 """numpy ⇄ torch bridge for parameter and optimizer-state trees (GaLore's
-state with its adaptive schedule, the async refresh's pending buffer, and
-the standalone 8-bit Adam's).
+state with its adaptive schedule and any inner state, the async refresh's
+pending buffer, the standalone 8-bit Adam's, Adafactor's, SGD's momentum
+trace, and LoRA adaptors).
 
 The trees are nested dicts keyed like the JAX package's (``np.asarray`` of
 each leaf of a ``repro`` tree is a valid input), so a test can run the port on
@@ -49,25 +50,20 @@ def params_to_numpy(params):
 def galore_state_from_numpy(state, device):
     """The galore transform's state from its numpy form.
 
-    Reads ``step``, ``key``, ``proj``, ``inner`` {``m``, ``v``, ``count``}
-    and, under adaptive T, ``schedule`` — the layout of the JAX ``galore``
-    state, at any per-leaf ranks. ``step`` becomes a host int; ``key`` a
-    uint32[2] CPU tensor, passed through untouched; ``count`` stays an int32
-    tensor on `device`; the schedule's ``period`` and ``next`` become host
-    ints and its ``overlap`` 0-d f32 tensors on `device`. Every other leaf
-    keeps its dtype: f32 moments and projectors, bf16 projectors, and the
-    uint8 codes and f32 scales of quantized leaves."""
-    inner = state["inner"]
-
-    def leaves(tree):
-        return tree_map(lambda a: _to_tensor(a, device), tree)
-
+    Reads ``step``, ``key``, ``proj``, ``inner`` (Adam's {``m``, ``v``,
+    ``count``}, or any inner transform's state: ``state_from_numpy``) and,
+    under adaptive T, ``schedule`` — the layout of the JAX ``galore`` state,
+    at any per-leaf ranks. ``step`` becomes a host int; ``key`` a uint32[2]
+    CPU tensor, passed through untouched; the schedule's ``period`` and
+    ``next`` become host ints and its ``overlap`` 0-d f32 tensors on
+    `device`. Every other leaf keeps its dtype: f32 moments and projectors,
+    bf16 projectors, the uint8 codes and f32 scales of quantized leaves,
+    and the int32 count on `device`."""
     out = {
         "step": int(np.asarray(state["step"])),
         "key": _to_tensor(state["key"], "cpu", torch.uint32),
-        "proj": leaves(state["proj"]),
-        "inner": {"m": leaves(inner["m"]), "v": leaves(inner["v"]),
-                  "count": _to_tensor(inner["count"], device, torch.int32)},
+        "proj": state_from_numpy(state["proj"], device),
+        "inner": state_from_numpy(state["inner"], device),
     }
     if "schedule" in state:
         out["schedule"] = _schedule_from_numpy(state["schedule"], device)
@@ -75,13 +71,11 @@ def galore_state_from_numpy(state, device):
 
 
 def galore_state_to_numpy(state):
-    inner = state["inner"]
     out = {
         "step": np.asarray(state["step"], np.int32),
         "key": _to_numpy(state["key"]),
-        "proj": tree_map(_to_numpy, state["proj"]),
-        "inner": {"m": tree_map(_to_numpy, inner["m"]), "v": tree_map(_to_numpy, inner["v"]),
-                  "count": _to_numpy(inner["count"]).astype(np.int32)},
+        "proj": state_to_numpy(state["proj"]),
+        "inner": state_to_numpy(state["inner"]),
     }
     if "schedule" in state:
         out["schedule"] = _schedule_to_numpy(state["schedule"])
@@ -119,14 +113,29 @@ def pending_to_numpy(pending):
     return out
 
 
-def adam8bit_state_from_numpy(state, device):
-    """scale_by_adam8bit's state {"mv": {leaf: {"m", "v"}}, "count"} from its
-    numpy form: quantized moments keep their uint8 codes and f32 scales,
-    fp32 moments stay f32, and ``count`` is an int32 tensor on `device`."""
-    return {"mv": tree_map(lambda a: _to_tensor(a, device), state["mv"]),
-            "count": _to_tensor(state["count"], device, torch.int32)}
+def state_from_numpy(state, device):
+    """Any optimizer state tree of tensors from its numpy (or JAX) form, each
+    leaf in its own dtype on `device`: Adam's {m, v, count},
+    scale_by_adam8bit's {"mv": {leaf: {"m", "v"}}, "count"} (uint8 codes and
+    f32 scales), scale_by_adafactor's {"v": {vr, vc} | {v}, "count", "m"?},
+    a momentum ``trace``'s f32 tree (its empty tuple too), and an
+    int32 ``count`` stays int32."""
+    return tree_map(lambda a: _to_tensor(a, device), state)
 
 
-def adam8bit_state_to_numpy(state):
-    return {"mv": tree_map(_to_numpy, state["mv"]),
-            "count": _to_numpy(state["count"]).astype(np.int32)}
+def state_to_numpy(state):
+    return tree_map(_to_numpy, state)
+
+
+def adaptors_from_numpy(adaptors, device):
+    """A LoRA adaptor tree ({"A", "B"} f32 on each adapted leaf, a 0-d zero
+    elsewhere; optim/lowrank.py) from its numpy (or JAX) form, A and B
+    requiring grad, as ``init_adaptors`` makes them (``state_to_numpy``
+    takes it back)."""
+
+    def leaf(a):
+        t = _to_tensor(a, device)
+        return t.requires_grad_(True) if t.ndim >= 2 else t
+
+    return tree_map(leaf, adaptors)
+

@@ -150,7 +150,8 @@ class GaLoreConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    optimizer: str = "adamw"  # adam | adamw | adam8bit (8-bit GaLore with GaLore, else 8-bit Adam)
+    optimizer: str = "adamw"  # adam | adamw | adam8bit (8-bit GaLore with GaLore, else
+    # 8-bit Adam) | adafactor | sgd (momentum b1)
     galore: Optional[GaLoreConfig] = None
     lr: float = 1e-3
     warmup_steps: int = 100

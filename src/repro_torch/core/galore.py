@@ -1,13 +1,14 @@
-"""GaLore around Adam: gradient low-rank projection as a gradient transform
-(port of repro/core/galore.py: ``galore`` with the in-step refresh or an
-external one, ``_managed_adam_update`` with its fp32 and int8-moment
-branches and its weight apply, ``make_fused_apply``, the external and
-pending refresh entry points ``refresh_projectors``,
-``init_pending_state``, ``refresh_projectors_pending`` and
-``swap_pending_state``, and the analytic ``galore_state_bytes``).
+"""GaLore: gradient low-rank projection as a gradient transform (port of
+repro/core/galore.py: ``galore`` with the in-step refresh or an external
+one, over Adam — ``_managed_adam_update`` with its fp32 and int8-moment
+branches and its weight apply — or over any other inner transform by the
+composable path; ``make_fused_apply``, the external and pending refresh
+entry points ``refresh_projectors``, ``init_pending_state``,
+``refresh_projectors_pending`` and ``swap_pending_state``, and the
+analytic ``galore_state_bytes``).
 
     R_t  = P_tᵀ G_t  (left, m ≤ n)  or  G_t P_t  (right)
-    N_t  = Adam(R_t)                 compact moments live in r × n (or m × r)
+    N_t  = inner(R_t)                statistics live in r × n (or m × r)
     G̃_t = α P_t N_t  or  α N_t P_tᵀ
 
 P_t is refreshed from the current gradient when its leaf is due (galore
@@ -27,7 +28,13 @@ it: one fused kernel launch where P fits the reference's VMEM budget
 reference's fallback — the tiled projection kernels around a plain Adam
 update for the fp32 emit step, the plain step for the int8 and apply forms;
 with ``fused=False`` it runs the composable project → Adam → back-project
-sequence in plain torch (kernels/ref.py), the numerics oracle.
+sequence in plain torch (kernels/ref.py), the numerics oracle. Any other
+inner transform (Adafactor, SGD's momentum ``trace``: ``inner=``) takes the
+reference's composable path: R in f32, ``inner.update`` in the compact space
+(its state built by ``inner.init`` on the projected structure: f32 zeros of
+r_shape for a GaLore leaf, the parameter itself for a passthrough leaf), and
+G̃ = α·P N in f32; projectors stored bf16 or int4 are dequantized on read.
+No kernel lies on that path (the reference's has no Pallas call).
 ``make_fused_apply`` is the W-in-place form of the fused path: each GaLore
 leaf's kernel also applies W ← W + η(G̃ + wd·W), so no full-size update tree
 is made.
@@ -46,7 +53,8 @@ State layout (the reference's):
      PRNGKey(seed), passed through untouched; it seeds the randomized
      projector's sketch with the step), "proj": tree of P (scalar
      placeholders on non-galore leaves),
-     "inner": {"m": tree, "v": tree, "count": int32 tensor}}
+     "inner": {"m": tree, "v": tree, "count": int32 tensor} (Adam), or the
+     inner transform's own state}
 plus, only under ``adaptive_t``, "schedule": per-leaf {period, next (host
 ints), overlap (0-d f32)} (core/subspace.py), checkpointed with the rest.
 """
@@ -71,17 +79,29 @@ from repro_torch.quant import codec
 from repro_torch.utils import flatten_up_to, tree_leaves, tree_map, tree_unflatten_like
 
 
-def galore(cfg: GaLoreConfig, *, b1: float | None = None, b2: float | None = None,
-           eps: float | None = None, fused: bool = False, exclude=DEFAULT_EXCLUDE,
-           seed: int = 0, external_refresh: bool = False) -> GradientTransformation:
-    """GaLore-Adam as a GradientTransformation. b1/b2/eps are Adam's and are
-    required: the transform owns the Adam math on every leaf (as the
-    reference's managed path does), so its state has scale_by_adam's
-    {m, v, count} layout. `seed` makes the state's key (TrainConfig.seed,
-    threaded by optim/factory.py). `external_refresh` takes the refresh out
-    of the update: the launcher refreshes the projectors itself
-    (``refresh_projectors``, or the async pending buffer)."""
-    if None in (b1, b2, eps):
+def galore(cfg: GaLoreConfig, *, inner: GradientTransformation | None = None,
+           b1: float | None = None, b2: float | None = None, eps: float | None = None,
+           fused: bool = False, exclude=DEFAULT_EXCLUDE, seed: int = 0,
+           external_refresh: bool = False) -> GradientTransformation:
+    """GaLore as a GradientTransformation. Without `inner` it is GaLore-Adam:
+    b1/b2/eps are Adam's and are required, the transform owns the Adam math
+    on every leaf (as the reference's managed path does), and its state has
+    scale_by_adam's {m, v, count} layout. With `inner` (a statistics
+    transform that is not Adam-shaped: Adafactor, SGD's trace) it runs the
+    reference's composable path around it, which neither the fused kernels
+    nor quantized moments serve. `seed` makes the state's key
+    (TrainConfig.seed, threaded by optim/factory.py). `external_refresh`
+    takes the refresh out of the update: the launcher refreshes the
+    projectors itself (``refresh_projectors``, or the async pending
+    buffer)."""
+    if inner is not None:
+        if fused:
+            raise ValueError("the fused GaLore kernels run Adam: an inner transform takes the "
+                             "composable path (fused=False)")
+        if cfg.quant.quantizes_moments:
+            raise ValueError("quantized moments require an Adam-shaped inner optimizer "
+                             "(galore manages the Adam math itself)")
+    elif None in (b1, b2, eps):
         if cfg.quant.quantizes_moments:
             raise ValueError(
                 "quantized moments (QuantPolicy.moments='int8') bypass the inner "
@@ -99,8 +119,12 @@ def galore(cfg: GaLoreConfig, *, b1: float | None = None, b2: float | None = Non
                 return torch.zeros((), dtype=torch.float32, device=p.device)
             return init_projector_state(proj_shape(p, plan), plan.proj_store, p.device)
 
+        if inner is None:
+            inner_state = _managed_adam_init(params, plans)
+        else:
+            inner_state = inner.init(tree_map(_inner_struct, params, plans))
         state = {"step": 0, "key": prng_key(seed), "proj": tree_map(proj_init, params, plans),
-                 "inner": _managed_adam_init(params, plans)}
+                 "inner": inner_state}
         sched = mgr.init_schedule(params, plans)
         if sched is not None:
             state["schedule"] = sched
@@ -114,11 +138,47 @@ def galore(cfg: GaLoreConfig, *, b1: float | None = None, b2: float | None = Non
         # kernel unpacks them, so no f32 projector tree is made (the composite
         # route dequantizes each leaf's P on its own)
         proj_eff = _read_proj_tree(grads, proj, plans, keep_packed=fused)
-        updates, inner = _managed_adam_update(grads, proj_eff, state["inner"], plans, cfg,
-                                              b1, b2, eps, fused=fused)
-        return updates, _next_state(state, proj, inner, sched)
+        if inner is None:
+            updates, inner_state = _managed_adam_update(grads, proj_eff, state["inner"], plans,
+                                                        cfg, b1, b2, eps, fused=fused)
+        else:
+            updates, inner_state = _composable_update(inner, grads, proj_eff, state["inner"],
+                                                      plans, cfg, params)
+        return updates, _next_state(state, proj, inner_state, sched)
 
     return GradientTransformation(init, update)
+
+
+def _inner_struct(p, plan):
+    """What the inner transform's init sees for a leaf: f32 zeros of the
+    compact shape for a GaLore leaf, the parameter itself otherwise."""
+    if not plan.galore:
+        return p
+    return torch.zeros(r_shape(p, plan), dtype=torch.float32, device=p.device)
+
+
+def _composable_update(inner, grads, proj_eff, inner_state, plans, cfg: GaLoreConfig, params):
+    """The reference's composable path: R = PᵀG (or GP) in f32 on every
+    GaLore leaf, the passthrough leaves' gradients as they are, one
+    ``inner.update`` over the compact tree, then α·P N (or α·N Pᵀ) in f32;
+    passthrough updates keep the inner's dtype (apply_updates casts)."""
+
+    def project(g, P, plan):
+        if not plan.galore:
+            return g
+        return ref.galore_project(P, g) if plan.side == "left" else ref.galore_project_right(P, g)
+
+    def back(u, P, plan):
+        if not plan.galore:
+            return u
+        if plan.side == "left":
+            return ref.galore_project_back(P, u.float(), cfg.scale)
+        return ref.galore_project_back_right(P, u.float(), cfg.scale)
+
+    lor_updates, inner_state = inner.update(tree_map(project, grads, proj_eff, plans),
+                                            inner_state, params)
+    updates = tree_map(back, lor_updates, proj_eff, plans)
+    return updates, inner_state
 
 
 def _maybe_refresh(mgr, grads, state, plans, external_refresh: bool):

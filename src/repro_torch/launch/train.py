@@ -1,6 +1,7 @@
 """Training launcher (port of the one-device repro/launch/train.py).
 
-Takes GaLore (or full-rank) Adam steps on a synthetic C4-like stream and logs
+Takes GaLore (or full-rank) steps of AdamW, Adam, 8-bit Adam, Adafactor or
+SGD with momentum on a synthetic C4-like stream and logs
 ``[train] step N loss …``. Runs on ``cuda`` unless ``--device`` says
 otherwise. Ported with the loop:
   * checkpoints every ``--ckpt-every`` steps (async, atomic; crc-checked and
@@ -38,6 +39,8 @@ CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch llama_60m --steps
       (add --quant-moments int8 --quant-proj int4 for 8-bit GaLore, and
       --galore-fused-apply to fold the weight update into the kernel;
       --optimizer adam8bit without --galore-rank is the 8-bit Adam baseline;
+      --optimizer adafactor or sgd, with --galore-rank or without, the
+      paper's other optimizers, GaLore's composable path around them;
       --anomaly-guard --inject-fault nan_grad@5*3 --ckpt-every 4 drives a
       rollback; --galore-stagger --galore-refresh-async the async refresh)
 """
@@ -536,8 +539,11 @@ def build_parser():
     ap.add_argument("--full", action="store_true", help="full-size config (default smoke)")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--optimizer", default="adamw",
+                    choices=["adam", "adamw", "adam8bit", "adafactor", "sgd"],
                     help="adam | adamw | adam8bit (with --galore-rank: 8-bit GaLore; "
-                         "without: 8-bit Adam)")
+                         "without: 8-bit Adam) | adafactor (momentum 0.9) | sgd (momentum "
+                         "0.9); with --galore-rank, adafactor and sgd take GaLore's "
+                         "composable path (no fused kernel, fp32 moments)")
     ap.add_argument("--galore-rank", type=int, default=0)
     ap.add_argument("--galore-t", type=int, default=200)
     ap.add_argument("--galore-fused", action="store_true",
@@ -616,6 +622,12 @@ def main(argv=None):
                  "--galore-refresh-async")
     if args.galore_fused_apply and not args.galore_fused:
         ap.error("--galore-fused-apply requires --galore-fused")
+    if args.optimizer in ("adafactor", "sgd"):
+        for flag, on in (("--galore-fused", args.galore_fused),
+                         ("--quant-moments int8", args.quant_moments == "int8"),
+                         ("--galore-reproject-moments", args.galore_reproject_moments)):
+            if on:
+                ap.error(f"{flag} needs Adam moments; --optimizer {args.optimizer} has none")
     if args.anomaly_guard and args.galore_fused_apply:
         ap.error("--anomaly-guard wraps the chain train step; --galore-fused-apply has no "
                  "guarded variant yet")

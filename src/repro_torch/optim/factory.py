@@ -1,15 +1,21 @@
 """Build the optimizer pipeline from a TrainConfig (port of repro/optim/factory.py).
 
 Pipeline (the reference's ordering):
-    clip_by_global_norm -> [galore(Adam)] or Adam -> add_decayed_weights -> -lr schedule
+    clip_by_global_norm -> [galore(inner)] -> add_decayed_weights -> -lr schedule
+GaLore wraps only the statistics transform (Adam, 8-bit Adam, Adafactor, or
+SGD's momentum trace); weight decay (AdamW only) and the lr act on
+full-shape updates, as in the reference.
 
 8-bit GaLore: ``optimizer="adam8bit"`` with GaLore routes through the
 quantized-moment state of ``core/galore.py`` (``effective_galore_config``
 turns the policy's moments to int8), as the reference does; without GaLore
-it is the paper's 8-bit Adam baseline, ``optim/adam8bit.py``. An external
-or async refresh (``external_refresh``) takes the refresh out of the GaLore
-update, as the reference's does. Adafactor, SGD and the low-rank baselines
-are not ported yet.
+it is the paper's 8-bit Adam baseline, ``optim/adam8bit.py``. With an
+Adam-shaped optimizer GaLore owns the Adam math (its managed path, fused or
+not); with Adafactor or SGD it runs the reference's composable path around
+the inner transform (project → inner → project back). An external or async
+refresh (``external_refresh``) takes the refresh out of the GaLore update,
+as the reference's does. The low-rank weight baselines (LoRA, ReLoRA,
+low-rank) train adaptors, not through this factory: ``optim/lowrank.py``.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import dataclasses
 from repro_torch.configs.base import GaLoreConfig, TrainConfig
 from repro_torch.core.galore import galore
 from repro_torch.optim import schedules
+from repro_torch.optim.adafactor import scale_by_adafactor
 from repro_torch.optim.adam import scale_by_adam
 from repro_torch.optim.adam8bit import scale_by_adam8bit
 from repro_torch.optim.transform import (
@@ -26,6 +33,7 @@ from repro_torch.optim.transform import (
     chain,
     clip_by_global_norm,
     scale_by_schedule,
+    trace,
 )
 
 _ADAM_SHAPED = ("adam", "adamw", "adam8bit")
@@ -47,8 +55,11 @@ def _stats_transform(tc: TrainConfig) -> GradientTransformation:
         return scale_by_adam(tc.b1, tc.b2, tc.eps)
     if tc.optimizer == "adam8bit":
         return scale_by_adam8bit(tc.b1, tc.b2, tc.eps)
-    raise NotImplementedError(f"optimizer {tc.optimizer!r} is not ported yet "
-                              f"(adam, adamw and adam8bit are)")
+    if tc.optimizer == "adafactor":
+        return scale_by_adafactor(beta1=tc.b1)
+    if tc.optimizer == "sgd":
+        return trace(momentum=tc.b1)
+    raise ValueError(f"unknown optimizer {tc.optimizer!r}")
 
 
 def external_refresh(tc: TrainConfig) -> bool:
@@ -74,12 +85,13 @@ def build_optimizer(tc: TrainConfig) -> GradientTransformation:
                              f"(galore manages the Adam math itself), got {tc.optimizer!r}")
         if tc.galore_fused_apply and not tc.galore_fused_adam:
             raise ValueError("galore_fused_apply requires galore_fused_adam")
-        if tc.optimizer not in _ADAM_SHAPED:
-            raise NotImplementedError(f"optimizer {tc.optimizer!r} is not ported yet "
-                                      f"(adam, adamw and adam8bit are)")
-        # the async double buffer runs the refresh in a step of its own too
-        stats = galore(gcfg, b1=tc.b1, b2=tc.b2, eps=tc.eps, fused=tc.galore_fused_adam,
-                       seed=tc.seed, external_refresh=external_refresh(tc))
+        # Adam-shaped: galore owns the Adam math (no inner); otherwise the
+        # composable path around the inner statistics transform. The async
+        # double buffer runs the refresh in a step of its own too
+        inner = None if tc.optimizer in _ADAM_SHAPED else _stats_transform(tc)
+        stats = galore(gcfg, inner=inner, b1=tc.b1, b2=tc.b2, eps=tc.eps,
+                       fused=tc.galore_fused_adam, seed=tc.seed,
+                       external_refresh=external_refresh(tc))
     elif tc.galore_fused_adam:
         raise ValueError("galore_fused_adam requires a GaLore config")
     else:

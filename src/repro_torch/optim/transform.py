@@ -13,7 +13,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.utils import tree_leaves, tree_map
+from repro_torch.utils import tree_leaves, tree_map, tree_map_with_path
 
 
 class GradientTransformation(NamedTuple):
@@ -33,6 +33,15 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
         return grads, tuple(new_state)
 
     return GradientTransformation(init, update)
+
+
+def identity() -> GradientTransformation:
+    return GradientTransformation(lambda p: (), lambda g, s, p=None: (g, s))
+
+
+def scale(factor: float) -> GradientTransformation:
+    return GradientTransformation(lambda p: (),
+                                  lambda g, s, p=None: (tree_map(lambda x: x * factor, g), s))
 
 
 def _device_of(tree) -> torch.device:
@@ -63,17 +72,43 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     return GradientTransformation(lambda p: (), update)
 
 
-def add_decayed_weights(weight_decay: float) -> GradientTransformation:
-    """AdamW-style decoupled weight decay: update += wd * param."""
+def add_decayed_weights(weight_decay: float, mask=None) -> GradientTransformation:
+    """AdamW-style decoupled weight decay: update += wd * param, on every
+    leaf or, with `mask` (a predicate on the leaf's dotted path), on the
+    leaves it accepts."""
 
     def update(grads, state, params=None):
         if params is None:
             raise ValueError("add_decayed_weights needs params")
         if weight_decay == 0.0:
             return grads, state
-        return tree_map(lambda g, p: g + weight_decay * p.to(g.dtype), grads, params), state
+
+        def add(path, g, p):
+            if mask is not None and not mask(path):
+                return g
+            return g + weight_decay * p.to(g.dtype)
+
+        return tree_map_with_path(add, grads, params), state
 
     return GradientTransformation(lambda p: (), update)
+
+
+def trace(momentum: float, nesterov: bool = False) -> GradientTransformation:
+    """Heavy-ball momentum (SGD with momentum): an f32 trace m = μ·m + g per
+    leaf; the update (m, or μ·m + g with `nesterov`) is cast to g's dtype."""
+
+    def init(params):
+        return tree_zeros_like_f32(params)
+
+    def update(grads, state, params=None):
+        new_state = tree_map(lambda m, g: momentum * m + g.float(), state, grads)
+        if nesterov:
+            out = tree_map(lambda m, g: (momentum * m + g.float()).to(g.dtype), new_state, grads)
+        else:
+            out = tree_map(lambda m, g: m.to(g.dtype), new_state, grads)
+        return out, new_state
+
+    return GradientTransformation(init, update)
 
 
 @torch.no_grad()
@@ -83,3 +118,7 @@ def apply_updates(params, updates):
     Returns `params`."""
     tree_map(lambda p, u: p.add_(u.to(p.dtype)), params, updates)
     return params
+
+
+def tree_zeros_like_f32(tree):
+    return tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32, device=x.device), tree)

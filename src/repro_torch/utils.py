@@ -65,6 +65,20 @@ def tree_leaves_with_path(tree: Tree, prefix: tuple = ()) -> list[tuple[str, Any
     return [(path_str(prefix), tree)]
 
 
+def tree_map_with_path(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
+    """fn(dotted path, leaf, *rest_leaves) over the leaves of `tree` (the
+    reference's ``repro.utils.tree_map_with_path``)."""
+
+    def walk(t, prefix, rs):
+        if isinstance(t, dict):
+            return {k: walk(t[k], prefix + (k,), [r[k] for r in rs]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(x, prefix + (i,), [r[i] for r in rs]) for i, x in enumerate(t))
+        return fn(path_str(prefix), t, *rs)
+
+    return walk(tree, (), list(rest))
+
+
 def tree_leaves(tree: Tree) -> list:
     return [leaf for _, leaf in tree_leaves_with_path(tree)]
 

@@ -28,9 +28,9 @@ from repro.models import model as JM  # noqa: E402
 from repro.optim.adam8bit import scale_by_adam8bit as jax_scale_by_adam8bit  # noqa: E402
 from repro.quant import codec as jcodec  # noqa: E402
 from repro_torch.bridge import (  # noqa: E402
-    adam8bit_state_from_numpy,
-    adam8bit_state_to_numpy,
     params_from_numpy,
+    state_from_numpy,
+    state_to_numpy,
 )
 from repro_torch.configs.base import GaLoreConfig, TrainConfig, get_config  # noqa: E402
 from repro_torch.kernels import adam8bit_update as a8  # noqa: E402
@@ -318,15 +318,20 @@ def test_adam8bit_small_leaves_stay_fp32():
 
 def test_factory_routes_adam8bit_and_refuses_the_unported():
     """optimizer="adam8bit" without GaLore is the 8-bit Adam baseline (its
-    state in the chain); adafactor and sgd are not ported yet."""
+    state in the chain); adafactor and sgd build too (with GaLore around
+    them, its composable path), and a name the reference's factory does
+    not know is refused with its ValueError."""
     params = {"w": torch.zeros(64, 64)}
     state = build_optimizer(TrainConfig(optimizer="adam8bit")).init(params)
     assert codec.is_qstate(state[1]["mv"]["w"]["m"])
     for name in ("adafactor", "sgd"):
-        with pytest.raises(NotImplementedError):
-            build_optimizer(TrainConfig(optimizer=name))
-        with pytest.raises(NotImplementedError):
-            build_optimizer(TrainConfig(optimizer=name, galore=GaLoreConfig(rank=4)))
+        build_optimizer(TrainConfig(optimizer=name)).init(params)
+        state = build_optimizer(TrainConfig(optimizer=name, galore=GaLoreConfig(rank=4))).init(
+            params)
+        assert state[1]["proj"]["w"].shape == (64, 4)
+    for galore in (None, GaLoreConfig(rank=4)):
+        with pytest.raises(ValueError, match="unknown optimizer"):
+            build_optimizer(TrainConfig(optimizer="lion", galore=galore))
 
 
 # ---------------------------------------------------------------------------
@@ -373,10 +378,10 @@ def test_bridge_round_trips_adam8bit_state():
     jopt = jax_scale_by_adam8bit()
     _, jstate = jopt.update(grads, jopt.init(params))
     jnp_state = jax.tree_util.tree_map(np.asarray, jstate)
-    state = adam8bit_state_from_numpy(jnp_state, "cpu")
+    state = state_from_numpy(jnp_state, "cpu")
     assert state["mv"]["big"]["v"]["q"].dtype == torch.uint8
     assert state["count"].dtype == torch.int32
-    back = dict(tree_leaves_with_path(adam8bit_state_to_numpy(state)))
+    back = dict(tree_leaves_with_path(state_to_numpy(state)))
     want = dict(tree_leaves_with_path(jnp_state))
     assert sorted(back) == sorted(want)
     for path in want:

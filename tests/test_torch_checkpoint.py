@@ -7,7 +7,8 @@ launcher's resume and preemption, against the JAX package's manager.
    int8 / int4 file codec (codes and scales bit for bit the reference's
    ``_np_quantize``) and the refusals;
 2. for each state form the port runs (AdamW, GaLore fp32 emit and apply,
-   8-bit GaLore with int8 moments and int4 P, 8-bit Adam): a JAX checkpoint
+   8-bit GaLore with int8 moments and int4 P, 8-bit Adam, Adafactor,
+   GaLore-Adafactor and SGD with momentum): a JAX checkpoint
    restored by the port and a port checkpoint restored by the JAX manager,
    every leaf bit for bit, with the same npz keys and META dtypes, and the
    port's next step from the JAX checkpoint within 2e-5 of JAX's;
@@ -307,6 +308,9 @@ FORMS = {
     "galore_apply": dict(galore=_G, galore_fused_adam=True, galore_fused_apply=True),
     "galore_8bit": dict(optimizer="adam8bit", galore=dict(_G, quant=_Q8), galore_fused_adam=True),
     "adam8bit": dict(optimizer="adam8bit"),
+    "adafactor": dict(optimizer="adafactor"),
+    "galore_adafactor": dict(optimizer="adafactor", galore=_G),
+    "sgd": dict(optimizer="sgd"),
 }
 
 

@@ -1753,3 +1753,223 @@ def test_cuda_rank_frac_training_run():
         assert launched == ((64, 8) if fused else (0, 0))
     assert all(np.isfinite(runs[True]))
     np.testing.assert_allclose(runs[True], runs[False], rtol=0, atol=5e-2)
+
+
+# ---------------------------------------------------------------------------
+# the paper's baselines on the card: Adafactor, SGD, GaLore-SGD, LoRA; and
+# the W-in-place step after a mid-run refresh
+# ---------------------------------------------------------------------------
+
+
+def _all_launches():
+    return (sum(fn.launches for fn in tk.WRAPPERS) + a8.adam8bit_update.launches
+            + tp.galore_project.launches + tp.galore_project_back.launches)
+
+
+def _f32_llama60m():
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+
+    return dataclasses.replace(get_config("llama_60m"), n_layers=2, dtype="float32")
+
+
+def _planted_grads(params, seed):
+    """numpy gradients shaped like `params`: each leaf of ≥ 2 dims whose
+    short side exceeds 64 carries a planted rank-32 part, singular values
+    10, 11.25, …, 48.75, over noise of ≈ 0.2 (a GaLore refresh at rank 32
+    finds a well-separated subspace); the rest Gaussian."""
+    from repro_torch.utils import tree_map
+
+    rng = np.random.default_rng(seed)
+
+    def leaf(p):
+        s = tuple(p.shape)
+        g = rng.standard_normal(s).astype(np.float32)
+        if len(s) >= 2 and min(s[-2:]) > 64:
+            U = np.linalg.qr(rng.standard_normal(s[:-2] + (s[-2], 32)))[0]
+            V = np.linalg.qr(rng.standard_normal(s[:-2] + (s[-1], 32)))[0]
+            sv = 10.0 * (1 + np.arange(32) / 8)
+            g = ((U * sv) @ V.swapaxes(-1, -2) + 0.1 * g / np.sqrt(s[-1])).astype(np.float32)
+        return g
+
+    return tree_map(leaf, params)
+
+
+BASELINE_FORMS = {"adafactor": dict(optimizer="adafactor"), "sgd": dict(optimizer="sgd"),
+                  "galore-sgd": dict(optimizer="sgd", galore=dict(rank=32, update_freq=4),
+                                     galore_external_refresh=True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(BASELINE_FORMS))
+def test_cuda_baseline_optimizer_steps_match_cpu(form):
+    """Two optimizer steps (clip → Adafactor / SGD's momentum trace /
+    GaLore-SGD → −lr) over llama_60m's leaves at full width (2 layers, f32),
+    on the card and on a CPU copy of the same params, gradients and initial
+    state: every update and every state leaf within 1e-5·max of the CPU's;
+    no kernel is launched; and the Adafactor update makes no host
+    synchronisation (its RMS clip stays on the device). GaLore-SGD's
+    projectors come from one external refresh on the CPU, handed to both
+    runs: on these leaves the card's SVD (torch.linalg.svd's default
+    cuSOLVER driver) agrees with LAPACK's only to ≈ 1e-4, which would set
+    the gate, not the update under test."""
+    from repro_torch.configs.base import GaLoreConfig, TrainConfig
+    from repro_torch.core.galore import refresh_projectors
+    from repro_torch.models import model as TM
+    from repro_torch.optim.adafactor import scale_by_adafactor
+    from repro_torch.optim.factory import build_optimizer, galore_state_index
+    from repro_torch.utils import tree_leaves_with_path, tree_map
+
+    dev = _cuda_device()
+    kw = dict(BASELINE_FORMS[form])
+    g = kw.pop("galore", None)
+    tc = TrainConfig(galore=GaLoreConfig(**g) if g else None, lr=1e-3, total_steps=8,
+                     warmup_steps=1, **kw)
+    cpu_params = TM.init_params(_f32_llama60m(), seed=0, device="cpu")
+    grads = [_planted_grads(cpu_params, seed) for seed in (21, 22)]
+    state0 = build_optimizer(tc).init(cpu_params)
+    if g is not None:
+        i = galore_state_index(tc)
+        refreshed = refresh_projectors(tree_map(torch.from_numpy, grads[0]), state0[i],
+                                       tc.galore)
+        state0 = state0[:i] + (refreshed,) + state0[i + 1:]
+    runs = {}
+    for where in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.detach().to(where), cpu_params)
+        # the state's key stays a CPU tensor, as prng_key makes it
+        state = tree_map(lambda t: t.to(where, copy=True) if isinstance(t, torch.Tensor)
+                         and t.dtype != torch.uint32 else t, state0)
+        opt = build_optimizer(tc)
+        before = _all_launches()
+        ups = []
+        for gs in grads:
+            upd, state = opt.update(tree_map(lambda a: torch.from_numpy(a).to(where), gs),
+                                    state, params)
+            ups.append(upd)
+        torch.cuda.synchronize()
+        assert _all_launches() == before, f"{form} launched a kernel on {where}"
+        runs[where] = [dict(tree_leaves_with_path(t)) for t in ups + [state]]
+    for want_t, got_t in zip(runs["cpu"], runs["cuda"]):
+        assert sorted(want_t) == sorted(got_t)
+        for k, want in want_t.items():
+            got = got_t[k]
+            if not isinstance(want, torch.Tensor):
+                assert got == want, k
+                continue
+            assert got.dtype == want.dtype and got.shape == want.shape, k
+            assert got.is_cuda == (want.dtype != torch.uint32), k
+            if not want.is_floating_point():  # counts and the key
+                assert torch.equal(got.cpu(), want), k
+                continue
+            err = float((got.cpu() - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+            assert err <= 1e-5, (k, err)
+    if form == "adafactor":
+        params = tree_map(lambda t: t.detach().to(dev), cpu_params)
+        opt = scale_by_adafactor()
+        state = opt.init(params)
+        gs = tree_map(lambda a: torch.from_numpy(a).to(dev), grads[0])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            opt.update(gs, state)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+def test_cuda_lora_step_matches_cpu():
+    """One step of the LoRA loop (benchmarks/table2_methods.py::_train_lowrank's
+    merge → loss → adaptor gradients → Adam → −lr), llama_60m at full width
+    (2 layers, f32, r = 64), B drawn non-zero so A and B both move, on the
+    card and on a CPU copy: the loss within 1e-5 relative, the adaptor
+    gradients and Adam's m and v within 1e-5·max of the CPU's, and the
+    stepped adaptors within 1e-5·max wherever the gradient is above
+    1e-4·max|g| (below it, rounding decides the sign of Adam's normalised
+    first step, ±lr either way), no kernel launched."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticC4
+    from repro_torch.models import model as TM
+    from repro_torch.optim import lowrank
+    from repro_torch.optim.adam import scale_by_adam
+    from repro_torch.optim.transform import apply_updates
+    from repro_torch.utils import tree_leaves_with_path, tree_map
+
+    _cuda_device()
+    cfg = _f32_llama60m()
+    lcfg = lowrank.LoraConfig(rank=64, alpha=32)
+    cpu_params = TM.init_params(cfg, seed=0, device="cpu")
+    cpu_ad = lowrank.init_adaptors(cpu_params, lcfg, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for k, t in tree_leaves_with_path(cpu_ad):
+            if k.endswith(".B"):
+                t.copy_(0.02 * torch.randn(t.shape, generator=gen))
+    batch = SyntheticC4(DataConfig(vocab_size=cfg.vocab_size, seq_len=64, batch_per_host=4),
+                        device="cpu").batch(0)
+    runs = {}
+    for where in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.detach().to(where), cpu_params)
+        ad = tree_map(lambda t: t.detach().to(where, copy=True).requires_grad_(t.requires_grad),
+                      cpu_ad)
+        opt = scale_by_adam()
+        st = opt.init(ad)
+        before = _all_launches()
+        loss, _ = TM.loss_fn(cfg, lowrank.merge(params, ad, lcfg),
+                             {k: v.to(where) for k, v in batch.items()})
+        grads = lowrank.adaptor_grads(loss, ad)
+        with torch.no_grad():
+            upd, st = opt.update(grads, st, ad)
+            apply_updates(ad, tree_map(lambda u: -1e-3 * u, upd))
+        assert _all_launches() == before
+        runs[where] = (float(loss.detach()),
+                       {k: t.detach().cpu() for k, t in tree_leaves_with_path(
+                           {"ad": ad, "g": grads, "m": st["m"], "v": st["v"]})})
+    assert abs(runs["cuda"][0] - runs["cpu"][0]) <= 1e-5 * abs(runs["cpu"][0])
+    want, got = runs["cpu"][1], runs["cuda"][1]
+    for k in want:
+        w, g = want[k], got[k]
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        err = (g - w).abs()
+        if w.ndim < 2:  # a placeholder of an unadapted leaf: 0, its step 0
+            assert not g.any() and not w.any(), k
+            continue
+        if k.startswith("ad."):  # the stepped adaptor: where the data decide its sign
+            grad = want["g." + k[3:]].abs()
+            err = err[grad > 1e-4 * float(grad.max())]
+        bound = 1e-5 * float(w.abs().max())
+        assert float(err.max()) <= bound, (k, float(err.max()) / bound)
+
+
+@pytest.mark.cuda
+def test_cuda_apply_after_refresh_matches_emit():
+    """The W-in-place step across mid-run refreshes: llama_60m at full width
+    (2 layers, bf16, r = 128) trained 6 steps at T = 2 (refreshes at steps
+    0, 2 and 4) through galore_fused_apply and through the fused emit step:
+    the apply run launches only the apply kernels (6 left leaves and 1 right
+    leaf a step), and its losses are within 5e-2 of the emit run's."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs.base import GaLoreConfig, TrainConfig, get_config
+    from repro_torch.launch.train import RunConfig, train_loop
+
+    dev = _cuda_device()
+    cfg = dataclasses.replace(get_config("llama_60m"), n_layers=2)
+    runs = {}
+    for apply in (False, True):
+        tc = TrainConfig(galore=GaLoreConfig(rank=128, update_freq=2, scale=0.25),
+                         galore_fused_adam=True, galore_fused_apply=apply, weight_decay=0.01,
+                         total_steps=6, warmup_steps=1)
+        ops.reset_launch_counts()
+        losses = []
+        with tempfile.TemporaryDirectory() as ckpt:
+            train_loop(RunConfig(steps=6, batch_per_host=4, seq_len=64, log_every=100,
+                                 ckpt_every=0, ckpt_dir=ckpt, device=str(dev)),
+                       tc, cfg=cfg, on_step=lambda s, m: losses.append(float(m["loss"])))
+        launched = {fn.__name__: fn.launches for fn in tk.WRAPPERS if fn.launches}
+        want = ({"galore_fused_adam_apply_step": 36, "galore_fused_adam_apply_step_right": 6}
+                if apply else {"galore_fused_adam_step": 36, "galore_fused_adam_step_right": 6})
+        assert launched == want, (apply, launched)
+        runs[apply] = losses
+    assert all(np.isfinite(runs[True]))
+    np.testing.assert_allclose(runs[True], runs[False], rtol=0, atol=5e-2)
