@@ -106,6 +106,24 @@ Phases, each timed, none of them optional; any failed check raises:
      adaptive T from T = 4: every refresh's period and next by the
      reference's rule, within t_bounds), each with its launches, state
      bytes within 0.01 % and peak memory;
+  10c. serving (the engine over the paged KV cache; no kernel, the
+     reference's serving path reaches no Pallas call): [serve-f32] at
+     llama_7b width, 2 layers, f32 (a config copy): six greedy requests
+     (prompts of 1 … 480 tokens) token-identical to the full-forward rollout
+     and each emitted token's logits within 1e-4·max of the full forward's,
+     with prefill chunks of 32 and 512; a padded last chunk past the block
+     table (cap 500, chunk 96, a 499-token prompt: the full forward's token);
+     a 39-block pool that forces recompute preemption (the uncontended
+     tokens, every block back). [serve]: the full 32-layer llama_7b in bf16,
+     8 lanes, eight requests of 64 … 1536 prompt tokens (two sampled), 32
+     tokens each: a timed run (prefill tokens/s and decode ms a step by CUDA
+     events around each step call, TTFT and latency per request, the pool's
+     bytes = pool_bytes, peak memory) and a recorded run whose greedy logits
+     are held against the contiguous-cache steps fed the same tokens
+     (SERVE_GATE_BF16). [serve-ckpt]: the fused phase's final state, saved at
+     step 8, restored through launch/serve.py::load_checkpoint_params bit
+     for bit and served (bf16 logits within the gate; in f32, tokens equal
+     to the contiguous steps'). The serve CLI once, in process;
   11. record: the SVD refresh time at ranks 128 and 1024, step times and
      peak memory of every phase (the paper's 7B memory comparison, 8-bit
      GaLore at r = 1024 beside 8-bit Adam, Adafactor and AdamW, on one
@@ -1712,6 +1730,360 @@ def baseline_phases(phases, none):
 
 
 
+# ---------------------------------------------------------------------------
+# serving (the engine over the paged KV cache; no kernel: the reference's
+# serving path reaches no Pallas call)
+# ---------------------------------------------------------------------------
+
+
+# logits of the bf16 engine against the contiguous-cache steps, × max|logits|:
+# the f32 engine sits 5.6e-6 from the full forward ([serve-f32]), so the paged
+# arithmetic adds nothing; in bf16 the two paths' differently shaped GEMMs
+# round apart, 1.84e-2–2.11e-2 through the full llama_7b's 32 layers (H100
+# 80GB HBM3, PERF.md §6): 3e-2 is ≈ 16 bf16 unit roundoffs (2^-9)
+SERVE_GATE_BF16 = 3e-2
+
+
+class EngineRecorder:
+    """Wraps an Engine's two steps to keep, for every emitted token, the
+    logits it was taken from — {(request_id, k): (V,) f32 on the card} for the
+    k-th generated token — read from the engine's own lane state at each call
+    (which lanes finish their prompt in a prefill call; which decode), and,
+    with `timed`, CUDA events around every call (no host synchronisation):
+    `prefill_ms` and `decode_ms` are each call's device time."""
+
+    def __init__(self, engine, record=True, timed=False):
+        self.engine, self.logits = engine, {}
+        self.timed = timed
+        self.prefill_ms, self.decode_ms, self._events = [], [], []
+        prefill, decode = engine._prefill, engine._decode
+        C = engine.scfg.prefill_chunk
+
+        def lanes(pending):
+            return [(i, w) for i, w in enumerate(engine._slots) if w is not None
+                    and (w.prefilled < len(w.tokens)) == pending]
+
+        def rec_prefill(params, kv, bt, pos0, chunk):
+            ev = self._start()
+            logits, kv = prefill(params, kv, bt, pos0, chunk)
+            self._stop(ev, "prefill")
+            if not record:
+                return logits, kv
+            rows = bt.any(dim=1).tolist()  # the lanes in this call
+            for i, w in lanes(True):
+                c = min(C, len(w.tokens) - w.prefilled)
+                if rows[i] and w.prefilled + c == len(w.tokens):
+                    self.logits[(w.req.request_id, len(w.tokens) - len(w.req.tokens))] = \
+                        logits[i, c - 1].float().clone()
+            return logits, kv
+
+        def rec_decode(params, kv, bt, pos, toks):
+            ev = self._start()
+            logits, nxt, kv = decode(params, kv, bt, pos, toks)
+            self._stop(ev, "decode")
+            if record:
+                rows = bt.any(dim=1).tolist()
+                for i, w in lanes(False):
+                    if rows[i]:
+                        self.logits[(w.req.request_id, w.n_generated)] = logits[i].float().clone()
+            return logits, nxt, kv
+
+        self._steps = (prefill, decode)
+        engine._prefill, engine._decode = rec_prefill, rec_decode
+
+    def detach(self):
+        """The engine's own steps back (the wrappers and the engine hold one
+        another: without this the pool outlives the run until a collection)."""
+        self.engine._prefill, self.engine._decode = self._steps
+
+    def _start(self):
+        if not self.timed:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _stop(self, start, kind):
+        if start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self._events.append((kind, start, end))
+
+    def times(self):
+        torch.cuda.synchronize()
+        for kind, a, b in self._events:
+            (self.prefill_ms if kind == "prefill" else self.decode_ms).append(a.elapsed_time(b))
+        self._events.clear()
+
+
+def serve_run(cfg, params, scfg, reqs, record=True, timed=False):
+    """Drain `reqs` through a fresh Engine; returns its completions (in
+    request order), the engine and its recorder. Every block comes back."""
+    from repro_torch.serve import Engine
+
+    eng = Engine(cfg, params, scfg)
+    recorder = EngineRecorder(eng, record=record, timed=timed)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ids = [eng.submit(r) for r in reqs]
+    eng.run_until_drained(timeout_s=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    recorder.times()
+    recorder.detach()
+    eng.alloc.check_invariants()
+    if eng.alloc.num_free != scfg.num_blocks - 1:
+        raise AssertionError(f"[serve] {scfg.num_blocks - 1 - eng.alloc.num_free} blocks "
+                             f"not returned")
+    return [eng.result(i) for i in ids], eng, recorder, wall
+
+
+def full_forward_rollout(cfg, params, prompt, n):
+    """Greedy rollout by the full forward (no cache): tokens and the logits
+    each was taken from."""
+    from repro_torch.models.model import forward
+
+    toks, rows = list(prompt), []
+    with torch.inference_mode():
+        for _ in range(n):
+            last = forward(cfg, params, {"tokens": torch.tensor([toks], device="cuda")})[0, -1]
+            rows.append(last.float())
+            toks.append(int(last.argmax()))
+    return toks[len(prompt):], rows
+
+
+def contiguous_logits(cfg, params, prompt, tokens, max_len):
+    """The contiguous-cache steps at batch 1 (make_prefill_step, then
+    make_decode_step at rising positions), fed the engine's own `tokens`: the
+    logits each of them was taken from, and the steps' own greedy picks."""
+    from repro_torch.distributed.step import make_decode_step, make_prefill_step
+    from repro_torch.models.model import init_cache
+
+    cache = init_cache(cfg, 1, max_len, device="cuda")
+    last, cache = make_prefill_step(cfg)(params, cache,
+                                         {"tokens": torch.tensor([prompt], device="cuda")})
+    rows, picks = [last[0].float()], [int(last[0].argmax())]
+    decode = make_decode_step(cfg, with_logits=True)
+    for k, tok in enumerate(tokens[:-1]):
+        nxt, last, cache = decode(params, cache, torch.tensor([[tok]], device="cuda"),
+                                  len(prompt) + k)
+        rows.append(last[0].float())
+        picks.append(int(nxt[0]))
+    del cache
+    return rows, picks
+
+
+def logits_gap(recorder, comp, want_rows):
+    """max over a completion's tokens of max|engine logits − want| / max|want|."""
+    gap = 0.0
+    for k, want in enumerate(want_rows):
+        got = recorder.logits[(comp.request_id, k)]
+        gap = max(gap, float((got - want).abs().max()) / float(want.abs().max()))
+    return gap
+
+
+def serve_prompts(rng, lengths, vocab):
+    return [tuple(int(t) for t in rng.integers(0, vocab, n)) for n in lengths]
+
+
+def serve_f32_phase():
+    """[serve-f32]: the engine at llama_7b width, 2 layers, f32: greedy tokens
+    identical to the full-forward rollout and each emitted token's logits
+    within 1e-4·max|logits| of the full forward's, with prefill chunks of 32
+    and of 512; the padded chunk past the block table; a tight pool forcing
+    recompute preemption. Returns the largest logits gap (it sets the bf16
+    phase's gate beside bf16 rounding)."""
+    from repro_torch.serve import Request, ServeConfig
+
+    cfg = dataclasses.replace(get_config("llama_7b"), n_layers=2, dtype="float32")
+    params = init_params(cfg, seed=0, device="cuda")
+    prompts = serve_prompts(np.random.default_rng(11), (1, 17, 100, 255, 300, 480),
+                            cfg.vocab_size)
+    want = [full_forward_rollout(cfg, params, p, 16) for p in prompts]
+    reqs = lambda: [Request(tokens=p, max_new=16) for p in prompts]  # noqa: E731
+    worst = 0.0
+    for chunk in (32, 512):
+        scfg = ServeConfig(block_size=16, num_blocks=257, slots=4, max_len_cap=512,
+                           prefill_chunk=chunk)
+        comps, eng, rec, wall = serve_run(cfg, params, scfg, reqs())
+        gaps = []
+        for c, (toks, rows) in zip(comps, want):
+            if list(c.tokens) != toks:
+                raise AssertionError(f"[serve-f32] chunk {chunk}: request of {c.prompt_len} "
+                                     f"tokens gave {list(c.tokens)}, the full forward {toks}")
+            gaps.append(logits_gap(rec, c, rows))
+        worst = max(worst, max(gaps))
+        log(f"[serve-f32] chunk {chunk}: {len(comps)} requests (prompts "
+            f"{[c.prompt_len for c in comps]}) token-identical to the full-forward rollout; "
+            f"logits max|Δ|/max|logits| {max(gaps):.2e} (limit 1e-4); {eng.stats}; "
+            f"{wall:.2f} s")
+        if max(gaps) > 1e-4:
+            raise AssertionError(f"[serve-f32] chunk {chunk}: logits gaps {gaps} > 1e-4")
+    # a padded last chunk past the table: cap 500 → 32 blocks of 16 (512
+    # slots); chunks of 96 over 499 tokens end at 480 + 96 = 576 > 512 (the
+    # reference clamps 512 … 575 onto block 31, over real tokens 496 … 498)
+    (prompt,) = serve_prompts(np.random.default_rng(12), (499,), cfg.vocab_size)
+    toks, rows = full_forward_rollout(cfg, params, prompt, 1)
+    scfg = ServeConfig(block_size=16, num_blocks=64, slots=2, max_len_cap=500, prefill_chunk=96)
+    (c,), eng, rec, _ = serve_run(cfg, params, scfg, [Request(tokens=prompt, max_new=1)])
+    gap = logits_gap(rec, c, rows)
+    if list(c.tokens) != toks or gap > 1e-4:
+        raise AssertionError(f"[serve-f32] padded chunk past the table: token {c.tokens} vs "
+                             f"{toks}, logits gap {gap:.2e}")
+    log(f"[serve-f32] padded chunk past the table (cap 500, chunk 96, 499-token prompt): token "
+        f"{c.tokens[0]} = the full forward's, logits gap {gap:.2e}")
+    # a tight pool: 39 usable blocks for requests of up to 31, four at a time
+    roomy = ServeConfig(block_size=16, num_blocks=257, slots=4, max_len_cap=512,
+                        prefill_chunk=32)
+    tight = dataclasses.replace(roomy, num_blocks=40)
+    comps, eng, _, _ = serve_run(cfg, params, tight, reqs(), record=False)
+    if [list(c.tokens) for c in comps] != [w[0] for w in want]:
+        raise AssertionError("[serve-f32] tight pool: tokens differ from the uncontended run's")
+    if eng.stats["preemptions"] < 1:
+        raise AssertionError(f"[serve-f32] tight pool: no preemption ({eng.stats})")
+    log(f"[serve-f32] tight pool (39 blocks): {eng.stats['preemptions']} recompute "
+        f"preemptions (per request {[c.preemptions for c in comps]}), tokens equal the "
+        f"uncontended run's, invariants hold, every block back; peak blocks "
+        f"{eng.alloc.peak_used}")
+    del params, eng
+    torch.cuda.empty_cache()
+    return worst
+
+
+def serve_phase(f32_gap):
+    """[serve]: the full llama_7b (32 layers, bf16) behind the engine: eight
+    requests (prompts of 64 … 1536 tokens, six greedy and two sampled), 32
+    tokens each; a timed run (CUDA events around every step call, no host
+    synchronisation added), then a recorded run whose greedy requests' logits
+    are held against the contiguous-cache steps fed the same tokens."""
+    from repro_torch.serve import Request, ServeConfig
+    from repro_torch.serve.kv_cache import pool_bytes
+
+    cfg = get_config("llama_7b")
+    t = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[serve] llama_7b: {cfg.n_layers} layers, {sum(p.numel() for p in tree_leaves(params))} "
+        f"parameters, {cfg.dtype}, initialised in {time.perf_counter() - t:.1f} s")
+    lengths = (64, 200, 400, 640, 900, 1100, 1300, 1536)
+    prompts = serve_prompts(np.random.default_rng(13), lengths, cfg.vocab_size)
+    sampled = {6: 1, 7: 2}  # request index -> seed (temperature 0.8, top_k 50)
+    reqs = lambda: [Request(tokens=p, max_new=32,  # noqa: E731
+                            **(dict(temperature=0.8, top_k=50, seed=sampled[i])
+                               if i in sampled else {}))
+                    for i, p in enumerate(prompts)]
+    scfg = ServeConfig(block_size=16, num_blocks=1025, slots=8, max_len_cap=2048,
+                       prefill_chunk=256)
+    serve_run(cfg, params, scfg, reqs()[:2], record=False)  # warm-up
+    comps, eng, rec, wall = serve_run(cfg, params, scfg, reqs(), record=False, timed=True)
+    pool = sum(t.nbytes for t in eng.kv.values())
+    if pool != pool_bytes(cfg, scfg.num_blocks, scfg.block_size) or pool != eng.pool_hbm_bytes:
+        raise AssertionError(f"[serve] pool tensors {pool} B, pool_bytes "
+                             f"{pool_bytes(cfg, scfg.num_blocks, scfg.block_size)} B")
+    for c in comps:
+        if c.finish_reason != "max_new" or len(c.tokens) != 32:
+            raise AssertionError(f"[serve] request of {c.prompt_len} tokens: "
+                                 f"{c.finish_reason}, {len(c.tokens)} tokens")
+    prompt_tokens = sum(lengths)
+    log(f"[serve] 8 requests × 32 tokens in {wall:.2f} s; {eng.stats}; prefill "
+        f"{len(rec.prefill_ms)} calls, {sum(rec.prefill_ms):.1f} ms of device time for "
+        f"{prompt_tokens} prompt tokens ({prompt_tokens / sum(rec.prefill_ms) * 1e3:.0f} "
+        f"tokens/s); decode {len(rec.decode_ms)} steps, median "
+        f"{statistics.median(rec.decode_ms):.2f} ms a step (min {min(rec.decode_ms):.2f}, "
+        f"max {max(rec.decode_ms):.2f}); KV pool {pool / 1e6:.1f} MB; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for i, c in enumerate(comps):
+        log(f"[serve]   request {c.prompt_len:5d} tokens{' (sampled)' if i in sampled else ''}: "
+            f"ttft {c.ttft_s * 1e3:.1f} ms, latency {c.latency_s * 1e3:.1f} ms")
+    timed_tokens = [c.tokens for c in comps]
+    del eng, rec
+    comps, eng, rec, _ = serve_run(cfg, params, scfg, reqs())
+    if [c.tokens for c in comps] != timed_tokens:
+        raise AssertionError("[serve] the recorded run's tokens differ from the timed run's")
+    gaps, flips = [], 0
+    for i, (c, p) in enumerate(zip(comps, prompts)):
+        if i in sampled:
+            continue
+        rows, picks = contiguous_logits(cfg, params, p, list(c.tokens), scfg.max_len_cap)
+        gaps.append(logits_gap(rec, c, rows))
+        flips += sum(a != b for a, b in zip(picks, c.tokens))
+    gate = SERVE_GATE_BF16
+    log(f"[serve] greedy logits vs the contiguous-cache steps (batch 1, fed the engine's "
+        f"tokens): max|Δ|/max|logits| per request {[f'{g:.2e}' for g in gaps]} (gate "
+        f"{gate:g}; the f32 engine's gap {f32_gap:.2e}); contiguous greedy picks differing "
+        f"from the engine's tokens: {flips} of {32 * len(gaps)}")
+    if max(gaps) > gate:
+        raise AssertionError(f"[serve] bf16 logits gaps {gaps} > {gate}")
+    del params, eng, rec
+    torch.cuda.empty_cache()
+
+
+def save_for_serving(root, params, opt_state):
+    """The fused phase's final state as train_loop writes it ({"params",
+    "opt_state"}), at step 8 (the steps taken), for [serve-ckpt]; returns a
+    host copy of its params."""
+    CheckpointManager(root, async_save=False).save(
+        8, {"params": params, "opt_state": opt_state}, block=True)
+    return tree_map(lambda t: t.detach().cpu(), params)
+
+
+def serve_ckpt_phase(root, host_params):
+    """[serve-ckpt]: the fused phase's step-8 checkpoint through
+    launch/serve.py::load_checkpoint_params (the params group only), bit for
+    bit the phase's final params; two greedy requests served from it in bf16,
+    logits within the bf16 gate of the contiguous steps', and from the same
+    params in f32 (exactly upcast), tokens equal to the contiguous steps' and
+    logits within 1e-4."""
+    from repro_torch.launch.serve import load_checkpoint_params
+    from repro_torch.serve import Request, ServeConfig
+
+    cfg = dataclasses.replace(get_config("llama_7b"), n_layers=2)
+    t = time.perf_counter()
+    params, step = load_checkpoint_params(cfg, root)
+    torch.cuda.synchronize()
+    got = dict(tree_leaves_with_path(params))
+    want = dict(tree_leaves_with_path(host_params))
+    if step != 8 or sorted(got) != sorted(want):
+        raise AssertionError(f"[serve-ckpt] step {step}, leaves {sorted(got)}")
+    for k, w in want.items():
+        if got[k].dtype != w.dtype or not torch.equal(got[k].cpu(), w):
+            raise AssertionError(f"[serve-ckpt] leaf {k} is not the phase's bit for bit")
+    log(f"[serve-ckpt] restored step {step} ({len(got)} params leaves, bit for bit the fused "
+        f"phase's final params) in {time.perf_counter() - t:.1f} s")
+    prompts = serve_prompts(np.random.default_rng(14), (40, 300), cfg.vocab_size)
+    scfg = ServeConfig(block_size=16, num_blocks=65, slots=2, max_len_cap=512, prefill_chunk=64)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tree_map(lambda t: t.detach().float(), params)
+    for tag, c_, p_, gate in (("bf16", cfg, params, SERVE_GATE_BF16),
+                              ("f32", cfg32, params32, 1e-4)):
+        comps, _, rec, _ = serve_run(c_, p_, scfg, [Request(tokens=p, max_new=16)
+                                                    for p in prompts])
+        gaps, flips = [], 0
+        for c, p in zip(comps, prompts):
+            rows, picks = contiguous_logits(c_, p_, p, list(c.tokens), scfg.max_len_cap)
+            gaps.append(logits_gap(rec, c, rows))
+            flips += sum(a != b for a, b in zip(picks, c.tokens))
+        log(f"[serve-ckpt] {tag}: 2 greedy requests, logits max|Δ|/max|logits| vs the "
+            f"contiguous steps {[f'{g:.2e}' for g in gaps]} (limit {gate:g}); contiguous picks "
+            f"differing from the engine's tokens: {flips} of 32")
+        if max(gaps) > gate or (tag == "f32" and flips):
+            raise AssertionError(f"[serve-ckpt] {tag}: logits gaps {gaps}, {flips} tokens "
+                                 f"differ from the contiguous steps'")
+    del params, params32
+    torch.cuda.empty_cache()
+
+
+def serve_cli_phase():
+    """The serving CLI in process at the smoke size, on the card."""
+    from repro_torch.launch import serve as serve_cli
+
+    t = time.perf_counter()
+    serve_cli.main(["--arch", "llama_60m", "--max-new", "8"])
+    log(f"[serve-cli] python -m repro_torch.launch.serve --arch llama_60m --max-new 8: done "
+        f"({time.perf_counter() - t:.1f} s)")
+
+
 def main():
     t_all = time.perf_counter()
     t = time.perf_counter()
@@ -1762,11 +2134,16 @@ def main():
     # the fused phase checkpoints at step 4 into a directory of its own, which
     # the [ckpt] resume below reads; its final state goes through the manager
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    ckpt_rows = []
+    # and its final state is written for [serve-ckpt] to serve from
+    serve_dir = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    ckpt_rows, served = [], []
+
+    def fused_state(p, s):
+        ckpt_rows.append(check_roundtrip("fused", p, s, int4=True))
+        served.append(save_for_serving(serve_dir, p, s))
+
     t = time.perf_counter()
-    fused = train_phase(fused=True, ckpt_dir=ckpt_dir, ckpt_every=4,
-                        on_state=lambda p, s: ckpt_rows.append(check_roundtrip("fused", p, s,
-                                                                               int4=True)))
+    fused = train_phase(fused=True, ckpt_dir=ckpt_dir, ckpt_every=4, on_state=fused_state)
     log(f"[fused] losses {[round(x, 4) for x in fused['losses']]} launches {fused['launches']} "
         f"({time.perf_counter() - t:.1f} s)")
     if not fused["losses"][-1] < fused["losses"][0]:
@@ -1998,6 +2375,22 @@ def main():
         f"{phases['adamw']['peak'] / 2**30:.2f} GiB; optimizer state "
         f"{phases['r1024-8bit']['state_bytes']} / {phases['adam8bit']['state_bytes']} / "
         f"{phases['adafactor']['state_bytes']} / {phases['adamw']['state_bytes']} B")
+
+    # serving: the engine at llama_7b width in f32, the full llama_7b in bf16,
+    # the fused phase's checkpoint served, and the CLI
+    t = time.perf_counter()
+    try:
+        f32_gap = serve_f32_phase()
+        log(f"[serve-f32] ({time.perf_counter() - t:.1f} s)")
+        t = time.perf_counter()
+        serve_phase(f32_gap)
+        log(f"[serve] ({time.perf_counter() - t:.1f} s)")
+        t = time.perf_counter()
+        serve_ckpt_phase(serve_dir, served[0])
+    finally:
+        shutil.rmtree(serve_dir, ignore_errors=True)
+    serve_cli_phase()
+    log(f"[serve-ckpt] and the CLI ({time.perf_counter() - t:.1f} s)")
 
     t = time.perf_counter()
     svd = svd_ms()

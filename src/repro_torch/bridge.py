@@ -1,7 +1,7 @@
 """numpy ⇄ torch bridge for parameter and optimizer-state trees (GaLore's
 state with its adaptive schedule and any inner state, the async refresh's
 pending buffer, the standalone 8-bit Adam's, Adafactor's, SGD's momentum
-trace, and LoRA adaptors).
+trace, and LoRA adaptors) and for the serving KV caches.
 
 The trees are nested dicts keyed like the JAX package's (``np.asarray`` of
 each leaf of a ``repro`` tree is a valid input), so a test can run the port on
@@ -139,3 +139,14 @@ def adaptors_from_numpy(adaptors, device):
 
     return tree_map(leaf, adaptors)
 
+
+def cache_from_numpy(cache, device):
+    """A KV cache from its numpy (or JAX) form — contiguous {"k", "v": (L, B,
+    T, KV, hd)} or the paged pool {"kp", "vp": (L, NB, bs, KV, hd)} — in its
+    own dtype on `device`, writable (the steps write it in place)."""
+    return tree_map(lambda a: _to_tensor(a, device), cache)
+
+
+def cache_to_numpy(cache):
+    """Either KV cache as numpy (bf16 as f32, exact)."""
+    return tree_map(_to_numpy, cache)

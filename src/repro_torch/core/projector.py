@@ -58,6 +58,23 @@ def sketch_width(rank: int, m: int, n: int) -> int:
     return min(rank + _OVERSAMPLE, m, n)
 
 
+def _svd_u(G32, rank):
+    """The top-`rank` left singular vectors of G32 (..., m, n), orthonormal.
+
+    On the CPU, LAPACK (no driver choice), as the reference computes it. On
+    CUDA, cuSOLVER's QR-based gesvd, its kept columns re-orthonormalised by
+    a Householder QR (same span; columns keep their signs): the default
+    driver (gesvdj) returns a U 1.6e-3–2.4e-3 off orthonormal at llama_7b
+    leaves and gesvd alone up to 1.6e-4 (a tall leaf), while gesvda,
+    orthonormal and 4–8× faster, fails to converge on a rank-deficient G —
+    which a batch of fewer tokens than a leaf's width gives in f32."""
+    if not G32.is_cuda:
+        return torch.linalg.svd(G32, full_matrices=False)[0][..., :rank]
+    U = torch.linalg.svd(G32, full_matrices=False, driver="gesvd")[0][..., :rank]
+    Q, R = torch.linalg.qr(U)
+    return Q * torch.sign(torch.diagonal(R, dim1=-2, dim2=-1)).unsqueeze(-2)
+
+
 def _qr_q(Y):
     return torch.linalg.qr(Y)[0]
 
@@ -73,8 +90,7 @@ def _randomized_projector(G32, rank, omega, power_iters):
     Q = _qr_q(Y)  # (..., m, s)
     if s == rank:
         return Q
-    U, _, _ = torch.linalg.svd(Q.transpose(-1, -2) @ G32, full_matrices=False)
-    return Q @ U[..., :rank]
+    return Q @ _svd_u(Q.transpose(-1, -2) @ G32, rank)
 
 
 def _gram_orthonormalize(Y):
@@ -120,8 +136,7 @@ def compute_projector(G: torch.Tensor, rank: int, *, method: str = "svd", sketch
     PRNGKey(0))."""
     G32 = G.float()
     if method == "svd":
-        U, _, _ = torch.linalg.svd(G32, full_matrices=False)
-        return U[..., :rank].contiguous()
+        return _svd_u(G32, rank).contiguous()
     if method not in METHODS:
         raise ValueError(f"unknown projector method {method!r}")
     m, n = G.shape[-2:]

@@ -2,7 +2,9 @@
 default, fused-apply and anomaly-guarded branches of
 repro/distributed/step.py::make_train_step and its ``_grads_and_loss``, and
 of the one-device forms of ``make_refresh_step``, ``make_async_refresh_step``
-and ``make_swap_step``). The sharded refresh, GaLore-DP compression and
+and ``make_swap_step``), and the serving steps: the contiguous-cache prefill
+and decode and the paged ones the engine batches (``make_paged_prefill_step``,
+``make_paged_decode_step``). The sharded refresh, GaLore-DP compression and
 ZeRO are not ported (ROADMAP A.9)."""
 from __future__ import annotations
 
@@ -223,3 +225,87 @@ def make_swap_step(cfg: ModelConfig, tc: TrainConfig):
         return opt_state[:idx] + (g,) + opt_state[idx + 1:]
 
     return swap_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """prefill(params, cache, batch) -> (last_logits (B, V), cache): the
+    prompt's K/V written at 0 of a contiguous cache (in place)."""
+
+    def prefill_step(params, cache, batch):
+        with torch.inference_mode():
+            logits, cache = M.forward_cached(cfg, params, batch, cache=cache, cache_pos=0)
+        return logits[:, -1], cache
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, *, with_logits: bool = False):
+    """decode(params, cache, tokens (B, 1), pos) -> (next_tokens (B,), cache):
+    one token a row written at `pos` of a contiguous cache, greedy. With
+    `with_logits` the step returns (next_tokens, last_logits (B, V), cache)."""
+
+    def decode_step(params, cache, tokens, pos):
+        with torch.inference_mode():
+            logits, cache = M.forward_cached(cfg, params, {"tokens": tokens}, cache=cache,
+                                             cache_pos=pos)
+            last = logits[:, -1]
+            next_tok = last.argmax(dim=-1).to(torch.int32)
+        return (next_tok, last, cache) if with_logits else (next_tok, cache)
+
+    return decode_step
+
+
+def _paged_layer_cache(cfg, kv, bt, pos):
+    """The per-call paged cache: the stacked pool and this call's block tables
+    and positions, given once for every layer (the reference broadcasts them
+    to L for its scan; the layer loop slices only the pool)."""
+    return {"kp": kv["kp"], "vp": kv["vp"], "bt": bt, "pos": pos}
+
+
+def _explicit_positions(cfg, pos_2d):
+    """Per-row rope positions (B, S) -> batch["positions"] for the forward
+    (standard rope: the positions themselves)."""
+    return pos_2d
+
+
+def make_paged_prefill_step(cfg: ModelConfig):
+    """paged_prefill(params, kv, bt, pos0, tokens) -> (logits (B, C, V), kv).
+
+    One prefill chunk a lane: tokens (B, C) holds a fixed-width slice of each
+    lane's prompt from its own offset pos0 — an int (every lane at one
+    offset) or a (B,) tensor — so the engine prefills every pending slot in
+    one batched call (lanes pad their last chunk). bt (B, nb) are per-lane
+    block tables; K/V go into the pool's blocks in place, and logits come
+    back for every chunk position."""
+
+    def prefill_step(params, kv, bt, pos0, tokens):
+        B, C = tokens.shape
+        with torch.inference_mode():
+            pos0 = torch.as_tensor(pos0, dtype=torch.int32, device=tokens.device)
+            pos0 = pos0.reshape(-1).expand(B)
+            pos_rows = pos0[:, None] + torch.arange(C, dtype=torch.int32, device=tokens.device)
+            batch = {"tokens": tokens, "positions": _explicit_positions(cfg, pos_rows)}
+            logits, _ = M.forward_cached(cfg, params, batch,
+                                         cache=_paged_layer_cache(cfg, kv, bt, pos0))
+        return logits, kv
+
+    return prefill_step
+
+
+def make_paged_decode_step(cfg: ModelConfig):
+    """paged_decode(params, kv, bt, pos, tokens) -> (last_logits (B, V), kv).
+
+    One token for every decode lane at once: tokens (B, 1), bt (B, nb), pos
+    (B,) — each row's write index and rope position, so lanes at unrelated
+    lengths batch into one call. Inactive lanes pass a block-table row of
+    zeros and pos 0: their K/V land in scratch block 0 and their logits are
+    discarded by the caller. Raw logits, so the engine samples per request."""
+
+    def decode_step(params, kv, bt, pos, tokens):
+        with torch.inference_mode():
+            batch = {"tokens": tokens, "positions": _explicit_positions(cfg, pos[:, None])}
+            logits, _ = M.forward_cached(cfg, params, batch,
+                                         cache=_paged_layer_cache(cfg, kv, bt, pos))
+        return logits[:, -1], kv
+
+    return decode_step

@@ -1,10 +1,16 @@
-"""Shared argparse helpers of the port's launchers (port of the subspace,
-quantized-state and checkpoint parts of repro/launch/cli.py)."""
+"""Shared argparse helpers of the port's launchers (port of the architecture,
+subspace, quantized-state and checkpoint parts of repro/launch/cli.py)."""
 from __future__ import annotations
 
 import argparse
 
 from repro_torch.quant import QuantPolicy
+
+
+def add_arch_flags(ap: argparse.ArgumentParser, default_arch: str = "llama_60m"):
+    ap.add_argument("--arch", default=default_arch)
+    ap.add_argument("--full", action="store_true", help="full-size config (default smoke)")
+    return ap
 
 
 def add_galore_subspace_flags(ap: argparse.ArgumentParser):
@@ -44,8 +50,11 @@ def add_quant_flags(ap: argparse.ArgumentParser):
 def add_ckpt_flags(ap: argparse.ArgumentParser, default_dir=None, save_flags: bool = True):
     """Checkpoint location (+ save cadence and file codec when `save_flags`)."""
     ap.add_argument("--ckpt-dir", default=default_dir,
-                    help="CheckpointManager root (a run resumes from the newest "
-                         "checkpoint it finds there)")
+                    help="CheckpointManager root" + (
+                        " (a run resumes from the newest checkpoint it finds there)"
+                        if save_flags else
+                        " to serve trained weights from (quantized int8/int4 "
+                        "file-codec checkpoints load directly)"))
     if save_flags:
         ap.add_argument("--ckpt-every", type=int, default=50)
         ap.add_argument("--ckpt-quantize", choices=["int8", "int4"], default=None,

@@ -535,8 +535,7 @@ def build_parser():
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train",
                                  description="GaLore training launcher, PyTorch port "
                                              "(smoke-scale by default)")
-    ap.add_argument("--arch", default="llama_60m")
-    ap.add_argument("--full", action="store_true", help="full-size config (default smoke)")
+    cli.add_arch_flags(ap)
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--optimizer", default="adamw",
                     choices=["adam", "adamw", "adam8bit", "adafactor", "sgd"],

@@ -1810,12 +1810,16 @@ def test_cuda_baseline_optimizer_steps_match_cpu(form):
     state: every update and every state leaf within 1e-5·max of the CPU's;
     no kernel is launched; and the Adafactor update makes no host
     synchronisation (its RMS clip stays on the device). GaLore-SGD's
-    projectors come from one external refresh on the CPU, handed to both
-    runs: on these leaves the card's SVD (torch.linalg.svd's default
-    cuSOLVER driver) agrees with LAPACK's only to ≈ 1e-4, which would set
-    the gate, not the update under test."""
+    projectors come from one external refresh on each device, the card's by
+    cuSOLVER's gesvd, the CPU's by LAPACK. Their bases differ by a rotation
+    within the subspace (column signs at least), so GaLore-SGD is held where
+    the basis cancels: the updates within 2e-5·max of the CPU's (a GaLore
+    update's gate), each projector's subspace overlap with the CPU's above
+    0.999, and the compact momentum as the back-projected P·M (M·Pᵀ on a
+    right leaf) within 2e-5·max."""
     from repro_torch.configs.base import GaLoreConfig, TrainConfig
     from repro_torch.core.galore import refresh_projectors
+    from repro_torch.core.projector import subspace_overlap
     from repro_torch.models import model as TM
     from repro_torch.optim.adafactor import scale_by_adafactor
     from repro_torch.optim.factory import build_optimizer, galore_state_index
@@ -1829,17 +1833,18 @@ def test_cuda_baseline_optimizer_steps_match_cpu(form):
     cpu_params = TM.init_params(_f32_llama60m(), seed=0, device="cpu")
     grads = [_planted_grads(cpu_params, seed) for seed in (21, 22)]
     state0 = build_optimizer(tc).init(cpu_params)
-    if g is not None:
-        i = galore_state_index(tc)
-        refreshed = refresh_projectors(tree_map(torch.from_numpy, grads[0]), state0[i],
-                                       tc.galore)
-        state0 = state0[:i] + (refreshed,) + state0[i + 1:]
-    runs = {}
+    runs, projs = {}, {}
     for where in ("cpu", "cuda"):
         params = tree_map(lambda t: t.detach().to(where), cpu_params)
         # the state's key stays a CPU tensor, as prng_key makes it
         state = tree_map(lambda t: t.to(where, copy=True) if isinstance(t, torch.Tensor)
                          and t.dtype != torch.uint32 else t, state0)
+        if g is not None:
+            i = galore_state_index(tc)
+            refreshed = refresh_projectors(
+                tree_map(lambda a: torch.from_numpy(a).to(where), grads[0]), state[i],
+                tc.galore)
+            state = state[:i] + (refreshed,) + state[i + 1:]
         opt = build_optimizer(tc)
         before = _all_launches()
         ups = []
@@ -1850,6 +1855,17 @@ def test_cuda_baseline_optimizer_steps_match_cpu(form):
         torch.cuda.synchronize()
         assert _all_launches() == before, f"{form} launched a kernel on {where}"
         runs[where] = [dict(tree_leaves_with_path(t)) for t in ups + [state]]
+        if g is not None:  # each projector out, its leaf's momentum back-projected
+            flat = runs[where][-1]
+            projs[where] = {k: flat.pop(k) for k in list(flat)
+                            if k.startswith(f"{i}.proj.") and flat[k].ndim >= 2}
+            for k, P in projs[where].items():
+                m = k.replace(".proj.", ".inner.", 1)
+                left = flat[m].shape[-2] == P.shape[-1]
+                flat[m] = P @ flat[m] if left else flat[m] @ P.transpose(-1, -2)
+    for k, P in projs.get("cpu", {}).items():
+        ov = subspace_overlap(projs["cuda"][k].cpu(), P)
+        assert float(ov.min()) > 0.999, (k, ov)
     for want_t, got_t in zip(runs["cpu"], runs["cuda"]):
         assert sorted(want_t) == sorted(got_t)
         for k, want in want_t.items():
@@ -1863,7 +1879,7 @@ def test_cuda_baseline_optimizer_steps_match_cpu(form):
                 assert torch.equal(got.cpu(), want), k
                 continue
             err = float((got.cpu() - want).abs().max()) / max(float(want.abs().max()), 1e-30)
-            assert err <= 1e-5, (k, err)
+            assert err <= (2e-5 if g is not None else 1e-5), (k, err)
     if form == "adafactor":
         params = tree_map(lambda t: t.detach().to(dev), cpu_params)
         opt = scale_by_adafactor()
@@ -1973,3 +1989,176 @@ def test_cuda_apply_after_refresh_matches_emit():
         runs[apply] = losses
     assert all(np.isfinite(runs[True]))
     np.testing.assert_allclose(runs[True], runs[False], rtol=0, atol=5e-2)
+
+
+# ---------------------------------------------------------------------------
+# the refresh's SVD on the card: an orthonormal P at every main-path leaf
+# ---------------------------------------------------------------------------
+
+
+def _rank_deficient(rng, lead, m, n, k):
+    A = rng.standard_normal(lead + (m, k)).astype(np.float32)
+    return (A @ rng.standard_normal(lead + (k, n)).astype(np.float32)) / np.float32(np.sqrt(k))
+
+
+# (name, shape, rank of G or None for full rank, ranks r to keep); llama_7b's
+# leaves as the main path stacks them (L = 2): attention, gate/up and down
+SVD_CASES = [("attn", (2, 4096, 4096), None, (128, 1024)),
+             ("mlp", (2, 4096, 11008), None, (128, 1024)),
+             ("down", (2, 11008, 4096), None, (128, 1024)),
+             ("ragged", (1000, 520), None, (128,)),
+             ("deficient-r128", (2, 4096, 4096), 64, (128,)),
+             ("deficient-r1024", (2, 4096, 4096), 512, (1024,))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SVD_CASES, ids=lambda c: c[0])
+def test_cuda_refresh_projector_orthonormal(case):
+    """compute_projector on the card (cuSOLVER gesvd): max|PᵀP − I| ≤ 1e-4
+    at every kept rank, and the kept subspace's overlap with f64 LAPACK's on
+    the same G above 0.999. For a G of rank k < r only the top k columns
+    have a defined subspace: the overlap is taken over them, orthonormality
+    over all r."""
+    from repro_torch.core.projector import compute_projector, subspace_overlap
+
+    dev = _cuda_device()
+    name, shape, k, ranks = case
+    rng = np.random.default_rng(5)
+    lead, (m, n) = shape[:-2], shape[-2:]
+    G = (rng.standard_normal(shape).astype(np.float32) if k is None
+         else _rank_deficient(rng, lead, m, n, k))
+    Gc = torch.from_numpy(G)
+    U64 = torch.linalg.svd(Gc.double(), full_matrices=False)[0]
+    for r in ranks:
+        P = compute_projector(Gc.to(dev), r)
+        assert P.is_cuda and P.shape == lead + (m, r) and P.dtype == torch.float32
+        P = P.cpu().double()
+        eye = torch.eye(r, dtype=torch.float64)
+        orth = float((P.transpose(-1, -2) @ P - eye).abs().max())
+        assert orth <= 1e-4, (name, r, orth)
+        kept = r if k is None else min(k, r)
+        ov = subspace_overlap(P[..., :kept], U64[..., :kept])
+        assert float(ov.min()) > 0.999, (name, r, ov)
+
+
+# ---------------------------------------------------------------------------
+# serving on the card: the paged steps and the engine against the CPU's
+# ---------------------------------------------------------------------------
+
+
+def _serve_model():
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as TM
+
+    cfg = get_config("llama_60m", smoke=True)  # f32, 2 layers, d 64
+    return cfg, TM.init_params(cfg, seed=1, device="cpu")
+
+
+@pytest.mark.cuda
+def test_cuda_paged_steps_match_cpu():
+    """Chunked paged prefill (chunk 3 over blocks of 4, per-lane pos0, an
+    inactive lane on scratch) and three batched decode steps on the card and
+    on the CPU from the same params, pool, tables and tokens: every real
+    position's logits and every block but scratch within 1e-5·max."""
+    from repro_torch.distributed.step import make_paged_decode_step, make_paged_prefill_step
+    from repro_torch.models import model as TM
+    from repro_torch.serve import BlockAllocator
+    from repro_torch.utils import tree_map
+
+    dev = _cuda_device()
+    cfg, cpu_params = _serve_model()
+    nb, C, NB = 8, 3, 16
+    rng = np.random.default_rng(4)
+    prompts = {0: rng.integers(0, cfg.vocab_size, 7), 1: rng.integers(0, cfg.vocab_size, 11)}
+    prefill, decode = make_paged_prefill_step(cfg), make_paged_decode_step(cfg)
+    runs = {}
+    for where in ("cpu", dev):
+        params = tree_map(lambda t: t.detach().to(where), cpu_params)
+        kv = TM.init_paged_cache(cfg, NB, 4, device=where)
+        alloc = BlockAllocator(NB, 4, nb)
+        done, out = {0: 0, 1: 0}, []
+        for turn in range(5):
+            chunk = np.zeros((3, C), np.int64)
+            bt = np.zeros((3, nb), np.int32)
+            pos0 = np.zeros((3,), np.int32)
+            real = {}
+            for lane, prompt in prompts.items():
+                if (lane == 1 and turn == 0) or done[lane] == len(prompt):
+                    continue
+                c = min(C, len(prompt) - done[lane])
+                alloc.ensure(lane, c)
+                chunk[lane, :c] = prompt[done[lane]: done[lane] + c]
+                bt[lane], pos0[lane], real[lane] = alloc.table_row(lane), done[lane], c
+            logits, kv = prefill(params, kv, torch.from_numpy(bt).to(where),
+                                 torch.from_numpy(pos0).to(where),
+                                 torch.from_numpy(chunk).to(where))
+            for lane, c in real.items():
+                out.append(logits[lane, :c].cpu())
+                alloc.advance(lane, c)
+                done[lane] += c
+        last = {0: 5, 1: 9}
+        for _ in range(3):
+            bt = np.zeros((3, nb), np.int32)
+            pos = np.zeros((3,), np.int32)
+            toks = np.zeros((3, 1), np.int64)
+            for lane in prompts:
+                alloc.ensure(lane, 1)
+                bt[lane], pos[lane], toks[lane, 0] = (alloc.table_row(lane), alloc.length(lane),
+                                                      last[lane])
+            logits, kv = decode(params, kv, torch.from_numpy(bt).to(where),
+                                torch.from_numpy(pos).to(where), torch.from_numpy(toks).to(where))
+            for lane in prompts:
+                out.append(logits[lane].cpu())
+                alloc.advance(lane, 1)
+        out += [kv["kp"][:, 1:].cpu(), kv["vp"][:, 1:].cpu()]
+        runs[str(where)] = out
+    for want, got in zip(runs["cpu"], runs[str(dev)]):
+        err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+        assert err <= 1e-5, err
+
+
+@pytest.mark.cuda
+def test_cuda_engine_greedy_matches_cpu():
+    """The Engine on the card gives the CPU engine's greedy tokens (chunked
+    prefill, two lanes, a preempting tight pool), and a steady greedy decode
+    step makes no host synchronisation (the last step's on-device argmax
+    feeds the next; tables cross from pinned memory without blocking)."""
+    from repro_torch.serve import Engine, Request, ServeConfig
+    from repro_torch.utils import tree_map
+
+    dev = _cuda_device()
+    cfg, cpu_params = _serve_model()
+    prompts = [(3, 1, 4, 1, 5), (2, 7, 1), tuple(range(9)), tuple(range(40, 71))]
+    runs = {}
+    for where in ("cpu", dev):
+        params = tree_map(lambda t: t.detach().to(where), cpu_params)
+        for scfg in (ServeConfig(block_size=4, num_blocks=32, slots=2, max_len_cap=64,
+                                 prefill_chunk=4),
+                     ServeConfig(block_size=2, num_blocks=24, slots=2, max_len_cap=48,
+                                 prefill_chunk=4)):
+            eng = Engine(cfg, params, scfg)
+            ids = [eng.submit(Request(tokens=p, max_new=8)) for p in prompts]
+            eng.run_until_drained(timeout_s=120)
+            eng.alloc.check_invariants()
+            assert eng.alloc.num_free == scfg.num_blocks - 1
+            runs[(str(where), scfg.num_blocks)] = (
+                [eng.result(i).tokens for i in ids], eng.stats["preemptions"])
+    for nblocks in (32, 24):
+        assert runs[(str(dev), nblocks)] == runs[("cpu", nblocks)], nblocks
+    assert runs[("cpu", 24)][1] >= 1 and runs[("cpu", 24)][0] == runs[("cpu", 32)][0]
+    params = tree_map(lambda t: t.detach().to(dev), cpu_params)
+    eng = Engine(cfg, params, ServeConfig(block_size=4, num_blocks=32, slots=2, max_len_cap=64,
+                                          prefill_chunk=8))
+    for p in prompts[:2]:
+        eng.submit(Request(tokens=p, max_new=12))
+    while eng.stats["decode_steps"] < 2:  # prefill, then the first (host-fed) decode step
+        eng.step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    done = eng.run_until_drained(timeout_s=60)
+    assert sorted(len(c.tokens) for c in done) == [12, 12]

@@ -91,7 +91,8 @@ def test_port_imports_no_jax():
                    "optim/adam8bit.py", "optim/quant8.py", "kernels/adam8bit_update.py",
                    "kernels/galore_project.py", "kernels/rmsnorm.py", "kernels/ops.py",
                    "checkpoint/manager.py", "robust/guard.py", "robust/faults.py",
-                   "robust/recovery.py"):
+                   "robust/recovery.py", "serve/__init__.py", "serve/api.py",
+                   "serve/kv_cache.py", "serve/engine.py", "launch/serve.py"):
         assert port / module in files, module
     bad = [
         f"{f.relative_to(ROOT)}: {mod}"
