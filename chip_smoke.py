@@ -124,6 +124,25 @@ Phases, each timed, none of them optional; any failed check raises:
      step 8, restored through launch/serve.py::load_checkpoint_params bit
      for bit and served (bf16 logits within the gate; in f32, tokens equal
      to the contiguous steps'). The serve CLI once, in process;
+  10d. the model families (family_phases): [moe-kernels] the fp32 apply
+     form of galore_epilogue's kernel on one whole 64-slab Llama-4 Scout
+     expert leaf a side against its plain version (apply_row's gates, a
+     chunk of slabs at a time; W' bitwise ref.apply_weight of its own G̃);
+     [moe] Llama-4 Scout at full width, 4 of 48 layers (one iRoPE group),
+     bf16, remat full, 8 GaLore steps r = 128, T = 8, randomized projector,
+     in the apply form a printed memory reckoning chooses: losses finite and
+     falling, aux_loss > 0 every step, apply left 32 and right 24 launches,
+     state bytes within 0.01 %, peak memory; [moe-dispatch] one Scout MoE
+     layer in f32 against the all-experts computation (y 1e-5·max,
+     gradients 1e-4·max); [mrope] Qwen2-VL at 2 of 28 layers: text
+     positions equal rope within 1e-6·max, a forward with 256 media
+     embeddings finite, 8 fp32 fused GaLore steps (left 32, right 24);
+     [serve-chunk] Scout's shape served across the 8,192 chunk boundary
+     against the contiguous steps (caches of 8,736 and 104 tokens): f32
+     within 1e-4·max and the same greedy picks, bf16 without experts within
+     SERVE_GATE_BF16 at every token, bf16 MoE at its median token;
+     [families] qwen2, granite, internlm2, minitron and grok-1 at 2 layers,
+     one forward and backward each, everything finite;
   11. record: the SVD refresh time at ranks 128 and 1024, step times and
      peak memory of every phase (the paper's 7B memory comparison, 8-bit
      GaLore at r = 1024 beside 8-bit Adam, Adafactor and AdamW, on one
@@ -1019,7 +1038,7 @@ def check_rmsnorm():
 
 def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=True, rank=128,
                 update_freq=8, ckpt_dir=None, ckpt_every=0, guard=False, faults=None,
-                on_state=None, galore_kw=None, tc_kw=None, units=None):
+                on_state=None, galore_kw=None, tc_kw=None, units=None, cfg=None, params=None):
     """8 steps of the main path (AdamW, wd 0.01; GaLore at `rank`, refreshed
     every `update_freq` steps; with `apply` the weight update folded into the
     kernels; `optimizer` adafactor the reference's GaLore-Adafactor; without
@@ -1035,22 +1054,26 @@ def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=
     the anomaly guard (with the fault specs `faults`); `on_state(params,
     opt_state)` sees the final state before it is freed. `galore_kw` and
     `tc_kw` add GaLoreConfig and TrainConfig fields (the refresh lifecycle's);
-    `units` (an SvdUnits) records the SVD units each step computed."""
-    cfg = dataclasses.replace(get_config("llama_7b"), n_layers=2)
+    `units` (an SvdUnits) records the SVD units each step computed. `cfg`
+    replaces llama_7b at 2 layers (another family's config) and `params` the
+    random init (train_loop's hook); each step's aux_loss is kept beside its
+    loss."""
+    cfg = cfg or dataclasses.replace(get_config("llama_7b"), n_layers=2)
     gcfg = (GaLoreConfig(rank=rank, update_freq=update_freq, scale=0.25,
                          quant=quant or QuantPolicy(), **(galore_kw or {})) if galore else None)
     tc = TrainConfig(optimizer=optimizer, galore=gcfg, galore_fused_adam=fused,
                      galore_fused_apply=apply, lr=1e-3, weight_decay=WD, total_steps=8,
                      warmup_steps=1, anomaly_guard=guard, **(tc_kw or {}))
     own_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_") if ckpt_dir is None else None
-    run = RunConfig(arch="llama_7b", smoke=False, steps=8, batch_per_host=8, seq_len=256,
+    run = RunConfig(arch=cfg.name, smoke=False, steps=8, batch_per_host=8, seq_len=256,
                     ckpt_dir=ckpt_dir or own_dir, ckpt_every=ckpt_every, log_every=1,
                     device="cuda")
-    steps, losses, times, step_units = [], [], [], []
+    steps, losses, aux, times, step_units = [], [], [], [], []
 
     def on_step(step, metrics):
         steps.append(step)
         losses.append(float(metrics["loss"]))
+        aux.append(float(metrics.get("aux_loss", 0.0)))
         times.append(metrics["step_s"])
         if units is not None:
             step_units.append(units.take())
@@ -1058,7 +1081,8 @@ def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     try:
-        params, opt_state, _, _ = train_loop(run, tc, cfg=cfg, on_step=on_step, faults=faults)
+        params, opt_state, _, _ = train_loop(run, tc, cfg=cfg, on_step=on_step, faults=faults,
+                                             params=params)
     finally:
         if own_dir is not None:
             shutil.rmtree(own_dir, ignore_errors=True)
@@ -1093,7 +1117,7 @@ def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=
     torch.cuda.empty_cache()
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"non-finite loss: {losses}")
-    return dict(steps=steps, losses=losses, times=times, launches=launches,
+    return dict(steps=steps, losses=losses, aux=aux, times=times, launches=launches,
                 thread_copy=thread_copy, thread_copy_epilogue=thread_copy_epilogue, peak=peak,
                 galore=galore, update_freq=update_freq, state_bytes=state_bytes,
                 analytic_bytes=analytic, quantized_leaves=quantized, units=step_units)
@@ -1873,13 +1897,19 @@ def contiguous_logits(cfg, params, prompt, tokens, max_len):
     return rows, picks
 
 
-def logits_gap(recorder, comp, want_rows):
-    """max over a completion's tokens of max|engine logits − want| / max|want|."""
-    gap = 0.0
+def token_gaps(recorder, comp, want_rows, vocab=None):
+    """For each of a completion's tokens, max|engine logits − want| / max|want|
+    over the first `vocab` columns (the pad columns' −1e30 left out)."""
+    gaps = []
     for k, want in enumerate(want_rows):
-        got = recorder.logits[(comp.request_id, k)]
-        gap = max(gap, float((got - want).abs().max()) / float(want.abs().max()))
-    return gap
+        got, want = recorder.logits[(comp.request_id, k)][:vocab], want[:vocab]
+        gaps.append(float((got - want).abs().max()) / float(want.abs().max()))
+    return gaps
+
+
+def logits_gap(recorder, comp, want_rows, vocab=None):
+    """The largest of token_gaps."""
+    return max(token_gaps(recorder, comp, want_rows, vocab))
 
 
 def serve_prompts(rng, lengths, vocab):
@@ -2082,6 +2112,357 @@ def serve_cli_phase():
     serve_cli.main(["--arch", "llama_60m", "--max-new", "8"])
     log(f"[serve-cli] python -m repro_torch.launch.serve --arch llama_60m --max-new 8: done "
         f"({time.perf_counter() - t:.1f} s)")
+
+
+# ---------------------------------------------------------------------------
+# the attention-decoder families: MoE with chunked iRoPE attention (Llama-4
+# Scout), M-RoPE (Qwen2-VL), and the dense and grok-1 configs
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "llama4_scout_17b_a16e"
+# Llama-4 Scout's expert leaves at 4 of 48 layers, each 4 × 16 experts = 64
+# slabs: gate (and up) projected on the left at r = 128, down on the right
+EXPERT_SHAPES = [("left", 64, 5120, 128, 8192), ("right", 64, 8192, 128, 5120)]
+EXPERT_CHUNK = 8  # slabs a comparison: a whole leaf's f64 comparison would not fit
+FAMILY_ARCHS = ("qwen2_7b", "granite_20b", "internlm2_20b", "minitron_4b", "grok_1_314b")
+
+
+def gb(nbytes):
+    return f"{nbytes / 1e9:.1f} GB"
+
+
+def check_expert_apply():
+    """lowrank_adam_kernel's fp32 apply form (the [moe] phase's step form) on
+    one whole 64-slab expert leaf a side, G and W bf16, P f32: W' and the
+    moments against the plain version at apply_row's gates, EXPERT_CHUNK
+    slabs at a time (each chunk's own max in the tolerances), W' bit for bit
+    ref.apply_weight of the kernel's own G̃, two launches on the same inputs
+    bitwise equal, W updated in place; the kernel timed on the whole leaf,
+    the plain version over its chunks (summed)."""
+    count = torch.tensor(COUNT, dtype=torch.int32, device="cuda")
+    eta = torch.tensor(ETA, device="cuda")
+    hp = dict(alpha=ALPHA, eta=eta, wd=WD)
+    rows = []
+    for i, (side, L, m, r, n) in enumerate(EXPERT_SHAPES):
+        key = "apply_" + side
+        k = KERNELS[key]
+        P, G, M, V, _ = kernel_inputs(side, L, m, r, n, torch.bfloat16, seed=300 + i)
+        gen = torch.Generator(device="cuda").manual_seed(310 + i)
+        W = (0.02 * torch.randn(L, m, n, generator=gen, device="cuda")).to(torch.bfloat16)
+        w0, mine = W.clone(), (M.clone(), V.clone())
+        before = thread_copies()
+        got = k["wrapper"](P, G, W, *mine, count, **hp)
+        torch.cuda.synchronize()
+        tag = (f"{k['name']} expert leaf L={L} (m,r,n)=({m},{r},{n}) G bfloat16 W bfloat16 "
+               f"{route(before)}")
+        if got[0] is not W:
+            raise AssertionError(f"{tag}: the wrapper did not return W itself")
+        W2 = w0.clone()
+        again = k["wrapper"](P, G, W2, M.clone(), V.clone(), count, **hp)
+        torch.cuda.synchronize()
+        if not (torch.equal(W, W2) and all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))):
+            raise AssertionError(f"{tag}: two launches on the same inputs differ")
+        del W2, again
+        gt_own = own_gt(k["wrapper"], P, G, (M, V), count)
+        w_err = mom_err = plain_ms = 0.0
+        notes = []
+        for c in range(0, L, EXPERT_CHUNK):
+            sl = slice(c, c + EXPERT_CHUNK)
+            if not torch.equal(W[sl], apply_weight(w0[sl], gt_own[sl], eta, WD)):
+                raise AssertionError(f"{tag} slabs {c}+: W' differs from ref.apply_weight of the "
+                                     f"kernel's own G̃")
+            want = k["plain"](P[sl], G[sl], w0[sl], M[sl], V[sl], count, **hp)
+            e, note = weight_check(W[sl], want[0], w0[sl], f"{tag} slabs {c}+")
+            w_err = max(w_err, e)
+            notes.append(note.removeprefix("; "))
+            for name, a, b in zip(("m", "v"), got[1:], want[1:]):
+                a = a[sl]
+                if bool(((a - b).abs() > 1e-5 * b.abs().max() + 1e-5 * b.abs()).any()):
+                    raise AssertionError(f"{tag} slabs {c}+ {name}: max|err| "
+                                         f"{float((a - b).abs().max()):.3e} over tolerance")
+                mom_err = max(mom_err, float((a - b).abs().max()))
+            del want
+            plain_ms += cuda_ms(lambda: k["plain"](P[sl], G[sl], w0[sl], M[sl], V[sl], count,
+                                                   **hp), 1, 3)
+        del gt_own
+        ms = cuda_ms(lambda: k["wrapper"](P, G, W, *mine, count, **hp), 3, 10)
+        b_s, b_by, b_f32 = bound(side, L, m, r, n, 2, 2)
+        log(f"[kernels] {tag}: max|err| W' {w_err:.2e} ({'; '.join(notes)}); moments "
+            f"{mom_err:.2e}; W' bitwise ref.apply_weight of its own G̃; two launches equal; in "
+            f"place ok  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms ({L // EXPERT_CHUNK} calls of "
+            f"{EXPERT_CHUNK} slabs)  bound {b_s * 1e3:.3f} ms ({b_by}; {b_s / ms * 1e5:.0f} % of "
+            f"it; f32-FMA {b_f32 * 1e3:.3f})")
+        rows.append(dict(kernel=key, side=side, L=L, m=m, r=r, n=n, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_s * 1e3, bound_by=b_by, max_abs_err=w_err))
+        del P, G, M, V, W, w0, mine, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+def moe_reckoning(params, gcfg):
+    """The [moe] run's peak by its parts, before the run: weights, their
+    gradients and the optimizer state, and what each step form adds at its
+    peak — the emit form the chain's clipped copy of the gradients and an
+    f32 update of every leaf at once; the apply form (clipped in place, the
+    full-shape leaves' Adam a block of rows at a time) the clip's largest
+    temporary, the largest leaf's f32 copy, squared in place."""
+    leaves = tree_leaves(params)
+    weights = sum(t.numel() * t.element_size() for t in leaves)
+    state = galore_state_bytes(params, gcfg)["optimizer_state_bytes"]
+    emit = weights + 4 * sum(t.numel() for t in leaves)
+    apply = 4 * max(t.numel() for t in leaves)
+    base = 2 * weights + state
+    return dict(weights=weights, state=state, emit=emit, apply=apply, emit_peak=base + emit,
+                apply_peak=base + apply, card=torch.cuda.get_device_properties(0).total_memory)
+
+
+def moe_phase(phases, none):
+    """[moe]: Llama-4 Scout at full width, 4 of 48 layers (one iRoPE group:
+    three chunked layers with rope, one global rope-free), bf16, remat
+    "full", trained 8 steps with GaLore-AdamW r = 128, T = 8, the randomized
+    projector, in the apply form (the reckoning says why)."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=4)
+    t = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    gcfg = GaLoreConfig(rank=128, update_freq=8, scale=0.25, projector="randomized")
+    rk = moe_reckoning(params, gcfg)
+    log(f"[moe] {cfg.name}: {cfg.n_layers} of 48 layers (chunk {cfg.attention_chunk}, global "
+        f"layer {cfg.full_attn_every - 1}), {n_params} parameters, {cfg.dtype}, remat "
+        f"{cfg.remat}, initialised in {time.perf_counter() - t:.1f} s; reckoning: weights "
+        f"{gb(rk['weights'])} + grads {gb(rk['weights'])} + optimizer state {gb(rk['state'])}; "
+        f"the emit form adds {gb(rk['emit'])} (clipped gradients and f32 updates: peak ≥ "
+        f"{gb(rk['emit_peak'])}), the apply form {gb(rk['apply'])} (the clip's f32 temporary: "
+        f"≈ {gb(rk['apply_peak'])}); the card has {gb(rk['card'])}: the apply form")
+    t = time.perf_counter()
+    ph = phases["moe"] = train_phase(fused=True, apply=True, cfg=cfg, params=params,
+                                     galore_kw=dict(projector="randomized"))
+    del params
+    log(f"[moe] losses {[round(x, 4) for x in ph['losses']]} aux_loss "
+        f"{[round(x, 5) for x in ph['aux']]} launches {ph['launches']} (launches by thread "
+        f"copies {ph['thread_copy_epilogue']}); step ms {[round(x * 1e3, 1) for x in ph['times']]}"
+        f"; peak memory {ph['peak'] / 2**30:.2f} GiB ({gb(ph['peak'])}) ({time.perf_counter() - t:.1f} s)")
+    if not ph["losses"][-1] < ph["losses"][0]:
+        raise AssertionError(f"[moe] loss did not decrease: {ph['losses']}")
+    if not all(a > 0 and math.isfinite(a) for a in ph["aux"]):
+        raise AssertionError(f"[moe] aux_loss not positive at every step: {ph['aux']}")
+    # left: wq wo gate up; right: wk wv (5120 × 1024) and down — one launch a
+    # stacked leaf a step, the expert leaves 64 slabs each
+    if ph["launches"] != dict(none, apply_left=32, apply_right=24):
+        raise AssertionError(f"[moe] launches {ph['launches']}, want apply left 32 (4 leaves × 8 "
+                             f"steps), right 24 (3 leaves × 8)")
+    check_state_bytes("moe", ph)
+
+
+def moe_dispatch_phase():
+    """[moe-dispatch]: one Llama-4 Scout MoE layer in f32 (capacity factor
+    E/K = 16, so no copy drops) on 256 tokens against the all-experts dense
+    computation: output within 1e-5·max, the gradients of x and of every
+    expert leaf within 1e-4·max."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe as moe_lib
+
+    base = get_config(MOE_ARCH)
+    E, K, D = base.n_experts, base.experts_per_token, base.d_model
+    cfg = dataclasses.replace(base, dtype="float32", capacity_factor=float(E // K))
+    t = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    p = {k: v.requires_grad_(True) for k, v in moe_lib.init_moe(gen, cfg, torch.float32).items()}
+    x = torch.randn(1, 256, D, generator=gen, device="cuda").requires_grad_(True)
+    dy = torch.randn(1, 256, D, generator=gen, device="cuda")
+    y, aux = moe_lib.apply_moe(cfg, p, x)
+    gate, idx = torch.topk(torch.softmax(x @ p["router"], dim=-1), K, dim=-1)
+    if K > 1:
+        gate = gate / gate.sum(dim=-1, keepdim=True)
+    every = torch.stack([(F.silu(x @ p["gate"][e]) * (x @ p["up"][e])) @ p["down"][e]
+                         for e in range(E)], dim=2)  # (B, S, E, D)
+    want = torch.einsum("bskd,bsk->bsd",
+                        torch.gather(every, 2, idx[..., None].expand(-1, -1, -1, D)), gate)
+    names = ["x", "gate", "up", "down", "router"]
+    wrt = [x, p["gate"], p["up"], p["down"], p["router"]]
+    g_got = torch.autograd.grad(y, wrt, dy)
+    g_want = torch.autograd.grad(want, wrt, dy)
+    y, want, aux = y.detach(), want.detach(), aux.detach()
+    gaps = {"y": float((y - want).abs().max() / want.abs().max())}
+    for name, a, b in zip(names, g_got, g_want):
+        gaps[name] = float((a - b).abs().max() / b.abs().max())
+    log(f"[moe-dispatch] {E} experts top-{K}, capacity {moe_lib.capacity_for(cfg, 256)} of 256 "
+        f"tokens, f32: max|Δ|/max against the all-experts computation {gaps} (limits y 1e-5, "
+        f"gradients 1e-4); aux_loss {float(aux):.5f} ({time.perf_counter() - t:.1f} s)")
+    if gaps["y"] > 1e-5 or max(v for k, v in gaps.items() if k != "y") > 1e-4:
+        raise AssertionError(f"[moe-dispatch] gaps {gaps}")
+    del p, x, y, want, every, g_got, g_want
+    torch.cuda.empty_cache()
+
+
+def mrope_phase(phases, none):
+    """[mrope]: Qwen2-VL-7B at full width, 2 of 28 layers, bf16: text
+    positions (three equal rows) give the rope forward within 1e-6·max, a
+    forward with 256 media embeddings is finite; then 8 steps of fp32 fused
+    GaLore (r = 128, T = 8) through the launcher's text-only batches."""
+    from repro_torch.models.model import forward
+
+    cfg = dataclasses.replace(get_config("qwen2_vl_7b"), n_layers=2)
+    t = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    B, S, M_ = 2, 512, cfg.media_embeds
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    text = torch.arange(S, device="cuda", dtype=torch.int32)
+    with torch.inference_mode():
+        V = cfg.vocab_size
+        got = forward(cfg, params, {"tokens": tokens, "positions": text.expand(3, B, S)})[..., :V]
+        want = forward(dataclasses.replace(cfg, rope_style="rope"), params,
+                       {"tokens": tokens})[..., :V]
+        gap = float((got - want).abs().max() / want.abs().max())
+        # a 16 × 16 patch grid at t = 0, then text from position 16 on
+        i = torch.arange(M_, device="cuda", dtype=torch.int32)
+        grid = torch.stack([torch.zeros_like(i), i // 16, i % 16])
+        after = (16 + torch.arange(S - M_, device="cuda", dtype=torch.int32)).expand(3, -1)
+        positions = torch.cat([grid, after], dim=1)[:, None].expand(3, B, S)
+        media = 0.1 * torch.randn(B, M_, cfg.d_model, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        mixed = forward(cfg, params, {"tokens": tokens, "positions": positions, "media": media})
+        finite = bool(torch.isfinite(mixed[..., :V]).all())
+    log(f"[mrope] {cfg.name}: 2 of 28 layers, sections {cfg.mrope_sections}; text positions vs "
+        f"rope_style rope: max|Δ|/max {gap:.2e} (limit 1e-6); a forward with {M_} media "
+        f"embeddings on a 16 × 16 grid: finite {finite} ({time.perf_counter() - t:.1f} s)")
+    if gap > 1e-6 or not finite:
+        raise AssertionError(f"[mrope] text gap {gap}, media forward finite {finite}")
+    del params, got, want, mixed
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ph = phases["mrope"] = train_phase(fused=True, cfg=cfg)
+    log(f"[mrope] losses {[round(x, 4) for x in ph['losses']]} launches {ph['launches']}; peak "
+        f"memory {ph['peak'] / 2**30:.2f} GiB ({time.perf_counter() - t:.1f} s)")
+    if not ph["losses"][-1] < ph["losses"][0]:
+        raise AssertionError(f"[mrope] loss did not decrease: {ph['losses']}")
+    # left: wq wo gate up; right: wk wv (3584 × 512) and down
+    if ph["launches"] != dict(none, left=32, right=24):
+        raise AssertionError(f"[mrope] launches {ph['launches']}, want left 32 (4 leaves × 8 "
+                             f"steps), right 24 (3 leaves × 8)")
+    check_state_bytes("mrope", ph)
+
+
+def chunk_serve(cfg, tag):
+    """The [serve-chunk] traffic through a fresh engine on `cfg` (seeded
+    weights): a prompt of 8,704 tokens (positions cross the chunk at 8,192)
+    in prefill chunks of 512 and 32 new tokens, beside a 40-token request
+    whose 64 tokens decode in the same batches; then every emitted token's
+    logits against the contiguous-cache steps fed the same tokens, whose
+    caches (8,736 and 104 tokens) are no multiple of the chunk. Returns the
+    per-token logits gaps and the greedy picks that differ."""
+    from repro_torch.serve import Request, ServeConfig
+
+    t = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    prompts = serve_prompts(np.random.default_rng(15), (8704, 40), cfg.vocab_size)
+    new = (32, 64)
+    cap = 8704 + 32
+    scfg = ServeConfig(block_size=16, num_blocks=1 + cap // 16 + 8, slots=2, max_len_cap=cap,
+                       prefill_chunk=512)
+    torch.cuda.reset_peak_memory_stats()
+    comps, eng, rec, wall = serve_run(cfg, params, scfg, [Request(tokens=p, max_new=k)
+                                                          for p, k in zip(prompts, new)],
+                                      timed=True)
+    log(f"[serve-chunk] {tag}: prompts {[c.prompt_len for c in comps]} → "
+        f"{[len(c.tokens) for c in comps]} tokens in {wall:.2f} s; {eng.stats}; prefill "
+        f"{len(rec.prefill_ms)} calls, {sum(rec.prefill_ms):.1f} ms of device time "
+        f"({sum(map(len, prompts)) / sum(rec.prefill_ms) * 1e3:.0f} prompt tokens/s); decode "
+        f"{len(rec.decode_ms)} steps, median {statistics.median(rec.decode_ms):.2f} ms; ttft "
+        f"{[round(c.ttft_s * 1e3, 1) for c in comps]} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    gaps, flips = [], 0
+    for c, p in zip(comps, prompts):
+        rows, picks = contiguous_logits(cfg, params, p, list(c.tokens), len(p) + len(c.tokens))
+        gaps += token_gaps(rec, c, rows, cfg.vocab_size)
+        flips += sum(a != b for a, b in zip(picks, c.tokens))
+        del rows
+    q = np.quantile(gaps, [0.5, 0.9])
+    log(f"[serve-chunk] {tag}: logits vs the contiguous-cache steps, max|Δ|/max|logits| a "
+        f"token: median {q[0]:.2e}, 90th percentile {q[1]:.2e}, max {max(gaps):.2e}, "
+        f"{sum(g > SERVE_GATE_BF16 for g in gaps)} of {len(gaps)} over {SERVE_GATE_BF16:g}; "
+        f"contiguous greedy picks differing from the engine's: {flips} of {len(gaps)}; "
+        f"contiguous prefill peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"({time.perf_counter() - t:.1f} s)")
+    del params, eng, rec
+    torch.cuda.empty_cache()
+    return gaps, flips
+
+
+def serve_chunk_phase():
+    """[serve-chunk]: the [moe] model shape (capacity factor E/K, so a row's
+    tokens never contend for an expert's capacity) served across the chunk
+    boundary. In f32 every emitted token's logits within 1e-4·max of the
+    contiguous steps' and the same greedy picks: the paged chunked mask and
+    the contiguous decode window agree at the boundary and at cache lengths
+    no multiple of the chunk. In bf16 the two paths' GEMMs round apart, and
+    a top-1 router turns a rounding difference near a tie into another
+    expert for that token: so the same traffic without experts is held to
+    SERVE_GATE_BF16 at every token, and the MoE model at its median token
+    (its largest gaps are logged)."""
+    base = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(base, n_layers=4,
+                              capacity_factor=float(base.n_experts // base.experts_per_token))
+    gaps, flips = chunk_serve(dataclasses.replace(cfg, dtype="float32"), "f32")
+    if max(gaps) > 1e-4 or flips:
+        raise AssertionError(f"[serve-chunk] f32: logits gap {max(gaps):.3e} > 1e-4 or {flips} "
+                             f"greedy picks differ")
+    gaps, _ = chunk_serve(dataclasses.replace(cfg, n_experts=0, family="dense"), "bf16-dense")
+    if max(gaps) > SERVE_GATE_BF16:
+        raise AssertionError(f"[serve-chunk] bf16-dense: logits gap {max(gaps):.3e} > "
+                             f"{SERVE_GATE_BF16}")
+    gaps, _ = chunk_serve(cfg, "bf16")
+    if statistics.median(gaps) > SERVE_GATE_BF16:
+        raise AssertionError(f"[serve-chunk] bf16: median logits gap "
+                             f"{statistics.median(gaps):.3e} > {SERVE_GATE_BF16}")
+
+
+def families_phase():
+    """[families]: every other registered config at full width with 2 layers
+    (their remat "full"), bf16: one forward and backward each, the loss and
+    every gradient leaf finite; parameters and peak memory. No optimizer
+    step: AdamW's moments for grok-1's 2 layers alone would be ≈ 77 GB."""
+    for arch in FAMILY_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+        t = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, seed=0, device="cuda")
+        leaves = tree_leaves(params)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 256),
+                               generator=torch.Generator(device="cuda").manual_seed(23),
+                               device="cuda")
+        total, metrics = loss_fn(cfg, params, {"tokens": tokens})
+        grads = torch.autograd.grad(total, leaves)
+        bad = [path for (path, _), g in zip(tree_leaves_with_path(params), grads)
+               if not bool(torch.isfinite(g).all())]
+        torch.cuda.synchronize()
+        log(f"[families] {cfg.name}: 2 of {get_config(arch).n_layers} layers, "
+            f"{sum(p.numel() for p in leaves)} parameters, remat {cfg.remat}, kv heads "
+            f"{cfg.n_kv_heads}, qkv bias {cfg.qkv_bias}, experts {cfg.n_experts}: loss "
+            f"{float(metrics['loss']):.4f} aux_loss {float(metrics['aux_loss']):.5f}, "
+            f"{len(grads)} gradient leaves finite {not bad}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({time.perf_counter() - t:.1f} s)")
+        if bad or not math.isfinite(float(total)):
+            raise AssertionError(f"[families] {arch}: loss {float(total)}, non-finite gradients "
+                                 f"{bad}")
+        del params, leaves, grads, total, metrics
+        torch.cuda.empty_cache()
+
+
+def family_phases(phases, none):
+    """The families' phases in turn, each timed."""
+    for tag, fn in (("moe-kernels", check_expert_apply),
+                    ("moe", lambda: moe_phase(phases, none)),
+                    ("moe-dispatch", moe_dispatch_phase),
+                    ("mrope", lambda: mrope_phase(phases, none)),
+                    ("serve-chunk", serve_chunk_phase),
+                    ("families", families_phase)):
+        t = time.perf_counter()
+        fn()
+        log(f"[{tag}] ({time.perf_counter() - t:.1f} s)")
 
 
 def main():
@@ -2391,6 +2772,8 @@ def main():
         shutil.rmtree(serve_dir, ignore_errors=True)
     serve_cli_phase()
     log(f"[serve-ckpt] and the CLI ({time.perf_counter() - t:.1f} s)")
+
+    family_phases(phases, none)
 
     t = time.perf_counter()
     svd = svd_ms()

@@ -7,7 +7,10 @@ The trees are nested dicts keyed like the JAX package's (``np.asarray`` of
 each leaf of a ``repro`` tree is a valid input), so a test can run the port on
 exactly the reference's initial weights and optimizer state. bfloat16 leaves
 travel as float32 numpy arrays out of torch (exact: every bf16 value is an
-f32 value); a JAX bfloat16 array comes in as a bfloat16 tensor. Optimizer
+f32 value); a JAX bfloat16 array comes in as a bfloat16 tensor, and every
+leaf keeps its own dtype and rank — the f32 MoE router inside a bf16 tree,
+1-D QKV biases, (L, E, m, n) expert leaves and the GaLore state on them
+((L, E, m, r) projectors, (L, E, r, n) moments). Optimizer
 state leaves keep their dtype both ways, so a quantized leaf
 ``{"q": codes, "scale": absmax}`` crosses as uint8 codes and float32 scales.
 """

@@ -193,6 +193,19 @@ class TrainConfig:
     # (external or async refresh, fixed period; as the reference)
 
 
+# the architectures the port registers (the reference's ARCH_IDS less the
+# recurrent and encoder-decoder families, ROADMAP A.11b)
+ARCH_IDS = [
+    "qwen2_vl_7b",
+    "llama4_scout_17b_a16e",
+    "grok_1_314b",
+    "granite_20b",
+    "minitron_4b",
+    "internlm2_20b",
+    "qwen2_7b",
+]
+NOT_PORTED = ("jamba_1_5_large_398b", "whisper_small", "mamba2_130m")
+
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE_REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 
@@ -203,12 +216,20 @@ def register(name: str, full: Callable[[], ModelConfig], smoke: Callable[[], Mod
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
-    """Full-size or smoke config by architecture id. The port registers the
-    dense LLaMA family of the paper (``llama_60m`` … ``llama_7b``)."""
+    """Full-size or smoke config by architecture id: one of ``ARCH_IDS`` or
+    the paper's dense LLaMA family (``llama_60m`` … ``llama_7b``). An id of
+    the reference the port lacks (``NOT_PORTED``) raises KeyError."""
     key = name.replace("-", "_").replace(".", "_")
+    if key in NOT_PORTED:
+        raise KeyError(f"architecture {name!r} is not ported yet (ROADMAP A.11b)")
     if key not in _REGISTRY:
-        importlib.import_module("repro_torch.configs.llama_paper")
+        module = key if key in ARCH_IDS else "llama_paper"
+        importlib.import_module(f"repro_torch.configs.{module}")
     if key not in _REGISTRY:
         raise KeyError(f"architecture {name!r} is not ported; known: {sorted(_REGISTRY)}")
     table = _SMOKE_REGISTRY if smoke else _REGISTRY
     return table[key]()
+
+
+def all_arch_ids() -> list[str]:
+    return list(ARCH_IDS)

@@ -230,6 +230,9 @@ def _managed_adam_init(params, plans):
     }
 
 
+_PASSTHROUGH_BLOCK = 1 << 24  # elements a block of passthrough_apply
+
+
 def _managed_adam_update(grads, proj_eff, inner_state, plans, cfg: GaLoreConfig,
                          b1: float, b2: float, eps: float, *, fused: bool, params=None,
                          eta=0.0, wd: float = 0.0):
@@ -242,8 +245,8 @@ def _managed_adam_update(grads, proj_eff, inner_state, plans, cfg: GaLoreConfig,
 
     With `params` given, the weight update is folded in: every leaf of
     `params` becomes W + η·(update + wd·W), in place (in the apply kernel for
-    fused GaLore leaves), and the params tree is returned in place of the
-    updates."""
+    fused GaLore leaves; fp32 moments of full-shape leaves updated in place
+    too), and the params tree is returned in place of the updates."""
     apply_w = params is not None
     count = inner_state["count"] + 1
     stochastic = cfg.quant.stochastic_round
@@ -267,8 +270,22 @@ def _managed_adam_update(grads, proj_eff, inner_state, plans, cfg: GaLoreConfig,
             return out
         return p.copy_(ref.apply_weight(p, out.float(), eta, wd))
 
+    def passthrough_apply(g, m, v, p):
+        """A full-shape leaf's Adam and weight apply, written into m, v and
+        the weight a block of rows at a time: the same elementwise values,
+        with temporaries of one block (the embedding is 1e9 elements)."""
+        rows = max(1, _PASSTHROUGH_BLOCK // max(1, p[0].numel()))
+        for r0 in range(0, p.shape[0], rows):
+            sl = slice(r0, r0 + rows)
+            out, m_t, v_t = ref.lowrank_adam_update(g[sl], m[sl], v[sl], count, b1, b2, eps)
+            m[sl], v[sl] = m_t, v_t
+            p[sl] = ref.apply_weight(p[sl], out.to(g.dtype).float(), eta, wd)
+        return p, m, v
+
     def leaf(g, P, m_st, v_st, plan, p):
         qm = plan.moments == "int8"
+        if not plan.galore and apply_w and not qm:
+            return passthrough_apply(g, m_st, v_st, p)
         if not plan.galore:
             m, v = dequant_mv(m_st, v_st, plan) if qm else (m_st, v_st)
             out, m_t, v_t = ref.lowrank_adam_update(g, m, v, count, b1, b2, eps)

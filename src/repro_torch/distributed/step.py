@@ -25,7 +25,7 @@ from repro_torch.optim.factory import (
     external_refresh,
     galore_state_index,
 )
-from repro_torch.optim.transform import apply_updates, clip_by_global_norm
+from repro_torch.optim.transform import apply_updates, clip_in_place
 from repro_torch.robust.guard import global_grad_norm, guard_step
 from repro_torch.utils import tree_leaves, tree_map, tree_unflatten_like
 
@@ -100,8 +100,8 @@ def _make_guarded_train_step(tc, opt, loss_of):
 
 
 def _make_fused_apply_train_step(tc, opt, loss_of):
-    """The W-in-place step (tc.galore_fused_apply): clip → one fused kernel per
-    GaLore leaf that folds projection, Adam, back-projection and the weight
+    """The W-in-place step (tc.galore_fused_apply): clip (in place in the
+    step's own gradients) → one fused kernel per GaLore leaf that folds projection, Adam, back-projection and the weight
     update W ← W + η·(G̃ + wd·W) into one launch, so no full-size f32 update
     tree is made. The optimizer state keeps the chain's layout (clip, galore,
     [wd], schedule), so states swap freely with the emit path, which stays
@@ -110,7 +110,6 @@ def _make_fused_apply_train_step(tc, opt, loss_of):
     if gcfg is None:
         raise ValueError("galore_fused_apply requires a GaLore config")
     idx = galore_state_index(tc)
-    clip = clip_by_global_norm(tc.grad_clip)
     sched = schedules.warmup_cosine(tc.lr, tc.warmup_steps, tc.total_steps)
     wd = tc.weight_decay if tc.optimizer == "adamw" else 0.0
     apply_fn = make_fused_apply(gcfg, b1=tc.b1, b2=tc.b2, eps=tc.eps, weight_decay=wd,
@@ -120,7 +119,7 @@ def _make_fused_apply_train_step(tc, opt, loss_of):
         _, metrics, grads = _grads_and_loss(tc, loss_of, params, batch)
         with torch.no_grad():
             if tc.grad_clip > 0:  # the chain's own clip, so the two paths clip alike
-                grads, _ = clip.update(grads, ())
+                grads = clip_in_place(grads, tc.grad_clip)
             count = opt_state[-1]["count"] + 1
             eta = -sched(count)  # stays on the device: no step syncs the host
             params, galore_state = apply_fn(params, grads, opt_state[idx], eta)
@@ -246,8 +245,11 @@ def make_decode_step(cfg: ModelConfig, *, with_logits: bool = False):
 
     def decode_step(params, cache, tokens, pos):
         with torch.inference_mode():
-            logits, cache = M.forward_cached(cfg, params, {"tokens": tokens}, cache=cache,
-                                             cache_pos=pos)
+            batch = {"tokens": tokens}
+            if cfg.rope_style == "mrope":  # text positions: three equal rows
+                batch["positions"] = torch.full((3, tokens.shape[0], 1), pos, dtype=torch.int32,
+                                                device=tokens.device)
+            logits, cache = M.forward_cached(cfg, params, batch, cache=cache, cache_pos=pos)
             last = logits[:, -1]
             next_tok = last.argmax(dim=-1).to(torch.int32)
         return (next_tok, last, cache) if with_logits else (next_tok, cache)
@@ -263,8 +265,10 @@ def _paged_layer_cache(cfg, kv, bt, pos):
 
 
 def _explicit_positions(cfg, pos_2d):
-    """Per-row rope positions (B, S) -> batch["positions"] for the forward
-    (standard rope: the positions themselves)."""
+    """Per-row rope positions (B, S) -> batch["positions"] for the forward:
+    the positions themselves, or under M-RoPE three equal rows (3, B, S)."""
+    if cfg.rope_style == "mrope":
+        return pos_2d[None].expand((3,) + tuple(pos_2d.shape))
     return pos_2d
 
 

@@ -3,14 +3,25 @@ subspace, quantized-state and checkpoint parts of repro/launch/cli.py)."""
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
+from repro_torch.configs.base import get_config
 from repro_torch.quant import QuantPolicy
 
 
 def add_arch_flags(ap: argparse.ArgumentParser, default_arch: str = "llama_60m"):
     ap.add_argument("--arch", default=default_arch)
     ap.add_argument("--full", action="store_true", help="full-size config (default smoke)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the config to this many layers (0: as registered; a "
+                         "multiple of full_attn_every for a chunked-attention model)")
     return ap
+
+
+def config_from(args):
+    """The ModelConfig the add_arch_flags() dests name."""
+    cfg = get_config(args.arch, smoke=not args.full)
+    return dataclasses.replace(cfg, n_layers=args.layers) if args.layers else cfg
 
 
 def add_galore_subspace_flags(ap: argparse.ArgumentParser):

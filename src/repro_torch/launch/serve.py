@@ -11,11 +11,14 @@ KV cache, typed Request/Completion API). This module keeps:
   * `Server` — the pre-engine class kept as a thin compatibility shim:
     `generate(prompts)` submits one Request per prompt and drains the
     engine. Emits DeprecationWarning; new code should use
-    ``repro_torch.serve.Engine`` directly. The reference's contiguous-cache
-    loop for the non-paged families (ssm / hybrid / audio) comes with those
-    families (ROADMAP A.11): `check_ported` refuses them today.
+    ``repro_torch.serve.Engine`` directly. The engine serves the paged
+    families (dense, moe, vlm); the reference's contiguous-cache loop for the
+    non-paged ones (ssm / hybrid / audio) comes with those families (ROADMAP
+    A.11b): `check_ported` refuses them today.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama_60m --device cpu
+      (``--arch`` any registered id, e.g. llama4_scout_17b_a16e or qwen2_vl_7b;
+      ``--full --layers N`` for a full-width config cut to N layers)
 
 ``--ckpt-dir`` loads trained weights from the newest valid checkpoint in a
 CheckpointManager root instead of random init — including quantized (int8 /
@@ -31,7 +34,6 @@ import warnings
 import numpy as np
 
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.configs.base import get_config
 from repro_torch.launch import cli
 from repro_torch.models import model as M
 from repro_torch.serve import Engine, Request, ServeConfig
@@ -123,7 +125,7 @@ def main(argv=None):
         device = resolve_device(args.device)
     except RuntimeError as e:
         ap.error(str(e))
-    cfg = get_config(args.arch, smoke=not args.full)
+    cfg = cli.config_from(args)
     if args.ckpt_dir:
         params, step = load_checkpoint_params(cfg, args.ckpt_dir, device)
         print(f"[serve] restored params from {args.ckpt_dir} step {step}")

@@ -2,7 +2,11 @@
 
 Takes GaLore (or full-rank) steps of AdamW, Adam, 8-bit Adam, Adafactor or
 SGD with momentum on a synthetic C4-like stream and logs
-``[train] step N loss …``. Runs on ``cuda`` unless ``--device`` says
+``[train] step N loss …`` (and the MoE load-balancing loss, ``aux_loss``, for a
+model with experts). ``--arch`` takes every architecture the port registers
+(``configs/base.py::ARCH_IDS`` and the paper's LLaMAs), smoke-sized unless
+``--full``; ``--layers N`` cuts the depth. Batches are text only, as the
+reference's launcher makes them. Runs on ``cuda`` unless ``--device`` says
 otherwise. Ported with the loop:
   * checkpoints every ``--ckpt-every`` steps (async, atomic; crc-checked and
     carrying the guard's state when guarded; ``--ckpt-quantize`` for the
@@ -499,8 +503,10 @@ def train_loop(run: RunConfig, tc: TrainConfig, cfg=None, on_step=None, params=N
                 print(f"[watchdog] straggler step {step}: {dt:.3f}s vs EMA {ema_dt:.3f}s")
             metrics = dict(metrics, step_s=dt)
             if step % run.log_every == 0:
+                aux = (f" aux_loss {float(metrics['aux_loss']):.4f}"
+                       if cfg.n_experts > 0 and "aux_loss" in metrics else "")
                 print(f"[train] step {step} loss {float(metrics['loss']):.4f} "
-                      f"({dt * 1e3:.0f} ms)")
+                      f"({dt * 1e3:.0f} ms){aux}")
             if on_step is not None:
                 on_step(step, metrics)
             if run.ckpt_every and step > 0 and step % run.ckpt_every == 0:
@@ -655,7 +661,7 @@ def main(argv=None):
                     batch_per_host=args.batch, seq_len=args.seq, ckpt_dir=args.ckpt_dir,
                     ckpt_every=args.ckpt_every, log_every=args.log_every,
                     ckpt_quantize=args.ckpt_quantize, device=str(device))
-    train_loop(run, tc, faults=faults or None)
+    train_loop(run, tc, cfg=cli.config_from(args), faults=faults or None)
 
 
 if __name__ == "__main__":

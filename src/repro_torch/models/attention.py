@@ -1,6 +1,7 @@
-"""Grouped-query attention with its KV caches (port of the causal, rope paths
-of repro/models/attention.py::attend, ``_paged_attend``, ``init_cache`` and
-``init_paged_cache``).
+"""Grouped-query attention with its KV caches (port of
+repro/models/attention.py::attend, ``_paged_attend``, ``init_cache`` and
+``init_paged_cache``): GQA and MQA, QKV biases, rope or none (the rope-free
+global layer of iRoPE), causal and chunked-local masks.
 
 Plain tensor ops as the reference is plain jnp — no fused attention operator,
 which would change the numerics: scores are computed and masked in f32
@@ -12,6 +13,14 @@ contiguous cache {"k", "v": (B, T, KV, hd)} at 0 by a prefill (S > 1) or at
 ``cache_pos`` by a decode step (S == 1); a paged one {"kp", "vp": (NB, bs, KV,
 hd) pooled blocks, "bt": (B, nb) block tables, "pos": (B,) next write index}
 through the block table.
+
+Where the reference differs: its contiguous decode step of a chunked layer
+takes a static window of ``chunk`` keys with ``dynamic_slice``, which clamps
+the window's start into the cache while its mask keeps the unclamped start,
+so it is wrong whenever the cache length is not a multiple of the chunk (and
+raises when the cache is shorter than the chunk; ROADMAP C.12). Here the
+window is the chunk of ``cache_pos`` cut to the cache, and the mask is taken
+at the window's own key positions.
 """
 from __future__ import annotations
 
@@ -27,16 +36,25 @@ def init_attention(gen, cfg, dtype, lead=()):
     lead = tuple(lead)
     hd = cfg.resolved_head_dim
     d = cfg.d_model
-    return {
+    p = {
         "wq": _init_normal(gen, lead + (d, cfg.n_heads * hd), dtype, fan_in=d),
         "wk": _init_normal(gen, lead + (d, cfg.n_kv_heads * hd), dtype, fan_in=d),
         "wv": _init_normal(gen, lead + (d, cfg.n_kv_heads * hd), dtype, fan_in=d),
         "wo": _init_normal(gen, lead + (cfg.n_heads * hd, d), dtype, fan_in=cfg.n_heads * hd),
     }
+    if cfg.qkv_bias:
+        dev = gen.device
+        p["bq"] = torch.zeros(lead + (cfg.n_heads * hd,), dtype=dtype, device=dev)
+        p["bk"] = torch.zeros(lead + (cfg.n_kv_heads * hd,), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros(lead + (cfg.n_kv_heads * hd,), dtype=dtype, device=dev)
+    return p
 
 
-def _proj(x, w, n_heads, hd):
-    return (x @ w).reshape(x.shape[0], x.shape[1], n_heads, hd)
+def _proj(x, w, b, n_heads, hd):
+    y = x @ w
+    if b is not None:
+        y = y + b
+    return y.reshape(x.shape[0], x.shape[1], n_heads, hd)
 
 
 def _gqa_scores(q, k):
@@ -51,18 +69,36 @@ def _gqa_out(probs, v):
 
 
 def _masked_softmax(scores, mask):
-    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    """Softmax over the last axis of f32 `scores` (which it may overwrite),
+    masked keys at NEG_INF. Without autograd it runs in place in `scores`,
+    the same values in one buffer (a serving prefill's scores are
+    H·S·T·4 bytes a layer: 12 GB at Scout's 40 heads and 8,704 tokens)."""
+    if not torch.is_grad_enabled():
+        scores.masked_fill_(~mask, NEG_INF)
+        scores.sub_(scores.amax(dim=-1, keepdim=True)).exp_()
+        return scores.div_(scores.sum(dim=-1, keepdim=True))
+    scores = scores.masked_fill(~mask, NEG_INF)
     m = scores.amax(dim=-1, keepdim=True).detach()
     unnorm = torch.exp(scores - m)
     return unnorm / unnorm.sum(dim=-1, keepdim=True)
 
 
-def _paged_attend(q, k, v, cache):
+def _chunk_mask(qi, kj, chunk: int):
+    """Key j visible from query i: causal, and in i's chunk when chunk > 0."""
+    mask = kj <= qi
+    if chunk > 0:
+        mask = mask & ((qi // chunk) == (kj // chunk))
+    return mask
+
+
+def _paged_attend(q, k, v, cache, chunk: int = 0):
     """Block-table attention over a pooled paged KV cache (the serving engine).
 
     Write: this call's S tokens go to flat pool slots through the block table.
     Read: each row gathers its nb blocks back into position order, T = nb·bs
-    keys, masked causally against the row's own positions. Masked keys (stale,
+    keys, masked causally (and by chunk) against the row's own positions,
+    which are absolute, so chunk boundaries fall where they fall in the full
+    forward whatever the block layout. Masked keys (stale,
     scratch or unused slots) contribute exact zeros after the softmax
     (exp(NEG_INF − m) = 0, and 0·finite = 0 — the pool is zeroed at
     allocation, so no slot ever holds a NaN), so the logits equal the
@@ -97,43 +133,52 @@ def _paged_attend(q, k, v, cache):
     k_att = cache["kp"][rows].reshape(B, nb * bs, KV, hd)
     v_att = cache["vp"][rows].reshape(B, nb * bs, KV, hd)
     kj = torch.arange(nb * bs, device=k.device)
-    mask = kj[None, None, :] <= tgt[:, :, None]  # (B, S, T)
+    mask = _chunk_mask(tgt[:, :, None], kj[None, None, :], chunk)  # (B, S, T)
     probs = _masked_softmax(_gqa_scores(q, k_att), mask[:, None, None])
     return _gqa_out(probs, v_att)
 
 
-def attend(cfg, p, x, *, angles, cache=None, cache_pos=None):
+def attend(cfg, p, x, *, angles, chunk: int = 0, cache=None, cache_pos=None):
     """Causal self-attention over x (B, S, D); returns (B, S, D).
 
-    With a contiguous `cache` a prefill (S > 1) writes its K/V at 0 and
-    attends within itself, a decode step (S == 1) writes at `cache_pos` (an
-    int) and attends over the cache up to it; a paged `cache` (``"kp"`` in
-    it) writes and reads through its block tables (``_paged_attend``). The
-    cache is written in place."""
+    `angles` None applies no rope. `chunk` > 0 lets a query see only the
+    keys of its own chunk of positions (chunked-local attention). With a
+    contiguous `cache` a prefill (S > 1) writes its K/V at 0 and attends
+    within itself, a decode step (S == 1) writes at `cache_pos` (an int) and
+    attends over the cache up to it — a chunked layer over the chunk of
+    `cache_pos` only; a paged `cache` (``"kp"`` in it) writes and reads
+    through its block tables (``_paged_attend``). The cache is written in
+    place."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
     G = H // KV
-    q = _proj(x, p["wq"], H, hd)
-    k = _proj(x, p["wk"], KV, hd)
-    v = _proj(x, p["wv"], KV, hd)
-    q = rope_lib.apply_rotary(q, angles)
-    k = rope_lib.apply_rotary(k, angles)
+    q = _proj(x, p["wq"], p.get("bq"), H, hd)
+    k = _proj(x, p["wk"], p.get("bk"), KV, hd)
+    v = _proj(x, p["wv"], p.get("bv"), KV, hd)
+    if angles is not None:
+        q = rope_lib.apply_rotary(q, angles)
+        k = rope_lib.apply_rotary(k, angles)
     q = q.reshape(B, S, KV, G, hd) * (hd ** -0.5)
     if cache is not None and "kp" in cache:
-        out = _paged_attend(q, k, v, cache)
+        out = _paged_attend(q, k, v, cache, chunk)
     elif cache is not None and S == 1:
         cache["k"][:, cache_pos] = k[:, 0]
         cache["v"][:, cache_pos] = v[:, 0]
-        valid = torch.arange(cache["k"].shape[1], device=x.device) <= cache_pos
-        probs = _masked_softmax(_gqa_scores(q, cache["k"]), valid[None, None, None, None, :])
-        out = _gqa_out(probs, cache["v"])
+        lo, hi = 0, cache["k"].shape[1]
+        if chunk > 0:  # the chunk of cache_pos, cut to the cache
+            lo = (cache_pos // chunk) * chunk
+            hi = min(lo + chunk, hi)
+        valid = torch.arange(lo, hi, device=x.device) <= cache_pos
+        k_att, v_att = cache["k"][:, lo:hi], cache["v"][:, lo:hi]
+        probs = _masked_softmax(_gqa_scores(q, k_att), valid[None, None, None, None, :])
+        out = _gqa_out(probs, v_att)
     else:
         if cache is not None:  # prefill: the whole prefix at 0
             cache["k"][:, :S] = k
             cache["v"][:, :S] = v
         pos = torch.arange(S, device=x.device)
-        mask = pos[None, :] <= pos[:, None]  # (S, T): key j visible from query i iff j <= i
+        mask = _chunk_mask(pos[:, None], pos[None, :], chunk)  # (S, T)
         out = _gqa_out(_masked_softmax(_gqa_scores(q, k), mask[None, None, None]), v)
     return out.reshape(B, S, H * hd) @ p["wo"]
 

@@ -58,9 +58,9 @@ def apply_unembed(p, x, softcap: float = 0.0, valid_vocab: int = 0):
     return logits
 
 
-def init_mlp(gen, cfg, dtype, lead=()):
+def init_mlp(gen, cfg, dtype, lead=(), d_ff=None):
     lead = tuple(lead)
-    d, f = cfg.d_model, cfg.d_ff
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     return {
         "gate": _init_normal(gen, lead + (d, f), dtype, fan_in=d),
         "up": _init_normal(gen, lead + (d, f), dtype, fan_in=d),

@@ -63,13 +63,32 @@ def scale_by_schedule(schedule: Callable[[torch.Tensor], torch.Tensor]) -> Gradi
     return GradientTransformation(init, update)
 
 
+def clip_factor(grads, max_norm: float) -> torch.Tensor:
+    """min(1, max_norm / (global norm + 1e-9)), 0-d f32 on the device. Each
+    leaf is squared in its own f32 copy (one temporary a leaf, not two)."""
+    gnorm = torch.sqrt(sum(x.to(torch.float32, copy=True).square_().sum()
+                           for x in tree_leaves(grads)))
+    return torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
+
+
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     def update(grads, state, params=None):
-        gnorm = torch.sqrt(sum(x.float().square().sum() for x in tree_leaves(grads)))
-        factor = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
+        factor = clip_factor(grads, max_norm)
         return tree_map(lambda x: (x.float() * factor).to(x.dtype), grads), state
 
     return GradientTransformation(lambda p: (), update)
+
+
+def clip_in_place(grads, max_norm: float):
+    """clip_by_global_norm's arithmetic written into `grads` itself, a
+    leading slab at a time: the same values, without a second gradient tree
+    or a full-leaf f32 copy beside the first (a stacked MoE expert leaf is
+    billions of elements). Returns `grads`."""
+    factor = clip_factor(grads, max_norm)
+    for x in tree_leaves(grads):
+        for slab in (x.unbind(0) if x.ndim > 2 else (x,)):
+            slab.copy_((slab.float() * factor).to(slab.dtype))
+    return grads
 
 
 def add_decayed_weights(weight_decay: float, mask=None) -> GradientTransformation:

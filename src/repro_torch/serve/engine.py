@@ -88,8 +88,10 @@ class _Work:
 
 
 class Engine:
-    """Paged-cache continuous-batching engine (the dense family; the port's
-    `check_ported` refuses the others). Runs on the device of `params`."""
+    """Paged-cache continuous-batching engine for the families whose cache
+    pages (``model.PAGED_FAMILIES``: dense, moe, vlm — chunked attention
+    masked by absolute position, M-RoPE with text positions). Runs on the
+    device of `params`."""
 
     def __init__(self, cfg, params, serve_cfg: Optional[ServeConfig] = None):
         self.cfg = cfg

@@ -81,10 +81,12 @@ def _imported_modules(path):
 
 
 def test_port_imports_no_jax():
-    """Nothing under src/repro_torch/, nor chip_smoke.py or the timers it
-    takes from tools/kernel_times.py, imports jax or the JAX package."""
+    """Nothing under src/repro_torch/, nor chip_smoke.py, the timers it
+    takes from tools/kernel_times.py or tools/chip_phases.py, which runs
+    some of its phases, imports jax or the JAX package."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tools" / "kernel_times.py"]
+        ROOT / "chip_smoke.py", ROOT / "tools" / "kernel_times.py",
+        ROOT / "tools" / "chip_phases.py"]
     assert len(files) > 10
     port = ROOT / "src" / "repro_torch"
     for module in ("quant/codec.py", "quant/policy.py", "launch/cli.py", "kernels/galore_fused.py",
@@ -92,7 +94,12 @@ def test_port_imports_no_jax():
                    "kernels/galore_project.py", "kernels/rmsnorm.py", "kernels/ops.py",
                    "checkpoint/manager.py", "robust/guard.py", "robust/faults.py",
                    "robust/recovery.py", "serve/__init__.py", "serve/api.py",
-                   "serve/kv_cache.py", "serve/engine.py", "launch/serve.py"):
+                   "serve/kv_cache.py", "serve/engine.py", "launch/serve.py",
+                   "models/moe.py", "models/rope.py", "models/attention.py",
+                   "models/stacks.py", "configs/qwen2_7b.py", "configs/granite_20b.py",
+                   "configs/internlm2_20b.py", "configs/minitron_4b.py",
+                   "configs/qwen2_vl_7b.py", "configs/grok_1_314b.py",
+                   "configs/llama4_scout_17b_a16e.py"):
         assert port / module in files, module
     bad = [
         f"{f.relative_to(ROOT)}: {mod}"

@@ -1,5 +1,8 @@
 """Port model: logits, loss and every gradient leaf against the JAX package
-on the llama_60m smoke config (f32), from the same weights and batch."""
+on the llama_60m smoke config (f32), from the same weights and batch; the
+config registry against the reference's."""
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -8,10 +11,11 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.configs.base import ARCH_IDS as JAX_ARCH_IDS  # noqa: E402
 from repro.configs.base import get_config as jax_get_config  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
-from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.configs.base import ARCH_IDS, NOT_PORTED, get_config  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.utils import tree_leaves_with_path  # noqa: E402
 
@@ -23,13 +27,40 @@ def _close(got, want, name):
 
 
 def test_config_copy_matches_reference():
-    for arch in ("llama_60m", "llama_7b"):
+    """Every architecture the port registers, full and smoke, equal to the
+    reference's config in every ModelConfig field."""
+    assert set(ARCH_IDS) | set(NOT_PORTED) == set(JAX_ARCH_IDS)
+    for arch in ("llama_60m", "llama_130m", "llama_350m", "llama_1b", "llama_7b", *ARCH_IDS):
         for smoke in (True, False):
             want = jax_get_config(arch, smoke=smoke)
             got = get_config(arch, smoke=smoke)
-            for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff", "vocab_size",
-                      "dtype", "padded_vocab", "resolved_head_dim", "rope_theta"):
-                assert getattr(got, f) == getattr(want, f), (arch, smoke, f)
+            assert [f.name for f in dataclasses.fields(got)] == \
+                [f.name for f in dataclasses.fields(want)]
+            for f in dataclasses.fields(want):
+                assert getattr(got, f.name) == getattr(want, f.name), (arch, smoke, f.name)
+            for prop in ("padded_vocab", "resolved_head_dim"):
+                assert getattr(got, prop) == getattr(want, prop), (arch, smoke, prop)
+            TM.check_ported(got)
+
+
+def test_unported_configs_refused():
+    """The recurrent and encoder-decoder architectures raise KeyError at
+    get_config; check_ported refuses their families, LayerNorm, GELU and the
+    remat policies "scores" and "names", and accepts remat none and full."""
+    for arch in NOT_PORTED:
+        with pytest.raises(KeyError, match="not ported yet"):
+            get_config(arch)
+        jax_get_config(arch)  # the reference has it
+    base = get_config("qwen2_7b", smoke=True)
+    for field, value in (("family", "ssm"), ("family", "hybrid"), ("family", "audio"),
+                         ("norm_type", "layernorm"), ("act", "gelu"), ("remat", "scores"),
+                         ("remat", "names")):
+        with pytest.raises(NotImplementedError, match=field):
+            TM.check_ported(dataclasses.replace(base, **{field: value}))
+        with pytest.raises(NotImplementedError):
+            TM.init_params(dataclasses.replace(base, **{field: value}), device="cpu")
+    for remat in ("none", "full"):
+        TM.check_ported(dataclasses.replace(base, remat=remat))
 
 
 def test_loss_and_grads_match_jax():

@@ -1,4 +1,4 @@
-"""Routing of the port's GaLore step forms, the refusal of ``remat``, and a
+"""Routing of the port's GaLore step forms, the ``remat`` policies, and a
 CPU model of the split-TF32 arithmetic of the tiled projections.
 
 1. The six int8-moment and weight-apply dispatchers of kernels/ops.py take
@@ -6,7 +6,8 @@ CPU model of the split-TF32 arithmetic of the tiled projections.
    at a shape that fails it each matches JAX's ``ops.*`` with
    ``use_pallas=True, interpret=True``, which runs the reference's plain
    fallback there.
-2. ``check_ported`` refuses activation checkpointing.
+2. ``check_ported`` accepts remat "full" (each layer group recomputed in the
+   backward) and refuses the reference's "scores" and "names" policies.
 3. Split TF32 emulated on the CPU: rounding to TF32 by bit operations, as
    ``cvt.rna.tf32.f32`` does, and the kernels' three-pass (two with a bf16 G)
    product against float64, within the kernels' gate.
@@ -28,6 +29,7 @@ from repro_torch.kernels import galore_fused as tk  # noqa: E402
 from repro_torch.kernels import galore_project as tp  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
+from repro_torch.utils import tree_leaves  # noqa: E402
 from test_torch_cuda import (  # noqa: E402
     adam8_inputs,
     assert_codes_close,
@@ -206,16 +208,28 @@ def test_apply_fallback_matches_jax(form, side, p_int4, w_dtype):
 
 
 # ---------------------------------------------------------------------------
-# 2. activation checkpointing is refused
+# 2. activation checkpointing: "full" ported, "scores" and "names" refused
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("remat", ["full", "scores", "names"])
 def test_check_ported_refuses_remat(remat):
-    """The reference checkpoints activations for remat != "none"; the port
-    does not yet, so it refuses such a config instead of running it with the
+    """The reference's remat policies: "full" (recompute each layer group in
+    the backward) runs in the port, its loss and gradients bit for bit the
+    un-checkpointed run's; "scores" and "names" (which only the reference's
+    TPU hill-climbing tool sets) are refused instead of being run with the
     reference's numerics but not its memory."""
     cfg = dataclasses.replace(get_config("llama_60m", smoke=True), remat=remat)
+    if remat == "full":
+        TM.check_ported(cfg)
+        params = TM.init_params(cfg, seed=0, device="cpu")
+        batch = {"tokens": torch.arange(64).reshape(2, 32) % cfg.vocab_size}
+        runs = []
+        for c in (cfg, dataclasses.replace(cfg, remat="none")):
+            loss, _ = TM.loss_fn(c, params, batch)
+            runs.append([loss] + list(torch.autograd.grad(loss, tree_leaves(params))))
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+        return
     with pytest.raises(NotImplementedError, match="remat"):
         TM.check_ported(cfg)
     with pytest.raises(NotImplementedError, match="remat"):
