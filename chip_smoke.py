@@ -140,9 +140,27 @@ Phases, each timed, none of them optional; any failed check raises:
      [serve-chunk] Scout's shape served across the 8,192 chunk boundary
      against the contiguous steps (caches of 8,736 and 104 tokens): f32
      within 1e-4·max and the same greedy picks, bf16 without experts within
-     SERVE_GATE_BF16 at every token, bf16 MoE at its median token;
+     SERVE_GATE_BF16 at every token, bf16 MoE at every token whose routing
+     (recorded in both runs with each decision's top-1 margin) agrees, and
+     a token over the gate only after a routing tie within one bf16 ulp of
+     the router logits (their count printed);
      [families] qwen2, granite, internlm2, minitron and grok-1 at 2 layers,
-     one forward and backward each, everything finite;
+     one forward and backward each, everything finite; [ssm] mamba2_130m
+     whole (24 layers, full width, bf16, remat full): 8 fp32 fused GaLore
+     steps (r = 128, T = 8; B1 at in_z and in_x, 16 launches, B2 at
+     out_proj, 8), losses finite and falling, then the Server's contiguous
+     loop on prompts of 2, 7, 64 and 300 tokens: in f32 greedy tokens equal
+     to the full forward's and every token's logits within 1e-4·max, in
+     bf16 the median token within SERVE_GATE_BF16 and every token within
+     the bf16 forward's own gap to its f32 self, prefill tokens/s and decode
+     ms a step by CUDA events; [hybrid] one Jamba period (8 layers) at full
+     width with its experts cut from 16 to 4 (top-2 kept) after a printed
+     reckoning: served in f32 at a capacity with no drops (the Server's
+     tokens equal to the full forward's, logits within 1e-4·max), then
+     trained with GaLore in the apply form and the randomized projector at
+     the expert count the reckoning lets fit (B3-apply right at in_dt, wk
+     and wv, 72 launches; every left leaf keeps 8192 rows and fails the
+     reference's fits_vmem);
   11. record: the SVD refresh time at ranks 128 and 1024, step times and
      peak memory of every phase (the paper's 7B memory comparison, 8-bit
      GaLore at r = 1024 beside 8-bit Adam, Adafactor and AdamW, on one
@@ -170,6 +188,7 @@ projections as split TF32 on the tensor cores (2 passes with a bf16
 operand, else 3) and the elementwise work on the f32 pipes; the f32-FMA
 bound (no tensor cores) is printed beside it in the log lines.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -1768,16 +1787,58 @@ def baseline_phases(phases, none):
 SERVE_GATE_BF16 = 3e-2
 
 
+class RouterTap:
+    """While open, records every MoE layer call's routing: for each row and
+    token the top-1 expert, the margin between the top two router logits
+    (f32, as the layer computes them) and the larger of the two logits'
+    magnitudes. `take()` returns the calls since the last take, each an
+    (B, S, 3) numpy array, in layer order."""
+
+    def __init__(self):
+        from repro_torch.models import moe as moe_lib
+
+        self._mod, self._calls = moe_lib, []
+        self._orig = moe_lib.apply_moe
+
+    def __enter__(self):
+        orig = self._orig
+
+        def tapped(cfg, p, x):
+            with torch.no_grad():
+                v, i = torch.topk(x.float() @ p["router"], 2, dim=-1)
+                self._calls.append(torch.stack(
+                    [i[..., 0].float(), v[..., 0] - v[..., 1], v.abs().amax(dim=-1)],
+                    dim=-1).cpu().numpy())
+            return orig(cfg, p, x)
+
+        self._mod.apply_moe = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.apply_moe = self._orig
+
+    def take(self):
+        calls, self._calls = self._calls, []
+        return calls
+
+
+def routing_at(calls, row, cols):
+    """(len(cols), layers, 3) of the tapped calls at `row`, positions `cols`."""
+    return np.stack([c[row, cols] for c in calls], axis=1)
+
+
 class EngineRecorder:
     """Wraps an Engine's two steps to keep, for every emitted token, the
     logits it was taken from — {(request_id, k): (V,) f32 on the card} for the
     k-th generated token — read from the engine's own lane state at each call
     (which lanes finish their prompt in a prefill call; which decode), and,
     with `timed`, CUDA events around every call (no host synchronisation):
-    `prefill_ms` and `decode_ms` are each call's device time."""
+    `prefill_ms` and `decode_ms` are each call's device time. With a
+    RouterTap open, `routes` keeps {(request_id, position): (layers, 3)} of
+    every token the engine ran (routing_at's rows)."""
 
-    def __init__(self, engine, record=True, timed=False):
-        self.engine, self.logits = engine, {}
+    def __init__(self, engine, record=True, timed=False, tap=None):
+        self.engine, self.logits, self.routes = engine, {}, {}
         self.timed = timed
         self.prefill_ms, self.decode_ms, self._events = [], [], []
         prefill, decode = engine._prefill, engine._decode
@@ -1794,8 +1855,12 @@ class EngineRecorder:
             if not record:
                 return logits, kv
             rows = bt.any(dim=1).tolist()  # the lanes in this call
+            calls = tap.take() if tap is not None else None
             for i, w in lanes(True):
                 c = min(C, len(w.tokens) - w.prefilled)
+                if calls and rows[i]:
+                    for j, r in enumerate(routing_at(calls, i, np.arange(c))):
+                        self.routes[(w.req.request_id, w.prefilled + j)] = r
                 if rows[i] and w.prefilled + c == len(w.tokens):
                     self.logits[(w.req.request_id, len(w.tokens) - len(w.req.tokens))] = \
                         logits[i, c - 1].float().clone()
@@ -1807,9 +1872,13 @@ class EngineRecorder:
             self._stop(ev, "decode")
             if record:
                 rows = bt.any(dim=1).tolist()
+                calls = tap.take() if tap is not None else None
+                at = pos.tolist()
                 for i, w in lanes(False):
                     if rows[i]:
                         self.logits[(w.req.request_id, w.n_generated)] = logits[i].float().clone()
+                        if calls:
+                            self.routes[(w.req.request_id, at[i])] = routing_at(calls, i, [0])[0]
             return logits, nxt, kv
 
         self._steps = (prefill, decode)
@@ -1840,13 +1909,13 @@ class EngineRecorder:
         self._events.clear()
 
 
-def serve_run(cfg, params, scfg, reqs, record=True, timed=False):
+def serve_run(cfg, params, scfg, reqs, record=True, timed=False, tap=None):
     """Drain `reqs` through a fresh Engine; returns its completions (in
     request order), the engine and its recorder. Every block comes back."""
     from repro_torch.serve import Engine
 
     eng = Engine(cfg, params, scfg)
-    recorder = EngineRecorder(eng, record=record, timed=timed)
+    recorder = EngineRecorder(eng, record=record, timed=timed, tap=tap)
     torch.cuda.synchronize()
     t = time.perf_counter()
     ids = [eng.submit(r) for r in reqs]
@@ -1876,10 +1945,11 @@ def full_forward_rollout(cfg, params, prompt, n):
     return toks[len(prompt):], rows
 
 
-def contiguous_logits(cfg, params, prompt, tokens, max_len):
+def contiguous_logits(cfg, params, prompt, tokens, max_len, tap=None):
     """The contiguous-cache steps at batch 1 (make_prefill_step, then
     make_decode_step at rising positions), fed the engine's own `tokens`: the
-    logits each of them was taken from, and the steps' own greedy picks."""
+    logits each of them was taken from, and the steps' own greedy picks;
+    with a RouterTap open, also (positions, layers, 3) of their routing."""
     from repro_torch.distributed.step import make_decode_step, make_prefill_step
     from repro_torch.models.model import init_cache
 
@@ -1887,13 +1957,18 @@ def contiguous_logits(cfg, params, prompt, tokens, max_len):
     last, cache = make_prefill_step(cfg)(params, cache,
                                          {"tokens": torch.tensor([prompt], device="cuda")})
     rows, picks = [last[0].float()], [int(last[0].argmax())]
+    routes = [routing_at(tap.take(), 0, np.arange(len(prompt)))] if tap is not None else []
     decode = make_decode_step(cfg, with_logits=True)
     for k, tok in enumerate(tokens[:-1]):
         nxt, last, cache = decode(params, cache, torch.tensor([[tok]], device="cuda"),
                                   len(prompt) + k)
         rows.append(last[0].float())
         picks.append(int(nxt[0]))
+        if tap is not None:
+            routes.append(routing_at(tap.take(), 0, [0]))
     del cache
+    if tap is not None:
+        return rows, picks, np.concatenate(routes)
     return rows, picks
 
 
@@ -2351,8 +2426,12 @@ def chunk_serve(cfg, tag):
     in prefill chunks of 512 and 32 new tokens, beside a 40-token request
     whose 64 tokens decode in the same batches; then every emitted token's
     logits against the contiguous-cache steps fed the same tokens, whose
-    caches (8,736 and 104 tokens) are no multiple of the chunk. Returns the
-    per-token logits gaps and the greedy picks that differ."""
+    caches (8,736 and 104 tokens) are no multiple of the chunk. With experts
+    both runs' routing is tapped (RouterTap). Returns the per-token logits
+    gaps, the greedy picks that differ, and per token the routing decisions
+    (position ≤ its own, layer) that differ between the two runs, each as
+    (the smaller of the two runs' top-1 margins, the larger logit
+    magnitude)."""
     from repro_torch.serve import Request, ServeConfig
 
     t = time.perf_counter()
@@ -2362,10 +2441,12 @@ def chunk_serve(cfg, tag):
     cap = 8704 + 32
     scfg = ServeConfig(block_size=16, num_blocks=1 + cap // 16 + 8, slots=2, max_len_cap=cap,
                        prefill_chunk=512)
+    tap = RouterTap() if cfg.n_experts > 0 else None
     torch.cuda.reset_peak_memory_stats()
-    comps, eng, rec, wall = serve_run(cfg, params, scfg, [Request(tokens=p, max_new=k)
-                                                          for p, k in zip(prompts, new)],
-                                      timed=True)
+    with tap or contextlib.nullcontext():
+        comps, eng, rec, wall = serve_run(cfg, params, scfg, [Request(tokens=p, max_new=k)
+                                                              for p, k in zip(prompts, new)],
+                                          timed=True, tap=tap)
     log(f"[serve-chunk] {tag}: prompts {[c.prompt_len for c in comps]} → "
         f"{[len(c.tokens) for c in comps]} tokens in {wall:.2f} s; {eng.stats}; prefill "
         f"{len(rec.prefill_ms)} calls, {sum(rec.prefill_ms):.1f} ms of device time "
@@ -2374,11 +2455,22 @@ def chunk_serve(cfg, tag):
         f"{[round(c.ttft_s * 1e3, 1) for c in comps]} ms; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     torch.cuda.reset_peak_memory_stats()
-    gaps, flips = [], 0
+    gaps, flips, token_flips = [], 0, []
     for c, p in zip(comps, prompts):
-        rows, picks = contiguous_logits(cfg, params, p, list(c.tokens), len(p) + len(c.tokens))
+        with tap or contextlib.nullcontext():
+            got = contiguous_logits(cfg, params, p, list(c.tokens), len(p) + len(c.tokens),
+                                    tap=tap)
+        rows, picks = got[:2]
         gaps += token_gaps(rec, c, rows, cfg.vocab_size)
         flips += sum(a != b for a, b in zip(picks, c.tokens))
+        if tap is not None:
+            mine = np.stack([rec.routes[(c.request_id, q)] for q in range(len(got[2]))])
+            theirs = got[2]
+            q_l = np.argwhere(mine[..., 0] != theirs[..., 0])  # (position, layer) that differ
+            diff = [(int(q), float(min(mine[q, l, 1], theirs[q, l, 1])),
+                     float(max(mine[q, l, 2], theirs[q, l, 2]))) for q, l in q_l]
+            token_flips += [[d for d in diff if d[0] <= len(p) - 1 + k]
+                            for k in range(len(c.tokens))]
         del rows
     q = np.quantile(gaps, [0.5, 0.9])
     log(f"[serve-chunk] {tag}: logits vs the contiguous-cache steps, max|Δ|/max|logits| a "
@@ -2389,7 +2481,43 @@ def chunk_serve(cfg, tag):
         f"({time.perf_counter() - t:.1f} s)")
     del params, eng, rec
     torch.cuda.empty_cache()
-    return gaps, flips
+    return gaps, flips, token_flips
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at magnitude x > 0 (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def routing_gate(tag, gaps, token_flips, positions):
+    """[serve-chunk] bf16 MoE (ROADMAP C.15). A token's routing is the top-1
+    expert of every MoE layer at its own position; where it agrees between
+    the engine and the contiguous steps the token is held to
+    SERVE_GATE_BF16; where it differs the token may exceed the gate only if
+    each differing layer's top-1 margin (the smaller of the two runs') lies
+    within one bf16 ulp of the larger router logit — a tie that the bf16
+    rounding of the router logits decides. Logs the counts and each
+    differing decision; returns the tokens that fail."""
+    own = [[d for d in f if d[0] == p] for f, p in zip(token_flips, positions)]
+    bad, allowed = [], 0
+    for g, o in zip(gaps, own):
+        if g <= SERVE_GATE_BF16:
+            continue
+        if o and all(m <= bf16_ulp(a) for _, m, a in o):
+            allowed += 1
+        else:
+            bad.append(g)
+    decisions = sorted({d for f in token_flips for d in f})
+    agree = [g for g, o in zip(gaps, own) if not o]
+    log(f"[serve-chunk] {tag} routing: {len(decisions)} top-1 decisions (position, layer) "
+        f"differ between the engine and the contiguous steps, margin/ulp "
+        f"{[round(m / bf16_ulp(a), 3) for _, m, a in decisions]}; tokens whose own routing "
+        f"agrees {len(agree)}, max gap {max(agree, default=0.0):.2e} (limit "
+        f"{SERVE_GATE_BF16:g}); tokens whose own routing differs {len(gaps) - len(agree)}, "
+        f"gaps {[round(g, 4) for g, o in zip(gaps, own) if o]}, margin/ulp "
+        f"{[[round(m / bf16_ulp(a), 3) for _, m, a in o] for o in own if o]}; tokens over the "
+        f"limit after a tie {allowed}; failing {len(bad)} {[round(g, 4) for g in bad]}")
+    return bad
 
 
 def serve_chunk_phase():
@@ -2400,24 +2528,32 @@ def serve_chunk_phase():
     the contiguous decode window agree at the boundary and at cache lengths
     no multiple of the chunk. In bf16 the two paths' GEMMs round apart, and
     a top-1 router turns a rounding difference near a tie into another
-    expert for that token: so the same traffic without experts is held to
-    SERVE_GATE_BF16 at every token, and the MoE model at its median token
-    (its largest gaps are logged)."""
+    expert for that token: the same traffic without experts is held to
+    SERVE_GATE_BF16 at every token, and the MoE model by routing_gate (the
+    router's margins and routing recorded in both runs, f32 and bf16)."""
     base = get_config(MOE_ARCH)
     cfg = dataclasses.replace(base, n_layers=4,
                               capacity_factor=float(base.n_experts // base.experts_per_token))
-    gaps, flips = chunk_serve(dataclasses.replace(cfg, dtype="float32"), "f32")
+    gaps, flips, token_flips = chunk_serve(dataclasses.replace(cfg, dtype="float32"), "f32")
+    f32_decisions = {d for f in token_flips for d in f}
+    log(f"[serve-chunk] f32 routing: {len(f32_decisions)} top-1 decisions differ between the "
+        f"engine and the contiguous steps")
     if max(gaps) > 1e-4 or flips:
         raise AssertionError(f"[serve-chunk] f32: logits gap {max(gaps):.3e} > 1e-4 or {flips} "
                              f"greedy picks differ")
-    gaps, _ = chunk_serve(dataclasses.replace(cfg, n_experts=0, family="dense"), "bf16-dense")
+    gaps, _, _ = chunk_serve(dataclasses.replace(cfg, n_experts=0, family="dense"),
+                             "bf16-dense")
     if max(gaps) > SERVE_GATE_BF16:
         raise AssertionError(f"[serve-chunk] bf16-dense: logits gap {max(gaps):.3e} > "
                              f"{SERVE_GATE_BF16}")
-    gaps, _ = chunk_serve(cfg, "bf16")
-    if statistics.median(gaps) > SERVE_GATE_BF16:
-        raise AssertionError(f"[serve-chunk] bf16: median logits gap "
-                             f"{statistics.median(gaps):.3e} > {SERVE_GATE_BF16}")
+    gaps, _, token_flips = chunk_serve(cfg, "bf16")
+    # each emitted token's logits come from the forward at its prompt's last
+    # position, then at each generated token's
+    positions = [n - 1 + k for n, new in ((8704, 32), (40, 64)) for k in range(new)]
+    bad = routing_gate("bf16", gaps, token_flips, positions)
+    if bad:
+        raise AssertionError(f"[serve-chunk] bf16: {len(bad)} tokens over {SERVE_GATE_BF16} "
+                             f"without a routing tie to explain them: {bad}")
 
 
 def families_phase():
@@ -2452,6 +2588,252 @@ def families_phase():
         torch.cuda.empty_cache()
 
 
+class ServerRecorder:
+    """Wraps a Server's contiguous prefill and decode steps: every emitted
+    token's logits ((V,) f32 on the card, in call order: each length group's
+    prefill, then its decode steps) and CUDA events around each call."""
+
+    def __init__(self, server):
+        self.rows, self.prefill_ms, self.decode_ms, self.prefill_tokens = [], [], [], 0
+        self._events = []
+        prefill, decode = server.prefill, server.decode
+
+        def timed(kind, fn, *args):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args)
+            b.record()
+            self._events.append((kind, a, b))
+            return out
+
+        def rec_prefill(params, cache, batch):
+            last, cache = timed("prefill", prefill, params, cache, batch)
+            self.prefill_tokens += batch["tokens"].numel()
+            self.rows += [row.float().clone() for row in last]
+            return last, cache
+
+        def rec_decode(params, cache, tokens, pos):
+            nxt, last, cache = timed("decode", decode, params, cache, tokens, pos)
+            self.rows += [row.float().clone() for row in last]
+            return nxt, last, cache
+
+        server.prefill, server.decode = rec_prefill, rec_decode
+
+    def times(self):
+        torch.cuda.synchronize()
+        for kind, a, b in self._events:
+            (self.prefill_ms if kind == "prefill" else self.decode_ms).append(a.elapsed_time(b))
+        self._events.clear()
+
+
+def served_vs_forward(cfg, params, prompts, new, max_len):
+    """The Server's greedy tokens for `prompts` (each of its own length, so
+    each its own lane group), and for every emitted token its logits gap
+    (max|Δ|/max over the real vocab) against the full forward on the prompt
+    and the served tokens, and whether its pick is the full forward's
+    argmax; with the recorder's timings."""
+    import warnings
+
+    from repro_torch.launch.serve import Server
+    from repro_torch.models.model import forward
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        server = Server(cfg, params, max_len=max_len, slots=len(prompts))
+    rec = ServerRecorder(server)
+    out = server.generate([list(p) for p in prompts], max_new=new)
+    rec.times()
+    V, gaps, same, k = cfg.vocab_size, [], 0, 0
+    with torch.inference_mode():
+        for p, toks in zip(prompts, out):
+            full = forward(cfg, params, {"tokens": torch.tensor([list(p) + toks[:-1]],
+                                                                 device="cuda")})[0]
+            for j, tok in enumerate(toks):
+                want, got = full[len(p) - 1 + j, :V].float(), rec.rows[k][:V]
+                gaps.append(float((got - want).abs().max()) / float(want.abs().max()))
+                same += int(want.argmax()) == tok
+                k += 1
+    if k != len(rec.rows):
+        raise AssertionError(f"{len(rec.rows)} recorded rows for {k} served tokens")
+    return out, gaps, same, rec
+
+
+SSM_ARCH, HYBRID_ARCH = "mamba2_130m", "jamba_1_5_large_398b"
+SSM_PROMPTS = (2, 7, 64, 300)
+
+
+def ssm_phase(phases, none):
+    """[ssm]: mamba2_130m whole (24 layers, d_model 768, vocab 50280, bf16,
+    remat full): 8 fp32 fused GaLore steps (r = 128, T = 8) through the
+    launcher, B1 at in_z and in_x (768 × 1536, left) and B2 at out_proj
+    (1536 × 768, right), in_B / in_C / in_dt on the full-shape Adam; then the
+    Server's contiguous loop on prompts of 2, 7, 64 and 300 tokens, 16 new
+    tokens each: in f32 the greedy tokens equal the full forward's and every
+    token's logits are within 1e-4·max. In bf16 the median token within
+    SERVE_GATE_BF16 and every token within the bf16 full forward's own gap
+    to the f32 forward of the same weights: bf16 rounding alone moves this
+    random model's logits by up to that much (bf16_own_gaps), so no bf16
+    path is held closer to another at every token."""
+    cfg = get_config(SSM_ARCH)
+    t = time.perf_counter()
+    ph = phases["ssm"] = train_phase(fused=True, cfg=cfg)
+    log(f"[ssm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}, remat "
+        f"{cfg.remat}: losses {[round(x, 4) for x in ph['losses']]} launches {ph['launches']}; "
+        f"step ms {[round(x * 1e3, 1) for x in ph['times']]}; peak memory "
+        f"{ph['peak'] / 2**30:.2f} GiB ({time.perf_counter() - t:.1f} s)")
+    if not ph["losses"][-1] < ph["losses"][0]:
+        raise AssertionError(f"[ssm] loss did not decrease: {ph['losses']}")
+    if ph["launches"] != dict(none, left=16, right=8):
+        raise AssertionError(f"[ssm] launches {ph['launches']}, want left 16 (in_z and in_x × 8 "
+                             f"steps), right 8 (out_proj × 8)")
+    check_state_bytes("ssm", ph)
+    rng = np.random.default_rng(26)
+    prompts = serve_prompts(rng, SSM_PROMPTS, cfg.vocab_size)
+    new = 16
+    for dtype in ("float32", "bfloat16"):
+        t = time.perf_counter()
+        c = dataclasses.replace(cfg, dtype=dtype)
+        params = init_params(c, seed=0, device="cuda")
+        out, gaps, same, rec = served_vs_forward(c, params, prompts, new, max(SSM_PROMPTS) + new)
+        own = (bf16_own_gaps(cfg, params, prompts, out) if dtype == "bfloat16" else None)
+        log(f"[ssm] Server {dtype}: prompts {list(SSM_PROMPTS)} → {new} tokens each; logits vs "
+            f"the full forward max|Δ|/max a token: median {statistics.median(gaps):.2e}, max "
+            f"{max(gaps):.2e}" + (" (limit 1e-4)" if own is None else
+                                  f" (limits: median {SERVE_GATE_BF16:g}, max the bf16 full "
+                                  f"forward's own gap to the f32 forward of its weights, median "
+                                  f"{statistics.median(own):.2e}, max {max(own):.2e})")
+            + f"; greedy picks equal to the full forward's {same} of {len(gaps)}; prefill "
+            f"{len(rec.prefill_ms)} calls, {rec.prefill_tokens / sum(rec.prefill_ms) * 1e3:.0f} "
+            f"tokens/s ({[round(x, 2) for x in rec.prefill_ms]} ms); decode "
+            f"{len(rec.decode_ms)} steps of one lane, median "
+            f"{statistics.median(rec.decode_ms):.3f} ms; {card_line()} "
+            f"({time.perf_counter() - t:.1f} s)")
+        if own is None and (max(gaps) > 1e-4 or same != len(gaps)):
+            raise AssertionError(f"[ssm] float32: logits gap {max(gaps):.3e} > 1e-4 or "
+                                 f"{len(gaps) - same} greedy picks differ")
+        if own is not None and (statistics.median(gaps) > SERVE_GATE_BF16
+                                or max(gaps) > max(own)):
+            raise AssertionError(f"[ssm] bfloat16: median gap {statistics.median(gaps):.3e} > "
+                                 f"{SERVE_GATE_BF16} or max {max(gaps):.3e} > the bf16 forward's "
+                                 f"own {max(own):.3e}")
+        del params, rec
+        torch.cuda.empty_cache()
+
+
+def bf16_own_gaps(cfg, params, prompts, served):
+    """How far bf16 rounding alone moves a bf16 model's logits: for each served
+    token, the bf16 full forward's logits against the f32 full forward's of
+    the same weights (bf16 values in f32) on the same tokens, max|Δ|/max over
+    the real vocab."""
+    from repro_torch.models.model import forward
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda t: t.detach().float(), params)
+    V, gaps = cfg.vocab_size, []
+    with torch.inference_mode():
+        for p, toks in zip(prompts, served):
+            seq = {"tokens": torch.tensor([list(p) + toks[:-1]], device="cuda")}
+            a = forward(cfg, params, seq)[0, len(p) - 1:, :V]
+            b = forward(c32, p32, seq)[0, len(p) - 1:, :V]
+            gaps += [float((x.float() - y).abs().max()) / float(y.abs().max())
+                     for x, y in zip(a, b)]
+    del p32
+    return gaps
+
+
+def shape_params(cfg):
+    """init_params's tree for `cfg` with its large leaves on the meta device
+    (shapes and dtypes only), for a reckoning before anything is allocated."""
+    from repro_torch.models import attention, layers, model, moe, ssm
+
+    def meta_normal(gen, shape, dtype, fan_in=None):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    mods = (layers, attention, moe, ssm)
+    saved = [m._init_normal for m in mods]
+    for m in mods:
+        m._init_normal = meta_normal
+    try:
+        return model.init_params(cfg, seed=0, device="cpu")
+    finally:
+        for m, f in zip(mods, saved):
+            m._init_normal = f
+
+
+def hybrid_config(n_experts):
+    """One Jamba period at full width, its experts cut to `n_experts` (top-2
+    kept), capacity E/K so that no token is dropped."""
+    base = get_config(HYBRID_ARCH)
+    return dataclasses.replace(base, n_layers=base.attn_every, n_experts=n_experts,
+                               capacity_factor=float(n_experts // base.experts_per_token))
+
+
+def hybrid_phase(phases, none):
+    """[hybrid]: Jamba-1.5-Large at full width. One period holds 4 MoE layers
+    of 16 experts × 3 × 8192 × 24576 ≈ 38.7 G parameters (≈ 77 GB in bf16),
+    so no depth of the full config fits the card: one period (8 layers) with
+    the experts cut to 4 is served in f32 (prefill and decode against the
+    full forward), and trained in the apply form with the randomized
+    projector at 4 experts if the reckoning's peak stays under 70 GB, else
+    at 2."""
+    gcfg = GaLoreConfig(rank=128, update_freq=8, scale=0.25, projector="randomized")
+    rks = {}
+    for E in (4, 2):
+        shapes = shape_params(dataclasses.replace(hybrid_config(E), dtype="bfloat16"))
+        rk = rks[E] = moe_reckoning(shapes, gcfg)
+        n_params = sum(p.numel() for p in tree_leaves(shapes))
+        log(f"[hybrid] reckoning, one period at full width, {E} experts top-2, bf16: "
+            f"{n_params} parameters; weights {gb(rk['weights'])} + grads {gb(rk['weights'])} + "
+            f"optimizer state {gb(rk['state'])}; the apply form adds {gb(rk['apply'])}: ≈ "
+            f"{gb(rk['apply_peak'])}; the emit form ≥ {gb(rk['emit_peak'])}; the card has "
+            f"{gb(rk['card'])}")
+        del shapes
+    train_e = 4 if rks[4]["apply_peak"] < 70e9 else 2
+
+    cfg = dataclasses.replace(hybrid_config(4), dtype="float32")
+    t = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    prompts = serve_prompts(np.random.default_rng(27), (5, 48), cfg.vocab_size)
+    new = 8
+    out, gaps, same, rec = served_vs_forward(cfg, params, prompts, new, 48 + new)
+    log(f"[hybrid] Server f32, 4 experts, capacity {cfg.capacity_factor:g} (no drops): prompts "
+        f"(5, 48) → {new} tokens each; logits vs the full forward max|Δ|/max a token: median "
+        f"{statistics.median(gaps):.2e}, max {max(gaps):.2e} (limit 1e-4); greedy picks equal "
+        f"{same} of {len(gaps)}; prefill {rec.prefill_tokens / sum(rec.prefill_ms) * 1e3:.0f} "
+        f"tokens/s, decode median {statistics.median(rec.decode_ms):.2f} ms a step; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card_line()} "
+        f"({time.perf_counter() - t:.1f} s)")
+    if max(gaps) > 1e-4 or same != len(gaps):
+        raise AssertionError(f"[hybrid] serve: logits gap {max(gaps):.3e} > 1e-4 or "
+                             f"{len(gaps) - same} greedy picks differ")
+    del params, rec
+    torch.cuda.empty_cache()
+
+    cfg = hybrid_config(train_e)
+    t = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    ph = phases["hybrid"] = train_phase(fused=True, apply=True, cfg=cfg, params=params,
+                                        galore_kw=dict(projector="randomized"))
+    del params
+    log(f"[hybrid] trained at {train_e} experts (the reckoning's apply-form peak at 4: "
+        f"{gb(rks[4]['apply_peak'])}, limit 70 GB): losses {[round(x, 4) for x in ph['losses']]} "
+        f"aux_loss {[round(x, 5) for x in ph['aux']]} launches {ph['launches']}; step ms "
+        f"{[round(x * 1e3, 1) for x in ph['times']]}; peak memory {ph['peak'] / 2**30:.2f} GiB "
+        f"({time.perf_counter() - t:.1f} s)")
+    if not ph["losses"][-1] < ph["losses"][0]:
+        raise AssertionError(f"[hybrid] loss did not decrease: {ph['losses']}")
+    if not all(a > 0 and math.isfinite(a) for a in ph["aux"]):
+        raise AssertionError(f"[hybrid] aux_loss not positive at every step: {ph['aux']}")
+    # a left leaf keeps its 8192 rows at r = 128 and fails fits_vmem (the
+    # apply form takes the reference's plain step there); right leaves keep
+    # their columns: in_dt (8192 × 256) of the 7 SSD sub-layers and the
+    # attention's wk, wv (8192 × 1024) fit and run B3-apply
+    if ph["launches"] != dict(none, apply_right=72):
+        raise AssertionError(f"[hybrid] launches {ph['launches']}, want apply right 72 (9 "
+                             f"leaves × 8 steps) and nothing else")
+    check_state_bytes("hybrid", ph)
+
+
 def family_phases(phases, none):
     """The families' phases in turn, each timed."""
     for tag, fn in (("moe-kernels", check_expert_apply),
@@ -2459,7 +2841,9 @@ def family_phases(phases, none):
                     ("moe-dispatch", moe_dispatch_phase),
                     ("mrope", lambda: mrope_phase(phases, none)),
                     ("serve-chunk", serve_chunk_phase),
-                    ("families", families_phase)):
+                    ("families", families_phase),
+                    ("ssm", lambda: ssm_phase(phases, none)),
+                    ("hybrid", lambda: hybrid_phase(phases, none))):
         t = time.perf_counter()
         fn()
         log(f"[{tag}] ({time.perf_counter() - t:.1f} s)")

@@ -3,8 +3,10 @@ state with its adaptive schedule and any inner state, the async refresh's
 pending buffer, the standalone 8-bit Adam's, Adafactor's, SGD's momentum
 trace, and LoRA adaptors) and for the serving KV caches.
 
-The trees are nested dicts keyed like the JAX package's (``np.asarray`` of
-each leaf of a ``repro`` tree is a valid input), so a test can run the port on
+The trees are nested dicts (and tuples: Jamba's ``blocks`` is a tuple of
+period sub-layers, its cache a tuple of per-kind caches) keyed like the JAX
+package's (``np.asarray`` of each leaf of a ``repro`` tree is a valid input),
+so a test can run the port on
 exactly the reference's initial weights and optimizer state. bfloat16 leaves
 travel as float32 numpy arrays out of torch (exact: every bf16 value is an
 f32 value); a JAX bfloat16 array comes in as a bfloat16 tensor, and every
@@ -144,12 +146,14 @@ def adaptors_from_numpy(adaptors, device):
 
 
 def cache_from_numpy(cache, device):
-    """A KV cache from its numpy (or JAX) form — contiguous {"k", "v": (L, B,
-    T, KV, hd)} or the paged pool {"kp", "vp": (L, NB, bs, KV, hd)} — in its
-    own dtype on `device`, writable (the steps write it in place)."""
+    """A cache from its numpy (or JAX) form — contiguous {"k", "v": (L, B,
+    T, KV, hd)}, the paged pool {"kp", "vp": (L, NB, bs, KV, hd)}, the SSD
+    layers' {"state": (L, B, H, P, N) f32, "conv_x" / "conv_B" / "conv_C":
+    (L, B, k−1, ·)} or Jamba's tuple of the two kinds over blocks — in each
+    leaf's own dtype on `device`, writable (the steps write it in place)."""
     return tree_map(lambda a: _to_tensor(a, device), cache)
 
 
 def cache_to_numpy(cache):
-    """Either KV cache as numpy (bf16 as f32, exact)."""
+    """Any of those caches as numpy (bf16 as f32, exact)."""
     return tree_map(_to_numpy, cache)

@@ -194,7 +194,7 @@ class TrainConfig:
 
 
 # the architectures the port registers (the reference's ARCH_IDS less the
-# recurrent and encoder-decoder families, ROADMAP A.11b)
+# encoder-decoder family, ROADMAP A.11c)
 ARCH_IDS = [
     "qwen2_vl_7b",
     "llama4_scout_17b_a16e",
@@ -203,8 +203,10 @@ ARCH_IDS = [
     "minitron_4b",
     "internlm2_20b",
     "qwen2_7b",
+    "jamba_1_5_large_398b",
+    "mamba2_130m",
 ]
-NOT_PORTED = ("jamba_1_5_large_398b", "whisper_small", "mamba2_130m")
+NOT_PORTED = ("whisper_small",)
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE_REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
@@ -221,7 +223,7 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
     the reference the port lacks (``NOT_PORTED``) raises KeyError."""
     key = name.replace("-", "_").replace(".", "_")
     if key in NOT_PORTED:
-        raise KeyError(f"architecture {name!r} is not ported yet (ROADMAP A.11b)")
+        raise KeyError(f"architecture {name!r} is not ported yet (ROADMAP A.11c)")
     if key not in _REGISTRY:
         module = key if key in ARCH_IDS else "llama_paper"
         importlib.import_module(f"repro_torch.configs.{module}")

@@ -228,7 +228,9 @@ def make_swap_step(cfg: ModelConfig, tc: TrainConfig):
 
 def make_prefill_step(cfg: ModelConfig):
     """prefill(params, cache, batch) -> (last_logits (B, V), cache): the
-    prompt's K/V written at 0 of a contiguous cache (in place)."""
+    prompt's K/V written at 0 of a contiguous cache (in place); the SSD
+    layers' final state and conv histories written into theirs (ssm, and
+    Jamba's tuple of caches)."""
 
     def prefill_step(params, cache, batch):
         with torch.inference_mode():
@@ -240,7 +242,8 @@ def make_prefill_step(cfg: ModelConfig):
 
 def make_decode_step(cfg: ModelConfig, *, with_logits: bool = False):
     """decode(params, cache, tokens (B, 1), pos) -> (next_tokens (B,), cache):
-    one token a row written at `pos` of a contiguous cache, greedy. With
+    one token a row written at `pos` of a contiguous cache (the SSD layers'
+    state and conv histories advanced by one token), greedy. With
     `with_logits` the step returns (next_tokens, last_logits (B, V), cache)."""
 
     def decode_step(params, cache, tokens, pos):

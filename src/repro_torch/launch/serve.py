@@ -12,12 +12,20 @@ KV cache, typed Request/Completion API). This module keeps:
     `generate(prompts)` submits one Request per prompt and drains the
     engine. Emits DeprecationWarning; new code should use
     ``repro_torch.serve.Engine`` directly. The engine serves the paged
-    families (dense, moe, vlm); the reference's contiguous-cache loop for the
-    non-paged ones (ssm / hybrid / audio) comes with those families (ROADMAP
-    A.11b): `check_ported` refuses them today.
+    families (dense, moe, vlm); the recurrent ones (ssm, hybrid), whose
+    state has no blocks to page, are served by the Server's contiguous-cache
+    loop. The CLI builds an Engine, which refuses them, as the reference's
+    does.
 
-CLI:  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama_60m --device cpu
-      (``--arch`` any registered id, e.g. llama4_scout_17b_a16e or qwen2_vl_7b;
+Where the reference differs: its contiguous loop right-pads every prompt to
+the longest, takes each lane's logits at the longest prompt's last position
+and decodes all lanes from there, so a shorter prompt continues from its
+padding (ROADMAP C.13). Here the lanes are served in groups of one prompt
+length, each group prefilled to its own length.
+
+CLI:  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+      (``--arch`` any registered id of a paged family, default qwen2_7b as in
+      the reference, e.g. llama_60m, llama4_scout_17b_a16e or qwen2_vl_7b;
       ``--full --layers N`` for a full-width config cut to N layers)
 
 ``--ckpt-dir`` loads trained weights from the newest valid checkpoint in a
@@ -32,8 +40,10 @@ import time
 import warnings
 
 import numpy as np
+import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.distributed.step import make_decode_step, make_prefill_step
 from repro_torch.launch import cli
 from repro_torch.models import model as M
 from repro_torch.serve import Engine, Request, ServeConfig
@@ -41,7 +51,8 @@ from repro_torch.utils import resolve_device
 
 
 class Server:
-    """Deprecated slot-batch facade over the paged-cache Engine.
+    """Deprecated slot-batch facade over the paged-cache Engine, and the
+    contiguous-cache loop of the families that do not page.
 
     Kept so existing callers (`Server(cfg, params).generate(prompts)`) run
     unchanged; greedy outputs are token-identical to a full-forward rollout.
@@ -56,10 +67,12 @@ class Server:
             DeprecationWarning, stacklevel=2)
         self.cfg, self.params, self.max_len = cfg, params, max_len
         self.slots = slots
+        self.engine = None
         if cfg.family not in M.PAGED_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: the contiguous-cache loop of the non-paged families is "
-                f"ported with those families")
+            M.check_ported(cfg)
+            self.prefill = make_prefill_step(cfg)
+            self.decode = make_decode_step(cfg, with_logits=True)
+            return
         bs = min(16, max_len)
         scfg = ServeConfig(
             block_size=bs,
@@ -74,10 +87,42 @@ class Server:
     def generate(self, prompts: list, max_new: int = 16):
         """prompts: list of 1-D int sequences (<= slots). Greedy decode."""
         assert len(prompts) <= self.slots
+        if self.engine is None:
+            return self._generate_contiguous(prompts, max_new)
         ids = [self.engine.submit(Request(tokens=tuple(int(t) for t in p), max_new=max_new))
                for p in prompts]
         self.engine.run_until_drained()
         return [list(self.engine.result(i).tokens) for i in ids]
+
+    def _generate_contiguous(self, prompts: list, max_new: int):
+        """Greedy decode on a contiguous cache, one batch for each prompt
+        length: the group's prompts prefilled together from a zero cache,
+        then max_new − 1 decode steps from the position after them."""
+        if max_new <= 0:
+            return [[] for _ in prompts]
+        longest = max(len(p) for p in prompts)
+        if longest + max_new > self.max_len:
+            raise ValueError(f"a prompt of {longest} tokens and {max_new} new ones exceed "
+                             f"max_len {self.max_len}")
+        device = self.params["embed"]["embedding"].device
+        outs = [None] * len(prompts)
+        groups: dict[int, list[int]] = {}
+        for i, p in enumerate(prompts):
+            groups.setdefault(len(p), []).append(i)
+        for plen, lanes in groups.items():
+            toks = torch.tensor([[int(t) for t in prompts[i]] for i in lanes], dtype=torch.int64,
+                                device=device)
+            cache = M.init_cache(self.cfg, len(lanes), self.max_len, device=device)
+            last, cache = self.prefill(self.params, cache, {"tokens": toks})
+            nxt = last.argmax(dim=-1)
+            rows = [nxt]
+            for pos in range(plen, plen + max_new - 1):
+                nxt, _, cache = self.decode(self.params, cache, nxt[:, None].long(), pos)
+                rows.append(nxt)
+            got = torch.stack(rows, 1).tolist()
+            for j, i in enumerate(lanes):
+                outs[i] = [int(t) for t in got[j]]
+        return outs
 
 
 def load_checkpoint_params(cfg, ckpt_dir: str, device=None):
@@ -103,7 +148,7 @@ def build_parser():
         prog="python -m repro_torch.launch.serve",
         description="Continuous-batching serving engine over a paged KV cache, PyTorch "
                     "port (smoke-scale by default)")
-    cli.add_arch_flags(ap, default_arch="llama_60m")
+    cli.add_arch_flags(ap, default_arch="qwen2_7b")
     cli.add_ckpt_flags(ap, default_dir=None, save_flags=False)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)

@@ -1,10 +1,11 @@
-"""Top-level model: init / forward / loss / KV caches for the token-decoder
-families (port of repro/models/model.py).
+"""Top-level model: init / forward / loss / caches for the token-decoder and
+recurrent families (port of repro/models/model.py).
 
 Families: dense | moe | vlm, through one decoder stack (models/stacks.py);
 vlm mixes precomputed patch embeddings (the stubbed vision frontend) into the
-first positions. The recurrent and encoder-decoder families (ssm, hybrid,
-audio) are not ported yet (ROADMAP A.11b).
+first positions. ssm: the Mamba-2 stack of SSD layers (models/ssm.py),
+attention-free. hybrid: Jamba's period blocks (``stacks.apply_jamba_stack``).
+The encoder-decoder family (audio) is not ported yet (ROADMAP A.11c).
 
 Batch keys: tokens (B, S) int64 (required), targets (B, S), loss_mask (B, S),
 positions (B, S), or (3, B, S) under M-RoPE, media (B, M, D).
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import rope as rope_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import stacks
 from repro_torch.models.layers import (
     apply_embedding,
@@ -23,20 +25,21 @@ from repro_torch.models.layers import (
     init_embedding,
     init_norm,
 )
-from repro_torch.utils import canonical_dtype, resolve_device, tree_map
+from repro_torch.utils import canonical_dtype, resolve_device, tree_map, unstack
 
 
 PAGED_FAMILIES = ("dense", "moe", "vlm")  # pure-attention caches page cleanly
+PORTED_FAMILIES = PAGED_FAMILIES + ("ssm", "hybrid")
 
 
 def check_ported(cfg) -> None:
-    """Raise unless the port implements `cfg`: a dense, MoE or vlm decoder
-    with RMSNorm and SwiGLU, and activation checkpointing "none" or "full".
-    Not ported: the ssm, hybrid and audio families, LayerNorm, GELU, and the
+    """Raise unless the port implements `cfg`: a dense, MoE, vlm, ssm or
+    hybrid model with RMSNorm and SwiGLU, and activation checkpointing "none"
+    or "full". Not ported: the audio family, LayerNorm, GELU, and the
     reference's remat policies "scores" and "names" (used by its TPU
     hill-climbing tool only)."""
     unported = {
-        "family": cfg.family not in PAGED_FAMILIES, "norm_type": cfg.norm_type != "rmsnorm",
+        "family": cfg.family not in PORTED_FAMILIES, "norm_type": cfg.norm_type != "rmsnorm",
         "act": cfg.act != "swiglu", "remat": cfg.remat not in ("none", "full"),
     }
     bad = [k for k, v in unported.items() if v]
@@ -49,7 +52,9 @@ def init_params(cfg, seed: int = 0, device=None):
 
     Returns the reference's tree: {"embed", "final_norm", "blocks"} with the
     block leaves stacked (L, …) — MoE expert leaves (L, E, …), the router f32
-    in any model dtype; every leaf requires grad."""
+    in any model dtype; the ssm family's blocks {"mix", "ln"}; the hybrid's a
+    tuple of period sub-layers stacked over blocks. Every leaf requires
+    grad."""
     check_ported(cfg)
     device = resolve_device(device)
     dtype = canonical_dtype(cfg.dtype)
@@ -57,17 +62,35 @@ def init_params(cfg, seed: int = 0, device=None):
     p = {
         "embed": init_embedding(gen, cfg.padded_vocab, cfg.d_model, dtype),
         "final_norm": init_norm(cfg, dtype, device),
-        "blocks": stacks.init_decoder_stack(gen, cfg, dtype),
     }
+    if cfg.family == "hybrid":
+        p["blocks"] = stacks.init_jamba_stack(gen, cfg, dtype)
+    elif cfg.family == "ssm":
+        p["blocks"] = _init_ssm_stack(gen, cfg, dtype)
+    else:
+        p["blocks"] = stacks.init_decoder_stack(gen, cfg, dtype)
     return tree_map(lambda t: t.requires_grad_(True), p)
 
 
+def _init_ssm_stack(gen, cfg, dtype):
+    L = cfg.n_layers
+    return {"mix": ssm_lib.init_ssm(gen, cfg, dtype, lead=(L,)),
+            "ln": init_norm(cfg, dtype, gen.device, lead=(L,))}
+
+
 def init_cache(cfg, batch: int, max_len: int, device=None):
-    """Stacked contiguous KV cache {"k", "v": (L, batch, max_len, KV, hd)} in
-    the model's dtype, zeroed, on `device` (``cuda`` unless given)."""
+    """The contiguous cache in the model's dtype, zeroed, on `device`
+    (``cuda`` unless given): a KV cache {"k", "v": (L, batch, max_len, KV,
+    hd)}; for ssm the SSD state and conv histories {"state": (L, batch, H, P,
+    N) f32, "conv_x" / "conv_B" / "conv_C": (L, batch, k−1, ·)}; for hybrid
+    a tuple of the two kinds over Jamba's blocks (``stacks.init_jamba_cache``)."""
     check_ported(cfg)
-    return attn_lib.init_cache(cfg, batch, max_len, canonical_dtype(cfg.dtype),
-                               resolve_device(device), lead=(cfg.n_layers,))
+    dtype, device = canonical_dtype(cfg.dtype), resolve_device(device)
+    if cfg.family == "hybrid":
+        return stacks.init_jamba_cache(cfg, batch, max_len, dtype, device)
+    if cfg.family == "ssm":
+        return ssm_lib.init_ssm_cache(cfg, batch, dtype, device, lead=(cfg.n_layers,))
+    return attn_lib.init_cache(cfg, batch, max_len, dtype, device, lead=(cfg.n_layers,))
 
 
 def init_paged_cache(cfg, num_blocks: int, block_size: int, device=None):
@@ -89,8 +112,8 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, device=None):
 def _angles(cfg, positions, seq, batch, device, offset=0):
     """Rope angles (B, S, hd/2) f32 from the batch's positions (or the
     default ones from `offset`), M-RoPE's from (3, B, S) positions; None for
-    rope_style "none"."""
-    if cfg.rope_style == "none":
+    rope_style "none" and the attention-free ssm family."""
+    if cfg.rope_style == "none" or cfg.family == "ssm":
         return None
     hd = cfg.resolved_head_dim
     if positions is None:
@@ -120,10 +143,31 @@ def forward_with_aux(cfg, params, batch_dict, *, cache=None, cache_pos=None):
     x = _embed_inputs(cfg, params, batch_dict)
     angles = _angles(cfg, batch_dict.get("positions"), S, B, tokens.device,
                      0 if cache_pos is None else cache_pos)
-    x, aux = stacks.apply_decoder_stack(cfg, params["blocks"], x, angles=angles, cache=cache,
-                                        cache_pos=cache_pos)
+    if cfg.family == "hybrid":
+        x, aux = stacks.apply_jamba_stack(cfg, params["blocks"], x, angles=angles, cache=cache,
+                                          cache_pos=cache_pos)
+    elif cfg.family == "ssm":
+        x, aux = _apply_ssm_stack(cfg, params["blocks"], x, cache)
+    else:
+        x, aux = stacks.apply_decoder_stack(cfg, params["blocks"], x, angles=angles,
+                                            cache=cache, cache_pos=cache_pos)
     x = apply_norm(cfg, params["final_norm"], x)
     return apply_unembed(params["embed"], x, cfg.logit_softcap, valid_vocab=cfg.vocab_size), aux
+
+
+def _apply_ssm_stack(cfg, p, x, cache):
+    """x through the SSD layers (pre-norm residual); returns (x, a zero aux
+    loss). A cache's per-layer ``select(0, l)`` views are written in place;
+    under remat "full" each layer without a cache is recomputed."""
+    layers = unstack(p, cfg.n_layers)
+    no_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def run_layer(x, layer):
+        c = None if cache is None else {k: v.select(0, layer) for k, v in cache.items()}
+        lp = layers[layer]
+        return x + ssm_lib.apply_ssm(cfg, lp["mix"], apply_norm(cfg, lp["ln"], x), c), no_aux
+
+    return stacks.run_units(cfg, run_layer, x, cfg.n_layers, cache)
 
 
 def forward(cfg, params, batch_dict, *, cache=None, cache_pos=None):
@@ -136,7 +180,8 @@ def forward_cached(cfg, params, batch_dict, *, cache, cache_pos=None):
 
     Contiguous cache: a prefill (S > 1) writes at 0, a decode step (tokens
     (B, 1)) at `cache_pos`, whose rope phase is cache_pos unless the batch
-    carries "positions". Paged cache ({"kp", "vp", "bt", "pos"}): the batch
+    carries "positions"; the SSD layers' state and conv histories advance
+    in place (a prefill from a zero state). Paged cache ({"kp", "vp", "bt", "pos"}): the batch
     carries each row's "positions" (B, S) — (3, B, S) under M-RoPE — and K/V
     go through the block tables from each row's "pos"."""
     return forward(cfg, params, batch_dict, cache=cache, cache_pos=cache_pos), cache

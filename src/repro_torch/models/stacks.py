@@ -18,6 +18,15 @@ writes in place into its own ``select(0, l)`` view.
 (``torch.utils.checkpoint``), only when there is no cache, so a recompute
 never writes a cache twice; the reference's ``"scores"`` and ``"names"``
 policies are not ported (``model.check_ported``).
+
+Jamba: ``blocks`` is a tuple of ``attn_every`` sub-layer dicts (attention at
+``attn_offset``, the SSD layer elsewhere; the MoE FFN where ``layer %
+moe_every == moe_offset``, the SwiGLU MLP elsewhere), each leaf stacked over
+the n_layers / attn_every blocks, so the leaves are named ``blocks.0.ffn.down``,
+``blocks.4.mix.wq``, … as in the reference. The reference builds n_layers //
+attn_every blocks and silently drops the remaining layers; here a depth that
+is not whole blocks raises. Its cache is the matching tuple of per-kind
+caches, each stacked over blocks. ``remat="full"`` recomputes each block.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
 from repro_torch.utils import unstack
 
@@ -71,7 +81,6 @@ def apply_decoder_stack(cfg, p, x, *, angles, cache=None, cache_pos=None):
     if cfg.n_layers % unit:
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole groups of {unit}")
     layers = unstack(p, cfg.n_layers)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def run_group(x, g):
         total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -86,11 +95,99 @@ def apply_decoder_stack(cfg, p, x, *, angles, cache=None, cache_pos=None):
                 total = total + a
         return x, total
 
+    return run_units(cfg, run_group, x, cfg.n_layers // unit, cache)
+
+
+# ---------------------------------------------------------------------------
+# Jamba hybrid blocks
+# ---------------------------------------------------------------------------
+
+
+def _jamba_block_structure(cfg):
+    """Sub-layer kinds within one period: [("attn" | "ssm", is_moe), …]."""
+    period = cfg.attn_every
+    return [("attn" if i % period == cfg.attn_offset else "ssm",
+             cfg.n_experts > 0 and i % cfg.moe_every == cfg.moe_offset) for i in range(period)]
+
+
+def jamba_blocks(cfg) -> int:
+    """The number of period blocks; raises unless n_layers is whole blocks."""
+    if cfg.attn_every <= 0 or cfg.n_layers % cfg.attn_every:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole blocks of "
+                         f"attn_every = {cfg.attn_every}")
+    return cfg.n_layers // cfg.attn_every
+
+
+def init_jamba_stack(gen, cfg, dtype):
+    nb = jamba_blocks(cfg)
+    lead = (nb,)
+    block = []
+    for kind, is_moe in _jamba_block_structure(cfg):
+        sub = {"ln1": init_norm(cfg, dtype, gen.device, lead=lead),
+               "ln2": init_norm(cfg, dtype, gen.device, lead=lead)}
+        sub["mix"] = (attn_lib.init_attention(gen, cfg, dtype, lead=lead) if kind == "attn"
+                      else ssm_lib.init_ssm(gen, cfg, dtype, lead=lead))
+        sub["ffn"] = (moe_lib.init_moe(gen, cfg, dtype, lead=lead) if is_moe
+                      else init_mlp(gen, cfg, dtype, lead=lead))
+        block.append(sub)
+    return tuple(block)
+
+
+def init_jamba_cache(cfg, batch: int, max_len: int, dtype, device):
+    """A tuple of per-sub-layer caches stacked over blocks: attention's {"k",
+    "v": (nb, batch, max_len, KV, hd)}, the SSD layer's {"state", "conv_x",
+    "conv_B", "conv_C"} with a leading nb."""
+    lead = (jamba_blocks(cfg),)
+    return tuple(
+        attn_lib.init_cache(cfg, batch, max_len, dtype, device, lead=lead) if kind == "attn"
+        else ssm_lib.init_ssm_cache(cfg, batch, dtype, device, lead=lead)
+        for kind, _ in _jamba_block_structure(cfg))
+
+
+def jamba_sublayer(cfg, kind: str, is_moe: bool, p, x, *, angles, cache=None, cache_pos=None):
+    """One sub-layer of a Jamba block: the mixer (attention or the SSD
+    layer) and the FFN (MoE or MLP), each pre-norm and residual. Returns (x,
+    the MoE loss or None)."""
+    h = apply_norm(cfg, p["ln1"], x)
+    if kind == "attn":
+        x = x + attn_lib.attend(cfg, p["mix"], h, angles=angles, cache=cache, cache_pos=cache_pos)
+    else:
+        x = x + ssm_lib.apply_ssm(cfg, p["mix"], h, cache)
+    h = apply_norm(cfg, p["ln2"], x)
+    if is_moe:
+        out, aux = moe_lib.apply_moe(cfg, p["ffn"], h)
+        return x + out, aux
+    return x + apply_mlp(cfg, p["ffn"], h), None
+
+
+def apply_jamba_stack(cfg, p, x, *, angles, cache=None, cache_pos=None):
+    """x (B, S, D) through every block; returns (x, aux_loss 0-d f32: the MoE
+    sub-layers' losses summed). A `cache` (init_jamba_cache's tuple) is
+    written in place, each block through its own ``select(0, b)`` views."""
+    structure = _jamba_block_structure(cfg)
+    nb = jamba_blocks(cfg)
+    subs = [unstack(sub, nb) for sub in p]  # subs[i][b]: sub-layer i of block b
+
+    def run_block(x, b):
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, (kind, is_moe) in enumerate(structure):
+            sc = None if cache is None else {k: v.select(0, b) for k, v in cache[i].items()}
+            x, a = jamba_sublayer(cfg, kind, is_moe, subs[i][b], x, angles=angles, cache=sc,
+                                  cache_pos=cache_pos)
+            if a is not None:
+                total = total + a
+        return x, total
+
+    return run_units(cfg, run_block, x, nb, cache)
+
+
+def run_units(cfg, run_unit, x, n_units, cache):
+    """x through run_unit(x, u) for u in 0 … n_units − 1, summing the aux
+    losses; under remat "full" (no cache, autograd on) each unit is
+    recomputed in the backward."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat == "full" and cache is None and torch.is_grad_enabled()
-    for g in range(cfg.n_layers // unit):
-        if remat:
-            x, a = checkpoint(run_group, x, g, use_reentrant=False)
-        else:
-            x, a = run_group(x, g)
+    for u in range(n_units):
+        x, a = (checkpoint(run_unit, x, u, use_reentrant=False) if remat else run_unit(x, u))
         aux = aux + a
     return x, aux

@@ -6,8 +6,6 @@ against ``ref.adam8bit_update``, ``scale_by_adam8bit`` over three steps, a
 import os
 import pathlib
 import re
-import subprocess
-import sys
 
 import pytest
 
@@ -43,6 +41,7 @@ from repro_torch.utils import tree_leaves, tree_leaves_with_path, tree_map  # no
 from test_torch_cuda import assert_codes_close, flat_inputs  # noqa: E402
 from test_torch_quant import _assert_bitwise, _assert_close  # noqa: E402
 from test_torch_train import _Bridged  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT_PATH = pathlib.Path(ROOT)
@@ -388,16 +387,29 @@ def test_bridge_round_trips_adam8bit_state():
         _assert_bitwise(back[path], want[path], path)
 
 
-def test_cli_trains_adam8bit_on_cpu_and_refuses_without_gpu(tmp_path):
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=os.path.join(ROOT, "src"))
-    cli = [sys.executable, "-m", "repro_torch.launch.train", "--steps", "3", "--seq", "32",
-           "--batch", "2", "--optimizer", "adam8bit", "--log-every", "1",
-           "--ckpt-dir", str(tmp_path)]
-    ok = subprocess.run(cli + ["--device", "cpu"], cwd=ROOT, env=env, capture_output=True,
-                        text=True, timeout=300)
-    assert ok.returncode == 0, ok.stderr
-    losses = [float(line.split()[4]) for line in ok.stdout.splitlines()
+def test_cli_trains_adam8bit_on_cpu_and_refuses_without_gpu(tmp_path, capsys, monkeypatch):
+    cli = ["--steps", "3", "--seq", "32", "--batch", "2", "--optimizer", "adam8bit",
+           "--log-every", "1", "--ckpt-dir", str(tmp_path)]
+    rc, out, err = _main_in_process(cli + ["--device", "cpu"], capsys)
+    assert rc == 0, err
+    losses = [float(line.split()[4]) for line in out.splitlines()
               if line.startswith("[train] step")]
     assert len(losses) == 3 and all(np.isfinite(losses))
-    refused = subprocess.run(cli, cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
-    assert refused.returncode == 2 and "no CUDA device" in refused.stderr
+    rc, _, err = _main_in_process(cli, capsys, monkeypatch)
+    assert rc == 2 and "no CUDA device" in err
+
+def _main_in_process(argv, capsys, monkeypatch=None):
+    """The launcher's main in process (a subprocess would spend its time
+    importing torch): (exit code, stdout, stderr). With `monkeypatch` the
+    process sees no CUDA device, as a CPU-only host."""
+    from repro_torch.launch import train as launcher
+
+    if monkeypatch is not None:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    try:
+        launcher.main(argv)
+        rc = 0
+    except SystemExit as e:
+        rc = e.code
+    out = capsys.readouterr()
+    return rc, out.out, out.err

@@ -4,9 +4,6 @@ mode, the apply train step against the port's own emit path + chain, a
 20-step trajectory against the JAX apply step, the state swap between the
 two paths, and the refusals of the launcher and of make_train_step."""
 import dataclasses
-import os
-import subprocess
-import sys
 
 import pytest
 
@@ -44,8 +41,8 @@ from test_torch_cuda import (  # noqa: E402
 )
 from test_torch_quant import _assert_close  # noqa: E402
 from test_torch_train import _Bridged  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (shape, side): ragged n, a right leaf with ragged m, a stacked leaf
 CASES = [((72, 16, 130), "left"), ((130, 16, 72), "right"), ((3, 72, 16, 130), "left")]
 ETA, WD, ALPHA, COUNT = np.float32(-1e-2), 0.1, 0.25, 7
@@ -232,6 +229,33 @@ def test_state_swaps_between_emit_and_apply(quant):
     _assert_params_close(pb, pa)
 
 
+def test_passthrough_blocks_equal_one_block(monkeypatch):
+    """The apply step's full-shape leaves (core/galore.py passthrough_apply:
+    Adam and the weight update a block of rows at a time) with
+    _PASSTHROUGH_BLOCK patched to 192 elements — 3 rows of the 64-wide
+    leaves, so the 512-row embedding ends in a ragged block — give the
+    one-block run's parameters and state bit for bit over 3 steps."""
+    from repro_torch.core import galore as core_galore
+
+    cfg, params, batch = _smoke()
+    _, tc = _tcs(False)
+    runs = []
+    for block in (core_galore._PASSTHROUGH_BLOCK, 192):
+        monkeypatch.setattr(core_galore, "_PASSTHROUGH_BLOCK", block)
+        step, opt = make_train_step(cfg, tc)
+        p = _fresh(params)
+        s = opt.init(p)
+        for _ in range(3):
+            p, s, _ = step(p, s, batch)
+        runs.append(tree_leaves_with_path({"params": p, "state": {str(i): x
+                                                                   for i, x in enumerate(s)}}))
+    assert params["embed"]["embedding"].shape[0] % 3 and 192 // 64 == 3
+    assert [path for path, _ in runs[0]] == [path for path, _ in runs[1]]
+    for (path, a), (_, b) in zip(*runs):
+        same = torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+        assert same, path
+
+
 @pytest.mark.parametrize("quant", [False, True])
 def test_composable_apply_matches_fused_apply(quant):
     """_managed_adam_update folds the weight update into the composable
@@ -315,17 +339,31 @@ def test_apply_refuses_microbatch_and_a_missing_fused_flag():
         make_train_step(cfg, dataclasses.replace(tc, galore_fused_adam=False))
 
 
-def test_cli_apply_trains_on_cpu_and_needs_galore_fused(tmp_path):
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=os.path.join(ROOT, "src"))
-    cli = [sys.executable, "-m", "repro_torch.launch.train", "--steps", "3", "--seq", "32",
-           "--batch", "2", "--galore-rank", "16", "--galore-t", "2", "--galore-fused-apply",
-           "--log-every", "1", "--device", "cpu", "--ckpt-dir", str(tmp_path)]
-    ok = subprocess.run(cli + ["--galore-fused"], cwd=ROOT, env=env, capture_output=True,
-                        text=True, timeout=300)
-    assert ok.returncode == 0, ok.stderr
-    losses = [float(line.split()[4]) for line in ok.stdout.splitlines()
+def test_cli_apply_trains_on_cpu_and_needs_galore_fused(tmp_path, capsys):
+    cli = ["--steps", "3", "--seq", "32", "--batch", "2", "--galore-rank", "16", "--galore-t",
+           "2", "--galore-fused-apply", "--log-every", "1", "--device", "cpu", "--ckpt-dir",
+           str(tmp_path)]
+    rc, out, err = _main_in_process(cli + ["--galore-fused"], capsys)
+    assert rc == 0, err
+    losses = [float(line.split()[4]) for line in out.splitlines()
               if line.startswith("[train] step")]
     assert len(losses) == 3 and all(np.isfinite(losses))
-    refused = subprocess.run(cli, cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
-    assert refused.returncode == 2
-    assert "--galore-fused-apply requires --galore-fused" in refused.stderr
+    rc, _, err = _main_in_process(cli, capsys)
+    assert rc == 2
+    assert "--galore-fused-apply requires --galore-fused" in err
+
+def _main_in_process(argv, capsys, monkeypatch=None):
+    """The launcher's main in process (a subprocess would spend its time
+    importing torch): (exit code, stdout, stderr). With `monkeypatch` the
+    process sees no CUDA device, as a CPU-only host."""
+    from repro_torch.launch import train as launcher
+
+    if monkeypatch is not None:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    try:
+        launcher.main(argv)
+        rc = 0
+    except SystemExit as e:
+        rc = e.code
+    out = capsys.readouterr()
+    return rc, out.out, out.err

@@ -48,18 +48,9 @@ from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.optim.factory import galore_state_index  # noqa: E402
 from repro_torch.quant import QuantPolicy  # noqa: E402
 from repro_torch.utils import tree_leaves, tree_leaves_with_path, tree_map  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """Smoke-size ops gain nothing from torch's intra-op threads; under the
-    parallel test run each worker's pool would oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _toy(seed=0):

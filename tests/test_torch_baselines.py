@@ -51,18 +51,9 @@ from repro_torch.optim.transform import apply_updates, trace  # noqa: E402
 from repro_torch.quant import QuantPolicy  # noqa: E402
 from repro_torch.utils import tree_leaves, tree_leaves_with_path, tree_map  # noqa: E402
 from test_torch_train import _Bridged  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 STEPS, BATCH, SEQ = 20, 4, 64
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """Smoke-size ops gain nothing from torch's intra-op threads, and under
-    the parallel test run each worker's pool oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(x):

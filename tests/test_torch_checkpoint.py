@@ -48,19 +48,9 @@ from repro_torch.launch.train import RunConfig, train_loop  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.quant import QuantPolicy  # noqa: E402
 from repro_torch.utils import tree_leaves_with_path, tree_map  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 SEQ, BATCH = 32, 2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """Smoke-size ops gain nothing from torch's intra-op threads, and under
-    the parallel test run each worker's thread pool oversubscribes the
-    cores: a 1 s test of this file took 100 s there with the default pool."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(x):

@@ -27,7 +27,8 @@ SHAPES = [
 ]
 
 
-def fused_inputs(shape, side, seed=13):
+@functools.lru_cache(maxsize=None)
+def _fused_inputs(shape, side, seed):
     """numpy P, G, M, V for one (lead…, m, r, n) shape at count 7.
 
     P has orthonormal columns, as every GaLore projector does, and M/V are
@@ -50,13 +51,20 @@ def fused_inputs(shape, side, seed=13):
     return P, G, M, V
 
 
+def fused_inputs(shape, side, seed=13):
+    """_fused_inputs, computed once a (shape, side, seed) and copied to each
+    caller (callers update moments in place)."""
+    return tuple(a.copy() for a in _fused_inputs(tuple(shape), side, seed))
+
+
 # (lead..., m, r, n) of the tiled projection checks: ragged everything, a
 # stacked (L = 2) leaf with ragged n, stacked experts (L, E), and a leaf of
 # several 128 x 128 output tiles each way with a K of many 16-deep steps
 PROJECT_SHAPES = [(1000, 96, 520), (2, 300, 64, 130), (2, 3, 40, 8, 96), (2, 520, 264, 1000)]
 
 
-def proj_inputs(shape, seed=3):
+@functools.lru_cache(maxsize=None)
+def _proj_inputs(shape, seed):
     """numpy P (..., m, r) with orthonormal columns, G (..., m, n) and
     N (..., r, n) for one (lead..., m, r, n) shape."""
     rng = np.random.default_rng(seed)
@@ -64,6 +72,11 @@ def proj_inputs(shape, seed=3):
     P = np.linalg.qr(rng.standard_normal(lead + (m, r)))[0].astype(np.float32)
     return (P, rng.standard_normal(lead + (m, n), np.float32),
             rng.standard_normal(lead + (r, n), np.float32))
+
+
+def proj_inputs(shape, seed=3):
+    """_proj_inputs, computed once a (shape, seed) and copied to each caller."""
+    return tuple(a.copy() for a in _proj_inputs(tuple(shape), seed))
 
 
 # (shape, side) of the int8-moment kernel checks: ragged n (130, 520), a
@@ -2162,3 +2175,158 @@ def test_cuda_engine_greedy_matches_cpu():
         torch.cuda.set_sync_debug_mode("default")
     done = eng.run_until_drained(timeout_s=60)
     assert sorted(len(c.tokens) for c in done) == [12, 12]
+
+
+# ---------------------------------------------------------------------------
+# the model families' layers on the card against the CPU (ROADMAP C.17)
+# ---------------------------------------------------------------------------
+
+
+def _rel_err(got, want):
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def _on(tree, where, grad=False):
+    from repro_torch.utils import tree_map
+
+    return tree_map(lambda t: t.detach().to(where).requires_grad_(grad), tree)
+
+
+def _family_cfg(**kw):
+    from repro_torch.configs.base import ModelConfig
+
+    base = dict(name="t", family="moe", n_layers=1, d_model=64, n_heads=4, n_kv_heads=2,
+                d_ff=128, vocab_size=512, dtype="float32")
+    return ModelConfig(**{**base, **kw})
+
+
+@pytest.mark.cuda
+def test_cuda_apply_moe_with_drops_matches_cpu():
+    """apply_moe at capacity_factor 0.5 (top-2 of 4: a share of the copies
+    dropped) on the card: the output, the aux loss and the gradients of x and
+    of every expert leaf (through _Permute's gather adjoint) within
+    1e-5·max of the CPU's; _Permute alone, forward and backward, too."""
+    from repro_torch.models import moe as moe_lib
+
+    dev = _cuda_device()
+    cfg = _family_cfg(n_experts=4, experts_per_token=2, capacity_factor=0.5)
+    p = moe_lib.init_moe(torch.Generator().manual_seed(4), cfg, torch.float32)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 64, 64)).astype(np.float32))
+    runs = {}
+    for where in ("cpu", dev):
+        pw, xw = _on(p, where, True), x.to(where).requires_grad_(True)
+        y, aux = moe_lib.apply_moe(cfg, pw, xw)
+        grads = torch.autograd.grad((y ** 2).sum() + aux, [xw] + [pw[k] for k in sorted(pw)])
+        runs[str(where)] = [y, aux] + list(grads)
+    assert moe_lib.capacity_for(cfg, 64) == 16  # 128 copies, 64 slots: drops
+    for want, got in zip(runs["cpu"], runs[str(dev)]):
+        assert _rel_err(got, want) <= 1e-5
+    gen = np.random.default_rng(5)
+    xs = torch.from_numpy(gen.standard_normal((2, 6, 8)).astype(np.float32))
+    idx = torch.from_numpy(np.stack([gen.permutation(6) for _ in range(2)]))
+    inv = torch.argsort(idx, dim=1)
+    scale = torch.from_numpy((gen.random((2, 6)) > 0.3).astype(np.float32))
+    outs = {}
+    for where in ("cpu", dev):
+        xw = xs.to(where).requires_grad_(True)
+        s_fwd, s_bwd = scale.to(where), torch.gather(scale, 1, inv).to(where)
+        y = moe_lib._Permute.apply(xw, idx.to(where), inv.to(where), s_fwd, s_bwd)
+        (g,) = torch.autograd.grad((y * torch.arange(8.0, device=where)).sum(), [xw])
+        outs[str(where)] = (y, g)
+    for want, got in zip(outs["cpu"], outs[str(dev)]):
+        assert _rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_len", [12, 6])
+def test_cuda_chunked_decode_window_matches_cpu(max_len):
+    """A chunked-attention layer (chunk 8) decoding through a contiguous cache
+    whose length is no multiple of the chunk (12), and one shorter than it
+    (6): the card's logits within 1e-5·max of the CPU's at every step."""
+    from repro_torch.models import model as TM
+
+    dev = _cuda_device()
+    cfg = _family_cfg(family="dense", n_layers=2, attention_chunk=8, full_attn_every=2)
+    params = TM.init_params(cfg, seed=2, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, 512, (2, max_len)))
+    runs = {}
+    for where in ("cpu", dev):
+        pw = _on(params, where)
+        cache = TM.init_cache(cfg, 2, max_len, device=where)
+        with torch.inference_mode():
+            out, cache = TM.forward_cached(cfg, pw, {"tokens": tokens[:, :3].to(where)},
+                                           cache=cache, cache_pos=0)
+            rows = [out]
+            for pos in range(3, max_len):
+                out, cache = TM.forward_cached(cfg, pw, {"tokens": tokens[:, pos:pos + 1]
+                                                         .to(where)}, cache=cache, cache_pos=pos)
+                rows.append(out)
+        runs[str(where)] = rows
+    for want, got in zip(runs["cpu"], runs[str(dev)]):
+        assert _rel_err(got[..., :512], want[..., :512]) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_mrope_positions_match_cpu():
+    """A vlm forward with (3, B, S) M-RoPE positions whose rows differ and
+    media embeddings, on the card: logits and the loss's gradients within
+    1e-5·max of the CPU's."""
+    from repro_torch.models import model as TM
+    from repro_torch.utils import tree_leaves
+
+    dev = _cuda_device()
+    cfg = _family_cfg(family="vlm", n_layers=2, rope_style="mrope", mrope_sections=(2, 3, 3),
+                      media_embeds=4)
+    params = TM.init_params(cfg, seed=3, device="cpu")
+    rng = np.random.default_rng(3)
+    s = np.arange(16)
+    pos = np.broadcast_to(np.stack([s // 4, s // 2 % 3, s % 4 + s // 8])[:, None],
+                          (3, 2, 16)).astype(np.int32).copy()
+    batch = {"tokens": torch.from_numpy(rng.integers(0, 512, (2, 16))),
+             "positions": torch.from_numpy(pos),
+             "media": torch.from_numpy((0.1 * rng.standard_normal((2, 4, 64))).astype(np.float32))}
+    runs = {}
+    for where in ("cpu", dev):
+        pw = _on(params, where, True)
+        bw = {k: v.to(where) for k, v in batch.items()}
+        logits = TM.forward(cfg, pw, bw)
+        total, _ = TM.loss_fn(cfg, pw, bw)
+        runs[str(where)] = [logits[..., :512]] + list(torch.autograd.grad(total,
+                                                                          tree_leaves(pw)))
+    for want, got in zip(runs["cpu"], runs[str(dev)]):
+        assert _rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 13, 40])
+def test_cuda_apply_ssm_matches_cpu(S):
+    """The SSD layer on the card (f32, chunk 8): the chunked scan's output
+    and gradients (S = 13 and 40: padded tails; S = 2: shorter than the conv
+    history), the prefill's cache and three decode steps, each within
+    1e-5·max of the CPU's."""
+    from repro_torch.models import ssm as ssm_lib
+
+    dev = _cuda_device()
+    cfg = _family_cfg(family="ssm", n_heads=0, n_kv_heads=0, d_ff=0, ssm_state=16,
+                      ssm_head_dim=16, ssm_chunk=8)
+    p = ssm_lib.init_ssm(torch.Generator().manual_seed(6), cfg, torch.float32)
+    rng = np.random.default_rng(S)
+    x = torch.from_numpy(rng.standard_normal((2, S + 3, 64)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((2, S, 64)).astype(np.float32))
+    runs = {}
+    for where in ("cpu", dev):
+        pw, xw = _on(p, where, True), x[:, :S].to(where).requires_grad_(True)
+        y = ssm_lib.apply_ssm(cfg, pw, xw)
+        grads = torch.autograd.grad((y * w.to(where)).sum(), [xw] + [pw[k] for k in sorted(pw)])
+        cache = ssm_lib.init_ssm_cache(cfg, 2, torch.float32, where)
+        with torch.no_grad():
+            pd = _on(p, where)
+            out = [ssm_lib.apply_ssm(cfg, pd, x[:, :S].to(where), cache)]
+            prefill_cache = [cache[k].clone() for k in sorted(cache)]
+            out += [ssm_lib.apply_ssm(cfg, pd, x[:, t:t + 1].to(where), cache)
+                    for t in range(S, S + 3)]
+        runs[str(where)] = [y] + list(grads) + out + prefill_cache + [cache[k] for k in
+                                                                      sorted(cache)]
+    for want, got in zip(runs["cpu"], runs[str(dev)]):
+        assert _rel_err(got, want) <= 1e-5

@@ -33,6 +33,11 @@ from repro_torch.configs.base import ARCH_IDS, ModelConfig, get_config  # noqa: 
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.utils import tree_leaves, tree_leaves_with_path  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
+
+
+# the attention decoders; the ssm and hybrid families have files of their own
+DECODER_ARCHS = [a for a in ARCH_IDS if get_config(a, smoke=True).family in ("dense", "moe", "vlm")]
 
 
 def _close(got, want, name, tol=1e-5):
@@ -77,7 +82,7 @@ def _jax_flat(tree):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", DECODER_ARCHS)
 def test_family_loss_and_grads_match_jax(arch):
     cfg, jcfg = get_config(arch, smoke=True), jax_get_config(arch, smoke=True)
     params = TM.init_params(cfg, seed=0, device="cpu")

@@ -39,20 +39,11 @@ from repro_torch.launch.train import RunConfig, train_loop  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.serve import Engine, Request, ServeConfig  # noqa: E402
 from repro_torch.utils import tree_leaves_with_path, tree_map  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 ARCH = "llama4_scout_17b_a16e"
 STEPS, BATCH, SEQ = 20, 4, 32
 _G = dict(rank=16, update_freq=10, scale=0.25)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """Smoke-size ops gain nothing from torch's intra-op threads, which
-    oversubscribe the cores under the parallel test run."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(x):

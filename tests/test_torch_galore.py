@@ -29,6 +29,7 @@ from repro_torch.core.subspace import (  # noqa: E402
     proj_shape,
 )
 from repro_torch.utils import tree_leaves_with_path, tree_map  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 
 def _smoke_params():

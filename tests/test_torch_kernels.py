@@ -17,6 +17,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import galore_fused as tk  # noqa: E402
 from test_torch_cuda import SHAPES, adam8_inputs, assert_close, fused_inputs  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -99,7 +100,8 @@ def test_port_imports_no_jax():
                    "models/stacks.py", "configs/qwen2_7b.py", "configs/granite_20b.py",
                    "configs/internlm2_20b.py", "configs/minitron_4b.py",
                    "configs/qwen2_vl_7b.py", "configs/grok_1_314b.py",
-                   "configs/llama4_scout_17b_a16e.py"):
+                   "configs/llama4_scout_17b_a16e.py", "models/ssm.py",
+                   "configs/mamba2_130m.py", "configs/jamba_1_5_large_398b.py"):
         assert port / module in files, module
     bad = [
         f"{f.relative_to(ROOT)}: {mod}"

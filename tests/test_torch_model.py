@@ -18,6 +18,7 @@ from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs.base import ARCH_IDS, NOT_PORTED, get_config  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.utils import tree_leaves_with_path  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 
 def _close(got, want, name):
@@ -39,20 +40,27 @@ def test_config_copy_matches_reference():
             for f in dataclasses.fields(want):
                 assert getattr(got, f.name) == getattr(want, f.name), (arch, smoke, f.name)
             for prop in ("padded_vocab", "resolved_head_dim"):
+                if prop == "resolved_head_dim" and want.n_heads == 0:  # attention-free
+                    with pytest.raises(ZeroDivisionError):
+                        getattr(want, prop)
+                    with pytest.raises(ZeroDivisionError):
+                        getattr(got, prop)
+                    continue
                 assert getattr(got, prop) == getattr(want, prop), (arch, smoke, prop)
             TM.check_ported(got)
 
 
 def test_unported_configs_refused():
-    """The recurrent and encoder-decoder architectures raise KeyError at
-    get_config; check_ported refuses their families, LayerNorm, GELU and the
-    remat policies "scores" and "names", and accepts remat none and full."""
+    """The encoder-decoder architecture raises KeyError at get_config;
+    check_ported refuses its family, LayerNorm, GELU and the remat policies
+    "scores" and "names", and accepts the ssm and hybrid families and remat
+    none and full."""
     for arch in NOT_PORTED:
         with pytest.raises(KeyError, match="not ported yet"):
             get_config(arch)
         jax_get_config(arch)  # the reference has it
     base = get_config("qwen2_7b", smoke=True)
-    for field, value in (("family", "ssm"), ("family", "hybrid"), ("family", "audio"),
+    for field, value in (("family", "audio"),
                          ("norm_type", "layernorm"), ("act", "gelu"), ("remat", "scores"),
                          ("remat", "names")):
         with pytest.raises(NotImplementedError, match=field):
@@ -61,6 +69,8 @@ def test_unported_configs_refused():
             TM.init_params(dataclasses.replace(base, **{field: value}), device="cpu")
     for remat in ("none", "full"):
         TM.check_ported(dataclasses.replace(base, remat=remat))
+    for family in ("ssm", "hybrid"):
+        TM.check_ported(dataclasses.replace(base, family=family))
 
 
 def test_loss_and_grads_match_jax():

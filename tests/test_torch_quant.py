@@ -41,6 +41,7 @@ from test_torch_cuda import (  # noqa: E402
     fused_inputs,
 )
 from test_torch_train import _Bridged  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 HP = dict(b1=0.9, b2=0.999, eps=1e-8)
 

@@ -2,9 +2,6 @@
 training path, against the JAX package: one update at a fixed projector, a
 20-step trajectory, the state layout and bytes, the bridge, and the CLI.
 (The codecs and the leaf step are in tests/test_torch_quant.py.)"""
-import os
-import subprocess
-import sys
 
 import pytest
 
@@ -37,8 +34,8 @@ from repro_torch.utils import flatten_up_to, tree_leaves_with_path, tree_map  # 
 from test_torch_cuda import assert_codes_close  # noqa: E402
 from test_torch_quant import HP, _assert_bitwise, _assert_close  # noqa: E402
 from test_torch_train import _Bridged  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 POLICY = dict(moments="int8", projectors="int4")
 
 
@@ -173,18 +170,33 @@ def test_bridge_round_trips_jax_8bit_state():
 # 7. the CLI
 # ---------------------------------------------------------------------------
 
-_CLI = [sys.executable, "-m", "repro_torch.launch.train", "--steps", "3", "--seq", "32",
-        "--batch", "2", "--galore-rank", "16", "--galore-t", "2", "--galore-fused",
-        "--quant-moments", "int8", "--quant-proj", "int4", "--log-every", "1"]
+_CLI = ["--steps", "3", "--seq", "32", "--batch", "2", "--galore-rank", "16", "--galore-t", "2",
+        "--galore-fused", "--quant-moments", "int8", "--quant-proj", "int4", "--log-every", "1"]
 
 
-def test_cli_trains_8bit_on_cpu_and_refuses_without_gpu(tmp_path):
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=os.path.join(ROOT, "src"))
-    ok = subprocess.run(_CLI + ["--device", "cpu", "--ckpt-dir", str(tmp_path)], cwd=ROOT,
-                        env=env, capture_output=True, text=True, timeout=300)
-    assert ok.returncode == 0, ok.stderr
-    losses = [float(line.split()[4]) for line in ok.stdout.splitlines()
+def test_cli_trains_8bit_on_cpu_and_refuses_without_gpu(tmp_path, capsys, monkeypatch):
+    rc, out, err = _main_in_process(_CLI + ["--device", "cpu", "--ckpt-dir", str(tmp_path)],
+                                    capsys)
+    assert rc == 0, err
+    losses = [float(line.split()[4]) for line in out.splitlines()
               if line.startswith("[train] step")]
     assert len(losses) == 3 and all(np.isfinite(losses))
-    refused = subprocess.run(_CLI, cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
-    assert refused.returncode == 2 and "no CUDA device" in refused.stderr
+    rc, _, err = _main_in_process(_CLI + ["--ckpt-dir", str(tmp_path / "refused")], capsys,
+                                  monkeypatch)
+    assert rc == 2 and "no CUDA device" in err
+
+def _main_in_process(argv, capsys, monkeypatch=None):
+    """The launcher's main in process (a subprocess would spend its time
+    importing torch): (exit code, stdout, stderr). With `monkeypatch` the
+    process sees no CUDA device, as a CPU-only host."""
+    from repro_torch.launch import train as launcher
+
+    if monkeypatch is not None:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    try:
+        launcher.main(argv)
+        rc = 0
+    except SystemExit as e:
+        rc = e.code
+    out = capsys.readouterr()
+    return rc, out.out, out.err

@@ -57,20 +57,11 @@ from repro_torch.robust import (  # noqa: E402
 from repro_torch.robust.guard import global_grad_norm, guard_step  # noqa: E402
 from repro_torch.utils import tree_leaves, tree_map  # noqa: E402
 from test_torch_checkpoint import _assert_trees_bitwise, _flat  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 NAN, INF = float("nan"), float("inf")
 GUARD = dict(zmax=6.0, warmup=3, ema=0.9)
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """Smoke-size ops gain nothing from torch's intra-op threads, and under
-    the parallel test run each worker's thread pool oversubscribes the
-    cores: a 1 s test of this file took 100 s there with the default pool."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 # ---------------------------------------------------------------------------
 # 1. the guard's arithmetic, the fault specs

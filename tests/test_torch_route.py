@@ -2,10 +2,9 @@
 CPU model of the split-TF32 arithmetic of the tiled projections.
 
 1. The six int8-moment and weight-apply dispatchers of kernels/ops.py take
-   the reference's route on both sides of ``fits_vmem`` (route spies), and
-   at a shape that fails it each matches JAX's ``ops.*`` with
-   ``use_pallas=True, interpret=True``, which runs the reference's plain
-   fallback there.
+   the reference's route on both sides of ``fits_vmem`` (route spies); at a
+   shape that fails it each matches JAX's ``ops.*`` in
+   tests/test_torch_route_fallback.py.
 2. ``check_ported`` accepts remat "full" (each layer group recomputed in the
    backward) and refuses the reference's "scores" and "names" policies.
 3. Split TF32 emulated on the CPU: rounding to TF32 by bit operations, as
@@ -22,7 +21,6 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.kernels import galore_fused as jgf  # noqa: E402
-from repro.kernels import ops as jops  # noqa: E402
 from repro.quant import codec as jcodec  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels import galore_fused as tk  # noqa: E402
@@ -32,8 +30,6 @@ from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.utils import tree_leaves  # noqa: E402
 from test_torch_cuda import (  # noqa: E402
     adam8_inputs,
-    assert_codes_close,
-    assert_weight_close,
     SPLIT_CASES,
     fused_inputs,
     split_tf32_inputs,
@@ -41,7 +37,7 @@ from test_torch_cuda import (  # noqa: E402
     tf32_rna,
     within_gate,
 )
-from test_torch_quant import _assert_close  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 ALPHA, COUNT, WD = 0.25, 7, 0.01
 ETA = np.float32(-1e-2)
@@ -105,7 +101,7 @@ def _hp(form, stochastic=False):
 
 
 # ---------------------------------------------------------------------------
-# 1. the six dispatchers: which route, and the plain fallback against JAX
+# 1. the six dispatchers: which route
 # ---------------------------------------------------------------------------
 
 
@@ -150,61 +146,6 @@ def test_dispatch_takes_the_reference_route(monkeypatch, form, side, fits, p_int
     getattr(ops, name)(*args, **kw)
     assert calls == {"kernel": int(fits), "plain": 1, "project": 0, "back": 0}
     assert all(fn.launches == 0 for fn in tk.WRAPPERS)  # CPU tensors: no launch counted
-
-
-@pytest.mark.parametrize("side", ["left", "right"])
-@pytest.mark.parametrize("p_int4", [False, True])
-@pytest.mark.parametrize("stochastic", [False, True])
-def test_adam8_fallback_matches_jax(side, p_int4, stochastic):
-    """ops.galore_fused_adam8_step[_right] at a shape that fails fits_vmem ==
-    JAX's ops step (use_pallas=True, interpret=True: its ref.* fallback
-    there): G̃ and scales within 1e-5·max, codes at most one apart; codes and
-    scales updated in place."""
-    jargs, targs, _ = _leaf_args("adam8", FAILS[side], side, p_int4)
-    name = _name("adam8", side)
-    want = getattr(jops, name)(*jargs, **_hp("adam8", stochastic), use_pallas=True,
-                               interpret=True)
-    got = getattr(ops, name)(*targs, **_hp("adam8", stochastic))
-    assert all(a is b for a, b in zip(got[1:], targs[2:6]))
-    tag = f"{side} int4 P {p_int4} stochastic {stochastic}"
-    for what, a, b in zip(["update", "mq", "ms", "vq", "vs"], got, want):
-        if a.dtype == torch.uint8:
-            assert_codes_close(a, b, f"{tag} {what}")
-        else:
-            _assert_close(a, b, f"{tag} {what}")
-
-
-@pytest.mark.parametrize("form", ["apply", "adam8_apply"])
-@pytest.mark.parametrize("side", ["left", "right"])
-@pytest.mark.parametrize("p_int4", [False, True])
-@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
-def test_apply_fallback_matches_jax(form, side, p_int4, w_dtype):
-    """The fp32- and int8-moment apply dispatchers at a shape that fails
-    fits_vmem == JAX's ops step (Pallas-interpret dispatch, ref.* fallback
-    there): f32 W' - W within 2e-5·max, bf16 W' within one ulp, moments
-    within 1e-5·max (codes at most one apart); W and the moments updated in
-    place."""
-    wdt = getattr(torch, w_dtype)
-    jargs, targs, W = _leaf_args(form, FAILS[side], side, p_int4, wdt)
-    w0 = W.clone()
-    name = _name(form, side)
-    want = getattr(jops, name)(*jargs, **_hp(form), eta=jnp.float32(ETA), use_pallas=True,
-                               interpret=True)
-    got = getattr(ops, name)(*targs, **_hp(form), eta=torch.tensor(ETA))
-    assert got[0] is W and W.dtype == wdt
-    assert all(a is b for a, b in zip(got[1:], targs[3:-1]))
-    tag = f"{form} {side} int4 P {p_int4} W {w_dtype}"
-    # bf16 W: one ulp, plus 2e-5·max|W' - W| where W' is near 0 (the f32 sum
-    # cancels there, and XLA's and torch's matmuls sum in other orders at
-    # this rank: 3 of 393,216 elements at |W'| < 5e-8 are more than one ulp
-    # apart), the card checks' rule for bf16 W
-    assert_weight_close(W, np.asarray(want[0]).astype(np.float32), w0, f"{tag} W", tol=2e-5,
-                        ulps=int(wdt == torch.bfloat16))
-    for i, (a, b) in enumerate(zip(got[1:], want[1:])):
-        if a.dtype == torch.uint8:
-            assert_codes_close(a, b, f"{tag} moment {i}")
-        else:
-            _assert_close(a, b, f"{tag} moment {i}")
 
 
 # ---------------------------------------------------------------------------

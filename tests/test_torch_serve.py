@@ -34,6 +34,7 @@ from repro_torch.serve import (  # noqa: E402
     generate_batch,
     kv_cache,
 )
+from torch_threads import one_thread  # noqa: E402,F401
 
 try:
     from hypothesis import given, settings
@@ -500,10 +501,13 @@ def test_load_checkpoint_params_matches_jax(model, tmp_path, quantize):
 
 
 def test_cli_in_process(tmp_path, capsys):
-    """`--device cpu` serves the demo requests; without it (and no GPU) the
-    CLI exits 2 with "no CUDA device"; `--ckpt-dir` serves a checkpoint."""
+    """`--device cpu` serves the demo requests on the default architecture,
+    the reference's qwen2_7b; without it (and no GPU) the CLI exits 2 with "no
+    CUDA device"; `--ckpt-dir` serves a checkpoint of the named --arch."""
     if torch.cuda.is_available():
         pytest.skip("the no-GPU refusal needs a machine without a CUDA device")
+    assert tlaunch.build_parser().parse_args([]).arch == "qwen2_7b"
+    assert jlaunch.build_parser().parse_args([]).arch == "qwen2_7b"
     tlaunch.main(["--device", "cpu", "--max-new", "3"])
     out = capsys.readouterr().out
     assert "[serve] engine up on cpu" in out and out.count("[max_new") == 2
@@ -515,7 +519,8 @@ def test_cli_in_process(tmp_path, capsys):
     cfg = get_config("llama_60m", smoke=True)
     CheckpointManager(str(tmp_path), async_save=False).save(
         5, {"params": TM.init_params(cfg, seed=3, device="cpu")}, block=True)
-    tlaunch.main(["--device", "cpu", "--max-new", "2", "--ckpt-dir", str(tmp_path)])
+    tlaunch.main(["--arch", "llama_60m", "--device", "cpu", "--max-new", "2", "--ckpt-dir",
+                  str(tmp_path)])
     assert f"restored params from {tmp_path} step 5" in capsys.readouterr().out
 
 

@@ -26,6 +26,7 @@ from repro_torch.core.subspace import SubspaceManager, importance_order_from_gra
 from repro_torch.launch import train as launcher  # noqa: E402
 from repro_torch.quant import QuantPolicy  # noqa: E402
 from repro_torch.utils import tree_leaves, tree_leaves_with_path, tree_map  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
