@@ -160,7 +160,19 @@ Phases, each timed, none of them optional; any failed check raises:
      trained with GaLore in the apply form and the randomized projector at
      the expert count the reckoning lets fit (B3-apply right at in_dt, wk
      and wv, 72 launches; every left leaf keeps 8192 rows and fails the
-     reference's fits_vmem);
+     reference's fits_vmem); [whisper] whisper_small whole (12 encoder and
+     12 decoder layers, d_model 768, bf16, remat full; nothing cut): 8 fp32
+     fused GaLore steps (r = 128, T = 8) through train_loop's data hook on
+     batches of 8 × 256 tokens and 8 × 1500 × 768 frames drawn on the card
+     (B1 at the 14 attention and ffn.up leaves, 112 launches, B2 at the 2
+     ffn.down leaves, 16), losses finite; dec_pos and frames drawn, a
+     200-token prefill and 8 decode steps through make_prefill_step /
+     make_decode_step against the full forward (f32 1e-4·max, bf16
+     SERVE_GATE_BF16 at every token, or, where a token misses, the bf16
+     model's own gap to its f32 self measured and printed); the Server on
+     zero frames (prompts of 1, 4, 64 and 200 tokens, 8 new each): in f32
+     the greedy tokens equal to the full forward's, prefill tokens/s and
+     decode ms a step by CUDA events;
   11. record: the SVD refresh time at ranks 128 and 1024, step times and
      peak memory of every phase (the paper's 7B memory comparison, 8-bit
      GaLore at r = 1024 beside 8-bit Adam, Adafactor and AdamW, on one
@@ -1057,7 +1069,8 @@ def check_rmsnorm():
 
 def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=True, rank=128,
                 update_freq=8, ckpt_dir=None, ckpt_every=0, guard=False, faults=None,
-                on_state=None, galore_kw=None, tc_kw=None, units=None, cfg=None, params=None):
+                on_state=None, galore_kw=None, tc_kw=None, units=None, cfg=None, params=None,
+                data=None):
     """8 steps of the main path (AdamW, wd 0.01; GaLore at `rank`, refreshed
     every `update_freq` steps; with `apply` the weight update folded into the
     kernels; `optimizer` adafactor the reference's GaLore-Adafactor; without
@@ -1075,8 +1088,8 @@ def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=
     `tc_kw` add GaLoreConfig and TrainConfig fields (the refresh lifecycle's);
     `units` (an SvdUnits) records the SVD units each step computed. `cfg`
     replaces llama_7b at 2 layers (another family's config) and `params` the
-    random init (train_loop's hook); each step's aux_loss is kept beside its
-    loss."""
+    random init and `data` the synthetic stream (train_loop's hooks); each
+    step's aux_loss is kept beside its loss."""
     cfg = cfg or dataclasses.replace(get_config("llama_7b"), n_layers=2)
     gcfg = (GaLoreConfig(rank=rank, update_freq=update_freq, scale=0.25,
                          quant=quant or QuantPolicy(), **(galore_kw or {})) if galore else None)
@@ -1101,7 +1114,7 @@ def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=
     ops.reset_launch_counts()
     try:
         params, opt_state, _, _ = train_loop(run, tc, cfg=cfg, on_step=on_step, faults=faults,
-                                             params=params)
+                                             params=params, data=data)
     finally:
         if own_dir is not None:
             shutil.rmtree(own_dir, ignore_errors=True)
@@ -2626,6 +2639,16 @@ class ServerRecorder:
         self._events.clear()
 
 
+def text_batch(cfg, rows):
+    """A batch of token rows on the card; an audio model's with the zero
+    frames the Server prefills on, in the model's dtype."""
+    batch = {"tokens": torch.tensor(rows, device="cuda")}
+    if cfg.family == "audio":
+        batch["enc_frames"] = torch.zeros((len(rows), cfg.enc_seq, cfg.d_model),
+                                          dtype=getattr(torch, cfg.dtype), device="cuda")
+    return batch
+
+
 def served_vs_forward(cfg, params, prompts, new, max_len):
     """The Server's greedy tokens for `prompts` (each of its own length, so
     each its own lane group), and for every emitted token its logits gap
@@ -2646,8 +2669,7 @@ def served_vs_forward(cfg, params, prompts, new, max_len):
     V, gaps, same, k = cfg.vocab_size, [], 0, 0
     with torch.inference_mode():
         for p, toks in zip(prompts, out):
-            full = forward(cfg, params, {"tokens": torch.tensor([list(p) + toks[:-1]],
-                                                                 device="cuda")})[0]
+            full = forward(cfg, params, text_batch(cfg, [list(p) + toks[:-1]]))[0]
             for j, tok in enumerate(toks):
                 want, got = full[len(p) - 1 + j, :V].float(), rec.rows[k][:V]
                 gaps.append(float((got - want).abs().max()) / float(want.abs().max()))
@@ -2732,9 +2754,9 @@ def bf16_own_gaps(cfg, params, prompts, served):
     V, gaps = cfg.vocab_size, []
     with torch.inference_mode():
         for p, toks in zip(prompts, served):
-            seq = {"tokens": torch.tensor([list(p) + toks[:-1]], device="cuda")}
-            a = forward(cfg, params, seq)[0, len(p) - 1:, :V]
-            b = forward(c32, p32, seq)[0, len(p) - 1:, :V]
+            rows = [list(p) + toks[:-1]]
+            a = forward(cfg, params, text_batch(cfg, rows))[0, len(p) - 1:, :V]
+            b = forward(c32, p32, text_batch(c32, rows))[0, len(p) - 1:, :V]
             gaps += [float((x.float() - y).abs().max()) / float(y.abs().max())
                      for x, y in zip(a, b)]
     del p32
@@ -2834,6 +2856,178 @@ def hybrid_phase(phases, none):
     check_state_bytes("hybrid", ph)
 
 
+WHISPER_ARCH = "whisper_small"
+WHISPER_PROMPTS = (1, 4, 64, 200)
+
+
+class FrameData:
+    """train_loop's data source for the audio family: the synthetic token
+    stream (8 × 256 a step) and frames 0.1·N(0, 1) of (8, enc_seq, d_model)
+    in the model's dtype, drawn on the card from a torch.Generator seeded by
+    the step."""
+
+    def __init__(self, cfg, batch=8, seq=256, seed=0):
+        self.cfg, self.seed = cfg, seed
+        self.text = SyntheticC4(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                           batch_per_host=batch, seed=seed), device="cuda")
+
+    def batch(self, step):
+        b = dict(self.text.batch(step))
+        gen = torch.Generator(device="cuda").manual_seed(self.seed * 100003 + step)
+        shape = (b["tokens"].shape[0], self.cfg.enc_seq, self.cfg.d_model)
+        b["enc_frames"] = (0.1 * torch.randn(shape, generator=gen, device="cuda")).to(
+            getattr(torch, self.cfg.dtype))
+        return b
+
+
+def drawn_audio(cfg, seed):
+    """Whisper's random init with dec_pos drawn 0.02·N(0, 1) (the init's
+    zeros would hide a position off by one), and frames 0.1·N(0, 1) for 2
+    lanes (zero frames make every encoder position alike), both in the
+    model's dtype."""
+    params = init_params(cfg, seed=seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, cfg.dtype)
+    with torch.no_grad():
+        params["dec_pos"].copy_(0.02 * torch.randn(params["dec_pos"].shape, generator=gen,
+                                                   device="cuda"))
+    frames = (0.1 * torch.randn((2, cfg.enc_seq, cfg.d_model), generator=gen,
+                                device="cuda")).to(dt)
+    return params, frames
+
+
+def cached_vs_forward(cfg, params, frames, tokens, n_prompt):
+    """A prefill of n_prompt tokens with frames through make_prefill_step,
+    then the rest of `tokens` (B, n) teacher-forced through make_decode_step
+    (tokens only: the cross K/V from the cache): each step's logits gap
+    max|Δ|/max over the real vocab against the full forward at its
+    position, a gap per lane and step."""
+    from repro_torch.distributed.step import make_decode_step, make_prefill_step
+    from repro_torch.models.model import forward, init_cache
+
+    B, n = tokens.shape
+    V = cfg.vocab_size
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg, with_logits=True)
+    cache = init_cache(cfg, B, n, device="cuda")
+    last, cache = prefill(params, cache, {"tokens": tokens[:, :n_prompt], "enc_frames": frames})
+    rows = [last]
+    for pos in range(n_prompt, n):
+        _, last, cache = decode(params, cache, tokens[:, pos:pos + 1], pos)
+        rows.append(last)
+    with torch.inference_mode():
+        full = forward(cfg, params, {"tokens": tokens, "enc_frames": frames})
+    gaps = []
+    for j, row in enumerate(rows):
+        want = full[:, n_prompt - 1 + j, :V].float()
+        gaps += [float((g[:V].float() - w).abs().max()) / float(w.abs().max())
+                 for g, w in zip(row, want)]
+    del cache, full
+    return gaps
+
+
+def audio_own_gaps(cfg, params, frames, tokens, n_prompt):
+    """The bf16 model's own gap to its f32 self: its full forward's logits
+    against the f32 forward of the same (bf16) weights and frames at every
+    position the cached check compares, max|Δ|/max over the real vocab."""
+    from repro_torch.models.model import forward
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda t: t.detach().float(), params)
+    V = cfg.vocab_size
+    with torch.inference_mode():
+        a = forward(cfg, params, {"tokens": tokens, "enc_frames": frames})[:, n_prompt - 1:, :V]
+        b = forward(c32, p32, {"tokens": tokens, "enc_frames": frames.float()})[:, n_prompt - 1:,
+                                                                                 :V]
+    gaps = [float((x.float() - y).abs().max()) / float(y.abs().max())
+            for x, y in zip(a.flatten(0, 1), b.flatten(0, 1))]
+    del p32
+    return gaps
+
+
+def whisper_phase(phases, none):
+    """[whisper]: whisper_small whole (12 + 12 layers, d_model 768, padded
+    vocab 51,968, enc_seq 1500, bf16, remat full; nothing cut). 8 fp32 fused
+    GaLore steps (r = 128, T = 8) through train_loop(data=FrameData): B1 at
+    the 14 left leaves a step (the encoder's wq wk wv wo and ffn.up, the
+    decoder's self and cross wq wk wv wo and ffn.up), B2 at the 2 ffn.down
+    leaves. Then, dec_pos and frames drawn, 200 prompt tokens prefilled and 8
+    decoded against the full forward: f32 within 1e-4·max, bf16 within
+    SERVE_GATE_BF16 at every token — where a token misses, the bf16 model's
+    own gap to its f32 self is measured and printed, and every token is held
+    within it. Then the Server's contiguous loop on zero frames, prompts of
+    1, 4, 64 and 200 tokens, 8 new tokens each, f32 and bf16: in f32 the
+    greedy tokens equal the full forward's and every token within 1e-4·max;
+    bf16 held as the cached check; prefill tokens/s and decode ms a step."""
+    cfg = get_config(WHISPER_ARCH)
+    n_params = sum(p.numel() for p in tree_leaves(shape_params(cfg)))
+    t = time.perf_counter()
+    ph = phases["whisper"] = train_phase(fused=True, cfg=cfg, data=FrameData(cfg))
+    times = ph["times"]
+    log(f"[whisper] {cfg.name}: {cfg.n_enc_layers} + {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params} parameters, {cfg.dtype}, remat {cfg.remat}, batch 8 × 256 "
+        f"tokens + 8 × {cfg.enc_seq} × {cfg.d_model} frames: losses "
+        f"{[round(x, 4) for x in ph['losses']]} launches {ph['launches']}; step 0 "
+        f"{times[0] * 1e3:.1f} ms, non-refresh median {statistics.median(times[1:]) * 1e3:.1f} "
+        f"ms ({[round(x * 1e3, 1) for x in times]}); peak memory {ph['peak'] / 2**30:.2f} GiB; "
+        f"state bytes {ph['state_bytes']} (analytic {ph['analytic_bytes']}); {card_line()} "
+        f"({time.perf_counter() - t:.1f} s)")
+    if ph["launches"] != dict(none, left=112, right=16):
+        raise AssertionError(f"[whisper] launches {ph['launches']}, want left 112 (14 leaves × 8 "
+                             f"steps), right 16 (ffn.down × 2 × 8)")
+    check_state_bytes("whisper", ph)
+
+    n_prompt, n = 200, 208
+    tokens = torch.from_numpy(np.random.default_rng(28).integers(0, cfg.vocab_size, (2, n))).to(
+        "cuda")
+    for dtype in ("float32", "bfloat16"):
+        t = time.perf_counter()
+        c = dataclasses.replace(cfg, dtype=dtype)
+        params, frames = drawn_audio(c, seed=28)
+        gaps = cached_vs_forward(c, params, frames, tokens, n_prompt)
+        limit = 1e-4 if dtype == "float32" else SERVE_GATE_BF16
+        msg = (f"[whisper] cached {dtype}, dec_pos and frames drawn: prefill {n_prompt} + decode "
+               f"{n - n_prompt}, 2 lanes; logits vs the full forward max|Δ|/max a token: median "
+               f"{statistics.median(gaps):.2e}, max {max(gaps):.2e} (limit {limit:g})")
+        own = None
+        if max(gaps) > limit and dtype == "bfloat16":
+            own = audio_own_gaps(c, params, frames, tokens, n_prompt)
+            msg += (f"; {sum(g > limit for g in gaps)} of {len(gaps)} tokens over it: the bf16 "
+                    f"model's own gap to its f32 self median {statistics.median(own):.2e}, max "
+                    f"{max(own):.2e}")
+        log(f"{msg}; {card_line()} ({time.perf_counter() - t:.1f} s)")
+        if max(gaps) > (limit if own is None else max(own)):
+            raise AssertionError(f"[whisper] cached {dtype}: gap {max(gaps):.3e} over "
+                                 f"{limit if own is None else max(own):.3e}")
+
+        t = time.perf_counter()
+        prompts = serve_prompts(np.random.default_rng(29), WHISPER_PROMPTS, cfg.vocab_size)
+        new = 8
+        out, sgaps, same, rec = served_vs_forward(c, params, prompts, new,
+                                                  max(WHISPER_PROMPTS) + new)
+        log(f"[whisper] Server {dtype}, zero frames: prompts {list(WHISPER_PROMPTS)} → {new} "
+            f"tokens each; logits vs the full forward max|Δ|/max a token: median "
+            f"{statistics.median(sgaps):.2e}, max {max(sgaps):.2e}; greedy picks equal to the "
+            f"full forward's {same} of {len(sgaps)}; prefill {len(rec.prefill_ms)} calls, "
+            f"{rec.prefill_tokens / sum(rec.prefill_ms) * 1e3:.0f} tokens/s "
+            f"({[round(x, 2) for x in rec.prefill_ms]} ms); decode {len(rec.decode_ms)} steps of "
+            f"one lane, median {statistics.median(rec.decode_ms):.3f} ms; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card_line()} "
+            f"({time.perf_counter() - t:.1f} s)")
+        if dtype == "float32" and (max(sgaps) > 1e-4 or same != len(sgaps)):
+            raise AssertionError(f"[whisper] Server f32: logits gap {max(sgaps):.3e} > 1e-4 or "
+                                 f"{len(sgaps) - same} greedy picks differ")
+        if dtype == "bfloat16" and max(sgaps) > SERVE_GATE_BF16:
+            sown = bf16_own_gaps(c, params, prompts, out)
+            log(f"[whisper] Server bf16: {sum(g > SERVE_GATE_BF16 for g in sgaps)} of "
+                f"{len(sgaps)} tokens over {SERVE_GATE_BF16:g}; the bf16 model's own gap to its "
+                f"f32 self median {statistics.median(sown):.2e}, max {max(sown):.2e}")
+            if max(sgaps) > max(sown):
+                raise AssertionError(f"[whisper] Server bf16: gap {max(sgaps):.3e} over the "
+                                     f"model's own {max(sown):.3e}")
+        del params, frames, rec
+        torch.cuda.empty_cache()
+
+
 def family_phases(phases, none):
     """The families' phases in turn, each timed."""
     for tag, fn in (("moe-kernels", check_expert_apply),
@@ -2843,7 +3037,8 @@ def family_phases(phases, none):
                     ("serve-chunk", serve_chunk_phase),
                     ("families", families_phase),
                     ("ssm", lambda: ssm_phase(phases, none)),
-                    ("hybrid", lambda: hybrid_phase(phases, none))):
+                    ("hybrid", lambda: hybrid_phase(phases, none)),
+                    ("whisper", lambda: whisper_phase(phases, none))):
         t = time.perf_counter()
         fn()
         log(f"[{tag}] ({time.perf_counter() - t:.1f} s)")

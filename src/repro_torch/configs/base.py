@@ -193,8 +193,7 @@ class TrainConfig:
     # (external or async refresh, fixed period; as the reference)
 
 
-# the architectures the port registers (the reference's ARCH_IDS less the
-# encoder-decoder family, ROADMAP A.11c)
+# the architectures the port registers: every one of the reference's ARCH_IDS
 ARCH_IDS = [
     "qwen2_vl_7b",
     "llama4_scout_17b_a16e",
@@ -204,9 +203,10 @@ ARCH_IDS = [
     "internlm2_20b",
     "qwen2_7b",
     "jamba_1_5_large_398b",
+    "whisper_small",
     "mamba2_130m",
 ]
-NOT_PORTED = ("whisper_small",)
+NOT_PORTED: tuple[str, ...] = ()  # the reference's ids the port lacks: none
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE_REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
@@ -219,11 +219,9 @@ def register(name: str, full: Callable[[], ModelConfig], smoke: Callable[[], Mod
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
     """Full-size or smoke config by architecture id: one of ``ARCH_IDS`` or
-    the paper's dense LLaMA family (``llama_60m`` … ``llama_7b``). An id of
-    the reference the port lacks (``NOT_PORTED``) raises KeyError."""
+    the paper's dense LLaMA family (``llama_60m`` … ``llama_7b``); any other
+    id raises KeyError."""
     key = name.replace("-", "_").replace(".", "_")
-    if key in NOT_PORTED:
-        raise KeyError(f"architecture {name!r} is not ported yet (ROADMAP A.11c)")
     if key not in _REGISTRY:
         module = key if key in ARCH_IDS else "llama_paper"
         importlib.import_module(f"repro_torch.configs.{module}")

@@ -13,9 +13,10 @@ KV cache, typed Request/Completion API). This module keeps:
     engine. Emits DeprecationWarning; new code should use
     ``repro_torch.serve.Engine`` directly. The engine serves the paged
     families (dense, moe, vlm); the recurrent ones (ssm, hybrid), whose
-    state has no blocks to page, are served by the Server's contiguous-cache
-    loop. The CLI builds an Engine, which refuses them, as the reference's
-    does.
+    state has no blocks to page, and the encoder-decoder (audio), whose
+    cross K/V have none, are served by the Server's contiguous-cache loop
+    (audio prefills on zero frames, as the reference's). The CLI builds an
+    Engine, which refuses them, as the reference's does.
 
 Where the reference differs: its contiguous loop right-pads every prompt to
 the longest, takes each lane's logits at the longest prompt's last position
@@ -113,7 +114,15 @@ class Server:
             toks = torch.tensor([[int(t) for t in prompts[i]] for i in lanes], dtype=torch.int64,
                                 device=device)
             cache = M.init_cache(self.cfg, len(lanes), self.max_len, device=device)
-            last, cache = self.prefill(self.params, cache, {"tokens": toks})
+            batch = {"tokens": toks}
+            if self.cfg.family == "audio":
+                # zero frames, as the reference's loop; in the model's dtype,
+                # where the reference's f32 frames promote its bf16 encoder
+                # to f32 (torch refuses a mixed-dtype product instead)
+                batch["enc_frames"] = torch.zeros(
+                    (len(lanes), self.cfg.enc_seq, self.cfg.d_model),
+                    dtype=self.params["embed"]["embedding"].dtype, device=device)
+            last, cache = self.prefill(self.params, cache, batch)
             nxt = last.argmax(dim=-1)
             rows = [nxt]
             for pos in range(plen, plen + max_new - 1):

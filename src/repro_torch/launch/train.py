@@ -6,8 +6,10 @@ SGD with momentum on a synthetic C4-like stream and logs
 model with experts). ``--arch`` takes every architecture the port registers
 (``configs/base.py::ARCH_IDS`` and the paper's LLaMAs), smoke-sized unless
 ``--full``; ``--layers N`` cuts the depth. Batches are text only, as the
-reference's launcher makes them. Runs on ``cuda`` unless ``--device`` says
-otherwise. Ported with the loop:
+reference's launcher makes them, so the audio family (``whisper_small``),
+whose batches carry "enc_frames", trains through ``train_loop(data=…)``;
+without such a source it raises KeyError before step 0. Runs on ``cuda``
+unless ``--device`` says otherwise. Ported with the loop:
   * checkpoints every ``--ckpt-every`` steps (async, atomic; crc-checked and
     carrying the guard's state when guarded; ``--ckpt-quantize`` for the
     params' file codec) with the pipeline's position in META, and
@@ -343,6 +345,10 @@ def train_loop(run: RunConfig, tc: TrainConfig, cfg=None, on_step=None, params=N
     device = resolve_device(run.device)
     cfg = cfg or get_config(run.arch, smoke=run.smoke)
     if data is None:
+        if cfg.family == "audio":  # as the reference's run, which fails at its first step
+            raise KeyError(f"enc_frames: {cfg.name} needs batches that carry enc_frames "
+                           f"(B, enc_seq, d_model); the synthetic stream makes tokens only, "
+                           f"so pass data= (anything with batch(step))")
         data = SyntheticC4(DataConfig(vocab_size=cfg.vocab_size, seq_len=run.seq_len,
                                       batch_per_host=run.batch_per_host, seed=tc.seed),
                            device=device)

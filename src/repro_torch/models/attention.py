@@ -1,7 +1,8 @@
 """Grouped-query attention with its KV caches (port of
 repro/models/attention.py::attend, ``_paged_attend``, ``init_cache`` and
 ``init_paged_cache``): GQA and MQA, QKV biases, rope or none (the rope-free
-global layer of iRoPE), causal and chunked-local masks.
+global layer of iRoPE), causal and chunked-local masks, the bidirectional
+encoder (no mask) and cross-attention over precomputed encoder K/V.
 
 Plain tensor ops as the reference is plain jnp — no fused attention operator,
 which would change the numerics: scores are computed and masked in f32
@@ -32,7 +33,9 @@ from repro_torch.models.layers import _init_normal
 NEG_INF = -2.3819763e38  # large negative for bf16-safe masking (applied in f32)
 
 
-def init_attention(gen, cfg, dtype, lead=()):
+def init_attention(gen, cfg, dtype, lead=(), cross: bool = False):
+    """{"wq", "wk", "wv", "wo"}, and the QKV biases under cfg.qkv_bias —
+    never for cross-attention (`cross`), as in the reference."""
     lead = tuple(lead)
     hd = cfg.resolved_head_dim
     d = cfg.d_model
@@ -42,7 +45,7 @@ def init_attention(gen, cfg, dtype, lead=()):
         "wv": _init_normal(gen, lead + (d, cfg.n_kv_heads * hd), dtype, fan_in=d),
         "wo": _init_normal(gen, lead + (cfg.n_heads * hd, d), dtype, fan_in=cfg.n_heads * hd),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         dev = gen.device
         p["bq"] = torch.zeros(lead + (cfg.n_heads * hd,), dtype=dtype, device=dev)
         p["bk"] = torch.zeros(lead + (cfg.n_kv_heads * hd,), dtype=dtype, device=dev)
@@ -70,14 +73,17 @@ def _gqa_out(probs, v):
 
 def _masked_softmax(scores, mask):
     """Softmax over the last axis of f32 `scores` (which it may overwrite),
-    masked keys at NEG_INF. Without autograd it runs in place in `scores`,
-    the same values in one buffer (a serving prefill's scores are
-    H·S·T·4 bytes a layer: 12 GB at Scout's 40 heads and 8,704 tokens)."""
+    masked keys at NEG_INF; `mask` None masks nothing. Without autograd it
+    runs in place in `scores`, the same values in one buffer (a serving
+    prefill's scores are H·S·T·4 bytes a layer: 12 GB at Scout's 40 heads
+    and 8,704 tokens)."""
     if not torch.is_grad_enabled():
-        scores.masked_fill_(~mask, NEG_INF)
+        if mask is not None:
+            scores.masked_fill_(~mask, NEG_INF)
         scores.sub_(scores.amax(dim=-1, keepdim=True)).exp_()
         return scores.div_(scores.sum(dim=-1, keepdim=True))
-    scores = scores.masked_fill(~mask, NEG_INF)
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_INF)
     m = scores.amax(dim=-1, keepdim=True).detach()
     unnorm = torch.exp(scores - m)
     return unnorm / unnorm.sum(dim=-1, keepdim=True)
@@ -138,8 +144,10 @@ def _paged_attend(q, k, v, cache, chunk: int = 0):
     return _gqa_out(probs, v_att)
 
 
-def attend(cfg, p, x, *, angles, chunk: int = 0, cache=None, cache_pos=None):
-    """Causal self-attention over x (B, S, D); returns (B, S, D).
+def attend(cfg, p, x, *, angles, causal: bool = True, chunk: int = 0, cache=None,
+           cache_pos=None, kv_override=None):
+    """Self-attention over x (B, S, D), causal unless `causal` is False (the
+    encoder's: every key visible); returns (B, S, D).
 
     `angles` None applies no rope. `chunk` > 0 lets a query see only the
     keys of its own chunk of positions (chunked-local attention). With a
@@ -148,12 +156,19 @@ def attend(cfg, p, x, *, angles, chunk: int = 0, cache=None, cache_pos=None):
     attends over the cache up to it — a chunked layer over the chunk of
     `cache_pos` only; a paged `cache` (``"kp"`` in it) writes and reads
     through its block tables (``_paged_attend``). The cache is written in
-    place."""
+    place. `kv_override` = (k, v), each (B, T, KV, hd), is cross-attention:
+    the queries attend to those keys, every one visible at any S, with no
+    rope and no cache."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
     G = H // KV
     q = _proj(x, p["wq"], p.get("bq"), H, hd)
+    if kv_override is not None:  # cross-attention: learned positions, no rope
+        k, v = kv_override
+        q = q.reshape(B, S, KV, G, hd) * (hd ** -0.5)
+        out = _gqa_out(_masked_softmax(_gqa_scores(q, k), None), v)
+        return out.reshape(B, S, H * hd) @ p["wo"]
     k = _proj(x, p["wk"], p.get("bk"), KV, hd)
     v = _proj(x, p["wv"], p.get("bv"), KV, hd)
     if angles is not None:
@@ -177,9 +192,11 @@ def attend(cfg, p, x, *, angles, chunk: int = 0, cache=None, cache_pos=None):
         if cache is not None:  # prefill: the whole prefix at 0
             cache["k"][:, :S] = k
             cache["v"][:, :S] = v
-        pos = torch.arange(S, device=x.device)
-        mask = _chunk_mask(pos[:, None], pos[None, :], chunk)  # (S, T)
-        out = _gqa_out(_masked_softmax(_gqa_scores(q, k), mask[None, None, None]), v)
+        mask = None  # the bidirectional encoder's (no chunk in any config)
+        if causal:
+            pos = torch.arange(S, device=x.device)
+            mask = _chunk_mask(pos[:, None], pos[None, :], chunk)[None, None, None]
+        out = _gqa_out(_masked_softmax(_gqa_scores(q, k), mask), v)
     return out.reshape(B, S, H * hd) @ p["wo"]
 
 

@@ -1,10 +1,10 @@
-"""Primitive layers: RMSNorm, dense projections, embeddings, the SwiGLU MLP.
+"""Primitive layers: RMSNorm and LayerNorm, dense projections, embeddings,
+the SwiGLU and GELU MLPs.
 
-Port of the dense-LLaMA part of repro/models/layers.py. Parameters are plain
-dicts of tensors in the reference layout — dense kernels (d_in, d_out),
-embeddings (vocab, d_model). Dtype handling follows the reference op for op:
-the norm computes in f32 and casts back, dense products run in the parameter
-dtype, logits come out f32.
+Port of repro/models/layers.py. Parameters are plain dicts of tensors in the
+reference layout — dense kernels (d_in, d_out), embeddings (vocab, d_model).
+Dtype handling follows the reference op for op: the norms compute in f32 and
+cast back, dense products run in the parameter dtype, logits come out f32.
 """
 from __future__ import annotations
 
@@ -19,12 +19,24 @@ def _init_normal(gen: torch.Generator, shape, dtype, fan_in=None) -> torch.Tenso
 
 
 def init_norm(cfg, dtype, device, lead=()):
-    return {"scale": torch.ones(tuple(lead) + (cfg.d_model,), dtype=dtype, device=device)}
+    shape = tuple(lead) + (cfg.d_model,)
+    p = {"scale": torch.ones(shape, dtype=dtype, device=device)}
+    if cfg.norm_type == "layernorm":
+        p["bias"] = torch.zeros(shape, dtype=dtype, device=device)
+    return p
 
 
 def apply_norm(cfg, p, x, eps=1e-6):
-    """RMSNorm in f32, cast back to x's dtype."""
+    """RMSNorm, or LayerNorm ((x − mean)·rsqrt(var + eps)·scale + bias, the
+    variance the mean of the squared deviations, as the reference writes it;
+    ``F.layer_norm`` computes it another way), in f32, cast back to x's
+    dtype."""
     xf = x.float()
+    if cfg.norm_type == "layernorm":
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mean).square().mean(dim=-1, keepdim=True)
+        out = (xf - mean) * torch.rsqrt(var + eps)
+        return (out * p["scale"].float() + p["bias"].float()).to(x.dtype)
     ms = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * p["scale"].float()).to(x.dtype)
 
@@ -59,15 +71,19 @@ def apply_unembed(p, x, softcap: float = 0.0, valid_vocab: int = 0):
 
 
 def init_mlp(gen, cfg, dtype, lead=(), d_ff=None):
+    """{"gate", "up", "down"} for SwiGLU; {"up", "down"} for GELU."""
     lead = tuple(lead)
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    return {
-        "gate": _init_normal(gen, lead + (d, f), dtype, fan_in=d),
-        "up": _init_normal(gen, lead + (d, f), dtype, fan_in=d),
-        "down": _init_normal(gen, lead + (f, d), dtype, fan_in=f),
-    }
+    p = {"gate": _init_normal(gen, lead + (d, f), dtype, fan_in=d)} if cfg.act == "swiglu" else {}
+    p["up"] = _init_normal(gen, lead + (d, f), dtype, fan_in=d)
+    p["down"] = _init_normal(gen, lead + (f, d), dtype, fan_in=f)
+    return p
 
 
 def apply_mlp(cfg, p, x):
-    """SwiGLU: (silu(x W_gate) * x W_up) W_down."""
-    return (F.silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
+    """SwiGLU: (silu(x W_gate) * x W_up) W_down; GELU: gelu(x W_up) W_down
+    with the tanh form, ``jax.nn.gelu``'s default (the exact erf form differs
+    from it by up to 4.7e-4)."""
+    if cfg.act == "swiglu":
+        return (F.silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
+    return F.gelu(x @ p["up"], approximate="tanh") @ p["down"]

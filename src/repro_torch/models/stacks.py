@@ -27,6 +27,12 @@ the n_layers / attn_every blocks, so the leaves are named ``blocks.0.ffn.down``,
 attn_every blocks and silently drops the remaining layers; here a depth that
 is not whole blocks raises. Its cache is the matching tuple of per-kind
 caches, each stacked over blocks. ``remat="full"`` recomputes each block.
+
+Whisper: the encoder stack (pre-norm ln1 → bidirectional attention → ln2 →
+MLP) and the cross-decoder stack (ln1 → causal self-attention with the
+cache → ln2 → cross-attention over the encoder's K/V → ln3 → MLP), one layer
+a unit; ``compute_enc_kv`` projects the encoder output through every
+layer's cross wk / wv.
 """
 from __future__ import annotations
 
@@ -191,3 +197,79 @@ def run_units(cfg, run_unit, x, n_units, cache):
         x, a = (checkpoint(run_unit, x, u, use_reentrant=False) if remat else run_unit(x, u))
         aux = aux + a
     return x, aux
+
+
+# ---------------------------------------------------------------------------
+# Whisper-style encoder / decoder stacks
+# ---------------------------------------------------------------------------
+
+
+def init_encoder_stack(gen, cfg, dtype):
+    L = cfg.n_enc_layers
+    return {
+        "attn": attn_lib.init_attention(gen, cfg, dtype, lead=(L,)),
+        "ln1": init_norm(cfg, dtype, gen.device, lead=(L,)),
+        "ln2": init_norm(cfg, dtype, gen.device, lead=(L,)),
+        "ffn": init_mlp(gen, cfg, dtype, lead=(L,)),
+    }
+
+
+def apply_encoder_stack(cfg, p, x):
+    """Frames x (B, T, D) through the n_enc_layers encoder layers; returns
+    (B, T, D)."""
+    layers = unstack(p, cfg.n_enc_layers)
+    no_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def run_layer(x, layer):
+        lp = layers[layer]
+        h = apply_norm(cfg, lp["ln1"], x)
+        x = x + attn_lib.attend(cfg, lp["attn"], h, angles=None, causal=False)
+        return x + apply_mlp(cfg, lp["ffn"], apply_norm(cfg, lp["ln2"], x)), no_aux
+
+    return run_units(cfg, run_layer, x, cfg.n_enc_layers, None)[0]
+
+
+def init_crossdecoder_stack(gen, cfg, dtype):
+    L = cfg.n_layers
+    return {
+        "self_attn": attn_lib.init_attention(gen, cfg, dtype, lead=(L,)),
+        "cross_attn": attn_lib.init_attention(gen, cfg, dtype, lead=(L,), cross=True),
+        "ln1": init_norm(cfg, dtype, gen.device, lead=(L,)),
+        "ln2": init_norm(cfg, dtype, gen.device, lead=(L,)),
+        "ln3": init_norm(cfg, dtype, gen.device, lead=(L,)),
+        "ffn": init_mlp(gen, cfg, dtype, lead=(L,)),
+    }
+
+
+def apply_crossdecoder_stack(cfg, p, x, enc_kv, *, cache=None, cache_pos=None):
+    """x (B, S, D) through the decoder layers; returns (B, S, D). `enc_kv` =
+    (k, v), each stacked (L, B, T, KV, hd) (``compute_enc_kv``, or the
+    cache's cross K/V); a self-attention `cache` {"k", "v": (L, B, max_len,
+    KV, hd)} is written in place through each layer's ``select(0, l)``."""
+    L = cfg.n_layers
+    layers = unstack(p, L)
+    ks, vs = enc_kv[0].unbind(0), enc_kv[1].unbind(0)
+    no_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def run_layer(x, layer):
+        lp = layers[layer]
+        c = None if cache is None else {k: v.select(0, layer) for k, v in cache.items()}
+        h = apply_norm(cfg, lp["ln1"], x)
+        x = x + attn_lib.attend(cfg, lp["self_attn"], h, angles=None, cache=c,
+                                cache_pos=cache_pos)
+        h = apply_norm(cfg, lp["ln2"], x)
+        x = x + attn_lib.attend(cfg, lp["cross_attn"], h, angles=None,
+                                kv_override=(ks[layer], vs[layer]))
+        return x + apply_mlp(cfg, lp["ffn"], apply_norm(cfg, lp["ln3"], x)), no_aux
+
+    return run_units(cfg, run_layer, x, L, cache)[0]
+
+
+def compute_enc_kv(cfg, p, enc_out):
+    """The cross-attention K/V of every decoder layer from the encoder output
+    (B, T, D): (k, v), each (L, B, T, KV, hd) in the model's dtype."""
+    hd = cfg.resolved_head_dim
+    cross = unstack(p["cross_attn"], cfg.n_layers)
+    ks = [attn_lib._proj(enc_out, lp["wk"], lp.get("bk"), cfg.n_kv_heads, hd) for lp in cross]
+    vs = [attn_lib._proj(enc_out, lp["wv"], lp.get("bv"), cfg.n_kv_heads, hd) for lp in cross]
+    return torch.stack(ks), torch.stack(vs)

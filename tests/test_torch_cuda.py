@@ -2330,3 +2330,127 @@ def test_cuda_apply_ssm_matches_cpu(S):
                                                                       sorted(cache)]
     for want, got in zip(runs["cpu"], runs[str(dev)]):
         assert _rel_err(got, want) <= 1e-5
+
+
+def _whisper_cfg(**kw):
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+
+    return dataclasses.replace(get_config("whisper_small"), dtype="float32", **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_layernorm_matches_cpu(dtype):
+    """Whisper's LayerNorm at the encoder's input, (8·1500, 768), random
+    scale and bias: f32 within 1e-5·max of the CPU's. bf16 x and parameters
+    within one bf16 ulp plus 1e-5·max of the CPU's at every element: both
+    compute in f32 and round once, and the f32 statistics' summation order
+    alone flips a rounding here and there, and moves an output near 0 (where
+    out·scale and bias cancel) by more than its own ulp (ROADMAP C.7's
+    rule); the same inputs in f32 within 1e-5·max."""
+    from repro_torch.models.layers import apply_norm
+
+    dev = _cuda_device()
+    cfg = _whisper_cfg()
+    rng = np.random.default_rng(31)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy((2.0 * rng.standard_normal((8 * 1500, 768)) + 0.5)
+                         .astype(np.float32)).to(dt)
+    p = {k: torch.from_numpy(rng.standard_normal(768).astype(np.float32)).to(dt)
+         for k in ("scale", "bias")}
+    want = apply_norm(cfg, p, x)
+    got = apply_norm(cfg, _on(p, dev), x.to(dev))
+    assert got.dtype == dt
+    if dtype == "float32":
+        assert _rel_err(got, want) <= 1e-5
+        return
+    want = want.float()
+    ulp = torch.finfo(torch.bfloat16).eps * want.abs()
+    assert bool(((got.float().cpu() - want).abs() <= ulp + 1e-5 * want.abs().max()).all())
+    pf = {k: v.float() for k, v in p.items()}
+    assert _rel_err(apply_norm(cfg, _on(pf, dev), x.to(dev).float()),
+                    apply_norm(cfg, pf, x.float())) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_encoder_attention_matches_cpu():
+    """The bidirectional encoder attention at whisper_small's width and S =
+    1500 (f32, B = 1): the output and the gradients of x and of every leaf
+    within 1e-5·max of the CPU's."""
+    from repro_torch.models import attention as attn_lib
+
+    dev = _cuda_device()
+    cfg = _whisper_cfg()
+    p = attn_lib.init_attention(torch.Generator().manual_seed(32), cfg, torch.float32)
+    rng = np.random.default_rng(32)
+    x = torch.from_numpy(rng.standard_normal((1, 1500, 768)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((1, 1500, 768)).astype(np.float32))
+    runs = {}
+    for where in ("cpu", dev):
+        pw, xw = _on(p, where, True), x.to(where).requires_grad_(True)
+        y = attn_lib.attend(cfg, pw, xw, angles=None, causal=False)
+        grads = torch.autograd.grad((y * w.to(where)).sum(), [xw] + [pw[k] for k in sorted(pw)])
+        runs[str(where)] = [y] + list(grads)
+    for want, got in zip(runs["cpu"], runs[str(dev)]):
+        assert _rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_cross_attention_decode_matches_cpu():
+    """One cross-attention decode step at whisper_small's width: a token a
+    row (B = 4) against cached cross K/V of 1500 encoder positions, through
+    kv_override, within 1e-5·max of the CPU's."""
+    from repro_torch.models import attention as attn_lib
+
+    dev = _cuda_device()
+    cfg = _whisper_cfg()
+    p = attn_lib.init_attention(torch.Generator().manual_seed(33), cfg, torch.float32, cross=True)
+    assert "bq" not in p
+    rng = np.random.default_rng(33)
+    x = torch.from_numpy(rng.standard_normal((4, 1, 768)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((4, 1500, 12, 64)).astype(np.float32))
+            for _ in range(2))
+    with torch.inference_mode():
+        want = attn_lib.attend(cfg, p, x, angles=None, kv_override=(k, v))
+        got = attn_lib.attend(cfg, _on(p, dev), x.to(dev), angles=None,
+                              kv_override=(k.to(dev), v.to(dev)))
+    assert _rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_audio_prefill_decode_matches_cpu():
+    """The audio family's cached path on a narrow config (2 + 2 layers,
+    d_model 64, 16 frames), dec_pos and frames drawn: a 5-token prefill with
+    frames (the cross K/V written into the cache) and three decode steps
+    without them, the logits and the cache within 1e-5·max of the CPU's."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as TM
+
+    dev = _cuda_device()
+    cfg = get_config("whisper_small", smoke=True)
+    params = TM.init_params(cfg, seed=34, device="cpu")
+    rng = np.random.default_rng(34)
+    with torch.no_grad():
+        params["dec_pos"].copy_(torch.from_numpy(
+            (0.02 * rng.standard_normal((8192, 64))).astype(np.float32)))
+    tokens = torch.from_numpy(rng.integers(0, 512, (2, 8)))
+    frames = torch.from_numpy((0.1 * rng.standard_normal((2, 16, 64))).astype(np.float32))
+    runs = {}
+    for where in ("cpu", dev):
+        pw = _on(params, where)
+        cache = TM.init_cache(cfg, 2, 8, device=where)
+        with torch.inference_mode():
+            out, _ = TM.forward_cached(cfg, pw, {"tokens": tokens[:, :5].to(where),
+                                                 "enc_frames": frames.to(where)},
+                                       cache=cache, cache_pos=0)
+            rows = [out]
+            for pos in range(5, 8):
+                out, _ = TM.forward_cached(cfg, pw, {"tokens": tokens[:, pos:pos + 1].to(where)},
+                                           cache=cache, cache_pos=pos)
+                rows.append(out)
+        runs[str(where)] = [r[..., :512] for r in rows] + [cache["cross_k"], cache["cross_v"],
+                                                          cache["self"]["k"], cache["self"]["v"]]
+    for want, got in zip(runs["cpu"], runs[str(dev)]):
+        assert _rel_err(got, want) <= 1e-5

@@ -51,26 +51,24 @@ def test_config_copy_matches_reference():
 
 
 def test_unported_configs_refused():
-    """The encoder-decoder architecture raises KeyError at get_config;
-    check_ported refuses its family, LayerNorm, GELU and the remat policies
-    "scores" and "names", and accepts the ssm and hybrid families and remat
-    none and full."""
-    for arch in NOT_PORTED:
-        with pytest.raises(KeyError, match="not ported yet"):
-            get_config(arch)
-        jax_get_config(arch)  # the reference has it
+    """What the port still refuses: no architecture of the reference
+    (NOT_PORTED is empty, whisper_small registered); check_ported and
+    init_params refuse the remat policies "scores" and "names", and accept
+    every family, LayerNorm, GELU and remat none and full."""
+    assert NOT_PORTED == ()
+    assert get_config("whisper_small").family == jax_get_config("whisper_small").family == "audio"
     base = get_config("qwen2_7b", smoke=True)
-    for field, value in (("family", "audio"),
-                         ("norm_type", "layernorm"), ("act", "gelu"), ("remat", "scores"),
-                         ("remat", "names")):
-        with pytest.raises(NotImplementedError, match=field):
-            TM.check_ported(dataclasses.replace(base, **{field: value}))
-        with pytest.raises(NotImplementedError):
-            TM.init_params(dataclasses.replace(base, **{field: value}), device="cpu")
-    for remat in ("none", "full"):
-        TM.check_ported(dataclasses.replace(base, remat=remat))
-    for family in ("ssm", "hybrid"):
-        TM.check_ported(dataclasses.replace(base, family=family))
+    for remat in ("scores", "names"):
+        bad = dataclasses.replace(base, remat=remat)
+        with pytest.raises(NotImplementedError, match="remat"):
+            TM.check_ported(bad)
+        with pytest.raises(NotImplementedError, match="remat"):
+            TM.init_params(bad, device="cpu")
+    for field, value in (("remat", "none"), ("remat", "full"), ("norm_type", "layernorm"),
+                         ("act", "gelu"), *(("family", f) for f in ("ssm", "hybrid", "audio"))):
+        TM.check_ported(dataclasses.replace(base, **{field: value}))
+    with pytest.raises(NotImplementedError, match="family"):
+        TM.check_ported(dataclasses.replace(base, family="unknown"))
 
 
 def test_loss_and_grads_match_jax():

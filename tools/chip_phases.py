@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run some of chip_smoke.py's model-family phases alone on the card.
 
-    python3 tools/chip_phases.py [moe-kernels|moe|moe-dispatch|mrope|serve-chunk|families|ssm|hybrid ...]
+    python3 tools/chip_phases.py [moe-kernels|moe|moe-dispatch|mrope|serve-chunk|families|
+                                  ssm|hybrid|whisper ...]
 
 With no argument every one of them runs, in chip_smoke.py's order. Each
 phase is timed; a failing phase prints its traceback and the next one
@@ -26,7 +27,7 @@ def main(only):
     print(cs.card_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if not only or {"moe-kernels", "moe", "mrope", "ssm"} & set(only):
+    if not only or {"moe-kernels", "moe", "mrope", "ssm", "whisper"} & set(only):
         t = time.perf_counter()
         cs.build.build(["galore_epilogue"])
         print(f"[build] {time.perf_counter() - t:.1f} s", flush=True)
@@ -39,7 +40,8 @@ def main(only):
                     ("serve-chunk", cs.serve_chunk_phase),
                     ("families", cs.families_phase),
                     ("ssm", lambda: cs.ssm_phase(phases, none)),
-                    ("hybrid", lambda: cs.hybrid_phase(phases, none))):
+                    ("hybrid", lambda: cs.hybrid_phase(phases, none)),
+                    ("whisper", lambda: cs.whisper_phase(phases, none))):
         if only and tag not in only:
             continue
         t = time.perf_counter()
