@@ -173,6 +173,26 @@ Phases, each timed, none of them optional; any failed check raises:
      zero frames (prompts of 1, 4, 64 and 200 tokens, 8 new each): in f32
      the greedy tokens equal to the full forward's, prefill tokens/s and
      decode ms a step by CUDA events;
+  10e. data parallel: [dp-kernels] B1/B2 and B3-int8 (f32 and int4 P) at
+     the rank blocks of 64 that GaLore-ZeRO gives them at n_dp 2, B4/B5 at
+     blocks of 512, each against its plain version with check_kernels',
+     check_adam8's and check_project's gates; [dp] (dp_phase) four
+     configurations of `python -m torch.distributed.run --nproc-per-node 2
+     -m repro_torch.launch.train --dist-backend gloo` at llama_7b width, 1
+     of 32 layers (cut by depth only), batch 8 × 256, 4 steps (5 for (a) and
+     (b)), T = 8, both ranks on cuda:0, each against the same command in one
+     process: (a) fp32 fused r = 128 with the sharded refresh, (b) ZeRO-1
+     8-bit with int4 P, (c) ZeRO-2 with GaLore-DP, (d) ZeRO-1 fp32 at
+     r = 1024 — losses within 5e-2 and equal on both ranks, each rank's
+     launches a step (B1 6 / B2 1, B3-int8 6 / 1 on blocks, none, B4 / B5 7
+     on blocks), per-rank state bytes equal to galore_zero_state_bytes, the
+     staged collectives and step times from each rank's --report; (e) (a)'s
+     and (b)'s step-2 checkpoints resumed in one process for steps 3 and 4:
+     step 4 within 5e-2 and the update from step 2 to step 4 off the world's
+     by at most DP_UPDATE_GAP of itself in each of wq, down and the
+     embedding; (f) (a) as an NCCL world of 1, losses bit for bit and every
+     checkpoint array's CRC-32 equal to the one-process run's; the phase
+     timed;
   11. record: the SVD refresh time at ranks 128 and 1024, step times and
      peak memory of every phase (the paper's 7B memory comparison, 8-bit
      GaLore at r = 1024 beside 8-bit Adam, Adafactor and AdamW, on one
@@ -206,6 +226,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -427,17 +448,19 @@ def bound(side, L, m, r, n, g_itemsize, w_itemsize=None, p_int4=False):
     return step_bound(L, m, r, n, g_itemsize, nbytes, 12 * mv + out_flops)
 
 
-def check_kernels():
+def check_kernels(shapes=None):
     """The fp32-moment emit form of galore_epilogue's kernel (B1, B2, and
     their int4-P forms) against its plain version at every SHAPES entry (G
-    bf16 and f32) and every SHAPES8 entry (G bf16), P f32 and packed int4:
+    bf16 and f32) and every SHAPES8 entry (G bf16) — or at `shapes` (G
+    bf16) — P f32 and packed int4:
     G̃, M' and V' within 1e-5·max|want| + 1e-5·|want|, two launches on the
     same inputs bitwise equal, and an int4-P launch bit for bit the launch on
     the host-dequantized P. Each line names the launch's route and cluster
     size; times kernel and plain version."""
     rows = []
-    for i, (side, L, m, r, n, main) in enumerate(SHAPES + SHAPES8):
-        dtypes = (torch.bfloat16, torch.float32) if i < len(SHAPES) else (torch.bfloat16,)
+    for i, (side, L, m, r, n, main) in enumerate(shapes or SHAPES + SHAPES8):
+        two = shapes is None and i < len(SHAPES)
+        dtypes = (torch.bfloat16, torch.float32) if two else (torch.bfloat16,)
         for dt in dtypes:
             P, G, M, V, count = kernel_inputs(side, L, m, r, n, dt, seed=i)
             P4 = codec.quant4_axis_state(P)
@@ -566,10 +589,10 @@ def thread_copies():
     return sum(fn.launches_thread_copy for fn in gf.WRAPPERS_TMA)
 
 
-def check_adam8():
+def check_adam8(shapes=None):
     rows = []
     count = torch.tensor(COUNT, dtype=torch.int32, device="cuda")
-    for i, (side, L, m, r, n, main) in enumerate(SHAPES + SHAPES8):
+    for i, (side, L, m, r, n, main) in enumerate(shapes or SHAPES + SHAPES8):
         k = KERNELS["adam8_" + side]
         P, mom, G32 = adam8_inputs(side, L, m, r, n, seed=100 + i)
         P4 = codec.quant4_axis_state(P)
@@ -930,7 +953,7 @@ def gemm_bound(L, m, r, n, in_bytes, out_bytes, passes, scale_ops=0):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), t_f32
 
 
-def check_project():
+def check_project(shapes=None):
     """B4 and B5 (split TF32 on the tensor cores) against their plain
     versions (cuBLAS SGEMM) at PROJECT_SHAPES, to
     1e-5·max|want| (+ 1e-5·|want|) with TF32 off: B4 with G bf16 and f32
@@ -940,7 +963,7 @@ def check_project():
     G.float()) for B4 (the cast timed in), alpha · torch.matmul(P, N) for B5
     (the scale timed in; through the transposes for down)."""
     rows = []
-    for i, (leaf, L, m, r, n, trans, main) in enumerate(PROJECT_SHAPES):
+    for i, (leaf, L, m, r, n, trans, main) in enumerate(shapes or PROJECT_SHAPES):
         gen = torch.Generator(device="cuda").manual_seed(500 + i)
         P = torch.linalg.qr(torch.randn(L, m, r, generator=gen, device="cuda"))[0].contiguous()
         G32 = torch.randn(L, *((n, m) if trans else (m, n)), generator=gen, device="cuda")
@@ -3043,6 +3066,292 @@ def family_phases(phases, none):
         fn()
         log(f"[{tag}] ({time.perf_counter() - t:.1f} s)")
 
+# ---------------------------------------------------------------------------
+# [dp]: data-parallel training through torch.distributed.run on this card
+# ---------------------------------------------------------------------------
+
+# GaLore-ZeRO's rank blocks at n_dp 2 on [dp]'s leaves (llama_7b, 1 layer):
+# the fp32 and int8-moment kernels at rank 128 / 2 = 64 (B1/B2, B3-int8),
+# the tiled projections at rank 1024 / 2 = 512 (B4/B5)
+BLOCK_SHAPES = [
+    ("left", 1, 4096, 64, 4096, False),
+    ("left", 1, 4096, 64, 11008, False),
+    ("right", 1, 11008, 64, 4096, False),
+]
+BLOCK_PROJECT_SHAPES = [
+    ("left", 1, 4096, 512, 4096, False, False),
+    ("left", 1, 4096, 512, 11008, False, False),
+    ("down", 1, 4096, 512, 11008, True, False),
+]
+# llama_7b width cut to 1 of its 32 layers (by depth only: at 2 layers the
+# phase took 277–299 s and chip_smoke.py 1,140 s of its 1,200), global batch
+# 8 × 256, 4 steps, the refresh at step 0 only (T 8), lr 1e-3, no weight decay
+DP_ARGS = ["--arch", "llama_7b", "--full", "--layers", "1", "--batch", "8", "--seq", "256",
+           "--steps", "4", "--galore-t", "8", "--log-every", "1"]
+# (flags, launches each rank makes a step, ZeRO)
+DP_CONFIGS = {
+    "a": (["--galore-rank", "128", "--galore-fused", "--galore-refresh-shard"],
+          dict(left=6, right=1), False),
+    "b": (["--galore-rank", "128", "--galore-fused", "--quant-moments", "int8", "--quant-proj",
+           "int4", "--galore-zero", "1", "--galore-refresh-shard"],
+          dict(adam8_left=6, adam8_right=1), True),
+    "c": (["--galore-rank", "128", "--galore-zero", "2", "--galore-dp-compress",
+           "--galore-refresh-shard"], {}, True),
+    "d": (["--galore-rank", "1024", "--galore-fused", "--galore-zero", "1",
+           "--galore-refresh-shard"], dict(project=7, project_back=7), True),
+}
+# (a) and (b) take a fifth step and checkpoint at steps 2 and 4, for (e)
+DP_RESUMED = ["--ckpt-every", "2", "--steps", "5"]
+
+
+# a run's checkpoint arrays whose update (e) compares: a left and a right
+# galore leaf and a passthrough leaf (a norm's bf16 scale of 1.0 does not
+# move in a few steps at lr 1e-3: its ulp there is 7.8e-3)
+DP_LEAVES = ["params.blocks.attn.wq", "params.blocks.ffn.down", "params.embed.embedding"]
+# the most that two runs' updates from one state may differ, as a share of
+# the update: a world that dropped one owner's rank block of it is ~0.7 off,
+# one that skipped it 1.0
+DP_UPDATE_GAP = 0.25
+
+
+def check_rank_blocks():
+    """The kernels at the rank-block shapes the ZeRO phases give them, each
+    against its plain version (the gates of check_kernels, check_adam8 and
+    check_project): B1/B2 and B3-int8 at rank 64, B4/B5 at rank 512."""
+    return (check_kernels(BLOCK_SHAPES) + check_adam8(BLOCK_SHAPES)
+            + check_project(BLOCK_PROJECT_SHAPES))
+
+
+def read_report(path, n):
+    out = []
+    for k in range(n):
+        with open(f"{path}.rank{k}.json") as f:
+            out.append(json.load(f))
+    return out
+
+
+def report_launches(rep_):
+    """A rank's launches by COUNTERS key (ops.launch_counts' names)."""
+    counts = rep_["launches"]
+    return {key: counts[fn.__name__ + (".int4" if attr == "launches_int4" else "")]
+            for key, (fn, attr) in COUNTERS.items()}
+
+
+def report_losses(rep_):
+    return [rep_["steps"][str(i)]["loss"] for i in range(len(rep_["steps"]))]
+
+
+def start_world(argv, root, tag, nproc=2, backend="gloo"):
+    """Start `python -m torch.distributed.run --nproc-per-node nproc -m
+    repro_torch.launch.train argv …` on this card (every rank on cuda:0), in
+    a process group of its own; finish_world waits for it and reads each
+    rank's report, stop_world ends it and its ranks."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    report = os.path.join(root, f"{tag}-report")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(nproc), "-m", "repro_torch.launch.train", *argv, "--ckpt-dir",
+           os.path.join(root, tag), "--report", report]
+    if backend is not None:
+        cmd += ["--dist-backend", backend]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=env, start_new_session=True)
+    return dict(proc=proc, tag=tag, report=report, nproc=nproc, t=time.perf_counter())
+
+
+def stop_world(w):
+    """Kill a world that is still running, its ranks with it, and reap it."""
+    if w["proc"].poll() is None:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(w["proc"].pid, signal.SIGKILL)
+        w["proc"].wait()
+
+
+def finish_world(w):
+    out, err = w["proc"].communicate(timeout=600)
+    if w["proc"].returncode != 0:
+        raise AssertionError(f"[dp] {w['tag']}: torch.distributed.run exited "
+                             f"{w['proc'].returncode}: {err[-3000:]}")
+    return read_report(w["report"], w["nproc"]), time.perf_counter() - w["t"]
+
+
+def dp_one(argv, root, tag):
+    """The same configuration in this process, with no world (the launcher's
+    main, as a user runs it): its report."""
+    report = os.path.join(root, f"{tag}-report")
+    launcher.main([*argv, "--device", "cuda", "--ckpt-dir", os.path.join(root, tag),
+                   "--report", report])
+    torch.cuda.empty_cache()
+    return read_report(report, 1)[0]
+
+
+def ckpt_leaves(root, tag, step, keys=DP_LEAVES):
+    """Some arrays of a run's step-`step` checkpoint (read one by one), f64."""
+    with np.load(os.path.join(root, tag, f"step_{step:08d}", "host_0.npz")) as z:
+        return {k: z[k].astype(np.float64) for k in keys}
+
+
+def update_gap(tag, start, got, want):
+    """{leaf: ‖got − want‖ / ‖want − start‖} over DP_LEAVES: two runs'
+    updates from one state against each other; raises past DP_UPDATE_GAP,
+    or where `want` did not move from `start` or lies far from it (a start
+    that is not these runs' own)."""
+    gaps, moved = {}, {}
+    for k in DP_LEAVES:
+        step = float(np.linalg.norm(want[k] - start[k]))
+        moved[k] = step / float(np.linalg.norm(start[k]))
+        gaps[k] = float(np.linalg.norm(got[k] - want[k])) / step if step else math.inf
+    if not all(0 < m < 0.5 for m in moved.values()):
+        raise AssertionError(f"[dp] {tag}: moved {moved} of the start's norm")
+    if max(gaps.values()) > DP_UPDATE_GAP:
+        raise AssertionError(f"[dp] {tag}: updates {gaps} apart, as a share of the update "
+                             f"(limit {DP_UPDATE_GAP})")
+    return gaps
+
+
+def ckpt_crcs(root, tag, step=2):
+    """{array name: (CRC-32, bytes)} of a run's checkpoint, from its zip
+    directory (no array read)."""
+    import zipfile
+
+    with zipfile.ZipFile(os.path.join(root, tag, f"step_{step:08d}", "host_0.npz")) as z:
+        return {i.filename: (i.CRC, i.file_size) for i in z.infolist()}
+
+
+def fmt_gaps(gaps):
+    return ", ".join(f"{k.rsplit('.', 1)[-1]} {v:.2e}" for k, v in gaps.items())
+
+
+def dp_check(tag, flags, want, zero, one, reps, t_world):
+    """[dp] gates of one configuration's world of 2 against its one-process
+    run (`want`: the launches a rank makes a step); logs the line."""
+    want_l = report_losses(one)
+    got = [report_losses(r) for r in reps]
+    if got[0] != got[1]:
+        raise AssertionError(f"[dp] {tag}: the ranks' losses differ: {got}")
+    gap = max(abs(a - b) for a, b in zip(got[0], want_l))
+    if not all(map(math.isfinite, got[0])) or gap > 5e-2:
+        raise AssertionError(f"[dp] {tag}: world-of-2 losses {got[0]} vs one process "
+                             f"{want_l}: max |Δ| {gap:.3e} (limit 5e-2)")
+    none = {key: 0 for key in COUNTERS}
+    for r in reps + [one]:
+        if report_launches(r) != dict(none, **{k: v * len(r["steps"]) for k, v in want.items()}):
+            raise AssertionError(f"[dp] {tag} rank {r['rank']} of {r['n_dp']}: launches "
+                                 f"{report_launches(r)}, want {want}")
+    later = statistics.median(r["steps"][str(i)]["step_s"] for r in reps for i in (1, 2, 3))
+    later_one = statistics.median(one["steps"][str(i)]["step_s"] for i in (1, 2, 3))
+    line = (f"[dp] {tag} {' '.join(flags)}: losses {got[0]} vs one process {want_l} (max "
+            f"|Δ| {gap:.2e}); launches a rank a step {want or 'none'}; step 0 "
+            f"{reps[0]['steps']['0']['step_s']:.2f} / {reps[1]['steps']['0']['step_s']:.2f} s "
+            f"on ranks 0 / 1 vs {one['steps']['0']['step_s']:.2f} s in one process; median "
+            f"later step {later * 1e3:.0f} ms vs {later_one * 1e3:.0f} ms; SVD units a rank "
+            f"{[(r['refresh'] or {}).get('units') for r in reps]}; staged collectives a rank "
+            f"{[r['staged'] for r in reps]}; peak {[round(r['peak_bytes'] / 2**30, 2) for r in reps]}"
+            f" GiB a rank vs {one['peak_bytes'] / 2**30:.2f}; world {t_world:.1f} s")
+    if zero:
+        want_b = reps[0]["zero_bytes"]["opt_state_bytes_per_replica"]
+        got_b = [r["state_bytes"]["total"] for r in reps]
+        if any(x != want_b for x in got_b):
+            raise AssertionError(f"[dp] {tag}: per-rank state bytes {got_b}, "
+                                 f"galore_zero_state_bytes {want_b}")
+        line += (f"; state bytes a rank {got_b} = galore_zero_state_bytes {want_b:.0f} vs one "
+                 f"process {one['state_bytes']['total']}")
+    log(line)
+
+
+def dp_resumed_check(tag, one, rank0, root):
+    """(e) of `tag`: its world's step-2 checkpoint resumed in one process
+    (`one`'s report) against the world's own steps 3 and 4 (`rank0`'s);
+    logs the line."""
+    straight = report_losses(rank0)
+    if sorted(one["steps"]) != ["3", "4"]:
+        raise AssertionError(f"[dp] e-{tag}: the resumed run took steps {sorted(one['steps'])}")
+    gap = abs(one["steps"]["4"]["loss"] - straight[4])
+    if gap > 5e-2:
+        raise AssertionError(f"[dp] e-{tag}: resumed step 4 {one['steps']['4']['loss']} vs "
+                             f"the world's {straight[4]} (limit 5e-2)")
+    upd = update_gap(f"e-{tag}", ckpt_leaves(root, tag + "-two", 2),
+                     ckpt_leaves(root, "e-" + tag, 4), ckpt_leaves(root, tag + "-two", 4))
+    log(f"[dp] e-{tag} ({tag})'s step-2 checkpoint of a world of 2 resumed in one process for "
+        f"steps 3 and 4: step 4 loss {one['steps']['4']['loss']} vs the world's {straight[4]} "
+        f"(|Δ| {gap:.2e}); the update from the step-2 to the step-4 checkpoint off the world's "
+        f"by {fmt_gaps(upd)} of itself (limit {DP_UPDATE_GAP})")
+
+
+def dp_phase():
+    """[dp]: each DP_CONFIGS configuration as a world of 2 ranks sharing
+    cuda:0 over gloo (NCCL refuses two ranks on one device) against one run
+    of it in one process (the launcher's main here): (a) fp32 fused r = 128
+    with the sharded refresh, (b) ZeRO-1 8-bit with int4 P (B3-int8 on rank
+    blocks of 64), (c) ZeRO-2 with GaLore-DP, fp32, (d) ZeRO-1 fp32 at
+    r = 1024 (B4/B5 on blocks of 512): losses within 5e-2, both ranks'
+    losses equal, each rank's launches (every rank updates every leaf, or
+    its block of it), ZeRO's per-rank state bytes equal to
+    galore_zero_state_bytes at n_dp 2, the collectives staged through host
+    memory, and the sharded step 0 beside the one-process step 0. (a) runs
+    alone; (b) and (c) run side by side, then (d) beside (f), each pair
+    beside the one-process runs, so their times are under contention. (e)
+    (a)'s and (b)'s step-2 checkpoints resumed in one process for steps 3
+    and 4 ((a) and (b) run 5 steps): step 4 within 5e-2 of the world's own,
+    and the update from the step-2 to the step-4 checkpoint within
+    DP_UPDATE_GAP of the world's from the same state (the runs from step 0
+    take their own SVDs, whose rank-128 subspaces differ: 0.11–0.20 of the
+    update apart), so a world's update is held to one process's and the
+    re-sliced ZeRO state drives two updates. (f) (a) as an NCCL world of 1: losses bit for bit
+    and every checkpoint array's CRC-32 the one-process run's. Nothing
+    across cards is measured: every rank shares the one card."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    argv = {tag: DP_ARGS + flags + (DP_RESUMED if tag in "ab" else [])
+            for tag, (flags, _, _) in DP_CONFIGS.items()}
+    started = []
+
+    def start(*a, **kw):
+        started.append(start_world(*a, **kw))
+        return started[-1]
+
+    try:
+        ones, worlds, resumed = {}, {}, {}
+        # (a) alone: its step 0 is the one compared with one process
+        ones["a"] = dp_one(argv["a"], root, "a-one")
+        worlds["a"] = finish_world(start(argv["a"], root, "a-two"))
+        # (b) and (c) side by side, then (d) beside (f), each pair beside the
+        # one-process runs (and (e), which needs (a)'s and (b)'s worlds'
+        # checkpoints)
+        b, c = (start(argv[t], root, t + "-two") for t in "bc")
+        for t in "bc":
+            ones[t] = dp_one(argv[t], root, t + "-one")
+        worlds["b"], worlds["c"] = finish_world(b), finish_world(c)
+        d = start(argv["d"], root, "d-two")
+        f = start(argv["a"], root, "f", nproc=1, backend=None)
+        ones["d"] = dp_one(argv["d"], root, "d-one")
+        for t in "ab":
+            shutil.copytree(os.path.join(root, t + "-two"), os.path.join(root, "e-" + t),
+                            ignore=shutil.ignore_patterns("step_00000004"))
+            resumed[t] = dp_one(argv[t], root, "e-" + t)
+        worlds["d"] = finish_world(d)
+        for tag, (flags, want, zero) in DP_CONFIGS.items():
+            dp_check(tag, argv[tag][len(DP_ARGS):], want, zero, ones[tag], *worlds[tag])
+        for t, one in resumed.items():
+            dp_resumed_check(t, one, worlds[t][0][0], root)
+
+        (rep_f,), t_f = finish_world(f)
+        if rep_f["backend"] != "nccl" or rep_f["n_dp"] != 1:
+            raise AssertionError(f"[dp] f: backend {rep_f['backend']}, n_dp {rep_f['n_dp']}")
+        if report_losses(rep_f) != report_losses(ones["a"]):
+            raise AssertionError(f"[dp] f: NCCL world of 1 losses {report_losses(rep_f)} vs "
+                                 f"one process {report_losses(ones['a'])}")
+        crcs = ckpt_crcs(root, "f")
+        if crcs != ckpt_crcs(root, "a-one"):
+            raise AssertionError("[dp] f: the NCCL world of 1's step-2 checkpoint differs from "
+                                 "the one-process run's")
+        log(f"[dp] f NCCL world of 1: losses bit for bit and the step-2 checkpoint's {len(crcs)} "
+            f"arrays of equal CRC-32 and size to the one-process run's ({t_f:.1f} s)")
+    finally:
+        for w in started:
+            stop_world(w)
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[dp] phase {time.perf_counter() - t_phase:.1f} s")
+
 
 def main():
     t_all = time.perf_counter()
@@ -3353,6 +3662,12 @@ def main():
     log(f"[serve-ckpt] and the CLI ({time.perf_counter() - t:.1f} s)")
 
     family_phases(phases, none)
+
+    t = time.perf_counter()
+    block_rows = check_rank_blocks()
+    log(f"[dp-kernels] {len(block_rows)} rank-block checks passed "
+        f"({time.perf_counter() - t:.1f} s)")
+    dp_phase()
 
     t = time.perf_counter()
     svd = svd_ms()

@@ -1,7 +1,8 @@
 """numpy ⇄ torch bridge for parameter and optimizer-state trees (GaLore's
-state with its adaptive schedule and any inner state, the async refresh's
-pending buffer, the standalone 8-bit Adam's, Adafactor's, SGD's momentum
-trace, and LoRA adaptors) and for the serving KV caches.
+state with its adaptive schedule and any inner state, GaLore-ZeRO's rank
+blocks of it (``galore_blocks_*``), the async refresh's pending buffer, the
+standalone 8-bit Adam's, Adafactor's, SGD's momentum trace, and LoRA
+adaptors) and for the serving KV caches.
 
 The trees are nested dicts (and tuples: Jamba's ``blocks`` is a tuple of
 period sub-layers, its cache a tuple of per-kind caches) keyed like the JAX
@@ -73,6 +74,24 @@ def galore_state_from_numpy(state, device):
     if "schedule" in state:
         out["schedule"] = _schedule_from_numpy(state["schedule"], device)
     return out
+
+
+def galore_blocks_from_numpy(state, params, gcfg, k: int, n: int, device, param_axes=None):
+    """Rank k of n's GaLore-ZeRO blocks (distributed/state_sharding.py) of a
+    full galore state in numpy form (the reference's, or a gathered one)."""
+    from repro_torch.distributed.state_sharding import ZeroLayout
+
+    return ZeroLayout(params, gcfg, param_axes=param_axes, n=n).shard(
+        galore_state_from_numpy(state, device), k)
+
+
+def galore_blocks_to_numpy(blocks: list, params, gcfg, param_axes=None):
+    """The full galore state, in numpy form, of every rank's ZeRO blocks
+    given in rank order: the reference's layout, comparable leaf for leaf."""
+    from repro_torch.distributed.state_sharding import ZeroLayout
+
+    return galore_state_to_numpy(ZeroLayout(params, gcfg, param_axes=param_axes,
+                                            n=len(blocks)).join(blocks))
 
 
 def galore_state_to_numpy(state):

@@ -22,6 +22,14 @@ else round-trips bit for bit.
 never ``non_blocking``): the train step updates params and moments in place,
 so the writer thread may only ever see those copies. numpy and the standard
 library do the rest.
+
+In a data-parallel world every rank calls ``save`` and ``restore``; only
+the ``writer`` (rank 0) writes. Under GaLore-ZeRO (``zero``: the state's
+``ZeroLayout`` and the galore state's index in the chain) ``save`` gathers
+the ranks' blocks to the full layout first, so the file is the reference's,
+readable by either package at any n_dp, and ``restore`` reads the full
+state and cuts it into this world's blocks: a checkpoint saved by n ranks
+resumes on any other number (elastic restore).
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ import zlib
 import numpy as np
 import torch
 
+from repro_torch.distributed.state_sharding import gather_opt_state, shard_opt_state
 from repro_torch.utils import tree_leaves_with_path, tree_unflatten_like
 
 # committed step dirs are exactly step_XXXXXXXX; save tmps are
@@ -141,10 +150,13 @@ class CheckpointManager:
     quantize : {None, "int8", "int4"}
         File codec for large float ``params.`` leaves; restore is
         META-driven, so quantized and plain steps coexist in one root.
+    writer : bool
+        Whether this process writes (rank 0 of a data-parallel world; the
+        other ranks take part in the ZeRO gather only).
     """
 
     def __init__(self, root: str, keep: int = 3, async_save: bool = True,
-                 checksum: bool = False, quantize: str | None = None):
+                 checksum: bool = False, quantize: str | None = None, writer: bool = True):
         if quantize not in (None, "int8", "int4"):
             raise ValueError(f"quantize must be None, 'int8' or 'int4', got {quantize!r}")
         self.root = root
@@ -152,23 +164,31 @@ class CheckpointManager:
         self.async_save = async_save
         self.checksum = checksum
         self.quantize = quantize
+        self.writer = writer
         self._thread: threading.Thread | None = None
         self._save_exc: BaseException | None = None
         os.makedirs(root, exist_ok=True)
         # init is launcher start-up, so no save of this root is in flight
-        for name in os.listdir(root):
+        for name in (os.listdir(root) if writer else ()):
             if _TMP_RE.match(name):
                 shutil.rmtree(os.path.join(root, name), ignore_errors=True)
 
     # -- save ---------------------------------------------------------------
 
-    def save(self, step: int, tree, extra_meta: dict | None = None, block: bool = False):
+    def save(self, step: int, tree, extra_meta: dict | None = None, block: bool = False,
+             zero=None):
         """Commit `tree` as the checkpoint for `step`.
 
         Every leaf is copied to the host before this returns; the write
         happens on a daemon thread unless `block` or ``async_save=False``.
         A top-level dict records its sorted keys as META ``groups``;
-        `extra_meta` is merged into META.json verbatim."""
+        `extra_meta` is merged into META.json verbatim. `zero` (layout,
+        index): tree["opt_state"] holds this rank's ZeRO blocks, gathered
+        here (a collective: every rank calls save)."""
+        if zero is not None:
+            tree = dict(tree, opt_state=gather_opt_state(tree["opt_state"], zero[1], zero[0]))
+        if not self.writer:
+            return
         arrays, dtypes = _flatten(tree)
         meta = {"step": step, "time": time.time(), "dtypes": dtypes, **(extra_meta or {})}
         if self.quantize is not None:
@@ -302,7 +322,7 @@ class CheckpointManager:
         without groups), so a resume can choose its restore target."""
         return tuple(self.meta(step).get("groups", ()))
 
-    def restore(self, step: int, target_tree):
+    def restore(self, step: int, target_tree, zero=None):
         """The checkpoint at `step`, in the structure of `target_tree`.
 
         Each tensor leaf comes back as a new tensor of the target leaf's
@@ -311,7 +331,13 @@ class CheckpointManager:
         crc32s pass (whatever `checksum` says); a leaf whose saved dtype is
         of the other family (float vs integer) than the target's, or whose
         shape differs, raises: quantized and fp32 state layouts never cast
-        silently into one another."""
+        silently into one another. `zero` (layout, index), as save's: the
+        file holds the full layout, which is cut into this rank's blocks."""
+        if zero is not None:
+            full = dict(target_tree, opt_state=gather_opt_state(target_tree["opt_state"],
+                                                                zero[1], zero[0]))
+            out = self.restore(step, full)
+            return dict(out, opt_state=shard_opt_state(out["opt_state"], zero[1], zero[0]))
         path = os.path.join(self.root, f"step_{step:08d}")
         data = {}
         for name in os.listdir(path):

@@ -1,12 +1,12 @@
 """Model / training configuration dataclasses + the architecture registry.
 
 The port's own copy of ``repro/configs/base.py``: ``ModelConfig`` whole, and
-the ``GaLoreConfig`` / ``TrainConfig`` fields the ported training path reads.
-Not ported with them (one card, no replicas): ``unit_costs``, ``zero``,
-``tp_aware_side``, ``galore_refresh_shard``, ``galore_calibrate_costs``,
-``galore_recalibrate_every`` and ``galore_dp_compress`` (ROADMAP A.9).
-Field names and defaults are the reference's, so a config built here means
-the same run as one built there.
+the ``GaLoreConfig`` / ``TrainConfig`` fields the ported training path reads,
+the data-parallel ones included (``unit_costs``, ``zero``, ``tp_aware_side``,
+``galore_dp_compress``, ``galore_refresh_shard``, ``galore_calibrate_costs``,
+``galore_recalibrate_every``, ``galore_zero``; distributed/world.py). Field
+names and defaults are the reference's, so a config built here means the
+same run as one built there.
 """
 from __future__ import annotations
 
@@ -139,6 +139,9 @@ class GaLoreConfig:
     overlap_lo: float = 0.5  # halve it when the overlap < lo
     reproject_moments: bool = False  # on an async swap, rotate the compact
     # moments into the new basis: M <- (P_newᵀP_old)M, V <- (P_newᵀP_old)∘²V
+    unit_costs: tuple = ()  # measured SVD seconds per (m, n, rank) shape,
+    # (((m, n, rank), seconds), ...), stamped by --galore-calibrate-costs
+    # (core/subspace.py::calibrate_unit_costs); empty: the leaf_unit_cost model
     guard_refresh: bool = False  # validate the refresh: a non-finite gradient
     # makes the whole refresh a no-op (every projector kept), and an SVD that
     # fails (non-finite P, or LinAlgError) falls back to the randomized
@@ -146,6 +149,15 @@ class GaLoreConfig:
     # low-precision optimizer state (int8 moments, bf16/int4 projectors);
     # resolved per leaf into SubspacePlan.moments / .proj_store
     quant: QuantPolicy = QuantPolicy()
+    zero: int = 0  # GaLore-ZeRO: 0 every rank holds the whole optimizer state;
+    # 1 each rank owns a rank block of every galore leaf's moments and
+    # projector (and a block of dim -2 of the passthrough moments), and the
+    # all-reduce sum of the owners' partial back-projections is the update
+    # (int codes bit for bit, f32 within 2e-5); 2 also reduce-scatters the
+    # compact gradient onto the owners (galore_dp_compress, fp32 moments)
+    tp_aware_side: bool = False  # where exactly one dim of a weight carries a
+    # tensor-parallel label (core/subspace.py::TP_LABELS), project along the
+    # other one instead of by min(m, n)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,16 +175,27 @@ class TrainConfig:
     grad_clip: float = 1.0
     seed: int = 0
     microbatch: int = 0  # >0 -> gradient accumulation
+    galore_dp_compress: bool = False  # GaLore-DP: each rank projects its own
+    # gradient and the mean runs on the compact r×n gradients
     galore_external_refresh: bool = False  # refresh P in a step of its own,
     # driven by the launcher (launch/train.py::make_refresh_caller)
     galore_refresh_async: bool = False  # double-buffered refresh: the due
     # leaves' P_next computed on a host thread and a CUDA stream of their own
     # from the previous step's batch, swapped in at the next step boundary
     # (implies the external refresh; launch/train.py::AsyncRefreshDriver)
+    galore_refresh_shard: bool = False  # the due SVD units bin-packed over the
+    # data-parallel ranks, each rank's P gathered to every rank (implies the
+    # external refresh; distributed/step.py::make_refresh_step)
+    galore_calibrate_costs: bool = False  # time one SVD per leaf shape at
+    # start-up and bin-pack the sharded refresh on those times
+    galore_recalibrate_every: int = 0  # async refresh: re-time them every N
+    # dispatches and rebuild the refresh (0: never)
     galore_fused_adam: bool = False  # one fused kernel per GaLore leaf
     galore_fused_apply: bool = False  # fold W ← W + η(G̃ + wd·W) into that kernel
     # (requires galore_fused_adam; no full-size f32 update is written — the
     # emit path + chain remains the numerics oracle)
+    galore_zero: int = 0  # GaLore-ZeRO stage, routed into GaLoreConfig.zero
+    # by optim/factory.py::effective_galore_config
     z_loss: float = 0.0
     # --- fault tolerance (robust/) ---
     anomaly_guard: bool = False  # per-step guard: a non-finite loss or global

@@ -40,15 +40,25 @@ the randomized projector, and the swap rejects a non-finite or all-zero
 P_next leaf by leaf. The reference decides these inside its program; the
 port reads each verdict on the host, only where some leaf is due.
 
-Not ported (one card has no replicas; ROADMAP A.9): ``partition_refresh``,
-``sharded_projector_tree``, ``ownership_axes`` and the ``zero_*``
-constraints, ``tp_aware_side``, ``calibrate_unit_costs`` and the
-``leaf_unit_cost`` model they feed.
+The data-parallel parts: ``partition_refresh`` bin-packs the SVD units due
+at a step (one a (leaf, stacked element)) over the ranks, greedy on the cost
+model (``leaf_unit_cost``, or the times ``calibrate_unit_costs`` measured,
+``GaLoreConfig.unit_costs``), in numpy, so its assignment and loads equal the
+reference's exactly; ``sharded_projector_tree`` computes this rank's units,
+each with the sketch the unsharded refresh draws, and ``sum_units`` sums the
+owners' P over the world (the reference's masked psum), so that
+``refresh_tree(precomputed=…)`` stores what the unsharded refresh stores.
+``ownership_axes`` / ``zero_state_axes`` label the dim of each state tensor
+that GaLore-ZeRO splits into rank blocks (distributed/state_sharding.py
+slices by them), and under ``tp_aware_side`` a weight with exactly one
+tensor-parallel dim (``TP_LABELS``, read from ``models/model.py::
+param_axes``) keeps the other one as P's row space.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 
 import numpy as np
 import torch
@@ -63,7 +73,9 @@ from repro_torch.core.projector import (
     subspace_overlap,
 )
 from repro_torch.quant import codec
+from repro_torch.distributed import world
 from repro_torch.utils import (
+    axes_by_path,
     flatten_up_to,
     tree_leaves,
     tree_leaves_with_path,
@@ -72,6 +84,10 @@ from repro_torch.utils import (
 )
 
 DEFAULT_EXCLUDE = ("embed", "dec_pos")
+
+# Logical weight-dim labels that the reference's mesh rules place on the
+# tensor-parallel axis: the table tp_aware_side reads.
+TP_LABELS = frozenset({"ff", "heads_flat", "kv_flat", "vocab"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +101,81 @@ class SubspacePlan:
     refresh_offset: int = 0  # stagger phase in [0, refresh_period)
     moments: str = "fp32"  # "fp32" | "int8": Adam M/V storage (compact or full-shape)
     proj_store: str = "fp32"  # "fp32" | "bf16" | "int4": persistent P storage
+    ax_m: str | None = None  # logical label of dim -2 (None when unlabelled)
+    ax_n: str | None = None  # logical label of dim -1
+    zero: bool = False  # GaLore-ZeRO: the leaf's state is owned in rank blocks
+
+
+def leaf_unit_cost(m: int, n: int, rank: int, method: str = "svd",
+                   power_iters: int = 2) -> float:
+    """Refresh cost of one (m, n) SVD unit, the reference's model: m·n·min(m, n)
+    for the exact SVD, (2·power_iters + 2)·m·n·s with s = min(rank + 8, m, n)
+    for the sketches. Only ratios matter to the bin packing."""
+    if method == "svd":
+        return float(m) * float(n) * float(min(m, n))
+    s = min(rank + 8, m, n)
+    return float(2 * power_iters + 2) * float(m) * float(n) * float(s)
+
+
+def calibrate_unit_costs(params, cfg: GaLoreConfig, exclude=DEFAULT_EXCLUDE, param_axes=None,
+                         iters: int = 2) -> tuple:
+    """Measured refresh cost of each distinct (m, n, rank) shape (after the
+    side swap) among the galore leaves: one projector compute on a Gaussian G
+    on the params' device, after one untimed call, best of `iters`, as
+    (((m, n, rank), seconds), ...) for GaLoreConfig.unit_costs."""
+    mgr = SubspaceManager(cfg, exclude, param_axes)
+    shapes = {}
+    for p, plan in zip(tree_leaves(params), tree_leaves(mgr.plans(params))):
+        if plan.galore:
+            m, n = p.shape[-2], p.shape[-1]
+            if plan.side == "right":
+                m, n = n, m
+            shapes[(int(m), int(n), int(plan.rank))] = 0.0
+    device = tree_leaves(params)[0].device
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    for m, n, rank in shapes:
+        gen = torch.Generator().manual_seed(m * 131071 + n)
+        G = torch.randn((m, n), generator=gen, dtype=torch.float32).to(device)
+        run = lambda: compute_projector(G, rank, method=cfg.projector,  # noqa: E731
+                                        generator=sketch_generator(), power_iters=cfg.power_iters)
+        run()
+        sync()
+        best = float("inf")
+        for _ in range(max(1, iters)):
+            t0 = time.perf_counter()
+            run()
+            sync()
+            best = min(best, time.perf_counter() - t0)
+        shapes[(m, n, rank)] = best
+    return tuple(sorted(shapes.items()))
+
+
+def zero_state_axes(plan: SubspacePlan, ax) -> dict:
+    """The GaLore-ZeRO ownership labels of one leaf's state (the reference's):
+    {"moment", "moment_scale", "proj", "proj_scale"} axes tuples over each
+    state tensor's trailing dims, "zero" on the dim split into rank blocks —
+    the rank dim of a galore leaf's moments, projector and their scales, dim
+    -2 of a passthrough leaf's full-shape moments. The int8 and int4 codes
+    block along the other dim, so a rank block is a bitwise slice."""
+    ax = tuple(ax) if ax is not None else None
+    if not plan.galore:
+        mom = ax if ax is not None else ()
+        if plan.zero and len(mom) >= 2:
+            mom = tuple(mom[:-2]) + ("zero", mom[-1])
+        scale = (tuple(mom[:-1]) + (None,)) if mom else ()
+        return {"moment": mom, "moment_scale": scale, "proj": (), "proj_scale": ()}
+    lead = tuple(ax[:-2]) if ax is not None else ()
+    am = ax[-2] if ax is not None else None
+    an = ax[-1] if ax is not None else None
+    if plan.side == "left":  # moments (..., r, n); scales (..., r, nb)
+        mom, mscale, kept = lead + ("zero", an), lead + ("zero", None), am
+    else:  # moments (..., m, r); scales (..., nb, r)
+        mom, mscale, kept = lead + (am, "zero"), lead + (None, "zero"), an
+    if plan.proj_store == "int4":  # packed codes (..., kept_pad/2, r), scales (..., nb, r)
+        proj, pscale = lead + ("qblocks", "zero"), lead + (None, "zero")
+    else:
+        proj, pscale = lead + (kept, "zero"), ()
+    return {"moment": mom, "moment_scale": mscale, "proj": proj, "proj_scale": pscale}
 
 
 def moment_quant_axis(plan: SubspacePlan) -> int:
@@ -162,12 +253,25 @@ def compute_leaf_projector(g, plan: SubspacePlan, cfg: GaLoreConfig, key=None, s
     return projector_or_fallback(P, G_in, plan.rank, gen, cfg.power_iters)
 
 
+def sum_units(local: list) -> list:
+    """The world's sum of each leaf's owned units (None stays None)."""
+    held = [i for i, P in enumerate(local) if P is not None]
+    out = list(local)
+    for i, P in zip(held, world.all_reduce_sum_many([local[i] for i in held])):
+        out[i] = P
+    return out
+
+
 class SubspaceManager:
     """Computes per-leaf SubspacePlans and drives the refresh lifecycle."""
 
-    def __init__(self, cfg: GaLoreConfig, exclude=DEFAULT_EXCLUDE):
+    def __init__(self, cfg: GaLoreConfig, exclude=DEFAULT_EXCLUDE, param_axes=None):
         self.cfg = cfg
         self.exclude = exclude
+        self.param_axes = param_axes
+        self._ax_map = axes_by_path(param_axes) if param_axes is not None else {}
+        # measured (m, n, rank) -> seconds; a shape not in it takes the model
+        self._cost_table = {tuple(k): float(v) for k, v in cfg.unit_costs}
 
     # -- policy ------------------------------------------------------------
 
@@ -180,6 +284,14 @@ class SubspaceManager:
         (max(1, T // 4), 8·T)."""
         T = self.cfg.update_freq
         return self.cfg.t_min or max(1, T // 4), self.cfg.t_max or 8 * T
+
+    def unit_cost(self, m: int, n: int, rank: int) -> float:
+        """Refresh cost of one (m, n) SVD unit: the calibrated time where
+        cfg.unit_costs has the shape, else leaf_unit_cost."""
+        hit = self._cost_table.get((int(m), int(n), int(rank)))
+        if hit is not None:
+            return hit
+        return leaf_unit_cost(m, n, rank, self.cfg.projector, self.cfg.power_iters)
 
     def leaf_rank(self, path: str, m: int, n: int) -> int:
         """The first rank_overrides pattern that is a substring of `path`
@@ -207,23 +319,32 @@ class SubspaceManager:
         only on the galore leaves' flatten order (and the static importance
         order), so init, update and the external refresh always agree."""
         cfg = self.cfg
+        zero = cfg.zero > 0
         raw, paths = [], []
         for path, p in tree_leaves_with_path(params):
             paths.append(path)
             # the min_quant_size floor is held against the weight's size,
             # not the compact moment's (quant/policy.py)
             moments, proj_store = cfg.quant.resolve(path, math.prod(p.shape))
+            ax = self._ax_map.get(path)
+            labels = dict(ax_m=ax[-2], ax_n=ax[-1]) if ax and p.ndim >= 2 else {}
             if p.ndim < 2 or any(e in path for e in self.exclude):
-                raw.append(SubspacePlan(False, moments=moments))
+                raw.append(SubspacePlan(False, moments=moments, zero=zero, **labels))
                 continue
             m, n = p.shape[-2], p.shape[-1]
             rank = self.leaf_rank(path, m, n)
             if min(m, n) <= max(rank, cfg.min_dim):
-                raw.append(SubspacePlan(False, moments=moments))
+                raw.append(SubspacePlan(False, moments=moments, zero=zero, **labels))
                 continue
-            raw.append(SubspacePlan(True, "left" if m <= n else "right", rank=rank,
-                                    refresh_period=cfg.update_freq, moments=moments,
-                                    proj_store=proj_store))
+            side = "left" if m <= n else "right"
+            if cfg.tp_aware_side and ax is not None:
+                # exactly one dim tensor-parallel: keep the replicated one
+                m_tp, n_tp = ax[-2] in TP_LABELS, ax[-1] in TP_LABELS
+                if m_tp != n_tp:
+                    side = "right" if m_tp else "left"
+            raw.append(SubspacePlan(True, side, rank=rank, refresh_period=cfg.update_freq,
+                                    moments=moments, proj_store=proj_store, zero=zero,
+                                    **labels))
         galore_idx = [i for i, pl in enumerate(raw) if pl.galore]
         if cfg.refresh_stagger and galore_idx:
             order = list(range(len(galore_idx)))
@@ -236,6 +357,103 @@ class SubspaceManager:
                 raw[i] = dataclasses.replace(
                     raw[i], refresh_offset=(pos * cfg.update_freq) // len(galore_idx))
         return tree_unflatten_like(params, raw)
+
+    # -- the data-parallel refresh and state ownership -------------------------
+
+    def leaf_due(self, plan: SubspacePlan, step) -> bool | None:
+        """Static dueness of a leaf at `step`: None under adaptive T (the
+        schedule decides at run time), else ``_leaf_due``."""
+        if not plan.galore:
+            return False
+        if self.adaptive or not isinstance(step, (int, np.integer)):
+            return None
+        return bool(self._leaf_due(plan, 0, int(step), False, False))
+
+    def partition_refresh(self, params, step, n_shards: int, plans=None):
+        """Greedy LPT bin packing of the refresh work due at `step` over
+        `n_shards` ranks (the reference's, in numpy).
+
+        One unit a (leaf, stacked element); units ordered by importance_rank,
+        then by cost descending, then leaf and element, each to the least
+        loaded bin (max bin ≤ mean + max c_i). Returns (assignment, loads):
+        an int32 array per leaf over its flattened lead dims ((1,) for a 2-D
+        leaf) holding the owning rank, -1 for a passthrough leaf or one not
+        due; and the float64 load of each rank. step None is the force-all
+        refresh; under adaptive T every galore leaf is listed and dueness
+        is decided at run time."""
+        plans = self.plans(params) if plans is None else plans
+        units, arrs = [], []
+        for li, ((path, p), plan) in enumerate(zip(tree_leaves_with_path(params),
+                                                   tree_leaves(plans))):
+            if not plan.galore:
+                arrs.append(np.full((1,), -1, np.int32))
+                continue
+            lead = math.prod(p.shape[:-2]) if p.ndim > 2 else 1
+            arrs.append(np.full((lead,), -1, np.int32))
+            if step is not None and self.leaf_due(plan, step) is False:
+                continue
+            m, n = p.shape[-2], p.shape[-1]
+            if plan.side == "right":
+                m, n = n, m
+            cost = self.unit_cost(m, n, plan.rank)
+            imp = self.importance_rank(path)
+            units += [(imp, -cost, li, ei, cost) for ei in range(lead)]
+        units.sort(key=lambda u: u[:4])
+        loads = np.zeros((max(1, n_shards),), np.float64)
+        for _, _, li, ei, cost in units:
+            shard = int(np.argmin(loads))
+            arrs[li][ei] = shard
+            loads[shard] += cost
+        return tree_unflatten_like(params, arrs), loads
+
+    def ownership_axes(self, params, plans=None):
+        """zero_state_axes of every leaf, a tree mirroring params: the ZeRO
+        ownership map that distributed/state_sharding.py slices by."""
+        plans = self.plans(params) if plans is None else plans
+        return tree_unflatten_like(params, [
+            zero_state_axes(plan, self._ax_map.get(path))
+            for (path, _), plan in zip(tree_leaves_with_path(params), tree_leaves(plans))])
+
+    def sharded_projector_tree(self, grads, plans, sched, key, *, step: int, assignment,
+                               force_all: bool = False, key_step: int | None = None,
+                               valid: bool = True) -> list:
+        """This rank's SVD units, not yet summed over the world.
+
+        For every leaf in the work list that is due, each stacked element
+        owned by this rank (``assignment``, partition_refresh's) gets its
+        projector from ``compute_leaf_projector`` with the sketch that the
+        unsharded refresh draws for the whole leaf (one (key, step) stream
+        for every leaf), the others zeros. Returns, in flatten order, the
+        f32 P of each leaf in the work list, None elsewhere. ``sum_units``
+        (one all-reduce a leaf) then holds every owner's P on every rank —
+        the reference's masked psum — for ``refresh_tree(precomputed=…)``;
+        the async refresh computes its units on a thread and sums them on
+        the main thread at the swap, so that every collective of a rank runs
+        in one order. `valid` False (a poisoned snapshot under
+        guard_refresh) computes nothing."""
+        cfg = self.cfg
+        me = world.rank()
+        adaptive = sched is not None
+        flat_plans = tree_leaves(plans)
+        nxt = (flatten_up_to(plans, sched["next"]) if adaptive else [0] * len(flat_plans))
+        kstep = step if key_step is None else key_step
+        out = []
+        for g, plan, nx, assign in zip(tree_leaves(grads), flat_plans, nxt,
+                                       flatten_up_to(plans, assignment)):
+            assign = np.asarray(assign).reshape(-1)
+            if not valid or not plan.galore or (assign < 0).all() or not self._leaf_due(
+                    plan, nx, step, force_all, adaptive):
+                out.append(None)
+                continue
+            lead = tuple(g.shape[:-2])
+            g2 = g.reshape((-1,) + tuple(g.shape[-2:]))
+            P = torch.zeros((g2.shape[0],) + proj_shape(g2[0], plan), dtype=torch.float32,
+                            device=g.device)
+            for i, owner in enumerate(assign.tolist()):
+                if owner == me:
+                    P[i] = compute_leaf_projector(g2[i], plan, cfg, key, kstep)
+            out.append(P.reshape(lead + tuple(P.shape[-2:])))
+        return out
 
     # -- schedule ------------------------------------------------------------
 
@@ -280,7 +498,8 @@ class SubspaceManager:
     # -- refresh -----------------------------------------------------------
 
     def refresh_tree(self, grads, proj, sched, plans, key=None, *, step: int,
-                     force_all: bool = False, key_step: int | None = None, valid=None):
+                     force_all: bool = False, key_step: int | None = None, valid=None,
+                     precomputed=None):
         """One refresh pass; returns (proj', sched').
 
         A galore leaf recomputes its projector from `grads` iff it is due at
@@ -293,7 +512,9 @@ class SubspaceManager:
         projector and schedule scalar (`valid`: the verdict, when the caller
         has read it already). Under adaptive_t the refreshed leaves' schedule
         scalars follow the reference's rule (module docstring); sched is None
-        otherwise and comes back None."""
+        otherwise and comes back None. `precomputed` (sharded_projector_tree's
+        list) gives a due leaf its P_new in place of its own SVD, so the
+        store and schedule that follow are this function's alone."""
         cfg = self.cfg
         adaptive = sched is not None
         flat_plans = tree_leaves(plans)
@@ -311,11 +532,13 @@ class SubspaceManager:
         per_f = flatten_up_to(grads, sched["period"]) if adaptive else [0] * n
         nxt_f = flatten_up_to(grads, sched["next"]) if adaptive else [0] * n
         ov_f = flatten_up_to(grads, sched["overlap"]) if adaptive else [None] * n
+        pre = precomputed if precomputed is not None else [None] * n
 
-        def refresh(g, P, plan, per, nxt, ov_old, is_due):
+        def refresh(g, P, plan, per, nxt, ov_old, is_due, P_pre):
             if not is_due:
                 return P, per, nxt, ov_old
-            P_new = compute_leaf_projector(g, plan, cfg, key, kstep)
+            P_new = (P_pre if P_pre is not None
+                     else compute_leaf_projector(g, plan, cfg, key, kstep))
             new = store_projector(P_new, plan.proj_store)
             if lazy and plan.proj_store == "int4" and torch.equal(new["q"], P["q"]):
                 new = P  # Q-GaLore: unmoved at 4-bit resolution
@@ -336,7 +559,7 @@ class SubspaceManager:
             return new, per2, nxt2, (ov if has_old else torch.zeros_like(ov))
 
         flat = [refresh(*xs) for xs in zip(tree_leaves(grads), flatten_up_to(grads, proj),
-                                           flat_plans, per_f, nxt_f, ov_f, due)]
+                                           flat_plans, per_f, nxt_f, ov_f, due, pre)]
         proj_out = tree_unflatten_like(grads, [t[0] for t in flat])
         if not adaptive:
             return proj_out, None
@@ -370,16 +593,19 @@ class SubspaceManager:
         return tree_unflatten_like(params, [int(d and valid) for d in due])
 
     def refresh_pending_tree(self, grads, proj, sched, plans, key=None, *, step: int,
-                             force_all: bool = False, key_step: int | None = None) -> dict:
+                             force_all: bool = False, key_step: int | None = None,
+                             valid=None, precomputed=None) -> dict:
         """A refresh pass written into a pending buffer instead of the active
         store: P_next on the due leaves, the active P passed through
         elsewhere, their flags, and (adaptive) the post-refresh schedule.
         One guard verdict gates both the refresh and the flags, so a
         poisoned snapshot gives an all-zero-flag buffer whose swap is a
         no-op."""
-        valid = self._snapshot_valid(grads, self.due_mask(plans, sched, step, force_all))
+        if valid is None:
+            valid = self._snapshot_valid(grads, self.due_mask(plans, sched, step, force_all))
         proj2, sched2 = self.refresh_tree(grads, proj, sched, plans, key, step=step,
-                                          force_all=force_all, key_step=key_step, valid=valid)
+                                          force_all=force_all, key_step=key_step, valid=valid,
+                                          precomputed=precomputed)
         pending = {"proj": proj2, "flag": self.pending_flags(grads, plans, sched, step=step,
                                                              force_all=force_all, valid=valid)}
         if sched2 is not None:

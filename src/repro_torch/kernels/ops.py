@@ -37,7 +37,7 @@ from repro_torch.kernels.ref import _p_plain, lowrank_adam_update
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.quant import codec
 
-__all__ = ["adam8bit_step", "galore_fused_adam8_apply_step",
+__all__ = ["adam8bit_step", "galore_fused_adam8_apply_step", "launch_counts",
            "galore_fused_adam8_apply_step_right", "galore_fused_adam8_step",
            "galore_fused_adam8_step_right", "galore_fused_adam_apply_step",
            "galore_fused_adam_apply_step_right", "galore_fused_adam_step",
@@ -55,12 +55,13 @@ def _p_rank(P) -> int:
     return (P["q"] if codec.is_qstate(P) else P).shape[-1]
 
 
-def _fits(P, G, right: bool) -> bool:
+def _fits(P, G, right: bool, route_rank=None) -> bool:
     """The reference's dispatch predicate for this leaf: kept side, rank,
-    swept side and G's itemsize."""
+    swept side and G's itemsize. `route_rank` (GaLore-ZeRO, where P is one
+    rank block) is the whole leaf's rank, which the route is decided at."""
     m, n = G.shape[-2:]
     kept, swept = (n, m) if right else (m, n)
-    return fits_vmem(kept, _p_rank(P), swept, G.element_size())
+    return fits_vmem(kept, route_rank or _p_rank(P), swept, G.element_size())
 
 
 def _p_f32(P, G, right: bool):
@@ -68,13 +69,14 @@ def _p_f32(P, G, right: bool):
     return _p_plain(P, G.shape[-1] if right else G.shape[-2])
 
 
-def galore_fused_adam_step(P, G, M, V, count, *, b1=0.9, b2=0.999, eps=1e-8, alpha=1.0):
+def galore_fused_adam_step(P, G, M, V, count, *, b1=0.9, b2=0.999, eps=1e-8, alpha=1.0,
+                           route_rank=None):
     """Left-side GaLore-Adam leaf step, routed as the reference routes it:
     the fused kernel (galore_fused.galore_fused_adam_step) where ``fits_vmem``
     holds, else R = galore_project(P, G) → Adam → G̃ = galore_project_back(P,
     N̂, α). Arguments and result as the fused wrapper's: M and V updated in
-    place, G̃ (..., m, n) f32 returned."""
-    if _fits(P, G, False):
+    place, G̃ (..., m, n) f32 returned. `route_rank` as ``_fits``'s."""
+    if _fits(P, G, False, route_rank):
         return galore_fused.galore_fused_adam_step(P, G, M, V, count, b1=b1, b2=b2, eps=eps,
                                                    alpha=alpha)
     P = _p_f32(P, G, False).contiguous()  # an int4 P's dequant may be a view of its padded rows
@@ -84,13 +86,14 @@ def galore_fused_adam_step(P, G, M, V, count, *, b1=0.9, b2=0.999, eps=1e-8, alp
     return galore_project_back(P, N, alpha), M, V
 
 
-def galore_fused_adam_step_right(P, G, M, V, count, *, b1=0.9, b2=0.999, eps=1e-8, alpha=1.0):
+def galore_fused_adam_step_right(P, G, M, V, count, *, b1=0.9, b2=0.999, eps=1e-8, alpha=1.0,
+                                 route_rank=None):
     """Right-side GaLore-Adam leaf step (P (..., n, r), M/V (..., m, r)),
     routed as the reference routes it: the fused kernel where ``fits_vmem``
     holds, else the tiled projections on swapped views — R = Pᵀ Gᵀ (G read
     transposed), Adam on Mᵀ/Vᵀ, G̃ᵀ = α P N̂ written transposed — so that no
     transposed copy of G or G̃ is made. M and V updated in place."""
-    if _fits(P, G, True):
+    if _fits(P, G, True, route_rank):
         return galore_fused.galore_fused_adam_step_right(P, G, M, V, count, b1=b1, b2=b2,
                                                          eps=eps, alpha=alpha)
     P = _p_f32(P, G, True).contiguous()
@@ -102,9 +105,9 @@ def galore_fused_adam_step_right(P, G, M, V, count, *, b1=0.9, b2=0.999, eps=1e-
     return galore_project_back(P, N.contiguous(), alpha, transpose_out=True), M, V
 
 
-def _adam8(right, P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha, stochastic):
+def _adam8(right, P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha, stochastic, route_rank):
     name = "galore_fused_adam8_step" + ("_right" if right else "")
-    if _fits(P, G, right):
+    if _fits(P, G, right, route_rank):
         return getattr(galore_fused, name)(P, G, Mq, Ms, Vq, Vs, count, b1=b1, b2=b2, eps=eps,
                                            alpha=alpha, stochastic=stochastic)
     return _plain8_in_place(getattr(galore_fused, name + "_plain"), _p_f32(P, G, right), G, Mq,
@@ -112,62 +115,79 @@ def _adam8(right, P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha, stochastic):
 
 
 def galore_fused_adam8_step(P, G, Mq, Ms, Vq, Vs, count, *, b1=0.9, b2=0.999, eps=1e-8,
-                            alpha=1.0, stochastic=False):
+                            alpha=1.0, stochastic=False, route_rank=None):
     """Left-side int8-moment leaf step, routed as the reference routes it: the
     int8 kernel where ``fits_vmem`` holds, else the plain step. Arguments and
     result as galore_fused.galore_fused_adam8_step's: codes and scales
     updated in place, G̃ (..., m, n) f32 returned."""
-    return _adam8(False, P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha, stochastic)
+    return _adam8(False, P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha, stochastic, route_rank)
 
 
 def galore_fused_adam8_step_right(P, G, Mq, Ms, Vq, Vs, count, *, b1=0.9, b2=0.999, eps=1e-8,
-                                  alpha=1.0, stochastic=False):
+                                  alpha=1.0, stochastic=False, route_rank=None):
     """Right-side int8-moment leaf step (codes (..., m, r), blocks along m),
     routed as the reference routes it."""
-    return _adam8(True, P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha, stochastic)
+    return _adam8(True, P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha, stochastic, route_rank)
 
 
-def _apply(kernel, plain, right, P, G, W, moments, count, **kw):
-    if _fits(P, G, right):
+def _apply(kernel, plain, right, P, G, W, moments, count, route_rank=None, **kw):
+    if _fits(P, G, right, route_rank):
         return kernel(P, G, W, *moments, count, **kw)
     return _plain_apply_in_place(plain, _p_f32(P, G, right), G, W, moments, count, **kw)
 
 
 def galore_fused_adam_apply_step(P, G, W, M, V, count, *, eta, b1=0.9, b2=0.999, eps=1e-8,
-                                 alpha=1.0, wd=0.0):
+                                 alpha=1.0, wd=0.0, route_rank=None):
     """Left-side fp32-moment step with the weight update folded in, routed as
     the reference routes it: the apply kernel where ``fits_vmem`` holds, else
     the plain step. W, M and V updated in place; returns (W', M', V')."""
     return _apply(galore_fused.galore_fused_adam_apply_step,
                   galore_fused.galore_fused_adam_apply_step_plain, False, P, G, W, (M, V), count,
-                  eta=eta, b1=b1, b2=b2, eps=eps, alpha=alpha, wd=wd)
+                  eta=eta, b1=b1, b2=b2, eps=eps, alpha=alpha, wd=wd, route_rank=route_rank)
 
 
 def galore_fused_adam_apply_step_right(P, G, W, M, V, count, *, eta, b1=0.9, b2=0.999,
-                                       eps=1e-8, alpha=1.0, wd=0.0):
+                                       eps=1e-8, alpha=1.0, wd=0.0, route_rank=None):
     """Right-side fp32-moment apply step, routed as the reference routes it."""
     return _apply(galore_fused.galore_fused_adam_apply_step_right,
                   galore_fused.galore_fused_adam_apply_step_right_plain, True, P, G, W, (M, V),
-                  count, eta=eta, b1=b1, b2=b2, eps=eps, alpha=alpha, wd=wd)
+                  count, eta=eta, b1=b1, b2=b2, eps=eps, alpha=alpha, wd=wd,
+                  route_rank=route_rank)
 
 
 def galore_fused_adam8_apply_step(P, G, W, Mq, Ms, Vq, Vs, count, *, eta, b1=0.9, b2=0.999,
-                                  eps=1e-8, alpha=1.0, wd=0.0, stochastic=False):
+                                  eps=1e-8, alpha=1.0, wd=0.0, stochastic=False, route_rank=None):
     """Left-side int8-moment apply step, routed as the reference routes it.
     W, codes and scales updated in place; returns (W', Mq', Ms', Vq', Vs')."""
     return _apply(galore_fused.galore_fused_adam8_apply_step,
                   galore_fused.galore_fused_adam8_apply_step_plain, False, P, G, W,
                   (Mq, Ms, Vq, Vs), count, eta=eta, b1=b1, b2=b2, eps=eps, alpha=alpha, wd=wd,
-                  stochastic=stochastic)
+                  stochastic=stochastic, route_rank=route_rank)
 
 
 def galore_fused_adam8_apply_step_right(P, G, W, Mq, Ms, Vq, Vs, count, *, eta, b1=0.9,
-                                        b2=0.999, eps=1e-8, alpha=1.0, wd=0.0, stochastic=False):
+                                        b2=0.999, eps=1e-8, alpha=1.0, wd=0.0, stochastic=False,
+                                        route_rank=None):
     """Right-side int8-moment apply step, routed as the reference routes it."""
     return _apply(galore_fused.galore_fused_adam8_apply_step_right,
                   galore_fused.galore_fused_adam8_apply_step_right_plain, True, P, G, W,
                   (Mq, Ms, Vq, Vs), count, eta=eta, b1=b1, b2=b2, eps=eps, alpha=alpha, wd=wd,
-                  stochastic=stochastic)
+                  stochastic=stochastic, route_rank=route_rank)
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launches since the last reset, by wrapper name;
+    "<name>.int4" the fp32-moment forms' launches on an int4 P, and
+    "<name>.thread_copy" the launches that copied their operands by the
+    threads (a run's report, launch/train.py)."""
+    out = {}
+    for fn in galore_fused.WRAPPERS + (adam8bit_update, galore_project, galore_project_back,
+                                       rmsnorm):
+        out[fn.__name__] = fn.launches
+        for attr in ("launches_int4", "launches_thread_copy"):
+            if hasattr(fn, attr):
+                out[fn.__name__ + "." + attr.removeprefix("launches_")] = getattr(fn, attr)
+    return out
 
 
 def reset_launch_counts() -> None:

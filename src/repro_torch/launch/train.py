@@ -34,11 +34,18 @@ unless ``--device`` says otherwise. Ported with the loop:
     (``--galore-refresh-async``, ``AsyncRefreshDriver``, with
     ``--galore-reproject-moments``); a checkpoint taken with an async
     refresh in flight carries its ``pending`` group, and a resume swaps it
-    in where the interrupted run would have.
-Not ported (one card; ROADMAP A.9): the sharded refresh
-(``--galore-refresh-shard``) and SVD cost calibration
-(``--galore-calibrate-costs``, ``--galore-recalibrate-costs``), whose costs
-only the sharded refresh's bin packing reads.
+    in where the interrupted run would have;
+  * data parallel: started by ``python -m torch.distributed.run
+    --nproc-per-node N -m repro_torch.launch.train …``, every rank joins the
+    world (distributed/world.py; ``--dist-backend gloo`` lets two ranks share
+    one card), reads the same global batch and trains on its rows; rank 0
+    alone prints the ``[train]`` lines and writes checkpoints. With it
+    GaLore-DP (``--galore-dp-compress``), the sharded refresh
+    (``--galore-refresh-shard``, bin-packed on measured SVD times with
+    ``--galore-calibrate-costs``, re-measured every N async dispatches with
+    ``--galore-recalibrate-costs N``), GaLore-ZeRO (``--galore-zero 1|2``:
+    checkpoints hold the full layout and restore onto any number of ranks)
+    and ``--galore-tp-aware-side``.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch llama_60m --steps 20 \\
           --galore-rank 16 --galore-t 10 --galore-fused --ckpt-dir /path/to/ckpt
@@ -55,6 +62,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
+import json
 import math
 import os
 import tempfile
@@ -64,15 +72,28 @@ import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import GaLoreConfig, TrainConfig, get_config
-from repro_torch.core.galore import init_pending_state, refresh_projectors_pending
-from repro_torch.core.subspace import SubspaceManager, importance_order_from_grads
+from repro_torch.core.galore import (
+    galore_zero_state_bytes,
+    init_pending_state,
+    refresh_projectors_pending,
+)
+from repro_torch.core.subspace import (
+    SubspaceManager,
+    calibrate_unit_costs,
+    importance_order_from_grads,
+    sum_units,
+)
 from repro_torch.data.pipeline import DataConfig, SyntheticC4
+from repro_torch.distributed import world
+from repro_torch.distributed.state_sharding import ZeroLayout, galore_state_tensor_bytes
 from repro_torch.distributed.step import (
     make_refresh_grads,
     make_refresh_step,
     make_swap_step,
     make_train_step,
+    shard_units,
 )
+from repro_torch.kernels import ops
 from repro_torch.launch import cli
 from repro_torch.models import model as M
 from repro_torch.optim.factory import (
@@ -106,6 +127,7 @@ class RunConfig:
     log_every: int = 10
     ckpt_quantize: str | None = None  # file codec of large params leaves: None | int8 | int4
     device: str | None = None  # None -> cuda, and an error when there is none
+    report: str | None = None  # write this rank's run report to <report>.rank<k>.json
 
 
 def with_measured_importance(cfg, tc: TrainConfig, params, batch) -> TrainConfig:
@@ -117,6 +139,23 @@ def with_measured_importance(cfg, tc: TrainConfig, params, batch) -> TrainConfig
     grads = torch.autograd.grad(loss, tree_leaves(params))
     order = importance_order_from_grads(tree_unflatten_like(params, list(grads)))
     return dataclasses.replace(tc, galore=dataclasses.replace(tc.galore, importance_order=order))
+
+
+def log(*args, **kw):
+    """print, on rank 0 of a world only."""
+    if world.rank() == 0:
+        print(*args, **kw)
+
+
+def with_calibrated_costs(cfg, tc: TrainConfig, params) -> TrainConfig:
+    """tc with GaLoreConfig.unit_costs stamped from one timed projector
+    compute per galore leaf shape on the params' device
+    (core/subspace.py::calibrate_unit_costs); in a world, rank 0's times, so
+    every rank packs the sharded refresh alike."""
+    costs = calibrate_unit_costs(params, effective_galore_config(tc), param_axes=M.param_axes(cfg))
+    secs = world.broadcast(torch.tensor([v for _, v in costs], dtype=torch.float64), 0)
+    costs = tuple((k, float(v)) for (k, _), v in zip(costs, secs.tolist()))
+    return dataclasses.replace(tc, galore=dataclasses.replace(tc.galore, unit_costs=costs))
 
 
 def galore_due_offsets(params, tc: TrainConfig) -> set:
@@ -158,7 +197,8 @@ def make_due(tc: TrainConfig, params):
 def make_refresh_caller(cfg, tc: TrainConfig, params):
     """The external refresh's driver: maybe_refresh(params, opt_state, batch,
     step) -> opt_state, run before the train step: where `make_due` says a
-    leaf is due, a refresh from its own gradient of the step's batch."""
+    leaf is due, a refresh from its own gradient of the step's batch
+    (``maybe_refresh.refresh_step`` is that refresh)."""
     idx = galore_state_index(tc)
     refresh = make_refresh_step(cfg, tc)
     due = make_due(tc, params)
@@ -167,6 +207,7 @@ def make_refresh_caller(cfg, tc: TrainConfig, params):
         is_due, arg = due(opt_state[idx], step)
         return refresh(params, opt_state, batch, arg) if is_due else opt_state
 
+    maybe_refresh.refresh_step = refresh
     return maybe_refresh
 
 
@@ -197,15 +238,22 @@ class AsyncRefreshDriver:
     resumed run swaps what the interrupted one would have. ``history`` holds,
     per refresh dispatched, its step, SVD units (stacked elements
     recomputed), host seconds to enqueue its gradient, seconds the thread
-    took, and seconds the main thread waited for it at the swap."""
+    took, and seconds the main thread waited for it at the swap.
+
+    In a world no collective runs on the thread, so each rank's collectives
+    keep one order: the gradient's mean and, under ZeRO, the gather of the
+    active projectors run at the dispatch, and under the sharded refresh the
+    thread computes this rank's SVD units only, summed over the world at
+    the swap, where the store and schedule follow. With
+    tc.galore_recalibrate_every = N the SVD unit costs are measured again
+    every N dispatches and the refresh rebuilt on them (``recalibrations``
+    counts the rebuilds)."""
 
     def __init__(self, cfg, tc: TrainConfig, params):
-        self.gcfg = effective_galore_config(tc)
-        self.idx = galore_state_index(tc)
-        self._grads = make_refresh_grads(cfg, tc)
-        self._swap = make_swap_step(cfg, tc)
-        self._cold = make_refresh_step(cfg, tc)
-        self._due = make_due(tc, params)
+        self._cfg, self._params = cfg, params
+        self.recal_every = int(tc.galore_recalibrate_every or 0)
+        self.dispatches = self.recalibrations = 0
+        self._build(tc)
         # SVD units a leaf's refresh takes: its stacked elements
         self._units = [math.prod(p.shape[:-2]) for p in tree_leaves(params)]
         device = tree_leaves(params)[0].device
@@ -216,6 +264,32 @@ class AsyncRefreshDriver:
         self._pending = None
         self._prev_batch = None
         self.history: list[dict] = []
+
+    def _build(self, tc: TrainConfig):
+        """The refresh's parts for an effective config: at start-up, and
+        again after each recalibration (a refresh in flight swaps in as it
+        is)."""
+        cfg, params = self._cfg, self._params
+        self.tc = tc
+        self.gcfg = effective_galore_config(tc)
+        self.idx = galore_state_index(tc)
+        self.axes = M.param_axes(cfg)
+        self.mgr = SubspaceManager(self.gcfg, param_axes=self.axes)
+        self.sharded = bool(tc.galore_refresh_shard) and world.n_dp() > 1
+        self.layout = (ZeroLayout(params, self.gcfg, param_axes=self.axes) if self.gcfg.zero
+                       else None)
+        self._grads = make_refresh_grads(cfg, tc)
+        self._swap = make_swap_step(cfg, tc)
+        self._cold = make_refresh_step(cfg, tc)
+        self._due = make_due(tc, params)
+
+    def _recalibrate(self):
+        tc = with_calibrated_costs(self._cfg, self.tc, self._params)
+        self.recalibrations += 1
+        log(f"[train] recalibrated {len(tc.galore.unit_costs)} SVD unit costs "
+            f"(#{self.recalibrations}): " + ", ".join(
+                f"{k}={v * 1e3:.1f}ms" for k, v in tc.galore.unit_costs))
+        self._build(tc)
 
     # -- the pending buffer --------------------------------------------------
 
@@ -270,6 +344,9 @@ class AsyncRefreshDriver:
         if is_due:
             sub = {k: v for k, v in opt_state[self.idx].items() if k != "inner"}
             self._dispatch(params, sub, stale, arg)
+            self.dispatches += 1
+            if self.recal_every and self.dispatches % self.recal_every == 0:
+                self._recalibrate()
         return opt_state
 
     def _dispatch(self, params, sub, batch, step):
@@ -284,18 +361,30 @@ class AsyncRefreshDriver:
             # the train step writes the params in place: not before the
             # refresh's backward has read them
             main.wait_stream(self._stream)
+        if self.layout is not None:  # the buffer is the full layout
+            with torch.no_grad():
+                sub = dict(sub, proj=self.layout.gather_proj(sub["proj"]))
         self.history.append({"step": step if step is not None else sub["step"],
                              "dispatch_s": time.perf_counter() - t0})
         self._future = self._pool.submit(self._refresh, grads, sub, step)
 
     def _refresh(self, grads, sub, step):
+        """The pending buffer, or under the sharded refresh (grads, sub,
+        step, this rank's units, verdict) for the swap to finish."""
         t0 = time.perf_counter()
+
+        def run():
+            if self.sharded:
+                return (grads, sub, step) + shard_units(self.mgr, grads, sub, step)[:2]
+            return refresh_projectors_pending(grads, sub, self.gcfg, step=step,
+                                              param_axes=self.axes)
+
         with torch.no_grad():
             if self._stream is None:
-                pending = refresh_projectors_pending(grads, sub, self.gcfg, step=step)
+                pending = run()
             else:
                 with torch.cuda.stream(self._stream):
-                    pending = refresh_projectors_pending(grads, sub, self.gcfg, step=step)
+                    pending = run()
                     self._stream.synchronize()
         return pending, time.perf_counter() - t0
 
@@ -306,6 +395,12 @@ class AsyncRefreshDriver:
         future, self._future = self._future, None
         pending, refresh_s = future.result()  # the thread's failure re-raises here
         wait_s = time.perf_counter() - t0
+        if self.sharded:  # the owners' units summed, then the store and schedule
+            grads, sub, step, pre, valid = pending
+            with torch.no_grad():
+                pending = refresh_projectors_pending(grads, sub, self.gcfg, step=step,
+                                                     param_axes=self.axes,
+                                                     precomputed=sum_units(pre), valid=valid)
         if self._stream is not None:
             main = torch.cuda.current_stream(self._stream.device)
             main.wait_stream(self._stream)
@@ -314,9 +409,9 @@ class AsyncRefreshDriver:
                     t.record_stream(main)
         units = sum(u for u, flag in zip(self._units, tree_leaves(pending["flag"])) if flag)
         self.history[-1].update(units=units, refresh_s=refresh_s, wait_s=wait_s)
-        print(f"[refresh] async step {self.history[-1]['step']}: {units} SVD units, refresh "
-              f"thread {refresh_s * 1e3:.0f} ms, main thread waited {wait_s * 1e3:.0f} ms at "
-              f"the swap")
+        log(f"[refresh] async step {self.history[-1]['step']}: {units} SVD units, refresh "
+            f"thread {refresh_s * 1e3:.0f} ms, main thread waited {wait_s * 1e3:.0f} ms at "
+            f"the swap")
         self._pending = pending
 
     def _swap_if_pending(self, opt_state, params):
@@ -341,7 +436,8 @@ def train_loop(run: RunConfig, tc: TrainConfig, cfg=None, on_step=None, params=N
     ("kind@step[*count]" or FaultSpec, robust/faults.py); traced kinds need
     tc.anomaly_guard. `on_step(step, metrics)` sees every step that was not
     rolled back; metrics["step_s"] is its wall time, measured after the
-    device finished it."""
+    device finished it. In a data-parallel world (distributed/world.py) every
+    rank runs this loop on the same global batches."""
     device = resolve_device(run.device)
     cfg = cfg or get_config(run.arch, smoke=run.smoke)
     if data is None:
@@ -360,7 +456,8 @@ def train_loop(run: RunConfig, tc: TrainConfig, cfg=None, on_step=None, params=N
         tc = dataclasses.replace(tc, fault_hooks=True)
     # crc-checked only when guarded: recovery needs exact corruption checks,
     # and an unguarded run keeps the reference's META bytes
-    ckpt = CheckpointManager(run.ckpt_dir, checksum=guarded, quantize=run.ckpt_quantize)
+    ckpt = CheckpointManager(run.ckpt_dir, checksum=guarded, quantize=run.ckpt_quantize,
+                             writer=world.rank() == 0)
 
     # a rollback with no valid checkpoint restarts from the initial params
     init_host = (tree_map(lambda t: t.detach().to("cpu", copy=True), params)
@@ -376,7 +473,16 @@ def train_loop(run: RunConfig, tc: TrainConfig, cfg=None, on_step=None, params=N
     gcfg = tc.galore
     if gcfg is not None and gcfg.stagger_by_importance and not gcfg.importance_order:
         tc = with_measured_importance(cfg, tc, params, data.batch(0))
+    if gcfg is not None and tc.galore_calibrate_costs:
+        tc = with_calibrated_costs(cfg, tc, params)
+        log(f"[train] calibrated {len(tc.galore.unit_costs)} SVD unit costs: "
+            + ", ".join(f"{k}={v * 1e3:.1f}ms" for k, v in tc.galore.unit_costs))
     external = external_refresh(tc)
+    gcfg_eff = effective_galore_config(tc)
+    # ZeRO checkpoints: the ranks' blocks gathered to the full layout on save,
+    # cut into this world's blocks on restore
+    zero = ((ZeroLayout(params, gcfg_eff, param_axes=M.param_axes(cfg)), galore_state_index(tc))
+            if gcfg_eff is not None and gcfg_eff.zero else None)
 
     def build_programs(tc_eff):
         """(train_step, opt, driver, maybe_refresh, resync) for an effective
@@ -415,7 +521,7 @@ def train_loop(run: RunConfig, tc: TrainConfig, cfg=None, on_step=None, params=N
             target["pending"] = init_pending_state(params, effective_galore_config(tc))
         if guarded and "guard" in groups:
             target["guard"] = guard
-        restored = ckpt.restore(which, target)
+        restored = ckpt.restore(which, target, zero=zero)
         start = ckpt.meta(which)["step"] + 1
         if "pending" in restored:
             driver.restore_pending(restored["pending"])
@@ -438,11 +544,14 @@ def train_loop(run: RunConfig, tc: TrainConfig, cfg=None, on_step=None, params=N
     latest = ckpt.latest_valid_step() if guarded else ckpt.latest_step()
     if latest is not None:
         params, opt_state, guard, start_step = try_restore(params, opt_state, guard, latest)
-        print(f"[train] resumed from step {latest}")
+        log(f"[train] resumed from step {latest}")
 
     ema_dt = None
     metrics = {}
     preempt_flag = os.path.join(run.ckpt_dir, "PREEMPT")
+    report = {}  # step -> {"loss", "step_s"}, for run.report
+    if run.report:
+        ops.reset_launch_counts()
     step = start_step
     try:
         while step < run.steps:
@@ -452,7 +561,7 @@ def train_loop(run: RunConfig, tc: TrainConfig, cfg=None, on_step=None, params=N
                 opt_state = maybe_refresh(params, opt_state, batch, step)
                 if (injector is not None and driver is not None and driver.in_flight
                         and injector.take("corrupt_pending", step)):
-                    print(f"[faults] poisoning in-flight pending buffer at step {step}")
+                    log(f"[faults] poisoning in-flight pending buffer at step {step}")
                     driver.pending = injector.poison_pending(driver.pending)
             if guarded:
                 fault = None
@@ -463,8 +572,8 @@ def train_loop(run: RunConfig, tc: TrainConfig, cfg=None, on_step=None, params=N
                                                                fault)
                 ok = bool(metrics["guard_ok"])
                 if not ok:
-                    print(f"[guard] anomalous step {step}: update skipped "
-                          f"(total skips {int(metrics['guard_skips'])})")
+                    log(f"[guard] anomalous step {step}: update skipped "
+                        f"(total skips {int(metrics['guard_skips'])})")
             else:
                 ok = True
                 params, opt_state, metrics = train_step(params, opt_state, batch)
@@ -475,6 +584,7 @@ def train_loop(run: RunConfig, tc: TrainConfig, cfg=None, on_step=None, params=N
             if recov is not None and recov.observe_step(ok):
                 n = recov.start_rollback()
                 ckpt.wait()  # let an in-flight save commit before choosing a target
+                world.barrier()
                 if tc.recover_lr_decay < 1.0:
                     tc_eff = dataclasses.replace(tc_eff, lr=tc_eff.lr * tc.recover_lr_decay)
                     if driver is not None:
@@ -493,54 +603,85 @@ def train_loop(run: RunConfig, tc: TrainConfig, cfg=None, on_step=None, params=N
                     params = initial_params()
                     opt_state = opt.init(params)
                     step = 0
-                print(f"[recover] rollback {n}/{tc.recover_max_rollbacks}: restored step "
-                      f"{which}, resuming at step {step}"
-                      + (f", lr -> {tc_eff.lr:.2e}" if tc.recover_lr_decay < 1.0 else ""))
+                log(f"[recover] rollback {n}/{tc.recover_max_rollbacks}: restored step "
+                    f"{which}, resuming at step {step}"
+                    + (f", lr -> {tc_eff.lr:.2e}" if tc.recover_lr_decay < 1.0 else ""))
                 if resync is not None:
                     opt_state = resync(params, opt_state, data.batch(step),
                                        0 if tc_eff.galore.refresh_stagger else None)
-                    print(f"[recover] resync: force-all refresh at step {step}")
+                    log(f"[recover] resync: force-all refresh at step {step}")
                     if driver is not None:
                         driver.prime_stale(data.batch(step))
                 continue  # re-enter the loop at the restored step
             dt = time.perf_counter() - t0
             ema_dt = dt if ema_dt is None else 0.9 * ema_dt + 0.1 * dt
             if dt > 2.0 * ema_dt and step > start_step + 3:
-                print(f"[watchdog] straggler step {step}: {dt:.3f}s vs EMA {ema_dt:.3f}s")
+                log(f"[watchdog] straggler step {step}: {dt:.3f}s vs EMA {ema_dt:.3f}s")
             metrics = dict(metrics, step_s=dt)
             if step % run.log_every == 0:
                 aux = (f" aux_loss {float(metrics['aux_loss']):.4f}"
                        if cfg.n_experts > 0 and "aux_loss" in metrics else "")
-                print(f"[train] step {step} loss {float(metrics['loss']):.4f} "
-                      f"({dt * 1e3:.0f} ms){aux}")
+                log(f"[train] step {step} loss {float(metrics['loss']):.4f} "
+                    f"({dt * 1e3:.0f} ms){aux}")
+            if run.report:
+                report[step] = {"loss": float(metrics["loss"]), "step_s": dt}
             if on_step is not None:
                 on_step(step, metrics)
             if run.ckpt_every and step > 0 and step % run.ckpt_every == 0:
-                ckpt.save(step, state_tree(params, opt_state, guard), extra_meta=data_meta(step))
+                ckpt.save(step, state_tree(params, opt_state, guard), extra_meta=data_meta(step),
+                          zero=zero)
                 if injector is not None:
                     if injector.take("corrupt_ckpt", step):
                         ckpt.wait()  # corrupt the committed files, not the tmp
-                        print(f"[faults] corrupting latest checkpoint after step {step}")
+                        log(f"[faults] corrupting latest checkpoint after step {step}")
                         injector.corrupt_latest(run.ckpt_dir)
                     if injector.take("kill_save", step):
                         ckpt.wait()
-                        print(f"[faults] simulating kill mid-save at step {step}")
+                        log(f"[faults] simulating kill mid-save at step {step}")
                         injector.leave_stale_tmp(run.ckpt_dir, step)
-            if os.path.exists(preempt_flag):
-                print(f"[train] preemption signal at step {step}: checkpoint + exit")
+            # every rank stops at the step where any rank saw the flag
+            if not world.all_true(not os.path.exists(preempt_flag)):
+                log(f"[train] preemption signal at step {step}: checkpoint + exit")
                 ckpt.save(step, state_tree(params, opt_state, guard), extra_meta=data_meta(step),
-                          block=True)
-                os.remove(preempt_flag)
+                          block=True, zero=zero)
+                world.barrier()
+                if ckpt.writer:
+                    os.remove(preempt_flag)
                 return params, opt_state, metrics, step
             step += 1
         if driver is not None:
             opt_state = driver.flush(opt_state, params)
         ckpt.wait()
+        if run.report:
+            write_report(run.report, report, params, opt_state, tc, device, maybe_refresh)
         return params, opt_state, metrics, run.steps - 1
     finally:
         for d in drivers:
             if d is not None:
                 d.close()
+
+
+def write_report(path, steps, params, opt_state, tc, device, maybe_refresh):
+    """This rank's run report, <path>.rank<k>.json: its rank and the world's
+    size, each step's loss and wall time, every kernel wrapper's launches
+    (ops.launch_counts, counted from the loop's start), its galore state's
+    tensor bytes (under ZeRO beside galore_zero_state_bytes at this world's
+    size), the collectives it staged through host memory, the last sharded
+    refresh's units and loads, and the device's peak memory."""
+    gcfg = effective_galore_config(tc)
+    gstate = opt_state[galore_state_index(tc)] if gcfg is not None else None
+    refresh = getattr(maybe_refresh, "refresh_step", None)
+    out = {"rank": world.rank(), "n_dp": world.n_dp(), "backend": world.backend(),
+           "steps": {str(k): v for k, v in steps.items()}, "launches": ops.launch_counts(),
+           "state_bytes": galore_state_tensor_bytes(gstate) if gstate is not None else None,
+           "zero_bytes": (galore_zero_state_bytes(params, gcfg, world.n_dp())
+                          if gcfg is not None and gcfg.zero else None),
+           "staged": world.STAGED["calls"],
+           "refresh": getattr(refresh, "last", None),
+           "peak_bytes": (torch.cuda.max_memory_allocated(device) if device.type == "cuda"
+                          else None)}
+    with open(f"{path}.rank{world.rank()}.json", "w") as f:
+        json.dump(out, f)
 
 
 def build_parser():
@@ -578,6 +719,37 @@ def build_parser():
                     help="on each async buffer swap, rotate the compact Adam moments into "
                          "the new subspace (ReLoRA-style reset hygiene) instead of carrying "
                          "old-basis statistics")
+    ap.add_argument("--galore-refresh-shard", action="store_true",
+                    help="partition the refresh SVD work across data-parallel ranks and "
+                         "gather the projectors (implies external refresh; per-refresh "
+                         "ceiling Σc_i → max bin ≈ Σc_i/n_dp)")
+    ap.add_argument("--galore-calibrate-costs", action="store_true",
+                    help="measure per-shape SVD wall time once at startup and bin-pack the "
+                         "distributed refresh on measured costs instead of the asymptotic "
+                         "model")
+    ap.add_argument("--galore-recalibrate-costs", type=int, default=0, metavar="N",
+                    help="async refresh: re-measure SVD unit costs every N refresh "
+                         "dispatches and rebuild the refresh, so bin-packing tracks cost "
+                         "drift (requires --galore-refresh-async; 0 disables)")
+    ap.add_argument("--galore-dp-compress", action="store_true",
+                    help="all-reduce gradients in the compact r-dim domain (project per "
+                         "rank, mean R, update once) instead of the full m×n domain")
+    ap.add_argument("--galore-zero", type=int, default=0, choices=(0, 1, 2),
+                    help="GaLore-ZeRO optimizer-state partitioning: 1 shards the persistent "
+                         "compact state (moments, projectors, quantization payloads) "
+                         "rank-blockwise across data-parallel ranks (~1/n_dp optimizer bytes "
+                         "per rank; the sum of the owners' back-projections is the update); "
+                         "2 additionally reduce-scatters compact gradients to owners (implies "
+                         "--galore-dp-compress, fp32 moments only); 0 keeps state replicated")
+    ap.add_argument("--galore-tp-aware-side", action="store_true",
+                    help="choose the projection side from the parameter's tensor-parallel "
+                         "labels instead of min(m, n): a weight with one tensor-parallel dim "
+                         "projects along its replicated dim (changes numerics vs the paper's "
+                         "shape rule; off by default)")
+    ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                    help="torch.distributed backend of a world started by "
+                         "torch.distributed.run (default nccl on CUDA, gloo on the CPU; "
+                         "gloo lets two ranks share one card)")
     cli.add_quant_flags(ap)
     ap.add_argument("--anomaly-guard", action="store_true",
                     help="per-step anomaly guard: a non-finite loss or grad norm, or an "
@@ -603,6 +775,9 @@ def build_parser():
     ap.add_argument("--seq", type=int, default=256)
     cli.add_ckpt_flags(ap, default_dir=DEFAULT_CKPT_DIR)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--report", default=None, metavar="PATH",
+                    help="write each rank's run report (losses, step times, kernel launches, "
+                         "state bytes, staged collectives) to PATH.rank<k>.json")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; there is no CPU fallback)")
     return ap
@@ -615,22 +790,35 @@ def main(argv=None):
         device = resolve_device(args.device)
     except RuntimeError as e:
         ap.error(str(e))
+    # the world that torch.distributed.run describes, if any: this rank's device
+    device = world.init_world(device, args.dist_backend)
     galore = (GaLoreConfig(rank=args.galore_rank, update_freq=args.galore_t,
                            rank_frac=args.galore_rank_frac, adaptive_t=args.galore_adaptive_t,
                            refresh_stagger=args.galore_stagger or args.galore_stagger_importance,
                            stagger_by_importance=args.galore_stagger_importance,
                            reproject_moments=args.galore_reproject_moments,
+                           tp_aware_side=args.galore_tp_aware_side,
                            quant=cli.quant_policy_from(args))
               if args.galore_rank > 0 or args.galore_rank_frac > 0 else None)
     if args.galore_fused and galore is None:
         ap.error("--galore-fused requires --galore-rank or --galore-rank-frac > 0")
-    for flag in ("external_refresh", "refresh_async"):
+    for flag in ("external_refresh", "refresh_async", "refresh_shard", "dp_compress",
+                 "tp_aware_side"):
         if getattr(args, "galore_" + flag) and galore is None:
             ap.error(f"--galore-{flag.replace('_', '-')} requires --galore-rank or "
                      f"--galore-rank-frac > 0")
     if args.galore_reproject_moments and not args.galore_refresh_async:
         ap.error("--galore-reproject-moments acts on async buffer swaps; add "
                  "--galore-refresh-async")
+    if args.galore_recalibrate_costs and not args.galore_refresh_async:
+        ap.error("--galore-recalibrate-costs is driven by the async refresh driver; add "
+                 "--galore-refresh-async")
+    if args.galore_zero and galore is None:
+        ap.error("--galore-zero requires --galore-rank or --galore-rank-frac > 0")
+    if args.galore_zero == 2 and galore is not None and galore.quant.quantizes_moments:
+        ap.error("--galore-zero 2 reduce-scatters compact gradients onto fp32 owner moments; "
+                 "it cannot compose with quantized moment state (drop --quant-moments / use "
+                 "--galore-zero 1)")
     if args.galore_fused_apply and not args.galore_fused:
         ap.error("--galore-fused-apply requires --galore-fused")
     if args.optimizer in ("adafactor", "sgd"):
@@ -658,6 +846,12 @@ def main(argv=None):
                      galore_fused_apply=args.galore_fused_apply,
                      galore_external_refresh=args.galore_external_refresh,
                      galore_refresh_async=args.galore_refresh_async,
+                     galore_refresh_shard=args.galore_refresh_shard,
+                     # ZeRO-2 reduce-scatters in the compact domain: the compress path
+                     galore_dp_compress=args.galore_dp_compress or args.galore_zero == 2,
+                     galore_zero=args.galore_zero,
+                     galore_calibrate_costs=args.galore_calibrate_costs,
+                     galore_recalibrate_every=args.galore_recalibrate_costs,
                      anomaly_guard=args.anomaly_guard,
                      recover_max_skips=args.recover_max_skips,
                      recover_max_rollbacks=args.recover_max_rollbacks,
@@ -666,8 +860,11 @@ def main(argv=None):
     run = RunConfig(arch=args.arch, smoke=not args.full, steps=args.steps,
                     batch_per_host=args.batch, seq_len=args.seq, ckpt_dir=args.ckpt_dir,
                     ckpt_every=args.ckpt_every, log_every=args.log_every,
-                    ckpt_quantize=args.ckpt_quantize, device=str(device))
-    train_loop(run, tc, cfg=cli.config_from(args), faults=faults or None)
+                    ckpt_quantize=args.ckpt_quantize, device=str(device), report=args.report)
+    try:
+        train_loop(run, tc, cfg=cli.config_from(args), faults=faults or None)
+    finally:
+        world.close_world()
 
 
 if __name__ == "__main__":

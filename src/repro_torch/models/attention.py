@@ -53,6 +53,15 @@ def init_attention(gen, cfg, dtype, lead=(), cross: bool = False):
     return p
 
 
+def attention_axes(cfg, cross: bool = False):
+    """Logical axes of one attention layer's parameters (the reference's)."""
+    ax = {"wq": ("embed", "heads_flat"), "wk": ("embed", "kv_flat"),
+          "wv": ("embed", "kv_flat"), "wo": ("heads_flat", "embed")}
+    if cfg.qkv_bias and not cross:
+        ax.update(bq=("heads_flat",), bk=("kv_flat",), bv=("kv_flat",))
+    return ax
+
+
 def _proj(x, w, b, n_heads, hd):
     y = x @ w
     if b is not None:

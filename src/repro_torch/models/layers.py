@@ -87,3 +87,30 @@ def apply_mlp(cfg, p, x):
     if cfg.act == "swiglu":
         return (F.silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
     return F.gelu(x @ p["up"], approximate="tanh") @ p["down"]
+
+
+# Logical axis labels of the parameters (the reference's ``*_axes``): plain
+# tuples of strings, read by core/subspace.py's tp_aware_side and ZeRO maps.
+
+
+def norm_axes(cfg):
+    if cfg.norm_type == "layernorm":
+        return {"scale": ("embed",), "bias": ("embed",)}
+    return {"scale": ("embed",)}
+
+
+def dense_axes(bias=False, axes=("embed", "ff")):
+    ax = {"kernel": axes}
+    if bias:
+        ax["bias"] = (axes[1],)
+    return ax
+
+
+def embedding_axes():
+    return {"embedding": ("vocab", None)}
+
+
+def mlp_axes(cfg):
+    if cfg.act == "swiglu":
+        return {"gate": ("embed", "ff"), "up": ("embed", "ff"), "down": ("ff", "embed")}
+    return {"up": ("embed", "ff"), "down": ("ff", "embed")}

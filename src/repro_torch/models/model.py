@@ -24,8 +24,10 @@ from repro_torch.models.layers import (
     apply_embedding,
     apply_norm,
     apply_unembed,
+    embedding_axes,
     init_embedding,
     init_norm,
+    norm_axes,
 )
 from repro_torch.utils import canonical_dtype, resolve_device, tree_map, unstack
 
@@ -79,6 +81,25 @@ def init_params(cfg, seed: int = 0, device=None):
     else:
         p["blocks"] = stacks.init_decoder_stack(gen, cfg, dtype)
     return tree_map(lambda t: t.requires_grad_(True), p)
+
+
+def param_axes(cfg):
+    """The logical axis labels of every parameter, a tree with the params'
+    paths (the reference's ``param_axes``): plain tuples of strings, read by
+    the tp-aware side rule and the ZeRO maps (core/subspace.py)."""
+    ax = {"embed": embedding_axes(), "final_norm": norm_axes(cfg)}
+    if cfg.family == "hybrid":
+        ax["blocks"] = stacks.jamba_stack_axes(cfg)
+    elif cfg.family == "ssm":
+        ax["blocks"] = stacks.stack_axes({"mix": ssm_lib.ssm_axes(cfg), "ln": norm_axes(cfg)})
+    elif cfg.family == "audio":
+        ax["encoder"] = stacks.encoder_stack_axes(cfg)
+        ax["enc_norm"] = norm_axes(cfg)
+        ax["blocks"] = stacks.crossdecoder_stack_axes(cfg)
+        ax["dec_pos"] = (None, None)
+    else:
+        ax["blocks"] = stacks.decoder_stack_axes(cfg)
+    return ax
 
 
 def _init_ssm_stack(gen, cfg, dtype):

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import world
 from repro_torch.models.layers import _init_normal
 
 
@@ -32,6 +33,12 @@ def init_moe(gen, cfg, dtype, lead=()):
         "up": _init_normal(gen, lead + (E, D, Fd), dtype, fan_in=D),
         "down": _init_normal(gen, lead + (E, Fd, D), dtype, fan_in=Fd),
     }
+
+
+def moe_axes(cfg):
+    """Logical axes of one MoE layer's parameters (the reference's)."""
+    return {"router": ("embed", None), "gate": ("experts", "embed", "ff"),
+            "up": ("experts", "embed", "ff"), "down": ("experts", "ff", "embed")}
 
 
 def capacity_for(cfg, seq: int) -> int:
@@ -83,6 +90,9 @@ def apply_moe(cfg, p, x):
     # the Switch load-balancing loss
     me = probs.mean(dim=(0, 1))  # (E,)
     ce = F.one_hot(expert_idx, E).float().sum(dim=2).mean(dim=(0, 1))  # tokens per expert
+    # in a data-parallel world, the whole global batch's fraction (ce carries
+    # no gradient): the ranks' mean aux gradient is then the global one
+    ce = world.all_reduce_mean_many([ce])[0]
     aux_loss = E * (me * ce).sum() * cfg.router_aux_coef
 
     # routing: integer index algebra only, no gradient flows here

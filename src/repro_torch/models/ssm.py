@@ -54,6 +54,15 @@ def ssm_dims(cfg):
     return d_inner, n_heads, groups, conv_ch
 
 
+def ssm_axes(cfg):
+    """Logical axes of one SSD layer's parameters (the reference's)."""
+    return {"in_z": ("embed", "ff"), "in_x": ("embed", "ff"), "in_B": ("embed", None),
+            "in_C": ("embed", None), "in_dt": ("embed", None), "conv_x_w": (None, "ff"),
+            "conv_x_b": ("ff",), "conv_B_w": (None, None), "conv_B_b": (None,),
+            "conv_C_w": (None, None), "conv_C_b": (None,), "A_log": (None,), "D": (None,),
+            "dt_bias": (None,), "norm_scale": ("ff",), "out_proj": ("ff", "embed")}
+
+
 def init_ssm(gen, cfg, dtype, lead=()):
     """The reference's leaves, each with the leading dims `lead`: the five
     input projections (D, ·), the three depthwise convs (k, ·) with zero

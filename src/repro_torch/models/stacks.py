@@ -42,8 +42,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
-from repro_torch.utils import unstack
+from repro_torch.models.layers import (
+    apply_mlp,
+    apply_norm,
+    init_mlp,
+    init_norm,
+    mlp_axes,
+    norm_axes,
+)
+from repro_torch.utils import is_axes, unstack
 
 _STACKED = ("k", "v", "kp", "vp")  # cache leaves with a leading L axis
 
@@ -58,6 +65,21 @@ def init_decoder_stack(gen, cfg, dtype):
         "ln2": init_norm(cfg, dtype, gen.device, lead=(L,)),
         "ffn": ffn,
     }
+
+
+def stack_axes(ax_tree):
+    """Every axes tuple of `ax_tree` behind the stacked "layers" dim."""
+    if is_axes(ax_tree):
+        return ("layers",) + ax_tree
+    if isinstance(ax_tree, dict):
+        return {k: stack_axes(v) for k, v in ax_tree.items()}
+    return tuple(stack_axes(v) for v in ax_tree)
+
+
+def decoder_stack_axes(cfg):
+    ffn = moe_lib.moe_axes(cfg) if cfg.n_experts > 0 else mlp_axes(cfg)
+    return stack_axes({"attn": attn_lib.attention_axes(cfg), "ln1": norm_axes(cfg),
+                       "ln2": norm_axes(cfg), "ffn": ffn})
 
 
 def _decoder_layer(cfg, p, x, *, angles, is_full: bool, cache=None, cache_pos=None):
@@ -139,6 +161,16 @@ def init_jamba_stack(gen, cfg, dtype):
     return tuple(block)
 
 
+def jamba_stack_axes(cfg):
+    block = []
+    for kind, is_moe in _jamba_block_structure(cfg):
+        block.append({"ln1": norm_axes(cfg), "ln2": norm_axes(cfg),
+                      "mix": (attn_lib.attention_axes(cfg) if kind == "attn"
+                              else ssm_lib.ssm_axes(cfg)),
+                      "ffn": moe_lib.moe_axes(cfg) if is_moe else mlp_axes(cfg)})
+    return stack_axes(tuple(block))
+
+
 def init_jamba_cache(cfg, batch: int, max_len: int, dtype, device):
     """A tuple of per-sub-layer caches stacked over blocks: attention's {"k",
     "v": (nb, batch, max_len, KV, hd)}, the SSD layer's {"state", "conv_x",
@@ -214,6 +246,11 @@ def init_encoder_stack(gen, cfg, dtype):
     }
 
 
+def encoder_stack_axes(cfg):
+    return stack_axes({"attn": attn_lib.attention_axes(cfg), "ln1": norm_axes(cfg),
+                       "ln2": norm_axes(cfg), "ffn": mlp_axes(cfg)})
+
+
 def apply_encoder_stack(cfg, p, x):
     """Frames x (B, T, D) through the n_enc_layers encoder layers; returns
     (B, T, D)."""
@@ -239,6 +276,13 @@ def init_crossdecoder_stack(gen, cfg, dtype):
         "ln3": init_norm(cfg, dtype, gen.device, lead=(L,)),
         "ffn": init_mlp(gen, cfg, dtype, lead=(L,)),
     }
+
+
+def crossdecoder_stack_axes(cfg):
+    return stack_axes({"self_attn": attn_lib.attention_axes(cfg),
+                       "cross_attn": attn_lib.attention_axes(cfg, cross=True),
+                       "ln1": norm_axes(cfg), "ln2": norm_axes(cfg), "ln3": norm_axes(cfg),
+                       "ffn": mlp_axes(cfg)})
 
 
 def apply_crossdecoder_stack(cfg, p, x, enc_kv, *, cache=None, cache_pos=None):

@@ -13,6 +13,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.distributed import world
 from repro_torch.utils import tree_leaves, tree_map, tree_map_with_path
 
 
@@ -63,17 +64,29 @@ def scale_by_schedule(schedule: Callable[[torch.Tensor], torch.Tensor]) -> Gradi
     return GradientTransformation(init, update)
 
 
-def clip_factor(grads, max_norm: float) -> torch.Tensor:
+def clip_factor(grads, max_norm: float, blocks=None) -> torch.Tensor:
     """min(1, max_norm / (global norm + 1e-9)), 0-d f32 on the device. Each
-    leaf is squared in its own f32 copy (one temporary a leaf, not two)."""
-    gnorm = torch.sqrt(sum(x.to(torch.float32, copy=True).square_().sum()
-                           for x in tree_leaves(grads)))
+    leaf is squared in its own f32 copy (one temporary a leaf, not two).
+    `blocks` (one bool a leaf) marks the leaves that hold only this rank's
+    block (ZeRO-2's reduce-scattered gradient): their squares are summed
+    over the world, the others' counted once."""
+    sq = [x.to(torch.float32, copy=True).square_().sum() for x in tree_leaves(grads)]
+    if blocks is None:
+        gnorm = torch.sqrt(sum(sq))
+    else:
+        zero = torch.zeros((), dtype=torch.float32, device=sq[0].device)
+        whole = sum((q for q, b in zip(sq, blocks) if not b), zero)
+        gnorm = torch.sqrt(whole + world.all_reduce_sum_many(
+            [sum((q for q, b in zip(sq, blocks) if b), zero)])[0])
     return torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
 
 
-def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+def clip_by_global_norm(max_norm: float, blocks=None) -> GradientTransformation:
+    """The global-norm clip; `blocks(grads, params)` gives clip_factor's
+    per-leaf marks where some leaves are rank blocks."""
+
     def update(grads, state, params=None):
-        factor = clip_factor(grads, max_norm)
+        factor = clip_factor(grads, max_norm, None if blocks is None else blocks(grads, params))
         return tree_map(lambda x: (x.float() * factor).to(x.dtype), grads), state
 
     return GradientTransformation(lambda p: (), update)

@@ -12,8 +12,8 @@ injection, and the recovery policy.
                   budget before TrainingFailure.
 
 The poison-proof refresh lives with the refresh (core/subspace.py, under
-GaLoreConfig.guard_refresh). The reference's async refresh and its pending
-buffer are not ported, so nothing here acts on one.
+GaLoreConfig.guard_refresh), the async swap's check of a pending buffer
+included.
 """
 from repro_torch.robust.faults import (  # noqa: F401
     HOST_KINDS,

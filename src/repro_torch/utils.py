@@ -79,6 +79,31 @@ def tree_map_with_path(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     return walk(tree, (), list(rest))
 
 
+def is_axes(x) -> bool:
+    """A logical-axes leaf: a tuple of str / None, e.g. ("embed", "ff"), (None,),
+    () (the reference's ``is_axes``); a tuple of dicts (Jamba's blocks) is
+    structure, not a leaf."""
+    return isinstance(x, tuple) and all(e is None or isinstance(e, str) for e in x)
+
+
+def axes_by_path(axes_tree: Tree) -> dict:
+    """{dotted path: axes tuple} of a logical-axes tree (model.param_axes)."""
+    out = {}
+
+    def walk(t, prefix):
+        if is_axes(t):
+            out[path_str(prefix)] = t
+        elif isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], prefix + (k,))
+        else:
+            for i, x in enumerate(t):
+                walk(x, prefix + (i,))
+
+    walk(axes_tree, ())
+    return out
+
+
 def tree_leaves(tree: Tree) -> list:
     return [leaf for _, leaf in tree_leaves_with_path(tree)]
 

@@ -2454,3 +2454,104 @@ def test_cuda_audio_prefill_decode_matches_cpu():
                                                           cache["self"]["k"], cache["self"]["v"]]
     for want, got in zip(runs["cpu"], runs[str(dev)]):
         assert _rel_err(got, want) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# GaLore-ZeRO's rank blocks, and a gloo world of 2 on one card
+# ---------------------------------------------------------------------------
+
+# (shape, side): the llama_7b leaves at rank 128 split over 2 ranks (the
+# fp32 and int8-moment kernels run on blocks of 64) ...
+BLOCK_CASES = [((2, 4096, 64, 4096), "left"), ((2, 4096, 64, 11008), "left"),
+               ((2, 11008, 64, 4096), "right")]
+# ... and at rank 1024 (the tiled projections run on blocks of 512)
+BLOCK_PROJECT_SHAPES = [(2, 4096, 512, 4096), (2, 4096, 512, 11008)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BLOCK_CASES, ids=lambda c: f"{c[1]}{c[0]}")
+def test_cuda_fp32_kernel_at_rank_blocks(case):
+    """B1/B2 on a rank block of 64 (ZeRO-1 at r = 128, n_dp 2), G bf16,
+    against the plain version: G̃, M' and V' within 1e-5·max|want| +
+    1e-5·|want|."""
+    dev = _cuda_device()
+    shape, side = case
+    P, G, M, V = (torch.from_numpy(a).to(dev) for a in fused_inputs(shape, side))
+    G = G.to(torch.bfloat16)
+    count = torch.tensor(7, dtype=torch.int32, device=dev)
+    name = "galore_fused_adam_step" + ("_right" if side == "right" else "")
+    fn, plain = getattr(tk, name), getattr(tk, name + "_plain")
+    want = plain(P, G, M, V, count, alpha=0.25)
+    before = fn.launches
+    got = fn(P, G, M.clone(), V.clone(), count, alpha=0.25)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    for what, a, b in zip(("G̃", "M'", "V'"), got, want):
+        assert _within(a, b), f"{case} {what}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BLOCK_CASES, ids=lambda c: f"{c[1]}{c[0]}")
+@pytest.mark.parametrize("p_int4", [False, True])
+def test_cuda_adam8_kernel_at_rank_blocks(case, p_int4):
+    """B3-int8 on a rank block of 64, G bf16, P f32 or a block of the packed
+    int4 P (its codes' and scales' columns, a bitwise slice): G̃ and scales
+    within 1e-5·max|want| + 1e-5·|want|, codes at most 1 apart."""
+    dev = _cuda_device()
+    shape, side = case
+    P, moments, G = _adam8_card_inputs(shape, side, dev, seed=sum(shape) + 1)
+    G = G.to(torch.bfloat16)
+    if p_int4:
+        full = codec.quant4_axis_state(torch.cat([P, P], dim=-1))  # a rank-128 P's first block
+        P = {k: v[..., :shape[-2]].contiguous() for k, v in full.items()}
+    count = torch.tensor(7, dtype=torch.int32, device=dev)
+    name = "galore_fused_adam8_step" + ("_right" if side == "right" else "")
+    fn, plain = getattr(tk, name), getattr(tk, name + "_plain")
+    want = plain(P, G, *moments, count, alpha=0.25)
+    before = fn.launches
+    got = fn(P, G, *[x.clone() for x in moments], count, alpha=0.25)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert _within(got[0], want[0]), case
+    for what, a, b in zip(["mq", "ms", "vq", "vs"], got[1:], want[1:]):
+        if b.dtype == torch.uint8:
+            assert int((a.int() - b.int()).abs().max()) <= 1, f"{case} {what}"
+        else:
+            assert _within(a, b), f"{case} {what}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BLOCK_PROJECT_SHAPES)
+@pytest.mark.parametrize("transpose", [False, True])
+def test_cuda_project_kernels_at_rank_blocks(shape, transpose):
+    """B4 and B5 on a rank block of 512 (ZeRO-1 at r = 1024, n_dp 2), G bf16
+    stored either way, G̃ written either way: within 1e-5·max|want| +
+    1e-5·|want|."""
+    dev = _cuda_device()
+    P, G, N = _card_proj_inputs(shape, dev)
+    G = G.to(torch.bfloat16)
+    if transpose:
+        G = G.transpose(-1, -2).contiguous()
+    got = tp.galore_project(P, G, transpose_g=transpose)
+    back = tp.galore_project_back(P, N, 0.25, transpose_out=transpose)
+    torch.cuda.synchronize()
+    assert _within(got, tp.galore_project_plain(P, G, transpose))
+    assert _within(back, tp.galore_project_back_plain(P, N, 0.25, transpose))
+
+
+@pytest.mark.cuda
+def test_cuda_world_collectives_in_a_gloo_world_of_two(tmp_path):
+    """distributed/world.py's collectives on CUDA tensors, two ranks sharing
+    cuda:0 over gloo (NCCL refuses two ranks on one device): sum, mean
+    (f32, cast back to bf16), all-gather, reduce-scatter and broadcast equal
+    the host computation, the results stay on the card, and every call was
+    staged through host memory."""
+    _cuda_device()
+    from torch_world import collectives_check, run_world
+
+    out = run_world(collectives_check, 2, tmp_path, "cuda", device="cuda")
+    for k, r in enumerate(out):
+        assert r["devices"] == {"cuda"}, r["devices"]
+        assert r["staged"] == 5, r["staged"]
+        for name, (got, want) in r["results"].items():
+            assert torch.equal(got, want), (k, name)

@@ -101,7 +101,8 @@ def test_port_imports_no_jax():
                    "configs/internlm2_20b.py", "configs/minitron_4b.py",
                    "configs/qwen2_vl_7b.py", "configs/grok_1_314b.py",
                    "configs/llama4_scout_17b_a16e.py", "models/ssm.py",
-                   "configs/mamba2_130m.py", "configs/jamba_1_5_large_398b.py"):
+                   "configs/mamba2_130m.py", "configs/jamba_1_5_large_398b.py",
+                   "distributed/world.py", "distributed/state_sharding.py"):
         assert port / module in files, module
     bad = [
         f"{f.relative_to(ROOT)}: {mod}"

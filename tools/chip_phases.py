@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Run some of chip_smoke.py's model-family phases alone on the card.
+"""Run some of chip_smoke.py's model-family and data-parallel phases alone on
+the card.
 
     python3 tools/chip_phases.py [moe-kernels|moe|moe-dispatch|mrope|serve-chunk|families|
-                                  ssm|hybrid|whisper ...]
+                                  ssm|hybrid|whisper|dp-kernels|dp ...]
 
 With no argument every one of them runs, in chip_smoke.py's order. Each
 phase is timed; a failing phase prints its traceback and the next one
@@ -27,9 +28,10 @@ def main(only):
     print(cs.card_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if not only or {"moe-kernels", "moe", "mrope", "ssm", "whisper"} & set(only):
+    if not only or {"moe-kernels", "moe", "mrope", "ssm", "whisper", "dp-kernels", "dp"} & set(
+            only):
         t = time.perf_counter()
-        cs.build.build(["galore_epilogue"])
+        cs.build.build(["galore_epilogue", "galore_project"])
         print(f"[build] {time.perf_counter() - t:.1f} s", flush=True)
     none = {name: 0 for name in cs.COUNTERS}
     phases, failed = {}, []
@@ -41,7 +43,9 @@ def main(only):
                     ("families", cs.families_phase),
                     ("ssm", lambda: cs.ssm_phase(phases, none)),
                     ("hybrid", lambda: cs.hybrid_phase(phases, none)),
-                    ("whisper", lambda: cs.whisper_phase(phases, none))):
+                    ("whisper", lambda: cs.whisper_phase(phases, none)),
+                    ("dp-kernels", cs.check_rank_blocks),
+                    ("dp", cs.dp_phase)):
         if only and tag not in only:
             continue
         t = time.perf_counter()
