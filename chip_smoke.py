@@ -24,7 +24,10 @@ Phases, each timed, none of them optional; any failed check raises:
      also at llama_1b's leaves at the paper's 1B rank r = 512, each of its
      launches logged with its route (TMA or thread copies) and its cluster
      size, and two launches on the same inputs bitwise equal; time kernel
-     and plain version with CUDA events;
+     and plain version with CUDA events; the int8 kernel with stochastic
+     rounding on two rank blocks of the main leaves, each launched with its
+     origin in the full leaf, writing exactly the full-leaf launch's slices
+     of the codes and scales (ROADMAP C.27);
   4. the main path, fused: 8 GaLore-AdamW steps (rank 128, T 8, wd 0.01) of
      llama_7b at full width, 2 layers, bf16, batch 8 × 256 tokens, through
      train_loop; every loss finite, the last below the first, and each fp32
@@ -173,7 +176,14 @@ Phases, each timed, none of them optional; any failed check raises:
      zero frames (prompts of 1, 4, 64 and 200 tokens, 8 new each): in f32
      the greedy tokens equal to the full forward's, prefill tokens/s and
      decode ms a step by CUDA events;
-  10e. data parallel: [dp-kernels] B1/B2 and B3-int8 (f32 and int4 P) at
+  10e. [dryrun]: eight training phases (fused, fused-apply, 8bit-apply,
+     r1024-fused, adam8bit, adamw, moe, whisper) dry-run on meta tensors
+     from their own config and batch (launch/dryrun.py::dry_run_step, on
+     the host), the memory resident before each phase added: each predicted
+     peak within 5 % of the phase's max_memory_allocated; then, with no gate,
+     the reckonings of llama_7b at 32 layers, Scout in the emit form and a
+     grok-1 GaLore step at 2 layers against the card's memory;
+  10f. data parallel: [dp-kernels] B1/B2 and B3-int8 (f32 and int4 P) at
      the rank blocks of 64 that GaLore-ZeRO gives them at n_dp 2, B4/B5 at
      blocks of 512, each against its plain version with check_kernels',
      check_adam8's and check_project's gates; [dp] (dp_phase) four
@@ -263,6 +273,7 @@ from repro_torch.kernels import galore_fused as gf  # noqa: E402
 from repro_torch.kernels import galore_project as tp  # noqa: E402
 from repro_torch.kernels import rmsnorm as trms  # noqa: E402
 from repro_torch.kernels.ref import apply_weight, lowrank_adam_update  # noqa: E402
+from repro_torch.launch.dryrun import allocator_bytes, card_bytes, dry_run_step  # noqa: E402
 from repro_torch.launch.train import RunConfig, train_loop  # noqa: E402
 from repro_torch.models.model import init_params, loss_fn  # noqa: E402
 from repro_torch.optim import lowrank  # noqa: E402
@@ -1090,6 +1101,19 @@ def check_rmsnorm():
     return rows
 
 
+def phase_train_config(fused=False, quant=None, apply=False, optimizer="adamw", galore=True,
+                       rank=128, update_freq=8, guard=False, gkw=None, tc_kw=None):
+    """A training phase's TrainConfig: AdamW (lr 1e-3, wd 0.01, 8 steps, one
+    warmup step), GaLore at `rank` and `update_freq` (α 0.25, `quant`, the
+    GaLoreConfig fields `gkw`) unless not `galore`, and the TrainConfig
+    fields `tc_kw`."""
+    gcfg = (GaLoreConfig(rank=rank, update_freq=update_freq, scale=0.25,
+                         quant=quant or QuantPolicy(), **(gkw or {})) if galore else None)
+    return TrainConfig(optimizer=optimizer, galore=gcfg, galore_fused_adam=fused,
+                       galore_fused_apply=apply, lr=1e-3, weight_decay=WD, total_steps=8,
+                       warmup_steps=1, anomaly_guard=guard, **(tc_kw or {}))
+
+
 def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=True, rank=128,
                 update_freq=8, ckpt_dir=None, ckpt_every=0, guard=False, faults=None,
                 on_state=None, galore_kw=None, tc_kw=None, units=None, cfg=None, params=None,
@@ -1114,11 +1138,9 @@ def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=
     random init and `data` the synthetic stream (train_loop's hooks); each
     step's aux_loss is kept beside its loss."""
     cfg = cfg or dataclasses.replace(get_config("llama_7b"), n_layers=2)
-    gcfg = (GaLoreConfig(rank=rank, update_freq=update_freq, scale=0.25,
-                         quant=quant or QuantPolicy(), **(galore_kw or {})) if galore else None)
-    tc = TrainConfig(optimizer=optimizer, galore=gcfg, galore_fused_adam=fused,
-                     galore_fused_apply=apply, lr=1e-3, weight_decay=WD, total_steps=8,
-                     warmup_steps=1, anomaly_guard=guard, **(tc_kw or {}))
+    tc = phase_train_config(fused, quant, apply, optimizer, galore, rank, update_freq, guard,
+                            galore_kw, tc_kw)
+    gcfg = tc.galore
     own_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_") if ckpt_dir is None else None
     run = RunConfig(arch=cfg.name, smoke=False, steps=8, batch_per_host=8, seq_len=256,
                     ckpt_dir=ckpt_dir or own_dir, ckpt_every=ckpt_every, log_every=1,
@@ -1134,6 +1156,12 @@ def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=
             step_units.append(units.take())
 
     torch.cuda.reset_peak_memory_stats()
+    # what the card holds before the phase, and of it the params handed in:
+    # [dryrun] predicts the phase's peak as the one less the other plus the
+    # dry run of its step
+    base = torch.cuda.memory_allocated()
+    params_in = 0 if params is None else sum(
+        allocator_bytes(t.untyped_storage().nbytes()) for t in tree_leaves(params))
     ops.reset_launch_counts()
     try:
         params, opt_state, _, _ = train_loop(run, tc, cfg=cfg, on_step=on_step, faults=faults,
@@ -1175,7 +1203,9 @@ def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=
     return dict(steps=steps, losses=losses, aux=aux, times=times, launches=launches,
                 thread_copy=thread_copy, thread_copy_epilogue=thread_copy_epilogue, peak=peak,
                 galore=galore, update_freq=update_freq, state_bytes=state_bytes,
-                analytic_bytes=analytic, quantized_leaves=quantized, units=step_units)
+                analytic_bytes=analytic, quantized_leaves=quantized, units=step_units,
+                cfg=cfg, tc=tc, base=base, params_in=params_in,
+                rows=run.batch_per_host, seq_len=run.seq_len)
 
 
 def compact_shapes(params, gcfg):
@@ -3067,6 +3097,114 @@ def family_phases(phases, none):
         log(f"[{tag}] ({time.perf_counter() - t:.1f} s)")
 
 # ---------------------------------------------------------------------------
+# [dryrun]: each training phase's peak predicted on the meta device
+# ---------------------------------------------------------------------------
+
+# the phases whose peak the dry run must predict within DRYRUN_GATE
+DRYRUN_PHASES = ("fused", "fused-apply", "8bit-apply", "r1024-fused", "adam8bit", "adamw", "moe",
+                 "whisper")
+DRYRUN_GATE = 0.05
+
+
+def dryrun_phase(phases):
+    """[dryrun]: for each of DRYRUN_PHASES, the phase's own config and batch
+    through launch/dryrun.py::dry_run_step on meta tensors (on the host,
+    nothing on the card): its step and its refresh (step 0), whichever
+    peaks higher, on top of what the card held before the phase (less the
+    params the phase was handed, which the dry run makes itself), held
+    within DRYRUN_GATE of the phase's max_memory_allocated. Then, with no
+    gate, the dry run of three configurations never run on the card:
+    llama_7b at all 32 layers (fp32 fused r = 128, batch 8 × 256), Scout at
+    4 layers in the emit form (the [moe] phase without the apply), and
+    grok-1 at 2 layers with its GaLore optimizer step (apply form, batch
+    2 × 256 as [families]), each beside the card's memory."""
+    card, total = card_line(), card_bytes()
+    misses = []
+    for tag in DRYRUN_PHASES:
+        ph = phases[tag]
+        t = time.perf_counter()
+        rec = dry_run_step(ph["cfg"], ph["tc"], ph["rows"], ph["seq_len"], "train")
+        want = ph["base"] - ph["params_in"] + rec["peak_bytes"]
+        ratio = want / ph["peak"]
+        parts = (f"step {rec.get('step_peak_bytes', rec['peak_bytes']) / 2**30:.3f}, refresh "
+                 f"{rec['refresh']['peak_bytes'] / 2**30:.3f} GiB" if "refresh" in rec
+                 else f"step {rec['peak_bytes'] / 2**30:.3f} GiB")
+        log(f"[dryrun] {card}: {tag}: predicted {want / 2**30:.3f} GiB ({want} B: on the card "
+            f"before the phase {(ph['base'] - ph['params_in']) / 2**30:.3f} GiB + the dry run's "
+            f"peak {rec['peak_bytes'] / 2**30:.3f} GiB at {rec['peak_op']}; {parts}), measured "
+            f"max_memory_allocated {ph['peak'] / 2**30:.3f} GiB ({ph['peak']} B): ratio "
+            f"{ratio:.4f} (gate 1 ± {DRYRUN_GATE}); {rec['flops']:.4e} FLOPs a step "
+            f"({time.perf_counter() - t:.1f} s)")
+        if abs(ratio - 1) > DRYRUN_GATE:
+            misses.append(f"{tag} {ratio:.4f}")
+    randomized = dict(projector="randomized")
+    unrun = (
+        ("llama_7b, 32 layers, fp32 fused r = 128, 8 × 256", get_config("llama_7b"),
+         dict(fused=True), 8),
+        ("Scout, 4 layers, emit form, randomized P, 8 × 256",
+         dataclasses.replace(get_config(MOE_ARCH), n_layers=4), dict(fused=True, gkw=randomized),
+         8),
+        ("grok-1, 2 layers, fused apply r = 128, randomized P, 2 × 256",
+         dataclasses.replace(get_config("grok_1_314b"), n_layers=2),
+         dict(fused=True, apply=True, gkw=randomized), 2))
+    for what, cfg, kw, rows in unrun:
+        t = time.perf_counter()
+        rec = dry_run_step(cfg, phase_train_config(**kw), rows, 256, "train")
+        gib = {k: rec[k] / 2**30 for k in ("peak_bytes", "step_peak_bytes", "argument_bytes")}
+        log(f"[dryrun] {card}: never run, {what}: predicted peak {gib['peak_bytes']:.3f} GiB "
+            f"(step {gib['step_peak_bytes']:.3f}, refresh "
+            f"{rec['refresh']['peak_bytes'] / 2**30:.3f}; resident {gib['argument_bytes']:.3f} "
+            f"GiB) against the card's {total / 2**30:.2f} GiB: "
+            f"{'fits' if rec['peak_bytes'] < total else 'does not fit'}; {rec['flops']:.4e} FLOPs "
+            f"a step ({time.perf_counter() - t:.1f} s)")
+    if misses:
+        raise AssertionError(f"[dryrun] predicted peaks off by more than {DRYRUN_GATE:.0%}: "
+                             f"{', '.join(misses)}")
+
+
+def check_stochastic_blocks():
+    """ROADMAP C.27 on the card: the int8 kernel with stochastic rounding
+    (emit form, int4 P, bf16 G) at the main gate/up and down leaves,
+    launched on each of two rank blocks of P and the moments (GaLore-ZeRO
+    at n_dp 2) with the block's origin, writes exactly the slice of the
+    full-leaf launch's codes and scales; the same launches without the
+    origin draw other coins (their differing codes counted and printed)."""
+    count = torch.tensor(COUNT, dtype=torch.int32, device="cuda")
+    card = card_line()
+    for i, (side, L, m, r, n) in enumerate(sorted(STOCHASTIC8)):
+        k = KERNELS["adam8_" + side]
+        P, mom, G32 = adam8_inputs(side, L, m, r, n, seed=200 + i)
+        P4, G = codec.quant4_axis_state(P), G32.to(torch.bfloat16)
+        full = [x.clone() for x in mom]
+        k["wrapper"](P4, G, *full, count, alpha=ALPHA, stochastic=True)
+        rb, dim = r // 2, -1 if side == "right" else -2
+        local_differ = 0
+        for b in range(2):
+            cut = lambda x, d=dim: x.narrow(d, b * rb, rb).contiguous()  # noqa: E731
+            Pb = {key: cut(v, -1) for key, v in P4.items()}
+            blk = [cut(x) for x in mom]
+            k["wrapper"](Pb, G, *blk, count, alpha=ALPHA, stochastic=True, origin=(b * rb, r))
+            local = [cut(x) for x in mom]
+            k["wrapper"](Pb, G, *local, count, alpha=ALPHA, stochastic=True)
+            torch.cuda.synchronize()
+            for name, a, want in zip(("mq", "ms", "vq", "vs"), blk, full):
+                if not torch.equal(a, cut(want)):
+                    raise AssertionError(f"[kernels] {k['name']} L={L} (m,r,n)=({m},{r},{n}) "
+                                         f"rank block {b} of 2 with its origin: {name} differs "
+                                         f"from the full-leaf launch's slice")
+            local_differ += sum(int((a != cut(w)).sum()) for a, w in zip(local[::2], full[::2]))
+        log(f"[kernels] {card}: {k['name']} L={L} (m,r,n)=({m},{r},{n}) G bfloat16 P int4 "
+            f"stochastic, two rank blocks of {rb} with their origin: codes and scales equal to "
+            f"the full-leaf launch's slices ok; without the origin {local_differ} of "
+            f"{2 * L * r * (n if side == 'left' else m)} codes differ (ROADMAP C.27)")
+        if local_differ == 0:
+            raise AssertionError("[kernels] the block-local launches drew the full leaf's coins: "
+                                 "the origin check sees nothing")
+        del P, P4, mom, G32, G, full
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # [dp]: data-parallel training through torch.distributed.run on this card
 # ---------------------------------------------------------------------------
 
@@ -3393,6 +3531,7 @@ def main():
     check_bound8()
     rows = check_kernels()
     rows += check_adam8()
+    check_stochastic_blocks()
     rows += check_apply()
     rows += check_adam8bit()
     rows += check_project()
@@ -3662,6 +3801,10 @@ def main():
     log(f"[serve-ckpt] and the CLI ({time.perf_counter() - t:.1f} s)")
 
     family_phases(phases, none)
+
+    t = time.perf_counter()
+    dryrun_phase(phases)
+    log(f"[dryrun] ({time.perf_counter() - t:.1f} s)")
 
     t = time.perf_counter()
     block_rows = check_rank_blocks()

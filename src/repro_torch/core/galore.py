@@ -323,12 +323,21 @@ def _managed_adam_update(grads, proj_eff, inner_state, plans, cfg: GaLoreConfig,
         return (codec.dequant_axis_state(m_st, axis=ax, signed=True),
                 codec.dequant_axis_state(v_st, axis=ax, signed=False))
 
-    def requant_mv(m_t, v_t, plan):
+    def requant_mv(m_t, v_t, plan, origin=None):
         ax = moment_quant_axis(plan)
         return (codec.quant_axis_state(m_t, axis=ax, signed=True, stochastic=stochastic,
-                                       count=count, salt=codec.SR_SALT_M),
+                                       count=count, salt=codec.SR_SALT_M, origin=origin),
                 codec.quant_axis_state(v_t, axis=ax, signed=False, stochastic=stochastic,
-                                       count=count, salt=codec.SR_SALT_V))
+                                       count=count, salt=codec.SR_SALT_V, origin=origin))
+
+    def block_origin(x, d):
+        """Where this rank's block of a leaf's state (split along dim `d`)
+        starts in the full leaf, and that dim's full length: the stochastic
+        requant keys its coins on the full leaf's indices (None: whole)."""
+        if d is None or n == 1:
+            return None
+        size = (x["q"] if isinstance(x, dict) else x).shape[d]
+        return world.rank() * size, size * n
 
     def finish(out, p):
         """Fold η and wd into the weight, in place, when applying; else emit
@@ -360,7 +369,8 @@ def _managed_adam_update(grads, proj_eff, inner_state, plans, cfg: GaLoreConfig,
             m, v = dequant_mv(m_st, v_st, plan) if qm else (m_st, v_st)
             out, m_t, v_t = ref.lowrank_adam_update(g, m, v, count, b1, b2, eps)
             if qm:
-                m_t, v_t = requant_mv(m_t, v_t, plan)
+                at = block_origin(m_st, d["moment"])
+                m_t, v_t = requant_mv(m_t, v_t, plan, None if at is None else (d["moment"], *at))
             out = out.to(g.dtype)
             if rows:
                 out = world.all_gather(out, g.ndim - 2)
@@ -379,18 +389,17 @@ def _managed_adam_update(grads, proj_eff, inner_state, plans, cfg: GaLoreConfig,
         route = dict(route_rank=plan.rank)  # routed as the whole leaf is
         if qm:
             codes = (m_st["q"], m_st["scale"], v_st["q"], v_st["scale"])
+            sr = dict(stochastic=stochastic, origin=block_origin(m_st, d["moment"]))
             if fused and apply_w:
                 fn = (ops.galore_fused_adam8_apply_step if left
                       else ops.galore_fused_adam8_apply_step_right)
-                upd, *codes = fn(P, g.contiguous(), p, *codes, count, stochastic=stochastic,
-                                 **route, **hp)
+                upd, *codes = fn(P, g.contiguous(), p, *codes, count, **sr, **route, **hp)
             elif fused:
                 fn = ops.galore_fused_adam8_step if left else ops.galore_fused_adam8_step_right
-                upd, *codes = fn(P, g.contiguous(), *codes, count, stochastic=stochastic,
-                                 **route, **hp)
+                upd, *codes = fn(P, g.contiguous(), *codes, count, **sr, **route, **hp)
             else:
                 fn = ref.galore_fused_adam8_step if left else ref.galore_fused_adam8_step_right
-                upd, *codes = fn(P, g, *codes, count, stochastic=stochastic, **hp)
+                upd, *codes = fn(P, g, *codes, count, **sr, **hp)
                 upd = finish(upd, p)
             mq, ms, vq, vs = codes
             return upd, {"q": mq, "scale": ms}, {"q": vq, "scale": vs}

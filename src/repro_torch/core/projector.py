@@ -48,7 +48,10 @@ def prng_key(seed: int) -> torch.Tensor:
 
 def sketch_generator(key=None, step: int = 0) -> torch.Generator:
     """A CPU generator seeded from (key, step): the torch analogue of
-    ``fold_in(key, step)``. key None is the reference's default PRNGKey(0)."""
+    ``fold_in(key, step)``. key None is the reference's default PRNGKey(0).
+    A key on the meta device (the dry run's) gives None: nothing is drawn."""
+    if key is not None and key.is_meta:
+        return None
     words = [0, 0] if key is None else [int(x) for x in key.tolist()]
     digest = hashlib.sha256(repr((*words, int(step))).encode()).digest()
     return torch.Generator().manual_seed(int.from_bytes(digest[:8], "little"))
@@ -67,10 +70,12 @@ def _svd_u(G32, rank):
     driver (gesvdj) returns a U 1.6e-3–2.4e-3 off orthonormal at llama_7b
     leaves and gesvd alone up to 1.6e-4 (a tall leaf), while gesvda,
     orthonormal and 4–8× faster, fails to converge on a rank-deficient G —
-    which a batch of fewer tokens than a leaf's width gives in f32."""
-    if not G32.is_cuda:
+    which a batch of fewer tokens than a leaf's width gives in f32. On the
+    meta device (the dry run's) the CUDA rule's shapes: the SVD, then the QR."""
+    if G32.device.type == "cpu":
         return torch.linalg.svd(G32, full_matrices=False)[0][..., :rank]
-    U = torch.linalg.svd(G32, full_matrices=False, driver="gesvd")[0][..., :rank]
+    driver = "gesvd" if G32.is_cuda else None
+    U = torch.linalg.svd(G32, full_matrices=False, driver=driver)[0][..., :rank]
     Q, R = torch.linalg.qr(U)
     return Q * torch.sign(torch.diagonal(R, dim1=-2, dim2=-1)).unsqueeze(-2)
 
@@ -140,6 +145,8 @@ def compute_projector(G: torch.Tensor, rank: int, *, method: str = "svd", sketch
     if method not in METHODS:
         raise ValueError(f"unknown projector method {method!r}")
     m, n = G.shape[-2:]
+    if sketch is None and G.is_meta:  # the dry run's: the sketch's shape, nothing drawn
+        sketch = torch.empty((n, sketch_width(rank, m, n)), dtype=torch.float32, device="meta")
     if sketch is None:
         gen = generator if generator is not None else sketch_generator()
         sketch = torch.randn((n, sketch_width(rank, m, n)), generator=gen,

@@ -97,7 +97,11 @@
 // The requant follows the codec (quant/codec.py), not the Pallas body: the
 // nearest code is searchsorted(mids, x), the number of midpoints strictly
 // below x, found by binary search over the 255 midpoints in shared memory;
-// the stochastic coin is sr_uniform(ravel index, count, salt) in uint32. The
+// the stochastic coin is sr_uniform(ravel index, count, salt) in uint32,
+// the index in the full leaf: a launch on one rank block of a leaf whose rank
+// is split (GaLore-ZeRO) is told the block's first rank row sr_off and the
+// full rank sr_full (0 and r for a whole leaf), so that its coins are the
+// whole-leaf launch's on the same elements. The
 // elementwise math uses explicitly rounded f32 operations in the codec's
 // and ref.lowrank_adam_update's order (no FMA contraction), so for equal R
 // the codes (or M', V') are the plain version's bit for bit; only the
@@ -158,6 +162,7 @@ struct Args {
   float* nhat;         // apply with r > 128: N̂ scratch, the moments' shape
   int m, r, n;
   int stochastic;
+  int sr_off, sr_full;  // the rank block's origin in the full leaf (0, r: whole)
   float b1, omb1, b2, omb2, eps, alpha;
 };
 
@@ -921,7 +926,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           float nh = 0.f;
           if (row_ok && col < n) {
             const size_t off = mom0 + (size_t)rr * n + col;
-            const uint32_t idx = (uint32_t)off;  // ravel index in (L, r, n), mod 2^32
+            // ravel index in the full (L, sr_full, n) leaf, mod 2^32
+            const uint32_t idx = (uint32_t)(((size_t)l * a.sr_full + a.sr_off + rr) * n + col);
             a.Mq[off] = requant(mn[q], am, book_s, mids_s, sr, idx, (uint32_t)cnt, kSaltM);
             a.Vq[off] = requant(vn[q], av, book_u, mids_u, sr, idx, (uint32_t)cnt, kSaltV);
             nh = adam_step(co, mn[q], vn[q]);
@@ -975,7 +981,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           float mn, vn;
           adam_moments(co, __fmul_rn(book_s[a.Mq[off]], sm), __fmul_rn(book_u[a.Vq[off]], sv),
                        T[tix(i, j)], &mn, &vn);
-          const uint32_t idx = (uint32_t)off;  // ravel index in (L, m, r), mod 2^32
+          // ravel index in the full (L, m, sr_full) leaf, mod 2^32
+          const uint32_t idx = (uint32_t)(((size_t)l * m + row) * a.sr_full + a.sr_off + rk);
           a.Mq[off] = requant(mn, am, book_s, mids_s, sr, idx, (uint32_t)cnt, kSaltM);
           a.Vq[off] = requant(vn, av, book_u, mids_u, sr, idx, (uint32_t)cnt, kSaltV);
           nh = adam_step(co, mn, vn);
@@ -1398,6 +1405,7 @@ template <bool kRight, bool kQ8>
 cudaError_t dispatch(const Args& a, int p_int4, int g_bf16, int L, cudaStream_t s) {
   if (L <= 0 || a.m <= 0 || a.r <= 0 || a.n <= 0 || L > 65535) return cudaErrorInvalidValue;
   if (a.apply && a.r > kT && a.nhat == nullptr) return cudaErrorInvalidValue;
+  if (a.sr_off < 0 || a.sr_off + a.r > a.sr_full) return cudaErrorInvalidValue;
   if (p_int4) {
     return g_bf16 ? launch<kRight, true, kQ8, __nv_bfloat16>(a, L, s)
                   : launch<kRight, true, kQ8, float>(a, L, s);
@@ -1420,10 +1428,11 @@ Args make_args(const float* P, const uint8_t* Pq, const float* Ps, const void* G
                float* Ms, uint8_t* Vq, float* Vs, float* M, float* V, const int* count,
                const float* books, float* out, void* W, int apply, int w_bf16, const float* eta,
                double wd, float* nhat, int m, int r, int n, double b1, double b2, double eps,
-               double alpha, int stochastic) {
+               double alpha, int stochastic, int sr_off = 0, int sr_full = 0) {
   return Args{P, Pq, Ps, G, Mq, Ms, Vq, Vs, M, V, count, books, out, W, apply, w_bf16, 0, 0, 0,
-              eta, (float)wd, nhat, m, r, n, stochastic, (float)b1, (float)(1.0 - b1),
-              (float)b2, (float)(1.0 - b2), (float)eps, (float)alpha};
+              eta, (float)wd, nhat, m, r, n, stochastic, sr_off, sr_full > 0 ? sr_full : r,
+              (float)b1, (float)(1.0 - b1), (float)b2, (float)(1.0 - b2), (float)eps,
+              (float)alpha};
 }
 
 }  // namespace
@@ -1432,16 +1441,19 @@ Args make_args(const float* P, const uint8_t* Pq, const float* Ps, const void* G
 // (L, ⌈m/128⌉, r) f32 scales (m_pad = 128·⌈m/128⌉); G (L, m, n) f32 or bf16
 // (g_bf16 = 1); Mq/Vq (L, r, n) u8 and Ms/Vs (L, r, ⌈n/128⌉) f32, updated in
 // place; count -> int32 on the device; books -> 528 f32 (signed, unsigned and
-// int4 codebooks); out (L, m, n) f32. All contiguous. Returns a cudaError_t.
+// int4 codebooks); out (L, m, n) f32. All contiguous. With stochastic = 1 the
+// requant's coins are keyed on the full leaf of rank sr_full whose rank rows
+// sr_off … sr_off + r − 1 this launch holds (0 and r, or sr_full = 0: the
+// whole leaf). Returns a cudaError_t.
 extern "C" int galore_fused_adam8_left(const float* P, const uint8_t* Pq, const float* Ps,
                                        int p_int4, const void* G, int g_bf16, uint8_t* Mq,
                                        float* Ms, uint8_t* Vq, float* Vs, const int* count,
                                        const float* books, float* out, int L, int m, int r, int n,
                                        double b1, double b2, double eps, double alpha,
-                                       int stochastic, void* stream) {
+                                       int stochastic, int sr_off, int sr_full, void* stream) {
   const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, nullptr, nullptr, count, books, out,
                            nullptr, 0, 0, nullptr, 0.0, nullptr, m, r, n, b1, b2, eps, alpha,
-                           stochastic);
+                           stochastic, sr_off, sr_full);
   return run(false, true, a, p_int4, g_bf16, L, stream);
 }
 
@@ -1453,10 +1465,10 @@ extern "C" int galore_fused_adam8_right(const float* P, const uint8_t* Pq, const
                                         float* Ms, uint8_t* Vq, float* Vs, const int* count,
                                         const float* books, float* out, int L, int m, int r, int n,
                                         double b1, double b2, double eps, double alpha,
-                                        int stochastic, void* stream) {
+                                        int stochastic, int sr_off, int sr_full, void* stream) {
   const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, nullptr, nullptr, count, books, out,
                            nullptr, 0, 0, nullptr, 0.0, nullptr, m, r, n, b1, b2, eps, alpha,
-                           stochastic);
+                           stochastic, sr_off, sr_full);
   return run(true, true, a, p_int4, g_bf16, L, stream);
 }
 
@@ -1471,10 +1483,10 @@ extern "C" int galore_fused_adam8_apply_left(const float* P, const uint8_t* Pq, 
                                              const float* eta, double wd, float* nhat, int L,
                                              int m, int r, int n, double b1, double b2,
                                              double eps, double alpha, int stochastic,
-                                             void* stream) {
+                                             int sr_off, int sr_full, void* stream) {
   const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, nullptr, nullptr, count, books,
                            nullptr, W, 1, w_bf16, eta, wd, nhat, m, r, n, b1, b2, eps, alpha,
-                           stochastic);
+                           stochastic, sr_off, sr_full);
   return run(false, true, a, p_int4, g_bf16, L, stream);
 }
 
@@ -1485,10 +1497,10 @@ extern "C" int galore_fused_adam8_apply_right(const float* P, const uint8_t* Pq,
                                               const float* eta, double wd, float* nhat, int L,
                                               int m, int r, int n, double b1, double b2,
                                               double eps, double alpha, int stochastic,
-                                              void* stream) {
+                                              int sr_off, int sr_full, void* stream) {
   const Args a = make_args(P, Pq, Ps, G, Mq, Ms, Vq, Vs, nullptr, nullptr, count, books,
                            nullptr, W, 1, w_bf16, eta, wd, nhat, m, r, n, b1, b2, eps, alpha,
-                           stochastic);
+                           stochastic, sr_off, sr_full);
   return run(true, true, a, p_int4, g_bf16, L, stream);
 }
 

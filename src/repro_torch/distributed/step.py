@@ -18,13 +18,15 @@ two virtual shards of the batch, so one process computes what the
 reference's CPU step computes; under ZeRO-2 the average is a reduce-scatter
 onto the owners' rank blocks. ``galore_refresh_shard`` bin-packs the due
 SVD units over the ranks (``SubspaceManager.partition_refresh``), each rank
-computes its own and the owners' P is summed onto every rank.
+computes its own and the owners' P is summed onto every rank. ``input_specs``
+gives every step input of an (arch × shape) cell as meta tensors, for the dry
+run (launch/dryrun.py).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeCell, TrainConfig
 from repro_torch.core.galore import (
     make_fused_apply,
     refresh_projectors,
@@ -46,7 +48,13 @@ from repro_torch.optim.factory import (
 )
 from repro_torch.optim.transform import apply_updates, clip_in_place
 from repro_torch.robust.guard import global_grad_norm, guard_step
-from repro_torch.utils import flatten_up_to, tree_leaves, tree_map, tree_unflatten_like
+from repro_torch.utils import (
+    canonical_dtype,
+    flatten_up_to,
+    tree_leaves,
+    tree_map,
+    tree_unflatten_like,
+)
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig):
@@ -160,7 +168,9 @@ def _grads_and_loss(tc, loss_of, params, batch):
     """(loss, metrics, grads) of the global batch: this rank's rows, then the
     world's mean of the gradients (f32, cast back), the loss and the other
     tensor metrics. With tc.microbatch > 1 the rows are split and the f32
-    gradients averaged, as the reference's scan does."""
+    gradients averaged, as the reference's scan does (each leaf split on its
+    batch dim: M-RoPE positions on dim 1, where the reference's reshape of
+    dim 0 fails, ROADMAP C.29)."""
     loss, metrics, grads = _local_grads_and_loss(tc, loss_of, params, world.shard_batch(batch))
     if not world.in_world():
         return loss, metrics, grads
@@ -174,7 +184,7 @@ def _local_grads_and_loss(tc, loss_of, params, batch):
     leaves = tree_leaves(params)
     if tc.microbatch and tc.microbatch > 1:
         nm = tc.microbatch
-        chunks = [{k: v.chunk(nm, dim=0)[i] for k, v in batch.items()} for i in range(nm)]
+        chunks = [world.microbatch(batch, i, nm) for i in range(nm)]
         g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
         loss_acc = 0.0
         for b in chunks:
@@ -255,7 +265,7 @@ def make_refresh_grads(cfg: ModelConfig, tc: TrainConfig):
     def refresh_grads(params, batch):
         batch = world.shard_batch(batch)
         if tc.microbatch and tc.microbatch > 1:
-            batch = {k: v.chunk(tc.microbatch, dim=0)[0] for k, v in batch.items()}
+            batch = world.microbatch(batch, 0, tc.microbatch)
         loss, _ = M.loss_fn(cfg, params, batch, z_loss=tc.z_loss)
         grads = list(torch.autograd.grad(loss, tree_leaves(params)))
         return tree_unflatten_like(params, world.all_reduce_mean_many(grads))
@@ -457,3 +467,73 @@ def make_paged_decode_step(cfg: ModelConfig):
         return logits[:, -1], kv
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# Input specs: meta-tensor stand-ins, shapes and dtypes only, never allocated
+# ---------------------------------------------------------------------------
+
+
+def batch_specs(cfg: ModelConfig, cell: ShapeCell) -> dict:
+    """Stand-ins for the data batch of a shape cell, as the port's steps take
+    it: int64 tokens (and targets and the f32 loss mask the launcher's
+    pipeline adds, for train), M-RoPE positions, vlm media, audio frames."""
+    kind = cell.kind
+    B, S = cell.global_batch, cell.seq_len
+    dt = canonical_dtype(cfg.dtype)
+    if kind == "decode":
+        batch = {"tokens": _meta((B, 1), torch.int64)}
+        if cfg.rope_style == "mrope":
+            batch["positions"] = _meta((3, B, 1), torch.int64)
+        return batch
+    batch = {"tokens": _meta((B, S), torch.int64)}
+    if kind == "train":
+        batch["targets"] = _meta((B, S), torch.int64)
+        batch["loss_mask"] = _meta((B, S), torch.float32)
+    if cfg.rope_style == "mrope":
+        batch["positions"] = _meta((3, B, S), torch.int64)
+    if cfg.family == "vlm" and cfg.media_embeds > 0:
+        batch["media"] = _meta((B, cfg.media_embeds, cfg.d_model), dt)
+    if cfg.family == "audio":
+        batch["enc_frames"] = _meta((B, cfg.enc_seq, cfg.d_model), dt)
+    return batch
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def params_specs(cfg: ModelConfig):
+    """The parameter tree on the meta device (``M.init_params``: same leaves,
+    shapes, dtypes and requires_grad, nothing drawn)."""
+    return M.init_params(cfg, device="meta")
+
+
+def cache_specs(cfg: ModelConfig, cell: ShapeCell):
+    """The contiguous serving cache of a cell, on the meta device."""
+    return M.init_cache(cfg, cell.global_batch, cell.seq_len, device="meta")
+
+
+def opt_state_specs(cfg: ModelConfig, tc: TrainConfig, params=None):
+    """The optimizer chain's state for the meta params (`params`, or made
+    here): ``build_optimizer(tc).init`` run on the meta device."""
+    params = params_specs(cfg) if params is None else params
+    return build_optimizer(tc, param_axes=M.param_axes(cfg)).init(params)
+
+
+def input_specs(cfg: ModelConfig, shape_name: str, tc: TrainConfig | None = None) -> dict:
+    """Every step input of one (arch × shape) cell as meta tensors (port of
+    the reference's ``input_specs``, which adds each leaf's sharding over a
+    pod mesh: a rank of the port holds the whole model, so there is none)."""
+    cell = SHAPES[shape_name]
+    params = params_specs(cfg)
+    if cell.kind == "train":
+        if tc is None:
+            raise ValueError("a train cell's specs need the TrainConfig")
+        return {"params": params, "opt_state": opt_state_specs(cfg, tc, params),
+                "batch": batch_specs(cfg, cell)}
+    if cell.kind == "prefill":
+        return {"params": params, "cache": cache_specs(cfg, cell),
+                "batch": batch_specs(cfg, cell)}
+    return {"params": params, "cache": cache_specs(cfg, cell),
+            "tokens": _meta((cell.global_batch, 1), torch.int64), "pos": cell.seq_len - 1}

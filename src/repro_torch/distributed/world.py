@@ -131,6 +131,12 @@ def shard_batch(batch: dict, *, k: int | None = None, n: int | None = None) -> d
     return {key: shard_rows(v, _batch_dim(key), k=k, n=n) for key, v in batch.items()}
 
 
+def microbatch(batch: dict, i: int, nm: int) -> dict:
+    """Microbatch i of nm of a batch dict: each leaf's i-th chunk along its
+    batch dim (``_batch_dim``)."""
+    return {key: v.chunk(nm, dim=_batch_dim(key))[i] for key, v in batch.items()}
+
+
 # ---------------------------------------------------------------------------
 # collectives
 # ---------------------------------------------------------------------------

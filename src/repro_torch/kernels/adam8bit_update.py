@@ -15,7 +15,9 @@ rather than by searching the midpoints. On CPU tensors the
 wrapper runs the plain version (``adam8bit_update_plain``, the port of
 ``ref.adam8bit_update``) and writes codes and scales back in place; on CUDA
 tensors it checks device, dtype, shape and contiguity and launches the
-kernel, or raises. ``adam8bit_update.launches`` counts the launches.
+kernel, or raises; on meta tensors (the dry run's) it checks them and
+allocates the update, and launches nothing (kernels/meta.py).
+``adam8bit_update.launches`` counts the launches.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, meta, ref
 from repro_torch.quant import codec
 
 _ARGTYPES = [
@@ -58,7 +60,7 @@ def _check(g, m_codes, m_scale, v_codes, v_scale, count):
             ("v scales", v_scale, torch.float32, (nb,)))
     dev = g.device
     for name, t in (("g", g), ("count", count)) + tuple(w[:2] for w in want):
-        if not t.is_cuda or t.device != dev:
+        if not (t.is_cuda or t.is_meta) or t.device != dev:
             raise ValueError(f"{name} is on {t.device}; every input must be on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -93,6 +95,9 @@ def adam8bit_update(g, m_codes, m_scale, v_codes, v_scale, count, *, b1=0.9, b2=
         return (upd, *moments)
     _check(g, *moments, count)
     upd = torch.empty_like(g)
+    if g.is_meta:  # the dry run's shape-only launch (kernels/meta.py)
+        meta.launch(adam8bit_update)
+        return (upd, *moments)
     with torch.cuda.device(g.device):
         err = build.entry("galore_epilogue", "adam8bit_blocks_update", _ARGTYPES)(
             g.data_ptr(), int(g.dtype == torch.bfloat16), g.numel(), m_codes.data_ptr(),
@@ -108,3 +113,4 @@ def adam8bit_update(g, m_codes, m_scale, v_codes, v_scale, count, *, b1=0.9, b2=
 
 
 adam8bit_update.launches = 0
+meta.register(adam8bit_update)

@@ -19,7 +19,9 @@ TF32 hi and lo part; three products, two with a bf16 G, summed in f32): within
 
 On CPU tensors (all of them) a wrapper runs its plain version (``*_plain``, from
 kernels/ref.py); on CUDA tensors it checks device, dtype, shape and
-contiguity and launches the kernel, or raises. ``<wrapper>.launches`` counts
+contiguity and launches the kernel, or raises; on meta tensors (the dry
+run's) it checks them and allocates its output, and launches nothing
+(kernels/meta.py). ``<wrapper>.launches`` counts
 the launches, and ``<wrapper>.launches_thread_copy`` those of them whose
 operands the kernel copied by its threads instead of by the TMA (rows not a
 multiple of 16 bytes, or a base not 16-byte aligned): a slower route that the
@@ -32,7 +34,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, meta, ref
 
 _SOURCE = "galore_project"
 _ARGTYPES_PROJECT = [
@@ -70,7 +72,7 @@ def _check(tensors, lead):
     tensor's CUDA device, contiguous, of one of those dtypes and that shape."""
     dev = tensors[0][1].device
     for name, t, dtypes, shape in tensors:
-        if not t.is_cuda or t.device != dev:
+        if not (t.is_cuda or t.is_meta) or t.device != dev:
             raise ValueError(f"{name} is on {t.device}; every input must be on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -101,6 +103,9 @@ def galore_project(P, G, *, transpose_g: bool = False):
     _check((("P", P, (torch.float32,), (m, r)),
             ("G", G, (torch.float32, torch.bfloat16), (n, m) if transpose_g else (m, n))), lead)
     R = torch.empty(lead + (r, n), dtype=torch.float32, device=G.device)
+    if G.is_meta:  # the dry run's shape-only launch (kernels/meta.py)
+        meta.launch(galore_project, 2 * math.prod(lead) * m * r * n)
+        return R
     with torch.cuda.device(G.device):
         err = build.entry(_SOURCE, "galore_project", _ARGTYPES_PROJECT)(
             P.data_ptr(), G.data_ptr(), int(G.dtype == torch.bfloat16), int(transpose_g),
@@ -122,6 +127,9 @@ def galore_project_back(P, N, alpha: float, *, transpose_out: bool = False):
     _check((("P", P, (torch.float32,), (m, r)), ("N", N, (torch.float32,), (r, n))), lead)
     out = torch.empty(lead + ((n, m) if transpose_out else (m, n)), dtype=torch.float32,
                       device=N.device)
+    if N.is_meta:
+        meta.launch(galore_project_back, 2 * math.prod(lead) * m * r * n)
+        return out
     with torch.cuda.device(N.device):
         err = build.entry(_SOURCE, "galore_project_back", _ARGTYPES_BACK)(
             P.data_ptr(), N.data_ptr(), out.data_ptr(), int(transpose_out), math.prod(lead), m,
@@ -135,3 +143,4 @@ def galore_project_back(P, N, alpha: float, *, transpose_out: bool = False):
 
 galore_project.launches = galore_project.launches_thread_copy = 0
 galore_project_back.launches = galore_project_back.launches_thread_copy = 0
+meta.register(galore_project, galore_project_back)

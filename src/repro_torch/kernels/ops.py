@@ -105,29 +105,32 @@ def galore_fused_adam_step_right(P, G, M, V, count, *, b1=0.9, b2=0.999, eps=1e-
     return galore_project_back(P, N.contiguous(), alpha, transpose_out=True), M, V
 
 
-def _adam8(right, P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha, stochastic, route_rank):
+def _adam8(right, P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha, stochastic, route_rank,
+           origin):
     name = "galore_fused_adam8_step" + ("_right" if right else "")
     if _fits(P, G, right, route_rank):
         return getattr(galore_fused, name)(P, G, Mq, Ms, Vq, Vs, count, b1=b1, b2=b2, eps=eps,
-                                           alpha=alpha, stochastic=stochastic)
+                                           alpha=alpha, stochastic=stochastic, origin=origin)
     return _plain8_in_place(getattr(galore_fused, name + "_plain"), _p_f32(P, G, right), G, Mq,
-                            Ms, Vq, Vs, count, b1, b2, eps, alpha, stochastic)
+                            Ms, Vq, Vs, count, b1, b2, eps, alpha, stochastic, origin)
 
 
 def galore_fused_adam8_step(P, G, Mq, Ms, Vq, Vs, count, *, b1=0.9, b2=0.999, eps=1e-8,
-                            alpha=1.0, stochastic=False, route_rank=None):
+                            alpha=1.0, stochastic=False, route_rank=None, origin=None):
     """Left-side int8-moment leaf step, routed as the reference routes it: the
     int8 kernel where ``fits_vmem`` holds, else the plain step. Arguments and
     result as galore_fused.galore_fused_adam8_step's: codes and scales
     updated in place, G̃ (..., m, n) f32 returned."""
-    return _adam8(False, P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha, stochastic, route_rank)
+    return _adam8(False, P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha, stochastic, route_rank,
+                  origin)
 
 
 def galore_fused_adam8_step_right(P, G, Mq, Ms, Vq, Vs, count, *, b1=0.9, b2=0.999, eps=1e-8,
-                                  alpha=1.0, stochastic=False, route_rank=None):
+                                  alpha=1.0, stochastic=False, route_rank=None, origin=None):
     """Right-side int8-moment leaf step (codes (..., m, r), blocks along m),
     routed as the reference routes it."""
-    return _adam8(True, P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha, stochastic, route_rank)
+    return _adam8(True, P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha, stochastic, route_rank,
+                  origin)
 
 
 def _apply(kernel, plain, right, P, G, W, moments, count, route_rank=None, **kw):
@@ -156,23 +159,24 @@ def galore_fused_adam_apply_step_right(P, G, W, M, V, count, *, eta, b1=0.9, b2=
 
 
 def galore_fused_adam8_apply_step(P, G, W, Mq, Ms, Vq, Vs, count, *, eta, b1=0.9, b2=0.999,
-                                  eps=1e-8, alpha=1.0, wd=0.0, stochastic=False, route_rank=None):
+                                  eps=1e-8, alpha=1.0, wd=0.0, stochastic=False, route_rank=None,
+                                  origin=None):
     """Left-side int8-moment apply step, routed as the reference routes it.
     W, codes and scales updated in place; returns (W', Mq', Ms', Vq', Vs')."""
     return _apply(galore_fused.galore_fused_adam8_apply_step,
                   galore_fused.galore_fused_adam8_apply_step_plain, False, P, G, W,
                   (Mq, Ms, Vq, Vs), count, eta=eta, b1=b1, b2=b2, eps=eps, alpha=alpha, wd=wd,
-                  stochastic=stochastic, route_rank=route_rank)
+                  stochastic=stochastic, route_rank=route_rank, origin=origin)
 
 
 def galore_fused_adam8_apply_step_right(P, G, W, Mq, Ms, Vq, Vs, count, *, eta, b1=0.9,
                                         b2=0.999, eps=1e-8, alpha=1.0, wd=0.0, stochastic=False,
-                                        route_rank=None):
+                                        route_rank=None, origin=None):
     """Right-side int8-moment apply step, routed as the reference routes it."""
     return _apply(galore_fused.galore_fused_adam8_apply_step_right,
                   galore_fused.galore_fused_adam8_apply_step_right_plain, True, P, G, W,
                   (Mq, Ms, Vq, Vs), count, eta=eta, b1=b1, b2=b2, eps=eps, alpha=alpha, wd=wd,
-                  stochastic=stochastic, route_rank=route_rank)
+                  stochastic=stochastic, route_rank=route_rank, origin=origin)
 
 
 def launch_counts() -> dict:

@@ -81,40 +81,47 @@ def galore_fused_adam_step_right(P, G, M, V, count, b1=0.9, b2=0.999, eps=1e-8, 
     return galore_project_back_right(P, N_t, alpha), M_t, V_t
 
 
-def _adam8(R, Mq, Ms, Vq, Vs, count, b1, b2, eps, stochastic, axis):
-    """dequant M/V → Adam on R → requant, blocks along `axis`."""
+def _adam8(R, Mq, Ms, Vq, Vs, count, b1, b2, eps, stochastic, axis, origin):
+    """dequant M/V → Adam on R → requant, blocks along `axis`; `origin`
+    (offset, full rank) places a rank block in its leaf for the stochastic
+    coins (the rank dim: -2 with blocks along -1, else -1)."""
     m = codec.dequantize_axis(Mq, Ms, axis=axis, signed=True)
     v = codec.dequantize_axis(Vq, Vs, axis=axis, signed=False)
     N_t, M_t, V_t = lowrank_adam_update(R, m, v, count, b1, b2, eps)
+    at = None if origin is None else (-2 if axis == -1 else -1, *origin)
     mq, ms = codec.quantize_axis(M_t, axis=axis, signed=True, stochastic=stochastic,
-                                 count=count, salt=codec.SR_SALT_M)
+                                 count=count, salt=codec.SR_SALT_M, origin=at)
     vq, vs = codec.quantize_axis(V_t, axis=axis, signed=False, stochastic=stochastic,
-                                 count=count, salt=codec.SR_SALT_V)
+                                 count=count, salt=codec.SR_SALT_V, origin=at)
     return N_t, (mq, ms, vq, vs)
 
 
 def galore_fused_adam8_step(P, G, Mq, Ms, Vq, Vs, count, b1=0.9, b2=0.999, eps=1e-8,
-                            alpha=1.0, stochastic=False):
+                            alpha=1.0, stochastic=False, origin=None):
     """Left-side leaf update with int8 moments: R = PᵀG → dequant M/V → Adam →
     requant → G̃ = α P N̂.
 
     P (..., m, r) f32 or a packed int4 qstate; G (..., m, n); codes Mq/Vq
     (..., r, n) u8 and scales Ms/Vs (..., r, ⌈n/128⌉) f32, blocks along n.
-    Returns (G̃ f32, Mq', Ms', Vq', Vs')."""
+    `origin` (offset, full rank): P and the moments are the rank block at
+    `offset` of a leaf of that rank, and the stochastic coins are the full
+    leaf's (None: the whole leaf). Returns (G̃ f32, Mq', Ms', Vq', Vs')."""
     P = _p_plain(P, G.shape[-2])
-    N_t, q = _adam8(galore_project(P, G), Mq, Ms, Vq, Vs, count, b1, b2, eps, stochastic, -1)
+    N_t, q = _adam8(galore_project(P, G), Mq, Ms, Vq, Vs, count, b1, b2, eps, stochastic, -1,
+                    origin)
     return (galore_project_back(P, N_t, alpha),) + q
 
 
 def galore_fused_adam8_step_right(P, G, Mq, Ms, Vq, Vs, count, b1=0.9, b2=0.999, eps=1e-8,
-                                  alpha=1.0, stochastic=False):
+                                  alpha=1.0, stochastic=False, origin=None):
     """Right-side leaf update with int8 moments: R = G P → … → G̃ = α N̂ Pᵀ.
 
     P (..., n, r) f32 or a packed int4 qstate; codes (..., m, r), scales
-    (..., ⌈m/128⌉, r), blocks along m. Returns (G̃ f32, Mq', Ms', Vq', Vs')."""
+    (..., ⌈m/128⌉, r), blocks along m; `origin` as on the left. Returns
+    (G̃ f32, Mq', Ms', Vq', Vs')."""
     P = _p_plain(P, G.shape[-1])
     N_t, q = _adam8(galore_project_right(P, G), Mq, Ms, Vq, Vs, count, b1, b2, eps,
-                    stochastic, -2)
+                    stochastic, -2, origin)
     return (galore_project_back_right(P, N_t, alpha),) + q
 
 
@@ -140,18 +147,18 @@ def galore_fused_adam_apply_step_right(P, G, W, M, V, count, b1=0.9, b2=0.999, e
 
 
 def galore_fused_adam8_apply_step(P, G, W, Mq, Ms, Vq, Vs, count, b1=0.9, b2=0.999, eps=1e-8,
-                                  alpha=1.0, eta=-1e-3, wd=0.0, stochastic=False):
+                                  alpha=1.0, eta=-1e-3, wd=0.0, stochastic=False, origin=None):
     """int8 moments and the weight apply. Returns (W', Mq', Ms', Vq', Vs')."""
     out = galore_fused_adam8_step(P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha,
-                                  stochastic=stochastic)
+                                  stochastic=stochastic, origin=origin)
     return (apply_weight(W, out[0], eta, wd),) + out[1:]
 
 
 def galore_fused_adam8_apply_step_right(P, G, W, Mq, Ms, Vq, Vs, count, b1=0.9, b2=0.999,
                                         eps=1e-8, alpha=1.0, eta=-1e-3, wd=0.0,
-                                        stochastic=False):
+                                        stochastic=False, origin=None):
     out = galore_fused_adam8_step_right(P, G, Mq, Ms, Vq, Vs, count, b1, b2, eps, alpha,
-                                        stochastic=stochastic)
+                                        stochastic=stochastic, origin=origin)
     return (apply_weight(W, out[0], eta, wd),) + out[1:]
 
 

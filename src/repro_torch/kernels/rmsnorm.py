@@ -9,8 +9,9 @@ It is the counterpart of ``repro.kernels.ops.rmsnorm``; as in the reference,
 the models do not call it (they normalise with the plain
 ``models/layers.py::apply_norm``). On CPU tensors (all of them) the wrapper
 runs the plain version (``rmsnorm_plain``, kernels/ref.py); on CUDA tensors it
-checks device, dtype, shape and contiguity and launches the kernel, or raises.
-``rmsnorm.launches`` counts the launches.
+checks device, dtype, shape and contiguity and launches the kernel, or raises;
+on meta tensors (the dry run's) it checks them and allocates its output, and
+launches nothing (kernels/meta.py). ``rmsnorm.launches`` counts the launches.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, meta, ref
 
 MAX_D = 8192  # the kernel keeps a row in the registers of at most 8 warps
 _ARGTYPES = [
@@ -38,7 +39,7 @@ def rmsnorm(x, scale, eps: float = 1e-6):
         return rmsnorm_plain(x, scale, eps)
     d = x.shape[-1]
     for name, t in (("x", x), ("scale", scale)):
-        if not t.is_cuda or t.device != x.device:
+        if not (t.is_cuda or t.is_meta) or t.device != x.device:
             raise ValueError(f"{name} is on {t.device}; every input must be on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -51,6 +52,9 @@ def rmsnorm(x, scale, eps: float = 1e-6):
         raise ValueError(f"the kernel takes rows of 1 to {MAX_D} values, got {d}")
     rows = math.prod(x.shape[:-1])
     out = torch.empty_like(x)
+    if x.is_meta:  # the dry run's shape-only launch (kernels/meta.py)
+        meta.launch(rmsnorm)
+        return out
     if rows == 0:
         return out
     with torch.cuda.device(x.device):
@@ -65,3 +69,4 @@ def rmsnorm(x, scale, eps: float = 1e-6):
 
 
 rmsnorm.launches = 0
+meta.register(rmsnorm)

@@ -1,0 +1,436 @@
+"""Dry run: the memory and FLOPs of every (arch × shape) cell's step on one
+card, without running it (port of repro/launch/dryrun.py: ``run_cell``,
+``default_train_config``, ``default_microbatch``, ``build_parser``, ``main``).
+
+For each cell the port's own step functions run on meta tensors
+(``distributed/step.py::input_specs``: shapes and dtypes, nothing
+allocated, nothing computed), under two modes stacked:
+
+  * ``LiveBytes``, a dispatch mode that adds each new storage's bytes as
+    PyTorch's CUDA caching allocator would count them (``allocator_bytes``)
+    and subtracts them when the storage dies, starting from the resident
+    params, optimizer state and batch: the peak is what
+    ``torch.cuda.max_memory_allocated()`` would read over the step. A CUDA
+    library call that takes memory no tensor holds adds it for its
+    duration: cuSOLVER's copy of the SVD's input and its workspace, by the
+    measured rule of ``svd_hidden_bytes`` (tools/linalg_workspace.py);
+  * ``FlopCounterMode``, to which each hand kernel's shape-only launch adds
+    its contractions' FLOPs (kernels/meta.py): the mode sees no hand kernel.
+
+The steps driven: ``make_train_step`` at the cell's microbatch count (two
+microbatches of the cell's size stand for N > 2: the peak is the same, and
+the other N − 2 microbatches' FLOPs are added), the refresh apart
+(``make_refresh_step``, or with the in-step refresh the train step at a
+refresh step), and ``make_prefill_step`` / ``make_decode_step`` for the
+serving shapes. A world of more than one rank is not dry-run: its sharded
+refresh reads assignments on the host, and a rank's ZeRO state bytes are
+``core/galore.py::galore_zero_state_bytes``.
+
+Each record keeps the reference's keys where they mean the same: status
+(ok / skipped with ``supports_shape``'s reason / error), memory
+(peak_bytes_per_device, argument_bytes, temp_bytes), hbm_ok against the
+card's memory (``torch.cuda.mem_get_info`` on a card, else ``--hbm-gib``),
+raw_cost.flops, model_flops_per_device, useful_flops_ratio and, for a
+GaLore train cell, refresh.peak_bytes_per_device and refresh.flops. Not
+kept: the collective schedule and the roofline (no HLO, one card).
+
+CLI:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --out results/dryrun_torch.json
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2_7b --shape train_4k \
+      --microbatch 256
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import functools
+import json
+import os
+import signal
+import time
+import traceback
+import weakref
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves as _pytree_leaves
+from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.weak import WeakIdKeyDictionary
+
+from repro_torch.configs.base import ARCH_IDS, SHAPES, GaLoreConfig, TrainConfig, get_config
+from repro_torch.distributed import world
+from repro_torch.distributed.step import (
+    batch_specs,
+    cache_specs,
+    make_decode_step,
+    make_prefill_step,
+    make_refresh_step,
+    make_train_step,
+    params_specs,
+)
+from repro_torch.kernels import meta
+from repro_torch.launch import cli
+from repro_torch.launch.model_flops import model_flops, param_counts
+from repro_torch.models import model as M
+from repro_torch.optim.factory import external_refresh
+from repro_torch.quant import QuantPolicy
+from repro_torch.utils import tree_leaves
+
+HBM_GIB = 80.0  # the card's memory where no card answers (an H100 80GB)
+CELL_TIMEOUT_S = 600  # a cell that takes longer is recorded as an error
+
+# PyTorch's CUDA caching allocator (c10/cuda/CUDACachingAllocator.cpp): sizes
+# round up to 512 bytes; a request of 10 MiB or more takes a segment rounded
+# to 2 MiB, and keeps all of it unless more than 1 MiB would be left over
+_GRANULE, _SMALL, _MIN_LARGE, _ROUND_LARGE = 512, 1 << 20, 10 << 20, 2 << 20
+
+
+def allocator_bytes(nbytes: int) -> int:
+    """What the CUDA caching allocator counts (its allocated_bytes, which
+    ``max_memory_allocated`` reads) for one allocation of `nbytes`."""
+    if nbytes <= 0:
+        return 0
+    size = -(-nbytes // _GRANULE) * _GRANULE
+    if size < _MIN_LARGE:
+        return size
+    segment = -(-size // _ROUND_LARGE) * _ROUND_LARGE
+    return segment if segment - size <= _SMALL else size
+
+
+# cusolverDnSgesvd_bufferSize(m, n) in floats, m ≥ n, as the H100 machine's
+# cuSOLVER 11 returned it (tools/linalg_workspace.py): the refreshes' shapes
+GESVD_LWORK = {(512, 512): 985344, (768, 768): 2034944, (1000, 520): 2695648,
+               (1536, 768): 5771264, (3072, 768): 9704960, (4096, 1024): 16850176,
+               (4096, 4096): 51462400, (5632, 2048): 48705280, (8192, 144): 5772768,
+               (11008, 4096): 188505088}
+
+
+def gesvd_lwork(m: int, n: int) -> int:
+    """cuSOLVER's gesvd workspace (floats) for an m × n f32 matrix: the
+    measured value, else a rule through the measurements — 3n² + 260n +
+    65,792 for a square-ish matrix (exact at the three measured squares),
+    and above every measured tall one 4mn + 2000n + 128m + 65,792."""
+    m, n = max(m, n), min(m, n)
+    if (m, n) in GESVD_LWORK:
+        return GESVD_LWORK[m, n]
+    if m < 1.6 * n:
+        return 3 * m * n + 260 * n + 65792
+    return 4 * m * n + 2000 * n + 128 * m + 65792
+
+
+def svd_hidden_bytes(A) -> int:
+    """What torch.linalg.svd(driver="gesvd") takes on CUDA beyond its outputs
+    (measured, tools/linalg_workspace.py, exact at every probed shape): a
+    column-major copy of the stacked input, which cuSOLVER overwrites, a k × k
+    f32 matrix (k = min(m, n)), the workspace, k floats and 512 bytes."""
+    m, n = A.shape[-2:]
+    k = min(m, n)
+    return (allocator_bytes(A.numel() * 4) + allocator_bytes(4 * k * k)
+            + allocator_bytes(4 * gesvd_lwork(m, n)) + allocator_bytes(4 * k) + 512)
+
+
+class LiveBytes(TorchDispatchMode):
+    """The bytes the caching allocator would hold: every storage made under
+    the mode from its creation to its death (a weak reference's callback),
+    on top of the `resident` tensors' storages; ``peak`` the most at once,
+    ``peak_op`` the op that reached it."""
+
+    def __init__(self, resident=()):
+        super().__init__()
+        self._seen = WeakIdKeyDictionary()
+        self.now = self.peak = 0
+        self.peak_op = None
+        for t in resident:
+            self._track(t)
+        self.base = self.peak = self.now
+
+    def _track(self, t) -> None:
+        st = t.untyped_storage()
+        if st in self._seen:
+            return
+        n = allocator_bytes(st.nbytes())
+        self._seen[st] = weakref.ref(st, functools.partial(self._free, n))
+        self.now += n
+
+    def _free(self, n, _ref) -> None:
+        self.now -= n
+
+    def _mark(self, name: str, extra: int = 0) -> None:
+        if self.now + extra > self.peak:
+            self.peak, self.peak_op = self.now + extra, name
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func.overloadpacket.__name__
+        for t in _pytree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self._track(t)
+        # the SVD's hidden bytes are held while it runs; QR's and eigh's
+        # (under 7 MB at every probed shape) are not counted
+        self._mark(name, svd_hidden_bytes(args[0]) if name == "_linalg_svd" else 0)
+        return out
+
+
+class _Timeout(Exception):
+    pass
+
+
+def _measure(fn, resident):
+    """fn() under LiveBytes(resident) and FlopCounterMode: (its result,
+    {"peak", "argument", "flops", "peak_op", "kernels"})."""
+    meta.reset()
+    with FlopCounterMode(display=False) as flops, LiveBytes(resident) as live:
+        out = fn()
+    rec = {"peak": live.peak, "argument": live.base, "peak_op": live.peak_op,
+           "flops": int(flops.get_total_flops()) + meta.kernel_flops(),
+           "kernels": {k: v for k, v in meta.launch_counts().items() if v}}
+    return out, rec
+
+
+def _tensors(*trees) -> list:
+    return [t for t in tree_leaves(list(trees)) if isinstance(t, torch.Tensor)]
+
+
+def dry_run_step(cfg, tc: TrainConfig | None, rows: int, seq_len: int, kind: str) -> dict:
+    """One step of `kind` ("train", "prefill" or "decode") at `rows` × `seq_len`
+    on meta tensors: {"peak_bytes", "argument_bytes", "temp_bytes", "flops",
+    "peak_op", "kernels" (shape-only launches by wrapper), and for a GaLore
+    train step "refresh": the same of the refresh step}. The train step's
+    record is its first step without a refresh; "peak_bytes" and "peak_op"
+    of the whole are the larger peak's ("step_peak_bytes" the step's). A
+    GaLore config with the in-step refresh takes its refresh inside train
+    step 0, which is recorded as "refresh"."""
+    if world.n_dp() > 1:
+        raise ValueError("the dry run is one process on one card; a world's sharded refresh "
+                         "reads its assignment on the host (see galore_zero_state_bytes)")
+    params = params_specs(cfg)
+    cell = dataclasses.replace(SHAPES["train_4k"], global_batch=rows, seq_len=seq_len, kind=kind)
+    if kind == "prefill":
+        cache, batch = cache_specs(cfg, cell), batch_specs(cfg, cell)
+        step = make_prefill_step(cfg)
+        _, rec = _measure(lambda: step(params, cache, batch), _tensors(params, cache, batch))
+        return _record(rec)
+    if kind == "decode":
+        cache, batch = cache_specs(cfg, cell), batch_specs(cfg, cell)
+        step = make_decode_step(cfg)
+        _, rec = _measure(lambda: step(params, cache, batch["tokens"], seq_len - 1),
+                          _tensors(params, cache, batch))
+        return _record(rec)
+    nm = tc.microbatch if tc.microbatch and tc.microbatch > 1 else 1
+    if rows % nm:
+        raise ValueError(f"{rows} rows do not split into {nm} microbatches")
+    run_nm = min(nm, 2)  # two microbatches peak as N do
+    tc_run = dataclasses.replace(tc, microbatch=run_nm if nm > 1 else tc.microbatch)
+    # the whole batch stays resident; the run takes its first microbatches
+    batch = {k: v.narrow(1 if k == "positions" else 0, 0, rows // nm * run_nm)
+             for k, v in batch_specs(cfg, cell).items()}
+    train_step, opt = make_train_step(cfg, tc_run)
+    state = opt.init(params)
+    out = {}
+    if tc.galore is not None:
+        if external_refresh(tc):
+            refresh = make_refresh_step(cfg, tc_run)
+            state, out["refresh"] = _measure(lambda: refresh(params, state, batch, None),
+                                             _tensors(params, state, batch))
+        else:  # step 0 of the in-step refresh
+            (params, state, _), out["refresh"] = _measure(
+                lambda: train_step(params, state, batch), _tensors(params, state, batch))
+    _, step_rec = _measure(lambda: train_step(params, state, batch),
+                           _tensors(params, state, batch))
+    if nm > 2:  # the N − 2 microbatches not run: their forward and backward
+        step_rec["flops"] += (nm - 2) * _chunk_flops(cfg, tc, params,
+                                                     world.microbatch(batch, 0, run_nm))
+    rec = _record(step_rec)
+    if "refresh" in out:
+        rec["refresh"] = _record(out["refresh"])
+        rec["step_peak_bytes"] = rec["peak_bytes"]
+        if rec["refresh"]["peak_bytes"] > rec["peak_bytes"]:
+            rec["peak_bytes"], rec["peak_op"] = (rec["refresh"]["peak_bytes"],
+                                                 rec["refresh"]["peak_op"])
+    return rec
+
+
+def _chunk_flops(cfg, tc, params, chunk) -> int:
+    """FLOPs of one microbatch's forward and backward."""
+    with FlopCounterMode(display=False) as flops:
+        loss, _ = M.loss_fn(cfg, params, chunk, z_loss=tc.z_loss)
+        torch.autograd.grad(loss, tree_leaves(params))
+    return int(flops.get_total_flops())
+
+
+def _record(rec) -> dict:
+    return {"peak_bytes": rec["peak"], "argument_bytes": rec["argument"],
+            "temp_bytes": rec["peak"] - rec["argument"], "flops": rec["flops"],
+            "peak_op": rec["peak_op"], "kernels": rec["kernels"]}
+
+
+def default_microbatch(cfg) -> int:
+    """Gradient-accumulation factor for train_4k, by model scale (the
+    reference's: 8 above 90e9 parameters, 2 above 15e9, else 1)."""
+    total = param_counts(cfg)["total"]
+    if total > 90e9:
+        return 8
+    if total > 15e9:
+        return 2
+    return 1
+
+
+def default_train_config(cfg, optimizer: str = "adamw", galore: bool = True,
+                         microbatch: int | None = None, rank_frac: float = 0.0,
+                         adaptive_t: bool = False, stagger: bool = False,
+                         quant_moments: str = "fp32", quant_proj: str = "fp32") -> TrainConfig:
+    """The reference's paper-faithful defaults: GaLore rank ≈ d_model/4
+    (Table 2), T = 200, α = 0.25, the Newton–Schulz projector, the external
+    refresh, clip 1.0, no weight decay."""
+    rank = max(128, (cfg.d_model // 4) // 128 * 128)
+    g = GaLoreConfig(rank=rank, update_freq=200, scale=0.25, projector="newton_schulz",
+                     rank_frac=rank_frac, adaptive_t=adaptive_t, refresh_stagger=stagger,
+                     quant=QuantPolicy(moments=quant_moments, projectors=quant_proj)
+                     ) if galore else None
+    mb = default_microbatch(cfg) if microbatch is None else microbatch
+    return TrainConfig(optimizer=optimizer, galore=g, grad_clip=1.0, weight_decay=0.0,
+                       microbatch=mb, galore_external_refresh=True)
+
+
+def card_bytes(hbm_gib: float = HBM_GIB) -> int:
+    """The card's memory: ``torch.cuda.mem_get_info`` where a card answers,
+    else `hbm_gib` GiB."""
+    if torch.cuda.is_available():
+        return torch.cuda.mem_get_info()[1]
+    return int(hbm_gib * 2**30)
+
+
+def run_cell(arch: str, shape_name: str, *, optimizer: str = "adamw", galore: bool = True,
+             microbatch: int | None = None, rank_frac: float = 0.0, adaptive_t: bool = False,
+             stagger: bool = False, quant_moments: str = "fp32", quant_proj: str = "fp32",
+             overrides: dict | None = None, galore_dp: bool = False,
+             hbm_gib: float = HBM_GIB) -> dict:
+    """The dry run of one (arch × shape) cell on one card; `overrides` are
+    ModelConfig fields, `galore_dp` the compressed step (no accumulation)."""
+    cfg = get_config(arch)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    cell = SHAPES[shape_name]
+    ok, reason = cfg.supports_shape(shape_name)
+    rec: dict = {"arch": arch, "shape": shape_name, "mesh": "1 card", "rules": "baseline",
+                 "optimizer": optimizer if cell.kind == "train" else None}
+    if not ok:
+        rec.update(status="skipped", reason=reason)
+        return rec
+    tc = None
+    if cell.kind == "train":
+        tc = default_train_config(cfg, optimizer, galore, microbatch, rank_frac, adaptive_t,
+                                  stagger, quant_moments, quant_proj)
+        if galore_dp:
+            tc = dataclasses.replace(tc, galore_dp_compress=True, microbatch=0)
+        rec["microbatch"] = tc.microbatch
+    t0 = time.time()
+    res = dry_run_step(cfg, tc, cell.global_batch, cell.seq_len, cell.kind)
+    mf = model_flops(cfg, shape_name)
+    rec.update(
+        status="ok", dryrun_s=round(time.time() - t0, 1),
+        memory={"argument_bytes": res["argument_bytes"], "temp_bytes": res["temp_bytes"],
+                "peak_bytes_per_device": res["peak_bytes"]},
+        hbm_ok=res["peak_bytes"] < card_bytes(hbm_gib),
+        raw_cost={"flops": res["flops"]}, peak_op=res["peak_op"], kernels=res["kernels"],
+        model_flops_global=mf, model_flops_per_device=mf,
+        useful_flops_ratio=mf / res["flops"] if res["flops"] else None)
+    if "refresh" in res:
+        rec["refresh"] = {"peak_bytes_per_device": res["refresh"]["peak_bytes"],
+                          "flops": res["refresh"]["flops"]}
+    return rec
+
+
+def build_parser():
+    """Argparse parser of the dry run (the reference's flags; --mesh and
+    --rules have no counterpart on one card, --skip-scaling nothing to skip)."""
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dryrun",
+                                 description="memory/FLOPs dry run over the arch × shape grid, "
+                                             "on the meta device, for one card")
+    ap.add_argument("--out", default="results/dryrun_torch.json")
+    ap.add_argument("--arch", nargs="*", default=None)
+    ap.add_argument("--shape", nargs="*", default=None)
+    ap.add_argument("--optimizer", default="adamw")
+    ap.add_argument("--no-galore", action="store_true")
+    ap.add_argument("--microbatch", type=int, default=None,
+                    help="train cells' accumulation factor (default: the reference's by "
+                         "model scale; the global batch: one sequence a microbatch)")
+    cli.add_galore_subspace_flags(ap)
+    cli.add_quant_flags(ap)
+    ap.add_argument("--hbm-gib", type=float, default=HBM_GIB,
+                    help="the card's memory where no card answers")
+    ap.add_argument("--force", action="store_true")
+    for flag in ("--mesh", "--rules", "--skip-scaling"):  # the pod's: refused
+        ap.add_argument(flag, nargs="?", const=True, default=None, help=argparse.SUPPRESS)
+    return ap
+
+
+def cell_key(arch: str, shape: str, microbatch) -> str:
+    return f"{arch}|{shape}|1 card|mb {'default' if microbatch is None else microbatch}"
+
+
+def _on_alarm(signum, frame):
+    raise _Timeout()
+
+
+def main(argv=None):
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    for flag in ("mesh", "rules", "skip_scaling"):
+        if getattr(args, flag) is not None:
+            ap.error(f"--{flag.replace('_', '-')} has no counterpart on one card (the pod mesh "
+                     f"and its sharding rules are not ported, ROADMAP A.12)")
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    results = {}
+    if os.path.exists(args.out) and not args.force:
+        with open(args.out) as f:
+            results = json.load(f)
+    old = signal.signal(signal.SIGALRM, _on_alarm)
+    try:
+        for arch in args.arch or ARCH_IDS:
+            for shape in args.shape or list(SHAPES):
+                key = cell_key(arch, shape, args.microbatch)
+                if key in results and results[key].get("status") in ("ok", "skipped"):
+                    print(f"[dryrun] cached {key}")
+                    continue
+                print(f"[dryrun] {key} ...", flush=True)
+                t0 = time.time()
+                signal.setitimer(signal.ITIMER_REAL, CELL_TIMEOUT_S)
+                try:
+                    rec = run_cell(arch, shape, optimizer=args.optimizer,
+                                   galore=not args.no_galore, microbatch=args.microbatch,
+                                   rank_frac=args.galore_rank_frac,
+                                   adaptive_t=args.galore_adaptive_t, stagger=args.galore_stagger,
+                                   quant_moments=args.quant_moments, quant_proj=args.quant_proj,
+                                   hbm_gib=args.hbm_gib)
+                except _Timeout:
+                    rec = {"arch": arch, "shape": shape, "mesh": "1 card", "status": "error",
+                           "error": f"over the cell timeout ({CELL_TIMEOUT_S} s)",
+                           "dryrun_s": round(time.time() - t0, 1)}
+                except Exception as e:  # noqa: BLE001 — record the failure, keep going
+                    rec = {"arch": arch, "shape": shape, "mesh": "1 card", "status": "error",
+                           "error": repr(e), "trace": traceback.format_exc()[-2000:],
+                           "dryrun_s": round(time.time() - t0, 1)}
+                finally:
+                    signal.setitimer(signal.ITIMER_REAL, 0)
+                results[key] = rec
+                with open(args.out, "w") as f:
+                    json.dump(results, f, indent=1)
+                extra = ""
+                if rec["status"] == "ok":
+                    extra = (f" peak={rec['memory']['peak_bytes_per_device'] / 2**30:.2f} GiB "
+                             f"hbm_ok={rec['hbm_ok']} flops={rec['raw_cost']['flops']:.3e} "
+                             f"useful={rec['useful_flops_ratio']:.3f} ({rec['dryrun_s']} s)")
+                elif rec["status"] == "error":
+                    extra = f" {rec['error'][:200]}"
+                print(f"[dryrun] {key}: {rec['status']}{extra}", flush=True)
+    finally:
+        signal.signal(signal.SIGALRM, old)
+    counts = {s: sum(r.get("status") == s for r in results.values())
+              for s in ("ok", "skipped", "error")}
+    print(f"[dryrun] done: {counts['ok']} ok, {counts['skipped']} skipped, {counts['error']} "
+          f"errors -> {args.out}")
+
+
+if __name__ == "__main__":
+    main()

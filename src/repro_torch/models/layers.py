@@ -12,7 +12,16 @@ import torch
 import torch.nn.functional as F
 
 
+class MetaGenerator:
+    """What ``init_params`` draws from on the meta device, where torch has no
+    generator: it stands for one, and the init draws nothing from it."""
+
+    device = torch.device("meta")
+
+
 def _init_normal(gen: torch.Generator, shape, dtype, fan_in=None) -> torch.Tensor:
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     scale = (fan_in or shape[0]) ** -0.5
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
     return (x * scale).to(dtype)

@@ -21,6 +21,7 @@ from repro_torch.models import rope as rope_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import stacks
 from repro_torch.models.layers import (
+    MetaGenerator,
     apply_embedding,
     apply_norm,
     apply_unembed,
@@ -60,11 +61,13 @@ def init_params(cfg, seed: int = 0, device=None):
     in any model dtype; the ssm family's blocks {"mix", "ln"}; the hybrid's a
     tuple of period sub-layers stacked over blocks; the audio family's
     {"encoder", "enc_norm", "blocks" (the cross-decoder), "dec_pos"
-    (DEC_POS, D) zeros}. Every leaf requires grad."""
+    (DEC_POS, D) zeros}. Every leaf requires grad. On the meta device (the
+    dry run's) the same leaves, shapes and dtypes, with nothing drawn."""
     check_ported(cfg)
     device = resolve_device(device)
     dtype = canonical_dtype(cfg.dtype)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (MetaGenerator() if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     p = {
         "embed": init_embedding(gen, cfg.padded_vocab, cfg.d_model, dtype),
         "final_norm": init_norm(cfg, dtype, device),

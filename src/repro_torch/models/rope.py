@@ -30,7 +30,8 @@ def mrope_angles(positions: torch.Tensor, head_dim: int, theta: float, sections)
         raise ValueError(f"mrope sections {sections} must sum to {half}")
     inv = _freqs(head_dim, theta, positions.device)
     section_id = torch.repeat_interleave(torch.arange(len(sections), device=positions.device),
-                                         torch.tensor(sections, device=positions.device))
+                                         torch.tensor(sections, device=positions.device),
+                                         output_size=half)
     all_angles = positions.float()[..., None] * inv  # (3, B, S, half)
     return torch.gather(all_angles, 0, section_id.expand(all_angles.shape[1:])[None])[0]
 

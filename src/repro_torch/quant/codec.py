@@ -13,7 +13,8 @@ and axis-blocked parts of repro/quant/codec.py, bit for bit).
     the dequant → Adam → requant epilogue never crosses a block boundary.
     Codes keep the logical shape; scales shrink the blocked axis by QBLOCK.
     Optional stochastic rounding (Q-GaLore) draws its coin from the
-    counter hash ``sr_uniform`` of (ravel index, step count, salt).
+    counter hash ``sr_uniform`` of (ravel index, step count, salt), the
+    index in the full leaf where the codec holds one rank's block of it.
   * Axis-blocked packed INT4 (``quantize4_axis`` / ``dequantize4_axis``): the
     projector storage the fused kernel reads directly — per-(block, column)
     absmax along the kept axis, the symmetric 15-level map of
@@ -297,8 +298,26 @@ def _stochastic_codes(normed: torch.Tensor, book: torch.Tensor, u: torch.Tensor)
     return (lo + (u < frac).to(lo.dtype)).to(torch.uint8)
 
 
+def ravel_index(shape, device, origin=None) -> torch.Tensor:
+    """Each element's ravel index (int64, of `shape`): in `shape` itself, or,
+    with `origin` = (dim, offset, full), in the full tensor of which this is
+    the block along `dim` that starts at `offset`, that dim `full` long."""
+    if origin is None:
+        return torch.arange(math.prod(shape), dtype=torch.int64, device=device).reshape(shape)
+    dim, offset, full = origin
+    dim %= len(shape)
+    if offset < 0 or offset + shape[dim] > full:
+        raise ValueError(f"a block of {shape[dim]} at {offset} does not lie in {full}")
+    idx, stride = torch.zeros((), dtype=torch.int64, device=device), 1
+    for d in reversed(range(len(shape))):
+        coord = torch.arange(shape[d], dtype=torch.int64, device=device) + (offset if d == dim else 0)
+        idx = idx + (coord * stride).reshape((-1,) + (1,) * (len(shape) - 1 - d))
+        stride *= full if d == dim else shape[d]
+    return idx
+
+
 def quantize_axis(x: torch.Tensor, *, axis: int = -1, block: int = QBLOCK, signed: bool = True,
-                  stochastic: bool = False, count=None, salt: int = 0):
+                  stochastic: bool = False, count=None, salt: int = 0, origin=None):
     """Blockwise dynamic-INT8 along one trailing axis.
 
     x (..., n, ...) -> (codes uint8, same shape as x;
@@ -306,7 +325,11 @@ def quantize_axis(x: torch.Tensor, *, axis: int = -1, block: int = QBLOCK, signe
     Nearest rounding picks ``searchsorted(mids, x)``: the number of midpoints
     strictly below x. With ``stochastic=True`` codes round up with
     probability equal to the fractional position between the bracketing
-    codes, keyed by ``sr_uniform`` of (ravel index, `count`, `salt`)."""
+    codes, keyed by ``sr_uniform`` of (ravel index, `count`, `salt`). Where x
+    is one block of a larger leaf (a GaLore-ZeRO rank's), `origin` = (dim,
+    offset, full) places it there (``ravel_index``), so that its coins, and
+    its codes, are those of the full leaf's elements; nearest rounding
+    ignores it."""
     axis = axis % x.ndim
     book = _book(signed, x.device)
     xf = x.to(torch.float32)
@@ -314,7 +337,7 @@ def quantize_axis(x: torch.Tensor, *, axis: int = -1, block: int = QBLOCK, signe
     absmax = torch.amax(torch.abs(blocks), dim=axis + 1) + 1e-12
     normed = blocks / absmax.unsqueeze(axis + 1)
     if stochastic:
-        idx = torch.arange(xf.numel(), dtype=torch.int64, device=x.device).reshape(xf.shape)
+        idx = ravel_index(tuple(xf.shape), x.device, origin)
         bidx, _ = _blocked(idx, axis, block)
         u = sr_uniform(bidx, 0 if count is None else count, salt)
         codes = _stochastic_codes(normed, book, u)
@@ -334,9 +357,9 @@ def dequantize_axis(codes: torch.Tensor, scales: torch.Tensor, *, axis: int = -1
 
 
 def quant_axis_state(x: torch.Tensor, *, axis: int, signed: bool, block: int = QBLOCK,
-                     stochastic: bool = False, count=None, salt: int = 0) -> dict:
+                     stochastic: bool = False, count=None, salt: int = 0, origin=None) -> dict:
     codes, scales = quantize_axis(x, axis=axis, block=block, signed=signed,
-                                  stochastic=stochastic, count=count, salt=salt)
+                                  stochastic=stochastic, count=count, salt=salt, origin=origin)
     return {"q": codes, "scale": scales}
 
 

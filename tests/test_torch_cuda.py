@@ -256,6 +256,61 @@ def test_cuda_adam8_kernel_matches_plain(shape, side, p_int4, stochastic):
             assert_close(a, b.cpu().numpy(), f"{tag} {name}")
 
 
+# (shape, side) of the rank-block checks (GaLore-ZeRO at n_dp 2): a stacked
+# leaf with ragged n, a right leaf with ragged m, one 128-row rank chunk in
+# blocks of 64, and two chunks (r = 256) in blocks of 128
+SR_BLOCK_CASES = [((3, 72, 16, 130), "left"), ((130, 16, 72), "right"),
+                  ((2, 512, 128, 1000), "left"), ((1, 300, 256, 520), "right")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,side", SR_BLOCK_CASES)
+@pytest.mark.parametrize("apply", [False, True])
+@pytest.mark.parametrize("p_int4", [False, True])
+def test_cuda_adam8_rank_block_with_origin_is_the_full_launchs_slice(shape, side, apply, p_int4):
+    """ROADMAP C.27 on the card: the int8 kernel with stochastic rounding,
+    launched on each of two rank blocks of P and the moments with the
+    block's origin (sr_off, sr_full), writes exactly the slice of the
+    full-leaf launch's codes and scales (emit and apply forms, f32 and int4
+    P); the blocks' G̃ sum to the full launch's within 1e-5·max."""
+    dev = _cuda_device()
+    P, G, moments = _adam8_on(dev, shape, side, p_int4)
+    r, right = shape[-2], side == "right"
+    rb, dim = r // 2, -1 if right else -2
+    count = torch.tensor(7, dtype=torch.int32, device=dev)
+    if apply:
+        fn = tk.galore_fused_adam8_apply_step_right if right else tk.galore_fused_adam8_apply_step
+    else:
+        fn = tk.galore_fused_adam8_step_right if right else tk.galore_fused_adam8_step
+
+    def launch(Pa, mom, origin=None):
+        mom = [t.clone() for t in mom]
+        before = fn.launches
+        if apply:
+            W = torch.zeros(G.shape, dtype=torch.float32, device=dev)
+            fn(Pa, G, W, *mom, count, eta=torch.tensor([-1e-2], device=dev), alpha=0.25,
+               stochastic=True, origin=origin)
+            out = None
+        else:
+            out = fn(Pa, G, *mom, count, alpha=0.25, stochastic=True, origin=origin)[0]
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        return out, mom
+
+    full_out, full = launch(P, moments)
+    total = None
+    for k in range(2):
+        cut = lambda t, d=dim: t.narrow(d, k * rb, rb).contiguous()  # noqa: E731
+        Pk = {key: cut(v, -1) for key, v in P.items()} if p_int4 else cut(P, -1)
+        out, got = launch(Pk, [cut(t) for t in moments], (k * rb, r))
+        for name, a, b in zip(("mq", "ms", "vq", "vs"), got, full):
+            assert torch.equal(a, cut(b)), f"{side} {shape} block {k} {name}"
+        if out is not None:
+            total = out if total is None else total + out
+    if not apply:
+        assert_close(total, full_out.cpu().numpy(), f"{side} {shape} G̃ of the blocks")
+
+
 @pytest.mark.cuda
 def test_cuda_adam8_never_runs_the_plain_version(monkeypatch):
     dev = _cuda_device()

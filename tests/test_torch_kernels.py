@@ -83,11 +83,12 @@ def _imported_modules(path):
 
 def test_port_imports_no_jax():
     """Nothing under src/repro_torch/, nor chip_smoke.py, the timers it
-    takes from tools/kernel_times.py or tools/chip_phases.py, which runs
-    some of its phases, imports jax or the JAX package."""
+    takes from tools/kernel_times.py, tools/chip_phases.py, which runs
+    some of its phases, or tools/linalg_workspace.py, imports jax or the
+    JAX package."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "kernel_times.py",
-        ROOT / "tools" / "chip_phases.py"]
+        ROOT / "tools" / "chip_phases.py", ROOT / "tools" / "linalg_workspace.py"]
     assert len(files) > 10
     port = ROOT / "src" / "repro_torch"
     for module in ("quant/codec.py", "quant/policy.py", "launch/cli.py", "kernels/galore_fused.py",
@@ -102,7 +103,9 @@ def test_port_imports_no_jax():
                    "configs/qwen2_vl_7b.py", "configs/grok_1_314b.py",
                    "configs/llama4_scout_17b_a16e.py", "models/ssm.py",
                    "configs/mamba2_130m.py", "configs/jamba_1_5_large_398b.py",
-                   "distributed/world.py", "distributed/state_sharding.py"):
+                   "distributed/world.py", "distributed/state_sharding.py",
+                   "launch/dryrun.py", "launch/hillclimb.py", "launch/model_flops.py",
+                   "kernels/meta.py"):
         assert port / module in files, module
     bad = [
         f"{f.relative_to(ROOT)}: {mod}"

@@ -115,6 +115,41 @@ def test_sr_uniform_matches_above_2_31():
         _assert_bitwise(got, want, f"count {count}")
 
 
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_axis_codec_block_with_origin_is_the_full_leafs_slice(side, n):
+    """A rank block of a GaLore leaf's moments (left (L, r, n) split on r,
+    blocks along n; right (L, m, r) split on r, blocks along m), quantized
+    stochastically with its origin in the full leaf, gives exactly the slice
+    of the JAX codec's full-leaf codes and scales (its coins keyed on the
+    global ravel index); without the origin (the old rule) the codes
+    differ; nearest rounding ignores the origin."""
+    lead, r, sw = (3,), 16, 260
+    shape, axis, dim = ((lead + (r, sw)), -1, -2) if side == "left" else (lead + (sw, r), -2, -1)
+    x = (np.random.default_rng(n).standard_normal(shape) * 3.0).astype(np.float32)
+    count = torch.tensor(11, dtype=torch.int32)
+    for signed, salt in ((True, codec.SR_SALT_M), (False, codec.SR_SALT_V)):
+        xs = x if signed else np.abs(x)
+        kw = dict(axis=axis, signed=signed, salt=salt)
+        jq, js = jax.jit(lambda a: jcodec.quantize_axis(a, count=jnp.int32(11), stochastic=True,
+                                                        **kw))(jnp.asarray(xs))
+        rb, differs = r // n, 0
+        for k in range(n):
+            blk = torch.from_numpy(xs).narrow(dim, k * rb, rb).contiguous()
+            tq, ts = codec.quantize_axis(blk, count=count, stochastic=True,
+                                         origin=(dim, k * rb, r), **kw)
+            want_q = np.take(np.asarray(jq), range(k * rb, (k + 1) * rb), axis=dim)
+            want_s = np.take(np.asarray(js), range(k * rb, (k + 1) * rb), axis=dim)
+            _assert_bitwise(tq, want_q, f"{side} block {k} of {n} codes")
+            _assert_bitwise(ts, want_s, f"{side} block {k} of {n} scales")
+            local, _ = codec.quantize_axis(blk, count=count, stochastic=True, **kw)
+            differs += int((local.numpy() != want_q).sum())
+            near = [codec.quantize_axis(blk, count=count, origin=o, **kw)[0]
+                    for o in (None, (dim, k * rb, r))]
+            assert torch.equal(*near)
+        assert differs > 0, "the block-local coins would have passed: the check is blind"
+
+
 # ---------------------------------------------------------------------------
 # 2. projector storage
 # ---------------------------------------------------------------------------
@@ -194,6 +229,45 @@ def test_adam8_plain_matches_pallas_interpret(shape, side, p_int4, stochastic):
             assert_codes_close(a, b, f"{tag} {name}")
         else:
             _assert_close(a, b, f"{tag} {name}")
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("apply", [False, True])
+def test_adam8_rank_blocks_with_origin_give_the_full_leafs_codes(side, apply):
+    """The int8 leaf step (the wrapper's CPU route, emit and apply) on each
+    of two rank blocks of P and the moments, with the block's origin and
+    stochastic rounding, writes exactly the slice of the whole leaf's codes
+    and scales; the blocks' G̃ sum to the whole leaf's within 1e-5·max."""
+    shape = (72, 16, 130) if side == "left" else (130, 16, 72)
+    P, G, moments = adam8_inputs(shape, side)
+    right, dim, r = side == "right", -1 if side == "right" else -2, shape[1]
+    count = torch.tensor(7, dtype=torch.int32)
+    hp = dict(alpha=0.25, stochastic=True)
+    W = torch.from_numpy(np.random.default_rng(5).standard_normal(G.shape, np.float32))
+    eta = torch.tensor(-1e-2)
+
+    def step(Pb, mom, origin=None):
+        mom = [torch.from_numpy(np.array(t)) for t in mom]  # copies: updated in place
+        if apply:
+            fn = tk.galore_fused_adam8_apply_step_right if right else tk.galore_fused_adam8_apply_step
+            out = fn(torch.from_numpy(np.ascontiguousarray(Pb)), torch.from_numpy(G), W.clone(),
+                     *mom, count, eta=eta, origin=origin, **hp)
+            return out[0] - W, out[1:]
+        fn = tk.galore_fused_adam8_step_right if right else tk.galore_fused_adam8_step
+        out = fn(torch.from_numpy(np.ascontiguousarray(Pb)), torch.from_numpy(G), *mom, count,
+                 origin=origin, **hp)
+        return out[0], out[1:]
+
+    full_upd, full = step(P, moments)
+    rb, upd = r // 2, torch.zeros_like(full_upd)
+    for k in range(2):
+        cut = lambda t, d=dim: np.take(t, range(k * rb, (k + 1) * rb), axis=d)  # noqa: E731
+        got_upd, got = step(cut(P, -1), [cut(t) for t in moments], origin=(k * rb, r))
+        upd += got_upd
+        for name, a, b in zip(("mq", "ms", "vq", "vs"), got, full):
+            _assert_bitwise(a, cut(b.numpy()), f"{side} apply {apply} block {k} {name}")
+    if not apply:  # the world sums the owners' partial G̃
+        _assert_close(upd, full_upd, f"{side} G̃")
 
 
 def test_adam8_cpu_wrapper_does_not_count_launches():

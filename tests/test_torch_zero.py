@@ -136,6 +136,51 @@ def runs(jax_runs, tmp_path_factory):
     return out
 
 
+SR_FORMS = {"composable": {}, "fused": dict(galore_fused_adam=True)}
+
+
+@pytest.fixture(scope="module")
+def sr_runs(tmp_path_factory):
+    """ZeRO-1 with int8 moments under stochastic rounding, 3 steps in a world
+    of 2 and in one process, from the same params at lr 0: the weights stay
+    as they are, so every step's gradient is the same in both runs (the two
+    ranks' rows are the same 4 sequences, the mean of two equal f32
+    gradients is exact, and one process takes those 4), and the moments' f32
+    values are equal; only the requant's coins could tell the runs apart."""
+    tmp = tmp_path_factory.mktemp("zero_sr")
+    cfg = jax_get_config("llama_60m", smoke=True)
+    p0 = _np(JM.init_params(cfg, jax.random.PRNGKey(0)))
+    half = TOKENS[:4]
+    cases = {}
+    for name, tkw in SR_FORMS.items():
+        spec = _spec("zero1_8bit", params=p0, steps=3, keep_all=True)
+        spec["tc"] = dict(spec["tc"], lr=0.0, **tkw)
+        spec["galore"] = dict(spec["galore"], quant=dict(Q8, stochastic_round=True))
+        cases[name] = dict(spec, tokens=np.concatenate([half, half]))
+        cases[name + "_one"] = dict(spec, tokens=half, tc=dict(spec["tc"], galore_zero=0))
+    two = run_world(train_cases, 2, tmp, {k: v for k, v in cases.items() if "_one" not in k})
+    one = run_world(train_cases, 0, tmp, {k: v for k, v in cases.items() if "_one" in k})[0]
+    return two, one
+
+
+@pytest.mark.parametrize("form", list(SR_FORMS))
+def test_zero_stochastic_codes_equal_the_one_process_codes(sr_runs, form):
+    """ROADMAP C.27: a world of 2's gathered int8 moments (codes and scales of
+    every GaLore leaf's rank blocks and of the passthrough leaves' rows)
+    after each of 3 steps with stochastic rounding are bit for bit the
+    one-process run's: each rank keys its coins on the full leaf's indices."""
+    two, one = sr_runs
+    assert two[0][form]["losses"] == one[form + "_one"]["losses"]
+    for step, (got, want) in enumerate(zip(two[0][form]["kept"], one[form + "_one"]["kept"])):
+        leaves = jax.tree_util.tree_flatten_with_path(want["galore"])[0]
+        n_codes = 0
+        for (path, w), g in zip(leaves, jax.tree_util.tree_leaves(got["galore"])):
+            name = f"{form} step {step} {jax.tree_util.keystr(path)}"
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(w), err_msg=name)
+            n_codes += "inner" in name and np.asarray(w).dtype == np.uint8
+        assert n_codes > 0
+
+
 @pytest.mark.parametrize("form", list(FORMS))
 def test_one_step_state_matches_jax(runs, jax_runs, form):
     """The world of 2's gathered state after one step: int codes (moments and
