@@ -203,6 +203,21 @@ Phases, each timed, none of them optional; any failed check raises:
      embedding; (f) (a) as an NCCL world of 1, losses bit for bit and every
      checkpoint array's CRC-32 equal to the one-process run's; the phase
      timed;
+  10g. activation checkpointing (models/remat.py): [remat] llama_7b width,
+     2 of 32 layers, bf16, batch 2 × 4096, one loss_fn forward and backward
+     under each of remat none, scores, names and full: loss and every
+     gradient leaf within 1e-5·max of none's (the largest difference
+     printed), each policy's max_memory_allocated within 5 % of
+     launch/dryrun.py::dry_run_grad's, each forward and backward timed by
+     CUDA events; [remat-7b] the whole llama_7b (32 layers, no depth cut),
+     batch 1 × 4096, 8-bit GaLore in the apply form (int8 moments, int4 P,
+     r = 128, randomized P, T = 8), 3 steps through train_loop under remat
+     scores and again under full: losses finite (full's within 5e-2 of
+     scores'), B3-apply int8 launched 6 left + 1 right a step, the peak
+     within 5 % of dry_run_step's for the same config and batch, the
+     non-refresh step beside the dry run's FLOPs a step as TFLOP/s; B3-apply
+     int8 at the L = 32 gate/up leaf against its plain version, its
+     per-launch time beside its bytes bound;
   11. record: the SVD refresh time at ranks 128 and 1024, step times and
      peak memory of every phase (the paper's 7B memory comparison, 8-bit
      GaLore at r = 1024 beside 8-bit Adam, Adafactor and AdamW, on one
@@ -273,7 +288,12 @@ from repro_torch.kernels import galore_fused as gf  # noqa: E402
 from repro_torch.kernels import galore_project as tp  # noqa: E402
 from repro_torch.kernels import rmsnorm as trms  # noqa: E402
 from repro_torch.kernels.ref import apply_weight, lowrank_adam_update  # noqa: E402
-from repro_torch.launch.dryrun import allocator_bytes, card_bytes, dry_run_step  # noqa: E402
+from repro_torch.launch.dryrun import (  # noqa: E402
+    allocator_bytes,
+    card_bytes,
+    dry_run_grad,
+    dry_run_step,
+)
 from repro_torch.launch.train import RunConfig, train_loop  # noqa: E402
 from repro_torch.models.model import init_params, loss_fn  # noqa: E402
 from repro_torch.optim import lowrank  # noqa: E402
@@ -538,18 +558,24 @@ def adam8_inputs(side, L, m, r, n, seed):
     return P, [x.contiguous() for x in mom], rnd(L, m, n)
 
 
-def bound8(side, L, m, r, n, g_itemsize, p_int4, w_itemsize=None):
-    """step_bound of one int8-moment launch: G read and G̃ written once (or W
+def bytes8(side, L, m, r, n, g_itemsize, p_int4, w_itemsize=None):
+    """Bytes of one int8-moment launch: G read and G̃ written once (or W
     read and written), the codes and scales of M and V read and written
-    once, P read once (packed nibbles + scales, or f32); ~20 f32 operations
-    a moment element (dequant, Adam, absmax, requant), and the weight
-    apply's 4 an element."""
+    once, P read once (packed nibbles + scales, or f32)."""
     kept, swept = (m, n) if side == "left" else (n, m)
     nb = -(-swept // codec.QBLOCK)
-    out_bytes, out_flops = out_cost(L, m, n, w_itemsize)
-    nbytes = (g_itemsize * L * m * n + out_bytes + 2 * 2 * L * r * swept
-              + 2 * 2 * 4 * L * r * nb + p_bytes(L, kept, r, p_int4))
-    return step_bound(L, m, r, n, g_itemsize, nbytes, 20 * L * r * swept + out_flops)
+    return (g_itemsize * L * m * n + out_cost(L, m, n, w_itemsize)[0] + 2 * 2 * L * r * swept
+            + 2 * 2 * 4 * L * r * nb + p_bytes(L, kept, r, p_int4))
+
+
+def bound8(side, L, m, r, n, g_itemsize, p_int4, w_itemsize=None):
+    """step_bound of one int8-moment launch: its bytes (bytes8); ~20 f32
+    operations a moment element (dequant, Adam, absmax, requant), and the
+    weight apply's 4 an element."""
+    swept = n if side == "left" else m
+    return step_bound(L, m, r, n, g_itemsize, bytes8(side, L, m, r, n, g_itemsize, p_int4,
+                                                      w_itemsize),
+                      20 * L * r * swept + out_cost(L, m, n, w_itemsize)[1])
 
 
 def check_bound8():
@@ -1117,7 +1143,7 @@ def phase_train_config(fused=False, quant=None, apply=False, optimizer="adamw", 
 def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=True, rank=128,
                 update_freq=8, ckpt_dir=None, ckpt_every=0, guard=False, faults=None,
                 on_state=None, galore_kw=None, tc_kw=None, units=None, cfg=None, params=None,
-                data=None):
+                data=None, steps=8, rows=8, seq_len=256):
     """8 steps of the main path (AdamW, wd 0.01; GaLore at `rank`, refreshed
     every `update_freq` steps; with `apply` the weight update folded into the
     kernels; `optimizer` adafactor the reference's GaLore-Adafactor; without
@@ -1136,13 +1162,14 @@ def train_phase(fused=False, quant=None, apply=False, optimizer="adamw", galore=
     `units` (an SvdUnits) records the SVD units each step computed. `cfg`
     replaces llama_7b at 2 layers (another family's config) and `params` the
     random init and `data` the synthetic stream (train_loop's hooks); each
-    step's aux_loss is kept beside its loss."""
+    step's aux_loss is kept beside its loss. `steps` steps of `rows` ×
+    `seq_len` tokens (8 of 8 × 256 unless given)."""
     cfg = cfg or dataclasses.replace(get_config("llama_7b"), n_layers=2)
     tc = phase_train_config(fused, quant, apply, optimizer, galore, rank, update_freq, guard,
                             galore_kw, tc_kw)
     gcfg = tc.galore
     own_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_") if ckpt_dir is None else None
-    run = RunConfig(arch=cfg.name, smoke=False, steps=8, batch_per_host=8, seq_len=256,
+    run = RunConfig(arch=cfg.name, smoke=False, steps=steps, batch_per_host=rows, seq_len=seq_len,
                     ckpt_dir=ckpt_dir or own_dir, ckpt_every=ckpt_every, log_every=1,
                     device="cuda")
     steps, losses, aux, times, step_units = [], [], [], [], []
@@ -3205,6 +3232,171 @@ def check_stochastic_blocks():
 
 
 # ---------------------------------------------------------------------------
+# [remat] and [remat-7b]: the reference's activation-checkpointing policies
+# ---------------------------------------------------------------------------
+
+REMAT_POLICIES = ("none", "scores", "names", "full")
+# B3-apply int8's gate/up leaf of the whole llama_7b (32 layers, r = 128)
+REMAT_7B_LEAF = ("left", 32, 4096, 128, 11008)
+
+
+def remat_phase():
+    """[remat]: llama_7b width, 2 of 32 layers, bf16, batch 2 × 4096: one
+    loss_fn forward and backward under each policy. The loss and every
+    gradient leaf held within 1e-5·max of "none"'s (the largest difference
+    printed: bit for bit expected, the dense path has no atomics); each
+    policy's max_memory_allocated over the forward and backward (after a
+    reset) within DRYRUN_GATE of the dry run's (dry_run_grad: what the card
+    held before, less the params and batch the dry run makes itself, plus
+    its peak); the forward and backward timed with CUDA events (the median
+    of three, after the checked run)."""
+    cfg = dataclasses.replace(get_config("llama_7b"), n_layers=2)
+    B, S = 2, 4096
+    params = init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1),
+             "loss_mask": torch.ones(B, S, device="cuda")}
+    leaves = tree_leaves(params)
+    card, runs, misses = card_line(), {}, []
+    for policy in REMAT_POLICIES:
+        c = dataclasses.replace(cfg, remat=policy)
+        rec = dry_run_grad(c, B, S)
+
+        def fwd_bwd():
+            total, _ = loss_fn(c, params, batch)
+            return [total.detach()] + list(torch.autograd.grad(total, leaves))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        runs[policy] = fwd_bwd()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        want = base - rec["argument_bytes"] + rec["peak_bytes"]
+        ms = cuda_ms(fwd_bwd, 0, 3)
+        gaps = [float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()),
+                                                                1e-30)
+                for a, b in zip(runs[policy], runs["none"])]
+        log(f"[remat] {card}: {cfg.name}, 2 of 32 layers, bf16, {B} × {S}, remat {policy}: "
+            f"loss {float(runs[policy][0]):.6f}; largest difference from none's (loss and "
+            f"{len(leaves)} gradient leaves, of max) {max(gaps):.3e} (gate 1e-5); "
+            f"max_memory_allocated {peak / 2**30:.3f} GiB, predicted {want / 2**30:.3f} GiB "
+            f"(before {base / 2**30:.3f} + dry run {(rec['peak_bytes'] - rec['argument_bytes']) / 2**30:.3f}; "
+            f"kept for the backward {rec['kept_bytes'] / 2**30:.3f} GiB): ratio {want / peak:.4f} "
+            f"(gate 1 ± {DRYRUN_GATE}); forward and backward {ms:.1f} ms, {rec['flops']:.4e} "
+            f"FLOPs ({rec['flops'] / ms / 1e9:.1f} TFLOP/s)")
+        if max(gaps) > 1e-5:
+            raise AssertionError(f"[remat] {policy}: the loss or a gradient differs from none's "
+                                 f"by {max(gaps):.3e} of its max")
+        if abs(want / peak - 1) > DRYRUN_GATE:
+            misses.append(f"{policy} {want / peak:.4f}")
+        if policy != "none":
+            del runs[policy]
+    if misses:
+        raise AssertionError(f"[remat] predicted peaks off by more than {DRYRUN_GATE:.0%}: "
+                             f"{', '.join(misses)}")
+    del runs, params, batch, leaves
+    torch.cuda.empty_cache()
+
+
+def remat_7b_phase(phases, none, policy):
+    """[remat-7b]: the whole llama_7b (32 layers, no depth cut) at batch 1 ×
+    4096 under remat `policy`, 8-bit GaLore in the apply form (int8 moments,
+    int4 P, r = 128, randomized P, T = 8: step 0 refreshes), 3 steps through
+    train_loop: losses finite; B3-apply int8 launched 6 left + 1 right a step;
+    the peak within DRYRUN_GATE of the dry run of the same config and batch
+    (dry_run_step, on top of what the card held before); the non-refresh
+    step time beside the dry run's FLOPs a step."""
+    cfg = dataclasses.replace(get_config("llama_7b"), remat=policy)
+    t = time.perf_counter()
+    ph = phases[f"remat-7b-{policy}"] = train_phase(
+        fused=True, quant=QuantPolicy(moments="int8", projectors="int4"), apply=True,
+        galore_kw=dict(projector="randomized"), cfg=cfg, steps=3, rows=1, seq_len=4096)
+    t_run, t = time.perf_counter() - t, time.perf_counter()
+    rec = dry_run_step(ph["cfg"], ph["tc"], ph["rows"], ph["seq_len"], "train")
+    want = ph["base"] - ph["params_in"] + rec["peak_bytes"]
+    steady = statistics.median(ph["times"][1:])
+    log(f"[remat-7b] {card_line()}: {cfg.name}, all {cfg.n_layers} layers, bf16, 1 × 4096, "
+        f"remat {policy}, 8-bit GaLore apply r = 128, randomized P: losses "
+        f"{[round(x, 4) for x in ph['losses']]}; launches {ph['launches']}; step ms "
+        f"{[round(x * 1e3, 1) for x in ph['times']]}; max_memory_allocated "
+        f"{ph['peak'] / 2**30:.3f} GiB, predicted {want / 2**30:.3f} GiB (before "
+        f"{(ph['base'] - ph['params_in']) / 2**30:.3f} + the dry run's "
+        f"{rec['peak_bytes'] / 2**30:.3f} at {rec['peak_op']}: step "
+        f"{rec['step_peak_bytes'] / 2**30:.3f}, refresh {rec['refresh']['peak_bytes'] / 2**30:.3f}"
+        f"; the dry run took {time.perf_counter() - t:.1f} s): ratio {want / ph['peak']:.4f} "
+        f"(gate 1 ± {DRYRUN_GATE}); non-refresh step {steady * 1e3:.1f} ms at the dry run's "
+        f"{rec['flops']:.4e} FLOPs a step: {rec['flops'] / steady / 1e12:.1f} TFLOP/s "
+        f"({t_run:.1f} s)")
+    if ph["launches"] != dict(none, adam8_apply_left=18, adam8_apply_right=3):
+        raise AssertionError(f"[remat-7b] launches {ph['launches']}, want B3-apply int8 left 18 "
+                             f"(6 leaves × 3 steps) and right 3, nothing else")
+    if ph["thread_copy_epilogue"] != 0:
+        raise AssertionError(f"[remat-7b] {ph['thread_copy_epilogue']} launches copied their "
+                             f"operands by the threads instead of by the TMA")
+    if abs(want / ph["peak"] - 1) > DRYRUN_GATE:
+        raise AssertionError(f"[remat-7b] {policy}: predicted peak {want} B, measured "
+                             f"{ph['peak']} B: off by more than {DRYRUN_GATE:.0%}")
+    check_state_bytes(f"remat-7b-{policy}", ph)
+    return ph
+
+
+def remat_7b_kernel():
+    """B3-apply int8 (int4 P, bf16 G and W) at the whole llama_7b's gate/up
+    leaf, L = 32: W' against its plain version (compared four slabs at a
+    time), the launch and the plain version timed, beside the launch's bytes
+    bound at 3.35 TB/s and its full bound."""
+    side, L, m, r, n = REMAT_7B_LEAF
+    k = KERNELS["adam8_apply_" + side]
+    count = torch.tensor(COUNT, dtype=torch.int32, device="cuda")
+    hp = dict(alpha=ALPHA, eta=torch.tensor(ETA, device="cuda"), wd=WD)
+    P, mom, G32 = adam8_inputs(side, L, m, r, n, seed=300)
+    G = G32.to(torch.bfloat16)
+    del G32
+    P4 = codec.quant4_axis_state(P)
+    W = (0.02 * torch.randn(L, m, n, generator=torch.Generator(device="cuda").manual_seed(301),
+                            device="cuda")).to(torch.bfloat16)
+    w0, mine = W.clone(), [x.clone() for x in mom]
+    want = k["plain"](P4, G, w0.clone(), *mom, count, **hp)[0]
+    plain_ms = cuda_ms(lambda: k["plain"](P4, G, w0.clone(), *mom, count, **hp), 0, 2)
+    before = thread_copies()
+    k["wrapper"](P4, G, W, *mine, count, **hp)
+    torch.cuda.synchronize()
+    tag = f"{k['name']} L={L} (m,r,n)=({m},{r},{n}) G bfloat16 W bfloat16 P int4 {route(before)}"
+    checks = [weight_check(W[i:i + 4], want[i:i + 4], w0[i:i + 4], f"{tag} slabs {i}-{i + 3}")
+              for i in range(0, L, 4)]
+    del want
+    ms = cuda_ms(lambda: k["wrapper"](P4, G, W, *mine, count, **hp), 2, 5)
+    b_s, b_by, _ = bound8(side, L, m, r, n, 2, True, 2)
+    nbytes = bytes8(side, L, m, r, n, 2, True, 2)
+    log(f"[remat-7b] {card_line()}: {tag}: max|err| W' {max(e for e, _ in checks):.2e} (one "
+        f"bf16 ulp + 1e-5·max|W' - W| in every 4 slabs{checks[0][1]} in slabs 0-3); kernel "
+        f"{ms:.3f} ms a launch, plain {plain_ms:.3f} ms; bytes bound "
+        f"{nbytes / PEAK_BYTES * 1e3:.3f} ms "
+        f"({nbytes} B at 3.35 TB/s), bound {b_s * 1e3:.3f} ms ({b_by}; {b_s / ms * 1e5:.0f} % "
+        f"of it)")
+    del P, P4, mom, G, W, w0, mine
+    torch.cuda.empty_cache()
+    return ms
+
+
+def remat_7b_phases(phases, none):
+    """[remat-7b] under "scores" and "full" ("full"'s losses beside
+    "scores'"), then B3-apply int8 at its L = 32 leaf."""
+    scores = remat_7b_phase(phases, none, "scores")
+    full = remat_7b_phase(phases, none, "full")
+    gaps = [a - b for a, b in zip(full["losses"], scores["losses"])]
+    log(f"[remat-7b] full - scores losses {gaps} (the same numerics: bit for bit expected "
+        f"where the card's kernels are deterministic); full's non-refresh step "
+        f"{statistics.median(full['times'][1:]) * 1e3:.1f} ms, scores' "
+        f"{statistics.median(scores['times'][1:]) * 1e3:.1f} ms")
+    if max(map(abs, gaps)) > 5e-2:
+        raise AssertionError(f"[remat-7b] full vs scores losses differ by more than 5e-2: {gaps}")
+    remat_7b_kernel()
+
+
+# ---------------------------------------------------------------------------
 # [dp]: data-parallel training through torch.distributed.run on this card
 # ---------------------------------------------------------------------------
 
@@ -3811,6 +4003,11 @@ def main():
     log(f"[dp-kernels] {len(block_rows)} rank-block checks passed "
         f"({time.perf_counter() - t:.1f} s)")
     dp_phase()
+
+    for tag, fn in (("remat", remat_phase), ("remat-7b", lambda: remat_7b_phases(phases, none))):
+        t = time.perf_counter()
+        fn()
+        log(f"[{tag}] ({time.perf_counter() - t:.1f} s)")
 
     t = time.perf_counter()
     svd = svd_ms()

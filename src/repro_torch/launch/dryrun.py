@@ -17,6 +17,11 @@ allocated, nothing computed), under two modes stacked:
   * ``FlopCounterMode``, to which each hand kernel's shape-only launch adds
     its contractions' FLOPs (kernels/meta.py): the mode sees no hand kernel.
 
+Both see the model's activation checkpointing as it runs (cfg.remat,
+models/remat.py): ``LiveBytes`` the tensors each policy keeps for the
+backward, ``FlopCounterMode`` the recompute, which lowers the useful-FLOPs
+ratio. ``dry_run_grad`` reckons one forward and backward alone.
+
 The steps driven: ``make_train_step`` at the cell's microbatch count (two
 microbatches of the cell's size stand for N > 2: the peak is the same, and
 the other N − 2 microbatches' FLOPs are added), the refresh apart
@@ -138,10 +143,12 @@ class LiveBytes(TorchDispatchMode):
     def __init__(self, resident=()):
         super().__init__()
         self._seen = WeakIdKeyDictionary()
+        self._made = WeakIdKeyDictionary()  # storage -> (shape, dtype) of its first tensor
         self.now = self.peak = 0
         self.peak_op = None
         for t in resident:
             self._track(t)
+        self._made.clear()
         self.base = self.peak = self.now
 
     def _track(self, t) -> None:
@@ -150,7 +157,13 @@ class LiveBytes(TorchDispatchMode):
             return
         n = allocator_bytes(st.nbytes())
         self._seen[st] = weakref.ref(st, functools.partial(self._free, n))
+        self._made[st] = (tuple(t.shape), t.dtype)
         self.now += n
+
+    def held(self) -> list:
+        """(shape, dtype) of each storage made under the mode and alive now:
+        the tensor that made it (a view may hold it since)."""
+        return list(self._made.values())
 
     def _free(self, n, _ref) -> None:
         self.now -= n
@@ -238,8 +251,8 @@ def dry_run_step(cfg, tc: TrainConfig | None, rows: int, seq_len: int, kind: str
     _, step_rec = _measure(lambda: train_step(params, state, batch),
                            _tensors(params, state, batch))
     if nm > 2:  # the N − 2 microbatches not run: their forward and backward
-        step_rec["flops"] += (nm - 2) * _chunk_flops(cfg, tc, params,
-                                                     world.microbatch(batch, 0, run_nm))
+        step_rec["flops"] += (nm - 2) * _fwd_bwd(cfg, params, world.microbatch(batch, 0, run_nm),
+                                                 tc.z_loss)["flops"]
     rec = _record(step_rec)
     if "refresh" in out:
         rec["refresh"] = _record(out["refresh"])
@@ -250,12 +263,26 @@ def dry_run_step(cfg, tc: TrainConfig | None, rows: int, seq_len: int, kind: str
     return rec
 
 
-def _chunk_flops(cfg, tc, params, chunk) -> int:
-    """FLOPs of one microbatch's forward and backward."""
-    with FlopCounterMode(display=False) as flops:
-        loss, _ = M.loss_fn(cfg, params, chunk, z_loss=tc.z_loss)
+def dry_run_grad(cfg, rows: int, seq_len: int) -> dict:
+    """loss_fn's forward and the backward to every leaf (no optimizer) at
+    `rows` × `seq_len` on meta tensors, a train cell's batch: _fwd_bwd's
+    record."""
+    cell = dataclasses.replace(SHAPES["train_4k"], global_batch=rows, seq_len=seq_len,
+                               kind="train")
+    return _fwd_bwd(cfg, params_specs(cfg), batch_specs(cfg, cell))
+
+
+def _fwd_bwd(cfg, params, batch, z_loss: float = 0.0) -> dict:
+    """{"peak_bytes", "argument_bytes" (the params and batch), "kept_bytes"
+    (what the forward leaves for the backward: the live bytes above those
+    once the loss is made, which cfg.remat sets), "flops" (the recompute
+    included)} of loss_fn's forward and backward to every leaf."""
+    with FlopCounterMode(display=False) as flops, LiveBytes(_tensors(params, batch)) as live:
+        loss, _ = M.loss_fn(cfg, params, batch, z_loss=z_loss)
+        kept = live.now - live.base
         torch.autograd.grad(loss, tree_leaves(params))
-    return int(flops.get_total_flops())
+    return {"peak_bytes": live.peak, "argument_bytes": live.base, "kept_bytes": kept,
+            "flops": int(flops.get_total_flops())}
 
 
 def _record(rec) -> dict:

@@ -2,10 +2,12 @@
 repro/launch/hillclimb.py), recorded under a tag.
 
     PYTHONPATH=src python -m repro_torch.launch.hillclimb \\
-        --arch qwen2_7b --shape train_4k --tag remat_full --set remat=full microbatch=256
+        --arch qwen2_7b --shape train_4k --tag scores_remat --set remat=scores
 
-``--set k=v`` replaces ModelConfig fields (ints and floats parsed as such);
-``microbatch`` among them sets the train cell's accumulation factor.
+``--set k=v`` replaces ModelConfig fields (ints and floats parsed as such):
+``remat`` takes any of the reference's policies, none, full, scores and
+names (models/remat.py); ``microbatch`` among them sets the train cell's
+accumulation factor.
 ``--optimizer`` and ``--galore-dp`` (the compressed step, no accumulation) as
 the reference's; ``--rules`` takes only ``baseline``: the pod's sharding
 rules are not ported (ROADMAP A.12).

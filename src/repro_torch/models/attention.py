@@ -15,6 +15,10 @@ contiguous cache {"k", "v": (B, T, KV, hd)} at 0 by a prefill (S > 1) or at
 hd) pooled blocks, "bt": (B, nb) block tables, "pos": (B,) next write index}
 through the block table.
 
+Without a cache the core (mask, QKᵀ, softmax, PV) is one function, which
+remat "scores" recomputes in the backward; q, k, v and the context pass
+through ``remat.name`` where the reference names them (models/remat.py).
+
 Where the reference differs: its contiguous decode step of a chunked layer
 takes a static window of ``chunk`` keys with ``dynamic_slice``, which clamps
 the window's start into the cache while its mask keeps the unclamped start,
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models import remat
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.layers import _init_normal
 
@@ -176,13 +181,14 @@ def attend(cfg, p, x, *, angles, causal: bool = True, chunk: int = 0, cache=None
     if kv_override is not None:  # cross-attention: learned positions, no rope
         k, v = kv_override
         q = q.reshape(B, S, KV, G, hd) * (hd ** -0.5)
-        out = _gqa_out(_masked_softmax(_gqa_scores(q, k), None), v)
-        return out.reshape(B, S, H * hd) @ p["wo"]
+        out = remat.scores_core(_core_fn(False, 0), q, k, v)
+        return remat.name(out.reshape(B, S, H * hd), "save_attn_ctx") @ p["wo"]
     k = _proj(x, p["wk"], p.get("bk"), KV, hd)
     v = _proj(x, p["wv"], p.get("bv"), KV, hd)
     if angles is not None:
         q = rope_lib.apply_rotary(q, angles)
         k = rope_lib.apply_rotary(k, angles)
+    q, k, v = remat.name(q, "save_q"), remat.name(k, "save_k"), remat.name(v, "save_v")
     q = q.reshape(B, S, KV, G, hd) * (hd ** -0.5)
     if cache is not None and "kp" in cache:
         out = _paged_attend(q, k, v, cache, chunk)
@@ -201,12 +207,23 @@ def attend(cfg, p, x, *, angles, causal: bool = True, chunk: int = 0, cache=None
         if cache is not None:  # prefill: the whole prefix at 0
             cache["k"][:, :S] = k
             cache["v"][:, :S] = v
-        mask = None  # the bidirectional encoder's (no chunk in any config)
+        out = remat.scores_core(_core_fn(causal, chunk), q, k, v)
+    return remat.name(out.reshape(B, S, H * hd), "save_attn_ctx") @ p["wo"]
+
+
+def _core_fn(causal: bool, chunk: int):
+    """The attention core over a whole sequence, (q, k, v) -> (B,S,K,G,hd):
+    the mask (causal over the S positions q and k share, by `chunk`; none
+    for the bidirectional encoder and cross-attention), QKᵀ in f32, the
+    softmax, PV. The mask is made inside, so that remat "scores" recomputes
+    it rather than keep it."""
+    def core(q, k, v):
+        mask = None
         if causal:
-            pos = torch.arange(S, device=x.device)
+            pos = torch.arange(q.shape[1], device=q.device)
             mask = _chunk_mask(pos[:, None], pos[None, :], chunk)[None, None, None]
-        out = _gqa_out(_masked_softmax(_gqa_scores(q, k), mask), v)
-    return out.reshape(B, S, H * hd) @ p["wo"]
+        return _gqa_out(_masked_softmax(_gqa_scores(q, k), mask), v)
+    return core
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype, device, lead=()):

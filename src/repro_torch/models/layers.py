@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import remat
+
 
 class MetaGenerator:
     """What ``init_params`` draws from on the meta device, where torch has no
@@ -92,10 +94,12 @@ def init_mlp(gen, cfg, dtype, lead=(), d_ff=None):
 def apply_mlp(cfg, p, x):
     """SwiGLU: (silu(x W_gate) * x W_up) W_down; GELU: gelu(x W_up) W_down
     with the tanh form, ``jax.nn.gelu``'s default (the exact erf form differs
-    from it by up to 4.7e-4)."""
+    from it by up to 4.7e-4). The hidden is remat "names"'s save_ffn_hidden."""
     if cfg.act == "swiglu":
-        return (F.silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
-    return F.gelu(x @ p["up"], approximate="tanh") @ p["down"]
+        h = F.silu(x @ p["gate"]) * (x @ p["up"])
+    else:
+        h = F.gelu(x @ p["up"], approximate="tanh")
+    return remat.name(h, "save_ffn_hidden") @ p["down"]
 
 
 # Logical axis labels of the parameters (the reference's ``*_axes``): plain

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import remat
 from repro_torch.models import rope as rope_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import stacks
@@ -40,13 +41,13 @@ DEC_POS = 8192  # rows of the audio decoder's learned position table
 
 def check_ported(cfg) -> None:
     """Raise unless the port implements `cfg`: a family of the reference,
-    RMSNorm or LayerNorm, SwiGLU or GELU, and activation checkpointing "none"
-    or "full". Not ported: the reference's remat policies "scores" and
-    "names" (used by its TPU hill-climbing tool only)."""
+    RMSNorm or LayerNorm, SwiGLU or GELU, and one of the reference's
+    activation-checkpointing policies, "none", "full", "scores" or "names"
+    (models/remat.py)."""
     unported = {
         "family": cfg.family not in PORTED_FAMILIES,
         "norm_type": cfg.norm_type not in ("rmsnorm", "layernorm"),
-        "act": cfg.act not in ("swiglu", "gelu"), "remat": cfg.remat not in ("none", "full"),
+        "act": cfg.act not in ("swiglu", "gelu"), "remat": cfg.remat not in remat.POLICIES,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -201,7 +202,7 @@ def forward_with_aux(cfg, params, batch_dict, *, cache=None, cache_pos=None):
 def _apply_ssm_stack(cfg, p, x, cache):
     """x through the SSD layers (pre-norm residual); returns (x, a zero aux
     loss). A cache's per-layer ``select(0, l)`` views are written in place;
-    under remat "full" each layer without a cache is recomputed."""
+    without one each layer runs under cfg.remat (``stacks.run_units``)."""
     layers = unstack(p, cfg.n_layers)
     no_aux = torch.zeros((), dtype=torch.float32, device=x.device)
 

@@ -1,6 +1,6 @@
 """Homogeneous decoder stack over stacked (L, …) parameters (port of the
 decoder path of repro/models/stacks.py: ``init_decoder_stack``,
-``apply_decoder_stack`` and the ``"full"`` policy of ``_remat_wrap``).
+``apply_decoder_stack``, and ``_remat_wrap`` through models/remat.py).
 
 The reference scans over groups of layers; here a Python loop walks the
 per-layer views that ``utils.unstack`` takes once per forward. A group is
@@ -14,10 +14,10 @@ contiguous (L, B, T, KV, hd) or a paged pool (L, NB, bs, KV, hd) with its
 block tables and positions, passed once for every layer — and each layer
 writes in place into its own ``select(0, l)`` view.
 
-``remat="full"`` recomputes each group in the backward
-(``torch.utils.checkpoint``), only when there is no cache, so a recompute
-never writes a cache twice; the reference's ``"scores"`` and ``"names"``
-policies are not ported (``model.check_ported``).
+Every stack runs its units through ``run_units``, which applies the
+config's ``remat`` policy ("full", "scores" or "names", models/remat.py) to
+each unit only when there is no cache, so a recompute never writes a cache
+twice.
 
 Jamba: ``blocks`` is a tuple of ``attn_every`` sub-layer dicts (attention at
 ``attn_offset``, the SSD layer elsewhere; the MoE FFN where ``layer %
@@ -26,7 +26,7 @@ the n_layers / attn_every blocks, so the leaves are named ``blocks.0.ffn.down``,
 ``blocks.4.mix.wq``, … as in the reference. The reference builds n_layers //
 attn_every blocks and silently drops the remaining layers; here a depth that
 is not whole blocks raises. Its cache is the matching tuple of per-kind
-caches, each stacked over blocks. ``remat="full"`` recomputes each block.
+caches, each stacked over blocks. A remat policy applies to each block.
 
 Whisper: the encoder stack (pre-norm ln1 → bidirectional attention → ln2 →
 MLP) and the cross-decoder stack (ln1 → causal self-attention with the
@@ -37,10 +37,10 @@ layer's cross wk / wv.
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import remat as remat_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     apply_mlp,
@@ -221,12 +221,12 @@ def apply_jamba_stack(cfg, p, x, *, angles, cache=None, cache_pos=None):
 
 def run_units(cfg, run_unit, x, n_units, cache):
     """x through run_unit(x, u) for u in 0 … n_units − 1, summing the aux
-    losses; under remat "full" (no cache, autograd on) each unit is
-    recomputed in the backward."""
+    losses; each unit under cfg.remat (models/remat.py) when there is no
+    cache and autograd is on, else as it is."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    remat = cfg.remat == "full" and cache is None and torch.is_grad_enabled()
+    policy = cfg.remat if cache is None and torch.is_grad_enabled() else "none"
     for u in range(n_units):
-        x, a = (checkpoint(run_unit, x, u, use_reentrant=False) if remat else run_unit(x, u))
+        x, a = remat_lib.run_unit(policy, run_unit, x, u)
         aux = aux + a
     return x, aux
 

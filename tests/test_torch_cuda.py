@@ -2610,3 +2610,32 @@ def test_cuda_world_collectives_in_a_gloo_world_of_two(tmp_path):
         assert r["staged"] == 5, r["staged"]
         for name, (got, want) in r["results"].items():
             assert torch.equal(got, want), (k, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["none", "scores", "names", "full"])
+def test_cuda_remat_policy_matches_cpu(policy):
+    """llama_60m smoke (f32) under each remat policy on the card: the loss
+    and the gradient of every leaf within 1e-5·max of the same policy's CPU
+    run, and the card's own "none" bit for bit where the policy recomputes
+    on the card (no atomics in the dense path)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as TM
+    from repro_torch.utils import tree_leaves
+
+    dev = _cuda_device()
+    cfg = dataclasses.replace(get_config("llama_60m", smoke=True), remat=policy)
+    params = TM.init_params(cfg, seed=0, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 40)))
+    runs = {}
+    for where, c in (("cpu", cfg), (dev, cfg), ("none", dataclasses.replace(cfg, remat="none"))):
+        at = dev if where == "none" else where
+        pw = _on(params, at, True)
+        total, _ = TM.loss_fn(c, pw, {"tokens": tokens.to(at)})
+        runs[str(where)] = [total] + list(torch.autograd.grad(total, tree_leaves(pw)))
+    for want, got in zip(runs["cpu"], runs[str(dev)]):
+        assert _rel_err(got, want) <= 1e-5
+    for want, got in zip(runs["none"], runs[str(dev)]):
+        assert torch.equal(got, want)

@@ -390,3 +390,38 @@ def test_hillclimb_overrides(tmp_path, monkeypatch):
     with pytest.raises(SystemExit):
         hillclimb.main(["--arch", "qwen2_7b", "--shape", "decode_32k", "--tag", "x",
                         "--rules", "fsdp", "--out", out])
+
+
+# ---------------------------------------------------------------------------
+# activation checkpointing: the policies reckoned
+# ---------------------------------------------------------------------------
+
+
+def test_remat_policies_rank_in_peak_bytes_and_flops():
+    """llama_60m smoke, an AdamW train step at 2 × 128 on meta tensors under
+    each remat policy: the peak falls none > scores > names > full, and the
+    FLOPs a step (the recompute counted) do not fall in that order; one
+    forward and backward alone (dry_run_grad) ranks its kept bytes alike."""
+    tc = TrainConfig(optimizer="adamw", galore=None, grad_clip=1.0, weight_decay=0.0)
+    recs = {p: dryrun.dry_run_step(dataclasses.replace(get_config("llama_60m", smoke=True),
+                                                       remat=p), tc, 2, 128, "train")
+            for p in ("none", "scores", "names", "full")}
+    peaks = [recs[p]["peak_bytes"] for p in recs]
+    flops = [recs[p]["flops"] for p in recs]
+    assert peaks[0] > peaks[1] > peaks[2] > peaks[3], peaks
+    assert flops[0] < flops[1] <= flops[2] <= flops[3], flops
+    kept = [dryrun.dry_run_grad(dataclasses.replace(get_config("llama_60m", smoke=True),
+                                                    remat=p), 2, 128)["kept_bytes"]
+            for p in recs]
+    assert kept[0] > kept[1] > kept[2] > kept[3], kept
+
+
+def test_hillclimb_remat_scores_example(tmp_path):
+    """The reference's own example, ``--arch qwen2_7b --shape train_4k --set
+    remat=scores`` (full size, on meta tensors): a record with the override,
+    more useful FLOPs than the config's own remat "full" recomputes."""
+    rec = hillclimb.main(["--arch", "qwen2_7b", "--shape", "train_4k", "--tag", "scores_remat",
+                          "--set", "remat=scores", "--out", str(tmp_path / "perf.json")])
+    assert rec["status"] == "ok" and rec["overrides"] == {"remat": "scores"}
+    assert get_config("qwen2_7b").remat == "full"
+    assert 0.8 < rec["useful_flops_ratio"] < 1.0

@@ -51,24 +51,25 @@ def test_config_copy_matches_reference():
 
 
 def test_unported_configs_refused():
-    """What the port still refuses: no architecture of the reference
-    (NOT_PORTED is empty, whisper_small registered); check_ported and
-    init_params refuse the remat policies "scores" and "names", and accept
-    every family, LayerNorm, GELU and remat none and full."""
+    """What the port refuses: no architecture of the reference (NOT_PORTED
+    is empty, whisper_small registered), nor any of its remat policies:
+    check_ported and init_params accept every family, LayerNorm, GELU and
+    remat none, full, scores and names, and refuse an unknown family or
+    remat policy."""
     assert NOT_PORTED == ()
     assert get_config("whisper_small").family == jax_get_config("whisper_small").family == "audio"
     base = get_config("qwen2_7b", smoke=True)
     for remat in ("scores", "names"):
-        bad = dataclasses.replace(base, remat=remat)
-        with pytest.raises(NotImplementedError, match="remat"):
-            TM.check_ported(bad)
-        with pytest.raises(NotImplementedError, match="remat"):
-            TM.init_params(bad, device="cpu")
+        cfg = dataclasses.replace(base, remat=remat)
+        TM.check_ported(cfg)
+        TM.init_params(cfg, device="cpu")
     for field, value in (("remat", "none"), ("remat", "full"), ("norm_type", "layernorm"),
                          ("act", "gelu"), *(("family", f) for f in ("ssm", "hybrid", "audio"))):
         TM.check_ported(dataclasses.replace(base, **{field: value}))
     with pytest.raises(NotImplementedError, match="family"):
         TM.check_ported(dataclasses.replace(base, family="unknown"))
+    with pytest.raises(NotImplementedError, match="remat"):
+        TM.init_params(dataclasses.replace(base, remat="unknown"), device="cpu")
 
 
 def test_loss_and_grads_match_jax():

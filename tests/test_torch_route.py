@@ -5,8 +5,9 @@ CPU model of the split-TF32 arithmetic of the tiled projections.
    the reference's route on both sides of ``fits_vmem`` (route spies); at a
    shape that fails it each matches JAX's ``ops.*`` in
    tests/test_torch_route_fallback.py.
-2. ``check_ported`` accepts remat "full" (each layer group recomputed in the
-   backward) and refuses the reference's "scores" and "names" policies.
+2. ``check_ported`` accepts the reference's remat policies "full", "scores"
+   and "names", each bit for bit the un-checkpointed run, and refuses any
+   other.
 3. Split TF32 emulated on the CPU: rounding to TF32 by bit operations, as
    ``cvt.rna.tf32.f32`` does, and the kernels' three-pass (two with a bf16 G)
    product against float64, within the kernels' gate.
@@ -149,33 +150,28 @@ def test_dispatch_takes_the_reference_route(monkeypatch, form, side, fits, p_int
 
 
 # ---------------------------------------------------------------------------
-# 2. activation checkpointing: "full" ported, "scores" and "names" refused
+# 2. activation checkpointing: "full", "scores" and "names" ported
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("remat", ["full", "scores", "names"])
-def test_check_ported_refuses_remat(remat):
+def test_check_ported_accepts_remat(remat):
     """The reference's remat policies: "full" (recompute each layer group in
-    the backward) runs in the port, its loss and gradients bit for bit the
-    un-checkpointed run's; "scores" and "names" (which only the reference's
-    TPU hill-climbing tool sets) are refused instead of being run with the
-    reference's numerics but not its memory."""
+    the backward), "scores" (recompute each attention core) and "names"
+    (keep each layer's input and five named tensors) pass check_ported and
+    init_params, and their loss and gradients are bit for bit the
+    un-checkpointed run's."""
     cfg = dataclasses.replace(get_config("llama_60m", smoke=True), remat=remat)
-    if remat == "full":
-        TM.check_ported(cfg)
-        params = TM.init_params(cfg, seed=0, device="cpu")
-        batch = {"tokens": torch.arange(64).reshape(2, 32) % cfg.vocab_size}
-        runs = []
-        for c in (cfg, dataclasses.replace(cfg, remat="none")):
-            loss, _ = TM.loss_fn(c, params, batch)
-            runs.append([loss] + list(torch.autograd.grad(loss, tree_leaves(params))))
-        assert all(torch.equal(a, b) for a, b in zip(*runs))
-        return
+    TM.check_ported(cfg)
+    params = TM.init_params(cfg, seed=0, device="cpu")
+    batch = {"tokens": torch.arange(64).reshape(2, 32) % cfg.vocab_size}
+    runs = []
+    for c in (cfg, dataclasses.replace(cfg, remat="none")):
+        loss, _ = TM.loss_fn(c, params, batch)
+        runs.append([loss] + list(torch.autograd.grad(loss, tree_leaves(params))))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
     with pytest.raises(NotImplementedError, match="remat"):
-        TM.check_ported(cfg)
-    with pytest.raises(NotImplementedError, match="remat"):
-        TM.init_params(cfg, seed=0, device="cpu")
-    TM.check_ported(dataclasses.replace(cfg, remat="none"))
+        TM.check_ported(dataclasses.replace(cfg, remat="everything"))
 
 
 # ---------------------------------------------------------------------------

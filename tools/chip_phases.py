@@ -3,7 +3,7 @@
 the card.
 
     python3 tools/chip_phases.py [moe-kernels|moe|moe-dispatch|mrope|serve-chunk|families|
-                                  ssm|hybrid|whisper|dp-kernels|dp ...]
+                                  ssm|hybrid|whisper|dp-kernels|dp|remat|remat-7b ...]
 
 With no argument every one of them runs, in chip_smoke.py's order. Each
 phase is timed; a failing phase prints its traceback and the next one
@@ -28,8 +28,8 @@ def main(only):
     print(cs.card_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if not only or {"moe-kernels", "moe", "mrope", "ssm", "whisper", "dp-kernels", "dp"} & set(
-            only):
+    if not only or {"moe-kernels", "moe", "mrope", "ssm", "whisper", "dp-kernels", "dp",
+                    "remat-7b"} & set(only):
         t = time.perf_counter()
         cs.build.build(["galore_epilogue", "galore_project"])
         print(f"[build] {time.perf_counter() - t:.1f} s", flush=True)
@@ -45,7 +45,9 @@ def main(only):
                     ("hybrid", lambda: cs.hybrid_phase(phases, none)),
                     ("whisper", lambda: cs.whisper_phase(phases, none)),
                     ("dp-kernels", cs.check_rank_blocks),
-                    ("dp", cs.dp_phase)):
+                    ("dp", cs.dp_phase),
+                    ("remat", cs.remat_phase),
+                    ("remat-7b", lambda: cs.remat_7b_phases(phases, none))):
         if only and tag not in only:
             continue
         t = time.perf_counter()
