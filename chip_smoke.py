@@ -686,6 +686,20 @@ def check_adam8(shapes=None):
     return rows
 
 
+def int4_rows(rows):
+    """B3-int4's row of record: the int8 kernel with int4 P (bf16 G, nearest
+    rounding) at the main path's three leaves, its time beside the plain
+    version's (the same int4 P) and its bound, from check_adam8's rows."""
+    for r in rows:
+        if (r["kernel"].startswith("adam8_") and r["p"] == "int4" and r["main_path"]
+                and r["g_dtype"] == "bfloat16" and not r["stochastic"]):
+            log(f"[kernels] {card_line()}: B3-int4 {r['side']} (L,m,r,n)=({r['L']},{r['m']},"
+                f"{r['r']},{r['n']}): kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+                f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}; "
+                f"{bytes8(r['side'], r['L'], r['m'], r['r'], r['n'], 2, True) / PEAK_BYTES * 1e3:.3f}"
+                f" ms of bytes at 3.35 TB/s)")
+
+
 def weight_check(got, want, w0, tag):
     """W' against the plain version's; returns (max |got - want|, a note).
     f32 W: W' - W (in f64) within 1e-5·max|want - W| + 2 f32 ulps of W'.
@@ -1614,7 +1628,7 @@ def lifecycle_phases(phases, none):
             ph = phases[tag] = train_phase(fused=True, update_freq=8, galore_kw=stagger_kw,
                                            tc_kw=dict(grad_clip=0.0, **tc_kw), units=units,
                                            on_state=keep_final(tag, want_units))
-        ph["refresh_steps"] = [i for i, u in enumerate(ph["units"]) if u]
+        ph["tag"], ph["refresh_steps"] = tag, [i for i, u in enumerate(ph["units"]) if u]
         log(f"[{tag}] losses {[round(x, 4) for x in ph['losses']]} launches {ph['launches']}; "
             f"SVD units per step {ph['units']} (plan {want_units}); step ms "
             f"{[round(x * 1e3, 1) for x in ph['times']]}; peak memory "
@@ -1641,49 +1655,7 @@ def lifecycle_phases(phases, none):
         f"{statistics.median(st['times'][1:7]) * 1e3:.1f} ms")
     del finals
 
-    # the async double buffer: 8-bit fused, the swap of the last (step-6)
-    # refresh held against the synchronous refresh on the main stream, so
-    # steps 1-5 run untouched by the check
-    t = time.perf_counter()
-    drivers = []
-    launcher.AsyncRefreshDriver, plain_driver = (checked_async_driver(6, drivers),
-                                                 launcher.AsyncRefreshDriver)
-    try:
-        ph = phases["async"] = train_phase(
-            fused=True, quant=QuantPolicy(moments="int8", projectors="int4"), update_freq=8,
-            galore_kw=dict(refresh_stagger=True, reproject_moments=True),
-            tc_kw=dict(galore_refresh_async=True))
-    finally:
-        launcher.AsyncRefreshDriver = plain_driver
-    driver = drivers[-1]
-    ph["peak"] = max(ph["peak"], driver.peak_before)  # the check's copies left out
-    # a step dispatches a refresh or swaps one in (waiting for its thread)
-    ph["refresh_steps"] = list(range(8))
-    hist = [(h["step"], h["units"], round(h["dispatch_s"] * 1e3, 1), round(h["refresh_s"] * 1e3, 1),
-             round(h["wait_s"] * 1e3, 1)) for h in driver.history]
-    log(f"[async] losses {[round(x, 4) for x in ph['losses']]} launches {ph['launches']}; step ms "
-        f"{[round(x * 1e3, 1) for x in ph['times']]}; peak memory {ph['peak'] / 2**30:.2f} GiB "
-        f"({time.perf_counter() - t:.1f} s)")
-    log(f"[async] dispatches (step, SVD units, gradient enqueue ms, refresh thread ms, main "
-        f"thread's wait at the swap ms): {hist}; overlapped with the train step "
-        f"{[round((h['refresh_s'] - h['wait_s']) * 1e3, 1) for h in driver.history]} ms")
-    if [h[0] for h in hist] != [1, 2, 3, 4, 5, 6] or any(h[1] != 2 for h in hist):
-        raise AssertionError(f"[async] dispatches {hist}: want steps 1-6, 2 SVD units each")
-    if driver.check is None:
-        raise AssertionError("[async] the swap of the step-6 refresh was not checked")
-    log(f"[async] swap of the step-6 refresh vs the synchronous refresh on the main stream: "
-        f"{driver.check['leaves']} leaf, subspace overlap {driver.check['overlap']:.6f} (> 0.999), "
-        f"int8 codes at most {driver.check['code_diff']} apart (≤ 1), scales within "
-        f"{driver.check['scale_rel']:.2e} (≤ 1e-5); the check took "
-        f"{driver.check['check_s']:.2f} s of step 7")
-    if ph["launches"] != dict(none, adam8_left=48, adam8_right=8):
-        raise AssertionError(f"async launches {ph['launches']}, want adam8 left 48, right 8")
-    check_state_bytes("async", ph)
-    due = [round(ph["times"][i] * 1e3, 1) for i in range(1, 6)]
-    log(f"[async] steps 1-5 (each dispatches a refresh and swaps the last) {due} ms vs "
-        f"stagger's due steps {[round(x * 1e3, 1) for x in st['times'][1:6]]} ms; peak memory "
-        f"{ph['peak'] / 2**30:.2f} GiB (before the check's copies) vs stagger's "
-        f"{st['peak'] / 2**30:.2f} GiB")
+    async_phase(phases, none, "async", st)
 
     # per-leaf ranks and adaptive T: the MLP leaves at r = 1024 (B4/B5), the
     # attention leaves at r = 128 (B1)
@@ -1713,6 +1685,102 @@ def lifecycle_phases(phases, none):
         raise AssertionError(f"hetero-adaptive launches {ph['launches']}, want B1 32 (4 attention "
                              f"leaves × 8 steps), B4 and B5 24 each (gate, up, down × 8)")
     check_state_bytes("hetero-adaptive", ph)
+
+
+ASYNC_Q8 = QuantPolicy(moments="int8", projectors="int4")
+
+
+def async_phase(phases, none, tag, sync, gkw=None):
+    """[`tag`]: 8-bit fused, stagger, T = 8, the async double buffer with the
+    moments re-projected (GaLoreConfig fields `gkw` beside), 8 steps; the
+    swap of the last (step-6) refresh held against the synchronous refresh
+    on the main stream, so steps 1-5 run untouched by the check. Logs each
+    dispatch's SVD units, gradient enqueue, refresh thread and main-thread
+    wait at the swap, and their difference (the thread's time the train step
+    hid), beside the synchronous phase `sync`'s due steps. Returns (the
+    phase, its driver)."""
+    t = time.perf_counter()
+    drivers = []
+    launcher.AsyncRefreshDriver, plain_driver = (checked_async_driver(6, drivers),
+                                                 launcher.AsyncRefreshDriver)
+    try:
+        ph = phases[tag] = train_phase(
+            fused=True, quant=ASYNC_Q8, update_freq=8,
+            galore_kw=dict(refresh_stagger=True, reproject_moments=True, **(gkw or {})),
+            tc_kw=dict(galore_refresh_async=True))
+    finally:
+        launcher.AsyncRefreshDriver = plain_driver
+    driver = drivers[-1]
+    ph["peak"] = max(ph["peak"], driver.peak_before)  # the check's copies left out
+    # a step dispatches a refresh or swaps one in (waiting for its thread)
+    ph["refresh_steps"] = list(range(8))
+    hist = [(h["step"], h["units"], round(h["dispatch_s"] * 1e3, 1), round(h["refresh_s"] * 1e3, 1),
+             round(h["wait_s"] * 1e3, 1)) for h in driver.history]
+    log(f"[{tag}] losses {[round(x, 4) for x in ph['losses']]} launches {ph['launches']}; step ms "
+        f"{[round(x * 1e3, 1) for x in ph['times']]}; peak memory {ph['peak'] / 2**30:.2f} GiB "
+        f"({time.perf_counter() - t:.1f} s)")
+    log(f"[{tag}] dispatches (step, SVD units, gradient enqueue ms, refresh thread ms, main "
+        f"thread's wait at the swap ms): {hist}; overlapped with the train step "
+        f"{[round((h['refresh_s'] - h['wait_s']) * 1e3, 1) for h in driver.history]} ms")
+    if [h[0] for h in hist] != [1, 2, 3, 4, 5, 6] or any(h[1] != 2 for h in hist):
+        raise AssertionError(f"[{tag}] dispatches {hist}: want steps 1-6, 2 SVD units each")
+    if driver.check is None:
+        raise AssertionError(f"[{tag}] the swap of the step-6 refresh was not checked")
+    log(f"[{tag}] swap of the step-6 refresh vs the synchronous refresh on the main stream: "
+        f"{driver.check['leaves']} leaf, subspace overlap {driver.check['overlap']:.6f} (> 0.999), "
+        f"int8 codes at most {driver.check['code_diff']} apart (≤ 1), scales within "
+        f"{driver.check['scale_rel']:.2e} (≤ 1e-5); the check took "
+        f"{driver.check['check_s']:.2f} s of step 7")
+    if ph["launches"] != dict(none, adam8_left=48, adam8_right=8):
+        raise AssertionError(f"{tag} launches {ph['launches']}, want adam8 left 48, right 8")
+    check_state_bytes(tag, ph)
+    due = [round(ph["times"][i] * 1e3, 1) for i in range(1, 6)]
+    log(f"[{tag}] steps 1-5 (each dispatches a refresh and swaps the last) {due} ms, median "
+        f"{statistics.median(due):.1f}, vs {sync['tag']}'s due steps "
+        f"{[round(x * 1e3, 1) for x in sync['times'][1:6]]} ms, median "
+        f"{statistics.median(sync['times'][1:6]) * 1e3:.1f}; peak memory "
+        f"{ph['peak'] / 2**30:.2f} GiB (before the check's copies) vs {sync['tag']}'s "
+        f"{sync['peak'] / 2**30:.2f} GiB")
+    return ph, driver
+
+
+def randomized_refresh_phases(phases, none):
+    """ROADMAP C.32: the async double buffer where a refresh is short enough
+    to hide. `stagger-rand` (8-bit fused, r = 128, T = 8, staggered, the
+    randomized projector: 2 SVD units a due step, each a range finder, not a
+    gesvd) refreshes synchronously inside each step; `async-rand` is
+    `async` with the randomized projector: its losses, launches and the
+    swap of the step-6 refresh checked as `async`'s are. Logs each phase's
+    median due step (steps 1-5) and each dispatch's refresh, wait and
+    overlap; gates on no time."""
+    rand = dict(refresh_stagger=True, projector="randomized")
+    t = time.perf_counter()
+    want_units = []
+    with SvdUnits() as units:
+        ph = phases["stagger-rand"] = train_phase(
+            fused=True, quant=ASYNC_Q8, update_freq=8, galore_kw=rand, units=units,
+            on_state=lambda p, s: want_units.extend(plan_units(p, GaLoreConfig(
+                rank=128, update_freq=8, **rand), 8)))
+    ph["tag"], ph["refresh_steps"] = "stagger-rand", [i for i, u in enumerate(ph["units"]) if u]
+    log(f"[stagger-rand] losses {[round(x, 4) for x in ph['losses']]} launches {ph['launches']}; "
+        f"SVD units per step {ph['units']} (plan {want_units}); step ms "
+        f"{[round(x * 1e3, 1) for x in ph['times']]}; median due step (1-5) "
+        f"{statistics.median(ph['times'][1:6]) * 1e3:.1f} ms; peak memory "
+        f"{ph['peak'] / 2**30:.2f} GiB ({time.perf_counter() - t:.1f} s)")
+    if ph["units"] != want_units or want_units != [14, 2, 2, 2, 2, 2, 2, 0]:
+        raise AssertionError(f"stagger-rand: SVD units per step {ph['units']}, plan {want_units}")
+    if ph["launches"] != dict(none, adam8_left=48, adam8_right=8):
+        raise AssertionError(f"stagger-rand launches {ph['launches']}, want adam8 left 48, "
+                             f"right 8")
+    check_state_bytes("stagger-rand", ph)
+    ar, driver = async_phase(phases, none, "async-rand", ph, gkw=dict(projector="randomized"))
+    step_ms = statistics.median(ph["times"][1:6])
+    log(f"[async-rand] the async buffer hides at most one train step of each refresh (the swap "
+        f"is at the next step boundary): median refresh thread "
+        f"{statistics.median(h['refresh_s'] for h in driver.history) * 1e3:.1f} ms, median "
+        f"wait at the swap {statistics.median(h['wait_s'] for h in driver.history) * 1e3:.1f} "
+        f"ms; median due step async-rand {statistics.median(ar['times'][1:6]) * 1e3:.1f} ms vs "
+        f"stagger-rand {step_ms * 1e3:.1f} ms")
 
 
 def lowrank_phase(mode, merge_at=None):
@@ -3236,8 +3304,15 @@ def check_stochastic_blocks():
 # ---------------------------------------------------------------------------
 
 REMAT_POLICIES = ("none", "scores", "names", "full")
-# B3-apply int8's gate/up leaf of the whole llama_7b (32 layers, r = 128)
-REMAT_7B_LEAF = ("left", 32, 4096, 128, 11008)
+# "names" in PR 30, before its backward replayed only what it reads (ROADMAP
+# C.31; H100 80GB HBM3, 700 W): max_memory_allocated, forward and backward,
+# kept bytes, the dry run's FLOPs
+REMAT_NAMES_PR30 = dict(peak_gib=27.839, ms=291.0, kept_gib=2.252, flops=3.5889e13)
+# B3-apply int8's leaves of the whole llama_7b (32 layers, r = 128): gate/up
+# (6 launches a step with the attention leaves), the attention leaves, down
+REMAT_7B_LEAVES = (("gate/up", ("left", 32, 4096, 128, 11008)),
+                   ("attention", ("left", 32, 4096, 128, 4096)),
+                   ("down", ("right", 32, 11008, 128, 4096)))
 
 
 def remat_phase():
@@ -3249,7 +3324,9 @@ def remat_phase():
     reset) within DRYRUN_GATE of the dry run's (dry_run_grad: what the card
     held before, less the params and batch the dry run makes itself, plus
     its peak); the forward and backward timed with CUDA events (the median
-    of three, after the checked run)."""
+    of three, after the checked run). "names"' dry-run FLOPs must be below
+    "full"'s (its backward replays only what it reads, ROADMAP C.31); its
+    time, peak and kept bytes are logged beside PR 30's."""
     cfg = dataclasses.replace(get_config("llama_7b"), n_layers=2)
     B, S = 2, 4096
     params = init_params(cfg, seed=0, device="cuda")
@@ -3258,7 +3335,7 @@ def remat_phase():
     batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1),
              "loss_mask": torch.ones(B, S, device="cuda")}
     leaves = tree_leaves(params)
-    card, runs, misses = card_line(), {}, []
+    card, runs, misses, stats = card_line(), {}, [], {}
     for policy in REMAT_POLICIES:
         c = dataclasses.replace(cfg, remat=policy)
         rec = dry_run_grad(c, B, S)
@@ -3293,6 +3370,15 @@ def remat_phase():
             misses.append(f"{policy} {want / peak:.4f}")
         if policy != "none":
             del runs[policy]
+        stats[policy] = dict(peak=peak, ms=ms, kept=rec["kept_bytes"], flops=rec["flops"])
+    names, full, was = stats["names"], stats["full"], REMAT_NAMES_PR30
+    log(f"[remat] {card}: names {names['flops']:.4e} FLOPs vs full {full['flops']:.4e} (PR 30: "
+        f"{was['flops']:.4e}, full's); names {names['ms']:.1f} ms (PR 30: {was['ms']}), peak "
+        f"{names['peak'] / 2**30:.3f} GiB (PR 30: {was['peak_gib']}), kept "
+        f"{names['kept'] / 2**30:.3f} GiB (PR 30: {was['kept_gib']})")
+    if not names["flops"] < full["flops"]:
+        raise AssertionError(f"[remat] names' FLOPs {names['flops']:.4e} are not below full's "
+                             f"{full['flops']:.4e}: its backward replays what it does not read")
     if misses:
         raise AssertionError(f"[remat] predicted peaks off by more than {DRYRUN_GATE:.0%}: "
                              f"{', '.join(misses)}")
@@ -3342,12 +3428,13 @@ def remat_7b_phase(phases, none, policy):
     return ph
 
 
-def remat_7b_kernel():
-    """B3-apply int8 (int4 P, bf16 G and W) at the whole llama_7b's gate/up
-    leaf, L = 32: W' against its plain version (compared four slabs at a
-    time), the launch and the plain version timed, beside the launch's bytes
-    bound at 3.35 TB/s and its full bound."""
-    side, L, m, r, n = REMAT_7B_LEAF
+def remat_7b_kernel(what, leaf):
+    """B3-apply int8 (int4 P, bf16 G and W) at one of the whole llama_7b's
+    leaves, L = 32 (`what`: gate/up, attention or down): W' against its
+    plain version (compared four slabs at a time), the launch and the plain
+    version timed, beside the launch's bytes bound at 3.35 TB/s and its full
+    bound."""
+    side, L, m, r, n = leaf
     k = KERNELS["adam8_apply_" + side]
     count = torch.tensor(COUNT, dtype=torch.int32, device="cuda")
     hp = dict(alpha=ALPHA, eta=torch.tensor(ETA, device="cuda"), wd=WD)
@@ -3363,7 +3450,8 @@ def remat_7b_kernel():
     before = thread_copies()
     k["wrapper"](P4, G, W, *mine, count, **hp)
     torch.cuda.synchronize()
-    tag = f"{k['name']} L={L} (m,r,n)=({m},{r},{n}) G bfloat16 W bfloat16 P int4 {route(before)}"
+    tag = (f"{k['name']} {what} L={L} (m,r,n)=({m},{r},{n}) G bfloat16 W bfloat16 P int4 "
+           f"{route(before)}")
     checks = [weight_check(W[i:i + 4], want[i:i + 4], w0[i:i + 4], f"{tag} slabs {i}-{i + 3}")
               for i in range(0, L, 4)]
     del want
@@ -3383,7 +3471,7 @@ def remat_7b_kernel():
 
 def remat_7b_phases(phases, none):
     """[remat-7b] under "scores" and "full" ("full"'s losses beside
-    "scores'"), then B3-apply int8 at its L = 32 leaf."""
+    "scores'"), then B3-apply int8 at its three L = 32 leaves."""
     scores = remat_7b_phase(phases, none, "scores")
     full = remat_7b_phase(phases, none, "full")
     gaps = [a - b for a, b in zip(full["losses"], scores["losses"])]
@@ -3393,7 +3481,8 @@ def remat_7b_phases(phases, none):
         f"{statistics.median(scores['times'][1:]) * 1e3:.1f} ms")
     if max(map(abs, gaps)) > 5e-2:
         raise AssertionError(f"[remat-7b] full vs scores losses differ by more than 5e-2: {gaps}")
-    remat_7b_kernel()
+    for what, leaf in REMAT_7B_LEAVES:
+        remat_7b_kernel(what, leaf)
 
 
 # ---------------------------------------------------------------------------
@@ -3723,6 +3812,7 @@ def main():
     check_bound8()
     rows = check_kernels()
     rows += check_adam8()
+    int4_rows(rows)
     check_stochastic_blocks()
     rows += check_apply()
     rows += check_adam8bit()
@@ -3966,6 +4056,7 @@ def main():
 
     baseline_phases(phases, none)
     lifecycle_phases(phases, none)
+    randomized_refresh_phases(phases, none)
 
     log("[memory] the paper's 7B comparison (Fig. 1) at 2 layers, peak device memory: 8-bit "
         f"GaLore r = 1024 {phases['r1024-8bit']['peak'] / 2**30:.2f} GiB (apply "

@@ -2639,3 +2639,60 @@ def test_cuda_remat_policy_matches_cpu(policy):
         assert _rel_err(got, want) <= 1e-5
     for want, got in zip(runs["none"], runs[str(dev)]):
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_names_equals_none_bitwise_at_llama_7b_width():
+    """One llama_7b-width layer (bf16, 1 × 256) on the card: the loss and every
+    gradient leaf under remat "names" — its backward replaying only what it
+    reads (ROADMAP C.31) — equal "none"'s bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as TM
+    from repro_torch.utils import tree_leaves
+
+    dev = _cuda_device()
+    cfg = dataclasses.replace(get_config("llama_7b"), n_layers=1)
+    params = TM.init_params(cfg, seed=0, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab_size, (1, 256)))
+    runs = {}
+    for policy in ("none", "names"):
+        total, _ = TM.loss_fn(dataclasses.replace(cfg, remat=policy), params,
+                              {"tokens": tokens.to(dev)})
+        runs[policy] = [total.detach()] + list(torch.autograd.grad(total, tree_leaves(params)))
+    for got, want in zip(runs["names"], runs["none"]):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_async_randomized_driver_records_refresh_and_wait(tmp_path, monkeypatch):
+    """The async double buffer with the randomized projector (staggered,
+    moments re-projected, as chip_smoke.py's async-rand) on the card:
+    every dispatch's history entry has the thread's refresh_s and the main
+    thread's wait_s at the swap, and the losses are finite."""
+    import math
+
+    import repro_torch.launch.train as launcher
+    from repro_torch.configs.base import GaLoreConfig, TrainConfig, get_config
+
+    _cuda_device()
+    drivers = []
+
+    class Kept(launcher.AsyncRefreshDriver):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            drivers.append(self)
+
+    monkeypatch.setattr(launcher, "AsyncRefreshDriver", Kept)
+    g = GaLoreConfig(rank=8, update_freq=4, refresh_stagger=True, reproject_moments=True,
+                     projector="randomized")
+    tc = TrainConfig(galore=g, galore_refresh_async=True, total_steps=6, warmup_steps=1)
+    losses = []
+    launcher.train_loop(launcher.RunConfig(steps=6, batch_per_host=2, seq_len=32, log_every=100,
+                                           ckpt_every=0, ckpt_dir=str(tmp_path), device="cuda"),
+                        tc, cfg=get_config("llama_60m", smoke=True),
+                        on_step=lambda s, m: losses.append(float(m["loss"])))
+    assert all(map(math.isfinite, losses)) and len(losses) == 6
+    hist = drivers[-1].history
+    assert hist and all(h["refresh_s"] > 0 and h["wait_s"] >= 0 for h in hist), hist

@@ -400,8 +400,9 @@ def test_hillclimb_overrides(tmp_path, monkeypatch):
 def test_remat_policies_rank_in_peak_bytes_and_flops():
     """llama_60m smoke, an AdamW train step at 2 × 128 on meta tensors under
     each remat policy: the peak falls none > scores > names > full, and the
-    FLOPs a step (the recompute counted) do not fall in that order; one
-    forward and backward alone (dry_run_grad) ranks its kept bytes alike."""
+    FLOPs a step (the recompute counted) rise in that order, "names" below
+    "full" (it replays only what its backward reads, C.31); one forward and
+    backward alone (dry_run_grad) ranks its kept bytes alike."""
     tc = TrainConfig(optimizer="adamw", galore=None, grad_clip=1.0, weight_decay=0.0)
     recs = {p: dryrun.dry_run_step(dataclasses.replace(get_config("llama_60m", smoke=True),
                                                        remat=p), tc, 2, 128, "train")
@@ -409,11 +410,29 @@ def test_remat_policies_rank_in_peak_bytes_and_flops():
     peaks = [recs[p]["peak_bytes"] for p in recs]
     flops = [recs[p]["flops"] for p in recs]
     assert peaks[0] > peaks[1] > peaks[2] > peaks[3], peaks
-    assert flops[0] < flops[1] <= flops[2] <= flops[3], flops
+    assert flops[0] < flops[1] <= flops[2] < flops[3], flops
     kept = [dryrun.dry_run_grad(dataclasses.replace(get_config("llama_60m", smoke=True),
                                                     remat=p), 2, 128)["kept_bytes"]
             for p in recs]
     assert kept[0] > kept[1] > kept[2] > kept[3], kept
+
+
+@pytest.mark.parametrize("arch", ["llama_60m", "llama_7b"])
+def test_names_flops_are_none_s_plus_what_its_backward_reads(arch):
+    """dry_run_grad at 2 of the arch's layers, 2 × 256 (meta tensors): the
+    FLOPs under "names" are "none"'s plus, each layer, the products whose
+    outputs the backward reads and no named tensor holds — QKᵀ (2·B·H·S²·hd),
+    wo (2·B·S·H·hd·D), gate and up (2·B·S·D·F each) — and below "full"'s,
+    which replays the q/k/v projections and PV too (ROADMAP C.31)."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    B, S = 2, 256
+    H, hd, D, F = cfg.n_heads, cfg.resolved_head_dim, cfg.d_model, cfg.d_ff
+    flops = {p: dryrun.dry_run_grad(dataclasses.replace(cfg, remat=p), B, S)["flops"]
+             for p in ("none", "names", "full")}
+    per_layer = 2 * B * H * S * S * hd + 2 * B * S * H * hd * D + 2 * 2 * B * S * D * F
+    assert flops["names"] == flops["none"] + cfg.n_layers * per_layer
+    pv_qkv = 2 * B * H * S * S * hd + 2 * B * S * D * (H + 2 * cfg.n_kv_heads) * hd
+    assert flops["full"] == flops["names"] + cfg.n_layers * pv_qkv
 
 
 def test_hillclimb_remat_scores_example(tmp_path):

@@ -25,6 +25,12 @@ port's weights handed across as numpy (bridge.py).
    alias a named tensor.
 4. ROADMAP C.30: on the same inputs the reference's "scores" keeps exactly
    its "none"'s residuals, (S, T) tensors among them; the port's keeps none.
+5. ROADMAP C.31: the products the backward under "names" runs beyond
+   "none"'s are the reference's recompute and nothing else: for llama_60m
+   QKᵀ, wo, gate and up once each a layer; for Scout (MoE, an iRoPE group)
+   QKᵀ, wo and the whole MoE but its combine; for whisper_small QKᵀ, wo
+   and up in every layer, and the cross-attention's q projection — never a
+   self-attention q/k/v projection, PV or down (≈ 2 s of CPU for the three).
 """
 import collections
 import dataclasses
@@ -80,10 +86,13 @@ def _jflat(tree):
 
 
 @functools.lru_cache(maxsize=None)
-def _model(arch):
+def _model(arch, enc_seq=None):
     """(port cfg, port params, numpy batch): whisper's dec_pos and frames
-    drawn, qwen2_vl's (3, B, S) positions with differing rows and media."""
+    drawn (`enc_seq` frames, the smoke config's unless given), qwen2_vl's
+    (3, B, S) positions with differing rows and media."""
     cfg = get_config(arch, smoke=True)
+    if enc_seq is not None:
+        cfg = dataclasses.replace(cfg, enc_seq=enc_seq)
     params = TM.init_params(cfg, seed=0, device="cpu")
     rng = np.random.default_rng(1)
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)),
@@ -468,3 +477,85 @@ def test_reference_scores_keeps_none_s_residuals_the_port_s_does_not():
     assert sum(math.prod(s) * np.dtype(d).itemsize for s, d in scores) == 1_247_444
     assert [s for s, _ in scores if _st(s)]
     assert not [s for s, _ in _kept("scores")[1] if _st(s)]
+
+
+# ---------------------------------------------------------------------------
+# 5. ROADMAP C.31: "names" replays only what its backward reads
+# ---------------------------------------------------------------------------
+
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+
+
+class _Products(TorchDispatchMode):
+    """Records each mm / bmm as (op, shapes, strides, the parameter each
+    operand views as (leaf path, storage offset) or None)."""
+
+    def __init__(self, owners):
+        super().__init__()
+        self.owners, self.ops = owners, []
+
+    def _param(self, t):
+        path = self.owners.get(t.untyped_storage()._cdata)
+        return None if path is None else (path, t.storage_offset())
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in _PRODUCTS:
+            self.ops.append((func, tuple(tuple(a.shape) for a in args),
+                             tuple(a.stride() for a in args), tuple(map(self._param, args))))
+        return func(*args, **(kwargs or {}))
+
+
+def _products(arch, policy):
+    """(the forward's products, the backward's) of loss_fn under `policy`;
+    whisper at 24 frames, so that no QKᵀ has PV's shapes (its head dim is
+    the smoke config's 16 frames)."""
+    cfg, params, batch = _model(arch, 24 if arch == "whisper_small" else None)
+    owners = {t.untyped_storage()._cdata: path for path, t in tree_leaves_with_path(params)}
+    with _Products(owners) as fwd:
+        total, _ = TM.loss_fn(dataclasses.replace(cfg, remat=policy), params,
+                              _torch_batch(batch))
+    with _Products(owners) as bwd:
+        torch.autograd.grad(total, tree_leaves(params))
+    return fwd.ops, bwd.ops
+
+
+def _label(op, n_core):
+    """A forward product's name: its weight's leaf path less the stack's
+    ("attn.wo", "cross_attn.wq", "ffn.up", …), or, for a product of two
+    activations, "qk" and "pv" in turn (each attention core's two)."""
+    params = [p for p in op[3] if p is not None]
+    if params:
+        return params[0][0].split(".", 1)[1]
+    return ("qk", "pv")[n_core % 2]
+
+
+# the forward's products the reference's "names" recomputes
+RECOMPUTED = {
+    "llama_60m": {"qk", "attn.wo", "ffn.gate", "ffn.up"},
+    "llama4_scout_17b_a16e": {"qk", "attn.wo", "ffn.router", "ffn.gate", "ffn.up", "ffn.down"},
+    "whisper_small": {"qk", "attn.wo", "self_attn.wo", "cross_attn.wq", "cross_attn.wo",
+                      "ffn.up"},
+}
+
+
+@pytest.mark.parametrize("arch", sorted(RECOMPUTED))
+def test_names_backward_replays_only_what_it_reads(arch):
+    """The backward under "names" runs "none"'s products and, beyond them,
+    exactly the forward's products named in RECOMPUTED, each once: no
+    self-attention q/k/v projection, no PV, no down of a dense MLP; the
+    loss head's product is not replayed either."""
+    fwd, none_bwd = _products(arch, "none")
+    _, names_bwd = _products(arch, "names")
+    labels, n_core = [], 0
+    for op in fwd:
+        labels.append(_label(op, n_core))
+        n_core += all(p is None for p in op[3])
+    want = collections.Counter(op for op, lab in zip(fwd, labels) if lab in RECOMPUTED[arch])
+    got = collections.Counter(names_bwd) - collections.Counter(none_bwd)
+    assert not collections.Counter(none_bwd) - collections.Counter(names_bwd)
+    assert got == want
+    replayed = {lab for op, lab in zip(fwd, labels) if op in got}
+    assert not replayed & {"pv", "attn.wq", "attn.wk", "attn.wv", "self_attn.wq", "self_attn.wk",
+                           "self_attn.wv"}, replayed
+    qk = {op for op, lab in zip(fwd, labels) if lab == "qk"}
+    assert sum(n for op, n in got.items() if op in qk) == labels.count("qk") == labels.count("pv")

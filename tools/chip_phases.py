@@ -2,8 +2,9 @@
 """Run some of chip_smoke.py's model-family and data-parallel phases alone on
 the card.
 
-    python3 tools/chip_phases.py [moe-kernels|moe|moe-dispatch|mrope|serve-chunk|families|
-                                  ssm|hybrid|whisper|dp-kernels|dp|remat|remat-7b ...]
+    python3 tools/chip_phases.py [adam8|lifecycle-rand|moe-kernels|moe|moe-dispatch|mrope|
+                                  serve-chunk|families|ssm|hybrid|whisper|dp-kernels|dp|
+                                  remat|remat-7b ...]
 
 With no argument every one of them runs, in chip_smoke.py's order. Each
 phase is timed; a failing phase prints its traceback and the next one
@@ -28,14 +29,17 @@ def main(only):
     print(cs.card_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if not only or {"moe-kernels", "moe", "mrope", "ssm", "whisper", "dp-kernels", "dp",
-                    "remat-7b"} & set(only):
+    if not only or {"adam8", "lifecycle-rand", "moe-kernels", "moe", "mrope", "ssm", "whisper",
+                    "dp-kernels", "dp", "remat-7b"} & set(only):
         t = time.perf_counter()
         cs.build.build(["galore_epilogue", "galore_project"])
         print(f"[build] {time.perf_counter() - t:.1f} s", flush=True)
     none = {name: 0 for name in cs.COUNTERS}
     phases, failed = {}, []
-    for tag, fn in (("moe-kernels", cs.check_expert_apply),
+    for tag, fn in (("adam8", lambda: cs.int4_rows(cs.check_adam8([s for s in cs.SHAPES
+                                                                    if s[5]]))),
+                    ("lifecycle-rand", lambda: cs.randomized_refresh_phases(phases, none)),
+                    ("moe-kernels", cs.check_expert_apply),
                     ("moe", lambda: cs.moe_phase(phases, none)),
                     ("moe-dispatch", cs.moe_dispatch_phase),
                     ("mrope", lambda: cs.mrope_phase(phases, none)),
