@@ -288,11 +288,17 @@ from repro_torch.kernels import galore_fused as gf  # noqa: E402
 from repro_torch.kernels import galore_project as tp  # noqa: E402
 from repro_torch.kernels import rmsnorm as trms  # noqa: E402
 from repro_torch.kernels.ref import apply_weight, lowrank_adam_update  # noqa: E402
+from repro_torch.distributed import step as dstep  # noqa: E402
+from repro_torch.launch import mesh as lmesh  # noqa: E402
 from repro_torch.launch.dryrun import (  # noqa: E402
     allocator_bytes,
     card_bytes,
+    default_train_config,
     dry_run_grad,
     dry_run_step,
+    fake_world,
+    run_fake_rank,
+    run_mesh_cell,
 )
 from repro_torch.launch.train import RunConfig, train_loop  # noqa: E402
 from repro_torch.models.model import init_params, loss_fn  # noqa: E402
@@ -3533,6 +3539,118 @@ DP_LEAVES = ["params.blocks.attn.wq", "params.blocks.ffn.down", "params.embed.em
 DP_UPDATE_GAP = 0.25
 
 
+def mesh_phase(none, steps=3):
+    """[mesh]: the main path's fp32 fused configuration (llama_7b at 2 of 32
+    layers, 8 × 256, r = 128, T = 8: step 0 refreshes in the step) for
+    `steps` steps through make_train_step, first without rules, then with
+    the pod's rules on a 1 × 1 mesh over a world of one rank (NCCL) on the
+    card, from the same params and batches: every loss and every param bit
+    for bit the unsharded run's; B1 and B2 launched as often in both."""
+    import torch.distributed as dist
+
+    cfg = dataclasses.replace(get_config("llama_7b"), n_layers=2)
+    tc = phase_train_config(fused=True)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (8, 256), generator=gen,
+                                        device="cuda")} for _ in range(steps)]
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+                            rank=0, world_size=1)
+    runs = {}
+    try:
+        mesh = lmesh.make_sim_mesh(1, 1, device_type="cuda")
+        for tag, rules in (("unsharded", None), ("mesh", lmesh.default_rules(mesh))):
+            params = init_params(cfg, seed=0, device="cuda")
+            step, opt = make_train_step(cfg, tc, rules)
+            state = opt.init(params)
+            if rules is not None:
+                state = dstep.shard_opt_state(cfg, tc, state, params, rules)
+                params = dstep.shard_params(cfg, params, rules)
+            ops.reset_launch_counts()
+            losses, times = [], []
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, b)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(m["loss"].clone())
+            launches = {key: getattr(fn, attr) for key, (fn, attr) in COUNTERS.items()}
+            whole = [p.full_tensor() if hasattr(p, "full_tensor") else p
+                     for p in tree_leaves(params)]
+            runs[tag] = dict(losses=losses, params=whole, launches=launches, times=times)
+            del params, state
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    a, b = runs["unsharded"], runs["mesh"]
+    same_loss = all(torch.equal(x, y) for x, y in zip(a["losses"], b["losses"]))
+    same_params = all(torch.equal(x, y) for x, y in zip(a["params"], b["params"]))
+    log(f"[mesh] {card_line()}: llama_7b, 2 of 32 layers, fp32 fused r = 128, 8 × 256, "
+        f"{steps} steps through make_train_step: unsharded losses "
+        f"{[float(x) for x in a['losses']]}, on a 1 × 1 mesh {[float(x) for x in b['losses']]}; "
+        f"bit for bit: losses {same_loss}, params {same_params}; launches {a['launches']} / "
+        f"{b['launches']}; step ms {[round(x * 1e3, 1) for x in a['times']]} / "
+        f"{[round(x * 1e3, 1) for x in b['times']]}")
+    if not (same_loss and same_params):
+        raise AssertionError("[mesh] the 1 × 1 mesh step is not the unsharded step bit for bit")
+    want = dict(none, left=6 * steps, right=steps)
+    if a["launches"] != want or b["launches"] != want:
+        raise AssertionError(f"[mesh] launches {a['launches']} / {b['launches']}, want B1 "
+                             f"{6 * steps} and B2 {steps} in each run")
+
+
+# what rank 0 of the 16 × 16 pod needs to fit the card: remat "full" and the
+# reference's gradient accumulation over 2 microbatches (the dry run, on the
+# host: 368.3 GiB as configured, 79.3 with remat "full" alone, 46.9 with both)
+MESH_7B, MESH_7B_MB = dict(remat="full"), 2
+
+
+def mesh_7b_phase():
+    """[mesh-7b]: the whole llama_7b train_4k cell (256 × 4096, the
+    reference's default_train_config: GaLore-AdamW r = 1024, Newton–Schulz,
+    the external refresh) under the baseline rules as rank 0 of a fake
+    16 × 16 world, on this rank's shards at full size, remat "full" and 2
+    microbatches (MESH_7B, MESH_7B_MB). First the sharded
+    dry run of the cell (meta tensors, on the host); then one train step on
+    the card: max_memory_allocated within DRYRUN_GATE of the dry run's
+    peak_bytes_per_device, and the collectives DTensor issues, by kind, as
+    many as the dry run counted. The collectives are fake, so the values
+    mean nothing and the time is compute only."""
+    t = time.perf_counter()
+    rec = run_mesh_cell("llama_7b", "train_4k", microbatch=MESH_7B_MB, overrides=MESH_7B)
+    t_dry = time.perf_counter() - t
+    if rec["status"] != "ok":
+        raise AssertionError(f"[mesh-7b] the dry run failed: {rec.get('error')}")
+    want = rec["memory"]["peak_bytes_per_device"]
+    want_counts = rec["collective_schedule"]["count_by_kind"]
+    cfg = dataclasses.replace(get_config("llama_7b"), **MESH_7B)
+    t = time.perf_counter()
+    with fake_world(256):
+        rules = lmesh.rules_variant(lmesh.make_production_mesh(device_type="cuda"), "baseline")
+        tc = default_train_config(cfg, microbatch=MESH_7B_MB)
+        run = run_fake_rank(cfg, tc, "train_4k", rules)
+    torch.cuda.empty_cache()
+    got_counts = run["collectives"].stats().count_by_kind
+    ratio = want / run["peak_bytes"]
+    log(f"[mesh-7b] {card_line()}: llama_7b train_4k (256 × 4096, all 32 layers, remat full, "
+        f"{MESH_7B_MB} microbatches, GaLore-AdamW r = {tc.galore.rank}) as rank 0 of a fake "
+        f"16 × 16 "
+        f"world, baseline rules: max_memory_allocated {run['peak_bytes'] / 2**30:.3f} GiB "
+        f"({run['peak_bytes']} B), the sharded dry run's peak {want / 2**30:.3f} GiB ({want} B, "
+        f"at {rec['peak_op']}; {t_dry:.1f} s): ratio {ratio:.4f} (gate 1 ± {DRYRUN_GATE}); "
+        f"collectives by kind {got_counts}, the dry run's {want_counts}; one step "
+        f"{run['seconds'] * 1e3:.1f} ms, compute only, collectives fake; the dry run's "
+        f"{rec['raw_cost']['flops']:.4e} FLOPs, {rec['collective_schedule']['total_bytes']} "
+        f"collective bytes a rank, roofline {rec['roofline']['dominant']} "
+        f"({time.perf_counter() - t:.1f} s)")
+    if abs(ratio - 1) > DRYRUN_GATE:
+        raise AssertionError(f"[mesh-7b] predicted {want} B, measured {run['peak_bytes']} B: off "
+                             f"by more than {DRYRUN_GATE:.0%}")
+    if got_counts != want_counts:
+        raise AssertionError(f"[mesh-7b] collectives {got_counts}, the dry run's {want_counts}")
+
+
 def check_rank_blocks():
     """The kernels at the rank-block shapes the ZeRO phases give them, each
     against its plain version (the gates of check_kernels, check_adam8 and
@@ -4095,7 +4213,8 @@ def main():
         f"({time.perf_counter() - t:.1f} s)")
     dp_phase()
 
-    for tag, fn in (("remat", remat_phase), ("remat-7b", lambda: remat_7b_phases(phases, none))):
+    for tag, fn in (("remat", remat_phase), ("remat-7b", lambda: remat_7b_phases(phases, none)),
+                    ("mesh", lambda: mesh_phase(none)), ("mesh-7b", mesh_7b_phase)):
         t = time.perf_counter()
         fn()
         log(f"[{tag}] ({time.perf_counter() - t:.1f} s)")

@@ -91,7 +91,10 @@ from repro_torch.core.projector import init_projector_state, prng_key, read_proj
 from repro_torch.core.subspace import (
     DEFAULT_EXCLUDE,
     SubspaceManager,
+    _lead,
+    constrain_zero_moment,
     moment_quant_axis,
+    plan_rank_axis,
     proj_shape,
     r_shape,
 )
@@ -100,7 +103,72 @@ from repro_torch.distributed.state_sharding import ZeroLayout
 from repro_torch.kernels import ops, ref
 from repro_torch.optim.transform import GradientTransformation, _device_of
 from repro_torch.quant import codec
-from repro_torch.utils import flatten_up_to, tree_leaves, tree_map, tree_unflatten_like
+from repro_torch.utils import (
+    flatten_up_to,
+    is_dtensor,
+    logical_constraint,
+    tree_leaves,
+    tree_leaves_with_path,
+    tree_map,
+    tree_unflatten_like,
+)
+
+MESH_ITEM = "ROADMAP A.13"  # what the port does not run on a mesh yet
+
+
+def _project(g, P, plan):
+    """R = PᵀG (left) or GP (right) in f32, placed by its logical axes (the
+    rank dim on the mesh axis the kept dim does not take)."""
+    if plan.side == "left":
+        R = ref.galore_project(P, g)
+        return logical_constraint(R, *_lead(R, plan_rank_axis(plan, plan.ax_n), plan.ax_n))
+    R = ref.galore_project_right(P, g)
+    return logical_constraint(R, *_lead(R, plan.ax_m, plan_rank_axis(plan, plan.ax_m)))
+
+
+def _project_back(N, P, plan, alpha: float):
+    """G̃ = αPN (left) or αNPᵀ (right), placed as the weight is."""
+    back = ref.galore_project_back if plan.side == "left" else ref.galore_project_back_right
+    return _constrain_leaf(back(P, N, alpha), plan)
+
+
+def _constrain_leaf(x, plan):
+    """`x` placed as its weight is (a leaf with no labels as it is)."""
+    if plan.ax_m is None and plan.ax_n is None:
+        return x
+    return logical_constraint(x, *_lead(x, plan.ax_m, plan.ax_n))
+
+
+def _constrain_moment(x, plan):
+    """A compact moment placed as R is (ZeRO's ownership axes under ZeRO)."""
+    if plan.zero:
+        return constrain_zero_moment(x, plan)
+    if plan.side == "left":
+        return logical_constraint(x, *_lead(x, plan_rank_axis(plan, plan.ax_n), plan.ax_n))
+    return logical_constraint(x, *_lead(x, plan.ax_m, plan_rank_axis(plan, plan.ax_m)))
+
+
+def _on_local(path: str, fn, *args, **kw):
+    """fn (a hand kernel's dispatcher) on the local tensors of DTensor
+    arguments over a mesh of one rank, its outputs back as DTensors (an
+    input updated in place comes back as its DTensor). Over a mesh of more
+    ranks the kernels have no sharded form yet: that raises."""
+    from torch.distributed.tensor import DTensor
+
+    dts = [a for a in args if is_dtensor(a)]
+    if not dts:
+        return fn(*args, **kw)
+    mesh = dts[0].device_mesh
+    if mesh.size() > 1:
+        raise NotImplementedError(f"{path}: the fused GaLore kernels run on whole leaves; over "
+                                  f"a mesh of {mesh.size()} ranks they have no sharded form "
+                                  f"yet ({MESH_ITEM}): use galore_fused_adam=False")
+    local = {id(a.to_local()): a for a in dts}
+    out = fn(*[a.to_local() if is_dtensor(a) else a for a in args], **kw)
+    placements = args[1].placements  # G's (every dispatcher takes P, G first)
+    return tuple(local[id(o)] if id(o) in local
+                 else DTensor.from_local(o, mesh, placements, run_check=False)
+                 for o in out)
 
 
 def galore(cfg: GaLoreConfig, *, inner: GradientTransformation | None = None,
@@ -208,14 +276,12 @@ def _composable_update(inner, grads, proj_eff, inner_state, plans, cfg: GaLoreCo
     def project(g, P, plan):
         if not plan.galore or pre_projected:
             return g
-        return ref.galore_project(P, g) if plan.side == "left" else ref.galore_project_right(P, g)
+        return _project(g, P, plan)
 
     def back(u, P, plan):
         if not plan.galore:
             return u
-        if plan.side == "left":
-            return ref.galore_project_back(P, u.float(), cfg.scale)
-        return ref.galore_project_back_right(P, u.float(), cfg.scale)
+        return _project_back(u.float(), P, plan, cfg.scale)
 
     lor_updates, inner_state = inner.update(tree_map(project, grads, proj_eff, plans),
                                             inner_state, params)
@@ -358,7 +424,7 @@ def _managed_adam_update(grads, proj_eff, inner_state, plans, cfg: GaLoreConfig,
             p[sl] = ref.apply_weight(p[sl], out.to(g.dtype).float(), eta, wd)
         return p, m, v
 
-    def leaf(g, P, m_st, v_st, plan, p, d):
+    def leaf(path, g, P, m_st, v_st, plan, p, d):
         qm = plan.moments == "int8"
         if not plan.galore and apply_w and not qm:
             return passthrough_apply(g, m_st, v_st, p)
@@ -393,10 +459,12 @@ def _managed_adam_update(grads, proj_eff, inner_state, plans, cfg: GaLoreConfig,
             if fused and apply_w:
                 fn = (ops.galore_fused_adam8_apply_step if left
                       else ops.galore_fused_adam8_apply_step_right)
-                upd, *codes = fn(P, g.contiguous(), p, *codes, count, **sr, **route, **hp)
+                upd, *codes = _on_local(path, fn, P, g.contiguous(), p, *codes, count, **sr,
+                                        **route, **hp)
             elif fused:
                 fn = ops.galore_fused_adam8_step if left else ops.galore_fused_adam8_step_right
-                upd, *codes = fn(P, g.contiguous(), *codes, count, **sr, **route, **hp)
+                upd, *codes = _on_local(path, fn, P, g.contiguous(), *codes, count, **sr,
+                                        **route, **hp)
             else:
                 fn = ref.galore_fused_adam8_step if left else ref.galore_fused_adam8_step_right
                 upd, *codes = fn(P, g, *codes, count, **sr, **hp)
@@ -406,16 +474,21 @@ def _managed_adam_update(grads, proj_eff, inner_state, plans, cfg: GaLoreConfig,
         if fused and apply_w:
             fn = (ops.galore_fused_adam_apply_step if left
                   else ops.galore_fused_adam_apply_step_right)
-            return fn(P, g.contiguous(), p, m_st, v_st, count, **route, **hp)
+            return _on_local(path, fn, P, g.contiguous(), p, m_st, v_st, count, **route, **hp)
         if fused:
             fn = ops.galore_fused_adam_step if left else ops.galore_fused_adam_step_right
-            return fn(P, g.contiguous(), m_st, v_st, count, **route, **hp)
-        fn = ref.galore_fused_adam_step if left else ref.galore_fused_adam_step_right
-        upd, m_t, v_t = fn(P, g, m_st, v_st, count, **hp)
-        return finish(upd, p), m_t, v_t
+            return _on_local(path, fn, P, g.contiguous(), m_st, v_st, count, **route, **hp)
+        # the plain step (ref.galore_fused_adam_step[_right]'s operations), each
+        # tensor placed by its logical axes on a mesh
+        P = ref._p_plain(P, g.shape[-2] if left else g.shape[-1])
+        N, m_t, v_t = ref.lowrank_adam_update(_project(g, P, plan), m_st, v_st, count, b1, b2,
+                                              eps)
+        upd = _constrain_leaf(finish(_project_back(N, P, plan, cfg.scale), p), plan)
+        return upd, _constrain_moment(m_t, plan), _constrain_moment(v_t, plan)
 
     flat_p = flatten_up_to(grads, params) if apply_w else [None] * len(tree_leaves(grads))
-    flat = [leaf(*xs) for xs in zip(tree_leaves(grads), flatten_up_to(grads, proj_eff),
+    paths = [path for path, _ in tree_leaves_with_path(grads)]
+    flat = [leaf(*xs) for xs in zip(paths, tree_leaves(grads), flatten_up_to(grads, proj_eff),
                                     flatten_up_to(grads, inner_state["m"]),
                                     flatten_up_to(grads, inner_state["v"]), tree_leaves(plans),
                                     flat_p, dims)]

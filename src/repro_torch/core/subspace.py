@@ -77,6 +77,9 @@ from repro_torch.distributed import world
 from repro_torch.utils import (
     axes_by_path,
     flatten_up_to,
+    is_dtensor,
+    logical_constraint,
+    place_like,
     tree_leaves,
     tree_leaves_with_path,
     tree_map,
@@ -178,6 +181,57 @@ def zero_state_axes(plan: SubspacePlan, ax) -> dict:
     return {"moment": mom, "moment_scale": mscale, "proj": proj, "proj_scale": pscale}
 
 
+def rank_axis(kept_label):
+    """Mesh-complementary logical axis for the GaLore rank dim (2-D states):
+    the rank dim takes the mesh axis the kept weight dim does not."""
+    return "rank_model" if kept_label in (None, "embed") else "rank_data"
+
+
+def plan_rank_axis(plan: SubspacePlan, kept_label):
+    """Logical axis of a leaf's rank dim: "zero" (the data-parallel
+    ownership axis) under GaLore-ZeRO, else ``rank_axis(kept_label)``."""
+    return "zero" if plan.zero else rank_axis(kept_label)
+
+
+def _lead(x, *tail):
+    """Logical axes for `x`: None on its leading (stacked) dims, then `tail`."""
+    return (None,) * (x.ndim - len(tail)) + tail
+
+
+def _plan_ax_pair(plan: SubspacePlan):
+    if plan.ax_m is None and plan.ax_n is None:
+        return None
+    return (plan.ax_m, plan.ax_n)
+
+
+def constrain_zero_moment(mom, plan: SubspacePlan):
+    """Pin one moment leaf (f32 tensor or int8 {"q", "scale"}) to its ZeRO
+    ownership axes; a no-op off ZeRO, outside a sharding context, or on a
+    plain tensor (GaLore-ZeRO over a 1-D world keeps ``ZeroLayout``'s rank
+    blocks, distributed/state_sharding.py)."""
+    if not plan.zero:
+        return mom
+    axd = zero_state_axes(plan, _plan_ax_pair(plan))
+    if isinstance(mom, dict):
+        return {"q": logical_constraint(mom["q"], *_lead(mom["q"], *axd["moment"])),
+                "scale": logical_constraint(mom["scale"],
+                                            *_lead(mom["scale"], *axd["moment_scale"]))}
+    return logical_constraint(mom, *_lead(mom, *axd["moment"]))
+
+
+def constrain_zero_store(store, plan: SubspacePlan):
+    """Pin one projector store (f32/bf16 tensor or packed int4 qstate) to
+    its ZeRO ownership axes; a no-op as ``constrain_zero_moment`` is."""
+    if not (plan.zero and plan.galore):
+        return store
+    axd = zero_state_axes(plan, _plan_ax_pair(plan))
+    if isinstance(store, dict):
+        return {"q": logical_constraint(store["q"], *_lead(store["q"], *axd["proj"])),
+                "scale": logical_constraint(store["scale"],
+                                            *_lead(store["scale"], *axd["proj_scale"]))}
+    return logical_constraint(store, *_lead(store, *axd["proj"]))
+
+
 def moment_quant_axis(plan: SubspacePlan) -> int:
     """Blocked axis of an int8 moment leaf: the fused kernel's swept axis for
     galore leaves (last on the left, second-to-last on the right), the last
@@ -241,6 +295,13 @@ def compute_leaf_projector(g, plan: SubspacePlan, cfg: GaLoreConfig, key=None, s
     randomized methods (and the guarded SVD's fallback) draw their sketch
     from ``sketch_generator(key, step)``, the same for every leaf, as the
     reference folds one key for every leaf."""
+    if is_dtensor(g):
+        # a sharded leaf: the unit gathered whole (as XLA gathers the input of
+        # its decomposition), the same P computed on every rank, then placed
+        # by the proj axes (kept dim, rank replicated)
+        P = compute_leaf_projector(g.full_tensor(), plan, cfg, key, step)
+        kept = plan.ax_m if plan.side == "left" else plan.ax_n
+        return place_like(P, g, _lead(P, kept, None))
     G_in = g if plan.side == "left" else g.transpose(-1, -2)
     gen = sketch_generator(key, step)
     if not (cfg.guard_refresh and cfg.projector == "svd"):

@@ -24,17 +24,33 @@ collective); ``gather_*`` put the world's blocks back together (an
 all-gather a leaf, every rank must call it): the layout checkpoints, the
 refresh epilogue and the bridge read.
 
-The reference's other logical labels place parameters on a TPU pod through
-GSPMD (its FSDP rule "embed" → data, the tensor-parallel labels); a rank of
-the port holds the whole model, so they are not ported (ROADMAP A.12).
+On a 2-D (data, model) mesh (launch/mesh.py) the whole optimizer state is
+placed by logical axes instead: ``optimizer_state_axes`` gives the axes tree
+of the chain's state, leaf for leaf (the reference's): Adam's moments mirror
+the params; 8-bit Adam's quantized payloads shard their block dim on the
+FSDP axis; Adafactor's vr drops the last param dim and vc the second to
+last; a GaLore P keeps its kept weight dim's axis with the rank replicated,
+and the compact moments put the rank dim on the mesh axis the kept dim does
+not take (``core/subspace.py::rank_axis``). int8 moments' codes shard like
+the f32 moments they replace, their scales stay replicated; packed int4 P
+codes shard their packed kept dim on "qblocks". distributed/step.py places
+the state by it (``input_specs``, ``shard_opt_state``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.subspace import DEFAULT_EXCLUDE, SubspaceManager, zero_state_axes
+from repro_torch.core.subspace import (
+    DEFAULT_EXCLUDE,
+    SubspaceManager,
+    moment_quant_axis,
+    r_shape,
+    rank_axis,
+    zero_state_axes,
+)
 from repro_torch.distributed import world
-from repro_torch.utils import flatten_up_to, tree_leaves, tree_unflatten_like
+from repro_torch.quant.policy import MIN_QUANT_SIZE
+from repro_torch.utils import flatten_up_to, is_axes, tree_leaves, tree_unflatten_like
 
 
 def block_dims(plan, shape, n: int) -> dict:
@@ -164,3 +180,174 @@ def galore_state_tensor_bytes(galore_state) -> dict:
     mom = state_bytes([inner["m"], inner["v"]]) if "m" in inner else state_bytes(inner)
     return {"projector": proj, "moment": mom, "total": proj + mom}
 
+
+
+# ---------------------------------------------------------------------------
+# Logical axes of the optimizer state (the reference's optimizer_state_axes)
+# ---------------------------------------------------------------------------
+
+SCALAR = ()
+QBLOCK_AXES = {"q": ("qblocks", None), "scale": ("qblocks",)}
+
+
+def map_axes(fn, axes, *trees):
+    """fn(axes leaf, *matching subtrees) over an axes tree, whose leaves are
+    tuples of str / None (``is_axes``); dicts and other tuples are
+    structure (Jamba's tuple of block dicts)."""
+    if is_axes(axes):
+        return fn(axes, *trees)
+    if isinstance(axes, dict):
+        return {k: map_axes(fn, axes[k], *(t[k] for t in trees)) for k in sorted(axes)}
+    return type(axes)(map_axes(fn, a, *(t[i] for t in trees)) for i, a in enumerate(axes))
+
+
+def _plans(p_axes, p_struct, gcfg):
+    return SubspaceManager(gcfg, DEFAULT_EXCLUDE, p_axes).plans(p_struct)
+
+
+def _adam_axes(p_axes):
+    return {"m": p_axes, "v": p_axes, "count": SCALAR}
+
+
+def _adam8bit_axes(p_axes, p_struct):
+    def per_leaf(ax, p):
+        if p.ndim and p.numel() >= MIN_QUANT_SIZE:
+            return {"m": QBLOCK_AXES, "v": QBLOCK_AXES}
+        return {"m": ax, "v": ax}
+
+    return {"mv": map_axes(per_leaf, p_axes, p_struct), "count": SCALAR}
+
+
+def _adafactor_axes(p_axes, p_struct, beta1):
+    def per_leaf(ax, p):
+        if p.ndim >= 2:
+            return {"vr": tuple(ax[:-1]), "vc": tuple(ax[:-2]) + (ax[-1],)}
+        return {"v": ax}
+
+    out = {"v": map_axes(per_leaf, p_axes, p_struct), "count": SCALAR}
+    if beta1 is not None:
+        out["m"] = p_axes
+    return out
+
+
+def _projected_axes(p_axes, p_struct, gcfg):
+    """Axes of the projected-gradient tree (what GaLore's inner optimizer
+    sees): the rank dim on the complementary axis ("zero" under ZeRO)."""
+    plans = _plans(p_axes, p_struct, gcfg)
+
+    def per_leaf(ax, plan):
+        if not plan.galore:
+            if plan.zero and ax is not None and len(ax) >= 2:
+                return tuple(ax[:-2]) + ("zero", ax[-1])
+            return ax
+        rax = (lambda kept: "zero") if plan.zero else rank_axis
+        if plan.side == "left":  # R (..., r, n)
+            return tuple(ax[:-2]) + (rax(ax[-1]), ax[-1])
+        return tuple(ax[:-2]) + (ax[-2], rax(ax[-2]))  # R (..., m, r)
+
+    return map_axes(per_leaf, p_axes, plans)
+
+
+def _projected_struct(p_struct, gcfg, p_axes=None):
+    """The projected-gradient tree on the meta device: f32 (…, r, n) or
+    (…, m, r) for a GaLore leaf, the parameter itself otherwise."""
+    plans = _plans(p_axes, p_struct, gcfg)
+    return map_axes(
+        lambda _, p, plan: (torch.empty(r_shape(p, plan), dtype=torch.float32, device="meta")
+                            if plan.galore else p), p_axes, p_struct, plans)
+
+
+def _galore_proj_axes(p_axes, p_struct, gcfg):
+    plans = _plans(p_axes, p_struct, gcfg)
+
+    def per_leaf(ax, plan):
+        if not plan.galore:
+            return SCALAR  # the scalar placeholder
+        rk = "zero" if plan.zero else None
+        if plan.proj_store == "int4":
+            return {"q": tuple(ax[:-2]) + ("qblocks", rk), "scale": tuple(ax[:-2]) + (None, rk)}
+        kept = ax[-2] if plan.side == "left" else ax[-1]
+        return tuple(ax[:-2]) + (kept, rk)
+
+    return map_axes(per_leaf, p_axes, plans)
+
+
+def _galore_quant_inner_axes(p_axes, p_struct, gcfg):
+    """The GaLore-managed Adam state ({m, v, count}) under the quant policy:
+    int8 leaves' codes shard like the f32 moment, their scales replicated
+    (under ZeRO the scales shard their rank dim with the codes)."""
+    plans = _plans(p_axes, p_struct, gcfg)
+    proj_ax = _projected_axes(p_axes, p_struct, gcfg)
+
+    def per_leaf(ax, plan):
+        if plan.moments == "int8":
+            if plan.zero:
+                blocked = moment_quant_axis(plan) % max(len(ax), 1)
+                return {"q": ax, "scale": tuple(None if i == blocked else a
+                                                for i, a in enumerate(ax))}
+            return {"q": ax, "scale": tuple(None for _ in ax)}
+        return ax
+
+    mv = map_axes(per_leaf, proj_ax, plans)
+    return {"m": mv, "v": mv, "count": SCALAR}
+
+
+def _galore_schedule_axes(p_axes):
+    """Adaptive T's per-leaf scalars {period, next, overlap}."""
+    scalars = map_axes(lambda ax: SCALAR, p_axes)
+    return {"period": scalars, "next": scalars, "overlap": scalars}
+
+
+def galore_refresh_gather_axes(gcfg, p_axes, p_struct):
+    """Axes of the gathered f32 projector tree a sharded refresh hands its
+    epilogue: the kept dim on its mesh axis, the rank replicated; the
+    placeholder of a non-GaLore leaf is a scalar."""
+    plans = _plans(p_axes, p_struct, gcfg)
+
+    def per_leaf(ax, plan):
+        if not plan.galore:
+            return SCALAR
+        kept = ax[-2] if plan.side == "left" else ax[-1]
+        return tuple(ax[:-2]) + (kept, None)
+
+    return map_axes(per_leaf, p_axes, plans)
+
+
+def _stats_axes(tc, p_axes, p_struct):
+    if tc.optimizer in ("adam", "adamw"):
+        return _adam_axes(p_axes)
+    if tc.optimizer == "adam8bit":
+        return _adam8bit_axes(p_axes, p_struct)
+    if tc.optimizer == "adafactor":
+        return _adafactor_axes(p_axes, p_struct, tc.b1)
+    if tc.optimizer == "sgd":
+        return p_axes
+    raise ValueError(tc.optimizer)
+
+
+def optimizer_state_axes(tc, p_axes, p_struct):
+    """The axes tree of ``build_optimizer(tc).init(params)``'s state, leaf for
+    leaf (`p_struct`: the params, meta tensors will do)."""
+    from repro_torch.optim.factory import effective_galore_config
+
+    gcfg = effective_galore_config(tc)
+    if gcfg is not None:
+        if gcfg.quant.quantizes_moments:  # GaLore-managed int8 moments
+            inner_axes = _galore_quant_inner_axes(p_axes, p_struct, gcfg)
+        else:
+            inner_axes = _stats_axes(tc, _projected_axes(p_axes, p_struct, gcfg),
+                                     _projected_struct(p_struct, gcfg, p_axes))
+        stats_axes = {"step": SCALAR, "key": SCALAR,
+                      "proj": _galore_proj_axes(p_axes, p_struct, gcfg), "inner": inner_axes}
+        if gcfg.adaptive_t:
+            stats_axes["schedule"] = _galore_schedule_axes(p_axes)
+    else:
+        stats_axes = _stats_axes(tc, p_axes, p_struct)
+    parts = []
+    if tc.grad_clip > 0:
+        parts.append(())  # the clip's state
+    parts.append(stats_axes)
+    if tc.weight_decay > 0 and tc.optimizer == "adamw":
+        parts.append(())  # the decayed weights' state
+    parts.append({"count": SCALAR})  # the lr schedule
+    return tuple(parts)

@@ -1,8 +1,8 @@
 """The data-parallel world: ranks, the batch split and the collectives of the
 data-parallel train and refresh steps (the port's counterpart of the
 reference's ``launch/mesh.py::data_parallel_axes`` / ``data_parallel_size``
-and ``distributed/step.py::_dp_shard_index``; the rest of ``launch/mesh.py``
-places parameters on a TPU pod and is not ported, ROADMAP A.12).
+and ``distributed/step.py::_dp_shard_index``). The pod's 2-D mesh, whose
+rules place the parameters too, is launch/mesh.py's, on DTensor.
 
 A world is a ``torch.distributed`` process group of n_dp ranks. Every rank
 holds the whole model and reads the same global batch; ``shard_batch`` hands

@@ -9,8 +9,10 @@ repro/launch/hillclimb.py), recorded under a tag.
 names (models/remat.py); ``microbatch`` among them sets the train cell's
 accumulation factor.
 ``--optimizer`` and ``--galore-dp`` (the compressed step, no accumulation) as
-the reference's; ``--rules`` takes only ``baseline``: the pod's sharding
-rules are not ported (ROADMAP A.12).
+the reference's. ``--rules`` takes the six rule variants of launch/mesh.py
+and runs the cell as rank 0 of the pod's mesh (``--mesh single``, the
+reference's, unless ``--mesh multi``); with neither flag the cell runs on
+one card.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import json
 import os
 
 from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import VARIANTS
 
 
 def parse_overrides(pairs) -> dict:
@@ -41,7 +44,8 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", required=True)
     ap.add_argument("--tag", required=True)
-    ap.add_argument("--rules", default="baseline", choices=["baseline"])
+    ap.add_argument("--rules", default=None, choices=VARIANTS)
+    ap.add_argument("--mesh", default=None, choices=["single", "multi"])
     ap.add_argument("--optimizer", default="adamw")
     ap.add_argument("--galore-dp", action="store_true")
     ap.add_argument("--set", nargs="*", default=[], help="cfg field overrides k=v")
@@ -50,8 +54,10 @@ def main(argv=None):
 
     overrides = parse_overrides(args.set)
     microbatch = overrides.pop("microbatch", None)
+    mesh = args.mesh or ("single" if args.rules else None)
     rec = dryrun.run_cell(args.arch, args.shape, optimizer=args.optimizer,
-                          microbatch=microbatch, overrides=overrides, galore_dp=args.galore_dp)
+                          microbatch=microbatch, overrides=overrides, galore_dp=args.galore_dp,
+                          mesh=mesh, rules_name=args.rules or "baseline")
     rec["tag"] = args.tag
     rec["overrides"] = dict(overrides, **({} if microbatch is None else {"microbatch": microbatch}))
     results = {}

@@ -258,8 +258,11 @@ class AsyncRefreshDriver:
         self._units = [math.prod(p.shape[:-2]) for p in tree_leaves(params)]
         device = tree_leaves(params)[0].device
         self._stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        # the thread takes its creator's intra-op thread count, so a refresh
+        # computes on it what it computes on the caller's thread
         self._pool = concurrent.futures.ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix="galore-refresh")
+            max_workers=1, thread_name_prefix="galore-refresh",
+            initializer=torch.set_num_threads, initargs=(torch.get_num_threads(),))
         self._future = None
         self._pending = None
         self._prev_batch = None

@@ -33,7 +33,8 @@ import torch
 
 from repro_torch.models import remat
 from repro_torch.models import rope as rope_lib
-from repro_torch.models.layers import _init_normal
+from repro_torch.models.layers import _init_normal, dense
+from repro_torch.utils import logical_constraint
 
 NEG_INF = -2.3819763e38  # large negative for bf16-safe masking (applied in f32)
 
@@ -68,10 +69,24 @@ def attention_axes(cfg, cross: bool = False):
 
 
 def _proj(x, w, b, n_heads, hd):
-    y = x @ w
+    y = dense(x, w)
     if b is not None:
         y = y + b
+    # on a mesh the projection comes back sequence-sharded (the reference's
+    # sequence parallelism), so a head count the model axis does not divide
+    # (28 heads on 16) splits into heads on every rank
+    y = logical_constraint(y, "batch", "act_seq", None)
     return y.reshape(x.shape[0], x.shape[1], n_heads, hd)
+
+
+def _ctx(out, B, S):
+    """The attention's context (B, S, KV, G, hd) as (B, S, H·hd). On a mesh
+    its heads are whole before and after they are merged (the sequence
+    gathered for wo, as every projection's input is), so the gradient that
+    comes back through wo is split into heads whole (4 KV heads on a
+    16-way axis cannot be split)."""
+    out = logical_constraint(out, "batch", None, None, None, None)
+    return logical_constraint(out.reshape(B, S, -1), "batch", None, None)
 
 
 def _gqa_scores(q, k):
@@ -182,13 +197,16 @@ def attend(cfg, p, x, *, angles, causal: bool = True, chunk: int = 0, cache=None
         k, v = kv_override
         q = q.reshape(B, S, KV, G, hd) * (hd ** -0.5)
         out = remat.scores_core(_core_fn(False, 0), q, k, v)
-        return remat.name(out.reshape(B, S, H * hd), "save_attn_ctx") @ p["wo"]
+        return dense(remat.name(_ctx(out, B, S), "save_attn_ctx"), p["wo"], "residual")
     k = _proj(x, p["wk"], p.get("bk"), KV, hd)
     v = _proj(x, p["wv"], p.get("bv"), KV, hd)
     if angles is not None:
         q = rope_lib.apply_rotary(q, angles)
         k = rope_lib.apply_rotary(k, angles)
     q, k, v = remat.name(q, "save_q"), remat.name(k, "save_k"), remat.name(v, "save_v")
+    # the reference constrains q so where G == 1; on DTensor every G (the
+    # scores' product flattens (G, S), which a sharded S blocks)
+    q = logical_constraint(q, "batch", None, "kv_heads", None)
     q = q.reshape(B, S, KV, G, hd) * (hd ** -0.5)
     if cache is not None and "kp" in cache:
         out = _paged_attend(q, k, v, cache, chunk)
@@ -208,7 +226,7 @@ def attend(cfg, p, x, *, angles, causal: bool = True, chunk: int = 0, cache=None
             cache["k"][:, :S] = k
             cache["v"][:, :S] = v
         out = remat.scores_core(_core_fn(causal, chunk), q, k, v)
-    return remat.name(out.reshape(B, S, H * hd), "save_attn_ctx") @ p["wo"]
+    return dense(remat.name(_ctx(out, B, S), "save_attn_ctx"), p["wo"], "residual")
 
 
 def _core_fn(causal: bool, chunk: int):
@@ -231,6 +249,13 @@ def init_cache(cfg, batch: int, max_len: int, dtype, device, lead=()):
     shape = tuple(lead) + (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_axes():
+    """Logical axes of a layer's contiguous cache (the reference's): the
+    sequence can be context-sharded."""
+    spec = ("batch", "kv_seq", "kv_heads", None)
+    return {"k": spec, "v": spec}
 
 
 def init_paged_cache(cfg, num_blocks: int, block_size: int, dtype, device, lead=()):

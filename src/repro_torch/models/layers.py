@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import remat
+from repro_torch.utils import logical_constraint
 
 
 class MetaGenerator:
@@ -71,7 +72,7 @@ def apply_embedding(p, tokens):
 def apply_unembed(p, x, softcap: float = 0.0, valid_vocab: int = 0):
     """Logits from the tied embedding head, f32. Pad-vocab columns are masked
     to -1e30."""
-    logits = (x @ p["embedding"].transpose(0, 1)).float()
+    logits = dense(x, p["embedding"].transpose(0, 1)).float()
     if softcap > 0:
         logits = torch.tanh(logits / softcap) * softcap
     padded = p["embedding"].shape[0]
@@ -91,15 +92,30 @@ def init_mlp(gen, cfg, dtype, lead=(), d_ff=None):
     return p
 
 
+def dense(x, w, out=None):
+    """x (B, S, d) @ w (d, f). On a mesh the activation's sequence is gathered
+    first, the all-gather before a projection of the reference's sequence
+    parallelism: the product flattens (B, S), which DTensor cannot do to a
+    sequence-sharded tensor on every torch version. `out` ("residual") puts
+    the product back on the sequence, as the residual stream it joins is, so
+    the gradient it gets back is converted before the product's backward
+    flattens it."""
+    if x.ndim != 3:
+        return x @ w
+    y = logical_constraint(x, "batch", None, None) @ w
+    return logical_constraint(y, "batch", "act_seq", None) if out == "residual" else y
+
+
 def apply_mlp(cfg, p, x):
     """SwiGLU: (silu(x W_gate) * x W_up) W_down; GELU: gelu(x W_up) W_down
     with the tanh form, ``jax.nn.gelu``'s default (the exact erf form differs
     from it by up to 4.7e-4). The hidden is remat "names"'s save_ffn_hidden."""
     if cfg.act == "swiglu":
-        h = F.silu(x @ p["gate"]) * (x @ p["up"])
+        h = F.silu(dense(x, p["gate"])) * dense(x, p["up"])
     else:
-        h = F.gelu(x @ p["up"], approximate="tanh")
-    return remat.name(h, "save_ffn_hidden") @ p["down"]
+        h = F.gelu(dense(x, p["up"]), approximate="tanh")
+    h = logical_constraint(h, "batch", None, "ff")
+    return dense(remat.name(h, "save_ffn_hidden"), p["down"], "residual")
 
 
 # Logical axis labels of the parameters (the reference's ``*_axes``): plain

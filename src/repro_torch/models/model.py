@@ -31,7 +31,15 @@ from repro_torch.models.layers import (
     init_norm,
     norm_axes,
 )
-from repro_torch.utils import canonical_dtype, resolve_device, tree_map, unstack
+from repro_torch.utils import (
+    canonical_dtype,
+    from_full,
+    is_dtensor,
+    logical_constraint,
+    resolve_device,
+    tree_map,
+    unstack,
+)
 
 
 PAGED_FAMILIES = ("dense", "moe", "vlm")  # pure-attention caches page cleanly
@@ -104,6 +112,16 @@ def param_axes(cfg):
     else:
         ax["blocks"] = stacks.decoder_stack_axes(cfg)
     return ax
+
+
+def cache_axes(cfg):
+    """Logical axes of the contiguous cache of the attention-decoder
+    families ("layers" first, the reference's ``cache_axes``); the ssm,
+    hybrid and audio caches are not placed on a mesh yet (ROADMAP A.13)."""
+    if cfg.family in ("ssm", "hybrid", "audio"):
+        raise NotImplementedError(f"the {cfg.family} family's cache has no sharding rules in "
+                                  f"the port yet (ROADMAP A.13)")
+    return stacks.stack_axes(attn_lib.cache_axes())
 
 
 def _init_ssm_stack(gen, cfg, dtype):
@@ -184,7 +202,7 @@ def forward_with_aux(cfg, params, batch_dict, *, cache=None, cache_pos=None):
         return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
     tokens = batch_dict["tokens"]
     B, S = tokens.shape
-    x = _embed_inputs(cfg, params, batch_dict)
+    x = logical_constraint(_embed_inputs(cfg, params, batch_dict), "batch", "act_seq", None)
     angles = _angles(cfg, batch_dict.get("positions"), S, B, tokens.device,
                      0 if cache_pos is None else cache_pos)
     if cfg.family == "hybrid":
@@ -196,7 +214,8 @@ def forward_with_aux(cfg, params, batch_dict, *, cache=None, cache_pos=None):
         x, aux = stacks.apply_decoder_stack(cfg, params["blocks"], x, angles=angles,
                                             cache=cache, cache_pos=cache_pos)
     x = apply_norm(cfg, params["final_norm"], x)
-    return apply_unembed(params["embed"], x, cfg.logit_softcap, valid_vocab=cfg.vocab_size), aux
+    logits = apply_unembed(params["embed"], x, cfg.logit_softcap, valid_vocab=cfg.vocab_size)
+    return logical_constraint(logits, "batch", "act_seq", "vocab"), aux
 
 
 def _apply_ssm_stack(cfg, p, x, cache):
@@ -266,6 +285,30 @@ def forward_cached(cfg, params, batch_dict, *, cache, cache_pos=None):
     return forward(cfg, params, batch_dict, cache=cache, cache_pos=cache_pos), cache
 
 
+def _token_terms(logits, targets):
+    """(logsumexp over the vocabulary, the target's logit), each (B, S) f32.
+    On a mesh the vocabulary is made whole on each rank first and the terms
+    are computed on its own tokens (DTensor's gather would take a zero
+    tensor of the global logits' size for its backward)."""
+    if not is_dtensor(logits):
+        return (torch.logsumexp(logits, dim=-1),
+                torch.gather(logits, -1, targets[..., None].long())[..., 0])
+    from torch.distributed.tensor import DTensor, Replicate
+
+    pl = list(logits.placements)
+    if any(getattr(p, "dim", None) in (-1, logits.ndim - 1) for p in pl):
+        pl = [Replicate() if getattr(p, "dim", None) in (-1, logits.ndim - 1) else p
+              for p in pl]
+        logits = logits.redistribute(logits.device_mesh, pl)
+    targets = targets.redistribute(logits.device_mesh, pl) if is_dtensor(targets) else \
+        from_full(targets, logits.device_mesh, pl)
+    local = logits.to_local()
+    lz, tl = _token_terms(local, targets.to_local())
+    shape, mesh = targets.shape, logits.device_mesh
+    return tuple(DTensor.from_local(t, mesh, pl, run_check=False, shape=shape,
+                                    stride=targets.stride()) for t in (lz, tl))
+
+
 def loss_fn(cfg, params, batch_dict, z_loss: float = 0.0):
     """Next-token cross entropy plus the MoE load-balancing loss. Returns
     (total, metrics): metrics are the reference's {"loss", "aux_loss",
@@ -281,8 +324,7 @@ def loss_fn(cfg, params, batch_dict, z_loss: float = 0.0):
     mask = batch_dict.get("loss_mask")
     if mask is None:
         mask = torch.ones(targets.shape, dtype=torch.float32, device=logits.device)
-    logz = torch.logsumexp(logits, dim=-1)
-    tgt_logit = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    logz, tgt_logit = _token_terms(logits, targets)
     nll = (logz - tgt_logit) * mask
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = nll.sum() / denom

@@ -57,6 +57,8 @@ from torch.autograd.graph import saved_tensors_hooks
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.utils import active_rules, mesh_context
+
 POLICIES = ("none", "full", "scores", "names")
 _aten = torch.ops.aten
 # ops whose output a replay would not reproduce: their memory is whatever the
@@ -92,12 +94,23 @@ def name(x: torch.Tensor, tag: str) -> torch.Tensor:
     return out
 
 
+def _checkpoint(fn, *args):
+    """torch's non-reentrant checkpoint of fn(*args); on a mesh its recompute
+    runs in the step's mesh context, which the autograd engine's own thread
+    (a CUDA backward's) does not inherit."""
+    rules = active_rules()
+    if rules is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), mesh_context(rules)))
+
+
 def scores_core(core, q, k, v):
     """core(q, k, v), the attention core from q and k to the context;
     under "scores" recomputed in the backward from q and k in f32 and v."""
     if active() != "scores":
         return core(q, k, v)
-    return checkpoint(core, q.float(), k.float(), v, use_reentrant=False)
+    return _checkpoint(core, q.float(), k.float(), v)
 
 
 class _Const:
@@ -369,7 +382,7 @@ def run_unit(policy: str, fn, x, u):
         with _policy(policy):
             return fn(x, u)
     if policy == "full":
-        return checkpoint(fn, x, u, use_reentrant=False)
+        return _checkpoint(fn, x, u)
     tape = _Tape()
     with saved_tensors_hooks(tape.pack, tape.unpack), _policy(policy, tape), tape:
         out = fn(x, u)

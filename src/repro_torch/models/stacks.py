@@ -50,7 +50,7 @@ from repro_torch.models.layers import (
     mlp_axes,
     norm_axes,
 )
-from repro_torch.utils import is_axes, unstack
+from repro_torch.utils import is_axes, logical_constraint, unstack
 
 _STACKED = ("k", "v", "kp", "vp")  # cache leaves with a leading L axis
 
@@ -96,7 +96,7 @@ def _decoder_layer(cfg, p, x, *, angles, is_full: bool, cache=None, cache_pos=No
         out, aux = moe_lib.apply_moe(cfg, p["ffn"], h)
     else:
         out, aux = apply_mlp(cfg, p["ffn"], h), None
-    return x + out, aux
+    return logical_constraint(x + out, "batch", "act_seq", None), aux
 
 
 def apply_decoder_stack(cfg, p, x, *, angles, cache=None, cache_pos=None):

@@ -55,7 +55,10 @@ def _weight(shape, seed):
 
 
 def _jax_w(W):
-    return jnp.asarray(W.float().numpy()).astype(
+    # a copy: an f32 W's numpy view shares its memory, JAX may take that
+    # buffer without copying and runs later, and the port's step writes W in
+    # place meanwhile
+    return jnp.asarray(W.float().numpy().copy()).astype(
         jnp.bfloat16 if W.dtype == torch.bfloat16 else jnp.float32)
 
 

@@ -2696,3 +2696,80 @@ def test_cuda_async_randomized_driver_records_refresh_and_wait(tmp_path, monkeyp
     assert all(map(math.isfinite, losses)) and len(losses) == 6
     hist = drivers[-1].history
     assert hist and all(h["refresh_s"] > 0 and h["wait_s"] >= 0 for h in hist), hist
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_of_one_is_the_unsharded_step_with_the_kernels(tmp_path):
+    """make_train_step with the pod's rules on a 1 × 1 mesh (a world of one
+    rank, NCCL) on the card: the fused GaLore step's losses and params bit
+    for bit the unsharded step's, from the same params and batches, and B1
+    and B2 launched as often in both."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import GaLoreConfig, TrainConfig, get_config
+    from repro_torch.distributed import step as dstep
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models.model import init_params
+    from repro_torch.utils import tree_leaves
+
+    _cuda_device()
+    cfg = dataclasses.replace(get_config("llama_60m"), n_layers=2)
+    tc = TrainConfig(galore=GaLoreConfig(rank=64, update_freq=4, scale=0.25),
+                     galore_fused_adam=True, lr=1e-3, total_steps=3, warmup_steps=1)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (4, 128), generator=gen,
+                                        device="cuda")} for _ in range(3)]
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    runs = []
+    try:
+        rules = lmesh.default_rules(lmesh.make_sim_mesh(1, 1, device_type="cuda"))
+        for r in (None, rules):
+            params = init_params(cfg, seed=0, device="cuda")
+            step, opt = dstep.make_train_step(cfg, tc, r)
+            state = opt.init(params)
+            if r is not None:
+                state = dstep.shard_opt_state(cfg, tc, state, params, r)
+                params = dstep.shard_params(cfg, params, r)
+            ops.reset_launch_counts()
+            losses = []
+            for b in batches:
+                params, state, m = step(params, state, b)
+                losses.append(m["loss"].clone())
+            runs.append((losses, [p.full_tensor() if hasattr(p, "full_tensor") else p
+                                  for p in tree_leaves(params)],
+                         (tk.galore_fused_adam_step.launches,
+                          tk.galore_fused_adam_step_right.launches)))
+    finally:
+        dist.destroy_process_group()
+    (l0, p0, n0), (l1, p1, n1) = runs
+    assert all(torch.equal(a, b) for a, b in zip(l0, l1))
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+    assert n0 == n1 and min(n0) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_fake_rank_memory_matches_the_sharded_dry_run():
+    """llama_7b's train_4k cell at 2 of 32 layers (remat full, 2
+    microbatches) as rank 0 of
+    a fake 16 × 16 world on the card: max_memory_allocated within 5 % of the
+    sharded dry run's peak, and the collectives by kind as many as it
+    counted."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as lmesh
+
+    _cuda_device()
+    over = {"n_layers": 2, "remat": "full"}
+    rec = dryrun.run_mesh_cell("llama_7b", "train_4k", microbatch=2, overrides=over)
+    cfg = dataclasses.replace(get_config("llama_7b"), **over)
+    with dryrun.fake_world(256):
+        rules = lmesh.rules_variant(lmesh.make_production_mesh(device_type="cuda"), "baseline")
+        run = dryrun.run_fake_rank(cfg, dryrun.default_train_config(cfg, microbatch=2),
+                                   "train_4k", rules)
+    assert abs(rec["memory"]["peak_bytes_per_device"] / run["peak_bytes"] - 1) < 0.05
+    assert run["collectives"].stats().count_by_kind == rec["collective_schedule"]["count_by_kind"]

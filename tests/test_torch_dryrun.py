@@ -347,9 +347,50 @@ def test_cli_resumes_and_force_recomputes(tmp_path, capsys):
     dryrun.main(argv + ["--force"])
     again = json.loads(out.read_text())
     assert again[dryrun.cell_key("qwen2_7b", "decode_32k", None)]["memory"] != "stale"
-    for flag in (["--mesh", "single"], ["--rules", "baseline"], ["--skip-scaling"]):
-        with pytest.raises(SystemExit):
-            dryrun.main(argv + flag)
+    with pytest.raises(SystemExit):  # the port counts at full depth
+        dryrun.main(argv + ["--skip-scaling"])
+    mesh_out = tmp_path / "mesh.json"
+    dryrun.main(["--arch", "qwen2_7b", "--shape", "decode_32k", "--mesh", "single", "--rules",
+                 "baseline", "--out", str(mesh_out)])
+    rec = json.loads(mesh_out.read_text())[dryrun.cell_key("qwen2_7b", "decode_32k", None,
+                                                           "single", "baseline")]
+    assert rec["status"] == "ok" and rec["mesh"] == "16x16"
+    assert rec["memory"]["peak_bytes_per_device"] < again[dryrun.cell_key(
+        "qwen2_7b", "decode_32k", None)]["memory"]["peak_bytes_per_device"]
+
+
+def test_sharded_dry_run_of_llama_7b_on_a_fake_pod():
+    """llama_7b's train_4k cell (2 of its 32 layers) as rank 0 of a fake
+    16 × 16 world: a peak and collectives of every kind DTensor issues,
+    counted; without FSDP (no_fsdp) a rank holds more parameter bytes than
+    under baseline; the fake world is gone afterwards."""
+    import torch.distributed as dist
+
+    cut = {"n_layers": 2}
+    base = dryrun.run_mesh_cell("llama_7b", "train_4k", overrides=cut)
+    tp = dryrun.run_mesh_cell("llama_7b", "train_4k", rules_name="no_fsdp", overrides=cut)
+    assert not dist.is_initialized()
+    for rec in (base, tp):
+        assert rec["status"] == "ok" and rec["memory"]["peak_bytes_per_device"] > 0
+        counts = rec["collective_schedule"]["count_by_kind"]
+        assert counts["all-gather"] > 0 and counts["reduce-scatter"] > 0
+        assert rec["collective_schedule"]["total_bytes"] > 0
+        assert rec["refresh"]["collective_bytes"] > 0
+        assert rec["roofline"]["dominant"] in ("compute_s", "memory_s", "collective_s")
+        assert rec["model_flops_per_device"] == rec["model_flops_global"] / 256
+    assert tp["memory"]["argument_bytes"] > base["memory"]["argument_bytes"]
+    with dryrun.fake_world(256):
+        from repro_torch.launch import mesh as tmesh
+
+        m = tmesh.make_production_mesh(device_type="cuda")
+        cfg = dataclasses.replace(get_config("llama_7b"), **cut)
+        bytes_ = [sum(x.to_local().numel() * x.element_size()
+                      for x in tree_leaves(input_specs(cfg, "train_4k",
+                                                       dryrun.default_train_config(cfg),
+                                                       tmesh.rules_variant(m, v))["params"]))
+                  for v in ("baseline", "no_fsdp")]
+    assert bytes_[1] > bytes_[0]
+    assert not dist.is_initialized()
 
 
 def test_cli_runs_with_no_card_and_no_jax(tmp_path):
@@ -369,7 +410,8 @@ def test_cli_runs_with_no_card_and_no_jax(tmp_path):
 def test_hillclimb_overrides(tmp_path, monkeypatch):
     """--set casts ints and floats and replaces ModelConfig fields (fewer
     layers: fewer bytes); microbatch sets the accumulation; the record
-    carries the tag and overrides; --rules takes only baseline."""
+    carries the tag and overrides; --rules takes the six variants (on the
+    pod's mesh) and nothing else."""
     assert hillclimb.parse_overrides(["n_layers=2", "rope_theta=1e5", "remat=full"]) == {
         "n_layers": 2, "rope_theta": 1e5, "remat": "full"}
     monkeypatch.setattr(dryrun, "SHAPES", SMALL)
@@ -387,9 +429,12 @@ def test_hillclimb_overrides(tmp_path, monkeypatch):
     assert set(json.loads(open(out).read())) == {"qwen2_7b|decode_32k|base",
                                                  "qwen2_7b|decode_32k|cut",
                                                  "qwen2_7b|train_4k|mb"}
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit):  # not a variant
         hillclimb.main(["--arch", "qwen2_7b", "--shape", "decode_32k", "--tag", "x",
                         "--rules", "fsdp", "--out", out])
+    tp = hillclimb.main(["--arch", "qwen2_7b", "--shape", "decode_32k", "--tag", "tp",
+                         "--rules", "no_fsdp", "--set", "n_layers=2", "--out", out])
+    assert tp["status"] == "ok" and (tp["mesh"], tp["rules"]) == ("16x16", "no_fsdp")
 
 
 # ---------------------------------------------------------------------------

@@ -105,7 +105,8 @@ def test_port_imports_no_jax():
                    "configs/mamba2_130m.py", "configs/jamba_1_5_large_398b.py",
                    "distributed/world.py", "distributed/state_sharding.py",
                    "launch/dryrun.py", "launch/hillclimb.py", "launch/model_flops.py",
-                   "kernels/meta.py", "models/remat.py"):
+                   "kernels/meta.py", "models/remat.py", "launch/mesh.py",
+                   "launch/hlo_analysis.py"):
         assert port / module in files, module
     bad = [
         f"{f.relative_to(ROOT)}: {mod}"

@@ -265,3 +265,61 @@ def collectives_check(device):
     devices = {v[0].device.type for v in res.values()}
     return {"results": {name: (got.cpu(), want) for name, (got, want) in res.items()},
             "devices": devices, "staged": world.STAGED["calls"]}
+
+
+def mesh_run(spec):
+    """The reference's multi-device setting on a (data, model) mesh over this
+    world (spec["mesh"], e.g. (2, 2); None: no mesh): the external refresh
+    every spec["every"] steps (every projector), then the train step,
+    spec["steps"] times, from spec["params"]. With spec["galore0"] (a galore
+    state in numpy form) and spec["count0"] (the schedule's count) the run
+    starts from that state and skips the first refresh. Returns the losses,
+    the whole params after the first step (gathered from the shards) and
+    the placements of blocks.ffn.gate."""
+    from repro_torch.bridge import galore_state_from_numpy, params_from_numpy, params_to_numpy
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.step import (
+        make_refresh_step,
+        make_train_step,
+        shard_opt_state,
+        shard_params,
+    )
+    from repro_torch.launch.mesh import default_rules, make_sim_mesh
+    from repro_torch.optim.factory import galore_state_index
+    from repro_torch.utils import is_dtensor, tree_map
+
+    cfg = get_config(spec.get("arch", "llama_60m"), smoke=True)
+    tc = configs(spec)
+    rules = None
+    if spec.get("mesh") is not None:
+        rules = default_rules(make_sim_mesh(*spec["mesh"], device_type="cpu"))
+    step_fn, opt = make_train_step(cfg, tc, rules)
+    refresh = make_refresh_step(cfg, tc, rules)
+    params = params_from_numpy(spec["params"], "cpu")
+    state = opt.init(params)
+    if "galore0" in spec:
+        idx = galore_state_index(tc)
+        count = {"count": torch.tensor(int(spec.get("count0", 0)), dtype=torch.int32)}
+        state = (state[:idx] + (galore_state_from_numpy(spec["galore0"], "cpu"),)
+                 + state[idx + 1:-1] + (count,))
+    if rules is not None:
+        state = shard_opt_state(cfg, tc, state, params, rules)
+        params = shard_params(cfg, params, rules)
+    batch = {"tokens": torch.from_numpy(np.array(spec["tokens"])).long()}
+    losses, first = [], None
+    for i in range(spec["steps"]):
+        if i % spec["every"] == 0 and not (i == 0 and "galore0" in spec):
+            state = refresh(params, state, batch)
+        params, state, m = step_fn(params, state, batch)
+        losses.append(float(m["loss"]))
+        if i == 0:  # every rank takes part in the gathers
+            whole = tree_map(lambda p: p.full_tensor() if is_dtensor(p) else p, params)
+            first = params_to_numpy(whole)
+    gate = params["blocks"]["ffn"]["gate"]
+    return {"losses": losses, "first": first,
+            "gate": [str(p) for p in gate.placements] if is_dtensor(gate) else None}
+
+
+def mesh_cases(cases: dict) -> dict:
+    """mesh_run of every spec of {name: spec}, in one world."""
+    return {name: mesh_run(spec) for name, spec in cases.items()}

@@ -4,7 +4,7 @@ the card.
 
     python3 tools/chip_phases.py [adam8|lifecycle-rand|moe-kernels|moe|moe-dispatch|mrope|
                                   serve-chunk|families|ssm|hybrid|whisper|dp-kernels|dp|
-                                  remat|remat-7b ...]
+                                  remat|remat-7b|mesh|mesh-7b ...]
 
 With no argument every one of them runs, in chip_smoke.py's order. Each
 phase is timed; a failing phase prints its traceback and the next one
@@ -30,7 +30,7 @@ def main(only):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if not only or {"adam8", "lifecycle-rand", "moe-kernels", "moe", "mrope", "ssm", "whisper",
-                    "dp-kernels", "dp", "remat-7b"} & set(only):
+                    "dp-kernels", "dp", "remat-7b", "mesh"} & set(only):
         t = time.perf_counter()
         cs.build.build(["galore_epilogue", "galore_project"])
         print(f"[build] {time.perf_counter() - t:.1f} s", flush=True)
@@ -51,7 +51,9 @@ def main(only):
                     ("dp-kernels", cs.check_rank_blocks),
                     ("dp", cs.dp_phase),
                     ("remat", cs.remat_phase),
-                    ("remat-7b", lambda: cs.remat_7b_phases(phases, none))):
+                    ("remat-7b", lambda: cs.remat_7b_phases(phases, none)),
+                    ("mesh", lambda: cs.mesh_phase(none)),
+                    ("mesh-7b", cs.mesh_7b_phase)):
         if only and tag not in only:
             continue
         t = time.perf_counter()
